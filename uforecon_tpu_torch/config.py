@@ -1,0 +1,68 @@
+"""Configuration of the depth-map render path.
+
+A copy of the JAX package's ``config.Config`` fields that encode and
+render read, with the same names and defaults (the repo's default DTU
+configuration). The port always runs the JAX package's exact path with
+the full feature set: correlation volumes (``volume_reso`` 96), explicit
+pairwise similarity, and the MVS depth guide with its positional
+encoding. The JAX evaluation approximations (merged stage volumes, bf16
+gather sources, low-precision kernel math, brick gathers and the other
+TPU layout knobs) and the ablations that drop a feature do not exist
+here.
+
+``coarse_sample`` / ``fine_sample`` are the samples per ray of the
+render; the JAX package reads ``test_sample_*`` in their place when it
+extracts geometry, a choice its CLI makes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    out_dir: str = "./outputs"
+
+    # ---- ray sampling ------------------------------------------------------
+    coarse_sample: int = 64
+    fine_sample: int = 64
+    test_ray_num: int = 800              # sets the ray-chunk size (renderer)
+
+    # ---- correlation / cascade MVS ----------------------------------------
+    ndepths: Tuple[int, ...] = (48, 32, 8)
+    depth_inter_r: Tuple[float, ...] = (4.0, 2.0, 1.0)
+    cr_base_chs: Tuple[int, ...] = (8, 8, 8)
+
+    # ---- model -------------------------------------------------------------
+    # reference-shipped similarity semantics (see ray_transformer
+    # query_similarity): both sides of each pair sample the view-i map
+    sim_pair_quirk: bool = True
+    fmt_layer_names: Tuple[str, ...] = ("self", "cross") * 4
+    img_feat_dim: int = 32
+    fea_volume_dim: int = 24             # 8ch x 3 cascade stages
+    cos_n_group: int = 8
+
+    def __post_init__(self):
+        if len(self.ndepths) != 3:
+            raise ValueError(f"the cascade has 3 stages, got ndepths={self.ndepths}")
+        if len(self.depth_inter_r) != len(self.ndepths) or \
+                len(self.cr_base_chs) != len(self.ndepths):
+            raise ValueError("depth_inter_r and cr_base_chs need one entry per stage")
+
+    # dims that the ray transformer sees (JAX config.py:274-304)
+    @property
+    def sim_feat_fix(self) -> int:
+        return 16     # pre-similarity MLP output
+
+    @property
+    def depth_dim(self) -> int:
+        return 8      # NeRF PE of the depth distance, num_freqs=4
+
+    @property
+    def view_trans_dim(self) -> int:
+        return self.img_feat_dim + self.fea_volume_dim + self.sim_feat_fix + self.depth_dim
+
+    @property
+    def ray_trans_dim(self) -> int:
+        return self.view_trans_dim + 8  # + order PE width

@@ -1,0 +1,122 @@
+"""Weights: the bridge from the JAX package's flax variables, and a seeded
+initialiser for runs without them.
+
+The port's submodules carry the flax scope names (``matcher``,
+``mvs_volume``, ``ray_transformer``, ``Conv_0``, ``BatchNorm_0``,
+``Dense_0``, ``layer_0``, ``q_proj`` ...), so a flax leaf maps to a
+``state_dict`` key by renaming its last element and fixing its layout
+(rules of the JAX package's ``data/torch_ckpt.py:48 _convert_tensor``):
+
+  * ``kernel`` -> ``weight``: Dense (in, out) -> Linear (out, in); Conv
+    HWIO / DHWIO -> OIHW / OIDHW. A flax ``ConvTranspose(transpose_kernel=
+    True)`` kernel (k..., out, in) takes the same permutation to torch's
+    (in, out, k...) ``ConvTranspose3d`` weight;
+  * DCN ``weight`` (K, K, C, Cout) -> (Cout, C, K, K);
+  * BatchNorm ``scale``/``bias`` + batch_stats ``mean``/``var`` ->
+    ``weight``/``bias``/``running_mean``/``running_var``; LayerNorm
+    ``scale`` -> ``weight``;
+  * ``view_token`` and ``variance`` as they are.
+Any leaf left unmapped or unused raises.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+_RENAME = {"kernel": "weight", "scale": "weight",
+           "mean": "running_mean", "var": "running_var"}
+
+
+def _layout(arr: np.ndarray, leaf: str) -> np.ndarray:
+    if leaf in ("kernel", "weight"):
+        if arr.ndim == 2:
+            return arr.T
+        if arr.ndim == 4:
+            return arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 5:
+            return arr.transpose(4, 3, 0, 1, 2)
+    return arr
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def flax_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
+    """{"params", "batch_stats"} nested dicts of arrays -> flat torch keys."""
+    out = {}
+    for coll in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(coll, {})):
+            key = ".".join(path[:-1] + (_RENAME.get(path[-1], path[-1]),))
+            if key in out:
+                raise ValueError(f"two flax leaves map to {key}")
+            out[key] = _layout(np.asarray(leaf, np.float32), path[-1])
+    return out
+
+
+def load_flax_variables(model: nn.Module, variables: Mapping) -> None:
+    """Fill ``model``'s parameters and BN statistics from the JAX package's
+    variables (nested dicts of numpy arrays). Raises on any leaf left
+    unmapped, unused or of the wrong shape."""
+    src = flax_to_state_dict(variables)
+    dst = {k: v for k, v in model.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    unused = sorted(set(src) - set(dst))
+    missing = sorted(set(dst) - set(src))
+    if unused or missing:
+        raise ValueError(f"flax/torch weight mismatch: unused flax leaves "
+                         f"{unused}, torch entries without a source {missing}")
+    with torch.no_grad():
+        for k, t in dst.items():
+            a = src[k]
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{k}: flax shape {a.shape} -> {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(a, np.float32, order="C")))
+
+
+def init_weights(model: nn.Module, seed: int = 0) -> None:
+    """Seeded random weights (flax-style initialisers): conv and dense
+    kernels normal(0, 1/fan_in), biases 0, norms identity, BN running
+    statistics (0, 1), the DCN offset/mask convs 0 (a plain conv with 0.5
+    modulation at start), the view token normal(0, 1) and the NeuS
+    variance 0.3."""
+    from .models.featurenet import DCN
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal_(w: torch.Tensor, fan_in: int) -> None:
+        w.copy_(torch.randn(w.shape, generator=gen) / np.sqrt(fan_in))
+
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, (nn.BatchNorm2d, nn.BatchNorm3d, nn.LayerNorm)):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+                if isinstance(mod, (nn.BatchNorm2d, nn.BatchNorm3d)):
+                    mod.running_mean.zero_()
+                    mod.running_var.fill_(1.0)
+            elif isinstance(mod, DCN):
+                normal_(mod.weight, mod.weight[0].numel())
+                mod.bias.zero_()
+                mod.conv_offset_mask.weight.zero_()
+                mod.conv_offset_mask.bias.zero_()
+            elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+                if name.endswith("conv_offset_mask"):
+                    continue    # zeroed with its DCN
+                w = mod.weight
+                # a transposed conv's fan-in is its input channels x taps
+                fan_in = (w.shape[0] * w[0, 0].numel()
+                          if isinstance(mod, nn.ConvTranspose3d) else w[0].numel())
+                normal_(w, fan_in)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+        model.ray_transformer.view_token.copy_(
+            torch.randn(model.ray_transformer.view_token.shape, generator=gen))
+        model.variance.fill_(0.3)

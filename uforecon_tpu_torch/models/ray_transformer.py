@@ -1,0 +1,225 @@
+"""RayTransformer: per-point view aggregation + along-ray SRDF head.
+
+Counterpart of the JAX package's ``models/ray_transformer.py`` (reference
+code1/ray_transformer.py:86-331). Per sample point it fuses sampled image
+features (32), correlation-volume features (24), pairwise similarity
+(8 cosine groups -> 16 through pre_sim_mlp) and the NeRF PE of the MVS
+depth distance (8); a view token runs through a linear-attention view
+transformer, a ray transformer runs along the sample axis, an SRDF MLP
+follows, and the radiance is a masked softmax blend over views.
+
+The port always has the full feature set in f32, where the JAX package's
+gate (``_fused_ok``) routes to its fused kernels, so ``per_point`` and
+``along_ray`` always go through the kernel wrappers of
+``ops/fused_point_head.py`` and ``ops/fused_ray_head.py``: the CUDA
+kernels on CUDA tensors, their plain versions on CPU tensors. The
+submodules hold the weights under their flax names.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..ops.camera import project_points_ndc
+from ..ops.fused_point_head import PointHeadInputs, PointHeadParams, point_head
+from ..ops.fused_ray_head import RayHeadParams, ray_head
+from ..ops.grid_sample import grid_sample_2d, grid_sample_3d, in_bounds_mask
+from ..ops.posenc import order_posenc
+from .attention import LocalFeatureTransformer
+from .layers import MLP
+
+
+def query_correlation_volume(
+    points: torch.Tensor,                 # (RN, SN, 3) world points
+    source_poses: torch.Tensor,           # (NV, 4, 4) NDC projections
+    volumes: Dict[str, torch.Tensor],     # stage -> (NV, 9, D, h, w) feat||weight
+    near_far: Tuple[torch.Tensor, torch.Tensor],
+) -> torch.Tensor:
+    """Weighted cross-view fusion of the per-stage frustum features
+    (reference model.py:350-390): G = sum_n f_n w_n / sum_n w_n, with the
+    8 channels of every stage concatenated. Returns (RN, SN, 8 * stages)."""
+    _, xyz, _ = project_points_ndc(source_poses, points, near_far=near_far)
+    fws = [grid_sample_3d(vol, xyz, align_corners=True, padding_mode="zeros")
+           for vol in volumes.values()]                       # (NV, RN, SN, 9)
+    feats = torch.cat([fw[..., :-1] for fw in fws], dim=-1)
+    weight_sum = 0.0
+    for fw in fws:
+        weight_sum = weight_sum + fw[..., -1:]
+    g = torch.sum(feats * weight_sum, dim=0)
+    w_all = torch.sum(weight_sum, dim=0)
+    return g / (w_all + 1e-8)
+
+
+def build_pair_maps(aug0: torch.Tensor, aug1: torch.Tensor, n_views: int,
+                    pair_quirk: bool = True):
+    """Per-view channel concat of every pair map the view takes part in.
+    Returns (merged (NV, h, w, (NV-1)C), slots, pairs)."""
+    pairs = [(a, b) for a in range(n_views - 1) for b in range(a + 1, n_views)]
+    slots = [[] for _ in range(n_views)]
+    maps = [[] for _ in range(n_views)]
+    for p, (i, j) in enumerate(pairs):
+        slots[i].append((0, p))
+        maps[i].append(aug0[p])
+        slots[j].append((1, p))
+        maps[j].append(aug0[p] if pair_quirk else aug1[p])
+    merged = torch.stack([torch.cat(m, dim=-1) for m in maps])
+    return merged, slots, pairs
+
+
+def _pair_cosines(sampled, slots, pairs, c, n_groups):
+    """Grouped cosine of each pair's two samples (eps 1e-8 on the norm
+    product, torch CosineSimilarity), averaged over pairs."""
+    lead = sampled.shape[1:-1]
+
+    def view_slot(v, key):
+        k = slots[v].index(key)
+        return sampled[v, ..., k * c:(k + 1) * c]
+
+    cos_all = []
+    for p, (i, j) in enumerate(pairs):
+        gi = view_slot(i, (0, p)).reshape(*lead, n_groups, c // n_groups)
+        gj = view_slot(j, (1, p)).reshape(*lead, n_groups, c // n_groups)
+        dot = torch.sum(gi * gj, dim=-1)
+        ni = torch.sqrt(torch.sum(gi * gi, dim=-1))
+        nj = torch.sqrt(torch.sum(gj * gj, dim=-1))
+        cos_all.append(dot / torch.clamp(ni * nj, min=1e-8))
+    return torch.mean(torch.stack(cos_all), dim=0)
+
+
+def query_similarity(
+    points: torch.Tensor,        # (RN, SN, 3)
+    source_poses: torch.Tensor,  # (NV, 4, 4)
+    aug0: torch.Tensor,          # (P, h, w, C) pair-match features, view i
+    aug1: torch.Tensor,          # (P, h, w, C) pair-match features, view j
+    n_views: int,
+    n_groups: int = 8,
+    pair_quirk: bool = True,
+):
+    """Explicit pairwise feature similarity (reference model.py:218-305).
+
+    For each pair (i, j) the view-i map is sampled at the projection into
+    view i and the view-j map at the projection into view j
+    (align_corners=True, border), channels split into ``n_groups``, cosine
+    per group, mean over pairs. ``pair_quirk`` reproduces the reference's
+    FMT cross mode, which hands view j the pair's view-i map.
+
+    Returns (feat_info (..., n_groups), xy (NV, ..., 2), valid (NV, ...)).
+    """
+    if n_views < 2:
+        raise ValueError(f"explicit similarity needs >= 2 views, got {n_views}")
+    xy, _, valid = project_points_ndc(source_poses, points)
+    merged, slots, pairs = build_pair_maps(aug0, aug1, n_views, pair_quirk)
+    sampled = grid_sample_2d(merged, xy, align_corners=True, padding_mode="border")
+    feat = _pair_cosines(sampled, slots, pairs, aug0.shape[-1], n_groups)
+    return feat, xy, valid
+
+
+class RayTransformer(nn.Module):
+    """View + ray linear-attention SRDF head, split into ``per_point``
+    (independent across samples, so the fine pass runs it on the new
+    samples only) and ``along_ray`` (over a z-sorted sequence)."""
+
+    def __init__(self, img_feat_dim: int = 32, fea_volume_dim: int = 24,
+                 sim_feat_fix: int = 16, depth_dim: int = 8,
+                 pe_d_hid: int = 8, n_heads: int = 8, sim_feat_dim: int = 8):
+        super().__init__()
+        self.img_feat_dim = img_feat_dim
+        self.fea_volume_dim = fea_volume_dim
+        self.sim_feat_fix = sim_feat_fix
+        self.depth_dim = depth_dim
+        self.pe_d_hid = pe_d_hid
+        self.n_heads = n_heads
+        d = self.d_view
+        self.pre_sim_mlp = MLP(sim_feat_dim, (32, 32, sim_feat_fix))
+        self.density_view_transformer = LocalFeatureTransformer(d, n_heads)
+        self.density_ray_transformer = LocalFeatureTransformer(d + pe_d_hid, n_heads)
+        self.density_mlp = MLP(d + pe_d_hid, (32, 16, 1))
+        self.linear_radianceweight_1_softmax = MLP(d + 3, (16, 8, 1))
+        self.view_token = nn.Parameter(torch.zeros(1, d))
+
+    @property
+    def d_view(self) -> int:
+        return self.img_feat_dim + self.fea_volume_dim + self.sim_feat_fix + self.depth_dim
+
+    def per_point(
+        self,
+        points: torch.Tensor,              # (RN, SN, 3)
+        source_imgs: torch.Tensor,         # (NV, H, W, 3)
+        source_feats: torch.Tensor,        # (NV, h1, w1, C)
+        ref_cam_pos: torch.Tensor,         # (3,)
+        src_cam_pos: torch.Tensor,         # (NV, 3)
+        src_w2cs: torch.Tensor,            # (NV, 4, 4)
+        points_xy: torch.Tensor,           # (NV, RN, SN, 2)
+        valid_depth: torch.Tensor,         # (NV, RN, SN)
+        fea_volume_feat: torch.Tensor,     # (RN, SN, Dv)
+        sim_feat: torch.Tensor,            # (RN, SN, 8)
+        mvs_depths: torch.Tensor,          # (NV, H, W)
+    ) -> Dict[str, torch.Tensor]:
+        """Gathers the per-point features and runs the point head. Returns
+        ``token`` (RN, SN, C) and ``radiance`` (RN, SN, 3)."""
+        rn, sn, _ = points.shape
+        nv = source_imgs.shape[0]
+        n = rn * sn
+
+        v1 = points[None] - ref_cam_pos.reshape(1, 1, 1, 3)
+        v2 = points[None] - src_cam_pos.reshape(nv, 1, 1, 3)
+        v1 = v1 / torch.linalg.norm(v1, dim=-1, keepdim=True)
+        v2 = v2 / torch.linalg.norm(v2, dim=-1, keepdim=True)
+        dir_relative = v1 - v2                                  # (NV, RN, SN, 3)
+
+        img_feat = grid_sample_2d(source_feats, points_xy)      # (NV, RN, SN, C)
+        # rgb and the depth guide share the resolution and the grid
+        rgbd = grid_sample_2d(
+            torch.cat([source_imgs, mvs_depths[..., None]], dim=-1), points_xy)
+        mask = in_bounds_mask(points_xy) * valid_depth          # (NV, RN, SN)
+        cam = (torch.einsum("vij,rsj->vrsi", src_w2cs[:, :3, :3], points)
+               + src_w2cs[:, None, None, :3, 3])
+        depth_dist = rgbd[..., 3] - cam[..., 2]                 # (NV, RN, SN)
+
+        token, rad = point_head(
+            PointHeadInputs(
+                img_feat=img_feat.reshape(nv, n, -1),
+                vol_feat=fea_volume_feat.reshape(n, -1),
+                sim_feat=sim_feat.reshape(n, -1),
+                depth_dist=depth_dist.reshape(nv, n),
+                dir_rel=dir_relative.reshape(nv, n, 3),
+                rgb=rgbd[..., :3].reshape(nv, n, 3),
+                mask=mask.reshape(nv, n)),
+            self.point_head_params(), self.n_heads)
+        return {"token": token.reshape(rn, sn, -1),
+                "radiance": rad.reshape(rn, sn, 3)}
+
+    def point_head_params(self) -> PointHeadParams:
+        lv = self.density_view_transformer.layer_0
+        sp = self.pre_sim_mlp.layers()
+        rp = self.linear_radianceweight_1_softmax.layers()
+        return PointHeadParams(
+            view_token=self.view_token.reshape(-1),
+            wq=lv.q_proj.weight, wk=lv.k_proj.weight, wv=lv.v_proj.weight,
+            wmerge=lv.merge.weight,
+            norm1_scale=lv.norm1.weight, norm1_bias=lv.norm1.bias,
+            w1=lv.mlp1.weight, w2=lv.mlp2.weight,
+            norm2_scale=lv.norm2.weight, norm2_bias=lv.norm2.bias,
+            sim_w=tuple(d.weight for d in sp), sim_b=tuple(d.bias for d in sp),
+            rad_w=tuple(d.weight for d in rp), rad_b=tuple(d.bias for d in rp))
+
+    def ray_head_params(self) -> RayHeadParams:
+        lv = self.density_ray_transformer.layer_0
+        dp = self.density_mlp.layers()
+        return RayHeadParams(
+            wq=lv.q_proj.weight, wk=lv.k_proj.weight, wv=lv.v_proj.weight,
+            wmerge=lv.merge.weight,
+            norm1_scale=lv.norm1.weight, norm1_bias=lv.norm1.bias,
+            w1=lv.mlp1.weight, w2=lv.mlp2.weight,
+            norm2_scale=lv.norm2.weight, norm2_bias=lv.norm2.bias,
+            dens_w=tuple(d.weight for d in dp), dens_b=tuple(d.bias for d in dp))
+
+    def along_ray(self, token: torch.Tensor) -> torch.Tensor:
+        """Ray transformer over a z-sorted (RN, SN, C) sequence -> SRDF
+        (RN, SN). The order PE indexes position in the sorted sequence."""
+        rn, sn, _ = token.shape
+        pe = torch.as_tensor(order_posenc(self.pe_d_hid, sn), device=token.device)
+        y = torch.cat([token, pe.to(token.dtype)[None].expand(rn, sn, -1)], dim=-1)
+        return ray_head(y, self.ray_head_params(), self.n_heads)

@@ -1,0 +1,202 @@
+"""Fused per-point view head: CUDA kernel, its plain PyTorch version, and
+the wrapper that picks between them.
+
+Replaces the Pallas TPU kernel the JAX package's ``ops/fused_point_head.py``
+``point_head_fused``. Per sample point it runs the pre-similarity MLP, the
+in-kernel NeRF PE of the depth distance, one LoFTR linear-attention layer
+over the view token and the NV view tokens, and the masked radiance
+softmax. The kernel is ``csrc/point_head.cu``.
+
+Bound on the H100: FP32 arithmetic. A point costs ~2.6e5 FMAs against
+~1 KB in and out (~500 FLOP per byte), and exact f32 keeps it off the
+tensor cores. Design: a 320-thread block keeps the activations of 16
+points (64 token rows) in shared memory through the whole layer chain and
+reads the ~67k weights through the read-only cache; each layer is a block
+GEMM of 4x4 output tiles per thread.
+
+Layouts are point-major, what ``F.grid_sample`` gives once permuted:
+inputs (NV, P, C) / (P, C), outputs token (P, C) and radiance (P, 3). The
+JAX module is feature-major; the tests transpose.
+
+``point_head`` takes the plain version for CPU tensors only. For CUDA
+tensors it launches the kernel or raises, inside an autograd Function
+whose backward differentiates the plain version (the JAX ``_ph_bwd``
+pattern). ``point_head.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+from .posenc import nerf_posenc
+
+EPS = 1e-6      # linear attention denominator
+LN_EPS = 1e-6   # flax LayerNorm epsilon
+_KERNEL_DIMS = dict(c=80, c_img=32, c_vol=24, c_sim=8, n_heads=8)
+
+
+class PointHeadParams(NamedTuple):
+    """Weights of the per-point stage, f32, torch ``nn.Linear`` orientation
+    (out, in)."""
+
+    view_token: torch.Tensor     # (C,)
+    wq: torch.Tensor             # (C, C)
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wmerge: torch.Tensor
+    norm1_scale: torch.Tensor    # (C,)
+    norm1_bias: torch.Tensor
+    w1: torch.Tensor             # (2C, 2C)
+    w2: torch.Tensor             # (C, 2C)
+    norm2_scale: torch.Tensor
+    norm2_bias: torch.Tensor
+    sim_w: Tuple[torch.Tensor, ...]   # (32, 8), (32, 32), (16, 32)
+    sim_b: Tuple[torch.Tensor, ...]   # (32,), (32,), (16,)
+    rad_w: Tuple[torch.Tensor, ...]   # (16, C+3), (8, 16), (1, 8)
+    rad_b: Tuple[torch.Tensor, ...]
+
+
+class PointHeadInputs(NamedTuple):
+    """Per-chunk point tensors, point-major."""
+
+    img_feat: torch.Tensor    # (NV, P, C_img)
+    vol_feat: torch.Tensor    # (P, C_vol)
+    sim_feat: torch.Tensor    # (P, 8) raw cosine groups
+    depth_dist: torch.Tensor  # (NV, P) sampled MVS depth minus point cam-z
+    dir_rel: torch.Tensor     # (NV, P, 3)
+    rgb: torch.Tensor         # (NV, P, 3)
+    mask: torch.Tensor        # (NV, P)
+
+
+def _flat_params(p: PointHeadParams):
+    return [p.view_token, p.wq, p.wk, p.wv, p.wmerge, p.norm1_scale,
+            p.norm1_bias, p.w1, p.w2, p.norm2_scale, p.norm2_bias,
+            *p.sim_w, *p.sim_b, *p.rad_w, *p.rad_b]
+
+
+def _unflat_params(ts) -> PointHeadParams:
+    ts = list(ts)
+    return PointHeadParams(*ts[:11], sim_w=tuple(ts[11:14]),
+                           sim_b=tuple(ts[14:17]), rad_w=tuple(ts[17:20]),
+                           rad_b=tuple(ts[20:23]))
+
+
+def point_head_reference(inp: PointHeadInputs, p: PointHeadParams,
+                         n_heads: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch forward, mirroring the JAX ``point_head_reference``.
+    Returns (token (P, C), radiance (P, 3))."""
+    nv, n, _ = inp.img_feat.shape
+    c = p.view_token.numel()
+    dk = c // n_heads
+
+    s = F.relu(F.linear(inp.sim_feat, p.sim_w[0], p.sim_b[0]))
+    s = F.relu(F.linear(s, p.sim_w[1], p.sim_b[1]))
+    sim16 = F.linear(s, p.sim_w[2], p.sim_b[2])                   # (P, 16)
+
+    pe = nerf_posenc(inp.depth_dist[..., None], num_freqs=4)       # (NV, P, 8)
+
+    views = torch.cat([inp.img_feat,
+                       inp.vol_feat.expand(nv, n, -1),
+                       sim16.expand(nv, n, -1), pe], dim=-1)
+    x = torch.cat([p.view_token.reshape(1, 1, c).expand(1, n, c), views], 0)
+    l_ = nv + 1
+
+    q = (F.elu(F.linear(x, p.wq)) + 1.0).view(l_, n, n_heads, dk)
+    k = (F.elu(F.linear(x, p.wk)) + 1.0).view(l_, n, n_heads, dk)
+    v = F.linear(x, p.wv).view(l_, n, n_heads, dk)
+    sc = torch.einsum("lphd,sphd->lsph", q, k)
+    den = sc.sum(dim=1) + EPS                                      # (L, P, H)
+    att = torch.einsum("lsph,sphd->lphd", sc, v) / den[..., None]
+    msg = F.layer_norm(F.linear(att.reshape(l_, n, c), p.wmerge), (c,),
+                       p.norm1_scale, p.norm1_bias, LN_EPS)
+    y = F.linear(F.relu(F.linear(torch.cat([x, msg], -1), p.w1)), p.w2)
+    out = x + F.layer_norm(y, (c,), p.norm2_scale, p.norm2_bias, LN_EPS)
+
+    z = torch.cat([out[1:], inp.dir_rel], dim=-1)                  # (NV, P, C+3)
+    z = F.relu(F.linear(z, p.rad_w[0], p.rad_b[0]))
+    z = F.relu(F.linear(z, p.rad_w[1], p.rad_b[1]))
+    z = F.linear(z, p.rad_w[2], p.rad_b[2])[..., 0]                # (NV, P)
+    z = torch.where(inp.mask == 0, torch.full_like(z, -1e9), z)
+    w = torch.softmax(z, dim=0)
+    rad = torch.einsum("vpc,vp->pc", inp.rgb, w)
+    return out[0], rad
+
+
+def pack_weights(p: PointHeadParams) -> torch.Tensor:
+    """Flatten the weights in ``csrc/point_head.cu``'s order, matrices in
+    (in, out) orientation."""
+    parts = [p.view_token, p.wq.t(), p.wk.t(), p.wv.t(), p.wmerge.t(),
+             p.norm1_scale, p.norm1_bias, p.w1.t(), p.w2.t(), p.norm2_scale,
+             p.norm2_bias]
+    for w, b in zip(p.sim_w, p.sim_b):
+        parts += [w.t(), b]
+    for w, b in zip(p.rad_w, p.rad_b):
+        parts += [w.t(), b]
+    return torch.cat([t.detach().float().reshape(-1) for t in parts])
+
+
+def _launch(inp: PointHeadInputs, p: PointHeadParams,
+            n_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    nv, n, c_img = inp.img_feat.shape
+    c = p.view_token.numel()
+    d = _KERNEL_DIMS
+    dims = dict(c=c, c_img=c_img, c_vol=inp.vol_feat.shape[-1],
+                c_sim=inp.sim_feat.shape[-1], n_heads=n_heads)
+    if dims != d or not 2 <= nv <= 5:
+        raise ValueError(f"point_head kernel takes {d} and 2..5 views, got "
+                         f"{dims} and {nv} views")
+    dev = inp.img_feat.device
+    tensors = list(inp) + _flat_params(p)
+    for t in tensors:
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError("point_head kernel takes float32 tensors on one "
+                             f"CUDA device, got {t.dtype} on {t.device}")
+    ext = cuda_build.extension()
+    ins = [t.contiguous() for t in inp]
+    w = pack_weights(p)
+    if w.numel() != ext.point_head_weight_count():
+        raise ValueError("point_head weight pack does not match the kernel")
+    token = torch.empty(n, c, device=dev, dtype=torch.float32)
+    rad = torch.empty(n, 3, device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        ext.point_head(*ins, w, token, rad)
+    point_head.launches += 1
+    return token, rad
+
+
+class _PointHeadFn(torch.autograd.Function):
+    """CUDA kernel forward; backward through the plain version."""
+
+    @staticmethod
+    def forward(ctx, n_heads, *tensors):
+        ctx.n_heads = n_heads
+        ctx.save_for_backward(*tensors)
+        return _launch(PointHeadInputs(*tensors[:7]),
+                       _unflat_params(tensors[7:]), n_heads)
+
+    @staticmethod
+    def backward(ctx, g_token, g_rad):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(t.requires_grad) for t in saved]
+            token, rad = point_head_reference(
+                PointHeadInputs(*xs[:7]), _unflat_params(xs[7:]), ctx.n_heads)
+            need = [x for x in xs if x.requires_grad]
+            grads = iter(torch.autograd.grad((token, rad), need, (g_token, g_rad),
+                                             allow_unused=True))
+        return (None, *[next(grads) if x.requires_grad else None for x in xs])
+
+
+def point_head(inp: PointHeadInputs, p: PointHeadParams,
+               n_heads: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-point view head: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. Returns (token (P, C), radiance (P, 3))."""
+    if not inp.img_feat.is_cuda:
+        return point_head_reference(inp, p, n_heads)
+    return _PointHeadFn.apply(n_heads, *inp, *_flat_params(p))
+
+
+point_head.launches = 0

@@ -1,0 +1,56 @@
+"""Bilinear and trilinear sampling on channels-last tensors.
+
+Counterpart of the JAX package's ``ops/grid_sample.py``, which writes
+the gathers by hand (and corner-packs them for the TPU); here both are
+``F.grid_sample``, whose ``align_corners`` and ``zeros``/``border`` modes
+are the semantics the JAX functions were written to match. The packed
+samplers of the JAX package are bit-equal to the unpacked ones and are not
+ported.
+
+Conventions per call site (JAX ``ray_transformer.py``):
+  * image features and rgb||depth: ``align_corners=False``, zeros;
+  * pair-match maps: ``align_corners=True``, border;
+  * correlation volumes: ``align_corners=True``, zeros.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def in_bounds_mask(grid: torch.Tensor) -> torch.Tensor:
+    """Float mask of grid points whose every coordinate lies in [-1, 1]."""
+    ok = torch.all((grid >= -1.0) & (grid <= 1.0), dim=-1)
+    return ok.to(torch.float32)
+
+
+def grid_sample_2d(image: torch.Tensor, grid: torch.Tensor,
+                   align_corners: bool = False,
+                   padding_mode: str = "zeros") -> torch.Tensor:
+    """Bilinear sample ``image`` (N, H, W, C) at ``grid`` (N, ..., 2)
+    normalised (x, y) coordinates. Returns (N, ..., C)."""
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(padding_mode)
+    n, _, _, c = image.shape
+    lead = grid.shape[1:-1]
+    g = grid.reshape(n, 1, -1, 2)
+    out = F.grid_sample(image.permute(0, 3, 1, 2), g, mode="bilinear",
+                        padding_mode=padding_mode,
+                        align_corners=align_corners)       # (N, C, 1, P)
+    return out[:, :, 0].permute(0, 2, 1).reshape((n,) + lead + (c,))
+
+
+def grid_sample_3d(volume: torch.Tensor, grid: torch.Tensor,
+                   align_corners: bool = False,
+                   padding_mode: str = "zeros") -> torch.Tensor:
+    """Trilinear sample ``volume`` (N, C, D, H, W), channels-first as it is
+    stored, at ``grid`` (N, ..., 3) normalised (x, y, z) coordinates
+    (x indexes W, y H, z D). Returns (N, ..., C)."""
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(padding_mode)
+    n, c = volume.shape[:2]
+    lead = grid.shape[1:-1]
+    g = grid.reshape(n, 1, 1, -1, 3)
+    out = F.grid_sample(volume, g, mode="bilinear", padding_mode=padding_mode,
+                        align_corners=align_corners)       # (N, C, 1, 1, P)
+    return out[:, :, 0, 0].permute(0, 2, 1).reshape((n,) + lead + (c,))

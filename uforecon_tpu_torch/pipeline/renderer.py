@@ -1,0 +1,75 @@
+"""Full-image rendering on one device: encode once, render ray chunks.
+
+Counterpart of the JAX package's ``pipeline/renderer.py`` (chunk loop
+``:72-108``, ``render_depth_view`` / ``finalize_depth_view`` ``:242-300``),
+without the device mesh and the brick planner. Rays are padded (edge
+rows) to a multiple of the chunk, rendered chunk by chunk in a Python
+loop, and cut back.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..models.uforecon import EncoderOutputs, SceneInputs, UFORecon
+
+
+class SceneRenderer:
+    """Holds the model, its device and the ray-chunk size."""
+
+    def __init__(self, model: UFORecon, device="cpu", chunk: Optional[int] = None):
+        self.model = model
+        self.device = torch.device(device)
+        # the JAX exact path's chunk rule (1024 rays, or the configured
+        # test_ray_num rounded up to 256)
+        self.chunk = chunk or max(1024, int(np.ceil(model.cfg.test_ray_num / 256)) * 256)
+
+    def render_rays(self, scene: SceneInputs, enc: EncoderOutputs,
+                    ray_d: np.ndarray, near: np.ndarray, far: np.ndarray,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, np.ndarray]:
+        """Fine-pass rgb (N, 3), depth (N,) and opacity (N,) of N rays."""
+        n = ray_d.shape[0]
+        pad = (-n) % self.chunk
+
+        def dev(a):
+            a = np.asarray(a, np.float32)
+            if pad:
+                a = np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1), mode="edge")
+            return torch.as_tensor(a, device=self.device)
+
+        rd, nr, fr = dev(ray_d), dev(near), dev(far)
+        outs = {"rgb": [], "depth": [], "opacity": []}
+        for s in range(0, n + pad, self.chunk):
+            sl = slice(s, s + self.chunk)
+            out = self.model.render_chunk(scene, enc, rd[sl], generator,
+                                          near_per_ray=nr[sl], far_per_ray=fr[sl])
+            for k in outs:
+                outs[k].append(out["fine"][k])
+        return {k: torch.cat(v)[:n].cpu().numpy() for k, v in outs.items()}
+
+    def render_depth_view(self, scene: SceneInputs, enc: EncoderOutputs,
+                          extras: Dict,
+                          generator: Optional[torch.Generator] = None
+                          ) -> Dict[str, np.ndarray]:
+        """Depth map + rgb of one full view (extract_geometry path).
+
+        Per-ray near/far are divided by the camera-frame ray z (ray
+        distance -> z-depth bounds); the rendered ray distance is turned
+        back into z-depth and scaled to millimetres by scale_mat[0, 0]
+        (reference model.py:814-826)."""
+        ray_d = np.asarray(extras["ray_d"])
+        cam_rd = np.asarray(extras["cam_ray_d"])
+        n = ray_d.shape[0]
+        near = np.full(n, float(scene.near), np.float32) / cam_rd[:, 2]
+        far = np.full(n, float(scene.far), np.float32) / cam_rd[:, 2]
+        out = self.render_rays(scene, enc, ray_d, near, far, generator)
+        h, w = extras["hw"]
+        depth_mm = out["depth"] * cam_rd[:, 2] * extras["scale_mat"][0, 0]
+        return {
+            "depth": depth_mm.reshape(h, w),
+            "rgb": out["rgb"].reshape(h, w, 3),
+            "opacity": out["opacity"].reshape(h, w),
+        }
