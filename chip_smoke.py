@@ -7,19 +7,29 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
 (``nvcc``), ``ninja`` and no network. In order it:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the port's CUDA kernels from ``uforecon_tpu_torch/csrc``;
-  3. kernel phase: each kernel against its plain PyTorch version on the
-     card at main-path shapes, with max abs errors and CUDA-event times
-     (median of several runs) of kernel and plain version;
-  4. slice phase: ``extract_geometry_for_dataset`` on one DTU-scale view
-     (800x640, 3 views, 192 hypotheses, 64 + 64 samples, seeded random
-     weights), checking the depth map written to disk, that both kernels
-     were launched by that run, and that a small ray chunk of the same
+  3. kernel phase: each of the five kernels against its plain PyTorch
+     version on the card at main-path shapes, with max abs errors,
+     CUDA-event times (median of several runs) of kernel and plain version,
+     and the bound (the least time the card could take for the work);
+  4. slice phase: ``extract_geometry_for_dataset`` twice on one DTU-scale
+     view (800x640, 3 views, 192 hypotheses, 64 + 64 samples, seeded
+     random weights), with the render-glue knobs off and then on,
+     checking each depth map written to disk and which kernels each run
+     launched; then, for each route, that a small ray chunk of the same
      scene agrees with the plain versions run on the CPU;
-  5. prints a JSON line of per-kernel results, then the final
+  5. profile phase: 8 render chunks of 1024 rays per route under
+     ``torch.profiler``: device operations, device ms and the device's busy
+     share per chunk, and the operations the knobs-on route removes;
+  6. A/B phase: AB_ROUNDS rounds of warm full views in the order off, on,
+     on, off on one encoding (rays/s per view, SM clock and power read
+     after each);
+  7. prints a JSON line of per-kernel results, then the final
      ``{"ok": true, "device": {...}}`` line.
 Any failure exits non-zero without printing a result; without a CUDA card
 it exits 1 at once.
 """
+import collections
+import copy
 import json
 import os
 import subprocess
@@ -30,9 +40,18 @@ import time
 import numpy as np
 
 SEED = 0
-# f32 with another summation order; measured on an H100 at 2.4e-6 (token),
-# 1.8e-7 (radiance) and 1.9e-6 (srdf), so these keep a 10x margin
-TOL = {"token": 2e-5, "radiance": 2e-6, "srdf": 2e-5}
+# f32 with another summation order. Measured on an H100: token 2.4e-6,
+# radiance 1.8e-7, srdf 1.9e-6 (10x margin); grouped cosine 1.8e-7 and
+# NeuS outputs 3.6e-6 (5x margin, the cosine's tolerance being the 1e-6 of
+# the CPU parity tests); volume fusion 0 (the same roundings in the same
+# order). NeuS weight, rgb and opacity are also held relative where they
+# reach 1e-2, on inputs where compositing matters: measured 3.3e-5 (6x
+# margin)
+TOL = {"token": 2e-5, "radiance": 2e-6, "srdf": 2e-5,
+       "cosine": 1e-6, "fusion": 1e-6, "neus": 2e-5, "neus_rel": 2e-4}
+NEUS_OUT = ("srdf", "weight", "rgb", "depth", "opacity")
+# warm views per route in the A/B phase: 2 x AB_ROUNDS
+AB_ROUNDS = 2
 PORT = "uforecon_tpu_torch"
 # the JAX reference package, never imported here: the port's name without
 # its suffix
@@ -43,16 +62,28 @@ KERNEL_SOURCES = {
                    f"{JAX_PACKAGE}/ops/fused_point_head.py:207"),
     "ray_head": (f"{PORT}/csrc/ray_head.cu",
                  f"{JAX_PACKAGE}/ops/fused_ray_head.py:134"),
+    "grouped_cosine": (f"{PORT}/csrc/grouped_cosine.cu",
+                       f"{JAX_PACKAGE}/ops/fused_similarity.py:93"),
+    "volume_fusion": (f"{PORT}/csrc/volume_fusion.cu",
+                      f"{JAX_PACKAGE}/ops/fused_volume_fusion.py:62"),
+    "ray_head_neus": (f"{PORT}/csrc/ray_head.cu",
+                      f"{JAX_PACKAGE}/ops/fused_ray_head.py:332"),
 }
+# the route each kernel belongs to: its launches are read from that run
+ROUTE = {"point_head": "off", "ray_head": "off", "grouped_cosine": "on",
+         "volume_fusion": "on", "ray_head_neus": "on"}
+# H100 SXM data sheet at 700 W: FP32 outside the tensor cores, HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def card_line():
+def smi(fields):
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 
@@ -75,68 +106,56 @@ def time_ms(fn, reps=10):
     return float(np.median(times))
 
 
-def look_at(eye):
-    eye = np.asarray(eye, np.float64)
-    z = -eye / np.linalg.norm(eye)
-    x = np.cross(z, [0.0, 1.0, 0.0])
-    x /= np.linalg.norm(x)
-    y = np.cross(z, x)
-    e = np.eye(4)
-    e[:3, :3] = np.stack([x, y, z])
-    e[:3, 3] = -e[:3, :3] @ eye
-    return e
+def bound(n_bytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    FP32 operations over the peak rate."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def dtu_scale_sample(w=800, h=640, n_views=3, n_depth=192, seed=SEED):
-    """One reference-format test sample at DTU scale: 800x640, cameras
-    ~660 mm from the object, depth hypotheses from 425 mm at 2.5 x 1.06 mm,
-    near/far 425/900 mm, the scene scaled so a 300 mm radius is 1."""
-    from uforecon_tpu_torch.ops import camera
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
-    rng = np.random.default_rng(seed)
-    radius_mm = 300.0
-    f = 1446.0
-    k4 = np.eye(4)
-    k4[:3, :3] = [[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]]
-    norm = camera.ndc_normalize_matrix(w, h)
-    e_mm, e_s, poses = [], [], []
-    for i in range(n_views):
-        ang = 0.15 * i
-        e = look_at([660.0 * np.sin(ang), 30.0 * i, -660.0 * np.cos(ang)])
-        es = e.copy()
-        es[:3, 3] /= radius_mm
-        e_mm.append(e)
-        e_s.append(es)
-        poses.append(norm @ k4 @ es)
-    e_mm, e_s, poses = (np.stack(a).astype(np.float32) for a in (e_mm, e_s, poses))
-    poses_inv = np.stack([np.linalg.inv(p) for p in poses]).astype(np.float32)
-    proj = {}
-    base = np.zeros((n_views, 2, 4, 4), np.float32)
-    base[:, 0] = e_mm
-    base[:, 1] = k4
-    base[:, 1, :2] /= 4.0
-    for s, mult in (("stage1", 1.0), ("stage2", 2.0), ("stage3", 4.0)):
-        p = base.copy()
-        p[:, 1, :2] *= mult
-        proj[s] = p
-    hp = camera.homo_pixel_grid(w, h)
-    ray_o, ray_d = camera.build_rays(poses_inv[0], hp)
-    cam_d = np.linalg.inv(k4[:3, :3]) @ hp[:3]
-    cam_ray_d = (cam_d / np.linalg.norm(cam_d, axis=0)).T.astype(np.float32)
-    imgs = rng.random((n_views, h, w, 3)).astype(np.float32)
-    near, far = 425.0 / radius_mm, 900.0 / radius_mm
-    return {
-        "source_imgs": imgs, "ref_img": imgs[0], "w2cs": e_s,
-        "intrinsics": np.tile(k4[None, :3, :3], (n_views, 1, 1)).astype(np.float32),
-        "near_fars": np.tile([[near, far]], (n_views, 1)).astype(np.float32),
-        "proj_matrices": proj,
-        "depth_values_org_scale": (425.0 + np.arange(n_depth) * 2.5 * 1.06).astype(np.float32),
-        "scale_mat": np.diag([radius_mm, radius_mm, radius_mm, 1.0]).astype(np.float32),
-        "scale_factor": np.float32(1.0 / radius_mm),
-        "ref_pose_inv": poses_inv[0], "source_poses": poses,
-        "source_poses_inv": poses_inv, "ray_o": ray_o, "ray_d": ray_d.T.copy(),
-        "cam_ray_d": cam_ray_d, "meta": "dtu-scan1-00000000", "start_idx": 0,
-    }
+
+def point_head_flops(nv, p, c=80):
+    """Multiply-adds x 2 of the point head per launch: the similarity MLP
+    per point; per token (NV views + the view token) the q/k/v/merge
+    projections and the 2C -> 2C -> C MLP; attention across the tokens;
+    the radiance MLP per view."""
+    tokens = nv + 1
+    sim = 2 * (8 * 32 + 32 * 32 + 32 * 16)
+    per_token = 4 * 2 * c * c + 2 * (2 * c) ** 2 + 2 * (2 * c) * c
+    attn = 4 * tokens * tokens * c
+    rad = 2 * ((c + 3) * 16 + 16 * 8 + 8)
+    return p * (sim + tokens * per_token + attn + nv * rad)
+
+
+def ray_head_flops(rn, sn, c=88, heads=8, neus=False):
+    """Multiply-adds x 2 of the ray head per launch: q/k/v/merge, the
+    2C -> 2C -> C MLP, the density MLP and the kv-order attention per
+    sample; the NeuS epilogue adds ~30 operations per sample."""
+    dk = c // heads
+    per_sample = (4 * 2 * c * c + 2 * (2 * c) ** 2 + 2 * (2 * c) * c
+                  + 2 * (c * 32 + 32 * 16 + 16) + 4 * heads * dk * dk + 4 * c)
+    return rn * sn * (per_sample + (30 if neus else 0))
+
+
+def neus_check(got, want):
+    """The NeuS outputs where compositing matters: the regime of the
+    inputs (srdf crosses zero inside the rays, so alpha spans 0..1 and the
+    transmittance product shapes the weights), the median size of each
+    output and the relative error where an output reaches 1e-2."""
+    weight, opacity = want[1], want[4]
+    regime = {"opacity_median": opacity.median().item(),
+              "rays_max_weight_gt_0.05": (weight.amax(dim=1) > 0.05).float().mean().item()}
+    size = {k: b.abs().median().item() for k, b in zip(NEUS_OUT, want)}
+    rel = {}
+    for k, a, b in zip(NEUS_OUT, got, want):
+        if k in ("weight", "rgb", "opacity"):
+            big = b.abs() >= 1e-2
+            rel[k] = ((a - b).abs()[big] / b.abs()[big]).max().item()
+    in_regime = regime["opacity_median"] > 0.3 and regime["rays_max_weight_gt_0.05"] >= 0.9
+    return in_regime, regime, size, rel
 
 
 def kernel_phase(model, card):
@@ -145,6 +164,8 @@ def kernel_phase(model, card):
 
     from uforecon_tpu_torch.ops import fused_point_head as fph
     from uforecon_tpu_torch.ops import fused_ray_head as frh
+    from uforecon_tpu_torch.ops import fused_similarity as fsim
+    from uforecon_tpu_torch.ops import fused_volume_fusion as fvf
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -152,19 +173,22 @@ def kernel_phase(model, card):
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
     rt = model.ray_transformer
     results = {}
 
     # point head: 1024 rays x 64 samples, 3 views; ~30% of (view, point)
     # pairs masked and the first 256 points masked in every view
     nv, p = 3, 1024 * 64
-    mask = (torch.rand((nv, p), generator=gen, device=dev) > 0.3).float()
+    mask = (rand(nv, p) > 0.3).float()
     mask[:, :256] = 0.0
     inp = fph.PointHeadInputs(
         img_feat=randn(nv, p, 32), vol_feat=randn(p, 24),
-        sim_feat=torch.rand((p, 8), generator=gen, device=dev) * 2 - 1,
+        sim_feat=rand(p, 8) * 2 - 1,
         depth_dist=randn(nv, p, scale=0.3), dir_rel=randn(nv, p, 3, scale=0.1),
-        rgb=torch.rand((nv, p, 3), generator=gen, device=dev), mask=mask)
+        rgb=rand(nv, p, 3), mask=mask)
     params = rt.point_head_params()
     with torch.no_grad():
         tok, rad = fph.point_head(inp, params)
@@ -176,82 +200,188 @@ def kernel_phase(model, card):
         err_masked = (rad[:256] - masked_mean).abs().max().item()
         ms = time_ms(lambda: fph.point_head(inp, params))
         plain_ms = time_ms(lambda: fph.point_head_reference(inp, params))
+    b_ms, b_by = bound(nbytes(*inp, fph.pack_weights(params), tok, rad),
+                       point_head_flops(nv, p))
     log(f"[kernel] point_head P={p} NV={nv}: max|token err| {err_t:.3e} "
         f"(tol {TOL['token']}), max|radiance err| {err_r:.3e} "
         f"(tol {TOL['radiance']}), all-masked points vs mean rgb "
-        f"{err_masked:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-        f"[{card}]")
+        f"{err_masked:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
     if not (err_t <= TOL["token"] and err_r <= TOL["radiance"]
             and err_masked <= TOL["radiance"]):
         raise AssertionError("point_head kernel disagrees with its plain version")
     results["point_head"] = {"max_abs_err": max(err_t, err_r), "ms": ms,
-                             "plain_ms": plain_ms, "token_err": err_t,
+                             "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "token_err": err_t,
                              "radiance_err": err_r}
 
+    # ray head, with and without the NeuS epilogue: one render chunk
+    # launches it once at SN 64 (coarse) and once at SN 128 (fine), so the
+    # per-chunk figures are the sums over the two. At these weights a part
+    # of the random tokens' srdf is negative, so compositing matters;
+    # neus_check fails the run where it does not
     rparams = rt.ray_head_params()
-    errs, ms_by, plain_by = [], {}, {}
-    for sn in (64, 128):
-        y = randn(1024, sn, 88)
-        with torch.no_grad():
-            s = frh.ray_head(y, rparams)
-            s_ref = frh.ray_head_reference(y, rparams)
-            torch.cuda.synchronize()
-            err = (s - s_ref).abs().max().item()
-            ms_by[sn] = time_ms(lambda: frh.ray_head(y, rparams))
-            plain_by[sn] = time_ms(lambda: frh.ray_head_reference(y, rparams))
-        log(f"[kernel] ray_head (1024, {sn}, 88): max|srdf err| {err:.3e} "
-            f"(tol {TOL['srdf']}); kernel {ms_by[sn]:.3f} ms, plain "
-            f"{plain_by[sn]:.3f} ms [{card}]")
-        if not err <= TOL["srdf"]:
-            raise AssertionError(f"ray_head kernel disagrees at SN={sn}")
-        errs.append(err)
-    # one render chunk launches the ray head once at each SN
-    results["ray_head"] = {"max_abs_err": max(errs),
-                           "ms": ms_by[64] + ms_by[128],
-                           "plain_ms": plain_by[64] + plain_by[128],
-                           "ms_by_sn": ms_by, "plain_ms_by_sn": plain_by}
+    w_pack = frh.pack_weights(rparams)
+    inv_s = torch.exp(model.variance.detach() * 10.0)
+    near, far = 425.0 / 300.0, 900.0 / 300.0
+    for name in ("ray_head", "ray_head_neus"):
+        neus = name == "ray_head_neus"
+        tol = TOL["neus" if neus else "srdf"]
+        errs, by_sn = [], {}
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        for sn in (64, 128):
+            y = randn(1024, sn, 88)
+            if neus:
+                z = near + (far - near) * torch.sort(rand(1024, sn), dim=1).values
+                rad3 = rand(1024, sn, 3)
+                args = (y, z, rad3, inv_s)
+                kern, plain = frh.ray_head_neus, frh.ray_head_neus_reference
+            else:
+                args = (y,)
+                kern, plain = frh.ray_head, frh.ray_head_reference
+            with torch.no_grad():
+                got = kern(*args, rparams)
+                want = plain(*args, rparams)
+                got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+                torch.cuda.synchronize()
+                # depth sums weights x z (up to 3 scene units): relative
+                # where it exceeds 1
+                err_by = {k: ((a - b).abs() / (b.abs().clamp(min=1.0)
+                                               if k == "depth" else 1.0)).max().item()
+                          for k, a, b in zip(NEUS_OUT, got, want)}
+                if neus:
+                    in_regime, regime, size, rel = neus_check(got, want)
+                k_ms = time_ms(lambda: kern(*args, rparams))
+                p_ms = time_ms(lambda: plain(*args, rparams))
+            b_ms, b_by = bound(nbytes(*args, w_pack, *got),
+                               ray_head_flops(1024, sn, neus=neus))
+            err = max(err_by.values())
+            log(f"[kernel] {name} (1024, {sn}, 88): max err {err:.3e} {err_by} "
+                f"(tol {tol}); kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
+            by_sn[sn] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                         "errors": err_by}
+            if neus:
+                log(f"[kernel] {name} SN={sn}: inputs {regime}; median |output| "
+                    f"{size}; max rel err where |output| >= 1e-2 {rel} "
+                    f"(tol {TOL['neus_rel']})")
+                by_sn[sn].update(regime=regime, median_abs=size, rel_errors=rel)
+                if not in_regime:
+                    raise AssertionError(f"{name} inputs at SN={sn} leave compositing "
+                                         f"idle: {regime}")
+                if not max(rel.values()) <= TOL["neus_rel"]:
+                    raise AssertionError(f"{name} kernel disagrees at SN={sn}: {rel}")
+            if not err <= tol:
+                raise AssertionError(f"{name} kernel disagrees at SN={sn}: {err_by}")
+            errs.append(err)
+            tot["ms"] += k_ms
+            tot["plain_ms"] += p_ms
+            tot["bound_ms"] += b_ms
+        results[name] = {"max_abs_err": max(errs), **tot, "bound_by": b_by,
+                         "by_sn": by_sn}
+
+    # grouped cosine at (3, 65,536, 64) in the layout the sampler hands
+    # over: channel-first memory, strides (64 P, 1, P)
+    x = randn(nv, 64, p).permute(0, 2, 1)
+    with torch.no_grad():
+        got = fsim.grouped_cosine(x, 8)
+        want = fsim.grouped_cosine_reference(x, 8)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        k_ms = time_ms(lambda: fsim.grouped_cosine(x, 8))
+        p_ms = time_ms(lambda: fsim.grouped_cosine_reference(x, 8))
+    n_pairs = nv * (nv - 1) // 2
+    b_ms, b_by = bound(nbytes(x, got), p * n_pairs * (6 * 32 + 8 * 6))
+    log(f"[kernel] grouped_cosine {tuple(x.shape)} strides {x.stride()}: max "
+        f"abs err {err:.3e} (tol {TOL['cosine']}); kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+    if not err <= TOL["cosine"]:
+        raise AssertionError("grouped_cosine kernel disagrees with its plain version")
+    results["grouped_cosine"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by}
+
+    # volume fusion at 3 x (3, 65,536, 9), channel-first as the sampler
+    # gives it, sigmoid-range weights; the first 512 points have zero
+    # weight in every view and stage
+    fws = []
+    for _ in range(3):
+        fw = randn(nv, 9, p)
+        fw[:, 8] = rand(nv, p)
+        fw[:, 8, :512] = 0.0
+        fws.append(fw.permute(0, 2, 1))
+    with torch.no_grad():
+        got = fvf.volume_fusion(*fws)
+        want = fvf.volume_fusion_reference(fws)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        zero_ok = bool(torch.all(got[:512] == 0).item())
+        k_ms = time_ms(lambda: fvf.volume_fusion(*fws))
+        p_ms = time_ms(lambda: fvf.volume_fusion_reference(fws))
+    b_ms, b_by = bound(nbytes(*fws, got), p * (nv * (3 + 1 + 3 * 8 * 2) + 24))
+    log(f"[kernel] volume_fusion 3 x {tuple(fws[0].shape)}: max abs err "
+        f"{err:.3e} (tol {TOL['fusion']}), zero-weight points give 0: {zero_ok}; "
+        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}) [{card}]")
+    if not (err <= TOL["fusion"] and zero_ok):
+        raise AssertionError("volume_fusion kernel disagrees with its plain version")
+    results["volume_fusion"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                                "bound_ms": b_ms, "bound_by": b_by}
+    # no single PyTorch call computes any of these five functions
+    for r in results.values():
+        r["library_ms"] = None
     return results
 
 
-def slice_phase(model, card):
-    """The main path: extract_geometry_for_dataset on one full view."""
-    import copy
+def launch_counts():
+    from uforecon_tpu_torch.ops.fused_point_head import point_head
+    from uforecon_tpu_torch.ops.fused_ray_head import ray_head, ray_head_neus
+    from uforecon_tpu_torch.ops.fused_similarity import grouped_cosine
+    from uforecon_tpu_torch.ops.fused_volume_fusion import volume_fusion
 
+    return {"point_head": point_head, "ray_head": ray_head,
+            "grouped_cosine": grouped_cosine, "volume_fusion": volume_fusion,
+            "ray_head_neus": ray_head_neus}
+
+
+def render_view(model, sample, route, card):
+    """One full view through extract_geometry_for_dataset; returns its
+    stats and the kernel launches counted during it."""
     import torch
 
-    from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
-    from uforecon_tpu_torch.ops.fused_point_head import point_head
-    from uforecon_tpu_torch.ops.fused_ray_head import ray_head
     from uforecon_tpu_torch.pipeline.extract import extract_geometry_for_dataset
 
-    sample = dtu_scale_sample()
+    wrappers = launch_counts()
     with tempfile.TemporaryDirectory() as out_dir:
-        point_head.launches = 0
-        ray_head.launches = 0
+        for w in wrappers.values():
+            w.launches = 0
         torch.cuda.reset_peak_memory_stats()
         stats = extract_geometry_for_dataset(model, [sample], out_dir=out_dir,
                                              device="cuda", seed=SEED,
                                              previews=False)
-        launches = {"point_head": point_head.launches,
-                    "ray_head": ray_head.launches}
+        launches = {k: w.launches for k, w in wrappers.items()}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         saved = np.load(os.path.join(out_dir, "depth", "scan1", "00000000.npy"),
                         allow_pickle=True).item()
     depth = saved["depth"]
-    log(f"[slice] 1 view 800x640, 3 views, 64+64 samples: encode "
+    log(f"[slice] knobs {route}: 1 view 800x640, 3 views, 64+64 samples: encode "
         f"{stats['encode_s']:.3f} s, render {stats['render_s']:.3f} s, "
         f"{stats['rays_per_sec']:.1f} rays/s, peak {peak_gb:.2f} GiB [{card}]")
-    log(f"[slice] launches during the run: {launches}")
+    log(f"[slice] knobs {route}: launches during the run: {launches}")
     if depth.shape != (640, 800) or not np.all(np.isfinite(depth)):
         raise AssertionError(f"depth map {depth.shape}, finite "
                              f"{np.isfinite(depth).mean():.4f}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel was not launched on the main path: {launches}")
-    log(f"[slice] depth map (640, 800) finite, range "
+    log(f"[slice] knobs {route}: depth map (640, 800) finite, range "
         f"[{depth.min():.1f}, {depth.max():.1f}] mm")
+    return {**stats, "peak_gib": peak_gb}, launches
 
-    # the same scene, one small ray chunk: kernels on the card vs the plain
-    # versions on the CPU, with the same draws
+
+def agree_with_cpu(model, sample, route):
+    """A 256-ray chunk of the scene with the kernels on the card against
+    the plain versions on the CPU, with the same draws."""
+    import torch
+
+    from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
+
     scene, extras = scene_inputs_from_sample(sample, "cuda")
     enc = model.encode(scene)
     rn, sn = 256, model.cfg.coarse_sample
@@ -279,11 +409,142 @@ def slice_phase(model, card):
             b = out_cpu[phase][key].numpy()
             ok = np.isclose(a, b, rtol=2e-4, atol=2e-4).reshape(rn, -1).all(axis=1)
             agree[f"{phase}_{key}"] = float(ok.mean())
-    log(f"[slice] {rn}-ray chunk, card kernels vs CPU plain versions: share "
-        f"of rays within rtol=atol=2e-4: {agree}")
+    log(f"[slice] knobs {route}: {rn}-ray chunk, card kernels vs CPU plain "
+        f"versions: share of rays within rtol=atol=2e-4: {agree}")
     if min(agree.values()) < 0.99:
-        raise AssertionError(f"card and CPU renders disagree: {agree}")
-    return stats, launches
+        raise AssertionError(f"card and CPU renders disagree (knobs {route}): {agree}")
+
+
+def slice_phase(model, card):
+    """The main path, extract_geometry_for_dataset on one full view, with
+    the render-glue knobs off and then on (the same weights)."""
+    from uforecon_tpu_torch.config import FUSED_GLUE
+    from uforecon_tpu_torch.data.synthetic import dtu_scale_sample
+
+    # knobs off, and on with the same weights
+    models = {"off": model, "on": model.with_knobs(**FUSED_GLUE)}
+    sample = dtu_scale_sample()
+    stats, launches = {}, {}
+    for route, m in models.items():
+        stats[route], launches[route] = render_view(m, sample, route, card)
+    must_run = {"off": ("point_head", "ray_head"),
+                "on": ("point_head", "grouped_cosine", "volume_fusion", "ray_head_neus")}
+    for route, names in must_run.items():
+        idle = [n for n in names if launches[route][n] < 1]
+        stray = [n for n, c in launches[route].items() if n not in names and c]
+        if idle or stray:
+            raise AssertionError(f"knobs {route}: kernels not launched {idle}, "
+                                 f"launched off their route {stray}: "
+                                 f"{launches[route]}")
+    for route, m in models.items():
+        agree_with_cpu(m, sample, route)
+    return models, sample, stats, launches
+
+
+def chunk_args(scene, extras, start, rn):
+    """ray_d and per-ray near/far of rays start .. start + rn, as
+    SceneRenderer.render_depth_view gives them."""
+    import torch
+
+    cam_z = torch.as_tensor(extras["cam_ray_d"][start:start + rn, 2], device="cuda")
+    ray_d = torch.as_tensor(extras["ray_d"][start:start + rn], device="cuda")
+    return ray_d, float(scene.near) / cam_z, float(scene.far) / cam_z
+
+
+def profile_phase(models, scene, enc, extras, card, chunks=8, rn=1024):
+    """Device operations per render chunk of each route by name under
+    torch.profiler, their device time, and the share of the unprofiled
+    wall time of the same chunks that the device was busy."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n_chunks = extras["ray_d"].shape[0] // rn
+    # chunks spread over the view
+    args = [chunk_args(scene, extras, ((i * 97 + 50) % n_chunks) * rn, rn)
+            for i in range(chunks)]
+    result = {}
+    for route, model in models.items():
+        def run():
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            for ray_d, near, far in args:
+                model.render_chunk(scene, enc, ray_d, gen, near_per_ray=near,
+                                   far_per_ray=far)
+            torch.cuda.synchronize()
+
+        run()
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not dev:
+            raise AssertionError("the profiler recorded no device operation")
+        count, time_us = collections.Counter(), collections.Counter()
+        for e in dev:
+            count[e.name] += 1
+            time_us[e.name] += e.time_range.elapsed_us()
+        busy_ms = sum(time_us.values()) / 1e3
+        result[route] = {
+            "device_ops_per_chunk": len(dev) / chunks,
+            "device_ms_per_chunk": busy_ms / chunks,
+            "wall_ms_per_chunk": wall_ms / chunks,
+            "device_busy_share": busy_ms / wall_ms,
+            "by_name": {k: {"per_chunk": count[k] / chunks,
+                            "ms_per_chunk": time_us[k] / 1e3 / chunks}
+                        for k, _ in count.most_common()}}
+        log(f"[profile] knobs {route}: " + json.dumps(
+            {"chunks": chunks, "rays_per_chunk": rn, "card": card,
+             **{k: v for k, v in result[route].items() if k != "by_name"},
+             "top": dict(list(result[route]["by_name"].items())[:12])}))
+    by = {r: result[r]["by_name"] for r in result}
+    diff = {n: by["off"].get(n, {}).get("per_chunk", 0.0)
+            - by["on"].get(n, {}).get("per_chunk", 0.0) for n in set(by["off"]) | set(by["on"])}
+    log("[profile] removed per chunk by the knobs-on route: " + json.dumps(
+        {"total": result["off"]["device_ops_per_chunk"]
+         - result["on"]["device_ops_per_chunk"],
+         "by_name": {n: d for n, d in sorted(diff.items(), key=lambda kv: -abs(kv[1]))
+                     if d != 0}}))
+    return result
+
+
+def ab_phase(models, scene, enc, extras, card):
+    """AB_ROUNDS rounds of warm full views in the order off, on, on, off,
+    one encoding; host clock ending in the depth map's host copy."""
+    import torch
+
+    from uforecon_tpu_torch.pipeline.renderer import SceneRenderer
+
+    renderer = {k: SceneRenderer(m, "cuda") for k, m in models.items()}
+    n_rays = extras["ray_d"].shape[0]
+
+    def view(route):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = renderer[route].render_depth_view(scene, enc, extras, gen)
+        dt = time.perf_counter() - t0
+        if not np.all(np.isfinite(out["depth"])):
+            raise AssertionError(f"knobs {route}: depth not finite")
+        return n_rays / dt
+
+    for route in models:                  # a warm-up view per route
+        view(route)
+    rates = {r: [] for r in models}
+    for i in range(AB_ROUNDS):
+        for route in ("off", "on", "on", "off"):
+            rates[route].append(view(route))
+            log(f"[ab] round {i} knobs {route}: {rates[route][-1]:.1f} rays/s; "
+                f"after it sm clock, power, temperature: "
+                f"{smi('clocks.sm,power.draw,temperature.gpu')}")
+    summary = {r: {"median": float(np.median(v)),
+                   "iqr": float(np.subtract(*np.percentile(v, [75, 25]))),
+                   "n": len(v)} for r, v in rates.items()}
+    won = sum(a > b for a, b in zip(rates["on"], rates["off"]))
+    log(f"[ab] rays/s: {json.dumps(summary)}; on / off medians "
+        f"{summary['on']['median'] / summary['off']['median']:.4f}; pairs won by "
+        f"on {won} of {len(rates['on'])} [{card}]")
 
 
 def main():
@@ -301,6 +562,7 @@ def main():
     try:
         from uforecon_tpu_torch.config import Config
         from uforecon_tpu_torch.convert import init_weights
+        from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
         from uforecon_tpu_torch.models.uforecon import UFORecon
         from uforecon_tpu_torch.ops import cuda_build
     except ImportError as e:
@@ -308,7 +570,7 @@ def main():
               f"this script ({e})", file=sys.stderr)
         return 1
 
-    card = card_line()
+    card = smi("name,power.limit")
     log(card)
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -322,12 +584,21 @@ def main():
     model.to("cuda")
 
     kres = kernel_phase(model, card)
-    stats, launches = slice_phase(model, card)
+    models, sample, stats, launches = slice_phase(model, card)
+    log(f"[slice] rays/s knobs on / off in this process: "
+        f"{stats['on']['rays_per_sec'] / stats['off']['rays_per_sec']:.4f} "
+        f"(the off run is the process's first view) [{card}]")
+    scene, extras = scene_inputs_from_sample(sample, "cuda")
+    enc = model.encode(scene)
+    profile_phase(models, scene, enc, extras, card)
+    ab_phase(models, scene, enc, extras, card)
 
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": launches[ROUTE[name]][name],
+                        "launches_by_run": {r: launches[r][name] for r in launches},
                         **kres[name]})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

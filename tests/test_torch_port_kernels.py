@@ -8,7 +8,13 @@ it:
     python -m pytest --noconftest -k on_gpu tests/test_torch_port_kernels.py
 
 Kernel tolerances: atol 2e-5 on token and srdf, 2e-6 on radiance (f32
-with another summation order; chip_smoke.py measures ~2e-6 and ~2e-7).
+with another summation order; chip_smoke.py measures ~2e-6 and ~2e-7);
+1e-6 on the grouped cosine and the volume fusion (a few f32 roundings);
+for the NeuS epilogue 2e-5 on srdf, weight, rgb and opacity and 2e-5
+relative on depth (the compositing sums srdf-sized errors through
+sigmoids; the scan of torch.cumprod on the card takes another order), and
+NEUS_RTOL relative on weight, rgb and opacity where they reach 1e-2, on
+inputs where compositing matters (``_compositing_matters``).
 """
 import numpy as np
 import pytest
@@ -16,11 +22,14 @@ import torch
 
 from uforecon_tpu_torch.ops import fused_point_head as pph
 from uforecon_tpu_torch.ops import fused_ray_head as prh
+from uforecon_tpu_torch.ops import fused_similarity as psim
+from uforecon_tpu_torch.ops import fused_volume_fusion as pvf
 
 torch.set_num_threads(1)
 
 C = 80   # d_view at the default configuration
 CR = 88  # + order PE
+NEUS_RTOL = 2e-4  # chip_smoke.py measures 3.3e-5 at main-path shapes
 
 
 @pytest.fixture
@@ -72,18 +81,56 @@ def _ray_case(rng, rn, sn, c=CR):
     return r(rn, sn, c), params
 
 
+def _cosine_case(rng, nv=3, n=50, c=32):
+    return rng.standard_normal((nv, n, (nv - 1) * c)).astype(np.float32)
+
+
+def _fusion_case(rng, nv=3, n=50, zero_rows=5):
+    """Three stages of (NV, P, 8 features || 1 sigmoid-range weight); the
+    first ``zero_rows`` points have zero weight in every view and stage."""
+    fws = []
+    for _ in range(3):
+        fw = rng.standard_normal((nv, n, 9)).astype(np.float32)
+        fw[..., -1] = rng.uniform(size=(nv, n))
+        fw[:, :zero_rows, -1] = 0.0
+        fws.append(fw)
+    return fws
+
+
+def _neus_case(rng, rn, sn):
+    z = np.sort(rng.uniform(2.0, 4.0, (rn, sn)), axis=1).astype(np.float32)
+    rad = rng.uniform(size=(rn, sn, 3)).astype(np.float32)
+    return z, rad, np.float32(np.exp(0.3 * 10))
+
+
+def _launch_counts():
+    return (pph.point_head.launches, prh.ray_head.launches,
+            prh.ray_head_neus.launches, psim.grouped_cosine.launches,
+            pvf.volume_fusion.launches)
+
+
 def test_wrappers_take_the_plain_version_on_cpu(rng):
+    before = _launch_counts()
     inputs, params = _point_case(rng, n=20)
     inp = pph.PointHeadInputs(**{k: _t(v) for k, v in inputs.items()})
     p = _port_params(pph.PointHeadParams, params)
-    before = pph.point_head.launches
     for a, b in zip(pph.point_head(inp, p), pph.point_head_reference(inp, p)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     y, rparams = _ray_case(rng, rn=3, sn=8)
     rp = _port_params(prh.RayHeadParams, rparams)
     torch.testing.assert_close(prh.ray_head(_t(y), rp),
                                prh.ray_head_reference(_t(y), rp), rtol=0, atol=0)
-    assert pph.point_head.launches == before
+    z, rad, inv_s = (_t(a) for a in _neus_case(rng, 3, 8))
+    for a, b in zip(prh.ray_head_neus(_t(y), z, rad, inv_s, rp),
+                    prh.ray_head_neus_reference(_t(y), z, rad, inv_s, rp)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    x = _t(_cosine_case(rng))
+    torch.testing.assert_close(psim.grouped_cosine(x, 8),
+                               psim.grouped_cosine_reference(x, 8), rtol=0, atol=0)
+    fws = [_t(f) for f in _fusion_case(rng)]
+    torch.testing.assert_close(pvf.volume_fusion(*fws),
+                               pvf.volume_fusion_reference(fws), rtol=0, atol=0)
+    assert _launch_counts() == before
 
 
 def test_kernel_launchers_reject_shapes_they_do_not_take(rng):
@@ -95,6 +142,22 @@ def test_kernel_launchers_reject_shapes_they_do_not_take(rng):
     y, rparams = _ray_case(rng, rn=2, sn=6)
     with pytest.raises(ValueError, match="SN % 4"):
         prh._launch(_t(y), _port_params(prh.RayHeadParams, rparams), 8)
+    y, rparams = _ray_case(rng, rn=2, sn=8)
+    z, rad, inv_s = _neus_case(rng, 2, 8)
+    with pytest.raises(ValueError, match="ray_head_neus kernel takes"):
+        prh._launch_neus(_t(y), _t(z[:, :4]), _t(rad), _t(inv_s),
+                         _port_params(prh.RayHeadParams, rparams), 8)
+    with pytest.raises(ValueError, match="grouped_cosine kernel takes"):
+        psim._launch(_t(_cosine_case(rng, c=30)), 8)
+    with pytest.raises(ValueError, match="grouped_cosine kernel takes a float32 CUDA"):
+        psim._launch(_t(_cosine_case(rng)), 8)
+    fws = [_t(f) for f in _fusion_case(rng)]
+    with pytest.raises(ValueError, match="volume_fusion kernel takes 3 stages"):
+        pvf._launch(fws[:2])
+    with pytest.raises(ValueError, match="volume_fusion kernel takes 3 stages"):
+        pvf._launch([fws[0], fws[1], fws[2][..., :5]])
+    with pytest.raises(ValueError, match="float32 tensors on one CUDA"):
+        pvf._launch(fws)
 
 
 def test_weight_packs_match_the_kernel_layout(rng):
@@ -118,10 +181,35 @@ def test_weight_packs_match_the_kernel_layout(rng):
         + 2 * CR + (CR * 32 + 32) + (32 * 16 + 16) + (16 + 1)
 
 
-@pytest.mark.parametrize("head", ["point", "ray"])
+@pytest.mark.parametrize("nv", [2, 3, 4, 5, 6])
+def test_pair_slots_follow_the_kernel_closed_form(nv):
+    """csrc/grouped_cosine.cu finds pair (i, j) at slot j - 1 of view i's
+    row and at slot i of view j's row."""
+    pairs = psim.view_pairs(nv)
+    assert len(pairs) == nv * (nv - 1) // 2
+    assert psim.pair_slots(nv) == [(j - 1, i) for i, j in pairs]
+
+
+def test_query_views_are_the_sampler_layout(rng):
+    """The kernels read the samplers' output in place: grid_sample's
+    channel-first memory seen as (NV, P, C), strides (C P, 1, P)."""
+    from uforecon_tpu_torch.ops.grid_sample import grid_sample_2d, grid_sample_3d
+
+    img = _t(rng.standard_normal((3, 6, 7, 64)))
+    grid = _t(rng.uniform(-1, 1, (3, 4, 5, 2)))
+    flat = grid_sample_2d(img, grid).reshape(3, -1, 64)
+    assert flat.stride() == (64 * 20, 1, 20)
+    vol = _t(rng.standard_normal((3, 9, 4, 5, 6)))
+    grid3 = _t(rng.uniform(-1, 1, (3, 4, 5, 3)))
+    flat3 = grid_sample_3d(vol, grid3).reshape(3, -1, 9)
+    assert flat3.stride() == (9 * 20, 1, 20)
+
+
+@pytest.mark.parametrize("head", ["point", "ray", "ray_neus", "cosine", "fusion"])
 def test_autograd_backward_goes_through_the_plain_version(rng, monkeypatch, head):
-    """The kernel Functions' backward: launch replaced by the plain
-    forward so it runs on the CPU; gradients must equal plain autograd."""
+    """The kernel functions' backward (``cuda_build.kernel_function``):
+    launch replaced by the plain forward so it runs on the CPU; gradients
+    must equal plain autograd."""
     if head == "point":
         inputs, params = _point_case(rng, n=12)
         monkeypatch.setattr(pph, "_launch", lambda i, p, h: pph.point_head_reference(i, p, h))
@@ -135,7 +223,37 @@ def test_autograd_backward_goes_through_the_plain_version(rng, monkeypatch, head
                                             pph._unflat_params(par))
 
         def fused():
-            return pph._PointHeadFn.apply(8, *inp, *par)
+            return pph._point_head_fn(8, *inp, *par)
+    elif head == "ray_neus":
+        y, rparams = _ray_case(rng, rn=3, sn=8)
+        monkeypatch.setattr(prh, "_launch_neus", prh.ray_head_neus_reference)
+        inp = [_t(a).requires_grad_() for a in (y, *_neus_case(rng, 3, 8))]
+        par = [t.requires_grad_() for t in
+               prh._flat_params(_port_params(prh.RayHeadParams, rparams))]
+
+        def plain():
+            return prh.ray_head_neus_reference(*inp, prh._unflat_params(par))
+
+        def fused():
+            return prh._ray_head_neus_fn(8, *inp, *par)
+    elif head == "cosine":
+        monkeypatch.setattr(psim, "_launch", psim.grouped_cosine_reference)
+        inp, par = [_t(_cosine_case(rng, n=12)).requires_grad_()], []
+
+        def plain():
+            return (psim.grouped_cosine_reference(inp[0], 8),)
+
+        def fused():
+            return (psim._grouped_cosine_fn(8, inp[0]),)
+    elif head == "fusion":
+        monkeypatch.setattr(pvf, "_launch", pvf.volume_fusion_reference)
+        inp, par = [_t(f).requires_grad_() for f in _fusion_case(rng, n=12)], []
+
+        def plain():
+            return (pvf.volume_fusion_reference(inp),)
+
+        def fused():
+            return (pvf._volume_fusion_fn(None, *inp),)
     else:
         y, rparams = _ray_case(rng, rn=3, sn=8)
         monkeypatch.setattr(prh, "_launch", lambda y_, p, h: prh.ray_head_reference(y_, p, h))
@@ -147,7 +265,7 @@ def test_autograd_backward_goes_through_the_plain_version(rng, monkeypatch, head
             return (prh.ray_head_reference(inp[0], prh._unflat_params(par)),)
 
         def fused():
-            return (prh._RayHeadFn.apply(8, inp[0], *par),)
+            return (prh._ray_head_fn(8, inp[0], *par),)
 
     leaves = [t for t in inp + par if t.requires_grad]
     g_plain = torch.autograd.grad(sum(o.square().sum() for o in plain()), leaves)
@@ -189,6 +307,99 @@ def test_ray_head_kernel_matches_plain_on_gpu(rng, cuda_device, sn):
     got = prh.ray_head(yd, rp)
     assert prh.ray_head.launches == before + 1
     torch.testing.assert_close(got, prh.ray_head_reference(yd, rp), rtol=0, atol=2e-5)
+
+
+def _on(device, params):
+    return type(params)(*[(tuple(x.to(device) for x in v) if isinstance(v, tuple)
+                           else v.to(device)) for v in params])
+
+
+def _compositing_matters(weight, opacity):
+    """srdf crosses zero inside the rays: most rays are mostly opaque and
+    put a sizable weight on one sample, so alpha spans 0..1 and the
+    transmittance product shapes the weights."""
+    return bool(opacity.median() > 0.3
+                and (weight.amax(dim=1) > 0.05).float().mean() >= 0.9)
+
+
+def _composite(z, rad, srdf, inv_s, fault=None):
+    """NeuS compositing written out, with one of three faults a kernel
+    epilogue could have."""
+    iv = z[:, 1:] - z[:, :-1]
+    iv = torch.cat([iv[:, :1], iv, iv[:, -1:]], dim=1)
+    iv = (iv[:, :-1] + iv[:, 1:]) * 0.5
+    s = torch.clamp(inv_s, 1e-6, 1e6)
+    prev, nxt = torch.sigmoid((srdf + 0.75 * iv) * s), torch.sigmoid((srdf - 0.75 * iv) * s)
+    if fault == "swapped_cdfs":
+        prev, nxt = nxt, prev
+    alpha = torch.clamp((prev - nxt + 1e-5) / (prev + 1e-5), 0.0, 1.0)
+    trans = torch.cumprod(torch.cat([torch.ones_like(alpha[:, :1]),
+                                     1.0 - alpha + 1e-7], dim=1), dim=1)[:, :-1]
+    weight = {"no_transmittance": alpha, "zero_weight": 0 * alpha}.get(fault, alpha * trans)
+    return weight, (rad * weight[..., None]).sum(1), weight.sum(1)
+
+
+@pytest.mark.parametrize("sn", [8, 64, 128])
+def test_neus_gpu_case_shows_a_wrong_epilogue(rng, sn):
+    """The inputs of test_ray_head_neus_kernel_matches_plain_on_gpu (the
+    same draws) are in the regime where compositing matters, and there
+    each of three wrong epilogues misses the kernel's 2e-5 tolerance on
+    weight, rgb or opacity by more than a thousand times."""
+    y, rparams = _ray_case(rng, rn=37, sn=sn)
+    rp = _port_params(prh.RayHeadParams, rparams)
+    y, z, rad, inv_s = (_t(a) for a in (y, *_neus_case(rng, 37, sn)))
+    srdf, weight, rgb, _, opacity = prh.ray_head_neus_reference(y, z, rad, inv_s, rp)
+    assert _compositing_matters(weight, opacity)
+    for a, b in zip(_composite(z, rad, srdf, inv_s), (weight, rgb, opacity)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    for fault in ("swapped_cdfs", "no_transmittance", "zero_weight"):
+        err = max((a - b).abs().max().item() for a, b in
+                  zip(_composite(z, rad, srdf, inv_s, fault), (weight, rgb, opacity)))
+        assert err > 1000 * 2e-5, (fault, err)
+
+
+@pytest.mark.parametrize("sn", [8, 64, 128])
+def test_ray_head_neus_kernel_matches_plain_on_gpu(rng, cuda_device, sn):
+    y, rparams = _ray_case(rng, rn=37, sn=sn)
+    rp = _on(cuda_device, _port_params(prh.RayHeadParams, rparams))
+    args = [_t(a).to(cuda_device) for a in (y, *_neus_case(rng, 37, sn))]
+    before = prh.ray_head_neus.launches
+    got = prh.ray_head_neus(*args, rp)
+    assert prh.ray_head_neus.launches == before + 1
+    want = prh.ray_head_neus_reference(*args, rp)
+    assert _compositing_matters(want[1], want[4])
+    for name, a, b in zip(("srdf", "weight", "rgb", "depth", "opacity"), got, want):
+        torch.testing.assert_close(a, b, rtol=2e-5 if name == "depth" else 0,
+                                   atol=2e-5, msg=name)
+        if name in ("weight", "rgb", "opacity"):
+            big = b.abs() >= 1e-2
+            rel = ((a - b).abs()[big] / b.abs()[big]).max().item()
+            assert rel <= NEUS_RTOL, (name, rel)
+
+
+@pytest.mark.parametrize("nv", [2, 3, 5])
+@pytest.mark.parametrize("layout", ["channel_first", "point_major"])
+def test_grouped_cosine_kernel_matches_plain_on_gpu(rng, cuda_device, nv, layout):
+    x = _t(_cosine_case(rng, nv=nv, n=3001)).to(cuda_device)
+    if layout == "channel_first":
+        x = x.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+    before = psim.grouped_cosine.launches
+    got = psim.grouped_cosine(x, 8)
+    assert psim.grouped_cosine.launches == before + 1
+    torch.testing.assert_close(got, psim.grouped_cosine_reference(x, 8),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["channel_first", "point_major"])
+def test_volume_fusion_kernel_matches_plain_on_gpu(rng, cuda_device, layout):
+    fws = [_t(f).to(cuda_device) for f in _fusion_case(rng, n=3001, zero_rows=64)]
+    if layout == "channel_first":
+        fws = [f.permute(0, 2, 1).contiguous().permute(0, 2, 1) for f in fws]
+    before = pvf.volume_fusion.launches
+    got = pvf.volume_fusion(*fws)
+    assert pvf.volume_fusion.launches == before + 1
+    assert torch.all(got[:64] == 0)
+    torch.testing.assert_close(got, pvf.volume_fusion_reference(fws), rtol=0, atol=1e-6)
 
 
 def test_default_config_gives_the_kernel_widths():

@@ -7,14 +7,26 @@ the port with the same weights (load_flax_variables) and the same uniform
 draws. The JAX side is built once per module: its init plus eager forward
 is the slow part of this file.
 
+The same chunk is rendered again with the three render-glue knobs on
+(``fused_similarity``, ``fused_volume_fusion``, ``fused_neus_epilogue``):
+against the JAX model with the route's four Pallas kernels forced on
+(grouped cosine, volume fusion, point head, ray head with the NeuS
+epilogue; interpret mode, ``kernel_precision='highest'``, ~25 s in a
+process of its own), and against the port with the knobs off on the same
+loaded weights.
+
 Tolerances: encoder features at 1e-4 (f32 with another summation order
 through ~20 layers); mvs_depths on >= 99% of pixels (winner-take-all
 argmax ties flip isolated pixels); coarse depth and rgb at rtol = atol =
 2e-4 (as the JAX fused-kernel tests); fine outputs on >= 99% of rays (a
 ~1e-7 difference can flip an importance-sampling CDF bin of one ray).
 """
+import inspect
+import os
+import pickle
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +37,7 @@ import torch
 from uforecon_tpu.config import Config as JaxConfig
 from uforecon_tpu.models.uforecon import UFORecon as JaxUFORecon
 
-from uforecon_tpu_torch.config import Config
+from uforecon_tpu_torch.config import FUSED_GLUE, Config
 from uforecon_tpu_torch.convert import load_flax_variables
 from uforecon_tpu_torch.models.uforecon import EncoderOutputs, SceneInputs, UFORecon
 
@@ -79,7 +91,47 @@ def slice_pair():
     p_enc = port.encode(p_scene)
     return dict(jax_enc=_np_tree(enc), jax_out=_np_tree(out), port=port,
                 scene=p_scene, port_enc=p_enc, ray_d=_t(ray_d),
-                u_c=_t(u_c), u_f=_t(u_f))
+                u_c=_t(u_c), u_f=_t(u_f),
+                jax_call=(variables, scene, enc, ray_d, key))
+
+
+# The JAX render_chunk with all four Pallas kernels of the route on:
+# grouped cosine, volume fusion, the point head and the ray head with the
+# NeuS epilogue, in interpret mode at exact f32. It runs in a process of its
+# own: the JAX package keeps one kernel-precision mode per process.
+_JAX_FUSED_RENDER = """
+import dataclasses, pickle, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+from uforecon_tpu.models.uforecon import UFORecon
+path = sys.argv[1]
+with open(path, "rb") as f:
+    cfg, variables, scene, enc, ray_d, key = pickle.load(f)
+cfg = dataclasses.replace(cfg, fused_similarity="always", fused_volume_fusion="always",
+                          fused_point_head="always", fused_neus_epilogue="auto",
+                          kernel_precision="highest")
+model = UFORecon(cfg)
+out = model.apply(variables, scene, enc, ray_d, key, method=model.render_chunk)
+with open(path, "wb") as f:
+    pickle.dump(jax.tree_util.tree_map(lambda a: jax.device_get(a), out), f)
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_out_fused(slice_pair, tmp_path_factory):
+    variables, scene, enc, ray_d, key = slice_pair["jax_call"]
+    path = tmp_path_factory.mktemp("jax_fused") / "io.pkl"
+    with open(path, "wb") as f:
+        pickle.dump((_jax_cfg(), *_np_tree((variables, scene, enc, ray_d, key))), f)
+    root = Path(__file__).resolve().parent.parent
+    res = subprocess.run([sys.executable, "-c", _JAX_FUSED_RENDER, str(path)],
+                         capture_output=True, text=True, timeout=600, cwd=root,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu",
+                              "PYTHONPATH": os.pathsep.join(
+                                  [str(root), os.environ.get("PYTHONPATH", "")])})
+    assert res.returncode == 0, res.stderr[-3000:]
+    with open(path, "rb") as f:
+        return _np_tree(pickle.load(f))
 
 
 def _bridge_encoder(jenc) -> EncoderOutputs:
@@ -118,15 +170,7 @@ def test_encoder_mvs_depths_match_jax(slice_pair):
     assert close.mean() >= 0.99, close.mean()
 
 
-@pytest.mark.parametrize("encoder", ["jax", "port"])
-def test_render_chunk_matches_jax(slice_pair, encoder):
-    """render_chunk with the JAX draws, on the JAX encoder outputs (the
-    render path alone) and on the port's own (the whole slice)."""
-    sp = slice_pair
-    enc = _bridge_encoder(sp["jax_enc"]) if encoder == "jax" else sp["port_enc"]
-    out = sp["port"].render_chunk(sp["scene"], enc, sp["ray_d"],
-                                  u_coarse=sp["u_c"], u_fine=sp["u_f"])
-    ref = sp["jax_out"]
+def _check_render(out, ref, encoder):
     coarse_tol = dict(rtol=2e-4, atol=2e-4)
     if encoder == "port":
         # rays through a flipped winner-take-all pixel see another depth PE
@@ -144,6 +188,71 @@ def test_render_chunk_matches_jax(slice_pair, encoder):
         assert np.all(np.isfinite(got))
         ok = np.isclose(got, ref["fine"][key], **coarse_tol).reshape(RN, -1).all(axis=1)
         assert ok.mean() >= 0.99, (key, ok.mean())
+
+
+@pytest.mark.parametrize("encoder", ["jax", "port"])
+def test_render_chunk_matches_jax(slice_pair, encoder):
+    """render_chunk with the JAX draws, on the JAX encoder outputs (the
+    render path alone) and on the port's own (the whole slice)."""
+    sp = slice_pair
+    enc = _bridge_encoder(sp["jax_enc"]) if encoder == "jax" else sp["port_enc"]
+    out = sp["port"].render_chunk(sp["scene"], enc, sp["ray_d"],
+                                  u_coarse=sp["u_c"], u_fine=sp["u_f"])
+    _check_render(out, sp["jax_out"], encoder)
+
+
+@pytest.mark.parametrize("encoder", ["jax", "port"])
+def test_render_chunk_knobs_on_matches_jax(slice_pair, jax_out_fused, encoder):
+    """The knobs-on route against the JAX model with its glue kernels on."""
+    sp = slice_pair
+    enc = _bridge_encoder(sp["jax_enc"]) if encoder == "jax" else sp["port_enc"]
+    out = sp["port"].with_knobs(**FUSED_GLUE).render_chunk(
+        sp["scene"], enc, sp["ray_d"], u_coarse=sp["u_c"], u_fine=sp["u_f"])
+    assert set(out["coarse"]) == set(out["fine"]) >= {"rgb", "depth", "opacity",
+                                                     "weight", "srdf"}
+    _check_render(out, jax_out_fused, encoder)
+
+
+def test_knobs_read_the_same_weights(slice_pair):
+    """The fused routes need no other weights: one load_flax_variables,
+    rendered with the knobs off and on, gives the same chunk (on the CPU
+    both routes run the same plain versions)."""
+    sp = slice_pair
+    args = (sp["scene"], sp["port_enc"], sp["ray_d"])
+    draws = dict(u_coarse=sp["u_c"], u_fine=sp["u_f"])
+    off = sp["port"].render_chunk(*args, **draws)
+    on = sp["port"].with_knobs(**FUSED_GLUE).render_chunk(*args, **draws)
+    for phase in ("coarse", "fine"):
+        for key in ("rgb", "depth", "opacity", "weight", "srdf"):
+            torch.testing.assert_close(on[phase][key], off[phase][key],
+                                       rtol=0, atol=0, msg=f"{phase} {key}")
+
+
+@pytest.mark.parametrize("entry", ["scene_inputs_from_sample", "SceneRenderer",
+                                   "extract_geometry_for_dataset"])
+def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
+    """Called without a device, the entry points ask for the CUDA card and,
+    where there is none, raise instead of running on the CPU."""
+    from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
+    from uforecon_tpu_torch.pipeline.extract import extract_geometry_for_dataset
+    from uforecon_tpu_torch.pipeline.renderer import SceneRenderer
+
+    from helpers import make_synthetic_sample
+
+    fn = {"scene_inputs_from_sample": scene_inputs_from_sample,
+          "SceneRenderer": SceneRenderer,
+          "extract_geometry_for_dataset": extract_geometry_for_dataset}[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sample = make_synthetic_sample(n_views=3, h=32, w=32, ndepth=16, start_idx=0)
+    model = UFORecon(_port_cfg())
+    call = {"scene_inputs_from_sample": lambda: fn(sample),
+            "SceneRenderer": lambda: fn(model),
+            "extract_geometry_for_dataset":
+                lambda: fn(model, [sample], out_dir=str(tmp_path))}[entry]
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        call()
+    assert not (tmp_path / "depth").exists()
 
 
 def test_port_imports_without_jax():
@@ -164,7 +273,7 @@ def test_scene_inputs_from_sample_matches_jax():
 
     sample = make_synthetic_sample(n_views=3, h=32, w=32, ndepth=16, start_idx=0)
     ref, ref_extras = jax_convert(sample)
-    got, extras = scene_inputs_from_sample(sample)
+    got, extras = scene_inputs_from_sample(sample, device="cpu")
     for name, want in ref._asdict().items():
         have = getattr(got, name)
         if isinstance(want, dict):
@@ -194,7 +303,8 @@ def test_extract_writes_the_depth_layout(tmp_path):
     for run in range(2):
         out = tmp_path / str(run)
         stats = extract_geometry_for_dataset(model, [sample], out_dir=str(out),
-                                             seed=3, previews=(run == 0))
+                                             device="cpu", seed=3,
+                                             previews=(run == 0))
         assert stats["views"] == 1 and stats["rays"] == 32 * 32
         saved = np.load(out / "depth" / "scanS" / "00000000.npy", allow_pickle=True).item()
         assert set(saved) == {"depth", "extrinsic", "intrinsic"}
@@ -219,12 +329,12 @@ def test_renderer_pads_rays_to_whole_chunks():
     sample = make_synthetic_sample(n_views=3, h=32, w=32, ndepth=16, start_idx=0)
     model = UFORecon(_port_cfg())
     init_weights(model, seed=0)
-    scene, extras = scene_inputs_from_sample(sample)
+    scene, extras = scene_inputs_from_sample(sample, device="cpu")
     enc = model.encode(scene)
     n = 1000
     near = np.full(n, float(scene.near), np.float32)
     far = np.full(n, float(scene.far), np.float32)
-    out = SceneRenderer(model, chunk=384).render_rays(
+    out = SceneRenderer(model, device="cpu", chunk=384).render_rays(
         scene, enc, extras["ray_d"][:n], near, far, torch.Generator().manual_seed(0))
     assert out["rgb"].shape == (n, 3)
     assert out["depth"].shape == (n,) and out["opacity"].shape == (n,)

@@ -5,10 +5,14 @@ which stays the reference it is tested against). Module paths mirror the
 JAX package's so each counterpart is easy to find; public functions keep
 the JAX layouts (channels-last images, ``(RN, SN, C)`` tokens).
 
-Entry point of this slice: :func:`uforecon_tpu_torch.pipeline.extract.
+Entry point: :func:`uforecon_tpu_torch.pipeline.extract.
 extract_geometry_for_dataset`, which encodes each view set once and
-renders its depth map chunk by chunk through the two hand-written Hopper
-kernels (``ops/fused_point_head.py``, ``ops/fused_ray_head.py``).
+renders its depth map chunk by chunk through hand-written Hopper kernels:
+the point and ray heads (``ops/fused_point_head.py``,
+``ops/fused_ray_head.py``) and, with the render-glue knobs of ``Config``
+on, the grouped cosine, the volume fusion and the ray head's NeuS
+epilogue (``ops/fused_similarity.py``, ``ops/fused_volume_fusion.py``).
+It runs on the CUDA card unless the caller passes ``device="cpu"``.
 
 Importing the package imports neither ``jax`` nor the JAX package and
 builds no kernel: kernels are compiled at their first launch on a CUDA

@@ -13,11 +13,28 @@ here.
 ``coarse_sample`` / ``fine_sample`` are the samples per ray of the
 render; the JAX package reads ``test_sample_*`` in their place when it
 extracts geometry, a choice its CLI makes.
+
+The three render-glue knobs keep the JAX names, values and defaults
+(``never``). In the JAX package ``auto`` means "on a TPU"; in the port
+``auto`` and ``always`` both route to the kernel wrapper, which launches
+the CUDA kernel for CUDA tensors and runs its plain version only for CPU
+tensors:
+  * ``fused_similarity``: the grouped cosine of the explicit-similarity
+    query (``ops/fused_similarity.py``);
+  * ``fused_volume_fusion``: the cross-view fusion of the correlation-
+    volume samples (``ops/fused_volume_fusion.py``);
+  * ``fused_neus_epilogue`` (``auto | never``): the ray head with the NeuS
+    compositing in its epilogue (``ops/fused_ray_head.py ray_head_neus``).
+``FUSED_GLUE`` sets all three on; ``UFORecon.with_knobs(**FUSED_GLUE)``
+gives that route on the same weights.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+FUSED_GLUE = dict(fused_similarity="auto", fused_volume_fusion="auto",
+                  fused_neus_epilogue="auto")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +60,21 @@ class Config:
     fea_volume_dim: int = 24             # 8ch x 3 cascade stages
     cos_n_group: int = 8
 
+    # ---- render-glue kernels (see the module docstring) ----------------
+    fused_similarity: str = "never"      # auto | always | never
+    fused_volume_fusion: str = "never"   # auto | always | never
+    fused_neus_epilogue: str = "never"   # auto | never
+
     def __post_init__(self):
+        allowed = {
+            "fused_similarity": ("auto", "always", "never"),
+            "fused_volume_fusion": ("auto", "always", "never"),
+            "fused_neus_epilogue": ("auto", "never"),
+        }
+        for field, values in allowed.items():
+            v = getattr(self, field)
+            if v not in values:
+                raise ValueError(f"Config.{field}={v!r} not in {values}")
         if len(self.ndepths) != 3:
             raise ValueError(f"the cascade has 3 stages, got ndepths={self.ndepths}")
         if len(self.depth_inter_r) != len(self.ndepths) or \

@@ -16,6 +16,19 @@ extern "C" int ufo_ray_head(const float* y, const float* w, float* srdf,
                             int rn, int sn, void* stream);
 extern "C" int ufo_ray_head_weight_count();
 extern "C" long long ufo_ray_head_smem_bytes(int sn);
+extern "C" int ufo_ray_head_neus(const float* y, const float* w,
+                                 const float* z, const float* rad,
+                                 const float* inv_s, float* srdf, float* weight,
+                                 float* rgb, float* depth, float* opacity,
+                                 int rn, int sn, void* stream);
+extern "C" int ufo_grouped_cosine(const float* x, long long sv, long long sp,
+                                  long long sc, float* out, int nv, int p,
+                                  int c, int g, void* stream);
+extern "C" int ufo_volume_fusion(const float* const* fw, long long sv,
+                                 long long sp, long long sc, float* out,
+                                 int nv, int p, void* stream);
+extern "C" int ufo_volume_fusion_stages();
+extern "C" int ufo_volume_fusion_features();
 extern "C" const char* ufo_error_string(int e);
 
 namespace {
@@ -49,6 +62,47 @@ void ray_head(const at::Tensor& y, const at::Tensor& w, at::Tensor& srdf) {
         "ray_head");
 }
 
+void ray_head_neus(const at::Tensor& y, const at::Tensor& w,
+                   const at::Tensor& z, const at::Tensor& rad,
+                   const at::Tensor& inv_s, at::Tensor& srdf,
+                   at::Tensor& weight, at::Tensor& rgb, at::Tensor& depth,
+                   at::Tensor& opacity) {
+  check(ufo_ray_head_neus(y.data_ptr<float>(), w.data_ptr<float>(),
+                          z.data_ptr<float>(), rad.data_ptr<float>(),
+                          inv_s.data_ptr<float>(), srdf.data_ptr<float>(),
+                          weight.data_ptr<float>(), rgb.data_ptr<float>(),
+                          depth.data_ptr<float>(), opacity.data_ptr<float>(),
+                          static_cast<int>(y.size(0)),
+                          static_cast<int>(y.size(1)),
+                          at::cuda::getCurrentCUDAStream().stream()),
+        "ray_head_neus");
+}
+
+// sampled (NV, P, (NV-1) C) with any strides -> out (P, G)
+void grouped_cosine(const at::Tensor& sampled, at::Tensor& out) {
+  const int nv = static_cast<int>(sampled.size(0));
+  check(ufo_grouped_cosine(sampled.data_ptr<float>(), sampled.stride(0),
+                           sampled.stride(1), sampled.stride(2),
+                           out.data_ptr<float>(), nv,
+                           static_cast<int>(sampled.size(1)),
+                           static_cast<int>(sampled.size(2) / (nv - 1)),
+                           static_cast<int>(out.size(1)),
+                           at::cuda::getCurrentCUDAStream().stream()),
+        "grouped_cosine");
+}
+
+// three (NV, P, 9) stage samples sharing their strides -> out (P, 24)
+void volume_fusion(const at::Tensor& fw0, const at::Tensor& fw1,
+                   const at::Tensor& fw2, at::Tensor& out) {
+  const float* fw[3] = {fw0.data_ptr<float>(), fw1.data_ptr<float>(),
+                        fw2.data_ptr<float>()};
+  check(ufo_volume_fusion(fw, fw0.stride(0), fw0.stride(1), fw0.stride(2),
+                          out.data_ptr<float>(), static_cast<int>(fw0.size(0)),
+                          static_cast<int>(fw0.size(1)),
+                          at::cuda::getCurrentCUDAStream().stream()),
+        "volume_fusion");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -57,4 +111,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ray_head", &ray_head, "fused along-ray SRDF head (csrc/ray_head.cu)");
   m.def("ray_head_weight_count", &ufo_ray_head_weight_count);
   m.def("ray_head_smem_bytes", &ufo_ray_head_smem_bytes);
+  m.def("ray_head_neus", &ray_head_neus,
+        "fused along-ray SRDF head with the NeuS epilogue (csrc/ray_head.cu)");
+  m.def("grouped_cosine", &grouped_cosine,
+        "grouped pairwise cosine (csrc/grouped_cosine.cu)");
+  m.def("volume_fusion", &volume_fusion,
+        "cross-view volume fusion (csrc/volume_fusion.cu)");
+  m.def("volume_fusion_stages", &ufo_volume_fusion_stages);
+  m.def("volume_fusion_features", &ufo_volume_fusion_features);
 }

@@ -19,6 +19,17 @@
 // SN = 128. Attention is taken in kv order (sum_s phi(k_s) v_s^T once,
 // then one 11x11 product per sample and head), so nothing of size SN x SN
 // is formed. Weights (~81k floats) are read through the read-only cache.
+//
+// NeuS epilogue (kNeus = true) replaces ray_head_neus_fused (body
+// _kernel_neus / _neus_epilogue) of the same JAX file: once the ray's SN
+// srdf values are in shared memory, the block composites the ray as
+// ops/rendering.py neus_render does (midpoint intervals, sigmoid CDFs at
+// srdf +- 0.75 interval, clipped alpha, exclusive product of
+// 1 - alpha + 1e-7, weights, rgb / depth / opacity), with z and radiance
+// read from global memory. It reuses the dead hidden-layer buffer (5 * SN
+// of its 176 * SN floats), so the shared-memory size is the ray head's. The
+// product runs serially in one thread, in torch.cumprod's CPU order; the
+// JAX kernel's 0/1 matmuls and log-space cumprod were MXU devices.
 #include "common.cuh"
 
 namespace ufo {
@@ -58,11 +69,82 @@ inline size_t smem_bytes(int sn) {
   return sizeof(float) * ((size_t)sn * (C + C2 + C) + kState);
 }
 
+// NeuS compositing of one ray whose srdf values are in S (shared, SN
+// floats); T is shared scratch of 4 * SN floats. Mirrors neus_render at
+// cos_anneal_ratio 1: next / prev srdf = srdf -/+ 0.75 * interval.
+__device__ void neus_epilogue(const float* S, float* T, int SN,
+                              const float* __restrict__ z,    // (SN,)
+                              const float* __restrict__ rad,  // (SN, 3)
+                              float inv_s, float* __restrict__ weight,
+                              float* __restrict__ rgb, float* __restrict__ depth,
+                              float* __restrict__ opacity) {
+  float* Z = T;               // z
+  float* F = T + SN;          // alpha, later 1 - alpha + 1e-7
+  float* TR = T + 2 * SN;     // exclusive product (transmittance)
+  float* WT = T + 3 * SN;     // weight
+  const int tid = threadIdx.x;
+  for (int s = tid; s < SN; s += blockDim.x) Z[s] = z[s];
+  __syncthreads();
+  for (int s = tid; s < SN; s += blockDim.x) {
+    // neus_render pads the SN - 1 intervals with their first and last and
+    // averages neighbours: mid[s] = (iv[max(s-1, 0)] + iv[min(s, SN-2)]) / 2
+    const int j0 = s > 0 ? s - 1 : 0;
+    const int j1 = s < SN - 2 ? s : SN - 2;
+    const float mid = ((Z[j0 + 1] - Z[j0]) + (Z[j1 + 1] - Z[j1])) * 0.5f;
+    const float half = (-1.5f * mid) * 0.5f;   // iter_cos * interval * 0.5
+    const float next_cdf = 1.f / (1.f + expf(-((S[s] + half) * inv_s)));
+    const float prev_cdf = 1.f / (1.f + expf(-((S[s] - half) * inv_s)));
+    const float a = fminf(fmaxf(((prev_cdf - next_cdf) + 1e-5f) / (prev_cdf + 1e-5f),
+                                0.f), 1.f);
+    WT[s] = a;
+    F[s] = (1.f - a) + 1e-7f;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float t = 1.f;
+    for (int s = 0; s < SN; ++s) {
+      TR[s] = t;
+      t *= F[s];
+    }
+  }
+  __syncthreads();
+  for (int s = tid; s < SN; s += blockDim.x) {
+    WT[s] *= TR[s];
+    weight[s] = WT[s];
+  }
+  __syncthreads();
+  // five sums over the samples, one warp each: rgb (3), depth, opacity
+  const int wid = tid >> 5, lane = tid & 31;
+  if (wid < 5) {
+    float acc = 0.f;
+    for (int s = lane; s < SN; s += 32)
+      acc += WT[s] * (wid < 3 ? __ldg(rad + s * 3 + wid) : wid == 3 ? Z[s] : 1.f);
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      if (wid < 3) rgb[wid] = acc;
+      else if (wid == 3) *depth = acc;
+      else *opacity = acc;
+    }
+  }
+}
+
+// Outputs of the NeuS epilogue, all null when kNeus is false.
+struct NeusArgs {
+  const float* z;      // (RN, SN)
+  const float* rad;    // (RN, SN, 3)
+  const float* inv_s;  // () on the device, clamped here to [1e-6, 1e6]
+  float* weight;       // (RN, SN)
+  float* rgb;          // (RN, 3)
+  float* depth;        // (RN,)
+  float* opacity;      // (RN,)
+};
+
+template <bool kNeus>
 __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
     const float* __restrict__ y,   // (RN, SN, C)
     const float* __restrict__ W,   // packed weights, N_W floats
     float* __restrict__ srdf,      // (RN, SN)
-    int SN) {
+    int SN, NeusArgs nz) {
   extern __shared__ float smem[];
   float* X = smem;                 // SN x C   tokens, later the layer output
   float* A = X + SN * C;           // SN x 2C  keys -> queries/attention -> mlp1
@@ -147,8 +229,34 @@ __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
   __syncthreads();
   block_linear<4>(A, D0, D0, W + O_DW1, W + O_DB1, B, D1, SN, D1, true);
   __syncthreads();
-  block_linear<4>(B, D1, D1, W + O_DW2, W + O_DB2,
-                  srdf + (size_t)blockIdx.x * SN, 1, SN, 1, false);
+  const size_t r = blockIdx.x;
+  if (!kNeus) {
+    block_linear<4>(B, D1, D1, W + O_DW2, W + O_DB2, srdf + r * SN, 1, SN, 1,
+                    false);
+    return;
+  }
+  // srdf -> A[0, SN) (the hidden layer is dead); A[SN, 5 SN) is scratch
+  block_linear<4>(B, D1, D1, W + O_DW2, W + O_DB2, A, 1, SN, 1, false);
+  __syncthreads();
+  for (int s = tid; s < SN; s += blockDim.x) srdf[r * SN + s] = A[s];
+  const float inv_s = fminf(fmaxf(__ldg(nz.inv_s), 1e-6f), 1e6f);
+  neus_epilogue(A, A + SN, SN, nz.z + r * SN, nz.rad + r * SN * 3, inv_s,
+                nz.weight + r * SN, nz.rgb + r * 3, nz.depth + r, nz.opacity + r);
+}
+
+template <bool kNeus>
+int launch(const float* y, const float* w, float* srdf, int rn, int sn,
+           NeusArgs nz, void* stream) {
+  if (rn <= 0) return 0;
+  if (sn <= 0 || sn % 4) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(sn);
+  cudaError_t e = cudaFuncSetAttribute(
+      ray_head_kernel<kNeus>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  ray_head_kernel<kNeus><<<rn, kRayThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(y, w, srdf, sn, nz);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace rh
@@ -163,14 +271,16 @@ extern "C" long long ufo_ray_head_smem_bytes(int sn) {
 // Returns a cudaError_t value (0 on success). sn must be a multiple of 4.
 extern "C" int ufo_ray_head(const float* y, const float* w, float* srdf,
                             int rn, int sn, void* stream) {
-  using namespace ufo::rh;
-  if (rn <= 0) return 0;
-  if (sn <= 0 || sn % 4) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(sn);
-  cudaError_t e = cudaFuncSetAttribute(
-      ray_head_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  ray_head_kernel<<<rn, kRayThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      y, w, srdf, sn);
-  return (int)cudaGetLastError();
+  return ufo::rh::launch<false>(y, w, srdf, rn, sn, ufo::rh::NeusArgs{}, stream);
+}
+
+// The ray head with the NeuS epilogue; the same return and sn rule.
+extern "C" int ufo_ray_head_neus(const float* y, const float* w,
+                                 const float* z, const float* rad,
+                                 const float* inv_s, float* srdf, float* weight,
+                                 float* rgb, float* depth, float* opacity,
+                                 int rn, int sn, void* stream) {
+  return ufo::rh::launch<true>(
+      y, w, srdf, rn, sn,
+      ufo::rh::NeusArgs{z, rad, inv_s, weight, rgb, depth, opacity}, stream);
 }

@@ -13,10 +13,14 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..device import DEFAULT, resolve_device
 from ..models.uforecon import SceneInputs
 
 
-def scene_inputs_from_sample(sample: Dict, device="cpu") -> Tuple[SceneInputs, Dict]:
+def scene_inputs_from_sample(sample: Dict, device=DEFAULT) -> Tuple[SceneInputs, Dict]:
+    """Scene tensors on ``device`` (the card unless the caller asks for the
+    CPU) and the host-side render extras."""
+    device = resolve_device(device)
     s_idx = int(sample.get("start_idx", 1))
 
     def t(x):

@@ -14,6 +14,11 @@ gate (``_fused_ok``) routes to its fused kernels, so ``per_point`` and
 ``ops/fused_point_head.py`` and ``ops/fused_ray_head.py``: the CUDA
 kernels on CUDA tensors, their plain versions on CPU tensors. The
 submodules hold the weights under their flax names.
+
+``fused`` of ``query_similarity`` / ``query_correlation_volume`` takes the
+Config knob's values: ``auto`` and ``always`` route the query's tail to the
+kernel wrapper (``ops/fused_similarity.py``, ``ops/fused_volume_fusion.py``),
+``never`` to its plain version.
 """
 from __future__ import annotations
 
@@ -24,7 +29,9 @@ import torch.nn as nn
 
 from ..ops.camera import project_points_ndc
 from ..ops.fused_point_head import PointHeadInputs, PointHeadParams, point_head
-from ..ops.fused_ray_head import RayHeadParams, ray_head
+from ..ops.fused_ray_head import RayHeadParams, ray_head, ray_head_neus
+from ..ops.fused_similarity import grouped_cosine, grouped_cosine_reference, view_pairs
+from ..ops.fused_volume_fusion import volume_fusion, volume_fusion_reference
 from ..ops.grid_sample import grid_sample_2d, grid_sample_3d, in_bounds_mask
 from ..ops.posenc import order_posenc
 from .attention import LocalFeatureTransformer
@@ -36,6 +43,7 @@ def query_correlation_volume(
     source_poses: torch.Tensor,           # (NV, 4, 4) NDC projections
     volumes: Dict[str, torch.Tensor],     # stage -> (NV, 9, D, h, w) feat||weight
     near_far: Tuple[torch.Tensor, torch.Tensor],
+    fused: str = "never",
 ) -> torch.Tensor:
     """Weighted cross-view fusion of the per-stage frustum features
     (reference model.py:350-390): G = sum_n f_n w_n / sum_n w_n, with the
@@ -43,49 +51,25 @@ def query_correlation_volume(
     _, xyz, _ = project_points_ndc(source_poses, points, near_far=near_far)
     fws = [grid_sample_3d(vol, xyz, align_corners=True, padding_mode="zeros")
            for vol in volumes.values()]                       # (NV, RN, SN, 9)
-    feats = torch.cat([fw[..., :-1] for fw in fws], dim=-1)
-    weight_sum = 0.0
-    for fw in fws:
-        weight_sum = weight_sum + fw[..., -1:]
-    g = torch.sum(feats * weight_sum, dim=0)
-    w_all = torch.sum(weight_sum, dim=0)
-    return g / (w_all + 1e-8)
+    if fused == "never":
+        return volume_fusion_reference(fws)
+    nv, lead = fws[0].shape[0], fws[0].shape[1:-1]
+    # views of the sampler's channel-first output: the kernel reads them
+    # without a copy
+    flat = [fw.reshape(nv, -1, fw.shape[-1]) for fw in fws]
+    return volume_fusion(*flat).reshape(*lead, -1)
 
 
 def build_pair_maps(aug0: torch.Tensor, aug1: torch.Tensor, n_views: int,
-                    pair_quirk: bool = True):
-    """Per-view channel concat of every pair map the view takes part in.
-    Returns (merged (NV, h, w, (NV-1)C), slots, pairs)."""
-    pairs = [(a, b) for a in range(n_views - 1) for b in range(a + 1, n_views)]
-    slots = [[] for _ in range(n_views)]
+                    pair_quirk: bool = True) -> torch.Tensor:
+    """Per-view channel concat of every pair map the view takes part in, in
+    pair order (the slots of ``ops/fused_similarity.pair_slots``). Returns
+    (NV, h, w, (NV-1)C)."""
     maps = [[] for _ in range(n_views)]
-    for p, (i, j) in enumerate(pairs):
-        slots[i].append((0, p))
+    for p, (i, j) in enumerate(view_pairs(n_views)):
         maps[i].append(aug0[p])
-        slots[j].append((1, p))
         maps[j].append(aug0[p] if pair_quirk else aug1[p])
-    merged = torch.stack([torch.cat(m, dim=-1) for m in maps])
-    return merged, slots, pairs
-
-
-def _pair_cosines(sampled, slots, pairs, c, n_groups):
-    """Grouped cosine of each pair's two samples (eps 1e-8 on the norm
-    product, torch CosineSimilarity), averaged over pairs."""
-    lead = sampled.shape[1:-1]
-
-    def view_slot(v, key):
-        k = slots[v].index(key)
-        return sampled[v, ..., k * c:(k + 1) * c]
-
-    cos_all = []
-    for p, (i, j) in enumerate(pairs):
-        gi = view_slot(i, (0, p)).reshape(*lead, n_groups, c // n_groups)
-        gj = view_slot(j, (1, p)).reshape(*lead, n_groups, c // n_groups)
-        dot = torch.sum(gi * gj, dim=-1)
-        ni = torch.sqrt(torch.sum(gi * gi, dim=-1))
-        nj = torch.sqrt(torch.sum(gj * gj, dim=-1))
-        cos_all.append(dot / torch.clamp(ni * nj, min=1e-8))
-    return torch.mean(torch.stack(cos_all), dim=0)
+    return torch.stack([torch.cat(m, dim=-1) for m in maps])
 
 
 def query_similarity(
@@ -96,6 +80,7 @@ def query_similarity(
     n_views: int,
     n_groups: int = 8,
     pair_quirk: bool = True,
+    fused: str = "never",
 ):
     """Explicit pairwise feature similarity (reference model.py:218-305).
 
@@ -110,9 +95,13 @@ def query_similarity(
     if n_views < 2:
         raise ValueError(f"explicit similarity needs >= 2 views, got {n_views}")
     xy, _, valid = project_points_ndc(source_poses, points)
-    merged, slots, pairs = build_pair_maps(aug0, aug1, n_views, pair_quirk)
+    merged = build_pair_maps(aug0, aug1, n_views, pair_quirk)
     sampled = grid_sample_2d(merged, xy, align_corners=True, padding_mode="border")
-    feat = _pair_cosines(sampled, slots, pairs, aug0.shape[-1], n_groups)
+    # a view of the sampler's channel-first output: the kernel reads it
+    # without a copy
+    flat = sampled.reshape(n_views, -1, sampled.shape[-1])
+    cosine = grouped_cosine_reference if fused == "never" else grouped_cosine
+    feat = cosine(flat, n_groups).reshape(*sampled.shape[1:-1], n_groups)
     return feat, xy, valid
 
 
@@ -216,10 +205,25 @@ class RayTransformer(nn.Module):
             norm2_scale=lv.norm2.weight, norm2_bias=lv.norm2.bias,
             dens_w=tuple(d.weight for d in dp), dens_b=tuple(d.bias for d in dp))
 
-    def along_ray(self, token: torch.Tensor) -> torch.Tensor:
-        """Ray transformer over a z-sorted (RN, SN, C) sequence -> SRDF
-        (RN, SN). The order PE indexes position in the sorted sequence."""
+    def _ray_input(self, token: torch.Tensor) -> torch.Tensor:
+        """(RN, SN, C) tokens || the order PE, which indexes position in the
+        sorted sequence."""
         rn, sn, _ = token.shape
         pe = torch.as_tensor(order_posenc(self.pe_d_hid, sn), device=token.device)
-        y = torch.cat([token, pe.to(token.dtype)[None].expand(rn, sn, -1)], dim=-1)
-        return ray_head(y, self.ray_head_params(), self.n_heads)
+        return torch.cat([token, pe.to(token.dtype)[None].expand(rn, sn, -1)], dim=-1)
+
+    def along_ray(self, token: torch.Tensor) -> torch.Tensor:
+        """Ray transformer over a z-sorted (RN, SN, C) sequence -> SRDF
+        (RN, SN)."""
+        return ray_head(self._ray_input(token), self.ray_head_params(), self.n_heads)
+
+    def along_ray_neus(self, token: torch.Tensor, z_val: torch.Tensor,
+                       radiance: torch.Tensor, inv_s: torch.Tensor
+                       ) -> Dict[str, torch.Tensor]:
+        """``along_ray`` + NeuS compositing through the epilogue kernel
+        (``ray_head_neus``). Returns the ``neus_render`` dict plus ``srdf``."""
+        srdf, weight, rgb, depth, opacity = ray_head_neus(
+            self._ray_input(token), z_val, radiance, inv_s,
+            self.ray_head_params(), self.n_heads)
+        return {"rgb": rgb, "depth": depth, "opacity": opacity, "weight": weight,
+                "variance": 1.0 / inv_s, "srdf": srdf}

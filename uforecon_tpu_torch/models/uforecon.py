@@ -8,6 +8,8 @@ sigmoid weight), f32 gather sources, f32 kernel math.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Dict, NamedTuple, Optional
 
 import torch
@@ -66,6 +68,13 @@ class UFORecon(nn.Module):
         self.variance = nn.Parameter(torch.tensor(0.3))
         self.eval()
 
+    def with_knobs(self, **knobs) -> "UFORecon":
+        """A shallow copy sharing this model's modules and weights, with
+        those ``cfg`` fields replaced (e.g. ``**config.FUSED_GLUE``)."""
+        other = copy.copy(self)
+        other.cfg = dataclasses.replace(self.cfg, **knobs)
+        return other
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def encode(self, scene: SceneInputs) -> EncoderOutputs:
@@ -94,9 +103,11 @@ class UFORecon(nn.Module):
         nv = scene.source_imgs.shape[0]
         sim_feat, xy, valid = query_similarity(
             points, scene.source_poses, enc.aug0, enc.aug1, nv,
-            n_groups=c.cos_n_group, pair_quirk=c.sim_pair_quirk)
+            n_groups=c.cos_n_group, pair_quirk=c.sim_pair_quirk,
+            fused=c.fused_similarity)
         fea_volume_feat = query_correlation_volume(
-            points, scene.source_poses, enc.volumes, (scene.near, scene.far))
+            points, scene.source_poses, enc.volumes, (scene.near, scene.far),
+            fused=c.fused_volume_fusion)
         return self.ray_transformer.per_point(
             points=points, source_imgs=scene.source_imgs,
             source_feats=enc.source_feats, ref_cam_pos=scene.ref_cam_pos,
@@ -106,8 +117,12 @@ class UFORecon(nn.Module):
 
     def _render_sequence(self, z_val: torch.Tensor,
                          pp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Ray transformer -> SRDF -> NeuS compositing (model.py:332-348)."""
+        """Ray transformer -> SRDF -> NeuS compositing (model.py:332-348),
+        in one kernel when ``fused_neus_epilogue`` is 'auto'."""
         inv_s = torch.exp(self.variance * 10.0)
+        if self.cfg.fused_neus_epilogue == "auto":
+            return self.ray_transformer.along_ray_neus(
+                pp["token"], z_val, pp["radiance"], inv_s)
         srdf = self.ray_transformer.along_ray(pp["token"])
         out = neus_render(z_val, pp["radiance"], srdf, inv_s)
         out["srdf"] = srdf

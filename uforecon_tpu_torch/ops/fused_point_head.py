@@ -167,27 +167,15 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams,
     return token, rad
 
 
-class _PointHeadFn(torch.autograd.Function):
-    """CUDA kernel forward; backward through the plain version."""
+def _split(tensors):
+    return PointHeadInputs(*tensors[:7]), _unflat_params(tensors[7:])
 
-    @staticmethod
-    def forward(ctx, n_heads, *tensors):
-        ctx.n_heads = n_heads
-        ctx.save_for_backward(*tensors)
-        return _launch(PointHeadInputs(*tensors[:7]),
-                       _unflat_params(tensors[7:]), n_heads)
 
-    @staticmethod
-    def backward(ctx, g_token, g_rad):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            xs = [t.detach().requires_grad_(t.requires_grad) for t in saved]
-            token, rad = point_head_reference(
-                PointHeadInputs(*xs[:7]), _unflat_params(xs[7:]), ctx.n_heads)
-            need = [x for x in xs if x.requires_grad]
-            grads = iter(torch.autograd.grad((token, rad), need, (g_token, g_rad),
-                                             allow_unused=True))
-        return (None, *[next(grads) if x.requires_grad else None for x in xs])
+# _point_head_fn(n_heads, *inputs, *params): CUDA kernel forward, backward
+# through the plain version
+_point_head_fn = cuda_build.kernel_function(
+    lambda n_heads, *ts: _launch(*_split(ts), n_heads),
+    lambda n_heads, *ts: point_head_reference(*_split(ts), n_heads))
 
 
 def point_head(inp: PointHeadInputs, p: PointHeadParams,
@@ -196,7 +184,7 @@ def point_head(inp: PointHeadInputs, p: PointHeadParams,
     version for CPU tensors. Returns (token (P, C), radiance (P, 3))."""
     if not inp.img_feat.is_cuda:
         return point_head_reference(inp, p, n_heads)
-    return _PointHeadFn.apply(n_heads, *inp, *_flat_params(p))
+    return _point_head_fn(n_heads, *inp, *_flat_params(p))
 
 
 point_head.launches = 0

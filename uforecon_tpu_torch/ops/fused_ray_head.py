@@ -13,10 +13,15 @@ tokens, the SN x 176 hidden layer and the per-ray linear-attention state
 exists) in shared memory, and reads the ~81k weights through the
 read-only cache.
 
-``ray_head`` takes the plain version for CPU tensors only. For CUDA
-tensors it launches the kernel or raises, inside an autograd Function
-whose backward differentiates the plain version (the JAX ``_rh_bwd``
-pattern). ``ray_head.launches`` counts kernel launches.
+``ray_head_neus`` is the same kernel with NeuS compositing in its epilogue
+(the JAX ``ray_head_neus_fused``): it also returns the weights and each
+ray's rgb, depth and opacity, as ``ops/rendering.neus_render`` does.
+
+``ray_head`` and ``ray_head_neus`` take the plain version for CPU tensors
+only. For CUDA tensors they launch the kernel or raise, inside an autograd
+Function whose backward differentiates the plain version (the JAX
+``_rh_bwd`` / ``_rhn_bwd`` pattern). ``ray_head.launches`` and
+``ray_head_neus.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .rendering import neus_render
 
 EPS = 1e-6      # linear attention denominator
 LN_EPS = 1e-6   # flax LayerNorm epsilon
@@ -91,14 +97,16 @@ def pack_weights(p: RayHeadParams) -> torch.Tensor:
     return torch.cat([t.detach().float().reshape(-1) for t in parts])
 
 
-def _launch(y: torch.Tensor, p: RayHeadParams, n_heads: int) -> torch.Tensor:
+def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, *extra: torch.Tensor):
+    """Checks what the kernel takes; returns the extension and the weight
+    pack."""
     rn, sn, c = y.shape
     if c != _KERNEL_C or n_heads != _KERNEL_HEADS or sn % 4:
         raise ValueError(f"ray_head kernel takes C={_KERNEL_C}, "
                          f"{_KERNEL_HEADS} heads and SN % 4 == 0, got C={c}, "
                          f"{n_heads} heads, SN={sn}")
     dev = y.device
-    for t in [y] + _flat_params(p):
+    for t in [y, *extra] + _flat_params(p):
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError("ray_head kernel takes float32 tensors on one "
                              f"CUDA device, got {t.dtype} on {t.device}")
@@ -113,32 +121,25 @@ def _launch(y: torch.Tensor, p: RayHeadParams, n_heads: int) -> torch.Tensor:
     w = pack_weights(p)
     if w.numel() != ext.ray_head_weight_count():
         raise ValueError("ray_head weight pack does not match the kernel")
+    return ext, w
+
+
+def _launch(y: torch.Tensor, p: RayHeadParams, n_heads: int) -> torch.Tensor:
+    ext, w = _prepare(y, p, n_heads)
+    rn, sn, _ = y.shape
     y = y.contiguous()
-    srdf = torch.empty(rn, sn, device=dev, dtype=torch.float32)
-    with torch.cuda.device(dev):
+    srdf = torch.empty(rn, sn, device=y.device, dtype=torch.float32)
+    with torch.cuda.device(y.device):
         ext.ray_head(y, w, srdf)
     ray_head.launches += 1
     return srdf
 
 
-class _RayHeadFn(torch.autograd.Function):
-    """CUDA kernel forward; backward through the plain version."""
-
-    @staticmethod
-    def forward(ctx, n_heads, y, *params):
-        ctx.n_heads = n_heads
-        ctx.save_for_backward(y, *params)
-        return _launch(y, _unflat_params(params), n_heads)
-
-    @staticmethod
-    def backward(ctx, g):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            xs = [t.detach().requires_grad_(t.requires_grad) for t in saved]
-            srdf = ray_head_reference(xs[0], _unflat_params(xs[1:]), ctx.n_heads)
-            need = [x for x in xs if x.requires_grad]
-            grads = iter(torch.autograd.grad(srdf, need, g, allow_unused=True))
-        return (None, *[next(grads) if x.requires_grad else None for x in xs])
+# _ray_head_fn(n_heads, y, *params): CUDA kernel forward, backward through
+# the plain version
+_ray_head_fn = cuda_build.kernel_function(
+    lambda n_heads, y, *ps: _launch(y, _unflat_params(ps), n_heads),
+    lambda n_heads, y, *ps: ray_head_reference(y, _unflat_params(ps), n_heads))
 
 
 def ray_head(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8) -> torch.Tensor:
@@ -146,7 +147,67 @@ def ray_head(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8) -> torch.Tenso
     version for CPU tensors. y (RN, SN, C) -> srdf (RN, SN)."""
     if not y.is_cuda:
         return ray_head_reference(y, p, n_heads)
-    return _RayHeadFn.apply(n_heads, y, *_flat_params(p))
+    return _ray_head_fn(n_heads, y, *_flat_params(p))
 
 
 ray_head.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The ray head with NeuS compositing in its epilogue (the JAX
+# ``ray_head_neus_fused``): the same kernel, templated, composites each ray
+# from its srdf in shared memory, in place of the elementwise and scan
+# launches of ``neus_render``.
+
+
+def ray_head_neus_reference(y: torch.Tensor, z: torch.Tensor, rad: torch.Tensor,
+                            inv_s: torch.Tensor, p: RayHeadParams,
+                            n_heads: int = 8):
+    """Plain PyTorch forward, mirroring the JAX ``ray_head_neus_reference``:
+    ``ray_head_reference`` followed by ``ops/rendering.neus_render``.
+    y (RN, SN, C), z (RN, SN), rad (RN, SN, 3), inv_s () -> srdf (RN, SN),
+    weight (RN, SN), rgb (RN, 3), depth (RN,), opacity (RN,)."""
+    srdf = ray_head_reference(y, p, n_heads)
+    out = neus_render(z, rad, srdf, inv_s)
+    return srdf, out["weight"], out["rgb"], out["depth"], out["opacity"]
+
+
+def _launch_neus(y, z, rad, inv_s, p: RayHeadParams, n_heads: int):
+    rn, sn, _ = y.shape
+    if tuple(z.shape) != (rn, sn) or tuple(rad.shape) != (rn, sn, 3) \
+            or inv_s.numel() != 1:
+        raise ValueError(f"ray_head_neus kernel takes z (RN, SN), rad (RN, SN, 3) "
+                         f"and a scalar inv_s for y (RN, SN, C) = "
+                         f"{tuple(y.shape)}, got {tuple(z.shape)}, "
+                         f"{tuple(rad.shape)}, {tuple(inv_s.shape)}")
+    ext, w = _prepare(y, p, n_heads, z, rad, inv_s)
+    dev = y.device
+    outs = [torch.empty(shape, device=dev, dtype=torch.float32)
+            for shape in ((rn, sn), (rn, sn), (rn, 3), (rn,), (rn,))]
+    with torch.cuda.device(dev):
+        ext.ray_head_neus(y.contiguous(), w, z.contiguous(), rad.contiguous(),
+                          inv_s.contiguous(), *outs)
+    ray_head_neus.launches += 1
+    return tuple(outs)
+
+
+# _ray_head_neus_fn(n_heads, y, z, rad, inv_s, *params): CUDA kernel
+# forward, backward through the plain version
+_ray_head_neus_fn = cuda_build.kernel_function(
+    lambda n_heads, y, z, rad, inv_s, *ps: _launch_neus(
+        y, z, rad, inv_s, _unflat_params(ps), n_heads),
+    lambda n_heads, y, z, rad, inv_s, *ps: ray_head_neus_reference(
+        y, z, rad, inv_s, _unflat_params(ps), n_heads))
+
+
+def ray_head_neus(y: torch.Tensor, z: torch.Tensor, rad: torch.Tensor,
+                  inv_s: torch.Tensor, p: RayHeadParams, n_heads: int = 8):
+    """Along-ray SRDF head + NeuS compositing: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. Returns (srdf, weight, rgb,
+    depth, opacity)."""
+    if not y.is_cuda:
+        return ray_head_neus_reference(y, z, rad, inv_s, p, n_heads)
+    return _ray_head_neus_fn(n_heads, y, z, rad, inv_s, *_flat_params(p))
+
+
+ray_head_neus.launches = 0

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..data.convert import scene_inputs_from_sample
+from ..device import DEFAULT
 from ..models.uforecon import UFORecon
 from .renderer import SceneRenderer
 
@@ -53,10 +54,11 @@ def _sync(device: torch.device) -> None:
 
 def extract_geometry_for_dataset(model: UFORecon, dataset,
                                  out_dir: Optional[str] = None,
-                                 device="cpu", seed: int = 0,
+                                 device=DEFAULT, seed: int = 0,
                                  previews: bool = True) -> Dict[str, float]:
     """Render all views of one per-scan dataset (any list-like of
-    reference-format sample dicts) and write the depth layout.
+    reference-format sample dicts) and write the depth layout, on the card
+    unless the caller asks for ``device="cpu"``; without a card it raises.
 
     Returns the view and ray counts, the encode and render seconds summed
     over views (host clock, each ending in a device synchronise) and

@@ -13,15 +13,17 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..device import DEFAULT, resolve_device
 from ..models.uforecon import EncoderOutputs, SceneInputs, UFORecon
 
 
 class SceneRenderer:
-    """Holds the model, its device and the ray-chunk size."""
+    """Holds the model, its device (the card unless the caller asks for the
+    CPU) and the ray-chunk size."""
 
-    def __init__(self, model: UFORecon, device="cpu", chunk: Optional[int] = None):
+    def __init__(self, model: UFORecon, device=DEFAULT, chunk: Optional[int] = None):
         self.model = model
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # the JAX exact path's chunk rule (1024 rays, or the configured
         # test_ray_num rounded up to 256)
         self.chunk = chunk or max(1024, int(np.ceil(model.cfg.test_ray_num / 256)) * 256)
