@@ -7,23 +7,31 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
 (``nvcc``), ``ninja`` and no network. In order it:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the port's CUDA kernels from ``uforecon_tpu_torch/csrc``;
-  3. kernel phase: each of the five kernels against its plain PyTorch
-     version on the card at main-path shapes, with max abs errors,
+  3. kernel phase: each of the seven kernels against its plain PyTorch
+     version on the card at main-path shapes (the ray head and its NeuS
+     variant at both token widths, 88 and 72), with max abs errors,
      CUDA-event times (median of several runs) of kernel and plain version,
      and the bound (the least time the card could take for the work);
-  4. slice phase: ``extract_geometry_for_dataset`` twice on one DTU-scale
-     view (800x640, 3 views, 192 hypotheses, 64 + 64 samples, seeded
-     random weights), with the render-glue knobs off and then on,
+  4. slice phase: ``extract_geometry_for_dataset`` on one DTU-scale view
+     (800x640, 3 views, 192 hypotheses, 64 + 64 samples, seeded random
+     weights) by four routes: the default (knobs off), the render-glue
+     knobs on, route A (``fused_point_head='never'``: the view transformer
+     and the tiny-attention kernel, same weights) and route B (the
+     ablation without explicit similarity, its own seeded weights),
      checking each depth map written to disk and which kernels each run
      launched; then, for each route, that a small ray chunk of the same
      scene agrees with the plain versions run on the CPU;
-  5. profile phase: 8 render chunks of 1024 rays per route under
-     ``torch.profiler``: device operations, device ms and the device's busy
-     share per chunk, and the operations the knobs-on route removes;
-  6. A/B phase: AB_ROUNDS rounds of warm full views in the order off, on,
+  5. gradient phase: one backward through route A's per-point stage of a
+     256-ray coarse chunk, through the tiny-attention backward kernel,
+     against the same backward on the CPU;
+  6. profile phase: 8 render chunks of 1024 rays per route (off, on, A)
+     under ``torch.profiler``: device operations, device ms and the
+     device's busy share per chunk, and the operations the knobs-on route
+     removes;
+  7. A/B phase: AB_ROUNDS rounds of warm full views in the order off, on,
      on, off on one encoding (rays/s per view, SM clock and power read
      after each);
-  7. prints a JSON line of per-kernel results, then the final
+  8. prints a JSON line of per-kernel results, then the final
      ``{"ok": true, "device": {...}}`` line.
 Any failure exits non-zero without printing a result; without a CUDA card
 it exits 1 at once.
@@ -46,9 +54,13 @@ SEED = 0
 # the CPU parity tests); volume fusion 0 (the same roundings in the same
 # order). NeuS weight, rgb and opacity are also held relative where they
 # reach 1e-2, on inputs where compositing matters: measured 3.3e-5 (6x
-# margin)
+# margin). The tiny attention is held as the JAX package holds its kernel:
+# rtol = atol = 2e-5 forward, 3e-4 on the gradients; route A's per-point
+# gradients on the card and on the CPU to 1e-3 of each weight's largest
+# gradient (sums over 16,384 points in another order)
 TOL = {"token": 2e-5, "radiance": 2e-6, "srdf": 2e-5,
-       "cosine": 1e-6, "fusion": 1e-6, "neus": 2e-5, "neus_rel": 2e-4}
+       "cosine": 1e-6, "fusion": 1e-6, "neus": 2e-5, "neus_rel": 2e-4,
+       "attention": 2e-5, "attention_grad": 3e-4, "route_grad_rel": 1e-3}
 NEUS_OUT = ("srdf", "weight", "rgb", "depth", "opacity")
 # warm views per route in the A/B phase: 2 x AB_ROUNDS
 AB_ROUNDS = 2
@@ -68,10 +80,21 @@ KERNEL_SOURCES = {
                       f"{JAX_PACKAGE}/ops/fused_volume_fusion.py:62"),
     "ray_head_neus": (f"{PORT}/csrc/ray_head.cu",
                       f"{JAX_PACKAGE}/ops/fused_ray_head.py:332"),
+    "tiny_attention": (f"{PORT}/csrc/tiny_attention.cu",
+                       f"{JAX_PACKAGE}/ops/pallas_attention.py:190"),
+    "tiny_attention_bwd": (f"{PORT}/csrc/tiny_attention.cu",
+                           f"{JAX_PACKAGE}/ops/pallas_attention.py:147"),
 }
-# the route each kernel belongs to: its launches are read from that run
+# the run each kernel belongs to: its launches are read from that run
 ROUTE = {"point_head": "off", "ray_head": "off", "grouped_cosine": "on",
-         "volume_fusion": "on", "ray_head_neus": "on"}
+         "volume_fusion": "on", "ray_head_neus": "on", "tiny_attention": "A",
+         "tiny_attention_bwd": "grad"}
+# the kernels each run must launch; every other kernel must stay idle
+MUST_RUN = {"off": ("point_head", "ray_head"),
+            "on": ("point_head", "grouped_cosine", "volume_fusion", "ray_head_neus"),
+            "A": ("tiny_attention", "ray_head"),
+            "B": ("tiny_attention", "ray_head"),
+            "grad": ("tiny_attention", "tiny_attention_bwd")}
 # H100 SXM data sheet at 700 W: FP32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -130,6 +153,17 @@ def point_head_flops(nv, p, c=80):
     return p * (sim + tokens * per_token + attn + nv * rad)
 
 
+def attention_flops(b, l, s, h, d, m, backward=False):
+    """FP32 operations of the tiny attention per launch: per (point, head)
+    phi of q and k, L x S scores, denominators and weighted sums, the
+    divisions; the backward recomputes those and adds ds, dv, dq and dk."""
+    fwd = (l + s) * d + 2 * l * s * (d + m) + l * s + l * m
+    if not backward:
+        return b * h * fwd
+    return b * h * (fwd + l * s * (3 * m + 2) + 2 * l * s * (m + 2 * d)
+                    + 2 * (l + s) * d)
+
+
 def ray_head_flops(rn, sn, c=88, heads=8, neus=False):
     """Multiply-adds x 2 of the ray head per launch: q/k/v/merge, the
     2C -> 2C -> C MLP, the density MLP and the kv-order attention per
@@ -158,14 +192,16 @@ def neus_check(got, want):
     return in_regime, regime, size, rel
 
 
-def kernel_phase(model, card):
-    """Each kernel vs its plain version on the card at main-path shapes."""
+def kernel_phase(model, model_b, card):
+    """Each kernel vs its plain version on the card at main-path shapes;
+    model_b is route B's model (ray-head width 72)."""
     import torch
 
     from uforecon_tpu_torch.ops import fused_point_head as fph
     from uforecon_tpu_torch.ops import fused_ray_head as frh
     from uforecon_tpu_torch.ops import fused_similarity as fsim
     from uforecon_tpu_torch.ops import fused_volume_fusion as fvf
+    from uforecon_tpu_torch.ops import tiny_attention as fta
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -217,68 +253,75 @@ def kernel_phase(model, card):
 
     # ray head, with and without the NeuS epilogue: one render chunk
     # launches it once at SN 64 (coarse) and once at SN 128 (fine), so the
-    # per-chunk figures are the sums over the two. At these weights a part
-    # of the random tokens' srdf is negative, so compositing matters;
-    # neus_check fails the run where it does not
-    rparams = rt.ray_head_params()
-    w_pack = frh.pack_weights(rparams)
-    inv_s = torch.exp(model.variance.detach() * 10.0)
+    # per-chunk figures are the sums over the two; at width 88 (the
+    # default's weights) and 72 (route B's). At these weights a part of the
+    # random tokens' srdf is negative, so compositing matters; neus_check
+    # fails the run where it does not
     near, far = 425.0 / 300.0, 900.0 / 300.0
-    for name in ("ray_head", "ray_head_neus"):
+
+    def ray_head_case(name, m, c, sn):
+        """One launch of the ray head (or its NeuS variant) at width c and
+        SN samples on m's weights, against its plain version."""
         neus = name == "ray_head_neus"
         tol = TOL["neus" if neus else "srdf"]
-        errs, by_sn = [], {}
-        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-        for sn in (64, 128):
-            y = randn(1024, sn, 88)
-            if neus:
-                z = near + (far - near) * torch.sort(rand(1024, sn), dim=1).values
-                rad3 = rand(1024, sn, 3)
-                args = (y, z, rad3, inv_s)
-                kern, plain = frh.ray_head_neus, frh.ray_head_neus_reference
-            else:
-                args = (y,)
-                kern, plain = frh.ray_head, frh.ray_head_reference
-            with torch.no_grad():
-                got = kern(*args, rparams)
-                want = plain(*args, rparams)
-                got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
-                torch.cuda.synchronize()
-                # depth sums weights x z (up to 3 scene units): relative
-                # where it exceeds 1
-                err_by = {k: ((a - b).abs() / (b.abs().clamp(min=1.0)
-                                               if k == "depth" else 1.0)).max().item()
-                          for k, a, b in zip(NEUS_OUT, got, want)}
-                if neus:
-                    in_regime, regime, size, rel = neus_check(got, want)
-                k_ms = time_ms(lambda: kern(*args, rparams))
-                p_ms = time_ms(lambda: plain(*args, rparams))
-            b_ms, b_by = bound(nbytes(*args, w_pack, *got),
-                               ray_head_flops(1024, sn, neus=neus))
-            err = max(err_by.values())
-            log(f"[kernel] {name} (1024, {sn}, 88): max err {err:.3e} {err_by} "
-                f"(tol {tol}); kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
-            by_sn[sn] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                         "errors": err_by}
-            if neus:
-                log(f"[kernel] {name} SN={sn}: inputs {regime}; median |output| "
-                    f"{size}; max rel err where |output| >= 1e-2 {rel} "
-                    f"(tol {TOL['neus_rel']})")
-                by_sn[sn].update(regime=regime, median_abs=size, rel_errors=rel)
-                if not in_regime:
-                    raise AssertionError(f"{name} inputs at SN={sn} leave compositing "
-                                         f"idle: {regime}")
-                if not max(rel.values()) <= TOL["neus_rel"]:
-                    raise AssertionError(f"{name} kernel disagrees at SN={sn}: {rel}")
-            if not err <= tol:
-                raise AssertionError(f"{name} kernel disagrees at SN={sn}: {err_by}")
-            errs.append(err)
-            tot["ms"] += k_ms
-            tot["plain_ms"] += p_ms
-            tot["bound_ms"] += b_ms
-        results[name] = {"max_abs_err": max(errs), **tot, "bound_by": b_by,
-                         "by_sn": by_sn}
+        rparams = m.ray_transformer.ray_head_params()
+        y = randn(1024, sn, c)
+        if neus:
+            z = near + (far - near) * torch.sort(rand(1024, sn), dim=1).values
+            args = (y, z, rand(1024, sn, 3), torch.exp(m.variance.detach() * 10.0))
+            kern, plain = frh.ray_head_neus, frh.ray_head_neus_reference
+        else:
+            args = (y,)
+            kern, plain = frh.ray_head, frh.ray_head_reference
+        with torch.no_grad():
+            got = kern(*args, rparams)
+            want = plain(*args, rparams)
+            got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+            torch.cuda.synchronize()
+            # depth sums weights x z (up to 3 scene units): relative where
+            # it exceeds 1
+            err_by = {k: ((a - b).abs() / (b.abs().clamp(min=1.0)
+                                           if k == "depth" else 1.0)).max().item()
+                      for k, a, b in zip(NEUS_OUT, got, want)}
+            k_ms = time_ms(lambda: kern(*args, rparams))
+            p_ms = time_ms(lambda: plain(*args, rparams))
+        b_ms, b_by = bound(nbytes(*args, frh.pack_weights(rparams), *got),
+                           ray_head_flops(1024, sn, c=c, neus=neus))
+        err = max(err_by.values())
+        log(f"[kernel] {name} (1024, {sn}, {c}): max err {err:.3e} {err_by} "
+            f"(tol {tol}); kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        case = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "errors": err_by}
+        if neus:
+            in_regime, regime, size, rel = neus_check(got, want)
+            log(f"[kernel] {name} C={c} SN={sn}: inputs {regime}; median |output| "
+                f"{size}; max rel err where |output| >= 1e-2 {rel} "
+                f"(tol {TOL['neus_rel']})")
+            case.update(regime=regime, median_abs=size, rel_errors=rel)
+            if not in_regime:
+                raise AssertionError(f"{name} inputs at C={c} SN={sn} leave "
+                                     f"compositing idle: {regime}")
+            if not max(rel.values()) <= TOL["neus_rel"]:
+                raise AssertionError(f"{name} kernel disagrees at C={c} SN={sn}: {rel}")
+        if not err <= tol:
+            raise AssertionError(f"{name} kernel disagrees at C={c} SN={sn}: {err_by}")
+        return case
+
+    for name in ("ray_head", "ray_head_neus"):
+        by_c = {}
+        for c, m in ((88, model), (72, model_b)):
+            cases = {sn: ray_head_case(name, m, c, sn) for sn in (64, 128)}
+            by_c[c] = {k: sum(x[k] for x in cases.values())
+                       for k in ("ms", "plain_ms", "bound_ms")}
+            by_c[c].update(bound_by=cases[128]["bound_by"], by_sn=cases)
+        # the JSON line's times are per chunk at the default width 88
+        results[name] = {"max_abs_err": max(e for v in by_c.values()
+                                            for x in v["by_sn"].values()
+                                            for e in x["errors"].values()),
+                         **{k: by_c[88][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                      "bound_by")},
+                         "by_width": by_c}
 
     # grouped cosine at (3, 65,536, 64) in the layout the sampler hands
     # over: channel-first memory, strides (64 P, 1, P)
@@ -326,7 +369,73 @@ def kernel_phase(model, card):
         raise AssertionError("volume_fusion kernel disagrees with its plain version")
     results["volume_fusion"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                                 "bound_ms": b_ms, "bound_by": b_by}
-    # no single PyTorch call computes any of these five functions
+    # tiny attention, forward and backward, at route A's shape: one
+    # 1024-ray chunk x 64 samples, the view token and 3 views, 8 heads of
+    # 10; the forward also at a ragged batch
+    dims = dict(l=4, s=4, h=8, d=10, m=10)
+
+    def attention_inputs(b):
+        return (randn(b, 4, 8, 10), randn(b, 4, 8, 10), randn(b, 4, 8, 10))
+
+    fwd = {}
+    for b in (p, p + 1):
+        q, k, v = attention_inputs(b)
+        with torch.no_grad():
+            got = fta.tiny_linear_attention(q, k, v)
+            want = fta.tiny_linear_attention_reference(q, k, v)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            excess = ((got - want).abs() - TOL["attention"] * want.abs()).max().item()
+            k_ms = time_ms(lambda: fta.tiny_linear_attention(q, k, v))
+            p_ms = time_ms(lambda: fta.tiny_linear_attention_reference(q, k, v))
+        b_ms, b_by = bound(nbytes(q, k, v, got), attention_flops(b, **dims))
+        log(f"[kernel] tiny_attention B={b} L=S=4 H=8 D=M=10: max abs err {err:.3e} "
+            f"(rtol = atol = {TOL['attention']}); kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        if not excess <= TOL["attention"]:
+            raise AssertionError(f"tiny_attention kernel disagrees at B={b}")
+        fwd[b] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                  "bound_ms": b_ms, "bound_by": b_by}
+    results["tiny_attention"] = {**fwd[p], "max_abs_err": max(f["max_abs_err"]
+                                                               for f in fwd.values()),
+                                 "ragged": fwd[p + 1]}
+
+    # its backward kernel against torch.autograd through the plain forward
+    q, k, v = attention_inputs(p)
+    g = randn(p, 4, 8, 10)
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fta.tiny_linear_attention_reference(*qkv), qkv, g)
+    with torch.no_grad():
+        got = fta.tiny_linear_attention_backward(q, k, v, g)
+        twin = fta.tiny_linear_attention_backward_reference(q, k, v, g)
+        torch.cuda.synchronize()
+        errs = {n: (a - b).abs().max().item() for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        excess = max(((a - b).abs() - TOL["attention_grad"] * b.abs()).max().item()
+                     for a, b in zip(got, want))
+        twin_err = max((a - b).abs().max().item() for a, b in zip(got, twin))
+        k_ms = time_ms(lambda: fta.tiny_linear_attention_backward(q, k, v, g))
+        p_ms = time_ms(lambda: fta.tiny_linear_attention_backward_reference(q, k, v, g))
+
+    def autograd_plain():
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        torch.autograd.grad(fta.tiny_linear_attention_reference(*xs), xs, g)
+
+    a_ms = time_ms(autograd_plain)
+    b_ms, b_by = bound(nbytes(q, k, v, g, *got), attention_flops(p, **dims, backward=True))
+    log(f"[kernel] tiny_attention_bwd B={p}: max abs err vs autograd of the plain "
+        f"forward {errs} (rtol = atol = {TOL['attention_grad']}), vs the plain "
+        f"backward {twin_err:.3e}; kernel {k_ms:.4f} ms, plain backward {p_ms:.4f} "
+        f"ms, autograd of the plain forward {a_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}) [{card}]")
+    if not excess <= TOL["attention_grad"]:
+        raise AssertionError(f"tiny_attention backward kernel disagrees: {errs}")
+    results["tiny_attention_bwd"] = {"max_abs_err": max(errs.values()), "ms": k_ms,
+                                     "plain_ms": p_ms, "bound_ms": b_ms,
+                                     "bound_by": b_by, "errors": errs,
+                                     "plain_backward_err": twin_err,
+                                     "autograd_plain_ms": a_ms}
+    # no single PyTorch call computes any of these seven functions
+    # (scaled_dot_product_attention is softmax attention, not elu+1 linear)
     for r in results.values():
         r["library_ms"] = None
     return results
@@ -337,10 +446,31 @@ def launch_counts():
     from uforecon_tpu_torch.ops.fused_ray_head import ray_head, ray_head_neus
     from uforecon_tpu_torch.ops.fused_similarity import grouped_cosine
     from uforecon_tpu_torch.ops.fused_volume_fusion import volume_fusion
+    from uforecon_tpu_torch.ops.tiny_attention import (
+        tiny_linear_attention, tiny_linear_attention_backward)
 
     return {"point_head": point_head, "ray_head": ray_head,
             "grouped_cosine": grouped_cosine, "volume_fusion": volume_fusion,
-            "ray_head_neus": ray_head_neus}
+            "ray_head_neus": ray_head_neus, "tiny_attention": tiny_linear_attention,
+            "tiny_attention_bwd": tiny_linear_attention_backward}
+
+
+def check_launches(run, launches):
+    """Each kernel of the run launched at least once, every other none."""
+    idle = [n for n in MUST_RUN[run] if launches[n] < 1]
+    stray = [n for n, c in launches.items() if n not in MUST_RUN[run] and c]
+    if idle or stray:
+        raise AssertionError(f"run {run}: kernels not launched {idle}, launched "
+                             f"off their route {stray}: {launches}")
+
+
+def to_cpu(x):
+    """Tensors, dicts and named tuples of them, on the CPU."""
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[to_cpu(v) for v in x])
+    return x.cpu()
 
 
 def render_view(model, sample, route, card):
@@ -363,14 +493,14 @@ def render_view(model, sample, route, card):
         saved = np.load(os.path.join(out_dir, "depth", "scan1", "00000000.npy"),
                         allow_pickle=True).item()
     depth = saved["depth"]
-    log(f"[slice] knobs {route}: 1 view 800x640, 3 views, 64+64 samples: encode "
+    log(f"[slice] route {route}: 1 view 800x640, 3 views, 64+64 samples: encode "
         f"{stats['encode_s']:.3f} s, render {stats['render_s']:.3f} s, "
         f"{stats['rays_per_sec']:.1f} rays/s, peak {peak_gb:.2f} GiB [{card}]")
-    log(f"[slice] knobs {route}: launches during the run: {launches}")
+    log(f"[slice] route {route}: launches during the run: {launches}")
     if depth.shape != (640, 800) or not np.all(np.isfinite(depth)):
         raise AssertionError(f"depth map {depth.shape}, finite "
                              f"{np.isfinite(depth).mean():.4f}")
-    log(f"[slice] knobs {route}: depth map (640, 800) finite, range "
+    log(f"[slice] route {route}: depth map (640, 800) finite, range "
         f"[{depth.min():.1f}, {depth.max():.1f}] mm")
     return {**stats, "peak_gib": peak_gb}, launches
 
@@ -391,16 +521,8 @@ def agree_with_cpu(model, sample, route):
     u_c = torch.rand((rn, sn), generator=gen, device="cuda")
     u_f = torch.rand((rn, model.cfg.fine_sample), generator=gen, device="cuda")
     out_gpu = model.render_chunk(scene, enc, ray_d, u_coarse=u_c, u_fine=u_f)
-
-    def cpu(x):
-        if isinstance(x, dict):
-            return {k: cpu(v) for k, v in x.items()}
-        if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return type(x)(*[cpu(v) for v in x])
-        return x.cpu()
-
     model_cpu = copy.deepcopy(model).cpu()
-    out_cpu = model_cpu.render_chunk(cpu(scene), cpu(enc), ray_d.cpu(),
+    out_cpu = model_cpu.render_chunk(to_cpu(scene), to_cpu(enc), ray_d.cpu(),
                                      u_coarse=u_c.cpu(), u_fine=u_f.cpu())
     agree = {}
     for phase in ("coarse", "fine"):
@@ -409,36 +531,81 @@ def agree_with_cpu(model, sample, route):
             b = out_cpu[phase][key].numpy()
             ok = np.isclose(a, b, rtol=2e-4, atol=2e-4).reshape(rn, -1).all(axis=1)
             agree[f"{phase}_{key}"] = float(ok.mean())
-    log(f"[slice] knobs {route}: {rn}-ray chunk, card kernels vs CPU plain "
+    log(f"[slice] route {route}: {rn}-ray chunk, card kernels vs CPU plain "
         f"versions: share of rays within rtol=atol=2e-4: {agree}")
     if min(agree.values()) < 0.99:
-        raise AssertionError(f"card and CPU renders disagree (knobs {route}): {agree}")
+        raise AssertionError(f"card and CPU renders disagree (route {route}): {agree}")
 
 
-def slice_phase(model, card):
-    """The main path, extract_geometry_for_dataset on one full view, with
-    the render-glue knobs off and then on (the same weights)."""
+def slice_phase(model, model_b, card):
+    """The main path, extract_geometry_for_dataset on one full view, by
+    four routes: the render-glue knobs off and on, route A (the view
+    transformer; all three on the same weights) and route B (model_b, the
+    ablation without explicit similarity)."""
     from uforecon_tpu_torch.config import FUSED_GLUE
     from uforecon_tpu_torch.data.synthetic import dtu_scale_sample
 
-    # knobs off, and on with the same weights
-    models = {"off": model, "on": model.with_knobs(**FUSED_GLUE)}
+    models = {"off": model, "on": model.with_knobs(**FUSED_GLUE),
+              "A": model.with_knobs(fused_point_head="never"), "B": model_b}
+    # route B's ray head runs at the kernel's second width
+    if model_b.ray_transformer.ray_head_params().wq.shape[0] != 72:
+        raise AssertionError("route B's ray-head width is not 72")
     sample = dtu_scale_sample()
     stats, launches = {}, {}
     for route, m in models.items():
         stats[route], launches[route] = render_view(m, sample, route, card)
-    must_run = {"off": ("point_head", "ray_head"),
-                "on": ("point_head", "grouped_cosine", "volume_fusion", "ray_head_neus")}
-    for route, names in must_run.items():
-        idle = [n for n in names if launches[route][n] < 1]
-        stray = [n for n, c in launches[route].items() if n not in names and c]
-        if idle or stray:
-            raise AssertionError(f"knobs {route}: kernels not launched {idle}, "
-                                 f"launched off their route {stray}: "
-                                 f"{launches[route]}")
+        check_launches(route, launches[route])
     for route, m in models.items():
         agree_with_cpu(m, sample, route)
     return models, sample, stats, launches
+
+
+def gradient_phase(model_a, sample, card):
+    """One backward through route A's per-point stage (the view
+    transformer, whose attention backward is the tiny-attention backward
+    kernel) for a 256-ray coarse chunk: the gradients of the view
+    transformer's weights on the card against the same backward on the
+    CPU. Returns the launches counted during the card's run."""
+    import torch
+
+    from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
+    from uforecon_tpu_torch.ops.sampling import sample_coarse
+
+    scene, extras = scene_inputs_from_sample(sample, "cuda")
+    enc = model_a.encode(scene)
+    rn, sn = 256, model_a.cfg.coarse_sample
+    idx = np.random.default_rng(SEED + 1).choice(len(extras["ray_d"]), rn, replace=False)
+    ray_d = torch.as_tensor(extras["ray_d"][idx], device="cuda")
+    u = torch.rand((rn, sn), generator=torch.Generator(device="cuda").manual_seed(SEED),
+                   device="cuda")
+
+    def grads(m, scene, enc, ray_d, u):
+        names, weights = zip(*m.ray_transformer.density_view_transformer.named_parameters())
+        points, _ = sample_coarse(scene.ray_o.expand(rn, 3), ray_d, sn,
+                                  scene.near.expand(rn), scene.far.expand(rn), u=u)
+        with torch.enable_grad():
+            pp = m._point_features(scene, enc, points)
+            loss = pp["token"].square().mean() + pp["radiance"].square().mean()
+            return dict(zip(names, torch.autograd.grad(loss, weights)))
+
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    got = grads(model_a, scene, enc, ray_d, u)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    want = grads(copy.deepcopy(model_a).cpu(), to_cpu(scene), to_cpu(enc),
+                 ray_d.cpu(), u.cpu())
+    rel = {k: ((got[k].cpu() - want[k]).abs().max()
+               / want[k].abs().max().clamp(min=1e-30)).item() for k in want}
+    log(f"[grad] route A, {rn}-ray coarse chunk ({rn * sn} points): launches "
+        f"{launches}; view-transformer weight gradients, card vs CPU, max abs "
+        f"error over each weight's largest gradient: {rel} (tol "
+        f"{TOL['route_grad_rel']}) [{card}]")
+    check_launches("grad", launches)
+    if not max(rel.values()) <= TOL["route_grad_rel"]:
+        raise AssertionError(f"route A gradients disagree between card and CPU: {rel}")
+    return launches
 
 
 def chunk_args(scene, extras, start, rn):
@@ -494,10 +661,14 @@ def profile_phase(models, scene, enc, extras, card, chunks=8, rn=1024):
             "by_name": {k: {"per_chunk": count[k] / chunks,
                             "ms_per_chunk": time_us[k] / 1e3 / chunks}
                         for k, _ in count.most_common()}}
-        log(f"[profile] knobs {route}: " + json.dumps(
+        log(f"[profile] route {route}: " + json.dumps(
             {"chunks": chunks, "rays_per_chunk": rn, "card": card,
              **{k: v for k, v in result[route].items() if k != "by_name"},
-             "top": dict(list(result[route]["by_name"].items())[:12])}))
+             "top": dict(list(result[route]["by_name"].items())[:12]),
+             # device time by operation, names cut to 100 characters
+             "top_ms": {k[:100]: round(v["ms_per_chunk"], 4) for k, v in sorted(
+                 result[route]["by_name"].items(),
+                 key=lambda kv: -kv[1]["ms_per_chunk"])[:10]}}))
     by = {r: result[r]["by_name"] for r in result}
     diff = {n: by["off"].get(n, {}).get("per_chunk", 0.0)
             - by["on"].get(n, {}).get("per_chunk", 0.0) for n in set(by["off"]) | set(by["on"])}
@@ -506,6 +677,9 @@ def profile_phase(models, scene, enc, extras, card, chunks=8, rn=1024):
          - result["on"]["device_ops_per_chunk"],
          "by_name": {n: d for n, d in sorted(diff.items(), key=lambda kv: -abs(kv[1]))
                      if d != 0}}))
+    log("[profile] route A against knobs off, per chunk: " + json.dumps(
+        {k: result["A"][k] - result["off"][k]
+         for k in ("device_ops_per_chunk", "device_ms_per_chunk")}))
     return result
 
 
@@ -516,6 +690,7 @@ def ab_phase(models, scene, enc, extras, card):
 
     from uforecon_tpu_torch.pipeline.renderer import SceneRenderer
 
+    models = {k: models[k] for k in ("off", "on")}
     renderer = {k: SceneRenderer(m, "cuda") for k, m in models.items()}
     n_rays = extras["ray_d"].shape[0]
 
@@ -582,15 +757,21 @@ def main():
     model = UFORecon(Config())
     init_weights(model, SEED)
     model.to("cuda")
+    # route B: the ablation without explicit similarity, its own weights
+    model_b = UFORecon(Config(explicit_similarity=False))
+    init_weights(model_b, SEED)
+    model_b.to("cuda")
 
-    kres = kernel_phase(model, card)
-    models, sample, stats, launches = slice_phase(model, card)
-    log(f"[slice] rays/s knobs on / off in this process: "
-        f"{stats['on']['rays_per_sec'] / stats['off']['rays_per_sec']:.4f} "
-        f"(the off run is the process's first view) [{card}]")
+    kres = kernel_phase(model, model_b, card)
+    models, sample, stats, launches = slice_phase(model, model_b, card)
+    log(f"[slice] rays/s against knobs off in this process (the off run is the "
+        f"process's first view): " + json.dumps(
+            {r: stats[r]["rays_per_sec"] / stats["off"]["rays_per_sec"]
+             for r in ("on", "A", "B")}) + f" [{card}]")
+    launches["grad"] = gradient_phase(models["A"], sample, card)
     scene, extras = scene_inputs_from_sample(sample, "cuda")
     enc = model.encode(scene)
-    profile_phase(models, scene, enc, extras, card)
+    profile_phase({k: models[k] for k in ("off", "on", "A")}, scene, enc, extras, card)
     ab_phase(models, scene, enc, extras, card)
 
     kernels = []

@@ -14,7 +14,9 @@ for the NeuS epilogue 2e-5 on srdf, weight, rgb and opacity and 2e-5
 relative on depth (the compositing sums srdf-sized errors through
 sigmoids; the scan of torch.cumprod on the card takes another order), and
 NEUS_RTOL relative on weight, rgb and opacity where they reach 1e-2, on
-inputs where compositing matters (``_compositing_matters``).
+inputs where compositing matters (``_compositing_matters``); the
+tiny-attention forward at rtol = atol = 2e-5 and its gradients at 3e-4
+(the JAX package's tolerances for its kernel).
 """
 import numpy as np
 import pytest
@@ -24,11 +26,13 @@ from uforecon_tpu_torch.ops import fused_point_head as pph
 from uforecon_tpu_torch.ops import fused_ray_head as prh
 from uforecon_tpu_torch.ops import fused_similarity as psim
 from uforecon_tpu_torch.ops import fused_volume_fusion as pvf
+from uforecon_tpu_torch.ops import tiny_attention as pta
 
 torch.set_num_threads(1)
 
 C = 80   # d_view at the default configuration
 CR = 88  # + order PE
+CR_ABLATION = 72  # ray-head width without explicit similarity
 NEUS_RTOL = 2e-4  # chip_smoke.py measures 3.3e-5 at main-path shapes
 
 
@@ -103,10 +107,16 @@ def _neus_case(rng, rn, sn):
     return z, rad, np.float32(np.exp(0.3 * 10))
 
 
+def _attention_case(rng, b=40, l=4, s=4, h=8, d=10, m=10):
+    r = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    return r(b, l, h, d), r(b, s, h, d), r(b, s, h, m)
+
+
 def _launch_counts():
     return (pph.point_head.launches, prh.ray_head.launches,
             prh.ray_head_neus.launches, psim.grouped_cosine.launches,
-            pvf.volume_fusion.launches)
+            pvf.volume_fusion.launches, pta.tiny_linear_attention.launches,
+            pta.tiny_linear_attention_backward.launches)
 
 
 def test_wrappers_take_the_plain_version_on_cpu(rng):
@@ -130,6 +140,14 @@ def test_wrappers_take_the_plain_version_on_cpu(rng):
     fws = [_t(f) for f in _fusion_case(rng)]
     torch.testing.assert_close(pvf.volume_fusion(*fws),
                                pvf.volume_fusion_reference(fws), rtol=0, atol=0)
+    q, k, v = (_t(a).requires_grad_() for a in _attention_case(rng))
+    out = pta.tiny_linear_attention(q, k, v)
+    torch.testing.assert_close(out, pta.tiny_linear_attention_reference(q, k, v),
+                               rtol=0, atol=0)
+    g = torch.ones_like(out)
+    for a, b in zip(pta.tiny_linear_attention_backward(q, k, v, g),
+                    pta.tiny_linear_attention_backward_reference(q, k, v, g)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert _launch_counts() == before
 
 
@@ -158,6 +176,19 @@ def test_kernel_launchers_reject_shapes_they_do_not_take(rng):
         pvf._launch([fws[0], fws[1], fws[2][..., :5]])
     with pytest.raises(ValueError, match="float32 tensors on one CUDA"):
         pvf._launch(fws)
+    y, rparams = _ray_case(rng, rn=2, sn=8, c=80)
+    with pytest.raises(ValueError, match="C in"):
+        prh._launch(_t(y), _port_params(prh.RayHeadParams, rparams), 8)
+    # outside the JAX rule (L, S <= 8, head dim <= 16), or not on the card
+    for shape in (dict(l=9), dict(s=9), dict(d=17), dict(m=17)):
+        q, k, v = (_t(a) for a in _attention_case(rng, b=3, **shape))
+        with pytest.raises(ValueError, match="tiny_attention kernel takes q"):
+            pta._launch_fwd(q, k, v)
+    q, k, v = (_t(a) for a in _attention_case(rng, b=3))
+    with pytest.raises(ValueError, match="float32 tensors on one CUDA"):
+        pta._launch_fwd(q, k, v)
+    with pytest.raises(ValueError, match="float32 tensors on one CUDA"):
+        pta._launch_bwd(q, k, v, torch.zeros(3, 4, 8, 10))
 
 
 def test_weight_packs_match_the_kernel_layout(rng):
@@ -174,11 +205,12 @@ def test_weight_packs_match_the_kernel_layout(rng):
     assert pack.numel() == n_w
     torch.testing.assert_close(pack[:C], p.view_token)
     torch.testing.assert_close(pack[C:C + C * C].view(C, C), p.wq.t())
-    _, rparams = _ray_case(rng, rn=1, sn=4)
-    rp = _port_params(prh.RayHeadParams, rparams)
-    c2 = 2 * CR
-    assert prh.pack_weights(rp).numel() == 4 * CR * CR + 2 * CR + c2 * c2 + c2 * CR \
-        + 2 * CR + (CR * 32 + 32) + (32 * 16 + 16) + (16 + 1)
+    for c in (CR, CR_ABLATION):
+        _, rparams = _ray_case(rng, rn=1, sn=4, c=c)
+        rp = _port_params(prh.RayHeadParams, rparams)
+        c2 = 2 * c
+        assert prh.pack_weights(rp).numel() == 4 * c * c + 2 * c + c2 * c2 + c2 * c \
+            + 2 * c + (c * 32 + 32) + (32 * 16 + 16) + (16 + 1)
 
 
 @pytest.mark.parametrize("nv", [2, 3, 4, 5, 6])
@@ -268,10 +300,34 @@ def test_autograd_backward_goes_through_the_plain_version(rng, monkeypatch, head
             return (prh._ray_head_fn(8, inp[0], *par),)
 
     leaves = [t for t in inp + par if t.requires_grad]
+    _check_grads(plain, fused, leaves)
+
+
+def _check_grads(plain, fused, leaves):
     g_plain = torch.autograd.grad(sum(o.square().sum() for o in plain()), leaves)
     g_fused = torch.autograd.grad(sum(o.square().sum() for o in fused()), leaves)
     for a, b in zip(g_fused, g_plain):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_tiny_attention_function_runs_the_backward_wrapper(rng, monkeypatch):
+    """The autograd Function of the tiny attention: forward through the
+    forward launcher, backward through ``tiny_linear_attention_backward``
+    (the backward kernel on the card). Launchers replaced by the plain
+    versions so it runs on the CPU: the gradients equal plain autograd,
+    and the backward wrapper ran."""
+    calls = []
+
+    def bwd(q, k, v, g):
+        calls.append(g.shape)
+        return pta.tiny_linear_attention_backward_reference(q, k, v, g)
+
+    monkeypatch.setattr(pta, "_launch_fwd", pta.tiny_linear_attention_reference)
+    monkeypatch.setattr(pta, "tiny_linear_attention_backward", bwd)
+    inp = [_t(a).requires_grad_() for a in _attention_case(rng, b=12)]
+    _check_grads(lambda: (pta.tiny_linear_attention_reference(*inp),),
+                 lambda: (pta._TinyAttention.apply(*inp),), inp)
+    assert calls == [(12, 4, 8, 10)]
 
 
 @pytest.fixture
@@ -418,3 +474,48 @@ def test_default_config_gives_the_kernel_widths():
     assert pph.pack_weights(rt.point_head_params()).numel() == \
         pph.pack_weights(_port_params(pph.PointHeadParams,
                                       _point_case(np.random.default_rng(0))[1])).numel()
+
+
+@pytest.mark.parametrize("b,l,h,d", [(65537, 4, 8, 10), (1000, 4, 8, 8), (333, 6, 8, 10),
+                                     (77, 8, 3, 16), (5, 2, 1, 1)])
+def test_tiny_attention_kernel_matches_plain_on_gpu(rng, cuda_device, b, l, h, d):
+    q, k, v = (_t(a).to(cuda_device) for a in _attention_case(rng, b, l, l, h, d, d))
+    before = pta.tiny_linear_attention.launches
+    with torch.no_grad():
+        got = pta.tiny_linear_attention(q, k, v)
+    assert pta.tiny_linear_attention.launches == before + 1
+    torch.testing.assert_close(got, pta.tiny_linear_attention_reference(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,l,h,d", [(4097, 4, 8, 10), (300, 6, 8, 8), (77, 8, 3, 16)])
+def test_tiny_attention_backward_kernel_matches_autograd_on_gpu(rng, cuda_device, b, l, h, d):
+    """The backward kernel, through the autograd Function, against
+    torch.autograd of the plain forward."""
+    q, k, v = (_t(a).to(cuda_device).requires_grad_()
+               for a in _attention_case(rng, b, l, l, h, d, d))
+    g = _t(rng.standard_normal((b, l, h, d))).to(cuda_device)
+    want = torch.autograd.grad(pta.tiny_linear_attention_reference(q, k, v), (q, k, v), g)
+    before = pta.tiny_linear_attention_backward.launches
+    got = torch.autograd.grad(pta.tiny_linear_attention(q, k, v), (q, k, v), g)
+    assert pta.tiny_linear_attention_backward.launches == before + 1
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("sn", [8, 64, 128])
+def test_ray_head_width_72_kernels_match_plain_on_gpu(rng, cuda_device, sn):
+    """The ray head and its NeuS variant at the ablation's width."""
+    y, rparams = _ray_case(rng, rn=37, sn=sn, c=CR_ABLATION)
+    rp = _on(cuda_device, _port_params(prh.RayHeadParams, rparams))
+    args = [_t(a).to(cuda_device) for a in (y, *_neus_case(rng, 37, sn))]
+    before = (prh.ray_head.launches, prh.ray_head_neus.launches)
+    got = prh.ray_head(args[0], rp)
+    got_neus = prh.ray_head_neus(*args, rp)
+    assert (prh.ray_head.launches, prh.ray_head_neus.launches) == \
+        (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, prh.ray_head_reference(args[0], rp), rtol=0, atol=2e-5)
+    for name, a, b in zip(("srdf", "weight", "rgb", "depth", "opacity"), got_neus,
+                          prh.ray_head_neus_reference(*args, rp)):
+        torch.testing.assert_close(a, b, rtol=2e-5 if name == "depth" else 0,
+                                   atol=2e-5, msg=name)

@@ -7,6 +7,11 @@ the port with the same weights (load_flax_variables) and the same uniform
 draws. The JAX side is built once per module: its init plus eager forward
 is the slow part of this file.
 
+The port renders the chunk through its point-head route (the default)
+and through its view-transformer route (``fused_point_head='never'``);
+on the CPU the JAX model takes its flax view transformer, so its render is
+the reference for both.
+
 The same chunk is rendered again with the three render-glue knobs on
 (``fused_similarity``, ``fused_volume_fusion``, ``fused_neus_epilogue``):
 against the JAX model with the route's four Pallas kernels forced on
@@ -211,6 +216,19 @@ def test_render_chunk_knobs_on_matches_jax(slice_pair, jax_out_fused, encoder):
     assert set(out["coarse"]) == set(out["fine"]) >= {"rgb", "depth", "opacity",
                                                      "weight", "srdf"}
     _check_render(out, jax_out_fused, encoder)
+
+
+@pytest.mark.parametrize("encoder", ["jax", "port"])
+def test_render_chunk_view_route_matches_jax(slice_pair, encoder):
+    """The per-point stage through the view transformer
+    (``fused_point_head='never'``) against the JAX model, which takes its
+    flax view transformer on the CPU: the fixture's JAX render is this
+    route's reference."""
+    sp = slice_pair
+    enc = _bridge_encoder(sp["jax_enc"]) if encoder == "jax" else sp["port_enc"]
+    out = sp["port"].with_knobs(fused_point_head="never").render_chunk(
+        sp["scene"], enc, sp["ray_d"], u_coarse=sp["u_c"], u_fine=sp["u_f"])
+    _check_render(out, sp["jax_out"], encoder)
 
 
 def test_knobs_read_the_same_weights(slice_pair):

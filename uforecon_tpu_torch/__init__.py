@@ -9,9 +9,12 @@ Entry point: :func:`uforecon_tpu_torch.pipeline.extract.
 extract_geometry_for_dataset`, which encodes each view set once and
 renders its depth map chunk by chunk through hand-written Hopper kernels:
 the point and ray heads (``ops/fused_point_head.py``,
-``ops/fused_ray_head.py``) and, with the render-glue knobs of ``Config``
-on, the grouped cosine, the volume fusion and the ray head's NeuS
-epilogue (``ops/fused_similarity.py``, ``ops/fused_volume_fusion.py``).
+``ops/fused_ray_head.py``); with the render-glue knobs of ``Config`` on,
+the grouped cosine, the volume fusion and the ray head's NeuS epilogue
+(``ops/fused_similarity.py``, ``ops/fused_volume_fusion.py``); and on the
+view-transformer route (``fused_point_head='never'``, or without explicit
+similarity) the tiny linear attention and its backward
+(``ops/tiny_attention.py``).
 It runs on the CUDA card unless the caller passes ``device="cpu"``.
 
 Importing the package imports neither ``jax`` nor the JAX package and

@@ -3,12 +3,14 @@
 A copy of the JAX package's ``config.Config`` fields that encode and
 render read, with the same names and defaults (the repo's default DTU
 configuration). The port always runs the JAX package's exact path with
-the full feature set: correlation volumes (``volume_reso`` 96), explicit
-pairwise similarity, and the MVS depth guide with its positional
-encoding. The JAX evaluation approximations (merged stage volumes, bf16
-gather sources, low-precision kernel math, brick gathers and the other
-TPU layout knobs) and the ablations that drop a feature do not exist
-here.
+correlation volumes (``volume_reso`` 96) and the MVS depth guide with its
+positional encoding. Explicit pairwise similarity is on by default;
+``explicit_similarity=False`` is the paper's ablation without it (no
+similarity query, no ``pre_sim_mlp``: d_view 64 and a ray-head width of
+72). The JAX evaluation approximations (merged stage volumes, bf16 gather
+sources, low-precision kernel math, brick gathers and the other TPU
+layout knobs) and the other ablations (``use_dir_srdf``, no depth guide,
+bf16 compute) do not exist here.
 
 ``coarse_sample`` / ``fine_sample`` are the samples per ray of the
 render; the JAX package reads ``test_sample_*`` in their place when it
@@ -27,6 +29,15 @@ tensors:
     compositing in its epilogue (``ops/fused_ray_head.py ray_head_neus``).
 ``FUSED_GLUE`` sets all three on; ``UFORecon.with_knobs(**FUSED_GLUE)``
 gives that route on the same weights.
+
+``fused_point_head`` (``auto | always | never``, default ``auto``, the JAX
+name and values) picks the per-point stage's route. ``auto`` takes the
+point-head kernel (``ops/fused_point_head.py``) where the full feature set
+is there (the JAX package adds "on a TPU"), else the view-transformer
+route: ``nn.Linear`` projections and MLPs around the tiny-attention
+kernels (``ops/tiny_attention.py``). ``never`` always takes the view
+transformer (``UFORecon.with_knobs(fused_point_head="never")`` on the same
+weights); ``always`` raises without the full feature set, as JAX does.
 """
 from __future__ import annotations
 
@@ -59,22 +70,31 @@ class Config:
     img_feat_dim: int = 32
     fea_volume_dim: int = 24             # 8ch x 3 cascade stages
     cos_n_group: int = 8
+    explicit_similarity: bool = True
 
     # ---- render-glue kernels (see the module docstring) ----------------
     fused_similarity: str = "never"      # auto | always | never
     fused_volume_fusion: str = "never"   # auto | always | never
     fused_neus_epilogue: str = "never"   # auto | never
+    # per-point stage (see the module docstring)
+    fused_point_head: str = "auto"       # auto | always | never
 
     def __post_init__(self):
         allowed = {
             "fused_similarity": ("auto", "always", "never"),
             "fused_volume_fusion": ("auto", "always", "never"),
             "fused_neus_epilogue": ("auto", "never"),
+            "fused_point_head": ("auto", "always", "never"),
         }
         for field, values in allowed.items():
             v = getattr(self, field)
             if v not in values:
                 raise ValueError(f"Config.{field}={v!r} not in {values}")
+        if self.fused_point_head == "always" and not self.explicit_similarity:
+            raise ValueError("fused_point_head='always' needs the point-head "
+                             "kernel's full feature set, which includes explicit "
+                             "similarity; use 'auto' to allow the view-transformer "
+                             "route")
         if len(self.ndepths) != 3:
             raise ValueError(f"the cascade has 3 stages, got ndepths={self.ndepths}")
         if len(self.depth_inter_r) != len(self.ndepths) or \
@@ -84,7 +104,7 @@ class Config:
     # dims that the ray transformer sees (JAX config.py:274-304)
     @property
     def sim_feat_fix(self) -> int:
-        return 16     # pre-similarity MLP output
+        return 16 if self.explicit_similarity else 0   # pre-similarity MLP output
 
     @property
     def depth_dim(self) -> int:

@@ -16,7 +16,9 @@ The port's submodules carry the flax scope names (``matcher``,
     ``weight``/``bias``/``running_mean``/``running_var``; LayerNorm
     ``scale`` -> ``weight``;
   * ``view_token`` and ``variance`` as they are.
-Any leaf left unmapped or unused raises.
+Any leaf left unmapped or unused raises. A model without explicit
+similarity has no ``ray_transformer.pre_sim_mlp``, in flax as in the port,
+so each tree fills only the model of its own configuration.
 """
 from __future__ import annotations
 

@@ -13,14 +13,14 @@ extern "C" int ufo_point_head(const float* img, const float* vol,
                               float* rad, int nv, int p, void* stream);
 extern "C" int ufo_point_head_weight_count();
 extern "C" int ufo_ray_head(const float* y, const float* w, float* srdf,
-                            int rn, int sn, void* stream);
-extern "C" int ufo_ray_head_weight_count();
-extern "C" long long ufo_ray_head_smem_bytes(int sn);
+                            int rn, int sn, int c, void* stream);
+extern "C" int ufo_ray_head_weight_count(int c);
+extern "C" long long ufo_ray_head_smem_bytes(int sn, int c);
 extern "C" int ufo_ray_head_neus(const float* y, const float* w,
                                  const float* z, const float* rad,
                                  const float* inv_s, float* srdf, float* weight,
                                  float* rgb, float* depth, float* opacity,
-                                 int rn, int sn, void* stream);
+                                 int rn, int sn, int c, void* stream);
 extern "C" int ufo_grouped_cosine(const float* x, long long sv, long long sp,
                                   long long sc, float* out, int nv, int p,
                                   int c, int g, void* stream);
@@ -29,6 +29,13 @@ extern "C" int ufo_volume_fusion(const float* const* fw, long long sv,
                                  int nv, int p, void* stream);
 extern "C" int ufo_volume_fusion_stages();
 extern "C" int ufo_volume_fusion_features();
+extern "C" int ufo_tiny_attention_fwd(const float* q, const float* k, const float* v,
+                                      float* o, int b, int l, int s, int h, int d,
+                                      int m, void* stream);
+extern "C" int ufo_tiny_attention_bwd(const float* q, const float* k, const float* v,
+                                      const float* g, float* dq, float* dk, float* dv,
+                                      int b, int l, int s, int h, int d, int m,
+                                      void* stream);
 extern "C" const char* ufo_error_string(int e);
 
 namespace {
@@ -57,7 +64,7 @@ void point_head(const at::Tensor& img, const at::Tensor& vol,
 void ray_head(const at::Tensor& y, const at::Tensor& w, at::Tensor& srdf) {
   check(ufo_ray_head(y.data_ptr<float>(), w.data_ptr<float>(),
                      srdf.data_ptr<float>(), static_cast<int>(y.size(0)),
-                     static_cast<int>(y.size(1)),
+                     static_cast<int>(y.size(1)), static_cast<int>(y.size(2)),
                      at::cuda::getCurrentCUDAStream().stream()),
         "ray_head");
 }
@@ -74,6 +81,7 @@ void ray_head_neus(const at::Tensor& y, const at::Tensor& w,
                           depth.data_ptr<float>(), opacity.data_ptr<float>(),
                           static_cast<int>(y.size(0)),
                           static_cast<int>(y.size(1)),
+                          static_cast<int>(y.size(2)),
                           at::cuda::getCurrentCUDAStream().stream()),
         "ray_head_neus");
 }
@@ -103,6 +111,33 @@ void volume_fusion(const at::Tensor& fw0, const at::Tensor& fw1,
         "volume_fusion");
 }
 
+// q (B, L, H, D), k (B, S, H, D), v (B, S, H, M), all contiguous -> out
+// (B, L, H, M)
+void tiny_attention_fwd(const at::Tensor& q, const at::Tensor& k,
+                        const at::Tensor& v, at::Tensor& out) {
+  check(ufo_tiny_attention_fwd(
+            q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
+            out.data_ptr<float>(), static_cast<int>(q.size(0)),
+            static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+            static_cast<int>(q.size(2)), static_cast<int>(q.size(3)),
+            static_cast<int>(v.size(3)), at::cuda::getCurrentCUDAStream().stream()),
+        "tiny_attention_fwd");
+}
+
+// the same q, k, v and g (B, L, H, M), the output's gradient -> dq, dk, dv
+void tiny_attention_bwd(const at::Tensor& q, const at::Tensor& k,
+                        const at::Tensor& v, const at::Tensor& g, at::Tensor& dq,
+                        at::Tensor& dk, at::Tensor& dv) {
+  check(ufo_tiny_attention_bwd(
+            q.data_ptr<float>(), k.data_ptr<float>(), v.data_ptr<float>(),
+            g.data_ptr<float>(), dq.data_ptr<float>(), dk.data_ptr<float>(),
+            dv.data_ptr<float>(), static_cast<int>(q.size(0)),
+            static_cast<int>(q.size(1)), static_cast<int>(k.size(1)),
+            static_cast<int>(q.size(2)), static_cast<int>(q.size(3)),
+            static_cast<int>(v.size(3)), at::cuda::getCurrentCUDAStream().stream()),
+        "tiny_attention_bwd");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -119,4 +154,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "cross-view volume fusion (csrc/volume_fusion.cu)");
   m.def("volume_fusion_stages", &ufo_volume_fusion_stages);
   m.def("volume_fusion_features", &ufo_volume_fusion_features);
+  m.def("tiny_attention_fwd", &tiny_attention_fwd,
+        "tiny-sequence linear attention (csrc/tiny_attention.cu)");
+  m.def("tiny_attention_bwd", &tiny_attention_bwd,
+        "its backward: dq, dk, dv (csrc/tiny_attention.cu)");
 }

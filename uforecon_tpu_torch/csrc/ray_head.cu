@@ -2,23 +2,27 @@
 //
 // Replaces the Pallas TPU kernel ray_head_fused (body _kernel) of the
 // JAX package's ops/fused_ray_head.py. Per ray, over its SN z-sorted tokens of
-// 88 channels (80 view-token features | 8 order PE):
+// C channels (the view-token features | 8 order PE; C = 88 at the default
+// configuration, 72 without explicit similarity):
 //   * one LoFTR layer with elu+1 linear attention ACROSS the samples,
-//     8 heads x 11, LayerNorm(eps 1e-6), mlp 176 -> 176 -> 88, residual;
-//   * density MLP 88 -> 32 -> 16 -> 1, giving the SRDF of each sample.
+//     8 heads x C/8, LayerNorm(eps 1e-6), mlp 2C -> 2C -> C, residual;
+//   * density MLP C -> 32 -> 16 -> 1, giving the SRDF of each sample.
+// C is a template parameter, instantiated for 72 and 88; the tiling needs
+// only C % 8 == 0 (8 heads, 4 output columns per thread).
 //
-// What bounds it on the H100: arithmetic, as for the point head. A sample
-// costs ~8.3e4 FP32 FMAs (the 88x88 and 176x176 layers) against 352 bytes
-// in and 4 out, about 460 FLOP per byte; exact FP32 keeps it off the
-// tensor cores.
+// What bounds it on the H100: arithmetic, as for the point head. At C = 88
+// a sample costs ~8.3e4 FP32 FMAs (the 88x88 and 176x176 layers) against
+// 352 bytes in and 4 out, about 460 FLOP per byte; exact FP32 keeps it off
+// the tensor cores.
 //
-// Design: one block of 512 threads per ray. The ray's SN x 88 tokens, the
-// SN x 176 hidden layer and the per-ray attention state (8 heads x 11 x 11
+// Design: one block of 512 threads per ray. The ray's SN x C tokens, the
+// SN x 2C hidden layer and the per-ray attention state (8 heads x C/8 x C/8
 // key-value sums plus the key sums) stay in shared memory for the whole
-// chain: (352 * SN + 1056) floats, 90 KB at SN = 64 and 180 KB at
-// SN = 128. Attention is taken in kv order (sum_s phi(k_s) v_s^T once,
-// then one 11x11 product per sample and head), so nothing of size SN x SN
-// is formed. Weights (~81k floats) are read through the read-only cache.
+// chain: (4C * SN + C^2/8 + C) floats, at C = 88 90 KB at SN = 64 and
+// 180 KB at SN = 128, at C = 72 147 KB at SN = 128. Attention is taken in
+// kv order (sum_s phi(k_s) v_s^T once, then one C/8 x C/8 product per
+// sample and head), so nothing of size SN x SN is formed. Weights (~81k floats at C = 88) are read through the
+// read-only cache.
 //
 // NeuS epilogue (kNeus = true) replaces ray_head_neus_fused (body
 // _kernel_neus / _neus_epilogue) of the same JAX file: once the ray's SN
@@ -27,7 +31,7 @@
 // srdf +- 0.75 interval, clipped alpha, exclusive product of
 // 1 - alpha + 1e-7, weights, rgb / depth / opacity), with z and radiance
 // read from global memory. It reuses the dead hidden-layer buffer (5 * SN
-// of its 176 * SN floats), so the shared-memory size is the ray head's. The
+// of its 2C * SN floats), so the shared-memory size is the ray head's. The
 // product runs serially in one thread, in torch.cumprod's CPU order; the
 // JAX kernel's 0/1 matmuls and log-space cumprod were MXU devices.
 #include "common.cuh"
@@ -35,38 +39,44 @@
 namespace ufo {
 namespace rh {
 
-constexpr int C = 88;       // token width
-constexpr int C2 = 2 * C;
 constexpr int NH = 8;       // heads
-constexpr int DK = C / NH;  // head width 11
 constexpr int D0 = 32, D1 = 16;
 
-// Offsets into the packed weight buffer, matrices in (in, out) orientation.
-constexpr int O_WQ = 0;
-constexpr int O_WK = O_WQ + C * C;
-constexpr int O_WV = O_WK + C * C;
-constexpr int O_WM = O_WV + C * C;
-constexpr int O_N1S = O_WM + C * C;
-constexpr int O_N1B = O_N1S + C;
-constexpr int O_W1 = O_N1B + C;
-constexpr int O_W2 = O_W1 + C2 * C2;
-constexpr int O_N2S = O_W2 + C2 * C;
-constexpr int O_N2B = O_N2S + C;
-constexpr int O_DW0 = O_N2B + C;
-constexpr int O_DB0 = O_DW0 + C * D0;
-constexpr int O_DW1 = O_DB0 + D0;
-constexpr int O_DB1 = O_DW1 + D0 * D1;
-constexpr int O_DW2 = O_DB1 + D1;
-constexpr int O_DB2 = O_DW2 + D1;
-constexpr int N_W = O_DB2 + 1;
+// Widths of the token-width-C kernel and the offsets into its packed weight
+// buffer, matrices in (in, out) orientation.
+template <int C>
+struct Width {
+  static_assert(C % NH == 0 && C % 4 == 0,
+                "C must split into 8 heads and 4-column tiles");
+  static constexpr int C2 = 2 * C;
+  static constexpr int DK = C / NH;  // head width: 11 at C = 88, 9 at C = 72
+  static constexpr int O_WQ = 0;
+  static constexpr int O_WK = O_WQ + C * C;
+  static constexpr int O_WV = O_WK + C * C;
+  static constexpr int O_WM = O_WV + C * C;
+  static constexpr int O_N1S = O_WM + C * C;
+  static constexpr int O_N1B = O_N1S + C;
+  static constexpr int O_W1 = O_N1B + C;
+  static constexpr int O_W2 = O_W1 + C2 * C2;
+  static constexpr int O_N2S = O_W2 + C2 * C;
+  static constexpr int O_N2B = O_N2S + C;
+  static constexpr int O_DW0 = O_N2B + C;
+  static constexpr int O_DB0 = O_DW0 + C * D0;
+  static constexpr int O_DW1 = O_DB0 + D0;
+  static constexpr int O_DB1 = O_DW1 + D0 * D1;
+  static constexpr int O_DW2 = O_DB1 + D1;
+  static constexpr int O_DB2 = O_DW2 + D1;
+  static constexpr int N_W = O_DB2 + 1;
+  static constexpr int kState = NH * DK * DK + C;
+};
 
-constexpr int kState = NH * DK * DK + C;
 // 512 threads: at SN = 128 a block's shared memory leaves room for one
 // block per SM, so the block itself must bring the warps
 constexpr int kRayThreads = 512;
 
+template <int C>
 inline size_t smem_bytes(int sn) {
-  return sizeof(float) * ((size_t)sn * (C + C2 + C) + kState);
+  return sizeof(float) * ((size_t)sn * (C + Width<C>::C2 + C) + Width<C>::kState);
 }
 
 // NeuS compositing of one ray whose srdf values are in S (shared, SN
@@ -139,12 +149,14 @@ struct NeusArgs {
   float* opacity;      // (RN,)
 };
 
-template <bool kNeus>
+template <int C, bool kNeus>
 __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
     const float* __restrict__ y,   // (RN, SN, C)
     const float* __restrict__ W,   // packed weights, N_W floats
     float* __restrict__ srdf,      // (RN, SN)
     int SN, NeusArgs nz) {
+  using Wd = Width<C>;
+  constexpr int C2 = Wd::C2, DK = Wd::DK;
   extern __shared__ float smem[];
   float* X = smem;                 // SN x C   tokens, later the layer output
   float* A = X + SN * C;           // SN x 2C  keys -> queries/attention -> mlp1
@@ -158,8 +170,8 @@ __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
   __syncthreads();
 
   // keys -> A, values -> B
-  block_linear<4>(X, C, C, W + O_WK, nullptr, A, C, SN, C, false);
-  block_linear<4>(X, C, C, W + O_WV, nullptr, B, C, SN, C, false);
+  block_linear<4>(X, C, C, W + Wd::O_WK, nullptr, A, C, SN, C, false);
+  block_linear<4>(X, C, C, W + Wd::O_WV, nullptr, B, C, SN, C, false);
   __syncthreads();
   for (int i = tid; i < SN * C; i += blockDim.x) A[i] = phi(A[i]);
   __syncthreads();
@@ -182,7 +194,7 @@ __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
   __syncthreads();
 
   // queries -> A (keys are dead), attention output in place
-  block_linear<4>(X, C, C, W + O_WQ, nullptr, A, C, SN, C, false);
+  block_linear<4>(X, C, C, W + Wd::O_WQ, nullptr, A, C, SN, C, false);
   __syncthreads();
   for (int t = tid; t < SN * NH; t += blockDim.x) {
     const int s = t / NH, h = t - (t / NH) * NH;
@@ -209,34 +221,34 @@ __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
   __syncthreads();
 
   // merge + LayerNorm -> B (values are dead)
-  block_linear<4>(A, C, C, W + O_WM, nullptr, B, C, SN, C, false);
+  block_linear<4>(A, C, C, W + Wd::O_WM, nullptr, B, C, SN, C, false);
   __syncthreads();
-  block_layernorm(B, C, SN, C, W + O_N1S, W + O_N1B);
+  block_layernorm(B, C, SN, C, W + Wd::O_N1S, W + Wd::O_N1B);
   __syncthreads();
   // mlp1 over [tokens | message] -> A (SN x 2C)
-  block_gemm<4>(X, C, C, B, C, C, W + O_W1, nullptr, A, C2, SN, C2, true);
+  block_gemm<4>(X, C, C, B, C, C, W + Wd::O_W1, nullptr, A, C2, SN, C2, true);
   __syncthreads();
   // mlp2 -> B, LayerNorm, residual into X
-  block_linear<4>(A, C2, C2, W + O_W2, nullptr, B, C, SN, C, false);
+  block_linear<4>(A, C2, C2, W + Wd::O_W2, nullptr, B, C, SN, C, false);
   __syncthreads();
-  block_layernorm(B, C, SN, C, W + O_N2S, W + O_N2B);
+  block_layernorm(B, C, SN, C, W + Wd::O_N2S, W + Wd::O_N2B);
   __syncthreads();
   for (int i = tid; i < SN * C; i += blockDim.x) X[i] += B[i];
   __syncthreads();
 
   // density MLP: 88 -> 32 -> 16 -> 1
-  block_linear<4>(X, C, C, W + O_DW0, W + O_DB0, A, D0, SN, D0, true);
+  block_linear<4>(X, C, C, W + Wd::O_DW0, W + Wd::O_DB0, A, D0, SN, D0, true);
   __syncthreads();
-  block_linear<4>(A, D0, D0, W + O_DW1, W + O_DB1, B, D1, SN, D1, true);
+  block_linear<4>(A, D0, D0, W + Wd::O_DW1, W + Wd::O_DB1, B, D1, SN, D1, true);
   __syncthreads();
   const size_t r = blockIdx.x;
   if (!kNeus) {
-    block_linear<4>(B, D1, D1, W + O_DW2, W + O_DB2, srdf + r * SN, 1, SN, 1,
+    block_linear<4>(B, D1, D1, W + Wd::O_DW2, W + Wd::O_DB2, srdf + r * SN, 1, SN, 1,
                     false);
     return;
   }
   // srdf -> A[0, SN) (the hidden layer is dead); A[SN, 5 SN) is scratch
-  block_linear<4>(B, D1, D1, W + O_DW2, W + O_DB2, A, 1, SN, 1, false);
+  block_linear<4>(B, D1, D1, W + Wd::O_DW2, W + Wd::O_DB2, A, 1, SN, 1, false);
   __syncthreads();
   for (int s = tid; s < SN; s += blockDim.x) srdf[r * SN + s] = A[s];
   const float inv_s = fminf(fmaxf(__ldg(nz.inv_s), 1e-6f), 1e6f);
@@ -244,34 +256,49 @@ __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
                 nz.weight + r * SN, nz.rgb + r * 3, nz.depth + r, nz.opacity + r);
 }
 
+template <int C, bool kNeus>
+int launch_c(const float* y, const float* w, float* srdf, int rn, int sn,
+             NeusArgs nz, void* stream) {
+  const size_t smem = smem_bytes<C>(sn);
+  cudaError_t e = cudaFuncSetAttribute(
+      ray_head_kernel<C, kNeus>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  ray_head_kernel<C, kNeus><<<rn, kRayThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(y, w, srdf, sn, nz);
+  return (int)cudaGetLastError();
+}
+
+// The token widths the kernel is built for.
 template <bool kNeus>
-int launch(const float* y, const float* w, float* srdf, int rn, int sn,
+int launch(const float* y, const float* w, float* srdf, int rn, int sn, int c,
            NeusArgs nz, void* stream) {
   if (rn <= 0) return 0;
   if (sn <= 0 || sn % 4) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(sn);
-  cudaError_t e = cudaFuncSetAttribute(
-      ray_head_kernel<kNeus>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  ray_head_kernel<kNeus><<<rn, kRayThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(y, w, srdf, sn, nz);
-  return (int)cudaGetLastError();
+  if (c == 88) return launch_c<88, kNeus>(y, w, srdf, rn, sn, nz, stream);
+  if (c == 72) return launch_c<72, kNeus>(y, w, srdf, rn, sn, nz, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+inline int weight_count(int c) {
+  return c == 88 ? Width<88>::N_W : c == 72 ? Width<72>::N_W : 0;
 }
 
 }  // namespace rh
 }  // namespace ufo
 
-extern "C" int ufo_ray_head_weight_count() { return ufo::rh::N_W; }
+// 0 for a token width the kernel is not built for.
+extern "C" int ufo_ray_head_weight_count(int c) { return ufo::rh::weight_count(c); }
 
-extern "C" long long ufo_ray_head_smem_bytes(int sn) {
-  return (long long)ufo::rh::smem_bytes(sn);
+extern "C" long long ufo_ray_head_smem_bytes(int sn, int c) {
+  return (long long)(c == 72 ? ufo::rh::smem_bytes<72>(sn) : ufo::rh::smem_bytes<88>(sn));
 }
 
-// Returns a cudaError_t value (0 on success). sn must be a multiple of 4.
+// Returns a cudaError_t value (0 on success). sn must be a multiple of 4
+// and c (the token width) 72 or 88.
 extern "C" int ufo_ray_head(const float* y, const float* w, float* srdf,
-                            int rn, int sn, void* stream) {
-  return ufo::rh::launch<false>(y, w, srdf, rn, sn, ufo::rh::NeusArgs{}, stream);
+                            int rn, int sn, int c, void* stream) {
+  return ufo::rh::launch<false>(y, w, srdf, rn, sn, c, ufo::rh::NeusArgs{}, stream);
 }
 
 // The ray head with the NeuS epilogue; the same return and sn rule.
@@ -279,8 +306,8 @@ extern "C" int ufo_ray_head_neus(const float* y, const float* w,
                                  const float* z, const float* rad,
                                  const float* inv_s, float* srdf, float* weight,
                                  float* rgb, float* depth, float* opacity,
-                                 int rn, int sn, void* stream) {
+                                 int rn, int sn, int c, void* stream) {
   return ufo::rh::launch<true>(
-      y, w, srdf, rn, sn,
+      y, w, srdf, rn, sn, c,
       ufo::rh::NeusArgs{z, rad, inv_s, weight, rgb, depth, opacity}, stream);
 }

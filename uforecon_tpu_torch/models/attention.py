@@ -6,7 +6,9 @@ the JAX package's ``models/attention.py``).
   * ``LoFTREncoderLayer``: the post-concat layer of the view and ray
     transformers (reference code1/attention/transformer.py:7-58).
 
-Tokens are (B, L, C) as in the JAX package.
+Tokens are (B, L, C) as in the JAX package. The per-point view
+transformer's attention (a view set's few tokens per sample point) runs in
+the tiny-attention CUDA kernels (``ops/tiny_attention.py``) on the card.
 """
 from __future__ import annotations
 
@@ -16,29 +18,27 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.tiny_attention import (EPS, phi, tiny_linear_attention,
+                                  tiny_linear_attention_reference,
+                                  within_kernel_rule)
 from .layers import layer_norm
-
-EPS = 1e-6   # linear attention denominator
-
-
-def phi(x: torch.Tensor) -> torch.Tensor:
-    """elu(x) + 1, the linear-attention feature map."""
-    return F.elu(x) + 1.0
 
 
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """phi(Q) (phi(K)^T V) / (phi(Q) sum phi(K)) over (B, L, H, D) tensors.
 
-    Two association orders give the same value: short sources (S <= 64,
-    the per-point view tokens) contract phi(Q) phi(K)^T first; long ones
-    (the matching transformer's image tokens) contract phi(K)^T V first.
-    The JAX package switches at the same length."""
-    qf, kf = phi(q), phi(k)
+    CUDA tensors within the JAX package's shape rule for its tiny-attention
+    kernel (S <= 8, L <= 8, head dim <= 16: the per-point view tokens) go
+    to the CUDA kernels, which launch or raise. Otherwise two association
+    orders give the same value: short sources (S <= 64) contract
+    phi(Q) phi(K)^T first; long ones (the matching transformer's image
+    tokens) contract phi(K)^T V first. The JAX package switches at the same
+    lengths."""
+    if q.is_cuda and within_kernel_rule(q, k):
+        return tiny_linear_attention(q, k, v)
     if k.shape[1] <= 64:
-        scores = torch.einsum("blhd,bshd->bhls", qf, kf)
-        denom = scores.sum(dim=-1) + EPS                     # (B, H, L)
-        out = torch.einsum("bhls,bshm->bhlm", scores, v) / denom[..., None]
-        return out.permute(0, 2, 1, 3)                       # (B, L, H, M)
+        return tiny_linear_attention_reference(q, k, v)
+    qf, kf = phi(q), phi(k)
     kv = torch.einsum("bshd,bshm->bhmd", kf, v)
     z = 1.0 / (torch.einsum("blhd,bhd->blh", qf, kf.sum(dim=1)) + EPS)
     return torch.einsum("blhd,bhmd->blhm", qf, kv) * z[..., None]

@@ -3,17 +3,20 @@
 Counterpart of the JAX package's ``models/ray_transformer.py`` (reference
 code1/ray_transformer.py:86-331). Per sample point it fuses sampled image
 features (32), correlation-volume features (24), pairwise similarity
-(8 cosine groups -> 16 through pre_sim_mlp) and the NeRF PE of the MVS
-depth distance (8); a view token runs through a linear-attention view
-transformer, a ray transformer runs along the sample axis, an SRDF MLP
-follows, and the radiance is a masked softmax blend over views.
+(8 cosine groups -> 16 through pre_sim_mlp; absent without explicit
+similarity) and the NeRF PE of the MVS depth distance (8); a view token
+runs through a linear-attention view transformer, a ray transformer runs
+along the sample axis, an SRDF MLP follows, and the radiance is a masked
+softmax blend over views.
 
-The port always has the full feature set in f32, where the JAX package's
-gate (``_fused_ok``) routes to its fused kernels, so ``per_point`` and
-``along_ray`` always go through the kernel wrappers of
-``ops/fused_point_head.py`` and ``ops/fused_ray_head.py``: the CUDA
-kernels on CUDA tensors, their plain versions on CPU tensors. The
-submodules hold the weights under their flax names.
+``per_point`` takes one of two routes, by the JAX package's gate
+(``_fused_ok``) and the ``fused_point_head`` knob: the point-head kernel
+wrapper (``ops/fused_point_head.py``), which needs the full feature set,
+or the view-transformer modules, whose attention goes to the
+tiny-attention kernels (``ops/tiny_attention.py``). ``along_ray`` always
+goes through the ray-head wrapper (``ops/fused_ray_head.py``). Each wrapper
+runs its CUDA kernel on CUDA tensors and its plain version on CPU tensors.
+The submodules hold the weights under their flax names.
 
 ``fused`` of ``query_similarity`` / ``query_correlation_volume`` takes the
 Config knob's values: ``auto`` and ``always`` route the query's tail to the
@@ -22,7 +25,7 @@ kernel wrapper (``ops/fused_similarity.py``, ``ops/fused_volume_fusion.py``),
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -33,7 +36,7 @@ from ..ops.fused_ray_head import RayHeadParams, ray_head, ray_head_neus
 from ..ops.fused_similarity import grouped_cosine, grouped_cosine_reference, view_pairs
 from ..ops.fused_volume_fusion import volume_fusion, volume_fusion_reference
 from ..ops.grid_sample import grid_sample_2d, grid_sample_3d, in_bounds_mask
-from ..ops.posenc import order_posenc
+from ..ops.posenc import nerf_posenc, order_posenc
 from .attention import LocalFeatureTransformer
 from .layers import MLP
 
@@ -121,7 +124,9 @@ class RayTransformer(nn.Module):
         self.pe_d_hid = pe_d_hid
         self.n_heads = n_heads
         d = self.d_view
-        self.pre_sim_mlp = MLP(sim_feat_dim, (32, 32, sim_feat_fix))
+        # as in flax, no pre-similarity weights without explicit similarity
+        if sim_feat_fix > 0:
+            self.pre_sim_mlp = MLP(sim_feat_dim, (32, 32, sim_feat_fix))
         self.density_view_transformer = LocalFeatureTransformer(d, n_heads)
         self.density_ray_transformer = LocalFeatureTransformer(d + pe_d_hid, n_heads)
         self.density_mlp = MLP(d + pe_d_hid, (32, 16, 1))
@@ -143,11 +148,13 @@ class RayTransformer(nn.Module):
         points_xy: torch.Tensor,           # (NV, RN, SN, 2)
         valid_depth: torch.Tensor,         # (NV, RN, SN)
         fea_volume_feat: torch.Tensor,     # (RN, SN, Dv)
-        sim_feat: torch.Tensor,            # (RN, SN, 8)
+        sim_feat: Optional[torch.Tensor],  # (RN, SN, 8); None without similarity
         mvs_depths: torch.Tensor,          # (NV, H, W)
+        fused: str = "auto",               # Config.fused_point_head
     ) -> Dict[str, torch.Tensor]:
-        """Gathers the per-point features and runs the point head. Returns
-        ``token`` (RN, SN, C) and ``radiance`` (RN, SN, 3)."""
+        """Gathers the per-point features and runs the point head or the
+        view transformer (``_fused_ok``). Returns ``token`` (RN, SN, C) and
+        ``radiance`` (RN, SN, 3)."""
         rn, sn, _ = points.shape
         nv = source_imgs.shape[0]
         n = rn * sn
@@ -167,6 +174,10 @@ class RayTransformer(nn.Module):
                + src_w2cs[:, None, None, :3, 3])
         depth_dist = rgbd[..., 3] - cam[..., 2]                 # (NV, RN, SN)
 
+        if not self._fused_ok(sim_feat, fused):
+            return self._per_point_view_transformer(
+                img_feat, fea_volume_feat, sim_feat, depth_dist, dir_relative,
+                rgbd[..., :3], mask)
         token, rad = point_head(
             PointHeadInputs(
                 img_feat=img_feat.reshape(nv, n, -1),
@@ -179,6 +190,56 @@ class RayTransformer(nn.Module):
             self.point_head_params(), self.n_heads)
         return {"token": token.reshape(rn, sn, -1),
                 "radiance": rad.reshape(rn, sn, 3)}
+
+    @staticmethod
+    def _fused_ok(sim_feat: Optional[torch.Tensor], fused: str) -> bool:
+        """Route the per-point stage to the point-head kernel? The JAX gate
+        (``RayTransformer._fused_ok``): the kernel needs the full feature
+        set, of which the port can lack only the similarity; ``auto``
+        takes it where it is there, ``always`` raises where it is not."""
+        if fused == "never":
+            return False
+        full = sim_feat is not None
+        if fused == "always" and not full:
+            raise ValueError(
+                "fused_point_head='always' but the point-head kernel's "
+                "prerequisites are not met (needs correlation volume + explicit "
+                "similarity + depth PE features); use 'auto' to allow the view "
+                "transformer")
+        return full
+
+    def _per_point_view_transformer(self, img_feat, fea_volume_feat, sim_feat,
+                                    depth_dist, dir_relative, img_rgb, mask):
+        """The per-point stage through the view-transformer modules (JAX
+        ``per_point`` past its fused branch): (RN*SN, NV, C) view tokens
+        after the view token, one LoFTR layer, then the masked radiance
+        softmax."""
+        nv, rn, sn, _ = img_feat.shape
+        n = rn * sn
+
+        def per_view(a):          # (NV, RN, SN, C) -> (RN*SN, NV, C)
+            return a.permute(1, 2, 0, 3).reshape(n, nv, -1)
+
+        def shared(a):            # (RN, SN, C) -> (RN*SN, NV, C)
+            return a.reshape(n, 1, -1).expand(n, nv, -1)
+
+        parts = [per_view(img_feat), shared(fea_volume_feat)]
+        if sim_feat is not None:
+            parts.append(shared(self.pre_sim_mlp(sim_feat)))
+        parts.append(per_view(nerf_posenc(depth_dist[..., None], num_freqs=4)))
+        x = torch.cat(parts, dim=-1)
+        token = self.view_token.reshape(1, 1, -1).expand(n, 1, -1)
+        x = self.density_view_transformer(torch.cat([token.to(x.dtype), x], dim=1))
+
+        # radiance: masked softmax blend over views
+        vf = x[:, 1:].reshape(rn, sn, nv, -1)
+        xw = self.linear_radianceweight_1_softmax(
+            torch.cat([vf, dir_relative.permute(1, 2, 0, 3)], dim=-1))
+        m = mask.permute(1, 2, 0)[..., None]                     # (RN, SN, NV, 1)
+        xw = torch.where(m == 0, torch.full_like(xw, -1e9), xw)
+        w = torch.softmax(xw, dim=-2)
+        radiance = (img_rgb.permute(1, 2, 0, 3) * w).sum(dim=2)  # (RN, SN, 3)
+        return {"token": x[:, 0].reshape(rn, sn, -1), "radiance": radiance}
 
     def point_head_params(self) -> PointHeadParams:
         lv = self.density_view_transformer.layer_0

@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..config import Config
+from ..ops.camera import project_points_ndc
 from ..ops.rendering import neus_render
 from ..ops.sampling import sample_coarse, sample_importance
 from .cascade import CascadeMatcher
@@ -101,10 +102,14 @@ class UFORecon(nn.Module):
         """Per-point half of sample2rgb (model.py:308-332)."""
         c = self.cfg
         nv = scene.source_imgs.shape[0]
-        sim_feat, xy, valid = query_similarity(
-            points, scene.source_poses, enc.aug0, enc.aug1, nv,
-            n_groups=c.cos_n_group, pair_quirk=c.sim_pair_quirk,
-            fused=c.fused_similarity)
+        if c.explicit_similarity:
+            sim_feat, xy, valid = query_similarity(
+                points, scene.source_poses, enc.aug0, enc.aug1, nv,
+                n_groups=c.cos_n_group, pair_quirk=c.sim_pair_quirk,
+                fused=c.fused_similarity)
+        else:
+            sim_feat = None
+            xy, _, valid = project_points_ndc(scene.source_poses, points)
         fea_volume_feat = query_correlation_volume(
             points, scene.source_poses, enc.volumes, (scene.near, scene.far),
             fused=c.fused_volume_fusion)
@@ -113,7 +118,8 @@ class UFORecon(nn.Module):
             source_feats=enc.source_feats, ref_cam_pos=scene.ref_cam_pos,
             src_cam_pos=scene.src_cam_pos, src_w2cs=scene.src_w2cs,
             points_xy=xy, valid_depth=valid, fea_volume_feat=fea_volume_feat,
-            sim_feat=sim_feat, mvs_depths=enc.mvs_depths)
+            sim_feat=sim_feat, mvs_depths=enc.mvs_depths,
+            fused=c.fused_point_head)
 
     def _render_sequence(self, z_val: torch.Tensor,
                          pp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

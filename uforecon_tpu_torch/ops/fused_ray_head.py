@@ -2,16 +2,18 @@
 the wrapper that picks between them.
 
 Replaces the Pallas TPU kernel the JAX package's ``ops/fused_ray_head.py``
-``ray_head_fused``: over each ray's (SN, 88) z-sorted tokens, one LoFTR
+``ray_head_fused``: over each ray's (SN, C) z-sorted tokens, one LoFTR
 linear-attention layer across the samples, then the density MLP
-88 -> 32 -> 16 -> 1. The kernel is ``csrc/ray_head.cu``.
+C -> 32 -> 16 -> 1. The kernel is ``csrc/ray_head.cu``, built for the
+token widths C = 88 (the default configuration) and 72 (without explicit
+similarity), like the JAX kernel, which is generic in C.
 
 Bound on the H100: FP32 arithmetic (~8.3e4 FMAs per sample against 356
-bytes, exact f32). Design: one 512-thread block per ray keeps its SN x 88
-tokens, the SN x 176 hidden layer and the per-ray linear-attention state
-(8 heads x 11 x 11 key-value sums, taken in kv order so nothing SN x SN
-exists) in shared memory, and reads the ~81k weights through the
-read-only cache.
+bytes at C = 88, exact f32). Design: one 512-thread block per ray keeps
+its SN x C tokens, the SN x 2C hidden layer and the per-ray
+linear-attention state (8 heads x C/8 x C/8 key-value sums, taken in kv
+order so nothing SN x SN exists) in shared memory, and reads the ~81k
+weights through the read-only cache.
 
 ``ray_head_neus`` is the same kernel with NeuS compositing in its epilogue
 (the JAX ``ray_head_neus_fused``): it also returns the weights and each
@@ -35,7 +37,7 @@ from .rendering import neus_render
 
 EPS = 1e-6      # linear attention denominator
 LN_EPS = 1e-6   # flax LayerNorm epsilon
-_KERNEL_C = 88
+_KERNEL_C = (72, 88)
 _KERNEL_HEADS = 8
 
 
@@ -101,8 +103,8 @@ def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, *extra: torch.Tens
     """Checks what the kernel takes; returns the extension and the weight
     pack."""
     rn, sn, c = y.shape
-    if c != _KERNEL_C or n_heads != _KERNEL_HEADS or sn % 4:
-        raise ValueError(f"ray_head kernel takes C={_KERNEL_C}, "
+    if c not in _KERNEL_C or n_heads != _KERNEL_HEADS or sn % 4:
+        raise ValueError(f"ray_head kernel takes C in {_KERNEL_C}, "
                          f"{_KERNEL_HEADS} heads and SN % 4 == 0, got C={c}, "
                          f"{n_heads} heads, SN={sn}")
     dev = y.device
@@ -111,7 +113,7 @@ def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, *extra: torch.Tens
             raise ValueError("ray_head kernel takes float32 tensors on one "
                              f"CUDA device, got {t.dtype} on {t.device}")
     ext = cuda_build.extension()
-    smem = ext.ray_head_smem_bytes(sn)
+    smem = ext.ray_head_smem_bytes(sn, c)
     # Hopper's opt-in limit where this torch does not report it
     limit = getattr(torch.cuda.get_device_properties(dev),
                     "shared_memory_per_block_optin", 232448)
@@ -119,7 +121,7 @@ def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, *extra: torch.Tens
         raise ValueError(f"ray_head kernel: SN={sn} needs {smem} bytes of "
                          f"shared memory, the card allows {limit}")
     w = pack_weights(p)
-    if w.numel() != ext.ray_head_weight_count():
+    if w.numel() != ext.ray_head_weight_count(c):
         raise ValueError("ray_head weight pack does not match the kernel")
     return ext, w
 
