@@ -7,31 +7,38 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
 (``nvcc``), ``ninja`` and no network. In order it:
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the port's CUDA kernels from ``uforecon_tpu_torch/csrc``;
-  3. kernel phase: each of the seven kernels against its plain PyTorch
+  3. kernel phase: each of the nine kernels against its plain PyTorch
      version on the card at main-path shapes (the ray head and its NeuS
-     variant at both token widths, 88 and 72), with max abs errors,
+     variant at both token widths, 88 and 72; the split-weight point head
+     at 65,536 and the ragged 65,537 points, timed beside the point head on
+     the same inputs; the row gather at 2048 blocks of 4096 rows, bit for
+     bit, timed beside ``torch.index_select``), with max abs errors,
      CUDA-event times (median of several runs) of kernel and plain version,
      and the bound (the least time the card could take for the work);
   4. slice phase: ``extract_geometry_for_dataset`` on one DTU-scale view
      (800x640, 3 views, 192 hypotheses, 64 + 64 samples, seeded random
-     weights) by four routes: the default (knobs off), the render-glue
+     weights) by five routes: the default (knobs off), the render-glue
      knobs on, route A (``fused_point_head='never'``: the view transformer
-     and the tiny-attention kernel, same weights) and route B (the
-     ablation without explicit similarity, its own seeded weights),
+     and the tiny-attention kernel, same weights), route B (the ablation
+     without explicit similarity, its own seeded weights) and route v2
+     (``point_head='v2'``: the split-weight point head, same weights),
      checking each depth map written to disk and which kernels each run
      launched; then, for each route, that a small ray chunk of the same
      scene agrees with the plain versions run on the CPU;
   5. gradient phase: one backward through route A's per-point stage of a
      256-ray coarse chunk, through the tiny-attention backward kernel,
      against the same backward on the CPU;
-  6. profile phase: 8 render chunks of 1024 rays per route (off, on, A)
-     under ``torch.profiler``: device operations, device ms and the
-     device's busy share per chunk, and the operations the knobs-on route
-     removes;
-  7. A/B phase: AB_ROUNDS rounds of warm full views in the order off, on,
+  6. probe phase: the row-gather benchmark's probe entry point
+     (``uforecon_tpu_torch/script/bench_tile_gather.py --mode probe``) at
+     256 blocks: its JSON line, bit-equal first block, the kernel launched;
+  7. profile phase: 8 render chunks of 1024 rays per route (off, on, A,
+     v2) under ``torch.profiler``: device operations, device ms and the
+     device's busy share per chunk, the operations the knobs-on route
+     removes, and routes A and v2 against knobs off;
+  8. A/B phase: AB_ROUNDS rounds of warm full views in the order off, on,
      on, off on one encoding (rays/s per view, SM clock and power read
      after each);
-  8. prints a JSON line of per-kernel results, then the final
+  9. prints a JSON line of per-kernel results, then the final
      ``{"ok": true, "device": {...}}`` line.
 Any failure exits non-zero without printing a result; without a CUDA card
 it exits 1 at once.
@@ -84,17 +91,24 @@ KERNEL_SOURCES = {
                        f"{JAX_PACKAGE}/ops/pallas_attention.py:190"),
     "tiny_attention_bwd": (f"{PORT}/csrc/tiny_attention.cu",
                            f"{JAX_PACKAGE}/ops/pallas_attention.py:147"),
+    "point_head2": (f"{PORT}/csrc/point_head2.cu",
+                    f"{JAX_PACKAGE}/ops/fused_point_head2.py:163"),
+    "block_row_gather": (f"{PORT}/csrc/row_gather.cu",
+                         "script/bench_tile_gather.py:210"),
 }
 # the run each kernel belongs to: its launches are read from that run
 ROUTE = {"point_head": "off", "ray_head": "off", "grouped_cosine": "on",
          "volume_fusion": "on", "ray_head_neus": "on", "tiny_attention": "A",
-         "tiny_attention_bwd": "grad"}
+         "tiny_attention_bwd": "grad", "point_head2": "v2",
+         "block_row_gather": "probe"}
 # the kernels each run must launch; every other kernel must stay idle
 MUST_RUN = {"off": ("point_head", "ray_head"),
             "on": ("point_head", "grouped_cosine", "volume_fusion", "ray_head_neus"),
             "A": ("tiny_attention", "ray_head"),
             "B": ("tiny_attention", "ray_head"),
-            "grad": ("tiny_attention", "tiny_attention_bwd")}
+            "grad": ("tiny_attention", "tiny_attention_bwd"),
+            "v2": ("point_head2", "ray_head"),
+            "probe": ("block_row_gather",)}
 # H100 SXM data sheet at 700 W: FP32 outside the tensor cores, HBM3
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -129,6 +143,29 @@ def time_ms(fn, reps=10):
     return float(np.median(times))
 
 
+def kernel_times(fn, reps=10):
+    """(kernel ms, call ms) per call of fn, a kernel wrapper: the device
+    time of the port's own kernels (namespace ``ufo::``) that it launches,
+    from torch.profiler over reps calls, and the CUDA-event time of the
+    whole call (``time_ms``), which adds the wrapper's host work (weight
+    packs, checks) where the device waits for it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call = time_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and "ufo::" in e.name]
+    if len(us) != reps:
+        raise AssertionError(f"expected {reps} launches of the port's kernels, "
+                             f"the profiler saw {len(us)}")
+    return sum(us) / reps / 1e3, call
+
+
 def bound(n_bytes, flops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     FP32 operations over the peak rate."""
@@ -151,6 +188,24 @@ def point_head_flops(nv, p, c=80):
     attn = 4 * tokens * tokens * c
     rad = 2 * ((c + 3) * 16 + 16 * 8 + 8)
     return p * (sim + tokens * per_token + attn + nv * rad)
+
+
+def point_head2_flops(nv, p, c=80, g_view=40, g_shared=40):
+    """Multiply-adds x 2 of the split-weight point head per launch: the
+    similarity MLP; once per point, the view-shared groups [vol | sim16]
+    through the q/k/v, mlp1 and radiance rows; per view, [img | pe]
+    through the same rows and [img | pe | dir | m2] through the radiance
+    layer 0; per token (NV views + the view token) merge, mlp1's message
+    half and mlp2; attention across the tokens; the radiance tail per
+    view."""
+    tokens = nv + 1
+    sim = 8 * 32 + 32 * 32 + 32 * 16
+    shared = g_shared * (3 * c + 2 * c + 16)
+    view = nv * (g_view * (3 * c + 2 * c) + (g_view + 3 + c) * 16)
+    per_token = c * c + c * 2 * c + 2 * c * c
+    attn = 2 * tokens * tokens * c
+    rad_tail = nv * (16 * 8 + 8)
+    return 2 * p * (sim + shared + view + tokens * per_token + attn + rad_tail)
 
 
 def attention_flops(b, l, s, h, d, m, backward=False):
@@ -198,9 +253,11 @@ def kernel_phase(model, model_b, card):
     import torch
 
     from uforecon_tpu_torch.ops import fused_point_head as fph
+    from uforecon_tpu_torch.ops import fused_point_head2 as fph2
     from uforecon_tpu_torch.ops import fused_ray_head as frh
     from uforecon_tpu_torch.ops import fused_similarity as fsim
     from uforecon_tpu_torch.ops import fused_volume_fusion as fvf
+    from uforecon_tpu_torch.ops import row_gather as frg
     from uforecon_tpu_torch.ops import tiny_attention as fta
 
     dev = torch.device("cuda")
@@ -218,13 +275,17 @@ def kernel_phase(model, model_b, card):
     # point head: 1024 rays x 64 samples, 3 views; ~30% of (view, point)
     # pairs masked and the first 256 points masked in every view
     nv, p = 3, 1024 * 64
-    mask = (rand(nv, p) > 0.3).float()
-    mask[:, :256] = 0.0
-    inp = fph.PointHeadInputs(
-        img_feat=randn(nv, p, 32), vol_feat=randn(p, 24),
-        sim_feat=rand(p, 8) * 2 - 1,
-        depth_dist=randn(nv, p, scale=0.3), dir_rel=randn(nv, p, 3, scale=0.1),
-        rgb=rand(nv, p, 3), mask=mask)
+
+    def point_inputs(n):
+        mask = (rand(nv, n) > 0.3).float()
+        mask[:, :256] = 0.0
+        return fph.PointHeadInputs(
+            img_feat=randn(nv, n, 32), vol_feat=randn(n, 24),
+            sim_feat=rand(n, 8) * 2 - 1,
+            depth_dist=randn(nv, n, scale=0.3), dir_rel=randn(nv, n, 3, scale=0.1),
+            rgb=rand(nv, n, 3), mask=mask)
+
+    inp = point_inputs(p)
     params = rt.point_head_params()
     with torch.no_grad():
         tok, rad = fph.point_head(inp, params)
@@ -234,22 +295,60 @@ def kernel_phase(model, model_b, card):
         err_r = (rad - rad_ref).abs().max().item()
         masked_mean = inp.rgb[:, :256].mean(0)
         err_masked = (rad[:256] - masked_mean).abs().max().item()
-        ms = time_ms(lambda: fph.point_head(inp, params))
+        ms, call_ms = kernel_times(lambda: fph.point_head(inp, params))
         plain_ms = time_ms(lambda: fph.point_head_reference(inp, params))
     b_ms, b_by = bound(nbytes(*inp, fph.pack_weights(params), tok, rad),
                        point_head_flops(nv, p))
     log(f"[kernel] point_head P={p} NV={nv}: max|token err| {err_t:.3e} "
         f"(tol {TOL['token']}), max|radiance err| {err_r:.3e} "
         f"(tol {TOL['radiance']}), all-masked points vs mean rgb "
-        f"{err_masked:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"{err_masked:.3e}; kernel {ms:.3f} ms (call {call_ms:.3f}), plain "
+        f"{plain_ms:.3f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
     if not (err_t <= TOL["token"] and err_r <= TOL["radiance"]
             and err_masked <= TOL["radiance"]):
         raise AssertionError("point_head kernel disagrees with its plain version")
-    results["point_head"] = {"max_abs_err": max(err_t, err_r), "ms": ms,
+    results["point_head"] = {"max_abs_err": max(err_t, err_r), "ms": ms, "call_ms": call_ms,
                              "plain_ms": plain_ms, "bound_ms": b_ms,
                              "bound_by": b_by, "token_err": err_t,
                              "radiance_err": err_r}
+
+    # split-weight point head (point_head='v2') on the same weights, at the
+    # main path's 65,536 points and the ragged 65,537; no single PyTorch
+    # call computes this function, so the point head on the same inputs is
+    # its yardstick
+    v2 = {}
+    for n in (p, p + 1):
+        inp2 = inp if n == p else point_inputs(n)
+        with torch.no_grad():
+            tok, rad = fph2.point_head2(inp2, params)
+            tok_ref, rad_ref = fph2.point_head2_reference(inp2, params)
+            torch.cuda.synchronize()
+            err_t = (tok - tok_ref).abs().max().item()
+            err_r = (rad - rad_ref).abs().max().item()
+            err_masked = (rad[:256] - inp2.rgb[:, :256].mean(0)).abs().max().item()
+            k_ms, call_ms = kernel_times(lambda: fph2.point_head2(inp2, params))
+            p_ms = time_ms(lambda: fph2.point_head2_reference(inp2, params))
+            v1_ms, v1_call_ms = kernel_times(lambda: fph.point_head(inp2, params))
+        b_ms, b_by = bound(nbytes(*inp2, fph2.pack_weights2(params), tok, rad),
+                           point_head2_flops(nv, n))
+        log(f"[kernel] point_head2 P={n} NV={nv}: max|token err| {err_t:.3e} "
+            f"(tol {TOL['token']}), max|radiance err| {err_r:.3e} (tol "
+            f"{TOL['radiance']}), all-masked points vs mean rgb {err_masked:.3e}; "
+            f"kernel {k_ms:.3f} ms (call {call_ms:.3f}), plain {p_ms:.3f} ms, "
+            f"point_head kernel on the same inputs {v1_ms:.3f} ms (call "
+            f"{v1_call_ms:.3f}), bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        if not (err_t <= TOL["token"] and err_r <= TOL["radiance"]
+                and err_masked <= TOL["radiance"]):
+            raise AssertionError(f"point_head2 kernel disagrees with its plain "
+                                 f"version at P={n}")
+        v2[n] = {"max_abs_err": max(err_t, err_r), "ms": k_ms, "call_ms": call_ms,
+                 "plain_ms": p_ms, "point_head_ms": v1_ms,
+                 "point_head_call_ms": v1_call_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "token_err": err_t, "radiance_err": err_r}
+    results["point_head2"] = {**v2[p], "max_abs_err": max(x["max_abs_err"]
+                                                          for x in v2.values()),
+                              "ragged": v2[p + 1]}
 
     # ray head, with and without the NeuS epilogue: one render chunk
     # launches it once at SN 64 (coarse) and once at SN 128 (fine), so the
@@ -283,15 +382,16 @@ def kernel_phase(model, model_b, card):
             err_by = {k: ((a - b).abs() / (b.abs().clamp(min=1.0)
                                            if k == "depth" else 1.0)).max().item()
                       for k, a, b in zip(NEUS_OUT, got, want)}
-            k_ms = time_ms(lambda: kern(*args, rparams))
+            k_ms, call_ms = kernel_times(lambda: kern(*args, rparams))
             p_ms = time_ms(lambda: plain(*args, rparams))
         b_ms, b_by = bound(nbytes(*args, frh.pack_weights(rparams), *got),
                            ray_head_flops(1024, sn, c=c, neus=neus))
         err = max(err_by.values())
         log(f"[kernel] {name} (1024, {sn}, {c}): max err {err:.3e} {err_by} "
-            f"(tol {tol}); kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+            f"(tol {tol}); kernel {k_ms:.3f} ms (call {call_ms:.3f}), plain {p_ms:.3f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
-        case = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        case = {"ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by,
                 "errors": err_by}
         if neus:
             in_regime, regime, size, rel = neus_check(got, want)
@@ -313,14 +413,14 @@ def kernel_phase(model, model_b, card):
         for c, m in ((88, model), (72, model_b)):
             cases = {sn: ray_head_case(name, m, c, sn) for sn in (64, 128)}
             by_c[c] = {k: sum(x[k] for x in cases.values())
-                       for k in ("ms", "plain_ms", "bound_ms")}
+                       for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
             by_c[c].update(bound_by=cases[128]["bound_by"], by_sn=cases)
         # the JSON line's times are per chunk at the default width 88
         results[name] = {"max_abs_err": max(e for v in by_c.values()
                                             for x in v["by_sn"].values()
                                             for e in x["errors"].values()),
-                         **{k: by_c[88][k] for k in ("ms", "plain_ms", "bound_ms",
-                                                      "bound_by")},
+                         **{k: by_c[88][k] for k in ("ms", "call_ms", "plain_ms",
+                                                      "bound_ms", "bound_by")},
                          "by_width": by_c}
 
     # grouped cosine at (3, 65,536, 64) in the layout the sampler hands
@@ -331,16 +431,18 @@ def kernel_phase(model, model_b, card):
         want = fsim.grouped_cosine_reference(x, 8)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        k_ms = time_ms(lambda: fsim.grouped_cosine(x, 8))
+        k_ms, call_ms = kernel_times(lambda: fsim.grouped_cosine(x, 8))
         p_ms = time_ms(lambda: fsim.grouped_cosine_reference(x, 8))
     n_pairs = nv * (nv - 1) // 2
     b_ms, b_by = bound(nbytes(x, got), p * n_pairs * (6 * 32 + 8 * 6))
     log(f"[kernel] grouped_cosine {tuple(x.shape)} strides {x.stride()}: max "
-        f"abs err {err:.3e} (tol {TOL['cosine']}); kernel {k_ms:.4f} ms, plain "
+        f"abs err {err:.3e} (tol {TOL['cosine']}); kernel {k_ms:.4f} ms (call "
+        f"{call_ms:.4f}), plain "
         f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
     if not err <= TOL["cosine"]:
         raise AssertionError("grouped_cosine kernel disagrees with its plain version")
-    results["grouped_cosine"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+    results["grouped_cosine"] = {"max_abs_err": err, "ms": k_ms, "call_ms": call_ms,
+                                 "plain_ms": p_ms,
                                  "bound_ms": b_ms, "bound_by": b_by}
 
     # volume fusion at 3 x (3, 65,536, 9), channel-first as the sampler
@@ -358,16 +460,17 @@ def kernel_phase(model, model_b, card):
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         zero_ok = bool(torch.all(got[:512] == 0).item())
-        k_ms = time_ms(lambda: fvf.volume_fusion(*fws))
+        k_ms, call_ms = kernel_times(lambda: fvf.volume_fusion(*fws))
         p_ms = time_ms(lambda: fvf.volume_fusion_reference(fws))
     b_ms, b_by = bound(nbytes(*fws, got), p * (nv * (3 + 1 + 3 * 8 * 2) + 24))
     log(f"[kernel] volume_fusion 3 x {tuple(fws[0].shape)}: max abs err "
         f"{err:.3e} (tol {TOL['fusion']}), zero-weight points give 0: {zero_ok}; "
-        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}) [{card}]")
+        f"kernel {k_ms:.4f} ms (call {call_ms:.4f}), plain {p_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}) [{card}]")
     if not (err <= TOL["fusion"] and zero_ok):
         raise AssertionError("volume_fusion kernel disagrees with its plain version")
-    results["volume_fusion"] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+    results["volume_fusion"] = {"max_abs_err": err, "ms": k_ms, "call_ms": call_ms,
+                                "plain_ms": p_ms,
                                 "bound_ms": b_ms, "bound_by": b_by}
     # tiny attention, forward and backward, at route A's shape: one
     # 1024-ray chunk x 64 samples, the view token and 3 views, 8 heads of
@@ -386,15 +489,16 @@ def kernel_phase(model, model_b, card):
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             excess = ((got - want).abs() - TOL["attention"] * want.abs()).max().item()
-            k_ms = time_ms(lambda: fta.tiny_linear_attention(q, k, v))
+            k_ms, call_ms = kernel_times(lambda: fta.tiny_linear_attention(q, k, v))
             p_ms = time_ms(lambda: fta.tiny_linear_attention_reference(q, k, v))
         b_ms, b_by = bound(nbytes(q, k, v, got), attention_flops(b, **dims))
         log(f"[kernel] tiny_attention B={b} L=S=4 H=8 D=M=10: max abs err {err:.3e} "
-            f"(rtol = atol = {TOL['attention']}); kernel {k_ms:.4f} ms, plain "
+            f"(rtol = atol = {TOL['attention']}); kernel {k_ms:.4f} ms (call "
+            f"{call_ms:.4f}), plain "
             f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
         if not excess <= TOL["attention"]:
             raise AssertionError(f"tiny_attention kernel disagrees at B={b}")
-        fwd[b] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+        fwd[b] = {"max_abs_err": err, "ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms,
                   "bound_ms": b_ms, "bound_by": b_by}
     results["tiny_attention"] = {**fwd[p], "max_abs_err": max(f["max_abs_err"]
                                                                for f in fwd.values()),
@@ -413,7 +517,8 @@ def kernel_phase(model, model_b, card):
         excess = max(((a - b).abs() - TOL["attention_grad"] * b.abs()).max().item()
                      for a, b in zip(got, want))
         twin_err = max((a - b).abs().max().item() for a, b in zip(got, twin))
-        k_ms = time_ms(lambda: fta.tiny_linear_attention_backward(q, k, v, g))
+        k_ms, call_ms = kernel_times(
+            lambda: fta.tiny_linear_attention_backward(q, k, v, g))
         p_ms = time_ms(lambda: fta.tiny_linear_attention_backward_reference(q, k, v, g))
 
     def autograd_plain():
@@ -424,35 +529,78 @@ def kernel_phase(model, model_b, card):
     b_ms, b_by = bound(nbytes(q, k, v, g, *got), attention_flops(p, **dims, backward=True))
     log(f"[kernel] tiny_attention_bwd B={p}: max abs err vs autograd of the plain "
         f"forward {errs} (rtol = atol = {TOL['attention_grad']}), vs the plain "
-        f"backward {twin_err:.3e}; kernel {k_ms:.4f} ms, plain backward {p_ms:.4f} "
+        f"backward {twin_err:.3e}; kernel {k_ms:.4f} ms (call {call_ms:.4f}), plain "
+        f"backward {p_ms:.4f} "
         f"ms, autograd of the plain forward {a_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}) [{card}]")
     if not excess <= TOL["attention_grad"]:
         raise AssertionError(f"tiny_attention backward kernel disagrees: {errs}")
     results["tiny_attention_bwd"] = {"max_abs_err": max(errs.values()), "ms": k_ms,
+                                     "call_ms": call_ms,
                                      "plain_ms": p_ms, "bound_ms": b_ms,
                                      "bound_by": b_by, "errors": errs,
                                      "plain_backward_err": twin_err,
                                      "autograd_plain_ms": a_ms}
-    # no single PyTorch call computes any of these seven functions
+
+    # row gather at the probe's shape: 2048 blocks of 4096 rows of 128 bf16,
+    # random in-block indices; bit for bit against its plain version, timed
+    # beside one library call for the same gather (index_select on global
+    # indices computed beforehand)
+    blocks, rows = 2048, frg.BLOCK_ROWS
+    src = randn(blocks * rows, frg.ROW_WIDTH).to(torch.bfloat16)
+    idx = torch.randint(0, rows, (blocks * rows,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    gidx = torch.arange(blocks, device=dev).repeat_interleave(rows) * rows + idx.long()
+    with torch.no_grad():
+        got = frg.block_row_gather(src, idx)
+        want = frg.block_row_gather_reference(src, idx)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        lib_equal = bool(torch.equal(torch.index_select(src, 0, gidx), want))
+        err = (got.float() - want.float()).abs().max().item()
+        k_ms, call_ms = kernel_times(lambda: frg.block_row_gather(src, idx))
+        p_ms = time_ms(lambda: frg.block_row_gather_reference(src, idx))
+        l_ms = time_ms(lambda: torch.index_select(src, 0, gidx))
+    moved = frg.bytes_moved(idx, rows, frg.ROW_WIDTH * src.element_size())
+    distinct = (moved - nbytes(idx, got)) / (frg.ROW_WIDTH * src.element_size())
+    b_ms, b_by = bound(moved, 0)
+    log(f"[kernel] block_row_gather {blocks} blocks x {rows} rows x {frg.ROW_WIDTH} "
+        f"bf16: bit-equal to its plain version {equal} (index_select {lib_equal}), "
+        f"distinct source rows {distinct / (blocks * rows):.4f} of all; kernel "
+        f"{k_ms:.4f} ms (call {call_ms:.4f}), plain {p_ms:.4f} ms, index_select "
+        f"{l_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}) [{card}]")
+    if not (equal and lib_equal):
+        raise AssertionError("block_row_gather kernel disagrees with its plain version")
+    results["block_row_gather"] = {"max_abs_err": err, "ms": k_ms, "call_ms": call_ms,
+                                   "plain_ms": p_ms,
+                                   "library_ms": l_ms, "bound_ms": b_ms,
+                                   "bound_by": b_by,
+                                   "distinct_row_share": distinct / (blocks * rows)}
+    del src, idx, gidx, got, want
+    torch.cuda.empty_cache()
+    # no single PyTorch call computes the other eight functions
     # (scaled_dot_product_attention is softmax attention, not elu+1 linear)
     for r in results.values():
-        r["library_ms"] = None
+        r.setdefault("library_ms", None)
     return results
 
 
 def launch_counts():
     from uforecon_tpu_torch.ops.fused_point_head import point_head
+    from uforecon_tpu_torch.ops.fused_point_head2 import point_head2
     from uforecon_tpu_torch.ops.fused_ray_head import ray_head, ray_head_neus
     from uforecon_tpu_torch.ops.fused_similarity import grouped_cosine
     from uforecon_tpu_torch.ops.fused_volume_fusion import volume_fusion
+    from uforecon_tpu_torch.ops.row_gather import block_row_gather
     from uforecon_tpu_torch.ops.tiny_attention import (
         tiny_linear_attention, tiny_linear_attention_backward)
 
     return {"point_head": point_head, "ray_head": ray_head,
             "grouped_cosine": grouped_cosine, "volume_fusion": volume_fusion,
             "ray_head_neus": ray_head_neus, "tiny_attention": tiny_linear_attention,
-            "tiny_attention_bwd": tiny_linear_attention_backward}
+            "tiny_attention_bwd": tiny_linear_attention_backward,
+            "point_head2": point_head2, "block_row_gather": block_row_gather}
 
 
 def check_launches(run, launches):
@@ -539,14 +687,16 @@ def agree_with_cpu(model, sample, route):
 
 def slice_phase(model, model_b, card):
     """The main path, extract_geometry_for_dataset on one full view, by
-    four routes: the render-glue knobs off and on, route A (the view
-    transformer; all three on the same weights) and route B (model_b, the
-    ablation without explicit similarity)."""
+    five routes: the render-glue knobs off and on, route A (the view
+    transformer), route v2 (the split-weight point head; all four on the
+    same weights) and route B (model_b, the ablation without explicit
+    similarity)."""
     from uforecon_tpu_torch.config import FUSED_GLUE
     from uforecon_tpu_torch.data.synthetic import dtu_scale_sample
 
     models = {"off": model, "on": model.with_knobs(**FUSED_GLUE),
-              "A": model.with_knobs(fused_point_head="never"), "B": model_b}
+              "A": model.with_knobs(fused_point_head="never"), "B": model_b,
+              "v2": model.with_knobs(point_head="v2")}
     # route B's ray head runs at the kernel's second width
     if model_b.ray_transformer.ray_head_params().wq.shape[0] != 72:
         raise AssertionError("route B's ray-head width is not 72")
@@ -605,6 +755,38 @@ def gradient_phase(model_a, sample, card):
     check_launches("grad", launches)
     if not max(rel.values()) <= TOL["route_grad_rel"]:
         raise AssertionError(f"route A gradients disagree between card and CPU: {rel}")
+    return launches
+
+
+def probe_phase(card, blocks=256):
+    """The row-gather benchmark's probe entry point, as a user runs it
+    (``python -m uforecon_tpu_torch.script.bench_tile_gather --mode
+    probe``), in this process so that its launches are counted: its JSON
+    line must be well formed, its first block bit-equal and every number
+    finite. Returns the launches counted during it."""
+    import contextlib
+    import io
+
+    from uforecon_tpu_torch.script import bench_tile_gather
+
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_tile_gather.main(["--mode", "probe", "--blocks", str(blocks)])
+    launches = {k: w.launches for k, w in wrappers.items()}
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    result = json.loads(lines[-1])
+    log(f"[probe] bench_tile_gather --mode probe --blocks {blocks}: {lines[-1]}; "
+        f"launches {launches} [{card}]")
+    check_launches("probe", launches)
+    numbers = [v for v in result.values() if isinstance(v, (int, float))
+               and not isinstance(v, bool)]
+    if not (len(lines) == 1 and result["bit_equal_block0"] is True
+            and result["rows"] == blocks * 4096
+            and all(np.isfinite(v) for v in numbers)):
+        raise AssertionError(f"the gather probe's line is wrong: {lines}")
     return launches
 
 
@@ -677,9 +859,10 @@ def profile_phase(models, scene, enc, extras, card, chunks=8, rn=1024):
          - result["on"]["device_ops_per_chunk"],
          "by_name": {n: d for n, d in sorted(diff.items(), key=lambda kv: -abs(kv[1]))
                      if d != 0}}))
-    log("[profile] route A against knobs off, per chunk: " + json.dumps(
-        {k: result["A"][k] - result["off"][k]
-         for k in ("device_ops_per_chunk", "device_ms_per_chunk")}))
+    for route in ("A", "v2"):
+        log(f"[profile] route {route} against knobs off, per chunk: " + json.dumps(
+            {k: result[route][k] - result["off"][k]
+             for k in ("device_ops_per_chunk", "device_ms_per_chunk")}))
     return result
 
 
@@ -767,11 +950,13 @@ def main():
     log(f"[slice] rays/s against knobs off in this process (the off run is the "
         f"process's first view): " + json.dumps(
             {r: stats[r]["rays_per_sec"] / stats["off"]["rays_per_sec"]
-             for r in ("on", "A", "B")}) + f" [{card}]")
+             for r in ("on", "A", "B", "v2")}) + f" [{card}]")
     launches["grad"] = gradient_phase(models["A"], sample, card)
+    launches["probe"] = probe_phase(card)
     scene, extras = scene_inputs_from_sample(sample, "cuda")
     enc = model.encode(scene)
-    profile_phase({k: models[k] for k in ("off", "on", "A")}, scene, enc, extras, card)
+    profile_phase({k: models[k] for k in ("off", "on", "A", "v2")}, scene, enc, extras,
+                  card)
     ab_phase(models, scene, enc, extras, card)
 
     kernels = []

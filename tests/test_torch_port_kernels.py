@@ -16,16 +16,19 @@ sigmoids; the scan of torch.cumprod on the card takes another order), and
 NEUS_RTOL relative on weight, rgb and opacity where they reach 1e-2, on
 inputs where compositing matters (``_compositing_matters``); the
 tiny-attention forward at rtol = atol = 2e-5 and its gradients at 3e-4
-(the JAX package's tolerances for its kernel).
+(the JAX package's tolerances for its kernel); the split-weight point
+head as the point head (the same function); the row gather bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from uforecon_tpu_torch.ops import fused_point_head as pph
+from uforecon_tpu_torch.ops import fused_point_head2 as pph2
 from uforecon_tpu_torch.ops import fused_ray_head as prh
 from uforecon_tpu_torch.ops import fused_similarity as psim
 from uforecon_tpu_torch.ops import fused_volume_fusion as pvf
+from uforecon_tpu_torch.ops import row_gather as prg
 from uforecon_tpu_torch.ops import tiny_attention as pta
 
 torch.set_num_threads(1)
@@ -112,11 +115,18 @@ def _attention_case(rng, b=40, l=4, s=4, h=8, d=10, m=10):
     return r(b, l, h, d), r(b, s, h, d), r(b, s, h, m)
 
 
+def _gather_case(rng, n_blocks=3, rows=4096):
+    src = _t(rng.standard_normal((n_blocks * rows, 128))).to(torch.bfloat16)
+    idx = torch.as_tensor(rng.integers(0, rows, n_blocks * rows).astype(np.int32))
+    return src, idx
+
+
 def _launch_counts():
     return (pph.point_head.launches, prh.ray_head.launches,
             prh.ray_head_neus.launches, psim.grouped_cosine.launches,
             pvf.volume_fusion.launches, pta.tiny_linear_attention.launches,
-            pta.tiny_linear_attention_backward.launches)
+            pta.tiny_linear_attention_backward.launches, pph2.point_head2.launches,
+            prg.block_row_gather.launches)
 
 
 def test_wrappers_take_the_plain_version_on_cpu(rng):
@@ -126,6 +136,11 @@ def test_wrappers_take_the_plain_version_on_cpu(rng):
     p = _port_params(pph.PointHeadParams, params)
     for a, b in zip(pph.point_head(inp, p), pph.point_head_reference(inp, p)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(pph2.point_head2(inp, p), pph2.point_head2_reference(inp, p)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    src, idx = _gather_case(rng, n_blocks=2, rows=64)
+    torch.testing.assert_close(prg.block_row_gather(src, idx, 64),
+                               prg.block_row_gather_reference(src, idx, 64), rtol=0, atol=0)
     y, rparams = _ray_case(rng, rn=3, sn=8)
     rp = _port_params(prh.RayHeadParams, rparams)
     torch.testing.assert_close(prh.ray_head(_t(y), rp),
@@ -191,6 +206,47 @@ def test_kernel_launchers_reject_shapes_they_do_not_take(rng):
         pta._launch_bwd(q, k, v, torch.zeros(3, 4, 8, 10))
 
 
+def test_point_head2_and_row_gather_launchers_reject_what_they_do_not_take(rng):
+    inputs, params = _point_case(rng, n=8)
+    p = _port_params(pph.PointHeadParams, params)
+    bad = dict(inputs, img_feat=inputs["img_feat"][..., :16])
+    with pytest.raises(ValueError, match="point_head2 kernel takes"):
+        pph2._launch(pph2.PointHeadInputs2(**{k: _t(v) for k, v in bad.items()}), p, 8)
+    with pytest.raises(ValueError, match="point_head2 kernel takes"):     # 6 views
+        six, _ = _point_case(rng, nv=6, n=8)
+        pph2._launch(pph2.PointHeadInputs2(**{k: _t(v) for k, v in six.items()}), p, 8)
+    with pytest.raises(ValueError, match="float32 tensors on one CUDA"):
+        pph2._launch(pph2.PointHeadInputs2(**{k: _t(v) for k, v in inputs.items()}), p, 8)
+    src, idx = _gather_case(rng, n_blocks=2, rows=64)
+    with pytest.raises(ValueError, match="whole blocks"):
+        prg._launch(src[:100], idx[:100], 64)
+    with pytest.raises(ValueError, match="src \\(rows, 128\\)"):
+        prg._launch(src[:, :64], idx, 64)
+    with pytest.raises(ValueError, match="bfloat16 src and int32 idx on one CUDA"):
+        prg._launch(src, idx, 64)
+    with pytest.raises(ValueError, match="bfloat16 src and int32 idx on one CUDA"):
+        prg._launch(src.float(), idx, 64)
+
+
+def test_point_head2_weight_pack_matches_the_kernel_layout(rng):
+    """The split pack's size equals csrc/point_head2.cu's N_W (derived from
+    the same widths), and it starts as the kernel expects: the view token,
+    then the token's own q, k, v rows."""
+    _, params = _point_case(rng, n=4)
+    p = _port_params(pph.PointHeadParams, params)
+    pack = pph2.pack_weights2(p)
+    gs, gv, c2, nsh = 24 + 16, 32 + 8, 2 * C, 3 * C + 2 * C + 16
+    n_w = C + 3 * C + c2 + gs * nsh + gv * 3 * C + C * C + 2 * C + (gv + C) * c2 \
+        + c2 * C + 2 * C + (8 * 32 + 32) + (32 * 32 + 32) + (32 * 16 + 16) \
+        + (gv + 3 + C) * 16 + 16 + (16 * 8 + 8) + (8 + 1)
+    assert pack.numel() == n_w == pph2.layout2(C, 32, 24, 16)["total"][0]
+    torch.testing.assert_close(pack[:C], p.view_token)
+    torch.testing.assert_close(pack[C:2 * C], p.view_token @ p.wq.t())
+    # the split pack holds every weight element of the point head's pack
+    # once or more, and the two constants
+    assert pack.numel() > pph.pack_weights(p).numel()
+
+
 def test_weight_packs_match_the_kernel_layout(rng):
     """Sizes of the packs equal the N_W constants of csrc/*.cu (derived
     from the same layer widths), and the pack starts as the kernels
@@ -237,7 +293,7 @@ def test_query_views_are_the_sampler_layout(rng):
     assert flat3.stride() == (9 * 20, 1, 20)
 
 
-@pytest.mark.parametrize("head", ["point", "ray", "ray_neus", "cosine", "fusion"])
+@pytest.mark.parametrize("head", ["point", "point2", "ray", "ray_neus", "cosine", "fusion"])
 def test_autograd_backward_goes_through_the_plain_version(rng, monkeypatch, head):
     """The kernel functions' backward (``cuda_build.kernel_function``):
     launch replaced by the plain forward so it runs on the CPU; gradients
@@ -256,6 +312,19 @@ def test_autograd_backward_goes_through_the_plain_version(rng, monkeypatch, head
 
         def fused():
             return pph._point_head_fn(8, *inp, *par)
+    elif head == "point2":
+        inputs, params = _point_case(rng, n=12)
+        monkeypatch.setattr(pph2, "_launch", lambda i, p, h: pph2.point_head2_reference(i, p, h))
+        inp = [_t(v).requires_grad_(k != "mask") for k, v in inputs.items()]
+        par = [t.requires_grad_() for t in
+               pph._flat_params(_port_params(pph.PointHeadParams, params))]
+
+        def plain():
+            return pph2.point_head2_reference(pph.PointHeadInputs(*inp),
+                                              pph._unflat_params(par))
+
+        def fused():
+            return pph2._point_head2_fn(8, *inp, *par)
     elif head == "ray_neus":
         y, rparams = _ray_case(rng, rn=3, sn=8)
         monkeypatch.setattr(prh, "_launch_neus", prh.ray_head_neus_reference)
@@ -350,6 +419,33 @@ def test_point_head_kernel_matches_plain_on_gpu(rng, cuda_device, nv):
     assert pph.point_head.launches == before + 1
     torch.testing.assert_close(tok, tok_ref, rtol=0, atol=2e-5)
     torch.testing.assert_close(rad, rad_ref, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("nv", [2, 3, 4, 5])
+def test_point_head2_kernel_matches_plain_on_gpu(rng, cuda_device, nv):
+    """A ragged P (not a multiple of the kernel's 16 points per block), the
+    first 5 points masked in every view: a uniform blend, never NaN."""
+    inputs, params = _point_case(rng, nv=nv, n=1001)
+    inp = pph2.PointHeadInputs2(**{k: _t(v).to(cuda_device) for k, v in inputs.items()})
+    p = _on(cuda_device, _port_params(pph.PointHeadParams, params))
+    before = pph2.point_head2.launches
+    with torch.no_grad():
+        tok, rad = pph2.point_head2(inp, p)
+    tok_ref, rad_ref = pph2.point_head2_reference(inp, p)
+    assert pph2.point_head2.launches == before + 1
+    assert torch.isfinite(tok).all() and torch.isfinite(rad).all()
+    torch.testing.assert_close(tok, tok_ref, rtol=0, atol=2e-5)
+    torch.testing.assert_close(rad, rad_ref, rtol=0, atol=2e-6)
+    torch.testing.assert_close(rad[:5], inp.rgb[:, :5].mean(0), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("n_blocks,rows", [(3, 4096), (5, 256), (1, 1)])
+def test_row_gather_kernel_matches_plain_on_gpu(rng, cuda_device, n_blocks, rows):
+    src, idx = (t.to(cuda_device) for t in _gather_case(rng, n_blocks, rows))
+    before = prg.block_row_gather.launches
+    got = prg.block_row_gather(src, idx, rows)
+    assert prg.block_row_gather.launches == before + 1
+    assert torch.equal(got, prg.block_row_gather_reference(src, idx, rows))
 
 
 @pytest.mark.parametrize("sn", [8, 64, 128])

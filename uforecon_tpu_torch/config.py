@@ -38,6 +38,15 @@ route: ``nn.Linear`` projections and MLPs around the tiny-attention
 kernels (``ops/tiny_attention.py``). ``never`` always takes the view
 transformer (``UFORecon.with_knobs(fused_point_head="never")`` on the same
 weights); ``always`` raises without the full feature set, as JAX does.
+
+``point_head`` (``v1 | v2``, default ``v1``, the JAX name and values)
+picks the kernel of that point-head route: ``v1`` the point-head kernel,
+``v2`` the split-weight point head (``ops/fused_point_head2.py``), which
+computes the same function on the same weights without building each
+view's 80-channel token. It takes effect only where the point head runs
+(``fused_point_head`` ``auto``/``always`` with explicit similarity); with
+``never``, or in the ablation, ``v2`` changes nothing, as in JAX.
+``UFORecon.with_knobs(point_head="v2")`` is that route on the same weights.
 """
 from __future__ import annotations
 
@@ -78,6 +87,7 @@ class Config:
     fused_neus_epilogue: str = "never"   # auto | never
     # per-point stage (see the module docstring)
     fused_point_head: str = "auto"       # auto | always | never
+    point_head: str = "v1"               # v1 | v2
 
     def __post_init__(self):
         allowed = {
@@ -85,6 +95,7 @@ class Config:
             "fused_volume_fusion": ("auto", "always", "never"),
             "fused_neus_epilogue": ("auto", "never"),
             "fused_point_head": ("auto", "always", "never"),
+            "point_head": ("v1", "v2"),
         }
         for field, values in allowed.items():
             v = getattr(self, field)

@@ -12,6 +12,12 @@ extern "C" int ufo_point_head(const float* img, const float* vol,
                               const float* mask, const float* w, float* token,
                               float* rad, int nv, int p, void* stream);
 extern "C" int ufo_point_head_weight_count();
+extern "C" int ufo_point_head2(const float* img, const float* vol,
+                               const float* sim, const float* dd,
+                               const float* dir, const float* rgb,
+                               const float* mask, const float* w, float* token,
+                               float* rad, int nv, int p, void* stream);
+extern "C" int ufo_point_head2_weight_count();
 extern "C" int ufo_ray_head(const float* y, const float* w, float* srdf,
                             int rn, int sn, int c, void* stream);
 extern "C" int ufo_ray_head_weight_count(int c);
@@ -36,6 +42,9 @@ extern "C" int ufo_tiny_attention_bwd(const float* q, const float* k, const floa
                                       const float* g, float* dq, float* dk, float* dv,
                                       int b, int l, int s, int h, int d, int m,
                                       void* stream);
+extern "C" int ufo_row_gather(const void* src, const void* idx, void* out,
+                              long long n_blocks, int v, int p, void* stream);
+extern "C" int ufo_row_gather_row_bytes();
 extern "C" const char* ufo_error_string(int e);
 
 namespace {
@@ -59,6 +68,22 @@ void point_head(const at::Tensor& img, const at::Tensor& vol,
                        token.data_ptr<float>(), rad.data_ptr<float>(), nv, p,
                        at::cuda::getCurrentCUDAStream().stream()),
         "point_head");
+}
+
+void point_head2(const at::Tensor& img, const at::Tensor& vol,
+                 const at::Tensor& sim, const at::Tensor& dd,
+                 const at::Tensor& dir, const at::Tensor& rgb,
+                 const at::Tensor& mask, const at::Tensor& w,
+                 at::Tensor& token, at::Tensor& rad) {
+  const int nv = static_cast<int>(img.size(0));
+  const int p = static_cast<int>(img.size(1));
+  check(ufo_point_head2(img.data_ptr<float>(), vol.data_ptr<float>(),
+                        sim.data_ptr<float>(), dd.data_ptr<float>(),
+                        dir.data_ptr<float>(), rgb.data_ptr<float>(),
+                        mask.data_ptr<float>(), w.data_ptr<float>(),
+                        token.data_ptr<float>(), rad.data_ptr<float>(), nv, p,
+                        at::cuda::getCurrentCUDAStream().stream()),
+        "point_head2");
 }
 
 void ray_head(const at::Tensor& y, const at::Tensor& w, at::Tensor& srdf) {
@@ -138,11 +163,25 @@ void tiny_attention_bwd(const at::Tensor& q, const at::Tensor& k,
         "tiny_attention_bwd");
 }
 
+// src (n_blocks * block_rows, 128) bf16, idx (n_blocks * block_rows,)
+// int32, both contiguous -> out (n_blocks * block_rows, 128)
+void row_gather(const at::Tensor& src, const at::Tensor& idx, at::Tensor& out,
+                int64_t block_rows) {
+  check(ufo_row_gather(src.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                       src.size(0) / block_rows, static_cast<int>(block_rows),
+                       static_cast<int>(block_rows),
+                       at::cuda::getCurrentCUDAStream().stream()),
+        "row_gather");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("point_head", &point_head, "fused per-point view head (csrc/point_head.cu)");
   m.def("point_head_weight_count", &ufo_point_head_weight_count);
+  m.def("point_head2", &point_head2,
+        "split-weight per-point view head (csrc/point_head2.cu)");
+  m.def("point_head2_weight_count", &ufo_point_head2_weight_count);
   m.def("ray_head", &ray_head, "fused along-ray SRDF head (csrc/ray_head.cu)");
   m.def("ray_head_weight_count", &ufo_ray_head_weight_count);
   m.def("ray_head_smem_bytes", &ufo_ray_head_smem_bytes);
@@ -158,4 +197,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "tiny-sequence linear attention (csrc/tiny_attention.cu)");
   m.def("tiny_attention_bwd", &tiny_attention_bwd,
         "its backward: dq, dk, dv (csrc/tiny_attention.cu)");
+  m.def("row_gather", &row_gather, "block-local row gather (csrc/row_gather.cu)");
+  m.def("row_gather_row_bytes", &ufo_row_gather_row_bytes);
 }

@@ -10,10 +10,13 @@ along the sample axis, an SRDF MLP follows, and the radiance is a masked
 softmax blend over views.
 
 ``per_point`` takes one of two routes, by the JAX package's gate
-(``_fused_ok``) and the ``fused_point_head`` knob: the point-head kernel
-wrapper (``ops/fused_point_head.py``), which needs the full feature set,
-or the view-transformer modules, whose attention goes to the
-tiny-attention kernels (``ops/tiny_attention.py``). ``along_ray`` always
+(``_fused_ok``) and the ``fused_point_head`` knob: the point head, which
+needs the full feature set, or the view-transformer modules, whose
+attention goes to the tiny-attention kernels (``ops/tiny_attention.py``).
+The point head is the point-head kernel wrapper
+(``ops/fused_point_head.py``) or, with ``point_head='v2'``, the
+split-weight point head (``ops/fused_point_head2.py``) on the same inputs
+and weights. ``along_ray`` always
 goes through the ray-head wrapper (``ops/fused_ray_head.py``). Each wrapper
 runs its CUDA kernel on CUDA tensors and its plain version on CPU tensors.
 The submodules hold the weights under their flax names.
@@ -31,7 +34,9 @@ import torch
 import torch.nn as nn
 
 from ..ops.camera import project_points_ndc
-from ..ops.fused_point_head import PointHeadInputs, PointHeadParams, point_head
+from ..ops.fused_point_head import PointHeadInputs, PointHeadParams
+from ..ops.fused_point_head import point_head as point_head_v1
+from ..ops.fused_point_head2 import point_head2
 from ..ops.fused_ray_head import RayHeadParams, ray_head, ray_head_neus
 from ..ops.fused_similarity import grouped_cosine, grouped_cosine_reference, view_pairs
 from ..ops.fused_volume_fusion import volume_fusion, volume_fusion_reference
@@ -151,10 +156,11 @@ class RayTransformer(nn.Module):
         sim_feat: Optional[torch.Tensor],  # (RN, SN, 8); None without similarity
         mvs_depths: torch.Tensor,          # (NV, H, W)
         fused: str = "auto",               # Config.fused_point_head
+        point_head: str = "v1",            # Config.point_head
     ) -> Dict[str, torch.Tensor]:
-        """Gathers the per-point features and runs the point head or the
-        view transformer (``_fused_ok``). Returns ``token`` (RN, SN, C) and
-        ``radiance`` (RN, SN, 3)."""
+        """Gathers the per-point features and runs the point head (v1, or
+        v2 by ``point_head``) or the view transformer (``_fused_ok``).
+        Returns ``token`` (RN, SN, C) and ``radiance`` (RN, SN, 3)."""
         rn, sn, _ = points.shape
         nv = source_imgs.shape[0]
         n = rn * sn
@@ -178,7 +184,8 @@ class RayTransformer(nn.Module):
             return self._per_point_view_transformer(
                 img_feat, fea_volume_feat, sim_feat, depth_dist, dir_relative,
                 rgbd[..., :3], mask)
-        token, rad = point_head(
+        head = point_head2 if point_head == "v2" else point_head_v1
+        token, rad = head(
             PointHeadInputs(
                 img_feat=img_feat.reshape(nv, n, -1),
                 vol_feat=fea_volume_feat.reshape(n, -1),

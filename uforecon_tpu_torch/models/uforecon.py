@@ -119,7 +119,7 @@ class UFORecon(nn.Module):
             src_cam_pos=scene.src_cam_pos, src_w2cs=scene.src_w2cs,
             points_xy=xy, valid_depth=valid, fea_volume_feat=fea_volume_feat,
             sim_feat=sim_feat, mvs_depths=enc.mvs_depths,
-            fused=c.fused_point_head)
+            fused=c.fused_point_head, point_head=c.point_head)
 
     def _render_sequence(self, z_val: torch.Tensor,
                          pp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

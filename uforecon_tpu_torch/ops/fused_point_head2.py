@@ -1,0 +1,196 @@
+"""Split-weight per-point view head (``point_head='v2'``): CUDA kernel, its
+plain PyTorch version, the host-side weight split, and the wrapper that
+picks between them.
+
+Replaces the Pallas TPU kernel of the JAX package's
+``ops/fused_point_head2.py`` ``point_head2_fused``. It computes what the
+point head (``ops/fused_point_head.py``) computes, on the same point-major
+inputs and the same weights, by another algebra: the per-view 80-channel
+token [img 32 | vol 24 | sim16 16 | pe 8] is never built. Every consumer
+of a view token (q/k/v, the LoFTR mlp1 and the radiance layer 0) is split
+by feature group against the raw inputs. The view-shared groups (vol and
+sim16) are projected once per point rather than once per view, and the
+view token's own q/k/v and mlp1 rows are constants computed here, on the
+host. At the defaults (3 views) that is ~203.3k FMAs per point against the
+point head's ~264.7k. The kernel is ``csrc/point_head2.cu``.
+
+``pack_weights2`` builds the split: the row slices at the feature-group
+offsets 0 / 32 / 56 / 72 / 80 of wq, wk, wv, w1[:C] and rad_w[0] in (in,
+out) orientation, grouped as the kernel reads them (``layout2``), plus the
+constants ``tok_qkv`` and ``w1a_tok``.
+
+``point_head2`` takes the plain version for CPU tensors only. For CUDA
+tensors it launches the kernel or raises, inside an autograd Function whose
+backward differentiates the plain version (the JAX ``_ph2_bwd`` delegates
+to the point head's backward the same way). ``point_head2.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from . import cuda_build
+from .fused_point_head import (_KERNEL_DIMS, PointHeadInputs, PointHeadParams,
+                               _flat_params, _split, point_head_reference)
+
+PE_DIM = 8      # NeRF PE of the depth distance, 4 frequencies
+
+# the inputs are point-major in the port already: the JAX module's
+# PointHeadInputs2 is the point head's PointHeadInputs
+PointHeadInputs2 = PointHeadInputs
+
+
+def point_head2_reference(inp: PointHeadInputs, p: PointHeadParams,
+                          n_heads: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch forward, mirroring the JAX ``point_head2_reference``
+    (the point head's reference behind transposes; the port's is
+    point-major already). Returns (token (P, C), radiance (P, 3))."""
+    return point_head_reference(inp, p, n_heads)
+
+
+def layout2(c: int, c_img: int, c_vol: int, c_sim: int, s_hid: int = 32
+            ) -> Dict[str, Tuple[int, Tuple[int, ...]]]:
+    """name -> (offset, shape) of each part of ``pack_weights2``'s buffer,
+    in ``csrc/point_head2.cu``'s order, for token width c = c_img + c_vol +
+    c_sim + 8 and a pre-similarity MLP 8 -> s_hid -> s_hid -> c_sim. ``sh``
+    holds the rows of the view-shared groups [vol | sim16], ``v_*`` those of
+    the per-view groups [img | pe] (``v_rad`` adds dir_rel and then all C
+    token rows, which take the LoFTR output m2)."""
+    c2, r1 = 2 * c, 16
+    g_shared = c_vol + c_sim
+    g_view = c - g_shared                   # img + pe
+    shapes = [
+        ("tok", (c,)),
+        ("tok_qkv", (3, c)),                # view_token @ wq, wk, wv
+        ("w1a_tok", (c2,)),                 # view_token @ w1[:C]
+        ("sh", (g_shared, 3 * c + c2 + r1)),  # columns wq | wk | wv | w1a | r0
+        ("v_qkv", (g_view, 3 * c)),         # columns wq | wk | wv
+        ("wm", (c, c)),
+        ("n1s", (c,)), ("n1b", (c,)),
+        ("v_w1", (g_view + c, c2)),         # w1a's view rows, then w1[C:]
+        ("w2", (c2, c)),
+        ("n2s", (c,)), ("n2b", (c,)),
+        ("sw0", (8, s_hid)), ("sb0", (s_hid,)),
+        ("sw1", (s_hid, s_hid)), ("sb1", (s_hid,)),
+        ("sw2", (s_hid, c_sim)), ("sb2", (c_sim,)),
+        ("v_rad", (g_view + 3 + c, r1)),    # r0's view and dir rows, r0[:C]
+        ("rb0", (r1,)), ("rw1", (r1, 8)), ("rb1", (8,)),
+        ("rw2", (8, 1)), ("rb2", (1,)),
+    ]
+    out, off = {}, 0
+    for name, shape in shapes:
+        out[name] = (off, shape)
+        n = 1
+        for s in shape:
+            n *= s
+        off += n
+    out["total"] = (off, ())
+    return out
+
+
+def pack_weights2(p: PointHeadParams, c_img: int = 32) -> torch.Tensor:
+    """The weights split by feature group, flattened in ``layout2``'s
+    order, every matrix in (in, out) orientation. The port's weights are
+    ``nn.Linear`` (out, in); the JAX slices are rows of (in, out). The
+    token is [img c_img | vol | sim16 | pe 8]; the widths of sim16 and vol
+    follow from the weights."""
+    c = p.view_token.numel()
+    c_sim = p.sim_w[2].shape[0]
+    c_vol = c - c_img - c_sim - PE_DIM
+    o1, o3 = c_img, c_img + c_vol + c_sim   # offsets of vol and pe
+    f = lambda t: t.detach().float()
+    tok = f(p.view_token).reshape(-1)
+    wq, wk, wv = (f(w).t() for w in (p.wq, p.wk, p.wv))       # (in, out)
+    w1 = f(p.w1).t()
+    w1a, w1b = w1[:c], w1[c:]
+    r0 = f(p.rad_w[0]).t()                                     # (C + 3, 16)
+
+    def shared(w):            # rows of vol, then sim16
+        return w[o1:o3]
+
+    def view(w):              # rows of img, then pe
+        return torch.cat([w[:o1], w[o3:c]])
+
+    # the token's own rows, as the JAX wrapper's HIGHEST-precision dots:
+    # in float64, whatever the card's TF32 setting
+    def tok_dot(w):
+        return (tok.double() @ w.double()).float()
+
+    parts = {
+        "tok": tok,
+        "tok_qkv": torch.stack([tok_dot(w) for w in (wq, wk, wv)]),
+        "w1a_tok": tok_dot(w1a),
+        "sh": torch.cat([shared(w) for w in (wq, wk, wv, w1a, r0)], dim=1),
+        "v_qkv": torch.cat([view(w) for w in (wq, wk, wv)], dim=1),
+        "wm": f(p.wmerge).t(), "n1s": f(p.norm1_scale), "n1b": f(p.norm1_bias),
+        "v_w1": torch.cat([view(w1a), w1b]),
+        "w2": f(p.w2).t(), "n2s": f(p.norm2_scale), "n2b": f(p.norm2_bias),
+        "v_rad": torch.cat([view(r0), r0[c:c + 3], r0[:c]]), "rb0": f(p.rad_b[0]),
+        "rw1": f(p.rad_w[1]).t(), "rb1": f(p.rad_b[1]),
+        "rw2": f(p.rad_w[2]).t(), "rb2": f(p.rad_b[2]),
+    }
+    for i, (w, b) in enumerate(zip(p.sim_w, p.sim_b)):
+        parts[f"sw{i}"], parts[f"sb{i}"] = f(w).t(), f(b)
+    lay = layout2(c, c_img, c_vol, c_sim, p.sim_w[0].shape[0])
+    for name, (_, shape) in lay.items():
+        if name != "total" and tuple(parts[name].shape) != shape:
+            raise ValueError(f"pack_weights2: {name} is {tuple(parts[name].shape)}, "
+                             f"the layout wants {shape}")
+    return torch.cat([parts[name].reshape(-1) for name in lay if name != "total"])
+
+
+def _launch(inp: PointHeadInputs, p: PointHeadParams,
+            n_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    nv, n, c_img = inp.img_feat.shape
+    c = p.view_token.numel()
+    d = _KERNEL_DIMS
+    dims = dict(c=c, c_img=c_img, c_vol=inp.vol_feat.shape[-1],
+                c_sim=inp.sim_feat.shape[-1], n_heads=n_heads)
+    if dims != d or not 2 <= nv <= 5:
+        raise ValueError(f"point_head2 kernel takes {d} and 2..5 views, got "
+                         f"{dims} and {nv} views")
+    dev = inp.img_feat.device
+    for t in list(inp) + _flat_params(p):
+        if t.device != dev or t.dtype != torch.float32 or not t.is_cuda:
+            raise ValueError("point_head2 kernel takes float32 tensors on one "
+                             f"CUDA device, got {t.dtype} on {t.device}")
+    expect = {"img_feat": (nv, n, c_img), "vol_feat": (n, d["c_vol"]),
+              "sim_feat": (n, d["c_sim"]), "depth_dist": (nv, n),
+              "dir_rel": (nv, n, 3), "rgb": (nv, n, 3), "mask": (nv, n)}
+    for name, shape in expect.items():
+        if tuple(getattr(inp, name).shape) != shape:
+            raise ValueError(f"point_head2 kernel takes {name} of shape {shape}, "
+                             f"got {tuple(getattr(inp, name).shape)}")
+    ext = cuda_build.extension()
+    ins = [t.contiguous() for t in inp]
+    w = pack_weights2(p)
+    if w.numel() != ext.point_head2_weight_count():
+        raise ValueError("point_head2 weight pack does not match the kernel")
+    token = torch.empty(n, c, device=dev, dtype=torch.float32)
+    rad = torch.empty(n, 3, device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        ext.point_head2(*ins, w, token, rad)
+    point_head2.launches += 1
+    return token, rad
+
+
+# _point_head2_fn(n_heads, *inputs, *params): CUDA kernel forward, backward
+# through the plain version
+_point_head2_fn = cuda_build.kernel_function(
+    lambda n_heads, *ts: _launch(*_split(ts), n_heads),
+    lambda n_heads, *ts: point_head2_reference(*_split(ts), n_heads))
+
+
+def point_head2(inp: PointHeadInputs, p: PointHeadParams,
+                n_heads: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split-weight per-point view head: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors. Returns (token (P, C), radiance
+    (P, 3))."""
+    if not inp.img_feat.is_cuda:
+        return point_head2_reference(inp, p, n_heads)
+    return _point_head2_fn(n_heads, *inp, *_flat_params(p))
+
+
+point_head2.launches = 0
