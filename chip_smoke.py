@@ -14,7 +14,10 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      the same inputs; the row gather at 2048 blocks of 4096 rows, bit for
      bit, timed beside ``torch.index_select``), with max abs errors,
      CUDA-event times (median of several runs) of kernel and plain version,
-     and the bound (the least time the card could take for the work);
+     and the bound (the least time the card could take for the work; for
+     the point and ray heads, whose layer GEMMs run on the tensor cores in
+     3xTF32, the tensor bound beside the FP32 bound), with each kernel's
+     share of its bounds;
   4. slice phase: ``extract_geometry_for_dataset`` on one DTU-scale view
      (800x640, 3 views, 192 hypotheses, 64 + 64 samples, seeded random
      weights) by five routes: the default (knobs off), the render-glue
@@ -23,8 +26,10 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      without explicit similarity, its own seeded weights) and route v2
      (``point_head='v2'``: the split-weight point head, same weights),
      checking each depth map written to disk and which kernels each run
-     launched; then, for each route, that a small ray chunk of the same
-     scene agrees with the plain versions run on the CPU;
+     launched and how often each head built its weight pack (once per
+     head and set of weights: the packs are cached); then, for each route,
+     that a small ray chunk of the same scene agrees with the plain
+     versions run on the CPU;
   5. gradient phase: one backward through route A's per-point stage of a
      256-ray coarse chunk, through the tiny-attention backward kernel,
      against the same backward on the CPU;
@@ -38,7 +43,11 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
   8. A/B phase: AB_ROUNDS rounds of warm full views in the order off, on,
      on, off on one encoding (rays/s per view, SM clock and power read
      after each);
-  9. prints a JSON line of per-kernel results, then the final
+  9. tests phase: the GPU unit tests of the kernels (``python -m pytest
+     --noconftest -k on_gpu tests/test_torch_port_kernels.py``: every
+     kernel against its plain version at further shapes, ragged edges and
+     padded ray lengths) in a subprocess, which must pass;
+ 10. prints a JSON line of per-kernel results, then the final
      ``{"ok": true, "device": {...}}`` line.
 Any failure exits non-zero without printing a result; without a CUDA card
 it exits 1 at once.
@@ -55,8 +64,9 @@ import time
 import numpy as np
 
 SEED = 0
-# f32 with another summation order. Measured on an H100: token 2.4e-6,
-# radiance 1.8e-7, srdf 1.9e-6 (10x margin); grouped cosine 1.8e-7 and
+# f32 with another summation order; the point and ray heads' layer GEMMs
+# in 3xTF32 on the tensor cores. Measured on an H100: token 6.6e-6,
+# radiance 3.6e-7, srdf 3.6e-6 (3x margin); grouped cosine 1.8e-7 and
 # NeuS outputs 3.6e-6 (5x margin, the cosine's tolerance being the 1e-6 of
 # the CPU parity tests); volume fusion 0 (the same roundings in the same
 # order). NeuS weight, rgb and opacity are also held relative where they
@@ -109,9 +119,13 @@ MUST_RUN = {"off": ("point_head", "ray_head"),
             "grad": ("tiny_attention", "tiny_attention_bwd"),
             "v2": ("point_head2", "ray_head"),
             "probe": ("block_row_gather",)}
-# H100 SXM data sheet at 700 W: FP32 outside the tensor cores, HBM3
+# H100 SXM data sheet at 700 W: FP32 outside the tensor cores, dense TF32
+# on the tensor cores, HBM3
 PEAK_FLOPS = 67e12
+PEAK_TF32 = 494.7e12
 PEAK_BYTES = 3.35e12
+# the kernels whose layer GEMMs run on the tensor cores in 3xTF32
+TENSOR_CORE = ("point_head", "ray_head", "ray_head_neus")
 
 
 def log(msg):
@@ -173,21 +187,45 @@ def bound(n_bytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tensor_bound(n_bytes, gemm_flops, other_flops):
+    """The bounds of a kernel whose GEMMs run in 3xTF32 (three TF32
+    products per FP32 product on the tensor cores) and the rest in FP32:
+    {"bound_ms", "bound_by", "bound_rate", "fp32_bound_ms",
+    "fp32_bound_by"}, the FP32 bound as if every operation ran on the CUDA
+    cores."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = (3 * gemm_flops / PEAK_TF32 + other_flops / PEAK_FLOPS) * 1e3
+    fp32_ms, fp32_by = bound(n_bytes, gemm_flops + other_flops)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_rate": "tensor operations (3xTF32)",
+            "fp32_bound_ms": fp32_ms, "fp32_bound_by": fp32_by}
+
+
+def shares(ms, bounds):
+    """The kernel's share of each bound (bound / time)."""
+    out = {"bound_share": bounds["bound_ms"] / ms}
+    if "fp32_bound_ms" in bounds:
+        out["fp32_bound_share"] = bounds["fp32_bound_ms"] / ms
+    return out
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def point_head_flops(nv, p, c=80):
-    """Multiply-adds x 2 of the point head per launch: the similarity MLP
-    per point; per token (NV views + the view token) the q/k/v/merge
-    projections and the 2C -> 2C -> C MLP; attention across the tokens;
-    the radiance MLP per view."""
+    """Multiply-adds x 2 of the point head per launch, as (GEMM, other):
+    per token (NV views + the view token) the q/k/v/merge projections and
+    the 2C -> 2C -> C MLP, the layers on the tensor cores; the similarity
+    MLP per point, attention across the tokens and the radiance MLP per
+    view."""
     tokens = nv + 1
     sim = 2 * (8 * 32 + 32 * 32 + 32 * 16)
     per_token = 4 * 2 * c * c + 2 * (2 * c) ** 2 + 2 * (2 * c) * c
     attn = 4 * tokens * tokens * c
     rad = 2 * ((c + 3) * 16 + 16 * 8 + 8)
-    return p * (sim + tokens * per_token + attn + nv * rad)
+    return p * tokens * per_token, p * (sim + attn + nv * rad)
 
 
 def point_head2_flops(nv, p, c=80, g_view=40, g_shared=40):
@@ -220,13 +258,14 @@ def attention_flops(b, l, s, h, d, m, backward=False):
 
 
 def ray_head_flops(rn, sn, c=88, heads=8, neus=False):
-    """Multiply-adds x 2 of the ray head per launch: q/k/v/merge, the
-    2C -> 2C -> C MLP, the density MLP and the kv-order attention per
-    sample; the NeuS epilogue adds ~30 operations per sample."""
+    """Multiply-adds x 2 of the ray head per launch, as (GEMM, other):
+    q/k/v/merge and the 2C -> 2C -> C MLP per sample, the layers on the
+    tensor cores; the density MLP and the kv-order attention per sample,
+    and ~30 operations per sample of the NeuS epilogue."""
     dk = c // heads
-    per_sample = (4 * 2 * c * c + 2 * (2 * c) ** 2 + 2 * (2 * c) * c
-                  + 2 * (c * 32 + 32 * 16 + 16) + 4 * heads * dk * dk + 4 * c)
-    return rn * sn * (per_sample + (30 if neus else 0))
+    gemm = 4 * 2 * c * c + 2 * (2 * c) ** 2 + 2 * (2 * c) * c
+    other = 2 * (c * 32 + 32 * 16 + 16) + 4 * heads * dk * dk + 4 * c
+    return rn * sn * gemm, rn * sn * (other + (30 if neus else 0))
 
 
 def neus_check(got, want):
@@ -297,21 +336,23 @@ def kernel_phase(model, model_b, card):
         err_masked = (rad[:256] - masked_mean).abs().max().item()
         ms, call_ms = kernel_times(lambda: fph.point_head(inp, params))
         plain_ms = time_ms(lambda: fph.point_head_reference(inp, params))
-    b_ms, b_by = bound(nbytes(*inp, fph.pack_weights(params), tok, rad),
-                       point_head_flops(nv, p))
+    # weights counted once, as the kernel reads them: the hi/lo pack
+    bounds = tensor_bound(nbytes(*inp, fph.pack_weights(params), tok, rad),
+                          *point_head_flops(nv, p))
     log(f"[kernel] point_head P={p} NV={nv}: max|token err| {err_t:.3e} "
         f"(tol {TOL['token']}), max|radiance err| {err_r:.3e} "
         f"(tol {TOL['radiance']}), all-masked points vs mean rgb "
-        f"{err_masked:.3e}; kernel {ms:.3f} ms (call {call_ms:.3f}), plain "
-        f"{plain_ms:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        f"{err_masked:.3e}; kernel {ms:.3f} ms (call {call_ms:.3f}, call - kernel "
+        f"{call_ms - ms:.3f}), plain {plain_ms:.3f} ms, tensor bound "
+        f"{bounds['bound_ms']:.4f} ms ({bounds['bound_by']}, share "
+        f"{bounds['bound_ms'] / ms:.3f}), FP32 bound {bounds['fp32_bound_ms']:.4f} ms "
+        f"(share {bounds['fp32_bound_ms'] / ms:.3f}) [{card}]")
     if not (err_t <= TOL["token"] and err_r <= TOL["radiance"]
             and err_masked <= TOL["radiance"]):
         raise AssertionError("point_head kernel disagrees with its plain version")
     results["point_head"] = {"max_abs_err": max(err_t, err_r), "ms": ms, "call_ms": call_ms,
-                             "plain_ms": plain_ms, "bound_ms": b_ms,
-                             "bound_by": b_by, "token_err": err_t,
-                             "radiance_err": err_r}
+                             "plain_ms": plain_ms, **bounds, **shares(ms, bounds),
+                             "token_err": err_t, "radiance_err": err_r}
 
     # split-weight point head (point_head='v2') on the same weights, at the
     # main path's 65,536 points and the ragged 65,537; no single PyTorch
@@ -384,14 +425,17 @@ def kernel_phase(model, model_b, card):
                       for k, a, b in zip(NEUS_OUT, got, want)}
             k_ms, call_ms = kernel_times(lambda: kern(*args, rparams))
             p_ms = time_ms(lambda: plain(*args, rparams))
-        b_ms, b_by = bound(nbytes(*args, frh.pack_weights(rparams), *got),
-                           ray_head_flops(1024, sn, c=c, neus=neus))
+        bounds = tensor_bound(nbytes(*args, frh.pack_weights(rparams), *got),
+                              *ray_head_flops(1024, sn, c=c, neus=neus))
         err = max(err_by.values())
         log(f"[kernel] {name} (1024, {sn}, {c}): max err {err:.3e} {err_by} "
-            f"(tol {tol}); kernel {k_ms:.3f} ms (call {call_ms:.3f}), plain {p_ms:.3f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
-        case = {"ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                "bound_by": b_by,
+            f"(tol {tol}); kernel {k_ms:.3f} ms (call {call_ms:.3f}, call - kernel "
+            f"{call_ms - k_ms:.3f}), plain {p_ms:.3f} ms, tensor bound "
+            f"{bounds['bound_ms']:.4f} ms ({bounds['bound_by']}, share "
+            f"{bounds['bound_ms'] / k_ms:.3f}), FP32 bound "
+            f"{bounds['fp32_bound_ms']:.4f} ms (share "
+            f"{bounds['fp32_bound_ms'] / k_ms:.3f}) [{card}]")
+        case = {"ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms, **bounds,
                 "errors": err_by}
         if neus:
             in_regime, regime, size, rel = neus_check(got, want)
@@ -413,14 +457,20 @@ def kernel_phase(model, model_b, card):
         for c, m in ((88, model), (72, model_b)):
             cases = {sn: ray_head_case(name, m, c, sn) for sn in (64, 128)}
             by_c[c] = {k: sum(x[k] for x in cases.values())
-                       for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
-            by_c[c].update(bound_by=cases[128]["bound_by"], by_sn=cases)
+                       for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                 "fp32_bound_ms")}
+            by_c[c].update({k: cases[128][k] for k in ("bound_by", "bound_rate",
+                                                       "fp32_bound_by")},
+                           by_sn=cases)
+            by_c[c].update(shares(by_c[c]["ms"], by_c[c]))
         # the JSON line's times are per chunk at the default width 88
         results[name] = {"max_abs_err": max(e for v in by_c.values()
                                             for x in v["by_sn"].values()
                                             for e in x["errors"].values()),
-                         **{k: by_c[88][k] for k in ("ms", "call_ms", "plain_ms",
-                                                      "bound_ms", "bound_by")},
+                         **{k: by_c[88][k] for k in (
+                             "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                             "bound_rate", "fp32_bound_ms", "fp32_bound_by",
+                             "bound_share", "fp32_bound_share")},
                          "by_width": by_c}
 
     # grouped cosine at (3, 65,536, 64) in the layout the sampler hands
@@ -581,8 +631,13 @@ def kernel_phase(model, model_b, card):
     torch.cuda.empty_cache()
     # no single PyTorch call computes the other eight functions
     # (scaled_dot_product_attention is softmax attention, not elu+1 linear)
-    for r in results.values():
+    for name, r in results.items():
         r.setdefault("library_ms", None)
+        if name not in TENSOR_CORE:
+            r.update(shares(r["ms"], r))
+    log("[kernel] share of the bound (bound ms / kernel ms): " + json.dumps(
+        {n: {k: round(v, 4) for k, v in r.items() if k.endswith("_share")}
+         for n, r in results.items()}) + f" [{card}]")
     return results
 
 
@@ -601,6 +656,12 @@ def launch_counts():
             "ray_head_neus": ray_head_neus, "tiny_attention": tiny_linear_attention,
             "tiny_attention_bwd": tiny_linear_attention_backward,
             "point_head2": point_head2, "block_row_gather": block_row_gather}
+
+
+def pack_counters():
+    """The wrappers that build a weight pack, by kernel name (ray_head's
+    counter also counts ray_head_neus, which shares its pack)."""
+    return {n: w for n, w in launch_counts().items() if hasattr(w, "pack_builds")}
 
 
 def check_launches(run, launches):
@@ -632,11 +693,14 @@ def render_view(model, sample, route, card):
     with tempfile.TemporaryDirectory() as out_dir:
         for w in wrappers.values():
             w.launches = 0
+        for w in pack_counters().values():
+            w.pack_builds = 0
         torch.cuda.reset_peak_memory_stats()
         stats = extract_geometry_for_dataset(model, [sample], out_dir=out_dir,
                                              device="cuda", seed=SEED,
                                              previews=False)
         launches = {k: w.launches for k, w in wrappers.items()}
+        builds = {k: w.pack_builds for k, w in pack_counters().items()}
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         saved = np.load(os.path.join(out_dir, "depth", "scan1", "00000000.npy"),
                         allow_pickle=True).item()
@@ -644,13 +708,14 @@ def render_view(model, sample, route, card):
     log(f"[slice] route {route}: 1 view 800x640, 3 views, 64+64 samples: encode "
         f"{stats['encode_s']:.3f} s, render {stats['render_s']:.3f} s, "
         f"{stats['rays_per_sec']:.1f} rays/s, peak {peak_gb:.2f} GiB [{card}]")
-    log(f"[slice] route {route}: launches during the run: {launches}")
+    log(f"[slice] route {route}: launches during the run: {launches}; weight packs "
+        f"built: {builds}")
     if depth.shape != (640, 800) or not np.all(np.isfinite(depth)):
         raise AssertionError(f"depth map {depth.shape}, finite "
                              f"{np.isfinite(depth).mean():.4f}")
     log(f"[slice] route {route}: depth map (640, 800) finite, range "
         f"[{depth.min():.1f}, {depth.max():.1f}] mm")
-    return {**stats, "peak_gib": peak_gb}, launches
+    return {**stats, "peak_gib": peak_gb, "pack_builds": builds}, launches
 
 
 def agree_with_cpu(model, sample, route):
@@ -693,6 +758,7 @@ def slice_phase(model, model_b, card):
     similarity)."""
     from uforecon_tpu_torch.config import FUSED_GLUE
     from uforecon_tpu_torch.data.synthetic import dtu_scale_sample
+    from uforecon_tpu_torch.ops import cuda_build
 
     models = {"off": model, "on": model.with_knobs(**FUSED_GLUE),
               "A": model.with_knobs(fused_point_head="never"), "B": model_b,
@@ -702,9 +768,20 @@ def slice_phase(model, model_b, card):
         raise AssertionError("route B's ray-head width is not 72")
     sample = dtu_scale_sample()
     stats, launches = {}, {}
+    # the packs the kernel phase built are dropped: each head builds its
+    # pack once per set of weights over the five views, at the first view
+    # that runs it (point_head: the shared weights; ray_head: those and
+    # route B's; point_head2: the shared weights)
+    cuda_build.clear_pack_caches()
     for route, m in models.items():
         stats[route], launches[route] = render_view(m, sample, route, card)
         check_launches(route, launches[route])
+    built = {n: sum(stats[r]["pack_builds"][n] for r in models)
+             for n in pack_counters()}
+    log(f"[slice] weight packs built over the five views: {built} (one per head "
+        f"and set of weights)")
+    if built != {"point_head": 1, "ray_head": 2, "point_head2": 1}:
+        raise AssertionError(f"a head rebuilt its weight pack: {built}")
     for route, m in models.items():
         agree_with_cpu(m, sample, route)
     return models, sample, stats, launches
@@ -905,6 +982,23 @@ def ab_phase(models, scene, enc, extras, card):
         f"on {won} of {len(rates['on'])} [{card}]")
 
 
+def tests_phase(card):
+    """The GPU unit tests of the kernels (``test_torch_port_kernels.py``,
+    no JAX) in a subprocess, which reuses the built extension; they must
+    pass."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-k", "on_gpu", "-q",
+           "-p", "no:cacheprovider", os.path.join("tests", "test_torch_port_kernels.py")]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=900)
+    lines = out.stdout.strip().splitlines()
+    log(f"[tests] {' '.join(cmd[2:])}: {lines[-1] if lines else ''} "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    if out.returncode != 0:
+        log(out.stdout[-6000:] + out.stderr[-2000:])
+        raise AssertionError(f"the GPU unit tests failed (exit {out.returncode})")
+
+
 def main():
     try:
         import torch
@@ -958,6 +1052,7 @@ def main():
     profile_phase({k: models[k] for k in ("off", "on", "A", "v2")}, scene, enc, extras,
                   card)
     ab_phase(models, scene, enc, extras, card)
+    tests_phase(card)
 
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
@@ -965,6 +1060,9 @@ def main():
                         "replaces": replaces,
                         "launches": launches[ROUTE[name]][name],
                         "launches_by_run": {r: launches[r][name] for r in launches},
+                        **({"pack_builds_by_run": {r: stats[r]["pack_builds"][name]
+                                                   for r in stats}}
+                           if name in pack_counters() else {}),
                         **kres[name]})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ it:
     python -m pytest --noconftest -k on_gpu tests/test_torch_port_kernels.py
 
 Kernel tolerances: atol 2e-5 on token and srdf, 2e-6 on radiance (f32
-with another summation order; chip_smoke.py measures ~2e-6 and ~2e-7);
+with another summation order, the heads' layer GEMMs in 3xTF32;
+chip_smoke.py measures ~7e-6 and ~4e-7);
 1e-6 on the grouped cosine and the volume fusion (a few f32 roundings);
 for the NeuS epilogue 2e-5 on srdf, weight, rgb and opacity and 2e-5
 relative on depth (the compositing sums srdf-sized errors through
@@ -37,6 +38,9 @@ C = 80   # d_view at the default configuration
 CR = 88  # + order PE
 CR_ABLATION = 72  # ray-head width without explicit similarity
 NEUS_RTOL = 2e-4  # chip_smoke.py measures 3.3e-5 at main-path shapes
+# samples per ray: the main path's 64 and 128, and SN % 16 != 0, where the
+# ray-head kernel pads its rows to whole m16 tiles
+SN_CASES = [8, 20, 36, 64, 128]
 
 
 @pytest.fixture
@@ -242,31 +246,35 @@ def test_point_head2_weight_pack_matches_the_kernel_layout(rng):
     assert pack.numel() == n_w == pph2.layout2(C, 32, 24, 16)["total"][0]
     torch.testing.assert_close(pack[:C], p.view_token)
     torch.testing.assert_close(pack[C:2 * C], p.view_token @ p.wq.t())
-    # the split pack holds every weight element of the point head's pack
-    # once or more, and the two constants
-    assert pack.numel() > pph.pack_weights(p).numel()
+    # the split pack holds every weight element of the point head once or
+    # more, and the two constants
+    assert pack.numel() > sum(t.numel() for t in pph._flat_params(p))
 
 
 def test_weight_packs_match_the_kernel_layout(rng):
     """Sizes of the packs equal the N_W constants of csrc/*.cu (derived
-    from the same layer widths), and the pack starts as the kernels
-    expect."""
+    from the same layer widths; the tensor-core matrices count twice, as a
+    TF32 hi and a lo plane), and the pack starts as the kernels expect:
+    the view token, then wq's hi plane, then its lo plane."""
     _, params = _point_case(rng, n=4)
     p = _port_params(pph.PointHeadParams, params)
     pack = pph.pack_weights(p)
     c2 = 2 * C
-    n_w = C + 4 * C * C + 2 * C + c2 * c2 + c2 * C + 2 * C \
+    n_w = C + 2 * (4 * C * C) + 2 * C + 2 * (c2 * c2 + c2 * C) + 2 * C \
         + (8 * 32 + 32) + (32 * 32 + 32) + (32 * 16 + 16) \
         + ((C + 3) * 16 + 16) + (16 * 8 + 8) + (8 + 1)
     assert pack.numel() == n_w
     torch.testing.assert_close(pack[:C], p.view_token)
-    torch.testing.assert_close(pack[C:C + C * C].view(C, C), p.wq.t())
+    hi = pack[C:C + C * C].view(C, C)
+    lo = pack[C + C * C:C + 2 * C * C].view(C, C)
+    torch.testing.assert_close(hi + lo, p.wq.t(), rtol=2 ** -21, atol=0)
+    torch.testing.assert_close(hi, p.wq.t(), rtol=2 ** -11, atol=0)
     for c in (CR, CR_ABLATION):
         _, rparams = _ray_case(rng, rn=1, sn=4, c=c)
         rp = _port_params(prh.RayHeadParams, rparams)
         c2 = 2 * c
-        assert prh.pack_weights(rp).numel() == 4 * c * c + 2 * c + c2 * c2 + c2 * c \
-            + 2 * c + (c * 32 + 32) + (32 * 16 + 16) + (16 + 1)
+        assert prh.pack_weights(rp).numel() == 2 * (4 * c * c + c2 * c2 + c2 * c) \
+            + 2 * c + 2 * c + (c * 32 + 32) + (32 * 16 + 16) + (16 + 1)
 
 
 @pytest.mark.parametrize("nv", [2, 3, 4, 5, 6])
@@ -406,9 +414,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("n", [1000, 1001])
 @pytest.mark.parametrize("nv", [2, 3, 4, 5])
-def test_point_head_kernel_matches_plain_on_gpu(rng, cuda_device, nv):
-    inputs, params = _point_case(rng, nv=nv, n=1000)
+def test_point_head_kernel_matches_plain_on_gpu(rng, cuda_device, nv, n):
+    """P not a multiple of the kernel's 16 points per block (the outputs
+    past P stay unwritten), the first 5 points masked in every view: a
+    uniform blend, never NaN."""
+    inputs, params = _point_case(rng, nv=nv, n=n)
     inp = pph.PointHeadInputs(**{k: _t(v).to(cuda_device) for k, v in inputs.items()})
     p = pph.PointHeadParams(*[(tuple(x.to(cuda_device) for x in v) if isinstance(v, tuple)
                                else v.to(cuda_device))
@@ -417,8 +429,10 @@ def test_point_head_kernel_matches_plain_on_gpu(rng, cuda_device, nv):
     tok, rad = pph.point_head(inp, p)
     tok_ref, rad_ref = pph.point_head_reference(inp, p)
     assert pph.point_head.launches == before + 1
+    assert torch.isfinite(tok).all() and torch.isfinite(rad).all()
     torch.testing.assert_close(tok, tok_ref, rtol=0, atol=2e-5)
     torch.testing.assert_close(rad, rad_ref, rtol=0, atol=2e-6)
+    torch.testing.assert_close(rad[:5], inp.rgb[:, :5].mean(0), rtol=0, atol=2e-6)
 
 
 @pytest.mark.parametrize("nv", [2, 3, 4, 5])
@@ -448,7 +462,7 @@ def test_row_gather_kernel_matches_plain_on_gpu(rng, cuda_device, n_blocks, rows
     assert torch.equal(got, prg.block_row_gather_reference(src, idx, rows))
 
 
-@pytest.mark.parametrize("sn", [8, 64, 128])
+@pytest.mark.parametrize("sn", SN_CASES)
 def test_ray_head_kernel_matches_plain_on_gpu(rng, cuda_device, sn):
     y, rparams = _ray_case(rng, rn=37, sn=sn)
     rp = prh.RayHeadParams(*[(tuple(x.to(cuda_device) for x in v) if isinstance(v, tuple)
@@ -491,7 +505,7 @@ def _composite(z, rad, srdf, inv_s, fault=None):
     return weight, (rad * weight[..., None]).sum(1), weight.sum(1)
 
 
-@pytest.mark.parametrize("sn", [8, 64, 128])
+@pytest.mark.parametrize("sn", SN_CASES)
 def test_neus_gpu_case_shows_a_wrong_epilogue(rng, sn):
     """The inputs of test_ray_head_neus_kernel_matches_plain_on_gpu (the
     same draws) are in the regime where compositing matters, and there
@@ -510,7 +524,7 @@ def test_neus_gpu_case_shows_a_wrong_epilogue(rng, sn):
         assert err > 1000 * 2e-5, (fault, err)
 
 
-@pytest.mark.parametrize("sn", [8, 64, 128])
+@pytest.mark.parametrize("sn", SN_CASES)
 def test_ray_head_neus_kernel_matches_plain_on_gpu(rng, cuda_device, sn):
     y, rparams = _ray_case(rng, rn=37, sn=sn)
     rp = _on(cuda_device, _port_params(prh.RayHeadParams, rparams))
@@ -599,9 +613,10 @@ def test_tiny_attention_backward_kernel_matches_autograd_on_gpu(rng, cuda_device
         torch.testing.assert_close(a, b_, rtol=3e-4, atol=3e-4)
 
 
-@pytest.mark.parametrize("sn", [8, 64, 128])
+@pytest.mark.parametrize("sn", SN_CASES + [144])
 def test_ray_head_width_72_kernels_match_plain_on_gpu(rng, cuda_device, sn):
-    """The ray head and its NeuS variant at the ablation's width."""
+    """The ray head and its NeuS variant at the ablation's width; past 128
+    samples the tensor-core layers take two passes over k."""
     y, rparams = _ray_case(rng, rn=37, sn=sn, c=CR_ABLATION)
     rp = _on(cuda_device, _port_params(prh.RayHeadParams, rparams))
     args = [_t(a).to(cuda_device) for a in (y, *_neus_case(rng, 37, sn))]
@@ -615,3 +630,54 @@ def test_ray_head_width_72_kernels_match_plain_on_gpu(rng, cuda_device, sn):
                           prh.ray_head_neus_reference(*args, rp)):
         torch.testing.assert_close(a, b, rtol=2e-5 if name == "depth" else 0,
                                    atol=2e-5, msg=name)
+
+
+def test_head_variants_patch_the_kernel_sources_once():
+    """Every patch and constant of the head-kernel variant timer
+    (``script/head_variants.py``) names text that its source holds exactly
+    once, so each variant changes what it says; unknown options raise."""
+    from uforecon_tpu_torch.ops import cuda_build
+    from uforecon_tpu_torch.script import head_variants as hv
+
+    def text(name):
+        return (cuda_build.CSRC / name).read_text()
+
+    for kernel, consts in hv.CONSTANTS.items():
+        for old, _ in consts.values():
+            assert text(hv.SOURCE[kernel]).count(old) == 1, old
+    for name, subs in hv.PATCHES.items():
+        for f, old, new in subs:
+            assert text(f).count(old) == 1 and old != new, (name, old)
+    kernel, subs = hv.replacements("ph,T=256,nogemm,ph_ln")
+    assert kernel == "ph" and len(subs) == 4
+    assert subs[0][2] == "constexpr int kPointThreads = 256;"
+    for bad in ("xx", "ph,T", "rh,TP=8", "ph,nothing"):
+        with pytest.raises(ValueError):
+            hv.replacements(bad)
+
+
+def _offset(t):
+    """A contiguous copy of t that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def test_head_kernels_take_inputs_at_any_offset_on_gpu(rng, cuda_device):
+    """The heads load their inputs in 16-byte pieces; a contiguous input
+    that starts off such a boundary gives the same outputs."""
+    inputs, params = _point_case(rng, nv=3, n=4096)
+    inp = pph.PointHeadInputs(**{k: _t(v).to(cuda_device) for k, v in inputs.items()})
+    p = _on(cuda_device, _port_params(pph.PointHeadParams, params))
+    shifted = pph.PointHeadInputs(*[_offset(t) for t in inp])
+    assert shifted.img_feat.data_ptr() % 16 != 0
+    with torch.no_grad():
+        for a, b in zip(pph.point_head(shifted, p), pph.point_head(inp, p)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    y, rparams = _ray_case(rng, rn=37, sn=64)
+    rp = _on(cuda_device, _port_params(prh.RayHeadParams, rparams))
+    yd = _t(y).to(cuda_device)
+    with torch.no_grad():
+        torch.testing.assert_close(prh.ray_head(_offset(yd), rp), prh.ray_head(yd, rp),
+                                   rtol=0, atol=0)

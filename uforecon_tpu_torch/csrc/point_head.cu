@@ -12,20 +12,42 @@
 //     at -1e9, rgb blend.
 // Only the view-token output (80) and the radiance (3) leave the kernel.
 //
-// What bounds it on the H100: arithmetic. A point costs ~2.6e5 FP32 FMAs
-// (the four token rows through 80x80 and 160x160 layers) against ~1 KB of
-// input and output, about 500 FLOP per byte of device memory, far above
-// the card's FP32 ridge. The math must stay exact FP32, so the tensor
-// cores (TF32 at best) are not used.
+// What bounds it on the H100: arithmetic. A point costs ~2.6e5 multiply-
+// adds (the four token rows through the 80x80 and 160x160 layers)
+// against ~1 KB of input and output, about 500 FLOP per byte of device
+// memory, far above the card's ridge. As FP32 FMAs on the CUDA cores
+// (common.cuh's block_gemm) the layers ran at ~20 % of the cores' 67
+// TFLOP/s: each k step of a thread issued 4 weight loads and 4 shared
+// loads for 16 FMAs, and each weight read served only 64 rows.
 //
-// Design: a block of 320 threads owns 16 points, i.e. 16 * (NV + 1) token
-// rows. All activations of those rows stay in shared memory for the whole
-// layer chain (4 buffers of rows x 80 floats, 80 KB at NV = 3, two blocks
-// per SM); weights (~67k floats, too many for shared memory) are read
-// through the read-only cache, where every block of the grid hits the same
-// 268 KB. Each thread computes 4 x 4 tiles of rows x output columns
-// (block_gemm). Inputs are point-major, so a block's loads are contiguous.
+// Design: the q/k/v/merge projections, mlp1 over [tokens | message] and
+// mlp2 (98 % of the multiply-adds) run on the tensor cores in 3xTF32
+// (tc_gemm.cuh), accurate to a few FP32 roundings. A block of 320 threads
+// owns TP = 16 points, i.e. 16 * (NV + 1) token rows (48, 64, 80, 96 rows
+// at NV 2..5, whole m16 tiles). All activations of those rows stay in
+// shared memory for the whole layer chain (buffers X and K of rows x 84
+// floats, Q|V of rows x 168; strides padded against bank conflicts), and
+// the weight planes (hi/lo, pre-split on the host) stream through a
+// two-slot cp.async ring, each byte from L2 once per block. Shared memory:
+// rows x 1344 bytes + 21,504 for the ring = 86,016 / 107,520 / 129,024 /
+// 150,528 bytes at NV 2 / 3 / 4 / 5, so at NV 2 and 3 (the main path) two
+// blocks share an SM and overlap each other's syncs. The block's inputs
+// (point-major, so contiguous) come in by cp.async, all in flight at once,
+// image and volume features straight into the token rows. The
+// pre-similarity MLP, the radiance MLP, the LayerNorms, the attention and
+// the softmax stay FP32 on the CUDA cores.
+//
+// What bounds it now (H100 at P = 65,536, NV 3, variants timed apart):
+// ~0.5 of its ~1.35 ms is outside the tensor-core layers, in short
+// latency-bound phases between block-wide syncs: the radiance and
+// pre-similarity MLPs (~0.15 and ~0.12 ms; a few warps each, one k step
+// after another through common.cuh's block_gemm), the softmax and the
+// attention. Inside them the products take ~0.5 ms (~190 TFLOP/s of TF32
+// issued by mma.sync) and the operand split and fragment loads most of
+// the rest; the weight ring's depth and the tile shape change nothing.
+// wgmma's rate and a tail without per-phase syncs are what is left.
 #include "common.cuh"
+#include "tc_gemm.cuh"
 
 namespace ufo {
 namespace ph {
@@ -42,22 +64,24 @@ constexpr int C2 = 2 * C;
 constexpr int CR = C + 3;  // radiance MLP input
 constexpr int R1 = 16, R2 = 8;
 constexpr int TP = 16;     // points per block
-// 320 threads: the 64 x 80 and 64 x 160 layers of a block split into
-// exactly one and two rounds of 4 x 4 output tiles (block_gemm)
 constexpr int kPointThreads = 320;
+constexpr int kStages = 2; // weight ring slots
+constexpr int LD = tc::act_ld(C);    // 84
+constexpr int LD2 = tc::act_ld(C2);  // 164, mlp1's output in Q|V
 
 // Offsets into the packed weight buffer; the Python wrapper packs in this
-// order, every matrix in (in, out) row-major orientation.
+// order, every matrix in (in, out) row-major orientation, the tensor-core
+// matrices as a TF32 hi plane followed by its lo plane.
 constexpr int O_TOK = 0;
 constexpr int O_WQ = O_TOK + C;
-constexpr int O_WK = O_WQ + C * C;
-constexpr int O_WV = O_WK + C * C;
-constexpr int O_WM = O_WV + C * C;
-constexpr int O_N1S = O_WM + C * C;
+constexpr int O_WK = O_WQ + 2 * C * C;
+constexpr int O_WV = O_WK + 2 * C * C;
+constexpr int O_WM = O_WV + 2 * C * C;
+constexpr int O_N1S = O_WM + 2 * C * C;
 constexpr int O_N1B = O_N1S + C;
 constexpr int O_W1 = O_N1B + C;
-constexpr int O_W2 = O_W1 + C2 * C2;
-constexpr int O_N2S = O_W2 + C2 * C;
+constexpr int O_W2 = O_W1 + 2 * C2 * C2;
+constexpr int O_N2S = O_W2 + 2 * C2 * C;
 constexpr int O_N2B = O_N2S + C;
 constexpr int O_SW0 = O_N2B + C;
 constexpr int O_SB0 = O_SW0 + SIN * SH;
@@ -72,16 +96,26 @@ constexpr int O_RB1 = O_RW1 + R1 * R2;
 constexpr int O_RW2 = O_RB1 + R2;
 constexpr int O_RB2 = O_RW2 + R2;
 constexpr int N_W = O_RB2 + 1;
+// cp.async reads the tensor-core planes in 16-byte pieces
+static_assert(O_WQ % 4 == 0 && O_WK % 4 == 0 && O_WV % 4 == 0 && O_WM % 4 == 0 &&
+                  O_W1 % 4 == 0 && O_W2 % 4 == 0,
+              "tensor-core weight planes must start 16-byte aligned");
 
 constexpr float kPi = 3.14159265358979323846f;
 
 template <int NV>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * 4 * TP * (NV + 1) * C;
+__host__ __device__ constexpr int tile_rows() {
+  return TP * (NV + 1);
 }
 
 template <int NV>
-__global__ void __launch_bounds__(kPointThreads) point_head_kernel(
+constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         ((size_t)tile_rows<NV>() * (2 * LD + 2 * LD) + tc::ring_floats(kStages, C2));
+}
+
+template <int NV>
+__global__ void __launch_bounds__(kPointThreads, 2) point_head_kernel(
     const float* __restrict__ img,    // (NV, P, CI)
     const float* __restrict__ vol,    // (P, CV)
     const float* __restrict__ sim,    // (P, SIN)
@@ -94,27 +128,75 @@ __global__ void __launch_bounds__(kPointThreads) point_head_kernel(
     float* __restrict__ rad_out,      // (P, 3)
     int P) {
   constexpr int L = NV + 1;           // tokens per point
-  constexpr int R = TP * L;           // token rows of the block
+  constexpr int R = tile_rows<NV>();  // token rows of the block
   constexpr int RR = TP * NV;         // radiance rows of the block
-  static_assert(RR * CR <= 2 * R * C, "radiance input must fit Q|V");
-  extern __shared__ float smem[];
-  float* X = smem;                    // R x C   tokens, later the layer output
-  float* Kb = X + R * C;              // R x C   keys, then message / mlp2 out
-  float* Qb = Kb + R * C;             // R x C   queries -> attention output
-  float* Vb = Qb + R * C;             // R x C   values; Qb|Vb hold mlp1's R x 2C
+  constexpr int MTILES = R / 16;      // m16 tiles
+  // column tiles of a warp's run in the C- and 2C-wide layers: one pass
+  constexpr int NT_C = tc::col_tiles(kPointThreads / 32, MTILES, C);
+  constexpr int NT_C2 = tc::col_tiles(kPointThreads / 32, MTILES, C2);
+  static_assert(MTILES <= kPointThreads / 32, "a row tile per warp");
+  static_assert(R % 16 == 0, "token rows must fill m16 tiles");
+  static_assert(RR * CR <= 2 * R * LD, "radiance input must fit Q|V");
+  static_assert(LD2 <= 2 * LD, "mlp1's output must fit Q|V");
+  extern __shared__ float4 smem4[];
+  float* X = reinterpret_cast<float*>(smem4);  // R x LD  tokens, later the layer output
+  float* Kb = X + R * LD;             // R x LD  keys, then message / mlp2 out
+  float* Qb = Kb + R * LD;            // R x LD  queries -> attention output
+  float* Vb = Qb + R * LD;            // R x LD  values; Qb|Vb hold mlp1's R x LD2
+  float* ring = Vb + R * LD;          // weight slots
   const int p0 = blockIdx.x * TP;
   const int tid = threadIdx.x;
 
-  // 1. pre-similarity MLP on the block's points (scratch in Vb)
-  float* s_in = Vb;
+  // 1. the block's inputs into shared memory, all loads in flight at
+  //    once: raw cosines (group 0), image and volume features straight
+  //    into the token rows (group 1); depth distances to scratch in Kb.
+  //    A ragged last block loads element by element and zero-fills.
+  float* s_in = Vb;               // pre-similarity MLP scratch in Vb
   float* s_h1 = s_in + TP * SIN;
   float* s_h2 = s_h1 + TP * SH;
   float* s16 = s_h2 + TP * SH;
-  for (int i = tid; i < TP * SIN; i += blockDim.x) {
-    const int gp = p0 + i / SIN;
-    s_in[i] = gp < P ? sim[(size_t)gp * SIN + i % SIN] : 0.f;
+  float* dds = Kb;                // (NV, TP) depth distances
+  const bool full = p0 + TP <= P;
+  if (full) {
+    for (int i = tid; i < TP * SIN / 4; i += blockDim.x)
+      tc::cp_async16(s_in + 4 * i, sim + (size_t)p0 * SIN + 4 * i);
+  } else {
+    for (int i = tid; i < TP * SIN; i += blockDim.x) {
+      const int gp = p0 + i / SIN;
+      s_in[i] = gp < P ? sim[(size_t)gp * SIN + i % SIN] : 0.f;
+    }
   }
+  tc::cp_async_commit();
+  if (full) {
+    for (int i = tid; i < NV * TP * (CI / 4); i += blockDim.x) {
+      const int v = i / (TP * (CI / 4)), p = (i / (CI / 4)) % TP, c4 = i % (CI / 4);
+      tc::cp_async16(X + (p * L + 1 + v) * LD + 4 * c4,
+                     img + ((size_t)v * P + p0 + p) * CI + 4 * c4);
+    }
+    for (int i = tid; i < NV * TP * (CV / 4); i += blockDim.x) {
+      const int v = i / (TP * (CV / 4)), p = (i / (CV / 4)) % TP, c4 = i % (CV / 4);
+      tc::cp_async16(X + (p * L + 1 + v) * LD + CI + 4 * c4,
+                     vol + (size_t)(p0 + p) * CV + 4 * c4);
+    }
+  } else {
+    for (int i = tid; i < NV * TP * (CI + CV); i += blockDim.x) {
+      const int v = i / (TP * (CI + CV)), p = (i / (CI + CV)) % TP, c = i % (CI + CV);
+      const int gp = p0 + p;
+      float val = 0.f;
+      if (gp < P)
+        val = c < CI ? img[((size_t)v * P + gp) * CI + c] : vol[(size_t)gp * CV + c - CI];
+      X[(p * L + 1 + v) * LD + c] = val;
+    }
+  }
+  tc::cp_async_commit();
+  for (int i = tid; i < NV * TP; i += blockDim.x) {
+    const int gp = p0 + i % TP;
+    dds[i] = gp < P ? dd[(size_t)(i / TP) * P + gp] : 0.f;
+  }
+  tc::cp_async_wait<1>();
   __syncthreads();
+
+  // 2. pre-similarity MLP on the block's points
   block_linear<4>(s_in, SIN, SIN, W + O_SW0, W + O_SB0, s_h1, SH, TP, SH, true);
   __syncthreads();
   block_linear<4>(s_h1, SH, SH, W + O_SW1, W + O_SB1, s_h2, SH, TP, SH, true);
@@ -122,47 +204,42 @@ __global__ void __launch_bounds__(kPointThreads) point_head_kernel(
   block_linear<4>(s_h2, SH, SH, W + O_SW2, W + O_SB2, s16, SOUT, TP, SOUT, false);
   __syncthreads();
 
-  // 2. tokens: row p*L is the view token, row p*L + 1 + v view v's features
-  for (int i = tid; i < R * C; i += blockDim.x) {
-    const int r = i / C, c = i - (i / C) * C;
-    const int p = r / L, l = r - (r / L) * L;
-    const int gp = p0 + p;
-    float val;
-    if (l == 0) {
-      val = __ldg(W + O_TOK + c);
-    } else if (gp >= P) {
-      val = 0.f;
-    } else {
-      const int v = l - 1;
-      if (c < CI) {
-        val = img[((size_t)v * P + gp) * CI + c];
-      } else if (c < CI + CV) {
-        val = vol[(size_t)gp * CV + (c - CI)];
-      } else if (c < CI + CV + SOUT) {
-        val = s16[p * SOUT + (c - CI - CV)];
+  // 3. the rest of the tokens: row p*L is the view token, row p*L + 1 + v
+  //    view v's [img | vol | sim16 | pe] (zero for points past P)
+  for (int i = tid; i < TP * C; i += blockDim.x)
+    X[(i / C) * L * LD + i % C] = __ldg(W + O_TOK + i % C);
+  constexpr int CT = C - CI - CV;   // sim16 | pe
+  for (int i = tid; i < NV * TP * CT; i += blockDim.x) {
+    const int v = i / (TP * CT), p = (i / CT) % TP, c = i % CT;
+    float val = 0.f;
+    if (p0 + p < P) {
+      if (c < SOUT) {
+        val = s16[p * SOUT + c];
       } else {
-        const int k = c - (CI + CV + SOUT);
+        const int k = c - SOUT;
         const float f = ldexpf(kPi, k >> 1);
         const float ph = (k & 1) ? 0.5f * kPi : 0.f;
-        val = sinf(dd[(size_t)v * P + gp] * f + ph);
+        val = sinf(dds[v * TP + p] * f + ph);
       }
     }
-    X[i] = val;
+    X[(p * L + 1 + v) * LD + CI + CV + c] = val;
   }
+  tc::cp_async_wait<0>();
   __syncthreads();
 
-  // 3. projections (Vb's similarity scratch is dead now)
-  block_linear<4>(X, C, C, W + O_WQ, nullptr, Qb, C, R, C, false);
-  block_linear<4>(X, C, C, W + O_WK, nullptr, Kb, C, R, C, false);
-  block_linear<4>(X, C, C, W + O_WV, nullptr, Vb, C, R, C, false);
-  __syncthreads();
+  // 4. projections on the tensor cores (the scratch in Vb and Kb is dead
+  //    now); each gemm ends in a block-wide sync
+  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + O_WQ, ring, Qb, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + O_WK, ring, Kb, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + O_WV, ring, Vb, LD, MTILES, C, false);
   for (int i = tid; i < R * C; i += blockDim.x) {
-    Qb[i] = phi(Qb[i]);
-    Kb[i] = phi(Kb[i]);
+    const int j = (i / C) * LD + i % C;
+    Qb[j] = phi(Qb[j]);
+    Kb[j] = phi(Kb[j]);
   }
   __syncthreads();
 
-  // 4. linear attention among each point's L tokens, per head; the thread
+  // 5. linear attention among each point's L tokens, per head; the thread
   //    that reads q of (row, head) overwrites it with the attention output
   for (int t = tid; t < R * NH; t += blockDim.x) {
     const int r = t / NH, h = t - (t / NH) * NH;
@@ -170,13 +247,13 @@ __global__ void __launch_bounds__(kPointThreads) point_head_kernel(
     float q[DK], acc[DK];
 #pragma unroll
     for (int d = 0; d < DK; ++d) {
-      q[d] = Qb[r * C + h * DK + d];
+      q[d] = Qb[r * LD + h * DK + d];
       acc[d] = 0.f;
     }
     float den = 0.f;
     for (int s = 0; s < L; ++s) {
-      const float* ks = Kb + (base + s) * C + h * DK;
-      const float* vs = Vb + (base + s) * C + h * DK;
+      const float* ks = Kb + (base + s) * LD + h * DK;
+      const float* vs = Vb + (base + s) * LD + h * DK;
       float sc = 0.f;
 #pragma unroll
       for (int d = 0; d < DK; ++d) sc = fmaf(q[d], ks[d], sc);
@@ -186,45 +263,39 @@ __global__ void __launch_bounds__(kPointThreads) point_head_kernel(
     }
     den += kAttnEps;
 #pragma unroll
-    for (int d = 0; d < DK; ++d) Qb[r * C + h * DK + d] = acc[d] / den;
+    for (int d = 0; d < DK; ++d) Qb[r * LD + h * DK + d] = acc[d] / den;
   }
   __syncthreads();
 
-  // 5. merge + LayerNorm -> Kb
-  block_linear<4>(Qb, C, C, W + O_WM, nullptr, Kb, C, R, C, false);
-  __syncthreads();
-  block_layernorm(Kb, C, R, C, W + O_N1S, W + O_N1B);
-  __syncthreads();
-  // 6. mlp1 over [tokens | message] -> Qb|Vb (R x 2C)
-  block_gemm<4>(X, C, C, Kb, C, C, W + O_W1, nullptr, Qb, C2, R, C2, true);
-  __syncthreads();
-  // 7. mlp2 -> Kb, LayerNorm, residual into X
-  block_linear<4>(Qb, C2, C2, W + O_W2, nullptr, Kb, C, R, C, false);
-  __syncthreads();
-  block_layernorm(Kb, C, R, C, W + O_N2S, W + O_N2B);
-  __syncthreads();
-  for (int i = tid; i < R * C; i += blockDim.x) X[i] += Kb[i];
-  __syncthreads();
+  // 6. merge + LayerNorm -> Kb
+  tc::gemm<kStages, NT_C>(Qb, LD, C, nullptr, 0, 0, W + O_WM, ring, Kb, LD, MTILES, C, false);
+  tc::layernorm<C>(Kb, LD, R, W + O_N1S, W + O_N1B);
+  // 7. mlp1 over [tokens | message] -> Qb|Vb (R x LD2)
+  tc::gemm<kStages, NT_C2>(X, LD, C, Kb, LD, C, W + O_W1, ring, Qb, LD2, MTILES, C2, true);
+  // 8. mlp2 -> Kb, LayerNorm added into X (the residual)
+  tc::gemm<kStages, NT_C>(Qb, LD2, C2, nullptr, 0, 0, W + O_W2, ring, Kb, LD, MTILES, C, false);
+  tc::layernorm<C>(Kb, LD, R, W + O_N2S, W + O_N2B, X, LD);
 
-  // 8. view-token output
+  // 9. view-token output
   for (int i = tid; i < TP * C; i += blockDim.x) {
     const int p = i / C, c = i - (i / C) * C;
-    if (p0 + p < P) token_out[(size_t)(p0 + p) * C + c] = X[p * L * C + c];
+    if (p0 + p < P) token_out[(size_t)(p0 + p) * C + c] = X[p * L * LD + c];
   }
 
-  // 9. radiance: weight MLP over [view token out | dir_rel], masked softmax
+  // 10. radiance: weight MLP over [view token out | dir_rel], masked softmax
   float* z = Qb;                  // RR x CR
   float* h1 = Kb;                 // RR x R1
   float* h2 = h1 + RR * R1;       // RR x R2
   float* lg = h2 + RR * R2;       // RR
-  for (int i = tid; i < RR * CR; i += blockDim.x) {
-    const int rr = i / CR, c = i - (i / CR) * CR;
-    const int p = rr / NV, v = rr - (rr / NV) * NV;
+  for (int i = tid; i < RR * 3; i += blockDim.x) {
+    const int rr = i / 3, p = rr / NV, v = rr - (rr / NV) * NV;
     const int gp = p0 + p;
-    float val;
-    if (c < C) val = X[(p * L + 1 + v) * C + c];
-    else val = gp < P ? dir[((size_t)v * P + gp) * 3 + (c - C)] : 0.f;
-    z[i] = val;
+    z[rr * CR + C + i % 3] = gp < P ? dir[((size_t)v * P + gp) * 3 + i % 3] : 0.f;
+  }
+  for (int i = tid; i < RR * C; i += blockDim.x) {
+    const int rr = i / C, c = i - (i / C) * C;
+    const int p = rr / NV, v = rr - (rr / NV) * NV;
+    z[rr * CR + c] = X[(p * L + 1 + v) * LD + c];
   }
   __syncthreads();
   block_linear<4>(z, CR, CR, W + O_RW0, W + O_RB0, h1, R1, RR, R1, true);

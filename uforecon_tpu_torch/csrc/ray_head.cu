@@ -8,21 +8,36 @@
 //     8 heads x C/8, LayerNorm(eps 1e-6), mlp 2C -> 2C -> C, residual;
 //   * density MLP C -> 32 -> 16 -> 1, giving the SRDF of each sample.
 // C is a template parameter, instantiated for 72 and 88; the tiling needs
-// only C % 8 == 0 (8 heads, 4 output columns per thread).
+// only C % 8 == 0 (8 heads, the tensor cores' 8-column tiles).
 //
 // What bounds it on the H100: arithmetic, as for the point head. At C = 88
-// a sample costs ~8.3e4 FP32 FMAs (the 88x88 and 176x176 layers) against
-// 352 bytes in and 4 out, about 460 FLOP per byte; exact FP32 keeps it off
-// the tensor cores.
+// a sample costs ~8.3e4 multiply-adds (the 88x88 and 176x176 layers)
+// against 352 bytes in and 4 out, about 460 FLOP per byte.
 //
 // Design: one block of 512 threads per ray. The ray's SN x C tokens, the
 // SN x 2C hidden layer and the per-ray attention state (8 heads x C/8 x C/8
 // key-value sums plus the key sums) stay in shared memory for the whole
-// chain: (4C * SN + C^2/8 + C) floats, at C = 88 90 KB at SN = 64 and
-// 180 KB at SN = 128, at C = 72 147 KB at SN = 128. Attention is taken in
-// kv order (sum_s phi(k_s) v_s^T once, then one C/8 x C/8 product per
-// sample and head), so nothing of size SN x SN is formed. Weights (~81k floats at C = 88) are read through the
-// read-only cache.
+// chain, rows padded to whole m16 tiles (SNP = SN rounded up to 16) and
+// strides to C + 4 / 2C + 4 floats against bank conflicts. The q/k/v/merge,
+// mlp1 and mlp2 layers run on the tensor cores in 3xTF32 (tc_gemm.cuh),
+// their hi/lo weight planes (pre-split on the host) streamed through a
+// two-slot cp.async ring. Shared memory: SNP x (4C + 12) floats + the
+// state + the ring; at C = 88 120,960 bytes at SN = 64 and 214,144 at
+// SN = 128 (Hopper allows 232,448, so SN <= 128 at C = 88 and <= 160 at
+// C = 72, whose SN = 128 takes 175,936).
+// Attention is taken in kv order (sum_s phi(k_s) v_s^T once, then one
+// C/8 x C/8 product per sample and head), so nothing of size SN x SN is
+// formed; the sums run over the SN real samples only, never the padding
+// rows. The ray's tokens come in by cp.async, all in flight at once. The
+// LayerNorms (tc::layernorm), the attention and the density MLP C -> 32
+// -> 16 -> 1 (common.cuh's block_gemm) stay FP32 on the CUDA cores.
+//
+// What bounds it now (H100, 1024 rays, C = 88, variants timed apart): of
+// ~0.58 / ~0.72 ms at SN = 64 / 128, ~0.13 / ~0.22 ms is outside the
+// tensor-core layers (the density MLP, the LayerNorms, the kv state and
+// the attention, latency-bound between block-wide syncs), the products
+// take ~0.25 ms and the operand split, fragment loads and the per-step
+// sync the rest; a third ring slot and 256 threads measured slower.
 //
 // NeuS epilogue (kNeus = true) replaces ray_head_neus_fused (body
 // _kernel_neus / _neus_epilogue) of the same JAX file: once the ray's SN
@@ -35,6 +50,7 @@
 // product runs serially in one thread, in torch.cumprod's CPU order; the
 // JAX kernel's 0/1 matmuls and log-space cumprod were MXU devices.
 #include "common.cuh"
+#include "tc_gemm.cuh"
 
 namespace ufo {
 namespace rh {
@@ -43,22 +59,25 @@ constexpr int NH = 8;       // heads
 constexpr int D0 = 32, D1 = 16;
 
 // Widths of the token-width-C kernel and the offsets into its packed weight
-// buffer, matrices in (in, out) orientation.
+// buffer, matrices in (in, out) orientation, the tensor-core matrices as a
+// TF32 hi plane followed by its lo plane.
 template <int C>
 struct Width {
-  static_assert(C % NH == 0 && C % 4 == 0,
-                "C must split into 8 heads and 4-column tiles");
+  static_assert(C % NH == 0 && C % 8 == 0,
+                "C must split into 8 heads and n8 tiles");
   static constexpr int C2 = 2 * C;
   static constexpr int DK = C / NH;  // head width: 11 at C = 88, 9 at C = 72
+  static constexpr int LD = tc::act_ld(C);
+  static constexpr int LD2 = tc::act_ld(C2);
   static constexpr int O_WQ = 0;
-  static constexpr int O_WK = O_WQ + C * C;
-  static constexpr int O_WV = O_WK + C * C;
-  static constexpr int O_WM = O_WV + C * C;
-  static constexpr int O_N1S = O_WM + C * C;
+  static constexpr int O_WK = O_WQ + 2 * C * C;
+  static constexpr int O_WV = O_WK + 2 * C * C;
+  static constexpr int O_WM = O_WV + 2 * C * C;
+  static constexpr int O_N1S = O_WM + 2 * C * C;
   static constexpr int O_N1B = O_N1S + C;
   static constexpr int O_W1 = O_N1B + C;
-  static constexpr int O_W2 = O_W1 + C2 * C2;
-  static constexpr int O_N2S = O_W2 + C2 * C;
+  static constexpr int O_W2 = O_W1 + 2 * C2 * C2;
+  static constexpr int O_N2S = O_W2 + 2 * C2 * C;
   static constexpr int O_N2B = O_N2S + C;
   static constexpr int O_DW0 = O_N2B + C;
   static constexpr int O_DB0 = O_DW0 + C * D0;
@@ -68,15 +87,23 @@ struct Width {
   static constexpr int O_DB2 = O_DW2 + D1;
   static constexpr int N_W = O_DB2 + 1;
   static constexpr int kState = NH * DK * DK + C;
+  static_assert(O_W1 % 4 == 0 && O_W2 % 4 == 0 && kState % 4 == 0,
+                "weight planes and the ring must start 16-byte aligned");
 };
 
 // 512 threads: at SN = 128 a block's shared memory leaves room for one
 // block per SM, so the block itself must bring the warps
 constexpr int kRayThreads = 512;
+constexpr int kStages = 2;   // weight ring slots
+constexpr int kRowsMax = 128;  // SN up to which the layers take one pass
+
+__host__ __device__ inline int padded_rows(int sn) { return (sn + 15) & ~15; }
 
 template <int C>
 inline size_t smem_bytes(int sn) {
-  return sizeof(float) * ((size_t)sn * (C + Width<C>::C2 + C) + Width<C>::kState);
+  using Wd = Width<C>;
+  return sizeof(float) * ((size_t)padded_rows(sn) * (Wd::LD + Wd::LD2 + Wd::LD) +
+                          Wd::kState + tc::ring_floats(kStages, Wd::C2));
 }
 
 // NeuS compositing of one ray whose srdf values are in S (shared, SN
@@ -156,53 +183,69 @@ __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
     float* __restrict__ srdf,      // (RN, SN)
     int SN, NeusArgs nz) {
   using Wd = Width<C>;
-  constexpr int C2 = Wd::C2, DK = Wd::DK;
-  extern __shared__ float smem[];
-  float* X = smem;                 // SN x C   tokens, later the layer output
-  float* A = X + SN * C;           // SN x 2C  keys -> queries/attention -> mlp1
-  float* B = A + SN * C2;          // SN x C   values -> message -> mlp2 out
-  float* KV = B + SN * C;          // NH x DK x DK: sum_s phi(k_s)[d] v_s[m]
+  constexpr int C2 = Wd::C2, DK = Wd::DK, LD = Wd::LD, LD2 = Wd::LD2;
+  // column tiles of a warp's run: one pass over k up to kRowsMax samples
+  constexpr int NT_C = tc::col_tiles(kRayThreads / 32, kRowsMax / 16, C);
+  constexpr int NT_C2 = tc::col_tiles(kRayThreads / 32, kRowsMax / 16, C2);
+  const int SNP = padded_rows(SN);
+  const int MTILES = SNP / 16;
+  extern __shared__ float4 smem4[];
+  float* X = reinterpret_cast<float*>(smem4);  // SNP x LD   tokens, later the layer output
+  float* A = X + SNP * LD;         // SNP x LD2  keys -> queries/attention -> mlp1
+  float* B = A + SNP * LD2;        // SNP x LD   values -> message -> mlp2 out
+  float* KV = B + SNP * LD;        // NH x DK x DK: sum_s phi(k_s)[d] v_s[m]
   float* KS = KV + NH * DK * DK;   // C: sum_s phi(k_s)
+  float* ring = KS + C;            // weight slots
   const int tid = threadIdx.x;
   const float* yr = y + (size_t)blockIdx.x * SN * C;
 
-  for (int i = tid; i < SN * C; i += blockDim.x) X[i] = yr[i];
+  // the ray's tokens by cp.async, all in flight at once; the padding rows
+  // are zero, and no sum over samples reads them
+  for (int i = tid; i < SN * (C / 4); i += blockDim.x) {
+    const int s = i / (C / 4), c4 = i - s * (C / 4);
+    tc::cp_async16(X + s * LD + 4 * c4, yr + s * C + 4 * c4);
+  }
+  tc::cp_async_commit();
+  for (int i = tid; i < (SNP - SN) * C; i += blockDim.x)
+    X[(SN + i / C) * LD + i % C] = 0.f;
+  tc::cp_async_wait<0>();
   __syncthreads();
 
-  // keys -> A, values -> B
-  block_linear<4>(X, C, C, W + Wd::O_WK, nullptr, A, C, SN, C, false);
-  block_linear<4>(X, C, C, W + Wd::O_WV, nullptr, B, C, SN, C, false);
-  __syncthreads();
-  for (int i = tid; i < SN * C; i += blockDim.x) A[i] = phi(A[i]);
+  // keys -> A, values -> B (each gemm ends in a block-wide sync)
+  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + Wd::O_WK, ring, A, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + Wd::O_WV, ring, B, LD, MTILES, C, false);
+  for (int i = tid; i < SN * C; i += blockDim.x) {
+    const int j = (i / C) * LD + i % C;
+    A[j] = phi(A[j]);
+  }
   __syncthreads();
 
-  // per-ray attention state
+  // per-ray attention state over the SN samples
   for (int t = tid; t < NH * DK * DK; t += blockDim.x) {
     const int h = t / (DK * DK);
     const int d = (t / DK) % DK;
     const int m = t % DK;
     float acc = 0.f;
     for (int s = 0; s < SN; ++s)
-      acc = fmaf(A[s * C + h * DK + d], B[s * C + h * DK + m], acc);
+      acc = fmaf(A[s * LD + h * DK + d], B[s * LD + h * DK + m], acc);
     KV[t] = acc;
   }
   for (int c = tid; c < C; c += blockDim.x) {
     float acc = 0.f;
-    for (int s = 0; s < SN; ++s) acc += A[s * C + c];
+    for (int s = 0; s < SN; ++s) acc += A[s * LD + c];
     KS[c] = acc;
   }
   __syncthreads();
 
   // queries -> A (keys are dead), attention output in place
-  block_linear<4>(X, C, C, W + Wd::O_WQ, nullptr, A, C, SN, C, false);
-  __syncthreads();
+  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + Wd::O_WQ, ring, A, LD, MTILES, C, false);
   for (int t = tid; t < SN * NH; t += blockDim.x) {
     const int s = t / NH, h = t - (t / NH) * NH;
     float q[DK];
     float den = 0.f;
 #pragma unroll
     for (int d = 0; d < DK; ++d) {
-      q[d] = phi(A[s * C + h * DK + d]);
+      q[d] = phi(A[s * LD + h * DK + d]);
       den = fmaf(q[d], KS[h * DK + d], den);
     }
     den += kAttnEps;
@@ -216,28 +259,21 @@ __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
       out[m] = acc / den;
     }
 #pragma unroll
-    for (int m = 0; m < DK; ++m) A[s * C + h * DK + m] = out[m];
+    for (int m = 0; m < DK; ++m) A[s * LD + h * DK + m] = out[m];
   }
   __syncthreads();
 
   // merge + LayerNorm -> B (values are dead)
-  block_linear<4>(A, C, C, W + Wd::O_WM, nullptr, B, C, SN, C, false);
-  __syncthreads();
-  block_layernorm(B, C, SN, C, W + Wd::O_N1S, W + Wd::O_N1B);
-  __syncthreads();
-  // mlp1 over [tokens | message] -> A (SN x 2C)
-  block_gemm<4>(X, C, C, B, C, C, W + Wd::O_W1, nullptr, A, C2, SN, C2, true);
-  __syncthreads();
-  // mlp2 -> B, LayerNorm, residual into X
-  block_linear<4>(A, C2, C2, W + Wd::O_W2, nullptr, B, C, SN, C, false);
-  __syncthreads();
-  block_layernorm(B, C, SN, C, W + Wd::O_N2S, W + Wd::O_N2B);
-  __syncthreads();
-  for (int i = tid; i < SN * C; i += blockDim.x) X[i] += B[i];
-  __syncthreads();
+  tc::gemm<kStages, NT_C>(A, LD, C, nullptr, 0, 0, W + Wd::O_WM, ring, B, LD, MTILES, C, false);
+  tc::layernorm<C>(B, LD, SN, W + Wd::O_N1S, W + Wd::O_N1B);
+  // mlp1 over [tokens | message] -> A (SNP x LD2)
+  tc::gemm<kStages, NT_C2>(X, LD, C, B, LD, C, W + Wd::O_W1, ring, A, LD2, MTILES, C2, true);
+  // mlp2 -> B, LayerNorm added into X (the residual)
+  tc::gemm<kStages, NT_C>(A, LD2, C2, nullptr, 0, 0, W + Wd::O_W2, ring, B, LD, MTILES, C, false);
+  tc::layernorm<C>(B, LD, SN, W + Wd::O_N2S, W + Wd::O_N2B, X, LD);
 
-  // density MLP: 88 -> 32 -> 16 -> 1
-  block_linear<4>(X, C, C, W + Wd::O_DW0, W + Wd::O_DB0, A, D0, SN, D0, true);
+  // density MLP: C -> 32 -> 16 -> 1
+  block_linear<4>(X, LD, C, W + Wd::O_DW0, W + Wd::O_DB0, A, D0, SN, D0, true);
   __syncthreads();
   block_linear<4>(A, D0, D0, W + Wd::O_DW1, W + Wd::O_DB1, B, D1, SN, D1, true);
   __syncthreads();
@@ -274,7 +310,9 @@ template <bool kNeus>
 int launch(const float* y, const float* w, float* srdf, int rn, int sn, int c,
            NeusArgs nz, void* stream) {
   if (rn <= 0) return 0;
-  if (sn <= 0 || sn % 4) return (int)cudaErrorInvalidValue;
+  // tc::gemm gives each warp at most one m16 tile
+  if (sn <= 0 || sn % 4 || padded_rows(sn) / 16 > kRayThreads / 32)
+    return (int)cudaErrorInvalidValue;
   if (c == 88) return launch_c<88, kNeus>(y, w, srdf, rn, sn, nz, stream);
   if (c == 72) return launch_c<72, kNeus>(y, w, srdf, rn, sn, nz, stream);
   return (int)cudaErrorInvalidValue;

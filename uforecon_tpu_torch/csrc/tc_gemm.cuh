@@ -1,0 +1,268 @@
+// Tensor-core block GEMM for the point-head and ray-head kernels (sm_90a).
+//
+// The contract of common.cuh's block_gemm, without the bias:
+//   out[r, c] = act(sum_k a1[r, k] w[k, c] + sum_k a2[r, k] w[k1 + k, c])
+// over a tile of 16 * mtiles rows held in shared memory, on the tensor
+// cores with warp-level mma.sync.m16n8k8 in 3xTF32:
+//   * every operand x is split into two TF32 values, hi = RNA(x) and
+//     lo = RNA(x - hi), so x = hi + lo + O(2^-22 |x|);
+//   * a * b is taken as lo_a hi_b + hi_a lo_b, then + hi_a hi_b, each
+//     accumulated in FP32 registers; lo_a lo_b (~2^-22 |ab|) is dropped.
+// The result is accurate to a few FP32 roundings at three TF32 products
+// per FP32 product: 495 / 3 = ~165 TFLOP/s against 67 on the CUDA cores.
+// RNA (round to nearest, ties away from zero, as cvt.rna.tf32.f32) is two
+// integer operations on the float's bits: add half a TF32 ulp to the
+// magnitude, clear the 13 bits TF32 drops.
+//
+// Weights are pre-split on the host: each matrix w (k1 + k2, n), (in,
+// out) row-major, is two planes in global memory, hi then lo. They are
+// staged through a ring of shared-memory slots, one k8 step (8 rows of
+// both planes) a slot, filled by cp.async kStages - 1 steps ahead, so each
+// weight byte comes from L2 once per block and the loads overlap the
+// products of earlier steps. Row strides are padded so that fragment
+// loads hit 32 distinct banks: activations n + 4 floats (an odd multiple
+// of 4 mod 32), weight slots n or n + 8 (8 or 24 mod 32).
+//
+// Each warp owns one 16-row tile and a run of up to NT_MAX 8-column tiles
+// of the output; warps split the columns of a row tile when there are
+// more warps than row tiles. Shapes whose runs exceed NT_MAX take several
+// passes over k. (Two row tiles per warp halve the weight fragments each
+// product loads, but measured no faster on the H100: the products and
+// the operand split set the pace, not shared-memory bandwidth.) Every
+// thread of the block calls gemm; it returns with out written and visible
+// to the block (it ends in __syncthreads()).
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "common.cuh"
+
+namespace ufo {
+namespace tc {
+
+// Row stride (floats) of an activation buffer n floats wide.
+__host__ __device__ constexpr int act_ld(int n) { return n + 4; }
+// Row stride of a weight slot n wide.
+__host__ __device__ constexpr int w_ld(int n) { return n % 16 == 0 ? n + 8 : n; }
+constexpr int kStep = 8;   // weight rows per slot: one k8 step
+// Floats of a ring of `stages` slots for layers up to n_max wide.
+__host__ __device__ constexpr int ring_floats(int stages, int n_max) {
+  return stages * 2 * kStep * w_ld(n_max);
+}
+
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
+}
+
+// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, FP32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Warps of a gemm over mtiles m16 tiles that split a tile's columns.
+__host__ __device__ constexpr int warps_per_tile(int nwarps, int mtiles) {
+  return nwarps / mtiles > 1 ? nwarps / mtiles : 1;
+}
+// Column tiles of a warp's run: the NT_MAX that needs one pass over k.
+__host__ __device__ constexpr int col_tiles(int nwarps, int mtiles, int n) {
+  return (n / 8 + warps_per_tile(nwarps, mtiles) - 1) / warps_per_tile(nwarps, mtiles);
+}
+
+// w_hi: the hi plane of w (k1 + k2, n) in global memory, 16-byte aligned,
+// the lo plane right after it. ring: ring_floats(kStages, n) floats of
+// shared memory, 16-byte aligned. a1, a2 and out: row-major in shared
+// memory with strides lda1, lda2, ldo; out must not overlap a1, a2 or the
+// ring. k1, k2 and n are multiples of 8 (k2 may be 0), and mtiles is at
+// most the block's warp count.
+template <int kStages, int NT_MAX>
+__device__ void gemm(const float* a1, int lda1, int k1,
+                     const float* a2, int lda2, int k2,
+                     const float* __restrict__ w_hi, float* ring,
+                     float* out, int ldo, int mtiles, int n, bool relu) {
+  static_assert(kStages >= 2, "the ring needs two slots or more");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
+  const int ntiles = n >> 3;
+  const int wn = warps_per_tile(nwarps, mtiles);
+  const int nt = (ntiles + wn - 1) / wn;   // column tiles per warp
+  const int mt = warp / wn;                // row tile
+  const int my0 = (warp - mt * wn) * nt;
+  const int mine = mt < mtiles ? min(nt, ntiles - my0) : 0;
+  const int K = k1 + k2;
+  const int steps = K / kStep;
+  const int ldw = w_ld(n);
+  const int n4 = n >> 2;
+  const float* w_lo = w_hi + (size_t)K * n;
+  const int row = mt * 16 + g;
+
+  // slot s % kStages <- rows 8s .. 8s + 7 of both planes
+  auto load = [&](int s) {
+    float* slot = ring + (s % kStages) * 2 * kStep * ldw;
+    for (int i = threadIdx.x; i < 2 * kStep * n4; i += blockDim.x) {
+      const int r = i / n4, c4 = i - r * n4;          // r < 8: hi, else lo
+      const float* src = (r < kStep ? w_hi : w_lo) + (size_t)(s * kStep + (r & 7)) * n;
+      cp_async16(slot + r * ldw + 4 * c4, src + 4 * c4);
+    }
+  };
+
+  for (int p0 = 0; p0 < nt; p0 += NT_MAX) {   // passes over k
+    const int np = min(NT_MAX, mine - p0);     // this warp's tiles in the pass
+    float acc[NT_MAX][4];
+#pragma unroll
+    for (int j = 0; j < NT_MAX; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < steps) load(s);
+      cp_async_commit();
+    }
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<kStages - 2>();
+      // slot s is in for every thread, and every warp is done with step
+      // s - 1, whose slot the prefetch below refills
+      __syncthreads();
+      if (s + kStages - 1 < steps) load(s + kStages - 1);
+      cp_async_commit();
+      if (np <= 0) continue;
+      const int k = s * kStep;
+      const float* a;
+      int lda, ka;
+      if (k < k1) {
+        a = a1; lda = lda1; ka = k;
+      } else {
+        a = a2; lda = lda2; ka = k - k1;
+      }
+      const float* ar = a + row * lda + ka + t;
+      uint32_t ahi[4], alo[4];
+      split(ar[0], ahi[0], alo[0]);
+      split(ar[8 * lda], ahi[1], alo[1]);
+      split(ar[4], ahi[2], alo[2]);
+      split(ar[8 * lda + 4], ahi[3], alo[3]);
+      const float* wh = ring + (s % kStages) * 2 * kStep * ldw + t * ldw +
+                        (my0 + p0) * 8 + g;
+      const float* wl = wh + kStep * ldw;
+#pragma unroll
+      for (int j = 0; j < NT_MAX; ++j) {
+        if (j < np) {
+          const uint32_t bh0 = __float_as_uint(wh[j * 8]);
+          const uint32_t bh1 = __float_as_uint(wh[4 * ldw + j * 8]);
+          const uint32_t bl0 = __float_as_uint(wl[j * 8]);
+          const uint32_t bl1 = __float_as_uint(wl[4 * ldw + j * 8]);
+          mma(acc[j], alo, bh0, bh1);
+          mma(acc[j], ahi, bl0, bl1);
+          mma(acc[j], ahi, bh0, bh1);
+        }
+      }
+    }
+    cp_async_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NT_MAX; ++j) {
+      if (j < np) {
+        const int col = (my0 + p0 + j) * 8 + 2 * t;
+        float2 top = make_float2(acc[j][0], acc[j][1]);
+        float2 bot = make_float2(acc[j][2], acc[j][3]);
+        if (relu) {
+          top.x = fmaxf(top.x, 0.f); top.y = fmaxf(top.y, 0.f);
+          bot.x = fmaxf(bot.x, 0.f); bot.y = fmaxf(bot.y, 0.f);
+        }
+        *reinterpret_cast<float2*>(out + row * ldo + col) = top;
+        *reinterpret_cast<float2*>(out + (row + 8) * ldo + col) = bot;
+      }
+    }
+    // the ring is free and out is visible once every warp is here
+    __syncthreads();
+  }
+}
+
+// LayerNorm over the C features of each of `rows` rows of x (stride ld),
+// the layer chains' other per-row step: common.cuh's block_layernorm
+// with the same sums in the same order (one warp per row, two-pass mean
+// and variance, eps kLnEps), but each warp reads its lanes' scale and
+// bias once and takes two rows at a time, so the L2 round trips and the
+// shuffle chains overlap. The result goes back into x, or with residual
+// set is added to residual (stride ldr) instead. Ends in __syncthreads().
+template <int C>
+__device__ void layernorm(float* x, int ld, int rows,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ bias,
+                          float* residual = nullptr, int ldr = 0) {
+  constexpr int J = (C + 31) / 32;   // features per lane
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  float sc[J], bi[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = lane + 32 * j;
+    sc[j] = c < C ? __ldg(scale + c) : 0.f;
+    bi[j] = c < C ? __ldg(bias + c) : 0.f;
+  }
+  for (int r0 = 2 * (threadIdx.x >> 5); r0 < rows; r0 += 2 * nwarps) {
+    float v[2][J], mean[2], inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int c = lane + 32 * j;
+        v[h][j] = c < C && r0 + h < rows ? x[(r0 + h) * ld + c] : 0.f;
+        if (c < C) s += v[h][j];
+      }
+      mean[h] = warp_sum(s) / C;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float q = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (lane + 32 * j < C) {
+          const float d = v[h][j] - mean[h];
+          q += d * d;
+        }
+      }
+      inv[h] = rsqrtf(warp_sum(q) / C + kLnEps);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (r0 + h >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int c = lane + 32 * j;
+        if (c >= C) continue;
+        const float y = (v[h][j] - mean[h]) * inv[h] * sc[j] + bi[j];
+        if (residual != nullptr) residual[(r0 + h) * ldr + c] += y;
+        else x[(r0 + h) * ld + c] = y;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+}  // namespace tc
+}  // namespace ufo

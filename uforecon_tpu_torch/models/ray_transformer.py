@@ -28,6 +28,7 @@ kernel wrapper (``ops/fused_similarity.py``, ``ops/fused_volume_fusion.py``),
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -111,6 +112,13 @@ def query_similarity(
     cosine = grouped_cosine_reference if fused == "never" else grouped_cosine
     feat = cosine(flat, n_groups).reshape(*sampled.shape[1:-1], n_groups)
     return feat, xy, valid
+
+
+@functools.lru_cache(maxsize=16)
+def _order_pe(d: int, sn: int, device: torch.device) -> torch.Tensor:
+    """``order_posenc(d, sn)`` on ``device``, built once per (d, SN,
+    device): the ray head's input takes it on every call."""
+    return torch.as_tensor(order_posenc(d, sn), device=device)
 
 
 class RayTransformer(nn.Module):
@@ -277,7 +285,7 @@ class RayTransformer(nn.Module):
         """(RN, SN, C) tokens || the order PE, which indexes position in the
         sorted sequence."""
         rn, sn, _ = token.shape
-        pe = torch.as_tensor(order_posenc(self.pe_d_hid, sn), device=token.device)
+        pe = _order_pe(self.pe_d_hid, sn, token.device)
         return torch.cat([token, pe.to(token.dtype)[None].expand(rn, sn, -1)], dim=-1)
 
     def along_ray(self, token: torch.Tensor) -> torch.Tensor:

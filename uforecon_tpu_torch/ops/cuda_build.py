@@ -12,9 +12,15 @@ raises.
 ``kernel_function`` wraps a kernel launcher for autograd: forward runs
 the kernel, backward differentiates the kernel's plain version. Every
 kernel wrapper of the port goes through it.
+
+The head kernels read their weights from one packed buffer each.
+``tf32_planes`` splits a matrix into the two TF32 planes their tensor-core
+layers take (3xTF32, ``csrc/tc_gemm.cuh``), and ``PackCache`` builds a
+pack once per set of weights.
 """
 from __future__ import annotations
 
+import collections
 import functools
 from pathlib import Path
 
@@ -38,6 +44,14 @@ def extension():
                 build_directory=str(BUILD_DIR),
                 extra_cflags=["-O2"], extra_cuda_cflags=CUDA_FLAGS,
                 extra_include_paths=[str(CSRC)], verbose=False)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary (a contiguous
+    view at another offset is copied): the head kernels load their inputs
+    by cp.async in 16-byte pieces."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def kernel_function(launch, reference):
@@ -65,3 +79,62 @@ def kernel_function(launch, reference):
             return (None, *[next(got) if x.requires_grad else None for x in xs])
 
     return KernelFn.apply
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 stored mantissa bits), to nearest
+    with ties away from zero: ``cvt.rna.tf32.f32``, and the kernels'
+    ``tc::rna_tf32``, on finite values."""
+    bits = x.detach().float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_planes(w: torch.Tensor) -> torch.Tensor:
+    """``w`` flattened as its TF32 hi plane, then its lo plane:
+    hi = RNA(w), lo = RNA(w - hi), so w = hi + lo up to 2^-22 |w|."""
+    hi = tf32_round(w)
+    lo = tf32_round(w.detach().float() - hi)
+    return torch.cat([hi.reshape(-1), lo.reshape(-1)])
+
+
+_PACK_CACHES = []
+
+
+class PackCache:
+    """Weight packs built once per set of weights.
+
+    ``get(tensors, build)`` returns ``(pack, built)``: the pack ``build()``
+    made for these ``tensors`` (on one device) before, or a new one. The
+    key is the device and each tensor's ``(data_ptr, _version)``, so an
+    in-place update (an optimiser step, ``load_state_dict``) or a move
+    (``.to()``) builds anew and anything else reuses the pack. (Writes through ``.data`` do not
+    bump ``_version`` and are not seen.) An entry holds its tensors'
+    storages, so no other tensor takes their addresses while it lives; the
+    cache keeps the ``size`` latest entries."""
+
+    def __init__(self, size: int = 8):
+        self.size = size
+        self._entries = collections.OrderedDict()
+        _PACK_CACHES.append(self)
+
+    def get(self, tensors, build):
+        key = (tensors[0].device, *[(t.data_ptr(), t._version) for t in tensors])
+        hit = self._entries.get(key)
+        if hit is not None:
+            self._entries.move_to_end(key)
+            return hit[1], False
+        pack = build()
+        self._entries[key] = ([t.untyped_storage() for t in tensors], pack)
+        while len(self._entries) > self.size:
+            self._entries.popitem(last=False)
+        return pack, True
+
+    def clear(self):
+        self._entries.clear()
+
+
+def clear_pack_caches():
+    """Drop every cached weight pack (the next launch of each head builds
+    its pack again)."""
+    for cache in _PACK_CACHES:
+        cache.clear()

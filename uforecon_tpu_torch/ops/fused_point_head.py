@@ -7,12 +7,19 @@ in-kernel NeRF PE of the depth distance, one LoFTR linear-attention layer
 over the view token and the NV view tokens, and the masked radiance
 softmax. The kernel is ``csrc/point_head.cu``.
 
-Bound on the H100: FP32 arithmetic. A point costs ~2.6e5 FMAs against
-~1 KB in and out (~500 FLOP per byte), and exact f32 keeps it off the
-tensor cores. Design: a 320-thread block keeps the activations of 16
-points (64 token rows) in shared memory through the whole layer chain and
-reads the ~67k weights through the read-only cache; each layer is a block
-GEMM of 4x4 output tiles per thread.
+Bound on the H100: arithmetic. A point costs ~2.6e5 multiply-adds
+against ~1 KB in and out (~500 FLOP per byte). Design: the q/k/v/merge,
+mlp1 and mlp2 layers run on the tensor cores in 3xTF32
+(``csrc/tc_gemm.cuh``: each operand split into a TF32 hi and lo part,
+three products summed in FP32), accurate to a few FP32 roundings; a
+320-thread block keeps the activations of 16 points (16 x (NV + 1) token
+rows) in shared memory through the whole layer chain and streams the
+weight planes through a cp.async ring. The small MLPs, the LayerNorms,
+the attention and the softmax stay FP32 on the CUDA cores.
+
+The weight pack (``pack_weights``: the tensor-core matrices as TF32 hi and
+lo planes) is built once per set of weights and reused
+(``cached_pack_weights``; ``point_head.pack_builds`` counts the builds).
 
 Layouts are point-major, what ``F.grid_sample`` gives once permuted:
 inputs (NV, P, C) / (P, C), outputs token (P, C) and radiance (P, 3). The
@@ -85,9 +92,12 @@ def _unflat_params(ts) -> PointHeadParams:
 
 
 def point_head_reference(inp: PointHeadInputs, p: PointHeadParams,
-                         n_heads: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+                         n_heads: int = 8, linear=F.linear
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch forward, mirroring the JAX ``point_head_reference``.
-    Returns (token (P, C), radiance (P, 3))."""
+    ``linear(x, w)`` computes the layers the kernel runs on the tensor
+    cores (q/k/v/merge, mlp1, mlp2); the tests pass an emulation of its
+    3xTF32 product. Returns (token (P, C), radiance (P, 3))."""
     nv, n, _ = inp.img_feat.shape
     c = p.view_token.numel()
     dk = c // n_heads
@@ -104,15 +114,15 @@ def point_head_reference(inp: PointHeadInputs, p: PointHeadParams,
     x = torch.cat([p.view_token.reshape(1, 1, c).expand(1, n, c), views], 0)
     l_ = nv + 1
 
-    q = (F.elu(F.linear(x, p.wq)) + 1.0).view(l_, n, n_heads, dk)
-    k = (F.elu(F.linear(x, p.wk)) + 1.0).view(l_, n, n_heads, dk)
-    v = F.linear(x, p.wv).view(l_, n, n_heads, dk)
+    q = (F.elu(linear(x, p.wq)) + 1.0).view(l_, n, n_heads, dk)
+    k = (F.elu(linear(x, p.wk)) + 1.0).view(l_, n, n_heads, dk)
+    v = linear(x, p.wv).view(l_, n, n_heads, dk)
     sc = torch.einsum("lphd,sphd->lsph", q, k)
     den = sc.sum(dim=1) + EPS                                      # (L, P, H)
     att = torch.einsum("lsph,sphd->lphd", sc, v) / den[..., None]
-    msg = F.layer_norm(F.linear(att.reshape(l_, n, c), p.wmerge), (c,),
+    msg = F.layer_norm(linear(att.reshape(l_, n, c), p.wmerge), (c,),
                        p.norm1_scale, p.norm1_bias, LN_EPS)
-    y = F.linear(F.relu(F.linear(torch.cat([x, msg], -1), p.w1)), p.w2)
+    y = linear(F.relu(linear(torch.cat([x, msg], -1), p.w1)), p.w2)
     out = x + F.layer_norm(y, (c,), p.norm2_scale, p.norm2_bias, LN_EPS)
 
     z = torch.cat([out[1:], inp.dir_rel], dim=-1)                  # (NV, P, C+3)
@@ -127,15 +137,28 @@ def point_head_reference(inp: PointHeadInputs, p: PointHeadParams,
 
 def pack_weights(p: PointHeadParams) -> torch.Tensor:
     """Flatten the weights in ``csrc/point_head.cu``'s order, matrices in
-    (in, out) orientation."""
-    parts = [p.view_token, p.wq.t(), p.wk.t(), p.wv.t(), p.wmerge.t(),
-             p.norm1_scale, p.norm1_bias, p.w1.t(), p.w2.t(), p.norm2_scale,
-             p.norm2_bias]
+    (in, out) orientation; the tensor-core matrices (q, k, v, merge, mlp1,
+    mlp2) as their TF32 hi plane, then lo plane."""
+    tc = cuda_build.tf32_planes
+    parts = [p.view_token, tc(p.wq.t()), tc(p.wk.t()), tc(p.wv.t()),
+             tc(p.wmerge.t()), p.norm1_scale, p.norm1_bias, tc(p.w1.t()),
+             tc(p.w2.t()), p.norm2_scale, p.norm2_bias]
     for w, b in zip(p.sim_w, p.sim_b):
         parts += [w.t(), b]
     for w, b in zip(p.rad_w, p.rad_b):
         parts += [w.t(), b]
     return torch.cat([t.detach().float().reshape(-1) for t in parts])
+
+
+_packs = cuda_build.PackCache()
+
+
+def cached_pack_weights(p: PointHeadParams) -> torch.Tensor:
+    """``pack_weights(p)``, built once per set of weights
+    (``cuda_build.PackCache``); ``point_head.pack_builds`` counts builds."""
+    pack, built = _packs.get(_flat_params(p), lambda: pack_weights(p))
+    point_head.pack_builds += built
+    return pack
 
 
 def _launch(inp: PointHeadInputs, p: PointHeadParams,
@@ -155,8 +178,8 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams,
             raise ValueError("point_head kernel takes float32 tensors on one "
                              f"CUDA device, got {t.dtype} on {t.device}")
     ext = cuda_build.extension()
-    ins = [t.contiguous() for t in inp]
-    w = pack_weights(p)
+    ins = [cuda_build.aligned(t) for t in inp]
+    w = cached_pack_weights(p)
     if w.numel() != ext.point_head_weight_count():
         raise ValueError("point_head weight pack does not match the kernel")
     token = torch.empty(n, c, device=dev, dtype=torch.float32)
@@ -188,3 +211,4 @@ def point_head(inp: PointHeadInputs, p: PointHeadParams,
 
 
 point_head.launches = 0
+point_head.pack_builds = 0

@@ -23,7 +23,8 @@ constants ``tok_qkv`` and ``w1a_tok``.
 tensors it launches the kernel or raises, inside an autograd Function whose
 backward differentiates the plain version (the JAX ``_ph2_bwd`` delegates
 to the point head's backward the same way). ``point_head2.launches``
-counts kernel launches.
+counts kernel launches. The split pack is built once per set of weights
+(``cuda_build.PackCache``); ``point_head2.pack_builds`` counts the builds.
 """
 from __future__ import annotations
 
@@ -165,7 +166,8 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams,
                              f"got {tuple(getattr(inp, name).shape)}")
     ext = cuda_build.extension()
     ins = [t.contiguous() for t in inp]
-    w = pack_weights2(p)
+    w, built = _packs.get(_flat_params(p), lambda: pack_weights2(p))
+    point_head2.pack_builds += built
     if w.numel() != ext.point_head2_weight_count():
         raise ValueError("point_head2 weight pack does not match the kernel")
     token = torch.empty(n, c, device=dev, dtype=torch.float32)
@@ -174,6 +176,9 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams,
         ext.point_head2(*ins, w, token, rad)
     point_head2.launches += 1
     return token, rad
+
+
+_packs = cuda_build.PackCache()
 
 
 # _point_head2_fn(n_heads, *inputs, *params): CUDA kernel forward, backward
@@ -194,3 +199,4 @@ def point_head2(inp: PointHeadInputs, p: PointHeadParams,
 
 
 point_head2.launches = 0
+point_head2.pack_builds = 0

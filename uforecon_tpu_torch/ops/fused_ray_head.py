@@ -8,12 +8,20 @@ C -> 32 -> 16 -> 1. The kernel is ``csrc/ray_head.cu``, built for the
 token widths C = 88 (the default configuration) and 72 (without explicit
 similarity), like the JAX kernel, which is generic in C.
 
-Bound on the H100: FP32 arithmetic (~8.3e4 FMAs per sample against 356
-bytes at C = 88, exact f32). Design: one 512-thread block per ray keeps
-its SN x C tokens, the SN x 2C hidden layer and the per-ray
-linear-attention state (8 heads x C/8 x C/8 key-value sums, taken in kv
-order so nothing SN x SN exists) in shared memory, and reads the ~81k
-weights through the read-only cache.
+Bound on the H100: arithmetic (~8.3e4 multiply-adds per sample against
+356 bytes at C = 88). Design: one 512-thread block per ray keeps its SN x C
+tokens (rows padded to whole m16 tiles), the SN x 2C hidden layer and the
+per-ray linear-attention state (8 heads x C/8 x C/8 key-value sums, taken
+in kv order so nothing SN x SN exists, summed over the real samples only)
+in shared memory. The q/k/v/merge, mlp1 and mlp2 layers run on the tensor
+cores in 3xTF32 (``csrc/tc_gemm.cuh``), their weight planes streamed
+through a cp.async ring; the density MLP, the LayerNorms and the attention
+stay FP32 on the CUDA cores.
+
+The weight pack (``pack_weights``: the tensor-core matrices as TF32 hi and
+lo planes) is built once per set of weights (``cached_pack_weights``) and
+shared by ``ray_head`` and ``ray_head_neus``; ``ray_head.pack_builds``
+counts the builds of both.
 
 ``ray_head_neus`` is the same kernel with NeuS compositing in its epilogue
 (the JAX ``ray_head_neus_fused``): it also returns the weights and each
@@ -27,6 +35,7 @@ Function whose backward differentiates the plain version (the JAX
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -69,20 +78,22 @@ def _unflat_params(ts) -> RayHeadParams:
 
 
 def ray_head_reference(y: torch.Tensor, p: RayHeadParams,
-                       n_heads: int = 8) -> torch.Tensor:
+                       n_heads: int = 8, linear=F.linear) -> torch.Tensor:
     """Plain PyTorch forward, mirroring the JAX ``ray_head_reference``:
-    y (RN, SN, C) -> srdf (RN, SN)."""
+    y (RN, SN, C) -> srdf (RN, SN). ``linear(x, w)`` computes the layers
+    the kernel runs on the tensor cores (q/k/v/merge, mlp1, mlp2); the
+    tests pass an emulation of its 3xTF32 product."""
     rn, sn, c = y.shape
     dk = c // n_heads
-    qf = (F.elu(F.linear(y, p.wq)) + 1.0).view(rn, sn, n_heads, dk)
-    kf = (F.elu(F.linear(y, p.wk)) + 1.0).view(rn, sn, n_heads, dk)
-    vh = F.linear(y, p.wv).view(rn, sn, n_heads, dk)
+    qf = (F.elu(linear(y, p.wq)) + 1.0).view(rn, sn, n_heads, dk)
+    kf = (F.elu(linear(y, p.wk)) + 1.0).view(rn, sn, n_heads, dk)
+    vh = linear(y, p.wv).view(rn, sn, n_heads, dk)
     kv = torch.einsum("bshd,bshm->bhmd", kf, vh)
     den = torch.einsum("blhd,bhd->blh", qf, kf.sum(dim=1)) + EPS
     att = torch.einsum("blhd,bhmd->blhm", qf, kv) / den[..., None]
-    msg = F.layer_norm(F.linear(att.reshape(rn, sn, c), p.wmerge), (c,),
+    msg = F.layer_norm(linear(att.reshape(rn, sn, c), p.wmerge), (c,),
                        p.norm1_scale, p.norm1_bias, LN_EPS)
-    m2 = F.linear(F.relu(F.linear(torch.cat([y, msg], -1), p.w1)), p.w2)
+    m2 = linear(F.relu(linear(torch.cat([y, msg], -1), p.w1)), p.w2)
     out = y + F.layer_norm(m2, (c,), p.norm2_scale, p.norm2_bias, LN_EPS)
     d = F.relu(F.linear(out, p.dens_w[0], p.dens_b[0]))
     d = F.relu(F.linear(d, p.dens_w[1], p.dens_b[1]))
@@ -91,12 +102,34 @@ def ray_head_reference(y: torch.Tensor, p: RayHeadParams,
 
 def pack_weights(p: RayHeadParams) -> torch.Tensor:
     """Flatten the weights in ``csrc/ray_head.cu``'s order, matrices in
-    (in, out) orientation."""
-    parts = [p.wq.t(), p.wk.t(), p.wv.t(), p.wmerge.t(), p.norm1_scale,
-             p.norm1_bias, p.w1.t(), p.w2.t(), p.norm2_scale, p.norm2_bias]
+    (in, out) orientation; the tensor-core matrices (q, k, v, merge, mlp1,
+    mlp2) as their TF32 hi plane, then lo plane."""
+    tc = cuda_build.tf32_planes
+    parts = [tc(p.wq.t()), tc(p.wk.t()), tc(p.wv.t()), tc(p.wmerge.t()),
+             p.norm1_scale, p.norm1_bias, tc(p.w1.t()), tc(p.w2.t()),
+             p.norm2_scale, p.norm2_bias]
     for w, b in zip(p.dens_w, p.dens_b):
         parts += [w.t(), b]
     return torch.cat([t.detach().float().reshape(-1) for t in parts])
+
+
+_packs = cuda_build.PackCache()
+
+
+def cached_pack_weights(p: RayHeadParams) -> torch.Tensor:
+    """``pack_weights(p)``, built once per set of weights
+    (``cuda_build.PackCache``); ``ray_head.pack_builds`` counts builds."""
+    pack, built = _packs.get(_flat_params(p), lambda: pack_weights(p))
+    ray_head.pack_builds += built
+    return pack
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(dev: torch.device) -> int:
+    """Shared memory a block may opt into on ``dev`` (Hopper's 232,448
+    where this torch does not report it)."""
+    return getattr(torch.cuda.get_device_properties(dev),
+                   "shared_memory_per_block_optin", 232448)
 
 
 def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, *extra: torch.Tensor):
@@ -114,13 +147,11 @@ def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, *extra: torch.Tens
                              f"CUDA device, got {t.dtype} on {t.device}")
     ext = cuda_build.extension()
     smem = ext.ray_head_smem_bytes(sn, c)
-    # Hopper's opt-in limit where this torch does not report it
-    limit = getattr(torch.cuda.get_device_properties(dev),
-                    "shared_memory_per_block_optin", 232448)
+    limit = _smem_limit(dev)
     if smem > limit:
         raise ValueError(f"ray_head kernel: SN={sn} needs {smem} bytes of "
                          f"shared memory, the card allows {limit}")
-    w = pack_weights(p)
+    w = cached_pack_weights(p)
     if w.numel() != ext.ray_head_weight_count(c):
         raise ValueError("ray_head weight pack does not match the kernel")
     return ext, w
@@ -129,7 +160,7 @@ def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, *extra: torch.Tens
 def _launch(y: torch.Tensor, p: RayHeadParams, n_heads: int) -> torch.Tensor:
     ext, w = _prepare(y, p, n_heads)
     rn, sn, _ = y.shape
-    y = y.contiguous()
+    y = cuda_build.aligned(y)
     srdf = torch.empty(rn, sn, device=y.device, dtype=torch.float32)
     with torch.cuda.device(y.device):
         ext.ray_head(y, w, srdf)
@@ -153,6 +184,7 @@ def ray_head(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8) -> torch.Tenso
 
 
 ray_head.launches = 0
+ray_head.pack_builds = 0
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +219,7 @@ def _launch_neus(y, z, rad, inv_s, p: RayHeadParams, n_heads: int):
     outs = [torch.empty(shape, device=dev, dtype=torch.float32)
             for shape in ((rn, sn), (rn, sn), (rn, 3), (rn,), (rn,))]
     with torch.cuda.device(dev):
-        ext.ray_head_neus(y.contiguous(), w, z.contiguous(), rad.contiguous(),
+        ext.ray_head_neus(cuda_build.aligned(y), w, z.contiguous(), rad.contiguous(),
                           inv_s.contiguous(), *outs)
     ray_head_neus.launches += 1
     return tuple(outs)
