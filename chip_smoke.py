@@ -15,9 +15,10 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      bit, timed beside ``torch.index_select``), with max abs errors,
      CUDA-event times (median of several runs) of kernel and plain version,
      and the bound (the least time the card could take for the work; for
-     the point and ray heads, whose layer GEMMs run on the tensor cores in
-     3xTF32, the tensor bound beside the FP32 bound), with each kernel's
-     share of its bounds;
+     the point heads and the ray head, whose layer GEMMs run on the tensor
+     cores in 3xTF32, the tensor bound beside the FP32 bound), with each kernel's
+     share of its bounds; the tiny attention at route A's head width 10
+     and route B's 8, at 65,536 and the ragged 65,537 points;
   4. slice phase: ``extract_geometry_for_dataset`` on one DTU-scale view
      (800x640, 3 views, 192 hypotheses, 64 + 64 samples, seeded random
      weights) by five routes: the default (knobs off), the render-glue
@@ -64,7 +65,7 @@ import time
 import numpy as np
 
 SEED = 0
-# f32 with another summation order; the point and ray heads' layer GEMMs
+# f32 with another summation order; the three heads' layer GEMMs
 # in 3xTF32 on the tensor cores. Measured on an H100: token 6.6e-6,
 # radiance 3.6e-7, srdf 3.6e-6 (3x margin); grouped cosine 1.8e-7 and
 # NeuS outputs 3.6e-6 (5x margin, the cosine's tolerance being the 1e-6 of
@@ -125,7 +126,7 @@ PEAK_FLOPS = 67e12
 PEAK_TF32 = 494.7e12
 PEAK_BYTES = 3.35e12
 # the kernels whose layer GEMMs run on the tensor cores in 3xTF32
-TENSOR_CORE = ("point_head", "ray_head", "ray_head_neus")
+TENSOR_CORE = ("point_head", "ray_head", "ray_head_neus", "point_head2")
 
 
 def log(msg):
@@ -162,22 +163,39 @@ def kernel_times(fn, reps=10):
     time of the port's own kernels (namespace ``ufo::``) that it launches,
     from torch.profiler over reps calls, and the CUDA-event time of the
     whole call (``time_ms``), which adds the wrapper's host work (weight
-    packs, checks) where the device waits for it."""
+    packs, checks) where the device waits for it.
+
+    The trace now and then loses a few kernel records of a run (seen on an
+    H100: 7 of 10), so a short trace is taken again, up to three times;
+    if every trace is short, the kernel time is the mean over the launches
+    the best trace saw. A trace with more launches than calls fails: the
+    wrapper launches one kernel per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call = time_ms(fn, reps)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and "ufo::" in e.name]
-    if len(us) != reps:
-        raise AssertionError(f"expected {reps} launches of the port's kernels, "
-                             f"the profiler saw {len(us)}")
-    return sum(us) / reps / 1e3, call
+    best = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "ufo::" in e.name]
+        if len(us) > reps:
+            raise AssertionError(f"{reps} calls, the profiler saw {len(us)} "
+                                 "launches of the port's kernels")
+        if len(us) > len(best):
+            best = us
+        if len(us) == reps:
+            break
+    if not best:
+        raise AssertionError("the profiler saw no launch of the port's kernels")
+    if len(best) < reps:
+        log(f"[profile] the trace kept {len(best)} of {reps} launches; "
+            "kernel time is their mean")
+    return sum(best) / len(best) / 1e3, call
 
 
 def bound(n_bytes, flops):
@@ -229,13 +247,14 @@ def point_head_flops(nv, p, c=80):
 
 
 def point_head2_flops(nv, p, c=80, g_view=40, g_shared=40):
-    """Multiply-adds x 2 of the split-weight point head per launch: the
-    similarity MLP; once per point, the view-shared groups [vol | sim16]
-    through the q/k/v, mlp1 and radiance rows; per view, [img | pe]
-    through the same rows and [img | pe | dir | m2] through the radiance
-    layer 0; per token (NV views + the view token) merge, mlp1's message
-    half and mlp2; attention across the tokens; the radiance tail per
-    view."""
+    """Multiply-adds x 2 of the split-weight point head per launch, as
+    (GEMM, other). On the tensor cores: once per point the view-shared
+    groups [vol | sim16] through the q/k/v, mlp1 and radiance rows; per
+    view [img | pe] through the q/k/v and mlp1 rows and [img | pe | dir |
+    m2] through the radiance layer 0 (the function's work, not the
+    kernel's zero padding); per token (NV views + the view token) merge,
+    mlp1's message half and mlp2. On the CUDA cores: the similarity MLP,
+    attention across the tokens, and the radiance tail per view."""
     tokens = nv + 1
     sim = 8 * 32 + 32 * 32 + 32 * 16
     shared = g_shared * (3 * c + 2 * c + 16)
@@ -243,7 +262,7 @@ def point_head2_flops(nv, p, c=80, g_view=40, g_shared=40):
     per_token = c * c + c * 2 * c + 2 * c * c
     attn = 2 * tokens * tokens * c
     rad_tail = nv * (16 * 8 + 8)
-    return 2 * p * (sim + shared + view + tokens * per_token + attn + rad_tail)
+    return 2 * p * (shared + view + tokens * per_token), 2 * p * (sim + attn + rad_tail)
 
 
 def attention_flops(b, l, s, h, d, m, backward=False):
@@ -371,21 +390,25 @@ def kernel_phase(model, model_b, card):
             k_ms, call_ms = kernel_times(lambda: fph2.point_head2(inp2, params))
             p_ms = time_ms(lambda: fph2.point_head2_reference(inp2, params))
             v1_ms, v1_call_ms = kernel_times(lambda: fph.point_head(inp2, params))
-        b_ms, b_by = bound(nbytes(*inp2, fph2.pack_weights2(params), tok, rad),
-                           point_head2_flops(nv, n))
+        # weights counted once, as the kernel reads them: the hi/lo pack
+        bounds2 = tensor_bound(nbytes(*inp2, fph2.pack_weights2(params), tok, rad),
+                               *point_head2_flops(nv, n))
         log(f"[kernel] point_head2 P={n} NV={nv}: max|token err| {err_t:.3e} "
             f"(tol {TOL['token']}), max|radiance err| {err_r:.3e} (tol "
             f"{TOL['radiance']}), all-masked points vs mean rgb {err_masked:.3e}; "
             f"kernel {k_ms:.3f} ms (call {call_ms:.3f}), plain {p_ms:.3f} ms, "
             f"point_head kernel on the same inputs {v1_ms:.3f} ms (call "
-            f"{v1_call_ms:.3f}), bound {b_ms:.4f} ms ({b_by}) [{card}]")
+            f"{v1_call_ms:.3f}), tensor bound {bounds2['bound_ms']:.4f} ms "
+            f"({bounds2['bound_by']}, share {bounds2['bound_ms'] / k_ms:.3f}), FP32 "
+            f"bound {bounds2['fp32_bound_ms']:.4f} ms (share "
+            f"{bounds2['fp32_bound_ms'] / k_ms:.3f}) [{card}]")
         if not (err_t <= TOL["token"] and err_r <= TOL["radiance"]
                 and err_masked <= TOL["radiance"]):
             raise AssertionError(f"point_head2 kernel disagrees with its plain "
                                  f"version at P={n}")
         v2[n] = {"max_abs_err": max(err_t, err_r), "ms": k_ms, "call_ms": call_ms,
                  "plain_ms": p_ms, "point_head_ms": v1_ms,
-                 "point_head_call_ms": v1_call_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "point_head_call_ms": v1_call_ms, **bounds2, **shares(k_ms, bounds2),
                  "token_err": err_t, "radiance_err": err_r}
     results["point_head2"] = {**v2[p], "max_abs_err": max(x["max_abs_err"]
                                                           for x in v2.values()),
@@ -524,15 +547,14 @@ def kernel_phase(model, model_b, card):
                                 "bound_ms": b_ms, "bound_by": b_by}
     # tiny attention, forward and backward, at route A's shape: one
     # 1024-ray chunk x 64 samples, the view token and 3 views, 8 heads of
-    # 10; the forward also at a ragged batch
-    dims = dict(l=4, s=4, h=8, d=10, m=10)
-
-    def attention_inputs(b):
-        return (randn(b, 4, 8, 10), randn(b, 4, 8, 10), randn(b, 4, 8, 10))
+    # 10; the forward also at a ragged batch and at route B's head width 8
+    def attention_inputs(b, d=10):
+        return (randn(b, 4, 8, d), randn(b, 4, 8, d), randn(b, 4, 8, d))
 
     fwd = {}
-    for b in (p, p + 1):
-        q, k, v = attention_inputs(b)
+    for d, b in ((10, p), (10, p + 1), (8, p), (8, p + 1)):
+        dims = dict(l=4, s=4, h=8, d=d, m=d)
+        q, k, v = attention_inputs(b, d)
         with torch.no_grad():
             got = fta.tiny_linear_attention(q, k, v)
             want = fta.tiny_linear_attention_reference(q, k, v)
@@ -542,17 +564,20 @@ def kernel_phase(model, model_b, card):
             k_ms, call_ms = kernel_times(lambda: fta.tiny_linear_attention(q, k, v))
             p_ms = time_ms(lambda: fta.tiny_linear_attention_reference(q, k, v))
         b_ms, b_by = bound(nbytes(q, k, v, got), attention_flops(b, **dims))
-        log(f"[kernel] tiny_attention B={b} L=S=4 H=8 D=M=10: max abs err {err:.3e} "
+        log(f"[kernel] tiny_attention B={b} L=S=4 H=8 D=M={d}: max abs err {err:.3e} "
             f"(rtol = atol = {TOL['attention']}); kernel {k_ms:.4f} ms (call "
             f"{call_ms:.4f}), plain "
-            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+            f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, share {b_ms / k_ms:.3f}) "
+            f"[{card}]")
         if not excess <= TOL["attention"]:
-            raise AssertionError(f"tiny_attention kernel disagrees at B={b}")
-        fwd[b] = {"max_abs_err": err, "ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms,
-                  "bound_ms": b_ms, "bound_by": b_by}
-    results["tiny_attention"] = {**fwd[p], "max_abs_err": max(f["max_abs_err"]
-                                                               for f in fwd.values()),
-                                 "ragged": fwd[p + 1]}
+            raise AssertionError(f"tiny_attention kernel disagrees at B={b} D={d}")
+        fwd[d, b] = {"max_abs_err": err, "ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by}
+    results["tiny_attention"] = {**fwd[10, p], "max_abs_err": max(f["max_abs_err"]
+                                                                   for f in fwd.values()),
+                                 "ragged": fwd[10, p + 1], "d8": fwd[8, p],
+                                 "d8_ragged": fwd[8, p + 1]}
+    dims = dict(l=4, s=4, h=8, d=10, m=10)
 
     # its backward kernel against torch.autograd through the plain forward
     q, k, v = attention_inputs(p)

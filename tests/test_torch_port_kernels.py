@@ -234,18 +234,29 @@ def test_point_head2_and_row_gather_launchers_reject_what_they_do_not_take(rng):
 
 def test_point_head2_weight_pack_matches_the_kernel_layout(rng):
     """The split pack's size equals csrc/point_head2.cu's N_W (derived from
-    the same widths), and it starts as the kernel expects: the view token,
-    then the token's own q, k, v rows."""
+    the same widths; the tensor-core matrices count twice, as a TF32 hi and
+    a lo plane), and it starts as the kernel expects: the view token, the
+    token's own q, k, v rows, w1a_tok, then the shared projection's hi
+    plane (wq's vol and sim16 rows first) and its lo plane."""
     _, params = _point_case(rng, n=4)
     p = _port_params(pph.PointHeadParams, params)
     pack = pph2.pack_weights2(p)
     gs, gv, c2, nsh = 24 + 16, 32 + 8, 2 * C, 3 * C + 2 * C + 16
-    n_w = C + 3 * C + c2 + gs * nsh + gv * 3 * C + C * C + 2 * C + (gv + C) * c2 \
-        + c2 * C + 2 * C + (8 * 32 + 32) + (32 * 32 + 32) + (32 * 16 + 16) \
-        + (gv + 3 + C) * 16 + 16 + (16 * 8 + 8) + (8 + 1)
+    n_w = C + 3 * C + c2 + 2 * (gs * nsh + gv * 3 * C + C * C) + 2 * C \
+        + 2 * ((gv + C) * c2 + c2 * C) + 2 * C \
+        + (8 * 32 + 32) + (32 * 32 + 32) + (32 * 16 + 16) \
+        + 2 * (48 + C) * 16 + (16 * 8 + 8) + (8 + 1)
     assert pack.numel() == n_w == pph2.layout2(C, 32, 24, 16)["total"][0]
     torch.testing.assert_close(pack[:C], p.view_token)
     torch.testing.assert_close(pack[C:2 * C], p.view_token @ p.wq.t())
+    o_sh = C + 3 * C + c2
+    hi = pack[o_sh:o_sh + gs * nsh].view(gs, nsh)
+    lo = pack[o_sh + gs * nsh:o_sh + 2 * gs * nsh].view(gs, nsh)
+    torch.testing.assert_close(hi[:, :C] + lo[:, :C], p.wq.t()[32:72], rtol=2 ** -21, atol=0)
+    torch.testing.assert_close(hi[:, :C], p.wq.t()[32:72], rtol=2 ** -11, atol=0)
+    # every tensor-core plane starts on a 16-byte boundary, as cp.async reads it
+    lay = pph2.layout2(C, 32, 24, 16)
+    assert all(lay[name][0] % 4 == 0 for name in pph2.TC_MATRICES)
     # the split pack holds every weight element of the point head once or
     # more, and the two constants
     assert pack.numel() > sum(t.numel() for t in pph._flat_params(p))
@@ -586,8 +597,12 @@ def test_default_config_gives_the_kernel_widths():
                                       _point_case(np.random.default_rng(0))[1])).numel()
 
 
+# the forward kernel's tiles hold 4 points at L = 4, H = 8 (route A, D 10;
+# route B, D 8): B below one tile, one past a multiple of it, and route B's
+# D = 8 at the main path's ragged B
 @pytest.mark.parametrize("b,l,h,d", [(65537, 4, 8, 10), (1000, 4, 8, 8), (333, 6, 8, 10),
-                                     (77, 8, 3, 16), (5, 2, 1, 1)])
+                                     (77, 8, 3, 16), (5, 2, 1, 1), (3, 4, 8, 10),
+                                     (1025, 4, 8, 10), (65537, 4, 8, 8)])
 def test_tiny_attention_kernel_matches_plain_on_gpu(rng, cuda_device, b, l, h, d):
     q, k, v = (_t(a).to(cuda_device) for a in _attention_case(rng, b, l, l, h, d, d))
     before = pta.tiny_linear_attention.launches
@@ -651,7 +666,12 @@ def test_head_variants_patch_the_kernel_sources_once():
     kernel, subs = hv.replacements("ph,T=256,nogemm,ph_ln")
     assert kernel == "ph" and len(subs) == 4
     assert subs[0][2] == "constexpr int kPointThreads = 256;"
-    for bad in ("xx", "ph,T", "rh,TP=8", "ph,nothing"):
+    kernel, subs = hv.replacements("ph2,S=3,ph2_ln")
+    assert kernel == "ph2" and len(subs) == 3 and subs[0][0] == "point_head2.cu"
+    kernel, subs = hv.replacements("ta,I=512,S=3")
+    assert kernel == "ta" and [x[2] for x in subs] == ["constexpr int kFwdItems = 512;",
+                                                       "constexpr int kFwdStages = 3;"]
+    for bad in ("xx", "ph,T", "rh,TP=8", "ph,nothing", "ta,nogemm_x", "ph2,I=4"):
         with pytest.raises(ValueError):
             hv.replacements(bad)
 
@@ -665,16 +685,22 @@ def _offset(t):
 
 
 def test_head_kernels_take_inputs_at_any_offset_on_gpu(rng, cuda_device):
-    """The heads load their inputs in 16-byte pieces; a contiguous input
-    that starts off such a boundary gives the same outputs."""
+    """The heads load their inputs in 16-byte pieces (cp.async) and the
+    tiny-attention forward by TMA bulk copies; a contiguous input that
+    starts off such a boundary gives the same outputs."""
     inputs, params = _point_case(rng, nv=3, n=4096)
     inp = pph.PointHeadInputs(**{k: _t(v).to(cuda_device) for k, v in inputs.items()})
     p = _on(cuda_device, _port_params(pph.PointHeadParams, params))
     shifted = pph.PointHeadInputs(*[_offset(t) for t in inp])
     assert shifted.img_feat.data_ptr() % 16 != 0
     with torch.no_grad():
-        for a, b in zip(pph.point_head(shifted, p), pph.point_head(inp, p)):
-            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        for head in (pph.point_head, pph2.point_head2):
+            for a, b in zip(head(shifted, p), head(inp, p)):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+        q, k, v = (_t(a).to(cuda_device) for a in _attention_case(rng, b=1001))
+        torch.testing.assert_close(
+            pta.tiny_linear_attention(*map(_offset, (q, k, v))),
+            pta.tiny_linear_attention(q, k, v), rtol=0, atol=0)
     y, rparams = _ray_case(rng, rn=37, sn=64)
     rp = _on(cuda_device, _port_params(prh.RayHeadParams, rparams))
     yd = _t(y).to(cuda_device)

@@ -120,19 +120,32 @@ def test_point_head2_reference_matches_jax_kernel(jax_v2_fused):
     np.testing.assert_allclose(rad.numpy(), rad_f, rtol=rtol, atol=atol)
 
 
-def _split_algebra(inp, pack, widths, n_heads=8):
+def _split_algebra(inp, pack, widths, n_heads=8, tc_mm=None):
     """csrc/point_head2.cu's algebra, written out plainly: every weight
-    comes from pack_weights2's buffer at layout2's offsets. ``widths`` are
-    layout2's (C, img, vol, sim16, similarity hidden)."""
+    comes from pack_weights2's buffer at layout2's offsets, a tensor-core
+    matrix as the sum of its hi and lo planes. ``widths`` are layout2's (C,
+    img, vol, sim16, similarity hidden). ``tc_mm(x, planes)``, given,
+    computes the products the kernel runs on the tensor cores from the
+    planes (2, in, out) (the tests pass an emulation of 3xTF32)."""
     nv, n, _ = inp.img_feat.shape
     lay = pph2.layout2(*widths)
     assert pack.numel() == lay["total"][0]
     c = widths[0]
     c2, dk = 2 * c, c // n_heads
 
-    def w(name):
+    def planes(name):
         off, shape = lay[name]
         return pack[off:off + int(np.prod(shape))].reshape(shape)
+
+    def w(name):
+        t = planes(name)
+        return t[0] + t[1] if name in pph2.TC_MATRICES else t
+
+    def mm(x, name, rows=slice(None)):
+        """x @ the tensor-core matrix ``name`` (its rows ``rows``)."""
+        if tc_mm is None:
+            return x @ w(name)[rows]
+        return tc_mm(x, planes(name)[:, rows])
 
     def ln(x, s, b):
         return F.layer_norm(x, (c,), w(s), w(b), pph.LN_EPS)
@@ -146,10 +159,10 @@ def _split_algebra(inp, pack, widths, n_heads=8):
     k = torch.arange(8)
     pe = torch.sin(inp.depth_dist[..., None] * (np.pi * 2.0 ** (k // 2)).float()
                    + (k % 2).float() * (np.pi / 2))                       # (NV, P, 8)
-    shr = torch.cat([inp.vol_feat, sim16], -1) @ w("sh")                # (P, 5C + 16)
+    shr = mm(torch.cat([inp.vol_feat, sim16], -1), "sh")                # (P, 5C + 16)
     xv = torch.cat([inp.img_feat, pe], -1)                              # (NV, P, img + pe)
     gv = xv.shape[-1]
-    qkv = xv @ w("v_qkv") + shr[:, :3 * c]                               # (NV, P, 3C)
+    qkv = mm(xv, "v_qkv") + shr[:, :3 * c]                               # (NV, P, 3C)
     tq, tk, tv = w("tok_qkv")
     q = torch.cat([phi(tq).expand(1, n, c), phi(qkv[..., :c])])          # (L, P, C)
     kk = torch.cat([phi(tk).expand(1, n, c), phi(qkv[..., c:2 * c])])
@@ -159,15 +172,18 @@ def _split_algebra(inp, pack, widths, n_heads=8):
     # each head's 10 channels summed directly
     sc = (q[:, None] * kk[None]).sum(-1)                                 # (L, S, P, H)
     att = (sc[..., None] * v[None]).sum(1) / (sc.sum(1) + pph.EPS)[..., None]
-    msg = ln(att.reshape(nv + 1, n, c) @ w("wm"), "n1s", "n1b")
-    w1v = w("v_w1")
-    y0 = F.relu(w("w1a_tok") + msg[0] @ w1v[gv:])
-    yv = F.relu(xv @ w1v[:gv] + msg[1:] @ w1v[gv:] + shr[:, 3 * c:3 * c + c2])
-    m2 = ln(torch.cat([y0[None], yv]) @ w("w2"), "n2s", "n2b")
+    msg = ln(mm(att.reshape(nv + 1, n, c), "wm"), "n1s", "n1b")
+    # the token rows: the message through w1[C:]; the view rows: [img | pe]
+    # and the message through the view rows of w1a and w1[C:] at once
+    y0 = F.relu(w("w1a_tok") + mm(msg[0], "v_w1", slice(gv, None)))
+    yv = F.relu(mm(torch.cat([xv, msg[1:]], -1), "v_w1") + shr[:, 3 * c:3 * c + c2])
+    m2 = ln(mm(torch.cat([y0[None], yv]), "w2"), "n2s", "n2b")
     token = w("tok") + m2[0]
-    vr = w("v_rad")
-    z = F.relu(torch.cat([xv, inp.dir_rel], -1) @ vr[:gv + 3] + m2[1:] @ vr[gv + 3:]
-               + w("rb0") + shr[:, 3 * c + c2:])
+    # radiance layer 0 over [img | pe | dir | 1 | 0...] and m2: the 1 takes
+    # the bias row of v_rad
+    pad = pph2.rad_rows(gv) - gv - 4
+    xr = torch.cat([xv, inp.dir_rel, torch.ones(nv, n, 1), torch.zeros(nv, n, pad), m2[1:]], -1)
+    z = F.relu(mm(xr, "v_rad") + shr[:, 3 * c + c2:])
     z = F.relu(z @ w("rw1") + w("rb1"))
     z = (z @ w("rw2") + w("rb2"))[..., 0]                                # (NV, P)
     z = torch.where(inp.mask == 0, torch.full_like(z, -1e9), z)

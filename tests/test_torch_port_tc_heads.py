@@ -1,8 +1,9 @@
 """The arithmetic of the head kernels' tensor-core layers, on the CPU.
 
-``csrc/point_head.cu`` and ``csrc/ray_head.cu`` run their q/k/v/merge,
-mlp1 and mlp2 layers on the tensor cores in 3xTF32 (``csrc/tc_gemm.cuh``):
-every operand x is split into hi = RNA(x) and lo = RNA(x - hi), TF32 values
+``csrc/point_head.cu``, ``csrc/point_head2.cu`` and ``csrc/ray_head.cu``
+run their q/k/v/merge (v2: the split projections), mlp1 and mlp2 layers
+on the tensor cores in 3xTF32 (``csrc/tc_gemm.cuh``): every operand x is
+split into hi = RNA(x) and lo = RNA(x - hi), TF32 values
 rounded to nearest with ties away from zero, and a product a b is taken as
 lo_a hi_b + hi_a lo_b + hi_a hi_b (lo_a lo_b dropped). The weights come
 pre-split in the pack, as a hi plane and a lo plane per matrix. Here:
@@ -10,8 +11,10 @@ pre-split in the pack, as a hi plane and a lo plane per matrix. Here:
   * the packs' planes reproduce every tensor-core weight to 2^-21 relative,
     and are the RNA split of an emulation written here (bit masking on the
     int32 view, checked against the frexp definition);
-  * the heads' plain versions with every tensor-core layer replaced by the
-    emulated 3xTF32 product hold the JAX package's references to 1e-5 (the
+  * the heads' plain versions (for the split-weight point head, the
+    transcription of its kernel's algebra from the pack) with every
+    tensor-core layer replaced by the emulated 3xTF32 product hold the JAX
+    package's references to 1e-5 (the
     CPU parity tolerance of the head modules), with weights from a numpy
     seed through ``convert.load_flax_variables``; one TF32 product alone
     does not, so a precision scheme too weak for the kernels fails here,
@@ -26,15 +29,18 @@ import torch
 import torch.nn.functional as F
 
 from uforecon_tpu.ops import fused_point_head as jph
+from uforecon_tpu.ops import fused_point_head2 as jph2
 from uforecon_tpu.ops import fused_ray_head as jrh
 
 from uforecon_tpu_torch.convert import load_flax_variables
 from uforecon_tpu_torch.models import ray_transformer as prt
 from uforecon_tpu_torch.ops import fused_point_head as pph
+from uforecon_tpu_torch.ops import fused_point_head2 as pph2
 from uforecon_tpu_torch.ops import fused_ray_head as prh
 
 from test_torch_port_heads import _jax_point
 from test_torch_port_kernels import _point_case, _t
+from test_torch_port_point_head2 import _split_algebra
 
 torch.set_num_threads(1)
 
@@ -54,6 +60,16 @@ def tc_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     wt = w.t()
     xh, wh = rna(x), rna(wt)
     xl, wl = rna(x - xh), rna(wt - wh)
+    return (xl @ wh + xh @ wl) + xh @ wh
+
+
+def tc_planes_mm(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """``x @ (hi + lo)`` as csrc/point_head2.cu's tensor-core layers
+    compute it from a pack's planes (2, in, out): the weights pre-split,
+    the activations split here."""
+    wh, wl = planes[0], planes[1]
+    xh = rna(x)
+    xl = rna(x - xh)
     return (xl @ wh + xh @ wl) + xh @ wh
 
 
@@ -147,21 +163,37 @@ def _jax_ray(y, tree):
     return np.asarray(jrh.ray_head_reference(jnp.asarray(y), p))
 
 
-@pytest.mark.parametrize("head", ["point", "ray88", "ray72"])
+def _layout2(p):
+    """(name, offset, (k, n), the unsplit matrix) of each tensor-core
+    matrix in point_head2's split pack."""
+    lay = pph2.layout2(80, 32, 24, 16)
+    parts = pph2.split_weights2(p)
+    return [(name, lay[name][0], lay[name][1][1:], parts[name]) for name in pph2.TC_MATRICES]
+
+
+@pytest.mark.parametrize("head", ["point", "point2", "ray88", "ray72"])
 def test_packed_planes_split_every_tensor_core_weight(rng, head):
     """(a) hi + lo reproduces each tensor-core weight to 2^-21 relative;
     hi and lo are TF32 values, the RNA split of this file's emulation."""
     rt, _ = _ray_transformer(rng, explicit_similarity=head != "ray72")
-    if head == "point":
-        p, pack, width = rt.point_head_params(), pph.pack_weights(rt.point_head_params()), 80
+    if head == "point2":
+        p = rt.point_head_params()
+        pack, layout = pph2.pack_weights2(p), _layout2(p)
+        assert [name for name, *_ in layout] == ["sh", "v_qkv", "wm", "v_w1", "w2", "v_rad"]
+        # the split matrices hold the point head's weights: merge and mlp2 whole
+        torch.testing.assert_close(layout[2][3], p.wmerge.detach().t(), rtol=0, atol=0)
+        torch.testing.assert_close(layout[4][3], p.w2.detach().t(), rtol=0, atol=0)
     else:
-        p = rt.ray_head_params()
-        pack, width = prh.pack_weights(p), p.wq.shape[0]
-    assert width == {"point": 80, "ray88": 88, "ray72": 72}[head]
-    layout = _layout(width, tok=head == "point")
-    assert [name for name, _, _ in layout] == list(TC_LAYERS)
-    for name, off, (k, n) in layout:
-        w = getattr(p, name).detach().t()
+        if head == "point":
+            p, pack, width = rt.point_head_params(), pph.pack_weights(rt.point_head_params()), 80
+        else:
+            p = rt.ray_head_params()
+            pack, width = prh.pack_weights(p), p.wq.shape[0]
+        assert width == {"point": 80, "ray88": 88, "ray72": 72}[head]
+        layout = [(name, off, kn, getattr(p, name).detach().t())
+                  for name, off, kn in _layout(width, tok=head == "point")]
+        assert [name for name, *_ in layout] == list(TC_LAYERS)
+    for name, off, (k, n), w in layout:
         hi = pack[off:off + k * n].view(k, n)
         lo = pack[off + k * n:off + 2 * k * n].view(k, n)
         torch.testing.assert_close(hi, rna(w), rtol=0, atol=0)
@@ -182,6 +214,28 @@ def test_point_head_in_3xtf32_matches_jax(rng, nv):
         tok, rad = pph.point_head_reference(inp, rt.point_head_params(), linear=tc_linear)
     np.testing.assert_allclose(tok.numpy(), tok_ref, rtol=TOL, atol=TOL)
     np.testing.assert_allclose(rad.numpy(), rad_ref, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(rad.numpy()[:5], inputs["rgb"][:, :5].mean(0),
+                               rtol=TOL, atol=1e-6)
+
+
+@pytest.mark.parametrize("nv", [2, 3, 5])
+def test_point_head2_in_3xtf32_matches_jax(rng, nv):
+    """(b) The split-weight point head's algebra (the transcription of
+    csrc/point_head2.cu that reads the pack) with its tensor-core products
+    in emulated 3xTF32 from the pack's planes, against the JAX
+    point_head2_reference."""
+    rt, tree = _ray_transformer(rng)
+    inputs, _ = _point_case(rng, nv=nv)
+    j = lambda v: tuple(map(jnp.asarray, v)) if isinstance(v, tuple) else jnp.asarray(v)
+    tok_ref, rad_ref = jph2.point_head2_reference(
+        jph2.PointHeadInputs2(**{k: jnp.asarray(v) for k, v in inputs.items()}),
+        jph.PointHeadParams(**{k: j(v) for k, v in _jax_point_params(tree).items()}))
+    inp = pph2.PointHeadInputs2(**{k: _t(v) for k, v in inputs.items()})
+    with torch.no_grad():
+        tok, rad = _split_algebra(inp, pph2.pack_weights2(rt.point_head_params()),
+                                  (80, 32, 24, 16, 32), tc_mm=tc_planes_mm)
+    np.testing.assert_allclose(tok.numpy(), np.asarray(tok_ref), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(rad.numpy(), np.asarray(rad_ref), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(rad.numpy()[:5], inputs["rgb"][:, :5].mean(0),
                                rtol=TOL, atol=1e-6)
 

@@ -136,8 +136,8 @@ void volume_fusion(const at::Tensor& fw0, const at::Tensor& fw1,
         "volume_fusion");
 }
 
-// q (B, L, H, D), k (B, S, H, D), v (B, S, H, M), all contiguous -> out
-// (B, L, H, M)
+// q (B, L, H, D), k (B, S, H, D), v (B, S, H, M), all contiguous and on
+// 16-byte boundaries (TMA bulk copies) -> out (B, L, H, M)
 void tiny_attention_fwd(const at::Tensor& q, const at::Tensor& k,
                         const at::Tensor& v, at::Tensor& out) {
   check(ufo_tiny_attention_fwd(

@@ -16,21 +16,40 @@
 // w1a_tok) computed on the host. At 3 views that is ~203.3k FMAs per
 // point against point_head.cu's ~264.7k.
 //
-// What bounds it on the H100: arithmetic, as point_head.cu: ~2.0e5 exact
-// FP32 FMAs per point against ~1 KB in and out. The TPU kernel's head-sum
-// and head-broadcast 0/1 matmuls were a lane trick of the TPU; here a
-// thread sums each head's 10 channels directly.
+// What bounds it on the H100: arithmetic, as point_head.cu: ~2.0e5
+// multiply-adds per point against ~1 KB in and out. 98 % of them (the
+// shared projection, the per-view q/k/v, merge, mlp1, mlp2 and radiance
+// layer 0) are layer GEMMs; as FP32 FMAs on the CUDA cores (common.cuh's
+// block_gemm, the first design) they ran at ~17 % of the cores' 67
+// TFLOP/s.
 //
-// Design: point_head.cu's frame. A block of 320 threads owns 16 points;
-// the raw view rows [img | pe | dir] (48 x 44 floats at 3 views), the
-// view-shared projections of each point (q, k, v, mlp1 and radiance parts,
-// 16 x 416 floats, ~27 KB) and the activations of the layer chain stay in
-// shared memory (~103 KB at 3 views: two blocks per SM); weights (~69k
-// floats) are read through the read-only cache; every layer is a block
-// GEMM of 4 x 4 output tiles per thread (block_gemm in common.cuh). Rows
-// of a block: the 16 token rows first, then the 16 * NV view rows in
-// (point, view) order. Points past P are computed on zeros and not stored.
+// Design: point_head.cu's. The layer GEMMs run on the tensor cores in
+// 3xTF32 (tc_gemm.cuh), the weight planes (hi/lo, pre-split on the host)
+// streaming through a two-slot cp.async ring. A block of 320 threads owns
+// TP = 16 points: the 16 token rows first, then the 16 * NV view rows in
+// (point, view) order, whole m16 tiles. The shared projection [vol |
+// sim16] x (q | k | v | mlp1 | r0) runs once over the 16 point rows in
+// three column panels (q | k, v, mlp1 | r0; the panels keep the ring at
+// 176 columns), q | k and v straight into the token rows of the q|k and v
+// buffers, which hold nothing else until the attention; the view rows'
+// q | k and v gemms start their sums from their point's part there (the
+// C-init of tc::gemm) and apply phi in their epilogue. mlp1 runs over all
+// rows at once through [img | pe] (zero in the token rows) and the
+// message, so the token rows get msg W1b and the view rows the whole
+// per-view sum; a pass adds w1a_tok or the shared part and takes the relu.
+// Radiance layer 0 runs there too, over [img | pe | dir | 1 | 0 0 0 0] and
+// m2 of each view row (k = 48 + 80: the 1 takes the bias, a row of the
+// weight planes, and four zero rows pad it to a multiple of 8), starting
+// from the point's shared part. The LayerNorms are tc::layernorm. Shared
+// memory: rows x 1200 bytes + 15,296 (shared input and products, token
+// constants) + 23,552 for the ring = 96,448 / 115,648 / 134,848 / 154,048
+// bytes at NV 2 / 3 / 4 / 5, so at NV 2 and 3 (the main path) two blocks
+// share an SM. The inputs come in by 16-byte cp.async (img and vol
+// straight into their rows; a ragged last block element by element). The
+// pre-similarity MLP, the attention, the radiance tail 16 -> 8 -> 1 and
+// the softmax stay FP32 on the CUDA cores, one row per thread.
 #include "common.cuh"
+#include "tc_gemm.cuh"
 
 namespace ufo {
 namespace ph2 {
@@ -49,25 +68,38 @@ constexpr int R1 = 16, R2 = 8;
 constexpr int GS = CV + SOUT;          // view-shared group [vol | sim16]
 constexpr int GV = CI + PE;            // per-view group [img | pe]
 constexpr int XW = GV + 3;             // a view row's raw inputs [img | pe | dir]
-constexpr int XLD = 44;                // its row stride in shared memory
+// radiance layer 0's first operand: [img | pe | dir | 1 | 0...], the 1
+// taking the bias row of the weights, padded to a multiple of 8
+constexpr int XK = (XW + 1 + 7) / 8 * 8;   // 48
 constexpr int NSH = 3 * C + C2 + R1;   // shared projections: q | k | v | mlp1 | r0
+constexpr int NTAIL = C2 + R1;         // the shared mlp1 | r0 columns
 constexpr int TP = 16;                 // points per block
 constexpr int kThreads = 320;
+constexpr int kStages = 2;             // weight ring slots
+constexpr int kSmallRows = 1;          // rows per thread in the small CUDA-core MLPs
+constexpr int LX = tc::act_ld(XK);     // 52: rows of X
+constexpr int LS = tc::act_ld(GS);     // 44: rows of S
+constexpr int LZ = tc::act_ld(R1);     // 20: radiance layer 0's output
+constexpr int LQK = tc::act_ld(2 * C); // 164: q | k, later mlp1's output
+constexpr int LV = tc::act_ld(C);      // 84: v, later the message and m2
+constexpr int LT = tc::act_ld(NTAIL);  // 180: the shared mlp1 | r0 parts
 static_assert(CI + CV + SOUT + PE == C, "token groups must fill the token");
+static_assert(XK <= LX, "a view row's radiance input must fit its row");
 
 // Offsets into the packed weight buffer (ops/fused_point_head2.py
-// layout2), every matrix in (in, out) row-major orientation.
+// layout2), every matrix in (in, out) row-major orientation; the
+// tensor-core matrices as a TF32 hi plane followed by its lo plane.
 constexpr int O_TOK = 0;                      // view token (C)
 constexpr int O_TQKV = O_TOK + C;             // view token @ wq | wk | wv (3 x C)
 constexpr int O_W1T = O_TQKV + 3 * C;         // view token @ w1[:C] (C2)
-constexpr int O_SH = O_W1T + C2;              // GS x NSH
-constexpr int O_VQKV = O_SH + GS * NSH;       // GV x 3C
-constexpr int O_WM = O_VQKV + GV * 3 * C;
-constexpr int O_N1S = O_WM + C * C;
+constexpr int O_SH = O_W1T + C2;              // 2 planes of GS x NSH
+constexpr int O_VQKV = O_SH + 2 * GS * NSH;   // 2 planes of GV x 3C
+constexpr int O_WM = O_VQKV + 2 * GV * 3 * C; // 2 planes of C x C
+constexpr int O_N1S = O_WM + 2 * C * C;
 constexpr int O_N1B = O_N1S + C;
-constexpr int O_VW1 = O_N1B + C;              // (GV + C) x C2: view rows, then w1[C:]
-constexpr int O_W2 = O_VW1 + (GV + C) * C2;
-constexpr int O_N2S = O_W2 + C2 * C;
+constexpr int O_VW1 = O_N1B + C;              // 2 planes of (GV + C) x C2: view rows, then w1[C:]
+constexpr int O_W2 = O_VW1 + 2 * (GV + C) * C2;  // 2 planes of C2 x C
+constexpr int O_N2S = O_W2 + 2 * C2 * C;
 constexpr int O_N2B = O_N2S + C;
 constexpr int O_SW0 = O_N2B + C;
 constexpr int O_SB0 = O_SW0 + SIN * SHID;
@@ -75,32 +107,34 @@ constexpr int O_SW1 = O_SB0 + SHID;
 constexpr int O_SB1 = O_SW1 + SHID * SHID;
 constexpr int O_SW2 = O_SB1 + SHID;
 constexpr int O_SB2 = O_SW2 + SHID * SOUT;
-constexpr int O_VRAD = O_SB2 + SOUT;          // (XW + C) x R1: view, dir rows, r0[:C]
-constexpr int O_RB0 = O_VRAD + (XW + C) * R1;
-constexpr int O_RW1 = O_RB0 + R1;
+constexpr int O_VRAD = O_SB2 + SOUT;          // 2 planes of (XK + C) x R1: view, dir,
+                                              // bias, zero rows, then r0[:C]
+constexpr int O_RW1 = O_VRAD + 2 * (XK + C) * R1;
 constexpr int O_RB1 = O_RW1 + R1 * R2;
 constexpr int O_RW2 = O_RB1 + R2;
 constexpr int O_RB2 = O_RW2 + R2;
 constexpr int N_W = O_RB2 + 1;
+// cp.async reads the tensor-core planes, and their column panels, in
+// 16-byte pieces
+static_assert(O_SH % 4 == 0 && O_VQKV % 4 == 0 && O_WM % 4 == 0 && O_VW1 % 4 == 0 &&
+                  O_W2 % 4 == 0 && O_VRAD % 4 == 0 && NSH % 4 == 0 && (3 * C) % 4 == 0,
+              "tensor-core weight planes must start 16-byte aligned");
 
 constexpr float kPi = 3.14159265358979323846f;
 
-// floats of the work area: q|k|v of the view rows and the attention output
-// of all rows; later the message, mlp1 and mlp2 outputs, then the radiance
-// layers, reuse it
 template <int NV>
-__host__ __device__ constexpr int work_floats() {
-  return TP * NV * 3 * C + TP * (NV + 1) * C;
+__host__ __device__ constexpr int tile_rows() {
+  return TP * (NV + 1);
 }
 
 template <int NV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (3 * C + TP * NSH + TP * NV * XLD + TP * GS + work_floats<NV>());
+  return sizeof(float) * ((size_t)tile_rows<NV>() * (LQK + LV + LX) + TP * (LS + LT) +
+                          3 * C + tc::ring_floats(kStages, NTAIL));
 }
 
 template <int NV>
-__global__ void __launch_bounds__(kThreads) point_head2_kernel(
+__global__ void __launch_bounds__(kThreads, 2) point_head2_kernel(
     const float* __restrict__ img,    // (NV, P, CI)
     const float* __restrict__ vol,    // (P, CV)
     const float* __restrict__ sim,    // (P, SIN)
@@ -113,47 +147,81 @@ __global__ void __launch_bounds__(kThreads) point_head2_kernel(
     float* __restrict__ rad_out,      // (P, 3)
     int P) {
   constexpr int L = NV + 1;           // tokens per point
-  constexpr int R = TP * L;           // rows of the block: TP token rows, then RV
-  constexpr int RV = TP * NV;         // view rows, row p * NV + v
-  static_assert(R * C2 <= RV * 3 * C, "mlp1 output must fit beside the message");
-  static_assert(R * C + RV * (R1 + R2 + 1) <= work_floats<NV>(), "radiance scratch");
-  static_assert(TP * (SIN + 2 * SHID) <= work_floats<NV>(), "similarity scratch");
-  extern __shared__ float smem[];
-  float* tok3 = smem;                 // phi(token q) | phi(token k) | token v
-  float* shr = tok3 + 3 * C;          // TP x NSH view-shared projections
-  float* xv = shr + TP * NSH;         // RV x XLD raw view rows [img | pe | dir]
-  float* vs = xv + RV * XLD;          // TP x GS [vol | sim16]
-  float* wk = vs + TP * GS;           // work area
+  constexpr int R = tile_rows<NV>();  // rows of the block: TP token rows, then RV
+  constexpr int RV = TP * NV;         // view rows, row TP + p * NV + v
+  constexpr int NW = kThreads / 32;
+  // column tiles of a warp's run in each gemm: one pass over k
+  constexpr int NT_SQK = tc::col_tiles(NW, 1, 2 * C);
+  constexpr int NT_SV = tc::col_tiles(NW, 1, C);
+  constexpr int NT_ST = tc::col_tiles(NW, 1, NTAIL);
+  constexpr int NT_VQK = tc::col_tiles(NW, NV, 2 * C);
+  constexpr int NT_VV = tc::col_tiles(NW, NV, C);
+  constexpr int NT_C = tc::col_tiles(NW, L, C);
+  constexpr int NT_C2 = tc::col_tiles(NW, L, C2);
+  constexpr int NT_R = tc::col_tiles(NW, NV, R1);
+  static_assert(L <= NW, "a row tile per warp");
+  static_assert(RV * (LZ + R2 + 1) <= R * LQK, "radiance scratch must fit q|k");
+  static_assert(TP * (SIN + 2 * SHID) <= TP * LQK, "similarity scratch must fit q|k");
+  extern __shared__ float4 smem4[];
+  float* QK = reinterpret_cast<float*>(smem4);  // R x LQK q | k -> attention out; mlp1 out
+  float* Vb = QK + R * LQK;           // R x LV   v -> message -> m2
+  float* X = Vb + R * LV;             // R x LX   token rows 0, view rows [img|pe|dir|1|0]
+  float* S = X + R * LX;              // TP x LS  [vol | sim16]
+  float* T = S + TP * LS;             // TP x LT  shared mlp1 | r0 parts
+  float* tok3 = T + TP * LT;          // phi(token q) | phi(token k) | token v
+  float* ring = tok3 + 3 * C;         // weight slots
   const int p0 = blockIdx.x * TP;
   const int tid = threadIdx.x;
 
-  // 0. the token's constant q, k, v and the block's raw inputs
+  // 1. the block's inputs, the copies all in flight at once: raw cosines
+  //    to scratch in QK, volume features into S, image features into the
+  //    view rows of X. A ragged last block loads element by element and
+  //    zero-fills.
+  float* s_in = QK;
+  float* s_h1 = s_in + TP * SIN;
+  float* s_h2 = s_h1 + TP * SHID;
+  if (p0 + TP <= P) {
+    for (int i = tid; i < TP * SIN / 4; i += blockDim.x)
+      tc::cp_async16(s_in + 4 * i, sim + (size_t)p0 * SIN + 4 * i);
+    for (int i = tid; i < TP * (CV / 4); i += blockDim.x) {
+      const int p = i / (CV / 4), c4 = i % (CV / 4);
+      tc::cp_async16(S + p * LS + 4 * c4, vol + (size_t)(p0 + p) * CV + 4 * c4);
+    }
+    for (int i = tid; i < NV * TP * (CI / 4); i += blockDim.x) {
+      const int v = i / (TP * (CI / 4)), p = (i / (CI / 4)) % TP, c4 = i % (CI / 4);
+      tc::cp_async16(X + (TP + p * NV + v) * LX + 4 * c4,
+                     img + ((size_t)v * P + p0 + p) * CI + 4 * c4);
+    }
+  } else {
+    for (int i = tid; i < TP * SIN; i += blockDim.x) {
+      const int gp = p0 + i / SIN;
+      s_in[i] = gp < P ? sim[(size_t)gp * SIN + i % SIN] : 0.f;
+    }
+    for (int i = tid; i < TP * CV; i += blockDim.x) {
+      const int p = i / CV, c = i % CV, gp = p0 + p;
+      S[p * LS + c] = gp < P ? vol[(size_t)gp * CV + c] : 0.f;
+    }
+    for (int i = tid; i < NV * TP * CI; i += blockDim.x) {
+      const int v = i / (TP * CI), p = (i / CI) % TP, c = i % CI, gp = p0 + p;
+      X[(TP + p * NV + v) * LX + c] = gp < P ? img[((size_t)v * P + gp) * CI + c] : 0.f;
+    }
+  }
+  tc::cp_async_commit();
+  // the token rows of X, the token's constants, and each view row's PE,
+  // dir, one and pad columns
+  for (int i = tid; i < TP * LX; i += blockDim.x) X[i] = 0.f;
   for (int i = tid; i < 3 * C; i += blockDim.x) {
     const float t = __ldg(W + O_TQKV + i);
     tok3[i] = i < 2 * C ? phi(t) : t;
   }
-  float* s_in = wk;
-  float* s_h1 = s_in + TP * SIN;
-  float* s_h2 = s_h1 + TP * SHID;
-  for (int i = tid; i < TP * SIN; i += blockDim.x) {
-    const int gp = p0 + i / SIN;
-    s_in[i] = gp < P ? sim[(size_t)gp * SIN + i % SIN] : 0.f;
-  }
-  for (int i = tid; i < TP * CV; i += blockDim.x) {
-    const int p = i / CV, c = i - (i / CV) * CV;
-    const int gp = p0 + p;
-    vs[p * GS + c] = gp < P ? vol[(size_t)gp * CV + c] : 0.f;
-  }
-  for (int i = tid; i < RV * XLD; i += blockDim.x) {
-    const int rr = i / XLD, c = i - (i / XLD) * XLD;
-    const int p = rr / NV, v = rr - (rr / NV) * NV;
-    const int gp = p0 + p;
+  constexpr int XR = LX - CI;
+  for (int i = tid; i < RV * XR; i += blockDim.x) {
+    const int rr = i / XR, c = CI + i % XR;
+    const int p = rr / NV, v = rr - (rr / NV) * NV, gp = p0 + p;
     float val = 0.f;
     if (gp < P) {
       const size_t pv = (size_t)v * P + gp;
-      if (c < CI) {
-        val = img[pv * CI + c];
-      } else if (c < GV) {
+      if (c < GV) {
         const int k = c - CI;
         const float f = ldexpf(kPi, k >> 1);
         const float ph = (k & 1) ? 0.5f * kPi : 0.f;
@@ -162,38 +230,48 @@ __global__ void __launch_bounds__(kThreads) point_head2_kernel(
         val = dir[pv * 3 + (c - GV)];
       }
     }
-    xv[i] = val;
+    X[(TP + rr) * LX + c] = c == XW ? 1.f : val;
   }
+  tc::cp_async_wait<0>();
   __syncthreads();
 
-  // 1. pre-similarity MLP into vs[:, CV:]
-  block_linear<4>(s_in, SIN, SIN, W + O_SW0, W + O_SB0, s_h1, SHID, TP, SHID, true);
+  // 2. pre-similarity MLP into S[:, CV:]
+  block_linear<kSmallRows>(s_in, SIN, SIN, W + O_SW0, W + O_SB0, s_h1, SHID, TP, SHID, true);
   __syncthreads();
-  block_linear<4>(s_h1, SHID, SHID, W + O_SW1, W + O_SB1, s_h2, SHID, TP, SHID, true);
+  block_linear<kSmallRows>(s_h1, SHID, SHID, W + O_SW1, W + O_SB1, s_h2, SHID, TP, SHID,
+                           true);
   __syncthreads();
-  block_linear<4>(s_h2, SHID, SHID, W + O_SW2, W + O_SB2, vs + CV, GS, TP, SOUT, false);
-  __syncthreads();
-
-  // 2. view-shared projections once per point; per-view q | k | v
-  float* qkv = wk;                    // RV x 3C (the similarity scratch is dead)
-  block_linear<4>(vs, GS, GS, W + O_SH, nullptr, shr, NSH, TP, NSH, false);
-  block_linear<4>(xv, XLD, GV, W + O_VQKV, nullptr, qkv, 3 * C, RV, 3 * C, false);
-  __syncthreads();
-  for (int i = tid; i < RV * 3 * C; i += blockDim.x) {
-    const int rr = i / (3 * C), j = i - (i / (3 * C)) * (3 * C);
-    const float x = qkv[i] + shr[(rr / NV) * NSH + j];
-    qkv[i] = j < 2 * C ? phi(x) : x;
-  }
+  block_linear<kSmallRows>(s_h2, SHID, SHID, W + O_SW2, W + O_SB2, S + CV, LS, TP, SOUT,
+                           false);
   __syncthreads();
 
-  // 3. linear attention among each point's L tokens, per head; token 0's
-  //    q, k, v are the constants
-  float* att = wk + RV * 3 * C;       // R x C
+  // 3. on the tensor cores: the view-shared projections once per point, in
+  //    column panels of sh (q | k and v into the token rows, mlp1 | r0 into
+  //    T), then the view rows' [img | pe] through q | k and v; each gemm
+  //    ends in a block-wide sync
+  tc::gemm<kStages, NT_SQK>(S, LS, GS, nullptr, 0, 0, W + O_SH, ring, QK, LQK, 1, 2 * C,
+                            false, NSH);
+  tc::gemm<kStages, NT_SV>(S, LS, GS, nullptr, 0, 0, W + O_SH + 2 * C, ring, Vb, LV, 1, C,
+                           false, NSH);
+  tc::gemm<kStages, NT_ST>(S, LS, GS, nullptr, 0, 0, W + O_SH + 3 * C, ring, T, LT, 1,
+                           NTAIL, false, NSH);
+  // each view row's sums start from its point's shared part (view row
+  // p * NV + v from token row p); phi of q and k in the epilogue
+  tc::gemm<kStages, NT_VQK>(X + TP * LX, LX, GV, nullptr, 0, 0, W + O_VQKV, ring,
+                            QK + TP * LQK, LQK, NV, 2 * C, tc::kPhi, 3 * C, QK, LQK, NV);
+  tc::gemm<kStages, NT_VV>(X + TP * LX, LX, GV, nullptr, 0, 0, W + O_VQKV + 2 * C, ring,
+                           Vb + TP * LV, LV, NV, C, tc::kNone, 3 * C, Vb, LV, NV);
+
+  // 4. linear attention among each point's L tokens, per head; token 0's
+  //    q, k, v are the constants. The thread of (row, head) writes its
+  //    output over that row's q (the token rows' q columns held the shared
+  //    part, read by the gemm above)
   for (int t = tid; t < TP * L * NH; t += blockDim.x) {
     const int p = t / (L * NH);
     const int l = (t / NH) - p * L;
     const int h = t - (t / NH) * NH;
-    const float* qs = l == 0 ? tok3 + h * DK : qkv + (p * NV + l - 1) * 3 * C + h * DK;
+    const int row = l == 0 ? p : TP + p * NV + l - 1;
+    const float* qs = l == 0 ? tok3 + h * DK : QK + row * LQK + h * DK;
     float q[DK], acc[DK];
 #pragma unroll
     for (int d = 0; d < DK; ++d) {
@@ -203,9 +281,9 @@ __global__ void __launch_bounds__(kThreads) point_head2_kernel(
     float den = 0.f;
 #pragma unroll
     for (int s = 0; s < L; ++s) {
-      const float* row = s == 0 ? tok3 : qkv + (p * NV + s - 1) * 3 * C;
-      const float* ks = row + C + h * DK;
-      const float* vv = row + 2 * C + h * DK;
+      const int rs = TP + p * NV + s - 1;
+      const float* ks = s == 0 ? tok3 + C + h * DK : QK + rs * LQK + C + h * DK;
+      const float* vv = s == 0 ? tok3 + 2 * C + h * DK : Vb + rs * LV + h * DK;
       float sc = 0.f;
 #pragma unroll
       for (int d = 0; d < DK; ++d) sc = fmaf(q[d], ks[d], sc);
@@ -214,63 +292,53 @@ __global__ void __launch_bounds__(kThreads) point_head2_kernel(
       for (int d = 0; d < DK; ++d) acc[d] = fmaf(sc, vv[d], acc[d]);
     }
     den += kAttnEps;
-    float* out = att + (l == 0 ? p : TP + p * NV + l - 1) * C + h * DK;
+    float* out = QK + row * LQK + h * DK;
 #pragma unroll
     for (int d = 0; d < DK; ++d) out[d] = acc[d] / den;
   }
   __syncthreads();
 
-  // 4. merge + LayerNorm -> msg
-  float* msg = wk;                    // R x C (q|k|v are dead)
-  block_linear<4>(att, C, C, W + O_WM, nullptr, msg, C, R, C, false);
-  __syncthreads();
-  block_layernorm(msg, C, R, C, W + O_N1S, W + O_N1B);
-  __syncthreads();
+  // 5. merge + LayerNorm -> the message in Vb (v is dead)
+  tc::gemm<kStages, NT_C>(QK, LQK, C, nullptr, 0, 0, W + O_WM, ring, Vb, LV, L, C, false);
+  tc::layernorm<C>(Vb, LV, R, W + O_N1S, W + O_N1B);
 
-  // 5. mlp1: token rows relu(w1a_tok + msg W1b); view rows
-  //    [img | pe] W1a_view + msg W1b, then + the shared part and relu
-  float* y = wk + R * C;              // R x C2 (the attention output is dead)
-  const float* w1b = W + O_VW1 + GV * C2;
-  block_linear<4>(msg, C, C, w1b, W + O_W1T, y, C2, TP, C2, true);
-  block_gemm<4>(xv, XLD, GV, msg + TP * C, C, C, W + O_VW1, nullptr, y + TP * C2,
-                C2, RV, C2, false);
-  __syncthreads();
-  for (int i = tid; i < RV * C2; i += blockDim.x) {
-    const int rr = i / C2, j = i - (i / C2) * C2;
-    float* yy = y + TP * C2 + i;
-    *yy = fmaxf(*yy + shr[(rr / NV) * NSH + 3 * C + j], 0.f);
+  // 6. mlp1 over [[img | pe] | message] -> QK: the token rows get msg W1b
+  //    (their X rows are zero), the view rows the whole per-view sum; then
+  //    + w1a_tok or the point's shared part, and the relu
+  tc::gemm<kStages, NT_C2>(X, LX, GV, Vb, LV, C, W + O_VW1, ring, QK, LQK, L, C2, false);
+  constexpr int C2_4 = C2 / 4;
+  for (int i = tid; i < R * C2_4; i += blockDim.x) {
+    const int r = i / C2_4, j = 4 * (i - (i / C2_4) * C2_4);
+    const float4 b = r < TP ? __ldg(reinterpret_cast<const float4*>(W + O_W1T + j))
+                            : *reinterpret_cast<const float4*>(T + ((r - TP) / NV) * LT + j);
+    float4* y = reinterpret_cast<float4*>(QK + r * LQK + j);
+    const float4 x = *y;
+    *y = make_float4(fmaxf(x.x + b.x, 0.f), fmaxf(x.y + b.y, 0.f), fmaxf(x.z + b.z, 0.f),
+                     fmaxf(x.w + b.w, 0.f));
   }
   __syncthreads();
 
-  // 6. mlp2 + LayerNorm -> m2
-  float* m2 = wk;                     // R x C (the message is dead)
-  block_linear<4>(y, C2, C2, W + O_W2, nullptr, m2, C, R, C, false);
-  __syncthreads();
-  block_layernorm(m2, C, R, C, W + O_N2S, W + O_N2B);
-  __syncthreads();
+  // 7. mlp2 + LayerNorm -> m2 in Vb (the message is dead)
+  tc::gemm<kStages, NT_C>(QK, LQK, C2, nullptr, 0, 0, W + O_W2, ring, Vb, LV, L, C, false);
+  tc::layernorm<C>(Vb, LV, R, W + O_N2S, W + O_N2B);
 
-  // 7. view-token output: the token plus its m2
+  // 8. view-token output: the token plus its m2
   for (int i = tid; i < TP * C; i += blockDim.x) {
     const int p = i / C, c = i - (i / C) * C;
-    if (p0 + p < P) token_out[(size_t)(p0 + p) * C + c] = __ldg(W + O_TOK + c) + m2[i];
+    if (p0 + p < P) token_out[(size_t)(p0 + p) * C + c] = __ldg(W + O_TOK + c) + Vb[p * LV + c];
   }
 
-  // 8. radiance: layer 0 over [img | pe | dir] and m2 of each view row plus
-  //    the shared part, then 16 -> 8 -> 1 and the masked softmax
-  float* z = wk + R * C;              // RV x R1 (mlp1's output is dead)
-  float* h2 = z + RV * R1;            // RV x R2
+  // 9. radiance: layer 0 on the tensor cores over [img | pe | dir | 1 | 0]
+  //    and m2 of each view row, starting from the point's shared part,
+  //    relu; then 16 -> 8 -> 1 and the masked softmax
+  float* z = QK;                      // RV x LZ (mlp1's output is dead)
+  float* h2 = z + RV * LZ;            // RV x R2
   float* lg = h2 + RV * R2;           // RV
-  block_gemm<4>(xv, XLD, XW, m2 + TP * C, C, C, W + O_VRAD, W + O_RB0, z, R1, RV, R1,
-                false);
+  tc::gemm<kStages, NT_R>(X + TP * LX, LX, XK, Vb + TP * LV, LV, C, W + O_VRAD, ring, z, LZ,
+                          NV, R1, tc::kRelu, 0, T + C2, LT, NV);
+  block_linear<kSmallRows>(z, LZ, R1, W + O_RW1, W + O_RB1, h2, R2, RV, R2, true);
   __syncthreads();
-  for (int i = tid; i < RV * R1; i += blockDim.x) {
-    const int rr = i / R1, j = i - (i / R1) * R1;
-    z[i] = fmaxf(z[i] + shr[(rr / NV) * NSH + 3 * C + C2 + j], 0.f);
-  }
-  __syncthreads();
-  block_linear<4>(z, R1, R1, W + O_RW1, W + O_RB1, h2, R2, RV, R2, true);
-  __syncthreads();
-  block_linear<4>(h2, R2, R2, W + O_RW2, W + O_RB2, lg, 1, RV, 1, false);
+  block_linear<kSmallRows>(h2, R2, R2, W + O_RW2, W + O_RB2, lg, 1, RV, 1, false);
   __syncthreads();
   for (int p = tid; p < TP; p += blockDim.x) {
     const int gp = p0 + p;

@@ -1,7 +1,8 @@
 // Tensor-core block GEMM for the point-head and ray-head kernels (sm_90a).
 //
 // The contract of common.cuh's block_gemm, without the bias:
-//   out[r, c] = act(sum_k a1[r, k] w[k, c] + sum_k a2[r, k] w[k1 + k, c])
+//   out[r, c] = act(sum_k a1[r, k] w[k, c] + sum_k a2[r, k] w[k1 + k, c]),
+// act none, relu or phi (elu + 1), and optionally a start value per row,
 // over a tile of 16 * mtiles rows held in shared memory, on the tensor
 // cores with warp-level mma.sync.m16n8k8 in 3xTF32:
 //   * every operand x is split into two TF32 values, hi = RNA(x) and
@@ -99,12 +100,23 @@ __host__ __device__ constexpr int col_tiles(int nwarps, int mtiles, int n) {
 // shared memory, 16-byte aligned. a1, a2 and out: row-major in shared
 // memory with strides lda1, lda2, ldo; out must not overlap a1, a2 or the
 // ring. k1, k2 and n are multiples of 8 (k2 may be 0), and mtiles is at
-// most the block's warp count.
+// most the block's warp count. act is the epilogue's activation (kNone,
+// kRelu, kPhi; false and true name the first two). ldw_global, when set,
+// is the planes' row stride in global memory (a multiple of 4): w is then
+// a column panel of a wider matrix (k1 + k2, ldw_global), and its lo plane
+// starts (k1 + k2) * ldw_global floats after w_hi. cinit, when set, is the
+// sums' start: row r of out starts from row r / cdiv of cinit (stride
+// ldc, in shared memory, not overlapping out), so that rows of several
+// views start from their point's shared part.
+enum Act { kNone = 0, kRelu = 1, kPhi = 2 };
+
 template <int kStages, int NT_MAX>
 __device__ void gemm(const float* a1, int lda1, int k1,
                      const float* a2, int lda2, int k2,
                      const float* __restrict__ w_hi, float* ring,
-                     float* out, int ldo, int mtiles, int n, bool relu) {
+                     float* out, int ldo, int mtiles, int n, int act,
+                     int ldw_global = 0, const float* cinit = nullptr, int ldc = 0,
+                     int cdiv = 1) {
   static_assert(kStages >= 2, "the ring needs two slots or more");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -119,7 +131,8 @@ __device__ void gemm(const float* a1, int lda1, int k1,
   const int steps = K / kStep;
   const int ldw = w_ld(n);
   const int n4 = n >> 2;
-  const float* w_lo = w_hi + (size_t)K * n;
+  const int ldg = ldw_global > 0 ? ldw_global : n;
+  const float* w_lo = w_hi + (size_t)K * ldg;
   const int row = mt * 16 + g;
 
   // slot s % kStages <- rows 8s .. 8s + 7 of both planes
@@ -127,7 +140,7 @@ __device__ void gemm(const float* a1, int lda1, int k1,
     float* slot = ring + (s % kStages) * 2 * kStep * ldw;
     for (int i = threadIdx.x; i < 2 * kStep * n4; i += blockDim.x) {
       const int r = i / n4, c4 = i - r * n4;          // r < 8: hi, else lo
-      const float* src = (r < kStep ? w_hi : w_lo) + (size_t)(s * kStep + (r & 7)) * n;
+      const float* src = (r < kStep ? w_hi : w_lo) + (size_t)(s * kStep + (r & 7)) * ldg;
       cp_async16(slot + r * ldw + 4 * c4, src + 4 * c4);
     }
   };
@@ -136,8 +149,16 @@ __device__ void gemm(const float* a1, int lda1, int k1,
     const int np = min(NT_MAX, mine - p0);     // this warp's tiles in the pass
     float acc[NT_MAX][4];
 #pragma unroll
-    for (int j = 0; j < NT_MAX; ++j)
+    for (int j = 0; j < NT_MAX; ++j) {
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      if (cinit != nullptr && j < np) {
+        const int col = (my0 + p0 + j) * 8 + 2 * t;
+        const float2 top = *reinterpret_cast<const float2*>(cinit + (row / cdiv) * ldc + col);
+        const float2 bot =
+            *reinterpret_cast<const float2*>(cinit + ((row + 8) / cdiv) * ldc + col);
+        acc[j][0] = top.x; acc[j][1] = top.y; acc[j][2] = bot.x; acc[j][3] = bot.y;
+      }
+    }
 #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < steps) load(s);
@@ -188,9 +209,12 @@ __device__ void gemm(const float* a1, int lda1, int k1,
         const int col = (my0 + p0 + j) * 8 + 2 * t;
         float2 top = make_float2(acc[j][0], acc[j][1]);
         float2 bot = make_float2(acc[j][2], acc[j][3]);
-        if (relu) {
+        if (act == kRelu) {
           top.x = fmaxf(top.x, 0.f); top.y = fmaxf(top.y, 0.f);
           bot.x = fmaxf(bot.x, 0.f); bot.y = fmaxf(bot.y, 0.f);
+        } else if (act == kPhi) {
+          top.x = phi(top.x); top.y = phi(top.y);
+          bot.x = phi(bot.x); bot.y = phi(bot.y);
         }
         *reinterpret_cast<float2*>(out + row * ldo + col) = top;
         *reinterpret_cast<float2*>(out + (row + 8) * ldo + col) = bot;

@@ -49,7 +49,8 @@ def extension():
 def aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and starting on a 16-byte boundary (a contiguous
     view at another offset is copied): the head kernels load their inputs
-    by cp.async in 16-byte pieces."""
+    by cp.async in 16-byte pieces, the tiny-attention forward by TMA bulk
+    copies."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

@@ -12,12 +12,18 @@ by feature group against the raw inputs. The view-shared groups (vol and
 sim16) are projected once per point rather than once per view, and the
 view token's own q/k/v and mlp1 rows are constants computed here, on the
 host. At the defaults (3 views) that is ~203.3k FMAs per point against the
-point head's ~264.7k. The kernel is ``csrc/point_head2.cu``.
+point head's ~264.7k. The kernel is ``csrc/point_head2.cu``: its layer
+GEMMs run on the tensor cores in 3xTF32 (``csrc/tc_gemm.cuh``), as the
+point head's do.
 
-``pack_weights2`` builds the split: the row slices at the feature-group
+``split_weights2`` builds the split: the row slices at the feature-group
 offsets 0 / 32 / 56 / 72 / 80 of wq, wk, wv, w1[:C] and rad_w[0] in (in,
 out) orientation, grouped as the kernel reads them (``layout2``), plus the
-constants ``tok_qkv`` and ``w1a_tok``.
+constants ``tok_qkv`` and ``w1a_tok``. ``pack_weights2`` flattens it; the
+matrices the kernel multiplies on the tensor cores in 3xTF32
+(``TC_MATRICES``: the shared projection, the per-view q/k/v, merge, mlp1
+and mlp2) go in as a TF32 hi plane, then a lo plane
+(``cuda_build.tf32_planes``).
 
 ``point_head2`` takes the plain version for CPU tensors only. For CUDA
 tensors it launches the kernel or raises, inside an autograd Function whose
@@ -37,6 +43,8 @@ from .fused_point_head import (_KERNEL_DIMS, PointHeadInputs, PointHeadParams,
                                _flat_params, _split, point_head_reference)
 
 PE_DIM = 8      # NeRF PE of the depth distance, 4 frequencies
+# the matrices the kernel runs on the tensor cores: two planes each in the pack
+TC_MATRICES = ("sh", "v_qkv", "wm", "v_w1", "w2", "v_rad")
 
 # the inputs are point-major in the port already: the JAX module's
 # PointHeadInputs2 is the point head's PointHeadInputs
@@ -51,6 +59,13 @@ def point_head2_reference(inp: PointHeadInputs, p: PointHeadParams,
     return point_head_reference(inp, p, n_heads)
 
 
+def rad_rows(g_view: int) -> int:
+    """Rows of the radiance layer 0's first operand in the kernel: [img |
+    pe] (g_view), dir (3), a 1 that takes the bias row, zeros up to a
+    multiple of 8 (the tensor-core k step)."""
+    return (g_view + 4 + 7) // 8 * 8
+
+
 def layout2(c: int, c_img: int, c_vol: int, c_sim: int, s_hid: int = 32
             ) -> Dict[str, Tuple[int, Tuple[int, ...]]]:
     """name -> (offset, shape) of each part of ``pack_weights2``'s buffer,
@@ -58,7 +73,9 @@ def layout2(c: int, c_img: int, c_vol: int, c_sim: int, s_hid: int = 32
     c_sim + 8 and a pre-similarity MLP 8 -> s_hid -> s_hid -> c_sim. ``sh``
     holds the rows of the view-shared groups [vol | sim16], ``v_*`` those of
     the per-view groups [img | pe] (``v_rad`` adds dir_rel and then all C
-    token rows, which take the LoFTR output m2)."""
+    token rows, which take the LoFTR output m2; between them the bias row
+    and zero rows up to ``rad_rows``). A matrix of ``TC_MATRICES`` has the
+    shape (2, in, out): its hi plane, then its lo plane."""
     c2, r1 = 2 * c, 16
     g_shared = c_vol + c_sim
     g_view = c - g_shared                   # img + pe
@@ -66,18 +83,18 @@ def layout2(c: int, c_img: int, c_vol: int, c_sim: int, s_hid: int = 32
         ("tok", (c,)),
         ("tok_qkv", (3, c)),                # view_token @ wq, wk, wv
         ("w1a_tok", (c2,)),                 # view_token @ w1[:C]
-        ("sh", (g_shared, 3 * c + c2 + r1)),  # columns wq | wk | wv | w1a | r0
-        ("v_qkv", (g_view, 3 * c)),         # columns wq | wk | wv
-        ("wm", (c, c)),
+        ("sh", (2, g_shared, 3 * c + c2 + r1)),  # columns wq | wk | wv | w1a | r0
+        ("v_qkv", (2, g_view, 3 * c)),      # columns wq | wk | wv
+        ("wm", (2, c, c)),
         ("n1s", (c,)), ("n1b", (c,)),
-        ("v_w1", (g_view + c, c2)),         # w1a's view rows, then w1[C:]
-        ("w2", (c2, c)),
+        ("v_w1", (2, g_view + c, c2)),      # w1a's view rows, then w1[C:]
+        ("w2", (2, c2, c)),
         ("n2s", (c,)), ("n2b", (c,)),
         ("sw0", (8, s_hid)), ("sb0", (s_hid,)),
         ("sw1", (s_hid, s_hid)), ("sb1", (s_hid,)),
         ("sw2", (s_hid, c_sim)), ("sb2", (c_sim,)),
-        ("v_rad", (g_view + 3 + c, r1)),    # r0's view and dir rows, r0[:C]
-        ("rb0", (r1,)), ("rw1", (r1, 8)), ("rb1", (8,)),
+        ("v_rad", (2, rad_rows(g_view) + c, r1)),  # r0's view, dir, bias, 0 rows, r0[:C]
+        ("rw1", (r1, 8)), ("rb1", (8,)),
         ("rw2", (8, 1)), ("rb2", (1,)),
     ]
     out, off = {}, 0
@@ -91,16 +108,17 @@ def layout2(c: int, c_img: int, c_vol: int, c_sim: int, s_hid: int = 32
     return out
 
 
-def pack_weights2(p: PointHeadParams, c_img: int = 32) -> torch.Tensor:
-    """The weights split by feature group, flattened in ``layout2``'s
-    order, every matrix in (in, out) orientation. The port's weights are
-    ``nn.Linear`` (out, in); the JAX slices are rows of (in, out). The
-    token is [img c_img | vol | sim16 | pe 8]; the widths of sim16 and vol
-    follow from the weights."""
+def split_weights2(p: PointHeadParams, c_img: int = 32) -> Dict[str, torch.Tensor]:
+    """The weights split by feature group: ``layout2``'s parts by name,
+    every matrix in (in, out) orientation and float32, as one plane. The
+    port's weights are ``nn.Linear`` (out, in); the JAX slices are rows of
+    (in, out). The token is [img c_img | vol | sim16 | pe 8]; the widths of
+    sim16 and vol follow from the weights."""
     c = p.view_token.numel()
     c_sim = p.sim_w[2].shape[0]
     c_vol = c - c_img - c_sim - PE_DIM
     o1, o3 = c_img, c_img + c_vol + c_sim   # offsets of vol and pe
+    g_view = c - c_vol - c_sim              # img + pe
     f = lambda t: t.detach().float()
     tok = f(p.view_token).reshape(-1)
     wq, wk, wv = (f(w).t() for w in (p.wq, p.wk, p.wv))       # (in, out)
@@ -128,7 +146,11 @@ def pack_weights2(p: PointHeadParams, c_img: int = 32) -> torch.Tensor:
         "wm": f(p.wmerge).t(), "n1s": f(p.norm1_scale), "n1b": f(p.norm1_bias),
         "v_w1": torch.cat([view(w1a), w1b]),
         "w2": f(p.w2).t(), "n2s": f(p.norm2_scale), "n2b": f(p.norm2_bias),
-        "v_rad": torch.cat([view(r0), r0[c:c + 3], r0[:c]]), "rb0": f(p.rad_b[0]),
+        # radiance layer 0: [img | pe] rows, dir rows, the bias (the kernel's
+        # 1 column), zero rows, then the C rows that take m2
+        "v_rad": torch.cat([view(r0), r0[c:c + 3], f(p.rad_b[0])[None],
+                            r0.new_zeros(rad_rows(g_view) - g_view - 4, r0.shape[1]),
+                            r0[:c]]),
         "rw1": f(p.rad_w[1]).t(), "rb1": f(p.rad_b[1]),
         "rw2": f(p.rad_w[2]).t(), "rb2": f(p.rad_b[2]),
     }
@@ -136,10 +158,19 @@ def pack_weights2(p: PointHeadParams, c_img: int = 32) -> torch.Tensor:
         parts[f"sw{i}"], parts[f"sb{i}"] = f(w).t(), f(b)
     lay = layout2(c, c_img, c_vol, c_sim, p.sim_w[0].shape[0])
     for name, (_, shape) in lay.items():
-        if name != "total" and tuple(parts[name].shape) != shape:
-            raise ValueError(f"pack_weights2: {name} is {tuple(parts[name].shape)}, "
-                             f"the layout wants {shape}")
-    return torch.cat([parts[name].reshape(-1) for name in lay if name != "total"])
+        want = shape[1:] if name in TC_MATRICES else shape
+        if name != "total" and tuple(parts[name].shape) != want:
+            raise ValueError(f"split_weights2: {name} is {tuple(parts[name].shape)}, "
+                             f"the layout wants {want}")
+    return {name: parts[name] for name in lay if name != "total"}
+
+
+def pack_weights2(p: PointHeadParams, c_img: int = 32) -> torch.Tensor:
+    """``split_weights2(p)`` flattened in ``layout2``'s order, the matrices
+    of ``TC_MATRICES`` as their TF32 hi plane, then lo plane."""
+    parts = split_weights2(p, c_img)
+    return torch.cat([cuda_build.tf32_planes(t) if name in TC_MATRICES else t.reshape(-1)
+                      for name, t in parts.items()])
 
 
 def _launch(inp: PointHeadInputs, p: PointHeadParams,
@@ -165,7 +196,7 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams,
             raise ValueError(f"point_head2 kernel takes {name} of shape {shape}, "
                              f"got {tuple(getattr(inp, name).shape)}")
     ext = cuda_build.extension()
-    ins = [t.contiguous() for t in inp]
+    ins = [cuda_build.aligned(t) for t in inp]
     w, built = _packs.get(_flat_params(p), lambda: pack_weights2(p))
     point_head2.pack_builds += built
     if w.numel() != ext.point_head2_weight_count():

@@ -12,10 +12,15 @@ every sample point of a render chunk. The kernels are
 Bound on the H100: bytes. At the view transformer's shape (65,536 points,
 L = S = 4, 8 heads of 10) the forward reads three and writes one
 (B, 4, 8, 10) f32 tensor, ~0.34 GFLOP for 335.5 MB; the backward reads
-four and writes three. Design: a block copies a tile of points, coalesced,
-into shared memory, one thread computes one (point, head) pair there, and
-the output tile is stored back coalesced; q, k and v are read in the
-(B, L, H, D) layout ``nn.Linear`` gives them, with no transpose or padding.
+four and writes three. q, k and v are read in the (B, L, H, D) layout
+``nn.Linear`` gives them, with no transpose or padding. Forward design:
+persistent blocks stream tiles of points through a ring of shared-memory
+stages by TMA bulk copies (one per input and tile), one thread computes one
+(point, query token, head) item, and the output tile leaves by a bulk
+store; the bulk copies need 16-byte-aligned tensors (``cuda_build.aligned``).
+Backward design: a block copies a tile of points, coalesced, into shared
+memory, one thread computes one (point, head) pair there, and the output
+tiles are stored back coalesced.
 
 ``tiny_linear_attention`` takes the plain version for CPU tensors only.
 For CUDA tensors it launches the forward kernel or raises, inside an
@@ -111,7 +116,7 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tens
     b, l_, h, _ = q.shape
     out = torch.empty(b, l_, h, v.shape[-1], device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
-        ext.tiny_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), out)
+        ext.tiny_attention_fwd(*(cuda_build.aligned(t) for t in (q, k, v)), out)
     tiny_linear_attention.launches += 1
     return out
 

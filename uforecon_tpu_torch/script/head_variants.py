@@ -1,22 +1,27 @@
-"""Where the head kernels' time goes: variants of ``csrc/point_head.cu``
-and ``csrc/ray_head.cu`` timed apart on one GPU.
+"""Where the kernels' time goes: variants of ``csrc/point_head.cu``,
+``csrc/point_head2.cu``, ``csrc/ray_head.cu`` and ``csrc/tiny_attention.cu``
+timed apart on one GPU.
 
-    python -m uforecon_tpu_torch.script.head_variants ph ph,nogemm rh rh,rh_ln
+    python -m uforecon_tpu_torch.script.head_variants ph ph,nogemm ph2 rh rh,rh_ln ta,S=2
 
 Each variant is a copy of ``csrc/`` with a few lines replaced, built by
 ``nvcc`` (all variants at once) into a shared library with the kernels'
 plain C interface, and timed with CUDA events (mean of 20 launches) at the
-main path's shapes: the point head at P = 65,536 points and 3 views, the
-ray head over 1024 rays of 64 and of 128 samples at width 88, on seeded
-random weights and inputs. A variant is a kernel (``ph`` or ``rh``)
-followed by comma-separated options:
+main path's shapes: the point heads at P = 65,536 points and 3 views, the
+ray head over 1024 rays of 64 and of 128 samples at width 88, the
+tiny-attention forward at B = 65,536, L = S = 4, 8 heads of D = M = 10
+(route A) and 8 (route B), on seeded random weights and inputs. A variant
+is a kernel (``ph``, ``ph2``, ``rh`` or ``ta``) followed by comma-separated
+options:
 
   NAME=VALUE  a constant of the kernel's source (``CONSTANTS``), e.g.
-              ``T=256`` threads a block, ``S=3`` weight-ring slots;
+              ``T=256`` threads a block, ``S=3`` weight-ring slots (for
+              ``ta``: input stages);
   a patch     of ``PATCHES``: ``nogemm`` skips the tensor-core layers;
               ``onemma`` keeps one of the three 3xTF32 products;
               ``nosync`` drops the per-step sync, ``noload`` the weight
-              loads; ``ph_*`` / ``rh_*`` skip one phase of a kernel.
+              loads; ``ph_*`` / ``ph2_*`` / ``rh_*`` / ``ta_*`` skip one
+              phase of a kernel.
 
 A variant that skips work gives wrong outputs: its max abs error against
 the plain version is printed, not checked. The difference between two
@@ -38,15 +43,23 @@ import torch
 
 from ..ops import cuda_build
 
-SOURCE = {"ph": "point_head.cu", "rh": "ray_head.cu"}
+SOURCE = {"ph": "point_head.cu", "ph2": "point_head2.cu", "rh": "ray_head.cu",
+          "ta": "tiny_attention.cu"}
 # kernel -> NAME -> (the source's line, its replacement with {} for VALUE)
 CONSTANTS = {
     "ph": {"TP": ("constexpr int TP = 16;", "constexpr int TP = {};"),
            "T": ("constexpr int kPointThreads = 320;", "constexpr int kPointThreads = {};"),
            "S": ("constexpr int kStages = 2;", "constexpr int kStages = {};"),
            "LB": ("__launch_bounds__(kPointThreads, 2)", "__launch_bounds__(kPointThreads, {})")},
+    "ph2": {"T": ("constexpr int kThreads = 320;", "constexpr int kThreads = {};"),
+            "S": ("constexpr int kStages = 2;", "constexpr int kStages = {};"),
+            "LB": ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, {})"),
+            "SR": ("constexpr int kSmallRows = 1;", "constexpr int kSmallRows = {};")},
     "rh": {"T": ("constexpr int kRayThreads = 512;", "constexpr int kRayThreads = {};"),
            "S": ("constexpr int kStages = 2;", "constexpr int kStages = {};")},
+    "ta": {"T": ("constexpr int kFwdThreads = 128;", "constexpr int kFwdThreads = {};"),
+           "I": ("constexpr int kFwdItems = 128;", "constexpr int kFwdItems = {};"),
+           "S": ("constexpr int kFwdStages = 2;", "constexpr int kFwdStages = {};")},
 }
 
 
@@ -87,6 +100,30 @@ PATCHES = {
         "  for (int i = tid; i < NV * TP * CT; i += blockDim.x) {", "NV * TP * CT"))],
     "ph_softmax": [("point_head.cu", *_empty_loop(
         "  for (int p = tid; p < TP; p += blockDim.x) {", "TP"))],
+    "ph2_sim": [("point_head2.cu", *_skip("  block_linear<kSmallRows>(s_in, SIN, SIN,")),
+                ("point_head2.cu", *_skip("  block_linear<kSmallRows>(s_h1, SHID, SHID,")),
+                ("point_head2.cu", *_skip("  block_linear<kSmallRows>(s_h2, SHID, SHID,"))],
+    "ph2_shared": [("point_head2.cu", *_skip("  tc::gemm<kStages, NT_SQK>(S, LS, GS,")),
+                   ("point_head2.cu", *_skip("  tc::gemm<kStages, NT_SV>(S, LS, GS,")),
+                   ("point_head2.cu", *_skip("  tc::gemm<kStages, NT_ST>(S, LS, GS,"))],
+    "ph2_in": [("point_head2.cu", *_empty_loop(
+        "  for (int i = tid; i < RV * XR; i += blockDim.x) {", "RV * XR"))],
+    "ph2_pass": [("point_head2.cu", *_empty_loop(
+        "  for (int i = tid; i < R * C2_4; i += blockDim.x) {", "R * C2_4"))],
+    "ph2_attn": [("point_head2.cu", *_empty_loop(
+        "  for (int t = tid; t < TP * L * NH; t += blockDim.x) {", "TP * L * NH"))],
+    "ph2_ln": [("point_head2.cu", *_skip("  tc::layernorm<C>(Vb, LV, R, W + O_N1S")),
+               ("point_head2.cu", *_skip("  tc::layernorm<C>(Vb, LV, R, W + O_N2S"))],
+    "ph2_rad": [("point_head2.cu", *_skip("  tc::gemm<kStages, NT_R>(X + TP * LX, LX, XK,")),
+                ("point_head2.cu", *_skip("  block_linear<kSmallRows>(z, LZ, R1,")),
+                ("point_head2.cu", *_skip("  block_linear<kSmallRows>(h2, R2, R2,"))],
+    "ph2_softmax": [("point_head2.cu", *_empty_loop(
+        "  for (int p = tid; p < TP; p += blockDim.x) {", "TP"))],
+    "ta_phi": [("tiny_attention.cu", *_empty_loop(
+        "    for (int j = tid; j < tile * rk / 4; j += blockDim.x) {", "tile * rk / 4"))],
+    "ta_attend": [("tiny_attention.cu", *_empty_loop(
+        "  for (int idx = threadIdx.x; idx < n * t.l * H; idx += blockDim.x) {",
+        "n * t.l * H"))],
     "rh_kv": [("ray_head.cu", *_empty_loop(
         "  for (int t = tid; t < NH * DK * DK; t += blockDim.x) {", "NH * DK * DK"))],
     "rh_attn": [("ray_head.cu", *_empty_loop(
@@ -103,7 +140,7 @@ def replacements(variant: str):
     raises on an option it does not know."""
     kernel, *options = variant.split(",")
     if kernel not in SOURCE:
-        raise ValueError(f"variant {variant!r}: the kernel is ph or rh")
+        raise ValueError(f"variant {variant!r}: the kernel is one of {sorted(SOURCE)}")
     out = []
     for opt in options:
         if opt in PATCHES:
@@ -154,7 +191,9 @@ def _cases(seed: int):
     from ..convert import init_weights
     from ..models.uforecon import UFORecon
     from ..ops import fused_point_head as fph
+    from ..ops import fused_point_head2 as fph2
     from ..ops import fused_ray_head as frh
+    from ..ops import tiny_attention as fta
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -171,15 +210,63 @@ def _cases(seed: int):
         rgb=rand(nv, p, 3), mask=mask)
     ph, rh = rt.point_head_params(), rt.ray_head_params()
     ys = {sn: randn(1024, sn, 88) for sn in (64, 128)}
+    qkv = {d: tuple(randn(p, 4, 8, d) for _ in range(3)) for d in (10, 8)}
     with torch.no_grad():
         ph_ref = fph.point_head_reference(inp, ph)
         rh_ref = {sn: frh.ray_head_reference(y, rh) for sn, y in ys.items()}
-    return inp, fph.pack_weights(ph), ph_ref, ys, frh.pack_weights(rh), rh_ref
+        ta_ref = {d: fta.tiny_linear_attention_reference(*x) for d, x in qkv.items()}
+    return {"inp": inp, "ph": (fph.pack_weights(ph), ph_ref),
+            "ph2": (fph2.pack_weights2(ph), ph_ref), "ys": ys,
+            "rh": (frh.pack_weights(rh), rh_ref), "qkv": qkv, "ta": ta_ref}
+
+
+def _bind(kernel, lib):
+    """The kernel's C entry point with its argument types."""
+    c = ctypes
+    if kernel in ("ph", "ph2"):   # (10 pointers, nv, p, stream)
+        fn, types = getattr(lib, f"ufo_point_head{kernel[2:]}"), [c.c_void_p] * 10 + [c.c_int] * 2
+    elif kernel == "rh":          # ufo_ray_head(y, w, srdf, rn, sn, c, stream)
+        fn, types = lib.ufo_ray_head, [c.c_void_p] * 3 + [c.c_int] * 3
+    else:                         # ufo_tiny_attention_fwd(q, k, v, o, b, l, s, h, d, m, stream)
+        fn, types = lib.ufo_tiny_attention_fwd, [c.c_void_p] * 4 + [c.c_int] * 6
+    fn.argtypes, fn.restype = types + [c.c_void_p], c.c_int
+    return fn
+
+
+def _runs(kernel, fn, cases, stream):
+    """suffix -> (launch, max abs error against the plain version)."""
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    i = ctypes.c_int
+    if kernel in ("ph", "ph2"):
+        inp = cases["inp"]
+        w, ref = cases[kernel]
+        nv, p = inp.img_feat.shape[:2]
+        tok, rad = torch.empty(p, 80, device="cuda"), torch.empty(p, 3, device="cuda")
+        call = [*map(ptr, (*inp, w, tok, rad)), i(nv), i(p), stream]
+        return {"": (lambda: fn(*call),
+                     lambda: max((tok - ref[0]).abs().max().item(),
+                                 (rad - ref[1]).abs().max().item()))}
+    runs = {}
+    if kernel == "rh":
+        w, ref = cases["rh"]
+        for sn, y in cases["ys"].items():
+            srdf = torch.empty(1024, sn, device="cuda")
+            call = [ptr(y), ptr(w), ptr(srdf), i(1024), i(sn), i(88), stream]
+            runs[f" SN {sn}"] = (lambda c=call: fn(*c),
+                                 lambda s=srdf, r=ref[sn]: (s - r).abs().max().item())
+        return runs
+    for d, (q, k, v) in cases["qkv"].items():
+        o = torch.empty_like(q)
+        call = [*map(ptr, (q, k, v, o)), *map(i, (*q.shape[:2], k.shape[1], q.shape[2], d, d)),
+                stream]
+        runs[f" D {d}"] = (lambda c=call: fn(*c),
+                           lambda o=o, r=cases["ta"][d]: (o - r).abs().max().item())
+    return runs
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("variants", nargs="+", help="e.g. ph, ph,nogemm, rh,S=2")
+    ap.add_argument("variants", nargs="+", help="e.g. ph, ph,nogemm, ph2, rh,S=2, ta,I=512")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -187,38 +274,17 @@ def main(argv=None):
     root = cuda_build.BUILD_DIR / "variants"
     root.mkdir(parents=True, exist_ok=True)
     builds = {v: _build(v, root) for v in args.variants}
-    libs = {}
+    fns = {}
     for v, (proc, lib) in builds.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"variant {v}: nvcc failed\n{log}")
-        libs[v] = lib = ctypes.CDLL(str(lib))
-        if v.startswith("ph"):    # ufo_point_head(10 pointers, nv, p, stream)
-            fn, types = lib.ufo_point_head, [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
-        else:                     # ufo_ray_head(y, w, srdf, rn, sn, c, stream)
-            fn, types = lib.ufo_ray_head, [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-        fn.argtypes, fn.restype = types + [ctypes.c_void_p], ctypes.c_int
-    inp, w_ph, ph_ref, ys, w_rh, rh_ref = _cases(args.seed)
+        fns[v] = _bind(v.split(",")[0], ctypes.CDLL(str(lib)))
+    cases = _cases(args.seed)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    nv, p = inp.img_feat.shape[:2]
     out = {"card": torch.cuda.get_device_name(0), "ms": {}, "max_abs_err": {}}
-    for v, lib in libs.items():
-        if v.startswith("ph"):
-            tok, rad = torch.empty(p, 80, device="cuda"), torch.empty(p, 3, device="cuda")
-            call = [*map(ptr, (*inp, w_ph, tok, rad)), ctypes.c_int(nv), ctypes.c_int(p), stream]
-            runs = {"": (lambda: lib.ufo_point_head(*call),
-                         lambda: max((tok - ph_ref[0]).abs().max().item(),
-                                     (rad - ph_ref[1]).abs().max().item()))}
-        else:
-            runs = {}
-            for sn, y in ys.items():
-                srdf = torch.empty(1024, sn, device="cuda")
-                call = [ptr(y), ptr(w_rh), ptr(srdf), ctypes.c_int(1024), ctypes.c_int(sn),
-                        ctypes.c_int(88), stream]
-                runs[f" SN {sn}"] = (lambda c=call: lib.ufo_ray_head(*c),
-                                     lambda s=srdf, r=rh_ref[sn]: (s - r).abs().max().item())
-        for suffix, (launch, err) in runs.items():
+    for v, fn in fns.items():
+        for suffix, (launch, err) in _runs(v.split(",")[0], fn, cases, stream).items():
             if launch() != 0:
                 raise SystemExit(f"variant {v}{suffix}: launch refused")
             torch.cuda.synchronize()
