@@ -54,7 +54,7 @@ def test_grouped_cosine_matches_jax(rng, nv):
     assert psim.view_pairs(nv) == jsim.view_pairs(nv)
 
 
-@pytest.mark.parametrize("nv", [2, 3, 5])
+@pytest.mark.parametrize("nv", [2, 3, 4, 5])
 def test_volume_fusion_matches_jax(rng, nv):
     fws = _fusion_case(rng, nv=nv, n=300, zero_rows=7)
     ref = np.asarray(jvf.volume_fusion_reference([jnp.asarray(f) for f in fws]))
@@ -66,6 +66,21 @@ def test_volume_fusion_matches_jax(rng, nv):
     np.testing.assert_array_equal(pvf.volume_fusion(*[_t(f) for f in fws]).numpy(), got)
     # points with zero weight in every view fuse to 0, never NaN
     np.testing.assert_array_equal(got[:7], 0.0)
+
+
+@pytest.mark.parametrize("nv", [3, 5])
+def test_volume_fusion_channel_first_matches_jax_kernel(rng, nv):
+    """The layout the main path hands the kernel: F.grid_sample's channel-
+    first memory seen as (NV, P, 9), strides (9 P, 1, P), through the
+    port's wrapper, against the JAX Pallas kernel on the same values."""
+    fws = _fusion_case(rng, nv=nv, n=300, zero_rows=7)
+    views = [_t(np.ascontiguousarray(f.transpose(0, 2, 1))).permute(0, 2, 1) for f in fws]
+    assert views[0].stride() == (9 * 300, 1, 300)
+    pallas = np.asarray(jvf.volume_fusion_fused([jnp.asarray(f) for f in fws]))
+    got = pvf.volume_fusion(*views).numpy()
+    np.testing.assert_allclose(got, pallas, **GLUE_TOL)
+    np.testing.assert_array_equal(got[:7], 0.0)
+    np.testing.assert_array_equal(got, pvf.volume_fusion_reference([_t(f) for f in fws]))
 
 
 def test_volume_fusion_all_zero_weights_match_jax(rng):

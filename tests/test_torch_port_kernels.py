@@ -193,6 +193,9 @@ def test_kernel_launchers_reject_shapes_they_do_not_take(rng):
         pvf._launch(fws[:2])
     with pytest.raises(ValueError, match="volume_fusion kernel takes 3 stages"):
         pvf._launch([fws[0], fws[1], fws[2][..., :5]])
+    nine = [_t(f) for f in _fusion_case(rng, nv=9)]   # NV outside the kernel's 1..8
+    with pytest.raises(ValueError, match="NV in 1..8"):
+        pvf._launch(nine)
     with pytest.raises(ValueError, match="float32 tensors on one CUDA"):
         pvf._launch(fws)
     y, rparams = _ray_case(rng, rn=2, sn=8, c=80)
@@ -208,6 +211,38 @@ def test_kernel_launchers_reject_shapes_they_do_not_take(rng):
         pta._launch_fwd(q, k, v)
     with pytest.raises(ValueError, match="float32 tensors on one CUDA"):
         pta._launch_bwd(q, k, v, torch.zeros(3, 4, 8, 10))
+
+
+def test_volume_fusion_checks_the_kernel_layout_once(monkeypatch):
+    """The wrapper asks the extension for its stage, feature and view
+    counts once per process, not on every launch, and raises where they
+    differ from its own."""
+    from uforecon_tpu_torch.ops import cuda_build
+
+    asked = []
+
+    class Ext:
+        def volume_fusion_stages(self):
+            asked.append(1)
+            return 3
+
+        def volume_fusion_features(self):
+            return 8
+
+        def volume_fusion_max_views(self):
+            return 8
+
+    monkeypatch.setattr(cuda_build, "extension", Ext)
+    pvf._extension.cache_clear()
+    try:
+        assert pvf._extension() is pvf._extension()
+        assert len(asked) == 1
+        monkeypatch.setattr(Ext, "volume_fusion_max_views", lambda self: 4)
+        pvf._extension.cache_clear()
+        with pytest.raises(ValueError, match="layout does not match"):
+            pvf._extension()
+    finally:
+        pvf._extension.cache_clear()
 
 
 def test_point_head2_and_row_gather_launchers_reject_what_they_do_not_take(rng):
@@ -567,16 +602,36 @@ def test_grouped_cosine_kernel_matches_plain_on_gpu(rng, cuda_device, nv, layout
                                rtol=0, atol=1e-6)
 
 
+# the kernel's blocks hold 64 points: P below one block and a ragged P
+# above it
+@pytest.mark.parametrize("n", [37, 3001])
+@pytest.mark.parametrize("nv", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("layout", ["channel_first", "point_major"])
-def test_volume_fusion_kernel_matches_plain_on_gpu(rng, cuda_device, layout):
-    fws = [_t(f).to(cuda_device) for f in _fusion_case(rng, n=3001, zero_rows=64)]
+def test_volume_fusion_kernel_matches_plain_on_gpu(rng, cuda_device, layout, nv, n):
+    """Points with zero weight in every view and stage give exactly 0."""
+    zero = min(n, 64)
+    fws = [_t(f).to(cuda_device) for f in _fusion_case(rng, nv=nv, n=n, zero_rows=zero)]
     if layout == "channel_first":
         fws = [f.permute(0, 2, 1).contiguous().permute(0, 2, 1) for f in fws]
     before = pvf.volume_fusion.launches
-    got = pvf.volume_fusion(*fws)
+    with torch.no_grad():
+        got = pvf.volume_fusion(*fws)
     assert pvf.volume_fusion.launches == before + 1
-    assert torch.all(got[:64] == 0)
+    assert torch.all(got[:zero] == 0)
     torch.testing.assert_close(got, pvf.volume_fusion_reference(fws), rtol=0, atol=1e-6)
+
+
+def test_volume_fusion_kernel_gradient_goes_through_the_plain_version_on_gpu(
+        rng, cuda_device):
+    """Where an input needs a gradient the wrapper launches inside the
+    autograd Function, whose backward differentiates the plain version."""
+    fws = [_t(f).to(cuda_device).requires_grad_() for f in _fusion_case(rng, n=300)]
+    before = pvf.volume_fusion.launches
+    got = torch.autograd.grad(pvf.volume_fusion(*fws).square().sum(), fws)
+    assert pvf.volume_fusion.launches == before + 1
+    want = torch.autograd.grad(pvf.volume_fusion_reference(fws).square().sum(), fws)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 def test_default_config_gives_the_kernel_widths():
@@ -613,13 +668,20 @@ def test_tiny_attention_kernel_matches_plain_on_gpu(rng, cuda_device, b, l, h, d
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("b,l,h,d", [(4097, 4, 8, 10), (300, 6, 8, 8), (77, 8, 3, 16)])
-def test_tiny_attention_backward_kernel_matches_autograd_on_gpu(rng, cuda_device, b, l, h, d):
+# the backward kernel's tiles hold 4 points at L = S = 4, H = 8 and 2 at
+# L = S = 6 (the training shape): B below one tile and one past a multiple
+# of it; L H not a multiple of 32; odd D and M, and L != S (float-wide rows)
+@pytest.mark.parametrize("b,l,s,h,d,m", [(3, 4, 4, 8, 10, 10), (4097, 4, 4, 8, 10, 10),
+                                         (301, 6, 6, 8, 10, 10), (300, 6, 6, 8, 8, 8),
+                                         (77, 8, 8, 3, 16, 16), (257, 3, 5, 8, 7, 5),
+                                         (64, 2, 2, 1, 1, 1)])
+def test_tiny_attention_backward_kernel_matches_autograd_on_gpu(rng, cuda_device,
+                                                               b, l, s, h, d, m):
     """The backward kernel, through the autograd Function, against
     torch.autograd of the plain forward."""
     q, k, v = (_t(a).to(cuda_device).requires_grad_()
-               for a in _attention_case(rng, b, l, l, h, d, d))
-    g = _t(rng.standard_normal((b, l, h, d))).to(cuda_device)
+               for a in _attention_case(rng, b, l, s, h, d, m))
+    g = _t(rng.standard_normal((b, l, h, m))).to(cuda_device)
     want = torch.autograd.grad(pta.tiny_linear_attention_reference(q, k, v), (q, k, v), g)
     before = pta.tiny_linear_attention_backward.launches
     got = torch.autograd.grad(pta.tiny_linear_attention(q, k, v), (q, k, v), g)
@@ -671,7 +733,15 @@ def test_head_variants_patch_the_kernel_sources_once():
     kernel, subs = hv.replacements("ta,I=512,S=3")
     assert kernel == "ta" and [x[2] for x in subs] == ["constexpr int kFwdItems = 512;",
                                                        "constexpr int kFwdStages = 3;"]
-    for bad in ("xx", "ph,T", "rh,TP=8", "ph,nothing", "ta,nogemm_x", "ph2,I=4"):
+    # the backward's stream alone: its three arithmetic phases skipped
+    kernel, subs = hv.replacements("tb,I=64,tb_stream")
+    assert kernel == "tb" and len(subs) == 4
+    assert subs[0][2] == "constexpr int kBwdItems = 64;"
+    assert all(" < 0 * " in new for _, _, new in subs[1:])
+    kernel, subs = hv.replacements("vf,T=128,vf_direct")
+    assert kernel == "vf" and subs[0][2] == "constexpr int kThreads = 128;"
+    assert {f for f, _, _ in subs} == {"volume_fusion.cu"}
+    for bad in ("xx", "ph,T", "rh,TP=8", "ph,nothing", "ta,nogemm_x", "ph2,I=4", "vf,S=2"):
         with pytest.raises(ValueError):
             hv.replacements(bad)
 
@@ -686,8 +756,8 @@ def _offset(t):
 
 def test_head_kernels_take_inputs_at_any_offset_on_gpu(rng, cuda_device):
     """The heads load their inputs in 16-byte pieces (cp.async) and the
-    tiny-attention forward by TMA bulk copies; a contiguous input that
-    starts off such a boundary gives the same outputs."""
+    tiny attention, forward and backward, by TMA bulk copies; a contiguous
+    input that starts off such a boundary gives the same outputs."""
     inputs, params = _point_case(rng, nv=3, n=4096)
     inp = pph.PointHeadInputs(**{k: _t(v).to(cuda_device) for k, v in inputs.items()})
     p = _on(cuda_device, _port_params(pph.PointHeadParams, params))
@@ -701,6 +771,12 @@ def test_head_kernels_take_inputs_at_any_offset_on_gpu(rng, cuda_device):
         torch.testing.assert_close(
             pta.tiny_linear_attention(*map(_offset, (q, k, v))),
             pta.tiny_linear_attention(q, k, v), rtol=0, atol=0)
+        g = _t(rng.standard_normal((1001, 4, 8, 10))).to(cuda_device)
+        before = pta.tiny_linear_attention_backward.launches
+        for a, b in zip(pta.tiny_linear_attention_backward(*map(_offset, (q, k, v, g))),
+                        pta.tiny_linear_attention_backward(q, k, v, g)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert pta.tiny_linear_attention_backward.launches == before + 2
     y, rparams = _ray_case(rng, rn=37, sn=64)
     rp = _on(cuda_device, _port_params(prh.RayHeadParams, rparams))
     yd = _t(y).to(cuda_device)

@@ -71,7 +71,11 @@ def test_tiny_attention_matches_jax_kernel(rng, b, l, s, h, d, m):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("b,l,s,h,d,m", [(64, 4, 4, 8, 10, 10), (48, 6, 6, 8, 8, 8)])
+@pytest.mark.parametrize("b,l,s,h,d,m", [
+    (64, 4, 4, 8, 10, 10),      # route (A)
+    (48, 6, 6, 8, 8, 8),
+    (40, 6, 6, 8, 10, 10),      # the training shape: the view token and train_n_view 5
+])
 def test_tiny_attention_gradients_match_jax(rng, b, l, s, h, d, m):
     """The JAX kernel's custom VJP (its backward kernel, interpret mode)
     against torch.autograd through the plain forward, and against the

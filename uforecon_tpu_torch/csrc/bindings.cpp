@@ -35,6 +35,7 @@ extern "C" int ufo_volume_fusion(const float* const* fw, long long sv,
                                  int nv, int p, void* stream);
 extern "C" int ufo_volume_fusion_stages();
 extern "C" int ufo_volume_fusion_features();
+extern "C" int ufo_volume_fusion_max_views();
 extern "C" int ufo_tiny_attention_fwd(const float* q, const float* k, const float* v,
                                       float* o, int b, int l, int s, int h, int d,
                                       int m, void* stream);
@@ -124,7 +125,8 @@ void grouped_cosine(const at::Tensor& sampled, at::Tensor& out) {
         "grouped_cosine");
 }
 
-// three (NV, P, 9) stage samples sharing their strides -> out (P, 24)
+// three (NV, P, 9) stage samples sharing their strides, NV <= 8 -> out
+// (P, 24) on a 16-byte boundary
 void volume_fusion(const at::Tensor& fw0, const at::Tensor& fw1,
                    const at::Tensor& fw2, at::Tensor& out) {
   const float* fw[3] = {fw0.data_ptr<float>(), fw1.data_ptr<float>(),
@@ -149,7 +151,8 @@ void tiny_attention_fwd(const at::Tensor& q, const at::Tensor& k,
         "tiny_attention_fwd");
 }
 
-// the same q, k, v and g (B, L, H, M), the output's gradient -> dq, dk, dv
+// the same q, k, v and g (B, L, H, M), the output's gradient, all on
+// 16-byte boundaries too -> dq, dk, dv
 void tiny_attention_bwd(const at::Tensor& q, const at::Tensor& k,
                         const at::Tensor& v, const at::Tensor& g, at::Tensor& dq,
                         at::Tensor& dk, at::Tensor& dv) {
@@ -193,6 +196,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "cross-view volume fusion (csrc/volume_fusion.cu)");
   m.def("volume_fusion_stages", &ufo_volume_fusion_stages);
   m.def("volume_fusion_features", &ufo_volume_fusion_features);
+  m.def("volume_fusion_max_views", &ufo_volume_fusion_max_views);
   m.def("tiny_attention_fwd", &tiny_attention_fwd,
         "tiny-sequence linear attention (csrc/tiny_attention.cu)");
   m.def("tiny_attention_bwd", &tiny_attention_bwd,

@@ -47,19 +47,35 @@
 // by element. Sums over s run in order in FP32 FMA; the output is the sum
 // times the reciprocal of the denominator.
 //
-// Backward design (unchanged since its port): a block takes a tile of up
-// to 32 points. Each input's tile is copied row by row (one point per row,
-// one warp a row) into shared memory with cp.async, so every load is
-// coalesced and all of a block's loads are in flight at once. Rows are
-// padded to an odd stride, so consecutive points' rows start in different
-// banks. One thread then computes one (point, head) pair from shared
-// memory, holding one query's D features and M accumulators in registers,
-// and writes its outputs into shared tiles that the warps store back row
-// by row, coalesced. Its copies, arithmetic and stores run one after the
-// other, so the card overlaps them across blocks: at 168 registers a
-// thread, its tile is ~96 KB (12 points at the view transformer's shape),
-// two blocks to an SM (a sweep on the H100 over 128 or 256 threads and
-// 40-224 KB tiles put this first).
+// Backward design: the forward's stream with a fourth input. At route A's
+// shape a point reads q, k, v and g (4 x 320 floats) and writes dq, dk and
+// dv (3 x 320) for ~6k FLOP, so bytes bound it too (0.175 ms at B =
+// 65,536). Persistent blocks walk over tiles of points; the four input
+// tiles arrive by 1-D TMA bulk copies into a ring of two stages, phi is
+// applied to q and k once per stage in place (dphi(x) = min(phi(x), 1)
+// needs nothing else), and dq, dk and dv go into one of two shared output
+// tiles that leave by three bulk stores while the next tile computes. The
+// sums over the L query tokens (dk and dv) and over the S source tokens
+// (dq) run in two phases with one barrier between them, so no shared
+// value is read, modified and written: phase 1 takes one (point, l, h)
+// item a thread (the forward's mapping), recomputes the scores, the
+// denominator and g . out, writes dq, and leaves sc / den and ds for each
+// s in a scratch row of the point; phase 2 takes one (point, s, h) item a
+// thread and sums those rows over l into dk and dv. Both phases read and
+// write their rows as consecutive runs (float4, float2 or float pieces, as
+// in the forward). The backward is built for bounds on the shape known
+// when compiled (4, 6 or 8 tokens; 8, 10 or 16 channels), so its unrolled
+// loops issue no step past L, S, D and M: with the forward's runtime
+// bounds (8 and 16) half of its issue slots at route A's shape were
+// predicated off, and its arithmetic, not its copies, set its time. The
+// tile is the one that keeps the most items resident on an SM by shared
+// memory: 4 points (128 items, 76,304 bytes, three blocks an SM) at route
+// A's shape, 1 point at L = S = 6. (On the H100, timed with
+// script/head_variants.py: the runtime bounds took 0.324 ms at route A's
+// shape, these 0.207 ms, the copies alone 0.207 ms.) Bulk copies need
+// 16-byte addresses and sizes, as in the forward: aligned tensors from the
+// wrapper, tiles of a multiple of 4 points where a row needs it, and the
+// ragged last tile loaded and stored element by element.
 #include <cstdint>
 #include <initializer_list>
 
@@ -173,11 +189,12 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// n floats from shared memory into r[0, n), zero past n; VW floats a load
-template <int VW>
-__device__ __forceinline__ void load_row(float (&r)[kMaxDim], const float* src, int n) {
+// n <= N floats from shared memory into r[0, n), zero past n; VW floats a
+// load
+template <int VW, int N>
+__device__ __forceinline__ void load_row(float (&r)[N], const float* src, int n) {
 #pragma unroll
-  for (int i = 0; i < kMaxDim; i += VW) {
+  for (int i = 0; i < N; i += VW) {
     if (i < n) {
       if constexpr (VW == 4) {
         const float4 x = *reinterpret_cast<const float4*>(src + i);
@@ -195,10 +212,10 @@ __device__ __forceinline__ void load_row(float (&r)[kMaxDim], const float* src, 
   }
 }
 
-template <int VW>
-__device__ __forceinline__ void store_row(float* dst, const float (&r)[kMaxDim], int n) {
+template <int VW, int N>
+__device__ __forceinline__ void store_row(float* dst, const float (&r)[N], int n) {
 #pragma unroll
-  for (int i = 0; i < kMaxDim; i += VW) {
+  for (int i = 0; i < N; i += VW) {
     if (i < n) {
       if constexpr (VW == 4) {
         *reinterpret_cast<float4*>(dst + i) = make_float4(r[i], r[i + 1], r[i + 2], r[i + 3]);
@@ -345,167 +362,291 @@ __global__ void __launch_bounds__(kFwdThreads, 2) fwd_kernel(
   if (tid == 0) bulk_wait_all();
 }
 
-// ---- backward ----
+// ---- backward: persistent blocks fed by TMA bulk copies ----
 
-constexpr int kThreads = 128;
-constexpr int kMaxTile = 32;
-constexpr int kBwdBudget = 96 * 1024;   // shared memory a tile aims at
+constexpr int kBwdThreads = 128;   // at most; fewer when a tile has fewer items
+constexpr int kBwdItems = 128;     // items of the larger phase a tile holds at most
+constexpr int kBwdStages = 2;      // input stages in the ring
+constexpr int kBwdMaxTile = 64;
+constexpr int kSmemPerSm = 233472;   // an SM's shared memory
+constexpr int kSmemPerBlock = 1024;  // the runtime's share of it for each block
 
-// Shared-memory row stride of a point's `row` floats: odd, so that rows of
-// consecutive points start in different banks.
-__host__ __device__ inline int padded(int row) { return row | 1; }
+// A scratch row of the backward: one source token s of a point, holding
+// sc / den, then ds, of each of its L H (query token, head) items, padded
+// by H floats so that the second phase reads it conflict-free at L H = 32.
+__host__ __device__ inline int scratch_row(const Dims& t) { return 2 * t.l * t.h + t.h; }
 
-// Shared floats per point of the backward: q (then dq), k, v, g, dk, dv.
-inline int row_floats(const Dims& t) {
-  const int q = padded(t.l * t.h * t.d), k = padded(t.s * t.h * t.d);
-  const int v = padded(t.s * t.h * t.m), o = padded(t.l * t.h * t.m);
-  return q + 2 * k + 2 * v + o;
+// A backward tile: points, input stages, threads and shared bytes (0 points
+// when the smallest tile does not fit). Of the tiles of at most kBwdItems
+// items, the one that keeps the most items resident on an SM by its shared
+// memory, ties to the larger tile: 4 points (128 items, three blocks) at
+// L = S = 4, H = 8, D = M = 10; 1 point (48 items, seven blocks) at L = S = 6.
+struct BwdPlan {
+  int tile, stages, threads;
+  size_t smem;
+};
+
+inline BwdPlan bwd_plan(const Dims& t) {
+  const int rq = t.l * t.h * t.d, rk = t.s * t.h * t.d;
+  const int rv = t.s * t.h * t.m, rg = t.l * t.h * t.m;
+  // tiles hold a multiple of g points, so that every tile is a multiple
+  // of 16 bytes
+  int g = 1;
+  for (int r : {rq, rk, rv, rg})
+    while ((g * r) % 4) g *= 2;
+  // ring of stages x [Q | K | V | G], two output tiles [dQ | dK | dV],
+  // the barriers, then the scratch, S rows a point
+  auto bytes = [&](int tile) {
+    return sizeof(float) * (size_t)tile *
+               ((size_t)kBwdStages * (rq + rk + rv + rg) + 2 * (size_t)(rq + rk + rv) +
+                (size_t)t.s * scratch_row(t)) +
+           sizeof(unsigned long long) * kBwdStages;
+  };
+  const int items = (t.l > t.s ? t.l : t.s) * t.h;   // a point's, in the larger phase
+  auto threads = [&](int tile) {
+    const int n = (tile * items + 31) / 32 * 32;
+    return n < kBwdThreads ? n : kBwdThreads;
+  };
+  BwdPlan best{0, 0, 0, 0};
+  long long best_items = 0;
+  for (int tile = g; tile <= kBwdMaxTile && (tile == g || tile * items <= kBwdItems);
+       tile += g) {
+    if (bytes(tile) > (size_t)kSmemMax) break;
+    long long blocks = kSmemPerSm / (long long)(bytes(tile) + kSmemPerBlock);
+    const long long by_threads = 2048 / threads(tile);
+    blocks = blocks < by_threads ? blocks : by_threads;
+    blocks = blocks < 32 ? blocks : 32;
+    const long long resident = blocks * tile * items;
+    if (resident >= best_items) {   // ties to the larger tile: fewer barriers a point
+      best = {tile, kBwdStages, threads(tile), bytes(tile)};
+      best_items = resident;
+    }
+  }
+  return best;
 }
 
-// Points per backward block: as many as fit the budget, at least one, at
-// most 32; 0 when one point's rows exceed Hopper's opt-in shared memory.
-inline int tile_points(const Dims& t) {
-  const long long bytes = 4LL * row_floats(t);
-  if (bytes > kSmemMax) return 0;
-  const long long n = kBwdBudget / bytes;
-  return (int)(n < 1 ? 1 : n > kMaxTile ? kMaxTile : n);
+// Phase 1 of the backward over n points in shared memory, one (p, l, h)
+// item idx = (p L + l) H + h a thread, from Q = phi(q), K = phi(k), V and
+// G: the scores, the denominator and the output recomputed, then for each
+// source token s, into the point's scratch row s,
+//   W[s][l H + h] = sc / den,   W[s][L H + l H + h] = ds = (g . v_s - g . out) / den,
+// and dq = sum_s ds K_s * dphi(q) into DQ,
+// with dphi(x) = min(phi(x), 1). The S scores are independent dot products,
+// taken first; sums over s run in order. L, S <= NT and D, M <= ND.
+template <int VW, int NT, int ND>
+__device__ __forceinline__ void bwd_items(const float* Q, const float* K, const float* V,
+                                          const float* G, float* W, float* DQ, const Dims& t,
+                                          int n) {
+  const int H = t.h, D = t.d, M = t.m, LH = t.l * H, SW = scratch_row(t);
+  for (int idx = threadIdx.x; idx < n * LH; idx += blockDim.x) {
+    const int p = idx / LH, lh = idx - p * LH, h = lh % H;
+    const float* kp = K + ((size_t)p * t.s * H + h) * D;   // k[p, s, h] at kp + s H D
+    const float* vp = V + ((size_t)p * t.s * H + h) * M;
+    float qf[ND], gl[ND], row[ND], acc[ND], sc[NT], gv[NT];
+    load_row<VW>(qf, Q + (size_t)idx * D, D);
+    load_row<VW>(gl, G + (size_t)idx * M, M);
+#pragma unroll
+    for (int s = 0; s < NT; ++s) {
+      sc[s] = 0.f;
+      if (s < t.s) {
+        load_row<VW>(row, kp + (size_t)s * H * D, D);
+#pragma unroll
+        for (int d = 0; d < ND; ++d)
+          if (d < D) sc[s] = fmaf(qf[d], row[d], sc[s]);
+      }
+    }
+    float den = 0.f;
+#pragma unroll
+    for (int s = 0; s < NT; ++s)
+      if (s < t.s) den += sc[s];
+    den += kAttnEps;
+    const float inv = 1.f / den;
+    // the output's numerator and g . v_s, from one read of each v row
+#pragma unroll
+    for (int m = 0; m < ND; ++m) acc[m] = 0.f;
+#pragma unroll
+    for (int s = 0; s < NT; ++s) {
+      gv[s] = 0.f;
+      if (s < t.s) {
+        load_row<VW>(row, vp + (size_t)s * H * M, M);
+#pragma unroll
+        for (int m = 0; m < ND; ++m)
+          if (m < M) {
+            acc[m] = fmaf(sc[s], row[m], acc[m]);
+            gv[s] = fmaf(gl[m], row[m], gv[s]);
+          }
+      }
+    }
+    float go = 0.f;
+#pragma unroll
+    for (int m = 0; m < ND; ++m)
+      if (m < M) go = fmaf(gl[m], acc[m] * inv, go);
+    float* wp = W + (size_t)p * t.s * SW + lh;   // W[p][s][lh] at wp + s SW
+    float* dp = wp + LH;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) acc[d] = 0.f;
+#pragma unroll
+    for (int s = 0; s < NT; ++s) {
+      if (s < t.s) {
+        const float ds = (gv[s] - go) * inv;
+        wp[s * SW] = sc[s] * inv;
+        dp[s * SW] = ds;
+        load_row<VW>(row, kp + (size_t)s * H * D, D);
+#pragma unroll
+        for (int d = 0; d < ND; ++d)
+          if (d < D) acc[d] = fmaf(ds, row[d], acc[d]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d) acc[d] *= fminf(qf[d], 1.f);
+    store_row<VW>(DQ + (size_t)idx * D, acc, D);
+  }
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
+// Phase 2: one (p, s, h) item idx = (p S + s) H + h a thread sums its
+// point's L query tokens in order, from the scratch row phase 1 wrote:
+//   dv = sum_l W[s][l H + h] g_l,   dk = sum_l W[s][L H + l H + h] Q_l * dphi(k),
+// so the sums over l need no shared-memory read-modify-write.
+template <int VW, int NT, int ND>
+__device__ __forceinline__ void bwd_sources(const float* Q, const float* K, const float* G,
+                                            const float* W, float* DK, float* DV,
+                                            const Dims& t, int n) {
+  const int H = t.h, D = t.d, M = t.m, SH = t.s * H, SW = scratch_row(t);
+  for (int idx = threadIdx.x; idx < n * SH; idx += blockDim.x) {
+    const int p = idx / SH, sh = idx - p * SH, s = sh / H, h = sh - s * H;
+    const float* qp = Q + ((size_t)p * t.l * H + h) * D;   // q[p, l, h] at qp + l H D
+    const float* gp = G + ((size_t)p * t.l * H + h) * M;
+    const float* wp = W + ((size_t)p * t.s + s) * SW + h;  // W[p][s][l H + h] at wp + l H
+    const float* dp = wp + t.l * H;
+    float dk[ND], dv[ND], row[ND];
+#pragma unroll
+    for (int d = 0; d < ND; ++d) dk[d] = dv[d] = 0.f;
+#pragma unroll
+    for (int l = 0; l < NT; ++l) {
+      if (l < t.l) {
+        const float w = wp[l * H], ds = dp[l * H];
+        load_row<VW>(row, gp + (size_t)l * H * M, M);
+#pragma unroll
+        for (int m = 0; m < ND; ++m)
+          if (m < M) dv[m] = fmaf(w, row[m], dv[m]);
+        load_row<VW>(row, qp + (size_t)l * H * D, D);
+#pragma unroll
+        for (int d = 0; d < ND; ++d)
+          if (d < D) dk[d] = fmaf(ds, row[d], dk[d]);
+      }
+    }
+    load_row<VW>(row, K + (size_t)idx * D, D);
+#pragma unroll
+    for (int d = 0; d < ND; ++d) dk[d] *= fminf(row[d], 1.f);
+    store_row<VW>(DK + (size_t)idx * D, dk, D);
+    store_row<VW>(DV + (size_t)idx * M, dv, M);
+  }
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+// The two phases over n points, by every thread of the block.
+template <int VW, int NT, int ND>
+__device__ __forceinline__ void backprop(const float* Q, const float* K, const float* V,
+                                         const float* G, float* W, float* DQ, float* DK,
+                                         float* DV, const Dims& t, int n) {
+  bwd_items<VW, NT, ND>(Q, K, V, G, W, DQ, t, n);
+  __syncthreads();
+  bwd_sources<VW, NT, ND>(Q, K, G, W, DK, DV, t, n);
 }
 
-// n rows of `row` floats, contiguous in global memory from src, into shared
-// rows of stride padded(row); one warp per row, lanes on consecutive floats.
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          int row, int n) {
-  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  const int ld = padded(row);
-  for (int p = threadIdx.x >> 5; p < n; p += nw)
-    for (int r = lane; r < row; r += 32)
-      cp_async4(dst + p * ld + r, src + (size_t)p * row + r);
-}
-
-// The reverse: shared rows back to contiguous global rows.
-__device__ __forceinline__ void store_tile(float* __restrict__ dst, const float* src,
-                                           int row, int n) {
-  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  const int ld = padded(row);
-  for (int p = threadIdx.x >> 5; p < n; p += nw)
-    for (int r = lane; r < row; r += 32) dst[(size_t)p * row + r] = src[p * ld + r];
-}
-
-__global__ void __launch_bounds__(kThreads) bwd_kernel(
+template <int VW, int NT, int ND>
+__global__ void __launch_bounds__(kBwdThreads, 3) bwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v,
     const float* __restrict__ g,   // (B, L, H, M) gradient of the output
     float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-    Dims t, int tile) {
-  extern __shared__ float smem[];
-  const int H = t.h, D = t.d, M = t.m;
-  const int rq = t.l * H * D, rk = t.s * H * D, rv = t.s * H * M, rg = t.l * H * M;
-  const int lq = padded(rq), lk = padded(rk), lv = padded(rv), lg = padded(rg);
-  float* Q = smem;               // q, overwritten by dq row by row
-  float* K = Q + tile * lq;      // phi(k)
-  float* V = K + tile * lk;
-  float* G = V + tile * lv;
-  float* DK = G + tile * lg;     // sum_l ds phi(q), times dphi(k) at the end
-  float* DV = DK + tile * lk;
-  const size_t p0 = (size_t)blockIdx.x * tile;
-  const int n = min(tile, t.b - (int)p0);   // the last tile may be ragged
+    Dims t, int tile, int stages) {
+  extern __shared__ float4 smem4[];
+  const int rq = t.l * t.h * t.d, rk = t.s * t.h * t.d;
+  const int rv = t.s * t.h * t.m, rg = t.l * t.h * t.m;
+  const int stage_floats = tile * (rq + rk + rv + rg);
+  const int out_floats = tile * (rq + rk + rv);
+  float* ring = reinterpret_cast<float*>(smem4);       // stages x [Q | K | V | G]
+  float* obuf = ring + stages * stage_floats;          // 2 x [dQ | dK | dV]
+  auto* full = reinterpret_cast<unsigned long long*>(obuf + 2 * out_floats);
+  float* W = reinterpret_cast<float*>(full + stages);  // tile x S scratch rows
+  const int tid = threadIdx.x;
+  const int nfull = t.b / tile;                        // whole tiles
+  // this block's whole tiles: blockIdx.x + i gridDim.x, i < mine
+  const int mine = (int)blockIdx.x < nfull ? (nfull - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const uint32_t bq = 4u * tile * rq, bk = 4u * tile * rk, bv = 4u * tile * rv,
+                 bg = 4u * tile * rg;
 
-  load_tile(Q, q + p0 * rq, rq, n);
-  load_tile(K, k + p0 * rk, rk, n);
-  load_tile(V, v + p0 * rv, rv, n);
-  load_tile(G, g + p0 * rg, rg, n);
-  for (int i = threadIdx.x; i < n * lk; i += blockDim.x) DK[i] = 0.f;
-  for (int i = threadIdx.x; i < n * lv; i += blockDim.x) DV[i] = 0.f;
-  cp_async_wait_all();
-  __syncthreads();
-  for (int i = threadIdx.x; i < n * lk; i += blockDim.x) K[i] = phi(K[i]);
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < tile * H; idx += blockDim.x) {
-    const int p = idx % tile, h = idx / tile;
-    if (p >= n) continue;
-    float* qr = Q + p * lq + h * D;
-    const float* kr = K + p * lk + h * D;
-    const float* vr = V + p * lv + h * M;
-    const float* gr = G + p * lg + h * M;
-    float* dkr = DK + p * lk + h * D;
-    float* dvr = DV + p * lv + h * M;
-    for (int l = 0; l < t.l; ++l) {
-      float qf[kMaxDim], gl[kMaxDim], out[kMaxDim], dqf[kMaxDim], sc[kMaxLen];
-#pragma unroll
-      for (int d = 0; d < kMaxDim; ++d) {
-        qf[d] = d < D ? phi(qr[l * H * D + d]) : 0.f;
-        gl[d] = d < M ? gr[l * H * M + d] : 0.f;
-        out[d] = 0.f;
-        dqf[d] = 0.f;
-      }
-      // recompute the scores, the denominator and the output
-      float den = 0.f;
-#pragma unroll
-      for (int s = 0; s < kMaxLen; ++s) {
-        sc[s] = 0.f;
-        if (s < t.s) {
-          const float* ks = kr + s * H * D;
-          const float* vs = vr + s * H * M;
-#pragma unroll
-          for (int d = 0; d < kMaxDim; ++d)
-            if (d < D) sc[s] = fmaf(qf[d], ks[d], sc[s]);
-          den += sc[s];
-#pragma unroll
-          for (int m = 0; m < kMaxDim; ++m)
-            if (m < M) out[m] = fmaf(sc[s], vs[m], out[m]);
-        }
-      }
-      den += kAttnEps;
-#pragma unroll
-      for (int m = 0; m < kMaxDim; ++m) out[m] /= den;
-#pragma unroll
-      for (int s = 0; s < kMaxLen; ++s) {
-        if (s < t.s) {
-          const float* ks = kr + s * H * D;
-          const float* vs = vr + s * H * M;
-          // ds = sum_m g (v_s - out) / den; dv_s += sc / den * g
-          float acc = 0.f;
-#pragma unroll
-          for (int m = 0; m < kMaxDim; ++m)
-            if (m < M) acc = fmaf(gl[m], vs[m] - out[m], acc);
-          const float ds = acc / den;
-          const float w = sc[s] / den;
-#pragma unroll
-          for (int m = 0; m < kMaxDim; ++m)
-            if (m < M) dvr[s * H * M + m] = fmaf(w, gl[m], dvr[s * H * M + m]);
-#pragma unroll
-          for (int d = 0; d < kMaxDim; ++d)
-            if (d < D) {
-              dqf[d] = fmaf(ds, ks[d], dqf[d]);
-              dkr[s * H * D + d] = fmaf(ds, qf[d], dkr[s * H * D + d]);
-            }
-        }
-      }
-      // dq over the row's q, which this thread alone reads
-#pragma unroll
-      for (int d = 0; d < kMaxDim; ++d)
-        if (d < D) qr[l * H * D + d] = dqf[d] * fminf(qf[d], 1.f);
-    }
-    for (int s = 0; s < t.s; ++s)
-#pragma unroll
-      for (int d = 0; d < kMaxDim; ++d)
-        if (d < D) dkr[s * H * D + d] *= fminf(kr[s * H * D + d], 1.f);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(full + s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  store_tile(dq + p0 * rq, Q, rq, n);
-  store_tile(dk + p0 * rk, DK, rk, n);
-  store_tile(dv + p0 * rv, DV, rv, n);
+  // thread 0 keeps the ring full: tile i into stage i % stages
+  auto fetch = [&](int i) {
+    const int s = i % stages;
+    float* Qs = ring + s * stage_floats;
+    const size_t p0 = (size_t)(blockIdx.x + (size_t)i * gridDim.x) * tile;
+    mbar_expect(full + s, bq + bk + bv + bg);
+    bulk_load(Qs, q + p0 * rq, bq, full + s);
+    bulk_load(Qs + tile * rq, k + p0 * rk, bk, full + s);
+    bulk_load(Qs + tile * (rq + rk), v + p0 * rv, bv, full + s);
+    bulk_load(Qs + tile * (rq + rk + rv), g + p0 * rg, bg, full + s);
+  };
+  if (tid == 0)
+    for (int i = 0; i < stages && i < mine; ++i) fetch(i);
+
+  for (int i = 0; i < mine; ++i) {
+    const int s = i % stages;
+    float* Qs = ring + s * stage_floats;
+    float* Ks = Qs + tile * rq;
+    float* Vs = Ks + tile * rk;
+    float* Gs = Vs + tile * rv;
+    float* Os = obuf + (i & 1) * out_floats;
+    mbar_wait(full + s, (i / stages) & 1);
+    // the three stores of tile i - 2 are done reading Os
+    if (tid == 0) bulk_wait_read<3>();
+    // phi of q and k, once per stage, in place (Q and K are adjacent)
+    float4* QK4 = reinterpret_cast<float4*>(Qs);
+    for (int j = tid; j < tile * (rq + rk) / 4; j += blockDim.x) {
+      const float4 x = QK4[j];
+      QK4[j] = make_float4(phi(x.x), phi(x.y), phi(x.z), phi(x.w));
+    }
+    __syncthreads();
+    backprop<VW, NT, ND>(Qs, Ks, Vs, Gs, W, Os, Os + tile * rq, Os + tile * (rq + rk), t, tile);
+    fence_async_shared();
+    // Os is whole and the stage is free
+    __syncthreads();
+    if (tid == 0) {
+      const size_t p0 = (size_t)(blockIdx.x + (size_t)i * gridDim.x) * tile;
+      bulk_store(dq + p0 * rq, Os, bq);
+      bulk_store(dk + p0 * rk, Os + tile * rq, bk);
+      bulk_store(dv + p0 * rv, Os + tile * (rq + rk), bv);
+      if (i + stages < mine) fetch(i + stages);
+    }
+  }
+
+  // the ragged last tile, element by element, by the block whose turn it is
+  const int n = t.b - nfull * tile;
+  if (n > 0 && (int)blockIdx.x == nfull % (int)gridDim.x) {
+    float* Qs = ring;
+    float* Ks = Qs + tile * rq;
+    float* Vs = Ks + tile * rk;
+    float* Gs = Vs + tile * rv;
+    float *DQ = obuf, *DK = DQ + tile * rq, *DV = DK + tile * rk;
+    const size_t p0 = (size_t)nfull * tile;
+    if (tid == 0) bulk_wait_read<0>();
+    for (int j = tid; j < n * rq; j += blockDim.x) Qs[j] = phi(q[p0 * rq + j]);
+    for (int j = tid; j < n * rk; j += blockDim.x) Ks[j] = phi(k[p0 * rk + j]);
+    for (int j = tid; j < n * rv; j += blockDim.x) Vs[j] = v[p0 * rv + j];
+    for (int j = tid; j < n * rg; j += blockDim.x) Gs[j] = g[p0 * rg + j];
+    __syncthreads();
+    backprop<VW, NT, ND>(Qs, Ks, Vs, Gs, W, DQ, DK, DV, t, n);
+    __syncthreads();
+    for (int j = tid; j < n * rq; j += blockDim.x) dq[p0 * rq + j] = DQ[j];
+    for (int j = tid; j < n * rk; j += blockDim.x) dk[p0 * rk + j] = DK[j];
+    for (int j = tid; j < n * rv; j += blockDim.x) dv[p0 * rv + j] = DV[j];
+  }
+  if (tid == 0) bulk_wait_all();
 }
 
 inline bool dims_ok(const Dims& t) {
@@ -513,42 +654,75 @@ inline bool dims_ok(const Dims& t) {
          t.h >= 1 && t.d >= 1 && t.d <= kMaxDim && t.m >= 1 && t.m <= kMaxDim;
 }
 
-int launch_bwd(const float* q, const float* k, const float* v, const float* g,
-               float* dq, float* dk, float* dv, const Dims& t, cudaStream_t stream) {
-  if (!dims_ok(t)) return (int)cudaErrorInvalidValue;
-  if (t.b == 0) return 0;
-  const int tile = tile_points(t);
-  if (tile == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)tile * row_floats(t);
-  cudaError_t e = cudaFuncSetAttribute(
-      bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned blocks = (unsigned)((t.b + tile - 1) / tile);
-  bwd_kernel<<<blocks, kThreads, smem, stream>>>(q, k, v, g, dq, dk, dv, t, tile);
-  return (int)cudaGetLastError();
-}
-
-template <int VW>
-int launch_fwd(const float* q, const float* k, const float* v, float* o, const Dims& t,
-               const FwdPlan& plan, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fwd_kernel<VW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+// Persistent grid of `kernel` at this block size and shared memory: as many
+// blocks as are resident at once, at most one a whole tile, at least one
+// (for the ragged tile). Returns a cudaError_t value.
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int threads, size_t smem, long long whole,
+                    unsigned* grid) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fwd_kernel<VW>, kFwdThreads,
-                                                         plan.smem)) != cudaSuccess)
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
+      cudaSuccess)
     return (int)e;
-  // persistent: as many blocks as are resident at once, at most one a
-  // whole tile, at least one (for the ragged tile)
-  const long long whole = t.b / plan.tile;
-  long long grid = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  grid = grid < whole ? grid : whole;
-  grid = grid < 1 ? 1 : grid;
-  fwd_kernel<VW><<<(unsigned)grid, kFwdThreads, plan.smem, stream>>>(q, k, v, o, t, plan.tile,
-                                                                     plan.stages);
+  long long n = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  n = n < whole ? n : whole;
+  *grid = (unsigned)(n < 1 ? 1 : n);
+  return 0;
+}
+
+template <int VW, int NT, int ND>
+int launch_bwd(const float* q, const float* k, const float* v, const float* g, float* dq,
+               float* dk, float* dv, const Dims& t, const BwdPlan& plan,
+               cudaStream_t stream) {
+  unsigned grid = 0;
+  const int e = persistent_grid(bwd_kernel<VW, NT, ND>, plan.threads, plan.smem,
+                                t.b / plan.tile, &grid);
+  if (e) return e;
+  bwd_kernel<VW, NT, ND><<<grid, plan.threads, plan.smem, stream>>>(
+      q, k, v, g, dq, dk, dv, t, plan.tile, plan.stages);
+  return (int)cudaGetLastError();
+}
+
+// The backward built for the shape: the smallest of 4, 6 and 8 tokens that
+// holds L and S, and of 8, 10 (rows read in pieces of one or two floats)
+// and 16 channels that holds D and M, so that its unrolled loops run no
+// step past the shape.
+template <int VW, int NT>
+int launch_bwd_dims(const float* q, const float* k, const float* v, const float* g,
+                    float* dq, float* dk, float* dv, const Dims& t, const BwdPlan& plan,
+                    cudaStream_t stream) {
+  if (t.d <= 8 && t.m <= 8) return launch_bwd<VW, NT, 8>(q, k, v, g, dq, dk, dv, t, plan, stream);
+  if constexpr (VW != 4)
+    if (t.d <= 10 && t.m <= 10)
+      return launch_bwd<VW, NT, 10>(q, k, v, g, dq, dk, dv, t, plan, stream);
+  return launch_bwd<VW, NT, kMaxDim>(q, k, v, g, dq, dk, dv, t, plan, stream);
+}
+
+template <int VW>
+int launch_bwd_tokens(const float* q, const float* k, const float* v, const float* g,
+                      float* dq, float* dk, float* dv, const Dims& t, const BwdPlan& plan,
+                      cudaStream_t stream) {
+  if (t.l <= 4 && t.s <= 4)
+    return launch_bwd_dims<VW, 4>(q, k, v, g, dq, dk, dv, t, plan, stream);
+  if (t.l <= 6 && t.s <= 6)
+    return launch_bwd_dims<VW, 6>(q, k, v, g, dq, dk, dv, t, plan, stream);
+  return launch_bwd_dims<VW, kMaxLen>(q, k, v, g, dq, dk, dv, t, plan, stream);
+}
+
+template <int VW>
+int launch_fwd(const float* q, const float* k, const float* v, float* o, const Dims& t,
+               const FwdPlan& plan, cudaStream_t stream) {
+  unsigned grid = 0;
+  const int e = persistent_grid(fwd_kernel<VW>, kFwdThreads, plan.smem, t.b / plan.tile, &grid);
+  if (e) return e;
+  fwd_kernel<VW><<<grid, kFwdThreads, plan.smem, stream>>>(q, k, v, o, t, plan.tile,
+                                                           plan.stages);
   return (int)cudaGetLastError();
 }
 
@@ -557,8 +731,8 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o, const D
 
 // Both return a cudaError_t value (0 on success): cudaErrorInvalidValue for
 // L or S outside 1..8, D or M outside 1..16, or rows that do not fit in
-// shared memory. Tensors are contiguous float32; the forward's start on
-// 16-byte boundaries.
+// shared memory. Tensors are contiguous float32 starting on 16-byte
+// boundaries (TMA bulk copies).
 extern "C" int ufo_tiny_attention_fwd(const float* q, const float* k, const float* v,
                                       float* o, int b, int l, int s, int h, int d,
                                       int m, void* stream) {
@@ -579,6 +753,16 @@ extern "C" int ufo_tiny_attention_bwd(const float* q, const float* k, const floa
                                       const float* g, float* dq, float* dk, float* dv,
                                       int b, int l, int s, int h, int d, int m,
                                       void* stream) {
-  const ufo::ta::Dims t{b, l, s, h, d, m};
-  return ufo::ta::launch_bwd(q, k, v, g, dq, dk, dv, t, static_cast<cudaStream_t>(stream));
+  using namespace ufo::ta;
+  const Dims t{b, l, s, h, d, m};
+  if (!dims_ok(t)) return (int)cudaErrorInvalidValue;
+  if (b == 0) return 0;
+  const BwdPlan plan = bwd_plan(t);
+  if (plan.tile == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d % 4 == 0 && m % 4 == 0)
+    return launch_bwd_tokens<4>(q, k, v, g, dq, dk, dv, t, plan, st);
+  if (d % 2 == 0 && m % 2 == 0)
+    return launch_bwd_tokens<2>(q, k, v, g, dq, dk, dv, t, plan, st);
+  return launch_bwd_tokens<1>(q, k, v, g, dq, dk, dv, t, plan, st);
 }

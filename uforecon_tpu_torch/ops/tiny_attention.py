@@ -18,9 +18,13 @@ persistent blocks stream tiles of points through a ring of shared-memory
 stages by TMA bulk copies (one per input and tile), one thread computes one
 (point, query token, head) item, and the output tile leaves by a bulk
 store; the bulk copies need 16-byte-aligned tensors (``cuda_build.aligned``).
-Backward design: a block copies a tile of points, coalesced, into shared
-memory, one thread computes one (point, head) pair there, and the output
-tiles are stored back coalesced.
+Backward design: the same stream with g as a fourth input and dq, dk and
+dv leaving by bulk stores; one thread per (point, query token, head) item
+recomputes the attention and writes dq, then one thread per (point, source
+token, head) item sums over the query tokens into dk and dv, so no sum
+goes through a shared-memory read-modify-write. It is built for bounds on
+L, S, D and M known when compiled, so that its arithmetic hides behind its
+copies; bytes bound it (7 x 83.9 MB at route A's shape, 0.175 ms).
 
 ``tiny_linear_attention`` takes the plain version for CPU tensors only.
 For CUDA tensors it launches the forward kernel or raises, inside an
@@ -127,7 +131,7 @@ def _launch_bwd(q, k, v, g):
         raise ValueError(f"tiny_attention backward kernel takes g (B, L, H, M), "
                          f"got {tuple(g.shape)}")
     ext = cuda_build.extension()
-    q, k, v, g = (t.contiguous() for t in (q, k, v, g))
+    q, k, v, g = (cuda_build.aligned(t) for t in (q, k, v, g))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     with torch.cuda.device(q.device):
         ext.tiny_attention_bwd(q, k, v, g, dq, dk, dv)

@@ -1,27 +1,38 @@
 """Where the kernels' time goes: variants of ``csrc/point_head.cu``,
-``csrc/point_head2.cu``, ``csrc/ray_head.cu`` and ``csrc/tiny_attention.cu``
-timed apart on one GPU.
+``csrc/point_head2.cu``, ``csrc/ray_head.cu``, ``csrc/tiny_attention.cu``
+(forward and backward) and ``csrc/volume_fusion.cu`` timed apart on one
+GPU.
 
-    python -m uforecon_tpu_torch.script.head_variants ph ph,nogemm ph2 rh rh,rh_ln ta,S=2
+    python -m uforecon_tpu_torch.script.head_variants ph ph,nogemm ph2 rh rh,rh_ln ta,S=2 \
+        tb tb,tb_stream vf vf,T=128
 
 Each variant is a copy of ``csrc/`` with a few lines replaced, built by
 ``nvcc`` (all variants at once) into a shared library with the kernels'
-plain C interface, and timed with CUDA events (mean of 20 launches) at the
-main path's shapes: the point heads at P = 65,536 points and 3 views, the
-ray head over 1024 rays of 64 and of 128 samples at width 88, the
-tiny-attention forward at B = 65,536, L = S = 4, 8 heads of D = M = 10
-(route A) and 8 (route B), on seeded random weights and inputs. A variant
-is a kernel (``ph``, ``ph2``, ``rh`` or ``ta``) followed by comma-separated
-options:
+plain C interface, and timed with CUDA events (mean of 20 launches, back to
+back on the same inputs) and by torch.profiler (the kernels' mean device
+time over 20 launches) at the main path's shapes: the point heads at P =
+65,536 points and 3 views, the ray head over 1024 rays of 64 and of 128
+samples at width 88, the tiny-attention forward at B = 65,536, L = S = 4,
+8 heads of D = M = 10 (route A) and 8 (route B), its backward at B =
+65,536, 8 heads of D = M = 10, L = S = 4 (route A) and 6 (the training
+shape), the volume fusion at P = 65,536 and 3 views in the sampler's
+channel-first layout (its 27.5 MB stay in the L2 between launches), on
+seeded random weights and inputs. A variant is a kernel (``ph``, ``ph2``,
+``rh``, ``ta``, ``tb`` or ``vf``) followed by comma-separated options:
 
   NAME=VALUE  a constant of the kernel's source (``CONSTANTS``), e.g.
               ``T=256`` threads a block, ``S=3`` weight-ring slots (for
-              ``ta``: input stages);
+              ``ta`` and ``tb``: input stages), ``I=64`` items a tile;
   a patch     of ``PATCHES``: ``nogemm`` skips the tensor-core layers;
               ``onemma`` keeps one of the three 3xTF32 products;
               ``nosync`` drops the per-step sync, ``noload`` the weight
-              loads; ``ph_*`` / ``ph2_*`` / ``rh_*`` / ``ta_*`` skip one
-              phase of a kernel.
+              loads; ``ph_*`` / ``ph2_*`` / ``rh_*`` / ``ta_*`` / ``tb_*``
+              skip one phase of a kernel; ``tb_stream`` keeps only the
+              backward's copies (no arithmetic); ``vf_stream`` keeps the
+              fusion's loads and stores with a plain sum in place of its
+              products and divisions, ``vf_fastdiv`` takes approximate
+              divisions, ``vf_direct`` stores each point's row from
+              registers instead of through shared memory.
 
 A variant that skips work gives wrong outputs: its max abs error against
 the plain version is printed, not checked. The difference between two
@@ -44,7 +55,7 @@ import torch
 from ..ops import cuda_build
 
 SOURCE = {"ph": "point_head.cu", "ph2": "point_head2.cu", "rh": "ray_head.cu",
-          "ta": "tiny_attention.cu"}
+          "ta": "tiny_attention.cu", "tb": "tiny_attention.cu", "vf": "volume_fusion.cu"}
 # kernel -> NAME -> (the source's line, its replacement with {} for VALUE)
 CONSTANTS = {
     "ph": {"TP": ("constexpr int TP = 16;", "constexpr int TP = {};"),
@@ -60,6 +71,11 @@ CONSTANTS = {
     "ta": {"T": ("constexpr int kFwdThreads = 128;", "constexpr int kFwdThreads = {};"),
            "I": ("constexpr int kFwdItems = 128;", "constexpr int kFwdItems = {};"),
            "S": ("constexpr int kFwdStages = 2;", "constexpr int kFwdStages = {};")},
+    "tb": {"T": ("constexpr int kBwdThreads = 128;", "constexpr int kBwdThreads = {};"),
+           "I": ("constexpr int kBwdItems = 128;", "constexpr int kBwdItems = {};"),
+           "S": ("constexpr int kBwdStages = 2;", "constexpr int kBwdStages = {};"),
+           "LB": ("__launch_bounds__(kBwdThreads, 3)", "__launch_bounds__(kBwdThreads, {})")},
+    "vf": {"T": ("constexpr int kThreads = 64;", "constexpr int kThreads = {};")},
 }
 
 
@@ -73,6 +89,15 @@ def _empty_loop(line, bound):
     """(line, the loop made to run no iteration)."""
     return line, line.replace(f"< {bound};", f"< 0 * {bound};")
 
+
+# the backward's three arithmetic phases: phi of q and k, the (point, l,
+# h) items, the (point, s, h) items
+_TB_PHI = [("tiny_attention.cu", *_empty_loop(
+    "    for (int j = tid; j < tile * (rq + rk) / 4; j += blockDim.x) {", "tile * (rq + rk) / 4"))]
+_TB_ITEMS = [("tiny_attention.cu", *_empty_loop(
+    "  for (int idx = threadIdx.x; idx < n * LH; idx += blockDim.x) {", "n * LH"))]
+_TB_SOURCES = [("tiny_attention.cu", *_empty_loop(
+    "  for (int idx = threadIdx.x; idx < n * SH; idx += blockDim.x) {", "n * SH"))]
 
 # patch -> [(file, old, new)]
 PATCHES = {
@@ -124,6 +149,24 @@ PATCHES = {
     "ta_attend": [("tiny_attention.cu", *_empty_loop(
         "  for (int idx = threadIdx.x; idx < n * t.l * H; idx += blockDim.x) {",
         "n * t.l * H"))],
+    "tb_phi": _TB_PHI, "tb_items": _TB_ITEMS, "tb_sources": _TB_SOURCES,
+    "tb_stream": _TB_PHI + _TB_ITEMS + _TB_SOURCES,
+    "vf_stream": [("volume_fusion.cu",
+                   "        for (int v = 0; v < NV; ++v) acc = __fadd_rn(acc, "
+                   "__fmul_rn(x[v][s][f], ws[v]));",
+                   "        for (int v = 0; v < NV; ++v) acc += x[v][s][f];"),
+                  ("volume_fusion.cu", "        o[s * F + f] = __fdiv_rn(acc, den);",
+                   "        o[s * F + f] = acc + den;")],
+    "vf_fastdiv": [("volume_fusion.cu", "        o[s * F + f] = __fdiv_rn(acc, den);",
+                    "        o[s * F + f] = __fdividef(acc, den);")],
+    "vf_direct": [("volume_fusion.cu",
+                   "      dst[j] = make_float4(o[4 * j], o[4 * j + 1], o[4 * j + 2], "
+                   "o[4 * j + 3]);",
+                   "      reinterpret_cast<float4*>(out + p * (S * F))[j] = "
+                   "make_float4(o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);"),
+                  ("volume_fusion.cu", *_empty_loop(
+                      "  for (int i = threadIdx.x; i < n * (S * F / 4); i += kThreads) "
+                      "run[i] = rows[i];", "n * (S * F / 4)"))],
     "rh_kv": [("ray_head.cu", *_empty_loop(
         "  for (int t = tid; t < NH * DK * DK; t += blockDim.x) {", "NH * DK * DK"))],
     "rh_attn": [("ray_head.cu", *_empty_loop(
@@ -185,39 +228,76 @@ def _time_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _cases(seed: int):
-    """The main path's inputs and weights, and the plain versions' outputs."""
+def _device_ms(fn, reps: int = 20) -> float:
+    """Mean device time of the port's kernels (``ufo::``) over reps
+    launches, from torch.profiler: unlike the CUDA events around a run of
+    launches it leaves out the gaps where the card waits for the host,
+    which a kernel of ~10 us can show."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and "ufo::" in e.name]
+    return sum(us) / len(us) / 1e3 if us else float("nan")
+
+
+def _cases(seed: int, kernels):
+    """The main path's inputs and weights for these kernels, and the plain
+    versions' outputs."""
     from ..config import Config
     from ..convert import init_weights
     from ..models.uforecon import UFORecon
     from ..ops import fused_point_head as fph
     from ..ops import fused_point_head2 as fph2
     from ..ops import fused_ray_head as frh
+    from ..ops import fused_volume_fusion as fvf
     from ..ops import tiny_attention as fta
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale
     rand = lambda *s: torch.rand(s, generator=gen, device=dev)
-    model = UFORecon(Config())
-    init_weights(model, seed)
-    rt = model.ray_transformer.to(dev)
     nv, p = 3, 65536
-    mask = (rand(nv, p) > 0.3).float()
-    inp = fph.PointHeadInputs(
-        img_feat=randn(nv, p, 32), vol_feat=randn(p, 24), sim_feat=rand(p, 8) * 2 - 1,
-        depth_dist=randn(nv, p, scale=0.3), dir_rel=randn(nv, p, 3, scale=0.1),
-        rgb=rand(nv, p, 3), mask=mask)
-    ph, rh = rt.point_head_params(), rt.ray_head_params()
-    ys = {sn: randn(1024, sn, 88) for sn in (64, 128)}
-    qkv = {d: tuple(randn(p, 4, 8, d) for _ in range(3)) for d in (10, 8)}
+    cases = {}
     with torch.no_grad():
-        ph_ref = fph.point_head_reference(inp, ph)
-        rh_ref = {sn: frh.ray_head_reference(y, rh) for sn, y in ys.items()}
-        ta_ref = {d: fta.tiny_linear_attention_reference(*x) for d, x in qkv.items()}
-    return {"inp": inp, "ph": (fph.pack_weights(ph), ph_ref),
-            "ph2": (fph2.pack_weights2(ph), ph_ref), "ys": ys,
-            "rh": (frh.pack_weights(rh), rh_ref), "qkv": qkv, "ta": ta_ref}
+        if {"ph", "ph2", "rh"} & set(kernels):
+            model = UFORecon(Config())
+            init_weights(model, seed)
+            rt = model.ray_transformer.to(dev)
+            mask = (rand(nv, p) > 0.3).float()
+            inp = fph.PointHeadInputs(
+                img_feat=randn(nv, p, 32), vol_feat=randn(p, 24), sim_feat=rand(p, 8) * 2 - 1,
+                depth_dist=randn(nv, p, scale=0.3), dir_rel=randn(nv, p, 3, scale=0.1),
+                rgb=rand(nv, p, 3), mask=mask)
+            ph, rh = rt.point_head_params(), rt.ray_head_params()
+            ph_ref = fph.point_head_reference(inp, ph)
+            ys = {sn: randn(1024, sn, 88) for sn in (64, 128)}
+            cases.update(inp=inp, ys=ys, ph=(fph.pack_weights(ph), ph_ref),
+                         ph2=(fph2.pack_weights2(ph), ph_ref),
+                         rh=(frh.pack_weights(rh),
+                             {sn: frh.ray_head_reference(y, rh) for sn, y in ys.items()}))
+        if "ta" in kernels:
+            qkv = {d: tuple(randn(p, 4, 8, d) for _ in range(3)) for d in (10, 8)}
+            cases["ta"] = {d: (x, fta.tiny_linear_attention_reference(*x))
+                           for d, x in qkv.items()}
+        if "tb" in kernels:
+            grads = {l_: tuple(randn(p, l_, 8, 10) for _ in range(4)) for l_ in (4, 6)}
+            cases["tb"] = {l_: (x, fta.tiny_linear_attention_backward_reference(*x))
+                           for l_, x in grads.items()}
+        if "vf" in kernels:
+            fws = []
+            for _ in range(3):
+                fw = randn(nv, 9, p)
+                fw[:, 8] = rand(nv, p)
+                fws.append(fw.permute(0, 2, 1))   # the sampler's channel-first view
+            cases["vf"] = (fws, fvf.volume_fusion_reference(fws))
+    return cases
 
 
 def _bind(kernel, lib):
@@ -227,8 +307,13 @@ def _bind(kernel, lib):
         fn, types = getattr(lib, f"ufo_point_head{kernel[2:]}"), [c.c_void_p] * 10 + [c.c_int] * 2
     elif kernel == "rh":          # ufo_ray_head(y, w, srdf, rn, sn, c, stream)
         fn, types = lib.ufo_ray_head, [c.c_void_p] * 3 + [c.c_int] * 3
-    else:                         # ufo_tiny_attention_fwd(q, k, v, o, b, l, s, h, d, m, stream)
+    elif kernel == "ta":          # ufo_tiny_attention_fwd(q, k, v, o, b, l, s, h, d, m, stream)
         fn, types = lib.ufo_tiny_attention_fwd, [c.c_void_p] * 4 + [c.c_int] * 6
+    elif kernel == "tb":          # ufo_tiny_attention_bwd(q, k, v, g, dq, dk, dv, b, l, s, h, d, m, stream)
+        fn, types = lib.ufo_tiny_attention_bwd, [c.c_void_p] * 7 + [c.c_int] * 6
+    else:                         # ufo_volume_fusion(fw[3], sv, sp, sc, out, nv, p, stream)
+        fn, types = lib.ufo_volume_fusion, ([c.c_void_p] + [c.c_longlong] * 3
+                                            + [c.c_void_p] + [c.c_int] * 2)
     fn.argtypes, fn.restype = types + [c.c_void_p], c.c_int
     return fn
 
@@ -246,6 +331,13 @@ def _runs(kernel, fn, cases, stream):
         return {"": (lambda: fn(*call),
                      lambda: max((tok - ref[0]).abs().max().item(),
                                  (rad - ref[1]).abs().max().item()))}
+    if kernel == "vf":
+        fws, ref = cases["vf"]
+        out = torch.empty_like(ref)
+        arr = (ctypes.c_void_p * 3)(*[fw.data_ptr() for fw in fws])
+        call = [arr, *map(ctypes.c_longlong, fws[0].stride()), ptr(out),
+                *map(i, fws[0].shape[:2]), stream]
+        return {" NV 3": (lambda: fn(*call), lambda: (out - ref).abs().max().item())}
     runs = {}
     if kernel == "rh":
         w, ref = cases["rh"]
@@ -255,18 +347,28 @@ def _runs(kernel, fn, cases, stream):
             runs[f" SN {sn}"] = (lambda c=call: fn(*c),
                                  lambda s=srdf, r=ref[sn]: (s - r).abs().max().item())
         return runs
-    for d, (q, k, v) in cases["qkv"].items():
+    if kernel == "tb":
+        for l_, ((q, k, v, g), ref) in cases["tb"].items():
+            outs = [torch.empty_like(t) for t in (q, k, v)]
+            call = [*map(ptr, (q, k, v, g, *outs)),
+                    *map(i, (q.shape[0], l_, l_, q.shape[2], q.shape[3], v.shape[3])), stream]
+            runs[f" L {l_}"] = (lambda c=call: fn(*c),
+                                lambda o=outs, r=ref: max((a - b).abs().max().item()
+                                                          for a, b in zip(o, r)))
+        return runs
+    for d, ((q, k, v), ref) in cases["ta"].items():
         o = torch.empty_like(q)
         call = [*map(ptr, (q, k, v, o)), *map(i, (*q.shape[:2], k.shape[1], q.shape[2], d, d)),
                 stream]
         runs[f" D {d}"] = (lambda c=call: fn(*c),
-                           lambda o=o, r=cases["ta"][d]: (o - r).abs().max().item())
+                           lambda o=o, r=ref: (o - r).abs().max().item())
     return runs
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("variants", nargs="+", help="e.g. ph, ph,nogemm, ph2, rh,S=2, ta,I=512")
+    ap.add_argument("variants", nargs="+",
+                    help="e.g. ph, ph,nogemm, ph2, rh,S=2, ta,I=512, tb,tb_stream, vf,T=128")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -280,18 +382,24 @@ def main(argv=None):
         if proc.returncode:
             raise SystemExit(f"variant {v}: nvcc failed\n{log}")
         fns[v] = _bind(v.split(",")[0], ctypes.CDLL(str(lib)))
-    cases = _cases(args.seed)
+    cases = _cases(args.seed, {v.split(",")[0] for v in args.variants})
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    out = {"card": torch.cuda.get_device_name(0), "ms": {}, "max_abs_err": {}}
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    out = {"card": card, "ms": {}, "device_ms": {}, "max_abs_err": {}}
     for v, fn in fns.items():
         for suffix, (launch, err) in _runs(v.split(",")[0], fn, cases, stream).items():
             if launch() != 0:
                 raise SystemExit(f"variant {v}{suffix}: launch refused")
             torch.cuda.synchronize()
             e = err()
-            ms = _time_ms(launch)
-            out["ms"][v + suffix], out["max_abs_err"][v + suffix] = ms, e
-            print(f"{v}{suffix}: {ms:.4f} ms, max abs err {e:.3e}", flush=True)
+            ms, dms = _time_ms(launch), _device_ms(launch)
+            out["ms"][v + suffix], out["device_ms"][v + suffix] = ms, dms
+            out["max_abs_err"][v + suffix] = e
+            print(f"{v}{suffix}: {ms:.4f} ms (device {dms:.4f}), max abs err {e:.3e}",
+                  flush=True)
     print(json.dumps(out))
     return 0
 
