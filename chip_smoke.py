@@ -48,11 +48,22 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
   8. A/B phase: AB_ROUNDS rounds of warm full views in the order off, on,
      on, off on one encoding (rays/s per view, SM clock and power read
      after each);
-  9. tests phase: the GPU unit tests of the kernels (``python -m pytest
+  9. pipeline phase: the shipped DTU evaluation flow through the port's
+     CLIs. The fixture (``script/make_dtu_fixture.py``: a textured sphere
+     at 1600x1200, views 23 24 33); ``cli.run`` at full width (800x640, 3
+     views, 64 + 64 samples) on the seeded weights from a state-dict file
+     (``--load_ckpt``), launching kernels 1 and 2 on every view; on
+     analytic depth maps of the sphere in the extract layout,
+     ``cli.tsdf_fusion`` on the card at voxel 4 mm (the shipped size) and
+     1.5 mm, each volume held against the same integration on the CPU;
+     ``cli.depth_fusion``, ``cli.clean_mesh`` and ``cli.dtu_eval`` against
+     points on the sphere (accuracy and completeness within one voxel);
+     each stage's time;
+ 10. tests phase: the GPU unit tests of the kernels (``python -m pytest
      --noconftest -k on_gpu tests/test_torch_port_kernels.py``: every
      kernel against its plain version at further shapes, ragged edges and
      padded ray lengths) in a subprocess, which must pass;
- 10. prints a JSON line of per-kernel results, then the final
+ 11. prints a JSON line of per-kernel results, then the final
      ``{"ok": true, "device": {...}}`` line.
 Any failure exits non-zero without printing a result; without a CUDA card
 it exits 1 at once.
@@ -83,8 +94,16 @@ SEED = 0
 # gradient (sums over 16,384 points in another order)
 TOL = {"token": 2e-5, "radiance": 2e-6, "srdf": 2e-5,
        "cosine": 1e-6, "fusion": 1e-6, "neus": 2e-5, "neus_rel": 2e-4,
-       "attention": 2e-5, "attention_grad": 3e-4, "route_grad_rel": 1e-3}
+       "attention": 2e-5, "attention_grad": 3e-4, "route_grad_rel": 1e-3,
+       "tsdf": 1e-5, "tsdf_share": 0.999}
 NEUS_OUT = ("srdf", "weight", "rgb", "depth", "opacity")
+# pipeline phase: the fixture's views; the shipped TSDF voxel size (mm) and
+# fuse_scan's default. The card's TSDF volume is held against the CPU's:
+# voxels within TOL["tsdf"] on at least TOL["tsdf_share"] of the grid (the
+# same float32 operations in the same order on both)
+PIPELINE_VIEWS = (23, 24, 33)
+PIPELINE_WH = (800, 640)               # the DTU render size cli.run gives
+PIPELINE_VOXELS = (4.0, 1.5)
 # warm views per route in the A/B phase: 2 x AB_ROUNDS
 AB_ROUNDS = 2
 PORT = "uforecon_tpu_torch"
@@ -124,7 +143,8 @@ MUST_RUN = {"off": ("point_head", "ray_head"),
             "B": ("tiny_attention", "ray_head"),
             "grad": ("tiny_attention", "tiny_attention_bwd"),
             "v2": ("point_head2", "ray_head"),
-            "probe": ("block_row_gather",)}
+            "probe": ("block_row_gather",),
+            "pipeline": ("point_head", "ray_head")}
 # H100 SXM data sheet at 700 W: FP32 outside the tensor cores, dense TF32
 # on the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -776,7 +796,8 @@ def render_view(model, sample, route, card):
     depth = saved["depth"]
     log(f"[slice] route {route}: 1 view 800x640, 3 views, 64+64 samples: encode "
         f"{stats['encode_s']:.3f} s, render {stats['render_s']:.3f} s, "
-        f"{stats['rays_per_sec']:.1f} rays/s, peak {peak_gb:.2f} GiB [{card}]")
+        f"{stats['rays'] / stats['render_s']:.1f} rays/s over the render, peak "
+        f"{peak_gb:.2f} GiB [{card}]")
     log(f"[slice] route {route}: launches during the run: {launches}; weight packs "
         f"built: {builds}")
     if depth.shape != (640, 800) or not np.all(np.isfinite(depth)):
@@ -1051,6 +1072,158 @@ def ab_phase(models, scene, enc, extras, card):
         f"on {won} of {len(rates['on'])} [{card}]")
 
 
+def pipeline_phase(model, card):
+    """The shipped DTU evaluation flow through the port's CLIs, as a user
+    runs it: the fixture at 1600x1200 (``script/make_dtu_fixture.py``),
+    ``cli.run`` at full width on this model's weights (a state-dict file,
+    ``--load_ckpt``), which must launch kernels 1 and 2 on every view and
+    write the depth layout; then, on analytic depth maps of the fixture's
+    sphere (random weights render no surface), ``cli.tsdf_fusion`` on the
+    card at both voxel sizes with the volume held against the same
+    integration on the CPU, ``cli.depth_fusion``, ``cli.clean_mesh`` and
+    ``cli.dtu_eval`` against points on the sphere, whose accuracy and
+    completeness must be within one voxel. Returns the launches counted
+    during ``cli.run``."""
+    import contextlib
+    import io
+
+    import torch
+
+    from uforecon_tpu_torch.cli import clean_mesh, depth_fusion, dtu_eval, run, tsdf_fusion
+    from uforecon_tpu_torch.data.io import write_ply
+    from uforecon_tpu_torch.fusion.tsdf import TSDFVolume, scan_bounds, scan_entries
+    from uforecon_tpu_torch.pipeline.renderer import SceneRenderer
+    from uforecon_tpu_torch.script import make_dtu_fixture as fixture
+
+    w, h = PIPELINE_WH
+    views = [str(v) for v in PIPELINE_VIEWS]
+    times = {}
+
+    def timed(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out, ana, gt = (os.path.join(tmp, d) for d in ("fixture", "out", "sphere", "gt"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            timed("fixture_s", fixture.main, [root, "--views", *views])
+        ckpt = os.path.join(tmp, "weights.pt")
+        torch.save(model.state_dict(), ckpt)
+
+        # kernel launches after each view's render
+        wrappers = launch_counts()
+        per_view = []
+        render_depth_view = SceneRenderer.render_depth_view
+
+        def counted(self, *args, **kwargs):
+            res = render_depth_view(self, *args, **kwargs)
+            per_view.append({n: wr.launches for n, wr in wrappers.items()})
+            return res
+
+        for wr in wrappers.values():
+            wr.launches = 0
+        SceneRenderer.render_depth_view = counted
+        try:
+            stats = timed("extract_s", run.main, [
+                "--extract_geometry", "--set", "0", "--volume_type", "correlation",
+                "--volume_reso", "96", "--depth_pos_encoding", "--mvs_depth_guide", "1",
+                "--explicit_similarity", "--test_n_view", "3", "--test_ray_num", "800",
+                "--test_ref_view", *views, "--root_dir", root, "--out_dir", out,
+                "--test_scan", "scan24", "--load_ckpt", ckpt])["scan24"]
+        finally:
+            SceneRenderer.render_depth_view = render_depth_view
+        launches = {n: wr.launches for n, wr in wrappers.items()}
+        check_launches("pipeline", launches)
+        prev = {n: 0 for n in wrappers}
+        for i, snap in enumerate(per_view):
+            idle = [n for n in MUST_RUN["pipeline"] if snap[n] <= prev[n]]
+            if idle:
+                raise AssertionError(f"cli.run view {i}: kernels {idle} not launched")
+            prev = snap
+        if len(per_view) != 3:
+            raise AssertionError(f"cli.run rendered {len(per_view)} views, not 3")
+        log(f"[pipeline] cli.run, 3 views {w}x{h}, 64+64 samples, seeded weights from "
+            f"a state-dict file: {stats['rays_per_sec']:.1f} rays/s (the JAX "
+            f"statistic: all rays over the time after view 0's render), encode "
+            f"{stats['encode_s']:.3f} s, render {stats['render_s']:.3f} s, "
+            f"{times['extract_s']:.1f} s in all; launches per view "
+            f"{[{n: v[n] for n in MUST_RUN['pipeline']} for v in per_view]} [{card}]")
+
+        gt_points = []
+        for i in range(3):
+            e = np.load(os.path.join(out, "depth", "scan24", f"{i:08d}.npy"),
+                        allow_pickle=True).item()
+            if set(e) != {"depth", "extrinsic", "intrinsic"} or e["depth"].shape != (h, w) \
+                    or not np.all(np.isfinite(e["depth"])):
+                raise AssertionError(f"view {i}: depth entry {sorted(e)} "
+                                     f"{np.shape(e['depth'])} is not the extract layout")
+            e["depth"] = fixture.sphere_depth(e["extrinsic"], e["intrinsic"], w, h)
+            gt_points.append(fixture.sphere_points(e["extrinsic"], e["intrinsic"], w, h))
+            os.makedirs(os.path.join(ana, "depth", "scan24"), exist_ok=True)
+            np.save(os.path.join(ana, "depth", "scan24", f"{i:08d}.npy"), e)
+
+        # the shipped voxel size last: its mesh is the one cleaned and scored
+        entries = scan_entries(ana, "scan24", 3)
+        bounds = scan_bounds(entries)
+        for vs in PIPELINE_VOXELS[::-1]:
+            vols, ms = {}, []
+            for dev in ("cuda", "cpu"):
+                vol = TSDFVolume(bounds, vs, device=dev)
+                for _, e in entries:
+                    c2w = np.linalg.inv(e["extrinsic"])
+                    timed("integrate", vol.integrate, e["depth"], e["intrinsic"], c2w)
+                    if dev == "cuda":
+                        ms.append(times["integrate"] * 1e3)
+                vols[dev] = vol
+            (gt_, gw), (ct, cw) = vols["cuda"].get_volume(), vols["cpu"].get_volume()
+            close = (np.abs(gt_ - ct) <= TOL["tsdf"]) & (np.abs(gw - cw) <= TOL["tsdf"])
+            verts, faces, _ = timed("marching_s", vols["cuda"].get_mesh)
+            timed("tsdf_cli_s", tsdf_fusion.main, [
+                "--out_dir", ana, "--n_view", "3", "--voxel_size", str(vs),
+                "--test_scan", "scan24"])
+            log(f"[pipeline] TSDF at voxel {vs} mm: {gt_.size} voxels "
+                f"{tuple(gt_.shape)}, integrate on the card {np.round(ms, 3).tolist()} "
+                f"ms per view; card vs CPU: share of voxels within {TOL['tsdf']} "
+                f"{close.mean():.7f}, exactly equal {np.mean((gt_ == ct) & (gw == cw)):.7f}; "
+                f"marching cubes {times['marching_s']:.2f} s ({len(verts)} vertices, "
+                f"{len(faces)} faces); cli.tsdf_fusion {times['tsdf_cli_s']:.2f} s [{card}]")
+            if close.mean() < TOL["tsdf_share"]:
+                raise AssertionError(f"card and CPU TSDF volumes disagree at voxel {vs}")
+            del vols
+
+        timed("depth_fusion_s", depth_fusion.main,
+              ["--out_dir", ana, "--n_view", "3", "--test_scan", "scan24"])
+        timed("clean_s", clean_mesh.main, [
+            "--out_dir", ana, "--root_dir", root, "--n_view", "3",
+            "--test_ref_view", *views, "--test_scan", "scan24", "--ray_stride", "4"])
+        for f in ("mesh/scan24.ply", "pcd/scan24.ply", "pcd_fusion/scan24.ply",
+                  "mesh/final/scan24.ply"):
+            if not os.path.exists(os.path.join(ana, f)):
+                raise AssertionError(f"the pipeline wrote no {f}")
+        os.makedirs(os.path.join(gt, "Points", "stl"))
+        write_ply(os.path.join(gt, "Points", "stl", "stl024_total.ply"),
+                  np.concatenate(gt_points))
+        scores = timed("eval_s", dtu_eval.main, [
+            "--mesh_dir", os.path.join(ana, "mesh", "final"), "--dataset_dir", gt,
+            "--log_dir", ana, "--scans", "24"])
+    if len(scores) != 1:
+        raise AssertionError(f"dtu_eval scored {len(scores)} meshes, not 1")
+    acc, comp = scores[0][1]["acc"], scores[0][1]["comp"]
+    voxel = PIPELINE_VOXELS[0]
+    log(f"[pipeline] cleaned sphere mesh (voxel {voxel} mm) against the sphere: "
+        f"accuracy {acc:.4f} mm, completeness {comp:.4f} mm (limit: one voxel, "
+        f"{voxel} mm); seconds: " + json.dumps(
+            {k: round(v, 3) for k, v in times.items() if k != "integrate"})
+        + f" [{card}]")
+    if not (np.isfinite(acc) and np.isfinite(comp) and acc < voxel and comp < voxel):
+        raise AssertionError(f"the sphere mesh scores {acc}, {comp} mm")
+    return launches
+
+
 def tests_phase(card):
     """The GPU unit tests of the kernels (``test_torch_port_kernels.py``,
     no JAX) in a subprocess, which reuses the built extension; they must
@@ -1110,9 +1283,9 @@ def main():
 
     kres = kernel_phase(model, model_b, card)
     models, sample, stats, launches = slice_phase(model, model_b, card)
-    log(f"[slice] rays/s against knobs off in this process (the off run is the "
-        f"process's first view): " + json.dumps(
-            {r: stats[r]["rays_per_sec"] / stats["off"]["rays_per_sec"]
+    log(f"[slice] render rays/s against knobs off in this process (the off run "
+        f"is the process's first view): " + json.dumps(
+            {r: stats["off"]["render_s"] / stats[r]["render_s"]
              for r in ("on", "A", "B", "v2")}) + f" [{card}]")
     launches["grad"] = gradient_phase(models["A"], sample, card)
     launches["probe"] = probe_phase(card)
@@ -1121,6 +1294,8 @@ def main():
     profile_phase({k: models[k] for k in ("off", "on", "A", "v2")}, scene, enc, extras,
                   card)
     ab_phase(models, scene, enc, extras, card)
+    del scene, enc, extras
+    launches["pipeline"] = pipeline_phase(model, card)
     tests_phase(card)
 
     kernels = []

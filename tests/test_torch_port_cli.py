@@ -1,0 +1,266 @@
+"""The port's extract CLI (``cli/run.py``) against the JAX package.
+
+The parity test writes the fixture (``script/make_dtu_fixture.py``, views
+23 24 33 at 320x240) and runs, on the CPU:
+  * the JAX package's ``extract_geometry_for_dataset`` on its
+    ``DtuFitSparse`` at ``img_wh`` 160x128, cascade depths 8/8/8 and 8 + 8
+    samples, on the exact path (``volume_merge='never'``,
+    ``kernel_precision='highest'``, f32 gather sources and volumes), in a
+    process of its own (the JAX package keeps one kernel-precision mode per
+    process), with its own initialised weights;
+  * ``python -m uforecon_tpu_torch.cli.run`` with the same flags,
+    ``--device cpu`` and those weights bridged into a state-dict file
+    (``--load_ckpt``), the JAX key schedule's uniform draws fed through
+    ``extract_geometry_for_dataset``'s ``draws``: one key per view split
+    from ``PRNGKey(seed)``, one per 1024-ray chunk, split into coarse and
+    fine (``pipeline/extract.py:85``, ``pipeline/renderer.py:82``,
+    ``models/uforecon.py:388``).
+The depth maps agree within 2e-4 relative on >= 99 % of pixels (the slice
+tolerance: a ~1e-7 difference can flip an importance-sampling bin), and
+their extrinsic and intrinsic to 1e-6.
+
+The other tests hold the flag handling: the JAX defaults, each flag set
+the port cannot build raising with the flag named, the 15-scan loop, and
+every CLI of the port asking for the card by default.
+"""
+import functools
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from uforecon_tpu_torch.cli import clean_mesh, depth_fusion, dtu_eval, run, tsdf_fusion
+from uforecon_tpu_torch.config import Config, config_from_args
+from uforecon_tpu_torch.convert import save_state_dict
+from uforecon_tpu_torch.script import make_dtu_fixture
+
+ROOT = Path(__file__).resolve().parent.parent
+SEED = 3
+FLAGS = ["--extract_geometry", "--set", "0", "--volume_type", "correlation",
+         "--volume_reso", "96", "--depth_pos_encoding", "--mvs_depth_guide", "1",
+         "--explicit_similarity", "--test_n_view", "3", "--test_ray_num", "800",
+         "--test_ref_view", "23", "24", "33", "--test_scan", "scan24"]
+SMALL = ["--img_wh", "160", "128", "--ndepths", "8,8,8", "--test_sample_coarse", "8",
+         "--test_sample_fine", "8", "--seed", str(SEED)]
+
+_JAX_EXTRACT = """
+import pickle, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+import numpy as np
+from uforecon_tpu.config import Config
+from uforecon_tpu.data.dtu_test import DtuFitSparse
+from uforecon_tpu.pipeline.extract import extract_geometry_for_dataset
+from uforecon_tpu.pipeline.fit import init_model
+from uforecon_tpu.pipeline.renderer import SceneRenderer
+root, out, path, seed = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+cfg = Config(extract_geometry=True, test_sample_coarse=8, test_sample_fine=8,
+             ndepths=(8, 8, 8), volume_merge="never", kernel_precision="highest",
+             image_gather_dtype="float32", volume_dtype="float32", test_ray_num=800,
+             seed=seed)
+ds = DtuFitSparse(root_dir=root, scan_id="scan24", n_views=3, set=0,
+                  test_view_pair=[23, 24, 33], img_wh=[160, 128])
+_, variables = init_model(cfg, ds[0], seed)
+extract_geometry_for_dataset(cfg, variables, ds, out_dir=out, seed=seed)
+chunk = SceneRenderer(cfg, variables).chunk
+n_chunks = -(-160 * 128 // chunk)
+key, draws = jax.random.PRNGKey(seed), []
+for _ in range(len(ds)):
+    key, sub = jax.random.split(key)
+    view = []
+    for k in jax.random.split(sub, n_chunks):
+        kc, kf = jax.random.split(k)
+        view.append((np.asarray(jax.random.uniform(kc, (chunk, 8), jnp.float32)),
+                     np.asarray(jax.random.uniform(kf, (chunk, 8), jnp.float32))))
+    draws.append(view)
+with open(path, "wb") as f:
+    pickle.dump((jax.tree_util.tree_map(np.asarray, variables), draws), f)
+"""
+
+
+@pytest.fixture(scope="module")
+def fixture_root(tmp_path_factory):
+    root = tmp_path_factory.mktemp("fixture")
+    make_dtu_fixture.main([str(root), "--views", "23", "24", "33", "--wh", "320", "240"])
+    return root
+
+
+@pytest.fixture(scope="module")
+def jax_run(fixture_root, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("jax_extract")
+    out, path = tmp / "out", tmp / "io.pkl"
+    res = subprocess.run(
+        [sys.executable, "-c", _JAX_EXTRACT, str(fixture_root), str(out), str(path),
+         str(SEED)], capture_output=True, text=True, timeout=900, cwd=ROOT,
+        env={**os.environ, "JAX_PLATFORMS": "cpu", "UFO_PLATFORM": "cpu",
+             "PYTHONPATH": os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")])})
+    assert res.returncode == 0, res.stderr[-3000:]
+    with open(path, "rb") as f:
+        variables, draws = pickle.load(f)
+    return out, variables, draws
+
+
+def test_cli_depth_maps_match_jax(fixture_root, jax_run, tmp_path, monkeypatch):
+    jax_out, variables, draws = jax_run
+    ckpt = tmp_path / "weights.pt"
+    save_state_dict(str(ckpt), variables)
+    monkeypatch.setattr(run, "extract_geometry_for_dataset", functools.partial(
+        run.extract_geometry_for_dataset, draws=draws))
+    stats = run.main(FLAGS + SMALL + ["--root_dir", str(fixture_root),
+                                      "--out_dir", str(tmp_path / "out"),
+                                      "--load_ckpt", str(ckpt), "--device", "cpu"])
+    assert stats["scan24"]["views"] == 3 and stats["scan24"]["rays"] == 3 * 160 * 128
+    for i in range(3):
+        name = f"scan24/{i:08d}"
+        got = np.load(tmp_path / "out" / "depth" / f"{name}.npy", allow_pickle=True).item()
+        want = np.load(jax_out / "depth" / f"{name}.npy", allow_pickle=True).item()
+        assert set(got) == set(want) == {"depth", "extrinsic", "intrinsic"}
+        for k in ("extrinsic", "intrinsic"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6, err_msg=k)
+        assert got["depth"].shape == want["depth"].shape == (128, 160)
+        assert np.all(np.isfinite(got["depth"]))
+        close = np.isclose(got["depth"], want["depth"], rtol=2e-4, atol=0)
+        assert close.mean() >= 0.99, (i, close.mean())
+        # the layout beside the maps: depth previews as the JAX package, rgb as PNG
+        assert (tmp_path / "out" / "scan24" / "depth" / f"{i:08d}.png").exists()
+        assert (tmp_path / "out" / "rgb" / f"{name}.png").exists()
+
+
+@pytest.mark.parametrize("similarity", [True, False])
+def test_cli_renders_with_and_without_explicit_similarity(fixture_root, tmp_path,
+                                                          monkeypatch, similarity):
+    """--explicit_similarity is store_true, as in JAX: without it the CLI
+    builds the paper's ablation (no pre_sim_mlp), and both render."""
+    models = []
+    extract = run.extract_geometry_for_dataset
+    monkeypatch.setattr(run, "extract_geometry_for_dataset",
+                        lambda model, ds, **kw: models.append(model) or extract(
+                            model, ds, **kw))
+    flags = [f for f in FLAGS if similarity or f != "--explicit_similarity"]
+    with pytest.warns(UserWarning, match="random weights"):
+        run.main(flags + SMALL + ["--root_dir", str(fixture_root), "--out_dir",
+                                  str(tmp_path), "--device", "cpu", "--test_coarse_only"])
+    assert models[0].cfg.explicit_similarity is similarity
+    assert hasattr(models[0].ray_transformer, "pre_sim_mlp") is similarity
+    for i in range(3):
+        d = np.load(tmp_path / "depth" / "scan24" / f"{i:08d}.npy", allow_pickle=True).item()
+        assert d["depth"].shape == (128, 160) and np.all(np.isfinite(d["depth"]))
+
+
+def test_flag_defaults_are_the_jax_ones():
+    from uforecon_tpu.config import config_from_args as jax_config_from_args
+
+    cfg, device = config_from_args(["--extract_geometry", "--depth_pos_encoding",
+                                    "--explicit_similarity"])
+    want = jax_config_from_args(["--extract_geometry", "--depth_pos_encoding",
+                                 "--explicit_similarity"])
+    assert device == "cuda"
+    for field in ("root_dir", "out_dir", "seed", "load_ckpt",
+                  "test_sample_coarse", "test_sample_fine",
+                  "extract_geometry", "test_n_view", "test_ray_num", "test_ref_view",
+                  "test_scan", "set", "test_coarse_only", "img_wh", "ndepths",
+                  "depth_inter_r", "cr_base_chs", "explicit_similarity"):
+        assert getattr(cfg, field) == getattr(want, field), field
+    assert cfg.samples == (want.test_sample_coarse, want.test_sample_fine)
+    # without the flag, JAX builds the no-similarity ablation: so does the port
+    cfg, _ = config_from_args(["--extract_geometry", "--depth_pos_encoding"])
+    assert cfg.explicit_similarity is False
+
+
+@pytest.mark.parametrize("flags,named", [
+    ([], "--extract_geometry"),
+    (["--extract_geometry"], "--depth_pos_encoding"),
+    (["--mvs_depth_guide", "0"], "--mvs_depth_guide 0"),
+    (["--use_dir_srdf"], "--use_dir_srdf"),
+    (["--volume_type", "featuregrid"], "--volume_type featuregrid"),
+    (["--volume_reso", "0"], "--volume_reso 0"),
+    (["--share_cr"], "--share_cr"),
+    (["--compute_dtype", "bfloat16"], "--compute_dtype bfloat16"),
+    (["--encoder_dtype", "bfloat16"], "--encoder_dtype bfloat16"),
+    (["--test_general"], "--test_general"),
+    (["--extract_similarity"], "--extract_similarity"),
+    (["--mesh_shape", "2"], "--mesh_shape 2"),
+])
+def test_unsupported_flag_sets_raise(flags, named):
+    base = [] if named in ("--extract_geometry", "--depth_pos_encoding") \
+        else ["--extract_geometry", "--depth_pos_encoding"]
+    with pytest.raises(ValueError, match=named):
+        run.main(base + flags)
+
+
+def test_supported_dtype_flags_parse():
+    for extra in ([], ["--encoder_dtype", "float32"], ["--compute_dtype", "float32"]):
+        cfg, _ = config_from_args(["--extract_geometry", "--depth_pos_encoding"] + extra)
+        assert cfg.extract_geometry
+
+
+@pytest.mark.parametrize("scan,want", [("", run.TEST_SCANS), ("scan1", run.TEST_SCANS),
+                                       ("scan24", [24])])
+def test_scan_loop_visits_the_dtu_test_scans(monkeypatch, scan, want):
+    visited = []
+    monkeypatch.setattr(run, "DtuFitSparse", lambda **kw: visited.append(kw) or [])
+    monkeypatch.setattr(run, "extract_geometry_for_dataset",
+                        lambda model, ds, **kw: {"views": 0, "rays_per_sec": 0.0})
+    monkeypatch.setattr(run, "init_weights", lambda model, seed: None)
+    with pytest.warns(UserWarning, match="random weights"):
+        stats = run.main(["--extract_geometry", "--depth_pos_encoding", "--test_scan",
+                          scan, "--img_wh", "160", "128", "--device", "cpu"])
+    assert [kw["scan_id"] for kw in visited] == [f"scan{s}" for s in want]
+    assert list(stats) == [f"scan{s}" for s in want]
+    assert all(kw["img_wh"] == [160, 128] and kw["test_view_pair"] == [23, 24, 33]
+               for kw in visited)
+    assert run.TEST_SCANS == [24, 37, 40, 55, 63, 65, 69, 83, 97, 105, 106, 110,
+                              114, 118, 122]
+
+
+def test_render_chunk_coarse_only_returns_the_coarse_pass():
+    from uforecon_tpu_torch.convert import init_weights
+    from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
+    from uforecon_tpu_torch.models.uforecon import UFORecon
+
+    from helpers import make_synthetic_sample
+
+    sample = make_synthetic_sample(n_views=3, h=32, w=32, ndepth=16, start_idx=0)
+    model = UFORecon(Config(ndepths=(8, 8, 8), fmt_layer_names=("self", "cross"),
+                            extract_geometry=True, test_sample_coarse=6,
+                            test_sample_fine=4))
+    init_weights(model, 0)
+    scene, extras = scene_inputs_from_sample(sample, device="cpu")
+    enc = model.encode(scene)
+    ray_d = torch.as_tensor(extras["ray_d"][:32])
+    gen = torch.Generator().manual_seed(0)
+    u_c, u_f = torch.rand((32, 6), generator=gen), torch.rand((32, 4), generator=gen)
+    full = model.render_chunk(scene, enc, ray_d, u_coarse=u_c, u_fine=u_f)
+    coarse = model.render_chunk(scene, enc, ray_d, u_coarse=u_c, coarse_only=True)
+    assert full["coarse"]["srdf"].shape == (32, 6)     # test_sample_coarse
+    assert full["fine"]["srdf"].shape == (32, 10)      # + test_sample_fine
+    for k in ("depth", "rgb", "opacity"):
+        torch.testing.assert_close(coarse["fine"][k], full["coarse"][k], rtol=0, atol=0)
+        assert coarse["fine"][k] is coarse["coarse"][k]
+
+
+@pytest.mark.parametrize("cli", ["run", "tsdf_fusion", "depth_fusion", "clean_mesh",
+                                 "dtu_eval"])
+def test_every_cli_asks_for_the_card(tmp_path, monkeypatch, cli):
+    """Without --device the CLIs run on the card and, where there is none,
+    raise instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = {"run": FLAGS + ["--root_dir", str(tmp_path), "--out_dir", str(tmp_path)],
+            "tsdf_fusion": ["--out_dir", str(tmp_path), "--test_scan", "scan24"],
+            "depth_fusion": ["--out_dir", str(tmp_path), "--test_scan", "scan24"],
+            "clean_mesh": ["--out_dir", str(tmp_path), "--root_dir", str(tmp_path),
+                           "--test_scan", "scan24"],
+            "dtu_eval": ["--mesh_dir", str(tmp_path), "--dataset_dir", str(tmp_path),
+                         "--log_dir", str(tmp_path), "--scans", "24"]}[cli]
+    main = {"run": run.main, "tsdf_fusion": tsdf_fusion.main,
+            "depth_fusion": depth_fusion.main, "clean_mesh": clean_mesh.main,
+            "dtu_eval": dtu_eval.main}[cli]
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        main(argv)
+    assert os.listdir(tmp_path) == []

@@ -273,13 +273,33 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
     assert not (tmp_path / "depth").exists()
 
 
+# every module of the port, the CLIs included
+PORT_MODULES = [
+    "uforecon_tpu_torch.pipeline.extract", "uforecon_tpu_torch.convert",
+    "uforecon_tpu_torch.config", "uforecon_tpu_torch.data.io",
+    "uforecon_tpu_torch.data.image", "uforecon_tpu_torch.data.scene_build",
+    "uforecon_tpu_torch.data.dtu_test", "uforecon_tpu_torch.data.torch_ckpt",
+    "uforecon_tpu_torch.ops.camera", "uforecon_tpu_torch.fusion.tsdf",
+    "uforecon_tpu_torch.fusion.marching", "uforecon_tpu_torch.fusion.depth_fusion",
+    "uforecon_tpu_torch.postproc.raycast", "uforecon_tpu_torch.postproc.clean_mesh",
+    "uforecon_tpu_torch.eval.dtu_eval", "uforecon_tpu_torch.cli.run",
+    "uforecon_tpu_torch.cli.tsdf_fusion", "uforecon_tpu_torch.cli.depth_fusion",
+    "uforecon_tpu_torch.cli.clean_mesh", "uforecon_tpu_torch.cli.dtu_eval",
+    "uforecon_tpu_torch.script.make_dtu_fixture", "chip_smoke",
+]
+
+
 def test_port_imports_without_jax():
-    code = ("import sys; sys.modules['jax'] = None; "
-            "sys.modules['uforecon_tpu'] = None; "
-            "import uforecon_tpu_torch.pipeline.extract, "
-            "uforecon_tpu_torch.convert")
+    """The port's modules and chip_smoke.py import where importing jax, the
+    JAX package, OpenCV or PIL raises."""
+    blocked = ["jax", "uforecon_tpu", "cv2", "PIL"]
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in blocked)
+            + "".join(f"import {m}\n" for m in PORT_MODULES)
+            + f"assert not set({blocked!r}) & {{k for k, v in sys.modules.items() "
+              "if v is not None}")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, cwd=Path(__file__).resolve().parent.parent)
     assert res.returncode == 0, res.stderr
 
 
@@ -330,7 +350,7 @@ def test_extract_writes_the_depth_layout(tmp_path):
         assert np.all(np.isfinite(saved["depth"]))
         depths.append(saved["depth"])
     assert (tmp_path / "0" / "scanS" / "depth" / "00000000.png").exists()
-    assert (tmp_path / "0" / "rgb" / "scanS" / "00000000.jpg").exists()
+    assert (tmp_path / "0" / "rgb" / "scanS" / "00000000.png").exists()
     assert not (tmp_path / "1" / "rgb").exists()
     np.testing.assert_array_equal(depths[0], depths[1])
 
@@ -360,12 +380,23 @@ def test_renderer_pads_rays_to_whole_chunks():
 
 
 def test_previews_without_pil_raise_a_clear_error(tmp_path, monkeypatch):
+    """The previews no longer need PIL (or OpenCV): with both unimportable,
+    save_depth_outputs writes the .npy and, with previews, the depth and rgb
+    previews as PNGs that decode to what was asked."""
+    from uforecon_tpu_torch.data.image import read_png
     from uforecon_tpu_torch.pipeline.extract import save_depth_outputs
 
-    args = (str(tmp_path), "scanS", "00000000", np.ones((4, 5), np.float32),
-            np.zeros((4, 5, 3), np.float32), np.eye(4), np.eye(3))
+    depth = np.arange(20, dtype=np.float32).reshape(4, 5)
+    rgb = np.linspace(0, 1, 60, dtype=np.float32).reshape(4, 5, 3)
+    args = (str(tmp_path), "scanS", "00000000", depth, rgb, np.eye(4), np.eye(3))
     monkeypatch.setitem(sys.modules, "PIL", None)
-    save_depth_outputs(*args, previews=False)          # .npy only: no PIL needed
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    save_depth_outputs(*args, previews=False)          # .npy only
     assert (tmp_path / "depth" / "scanS" / "00000000.npy").exists()
-    with pytest.raises(RuntimeError, match="previews=False"):
-        save_depth_outputs(*args, previews=True)
+    assert not (tmp_path / "rgb").exists()
+    save_depth_outputs(*args, previews=True)
+    np.testing.assert_array_equal(
+        read_png(tmp_path / "scanS" / "depth" / "00000000.png"),
+        (depth / depth.max() * 255).astype(np.uint8))
+    np.testing.assert_array_equal(read_png(tmp_path / "rgb" / "scanS" / "00000000.png"),
+                                  (rgb * 255).astype(np.uint8))

@@ -1,0 +1,72 @@
+"""Depth maps of DTU scans on a CUDA card: the port's ``--extract_geometry``.
+
+    python -m uforecon_tpu_torch.cli.run --extract_geometry --set 0 \\
+        --volume_type correlation --volume_reso 96 --depth_pos_encoding \\
+        --mvs_depth_guide 1 --explicit_similarity --test_n_view 3 \\
+        --test_ray_num 800 --test_ref_view 23 24 33 --root_dir DTU_TEST \\
+        --out_dir OUT --test_scan scan24 [--load_ckpt FILE] [--device cpu]
+
+Counterpart of the JAX package's ``cli/run.py`` ``run_extract`` with its
+flags (``config.config_from_args``): one scan, or the 15-scan DTU protocol
+when ``--test_scan`` is empty or ``scan1``. Each scan's depth maps go to
+``{out_dir}/depth/{scan}/`` (``pipeline/extract.py``), with one line
+``"{scan}: {views} views, {rays/s} rays/s"``. Training, GeneralFit and
+the similarity field are not ported; their flags raise.
+"""
+from __future__ import annotations
+
+import sys
+import warnings
+from typing import Dict, List
+
+from ..config import Config, config_from_args
+from ..convert import init_weights, load_weights
+from ..data.dtu_test import DtuFitSparse
+from ..device import resolve_device
+from ..eval.dtu_eval import DTU_EVAL_SCANS
+from ..models.uforecon import UFORecon
+from ..pipeline.extract import extract_geometry_for_dataset
+
+# DTU eval protocol scan list (reference main.py:150)
+TEST_SCANS = DTU_EVAL_SCANS
+
+
+def scan_list(cfg: Config) -> List[str]:
+    if cfg.test_scan and cfg.test_scan != "scan1":
+        return [cfg.test_scan]
+    return [f"scan{s}" for s in TEST_SCANS]
+
+
+def run_extract(cfg: Config, device="cuda") -> Dict[str, Dict[str, float]]:
+    """Render every view of every scan of ``cfg``; returns each scan's
+    extract statistics."""
+    device = resolve_device(device)
+    model = UFORecon(cfg)
+    if cfg.load_ckpt:
+        load_weights(model, cfg.load_ckpt)
+        print(f"loaded checkpoint {cfg.load_ckpt}", flush=True)
+    else:
+        warnings.warn("no --load_ckpt given: rendering with random weights",
+                      stacklevel=2)
+        init_weights(model, cfg.seed)
+    model.to(device)
+    kw = {"img_wh": list(cfg.img_wh)} if cfg.img_wh else {}
+    stats = {}
+    for scan in scan_list(cfg):
+        ds = DtuFitSparse(root_dir=cfg.root_dir, scan_id=scan,
+                          n_views=cfg.test_n_view, set=cfg.set,
+                          test_view_pair=list(cfg.test_ref_view), **kw)
+        stats[scan] = s = extract_geometry_for_dataset(
+            model, ds, out_dir=cfg.out_dir, device=device, seed=cfg.seed)
+        print(f"{scan}: {s['views']} views, {s['rays_per_sec']:.0f} rays/s",
+              flush=True)
+    return stats
+
+
+def main(argv=None) -> Dict[str, Dict[str, float]]:
+    cfg, device = config_from_args(argv)
+    return run_extract(cfg, device)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

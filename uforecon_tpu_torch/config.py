@@ -13,8 +13,11 @@ layout knobs) and the other ablations (``use_dir_srdf``, no depth guide,
 bf16 compute) do not exist here.
 
 ``coarse_sample`` / ``fine_sample`` are the samples per ray of the
-render; the JAX package reads ``test_sample_*`` in their place when it
-extracts geometry, a choice its CLI makes.
+render; under ``extract_geometry`` it reads ``test_sample_coarse`` /
+``test_sample_fine`` in their place, as the JAX package does
+(``models/uforecon.py:389-390``). ``test_coarse_only`` returns the coarse
+pass as both outputs. The scan, view and checkpoint fields are those of the
+JAX package's extract command; ``config_from_args`` parses its flags.
 
 The three render-glue knobs keep the JAX names, values and defaults
 (``never``). In the JAX package ``auto`` means "on a TPU"; in the port
@@ -59,12 +62,26 @@ FUSED_GLUE = dict(fused_similarity="auto", fused_volume_fusion="auto",
 
 @dataclasses.dataclass(frozen=True)
 class Config:
+    root_dir: str = "./DTU"
     out_dir: str = "./outputs"
+    seed: int = 0
+    load_ckpt: str = ""
 
     # ---- ray sampling ------------------------------------------------------
     coarse_sample: int = 64
     fine_sample: int = 64
+    test_sample_coarse: int = 64
+    test_sample_fine: int = 64
     test_ray_num: int = 800              # sets the ray-chunk size (renderer)
+
+    # ---- testing (the extract command) -----------------------------------
+    extract_geometry: bool = False
+    test_n_view: int = 3
+    test_ref_view: Tuple[int, ...] = (23, 24, 33)
+    test_scan: str = "scan1"
+    set: int = 0
+    test_coarse_only: bool = False
+    img_wh: Tuple[int, ...] = ()         # render size W H; () = the dataset's
 
     # ---- correlation / cascade MVS ----------------------------------------
     ndepths: Tuple[int, ...] = (48, 32, 8)
@@ -88,6 +105,13 @@ class Config:
     # per-point stage (see the module docstring)
     fused_point_head: str = "auto"       # auto | always | never
     point_head: str = "v1"               # v1 | v2
+
+    @property
+    def samples(self) -> Tuple[int, int]:
+        """(coarse, fine) samples per ray of a render chunk."""
+        if self.extract_geometry:
+            return self.test_sample_coarse, self.test_sample_fine
+        return self.coarse_sample, self.fine_sample
 
     def __post_init__(self):
         allowed = {
@@ -128,3 +152,115 @@ class Config:
     @property
     def ray_trans_dim(self) -> int:
         return self.view_trans_dim + 8  # + order PE width
+
+
+def _ints(s) -> Tuple[int, ...]:
+    return tuple(int(x) for x in str(s).split(",") if x)
+
+
+def _floats(s) -> Tuple[float, ...]:
+    return tuple(float(x) for x in str(s).split(",") if x)
+
+
+# flag sets of the JAX package's CLI that select a model or a path the port
+# does not have: (test on the parsed flags, message naming the flag)
+_UNSUPPORTED = (
+    (lambda a: not a.extract_geometry,
+     "--extract_geometry is required: without it the JAX package trains, and "
+     "the port only extracts geometry"),
+    (lambda a: not a.depth_pos_encoding,
+     "--depth_pos_encoding is required: without it the JAX package builds a "
+     "model with no depth PE, which the port does not have"),
+    (lambda a: a.mvs_depth_guide <= 0,
+     "--mvs_depth_guide {a.mvs_depth_guide}: a model with no depth PE is not ported"),
+    (lambda a: a.use_dir_srdf,
+     "--use_dir_srdf: the view-direction encoding of the ray head is not ported"),
+    (lambda a: a.volume_type != "correlation",
+     "--volume_type {a.volume_type}: only correlation volumes are ported"),
+    (lambda a: a.volume_reso <= 0,
+     "--volume_reso {a.volume_reso}: a model without volume features is not ported"),
+    (lambda a: a.share_cr,
+     "--share_cr: one shared cost-regularisation net is not ported"),
+    (lambda a: a.compute_dtype != "float32",
+     "--compute_dtype {a.compute_dtype}: the port computes in float32"),
+    (lambda a: a.encoder_dtype not in ("", "float32"),
+     "--encoder_dtype {a.encoder_dtype}: the port computes in float32"),
+    (lambda a: a.test_general,
+     "--test_general: the GeneralFit dataset is not ported"),
+    (lambda a: a.extract_similarity,
+     "--extract_similarity: the similarity field is not ported"),
+    (lambda a: _ints(a.mesh_shape) != (1,),
+     "--mesh_shape {a.mesh_shape}: the port renders on one card"),
+)
+
+
+def config_from_args(argv=None) -> Tuple["Config", str]:
+    """Parse the JAX package's extract flags (``uforecon_tpu/config.py:352``
+    ``config_from_args``: the same names and defaults) plus ``--device``.
+
+    Returns the Config and the device. Raises ``ValueError``, naming the
+    flag, on a flag set that selects a model or a path the port does not
+    have, rather than rendering its default model. The port renders the
+    exact path: the JAX package's evaluation approximations
+    (``volume_merge``, ``kernel_precision``, ``image_gather_dtype``) do not
+    exist here."""
+    import argparse
+
+    p = argparse.ArgumentParser(
+        "uforecon_tpu_torch.cli.run",
+        description="Render the depth maps of DTU scans on a CUDA card (the "
+                    "JAX package's --extract_geometry). The port renders the "
+                    "exact path: it has none of the JAX evaluation "
+                    "approximations (volume_merge, kernel_precision, "
+                    "image_gather_dtype).")
+    d = Config()
+    p.add_argument("--root_dir", type=str, default=d.root_dir)
+    p.add_argument("--out_dir", type=str, default=d.out_dir)
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--load_ckpt", type=str, default=d.load_ckpt,
+                   help="a state-dict file or the reference's Lightning .ckpt "
+                        "(convert.load_weights); none renders random weights")
+    p.add_argument("--test_sample_coarse", type=int, default=d.test_sample_coarse)
+    p.add_argument("--test_sample_fine", type=int, default=d.test_sample_fine)
+    p.add_argument("--extract_geometry", action="store_true")
+    p.add_argument("--test_general", action="store_true")
+    p.add_argument("--test_n_view", type=int, default=d.test_n_view)
+    p.add_argument("--test_ray_num", type=int, default=d.test_ray_num)
+    p.add_argument("--test_ref_view", type=int, nargs="+", default=list(d.test_ref_view))
+    p.add_argument("--test_scan", type=str, default=d.test_scan)
+    p.add_argument("--img_wh", type=int, nargs=2, default=[],
+                   help="render resolution W H (default: the dataset's 800 640)")
+    p.add_argument("--set", type=int, default=d.set)
+    p.add_argument("--test_coarse_only", action="store_true")
+    p.add_argument("--extract_similarity", action="store_true")
+    p.add_argument("--ndepths", type=str, default="48,32,8")
+    p.add_argument("--depth_inter_r", type=str, default="4,2,1")
+    p.add_argument("--cr_base_chs", type=str, default="8,8,8")
+    p.add_argument("--share_cr", action="store_true")
+    p.add_argument("--volume_type", type=str, default="correlation")
+    p.add_argument("--volume_reso", type=int, default=96)
+    p.add_argument("--mvs_depth_guide", type=int, default=1)
+    p.add_argument("--depth_pos_encoding", action="store_true")
+    p.add_argument("--explicit_similarity", action="store_true",
+                   help="without it: the paper's ablation without explicit "
+                        "similarity, as in the JAX package")
+    p.add_argument("--use_dir_srdf", action="store_true")
+    p.add_argument("--compute_dtype", type=str, default="float32")
+    p.add_argument("--encoder_dtype", type=str, default="")
+    p.add_argument("--mesh_shape", type=str, default="1")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cpu runs the kernels' plain PyTorch versions")
+    a = p.parse_args(argv)
+    for unsupported, message in _UNSUPPORTED:
+        if unsupported(a):
+            raise ValueError(message.format(a=a))
+    cfg = Config(
+        root_dir=a.root_dir, out_dir=a.out_dir, seed=a.seed, load_ckpt=a.load_ckpt,
+        test_sample_coarse=a.test_sample_coarse, test_sample_fine=a.test_sample_fine,
+        test_ray_num=a.test_ray_num, extract_geometry=True,
+        test_n_view=a.test_n_view, test_ref_view=tuple(a.test_ref_view),
+        test_scan=a.test_scan, set=a.set, test_coarse_only=a.test_coarse_only,
+        img_wh=tuple(a.img_wh), ndepths=_ints(a.ndepths),
+        depth_inter_r=_floats(a.depth_inter_r), cr_base_chs=_ints(a.cr_base_chs),
+        explicit_similarity=a.explicit_similarity)
+    return cfg, a.device

@@ -1,5 +1,5 @@
-"""Weights: the bridge from the JAX package's flax variables, and a seeded
-initialiser for runs without them.
+"""Weights: the bridge from the JAX package's flax variables, checkpoint
+files (``load_weights``), and a seeded initialiser for runs without them.
 
 The port's submodules carry the flax scope names (``matcher``,
 ``mvs_volume``, ``ray_transformer``, ``Conv_0``, ``BatchNorm_0``,
@@ -22,6 +22,8 @@ so each tree fills only the model of its own configuration.
 """
 from __future__ import annotations
 
+import os
+import pickle
 from typing import Dict, Mapping
 
 import numpy as np
@@ -63,24 +65,108 @@ def flax_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_flax_variables(model: nn.Module, variables: Mapping) -> None:
-    """Fill ``model``'s parameters and BN statistics from the JAX package's
-    variables (nested dicts of numpy arrays). Raises on any leaf left
-    unmapped, unused or of the wrong shape."""
-    src = flax_to_state_dict(variables)
+def _inverse_layout(shape, leaf: str):
+    """The flax shape of a port tensor of ``shape`` (``_layout`` undone)."""
+    shape = tuple(shape)
+    if leaf in ("kernel", "weight"):
+        if len(shape) == 2:
+            return shape[::-1]
+        if len(shape) == 4:
+            return tuple(shape[i] for i in (2, 3, 1, 0))
+        if len(shape) == 5:
+            return tuple(shape[i] for i in (2, 3, 4, 1, 0))
+    return shape
+
+
+def _state_key(path) -> str:
+    return ".".join(tuple(path[:-1]) + (_RENAME.get(path[-1], path[-1]),))
+
+
+def load_state(model: nn.Module, src: Mapping[str, np.ndarray],
+               source: str = "state-dict entries") -> None:
+    """Fill ``model``'s parameters and BN statistics from a flat dict of its
+    ``state_dict`` keys. Raises on any entry left unmapped, unused or of
+    the wrong shape (``num_batches_tracked`` is ignored)."""
+    src = {k: v for k, v in src.items() if not k.endswith("num_batches_tracked")}
     dst = {k: v for k, v in model.state_dict().items()
            if not k.endswith("num_batches_tracked")}
     unused = sorted(set(src) - set(dst))
     missing = sorted(set(dst) - set(src))
     if unused or missing:
-        raise ValueError(f"flax/torch weight mismatch: unused flax leaves "
-                         f"{unused}, torch entries without a source {missing}")
+        raise ValueError(f"weight mismatch: unused {source} {unused}, "
+                         f"torch entries without a source {missing}")
     with torch.no_grad():
         for k, t in dst.items():
-            a = src[k]
+            a = np.asarray(src[k], np.float32)
             if tuple(a.shape) != tuple(t.shape):
-                raise ValueError(f"{k}: flax shape {a.shape} -> {tuple(t.shape)}")
+                raise ValueError(f"{k}: source shape {a.shape} -> {tuple(t.shape)}")
             t.copy_(torch.from_numpy(np.array(a, np.float32, order="C")))
+
+
+def load_flax_variables(model: nn.Module, variables: Mapping) -> None:
+    """Fill ``model``'s parameters and BN statistics from the JAX package's
+    variables (nested dicts of numpy arrays). Raises on any leaf left
+    unmapped, unused or of the wrong shape."""
+    load_state(model, flax_to_state_dict(variables), source="flax leaves")
+
+
+def save_state_dict(path: str, variables: Mapping) -> None:
+    """Write the JAX package's variables as a state-dict file (torch
+    tensors under the port's keys) that ``load_weights`` reads. Run where
+    the variables are, e.g. after the JAX package's
+    ``pipeline.checkpoint.load_eval_variables`` on an orbax directory."""
+    torch.save({k: torch.from_numpy(np.array(v, np.float32, order="C"))
+                for k, v in flax_to_state_dict(variables).items()}, path)
+
+
+def _torch_load(path: str):
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        # a Lightning checkpoint pickles its hyper-parameters and loop state
+        return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def load_weights(model: nn.Module, path: str) -> None:
+    """Fill ``model`` from a checkpoint file, in either of two formats:
+
+      * a state-dict file under the port's keys (``save_state_dict``, or
+        ``torch.save(model.state_dict())``);
+      * the reference's PyTorch Lightning ``.ckpt`` (or its bare state
+        dict): its tensors are renamed by the reference name map
+        (``data/torch_ckpt.py uforecon_name_map``) onto flax leaves.
+
+    An orbax checkpoint directory (the JAX package's ``--load_ckpt``)
+    raises: convert it with ``save_state_dict`` on a host with JAX. Any
+    tensor left unmapped and any model entry left without a source raise.
+    """
+    from .data import torch_ckpt
+
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an orbax checkpoint of the JAX package?); "
+            "the port reads checkpoint files. Convert it on a host with JAX: "
+            "variables = uforecon_tpu.pipeline.checkpoint.load_eval_variables"
+            f"({path!r}); uforecon_tpu_torch.convert.save_state_dict(file, "
+            "variables); then pass that file")
+    obj = _torch_load(path)
+    sd = obj.get("state_dict", obj) if isinstance(obj, Mapping) else None
+    if not isinstance(sd, Mapping):
+        raise ValueError(f"{path}: not a state dict or Lightning checkpoint "
+                         f"({type(obj).__name__})")
+    sd = {k: (v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+          for k, v in sd.items()}
+    if not any(k.startswith("transmvsnet.") for k in sd):
+        load_state(model, sd)
+        return
+    own = model.state_dict()
+
+    def leaf_shape(coll, path):
+        t = own.get(_state_key(path))
+        return None if t is None else _inverse_layout(t.shape, path[-1])
+
+    load_flax_variables(model, torch_ckpt.convert_named(
+        sd, torch_ckpt.uforecon_name_map(), leaf_shape))
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> None:

@@ -144,25 +144,29 @@ class UFORecon(nn.Module):
         generator: Optional[torch.Generator] = None,
         near_per_ray: Optional[torch.Tensor] = None,  # (RN,), else scene near
         far_per_ray: Optional[torch.Tensor] = None,
-        u_coarse: Optional[torch.Tensor] = None,    # (RN, coarse_sample) uniform
-        u_fine: Optional[torch.Tensor] = None,      # (RN, fine_sample) draws
+        u_coarse: Optional[torch.Tensor] = None,    # (RN, n_coarse) uniform
+        u_fine: Optional[torch.Tensor] = None,      # (RN, n_fine) draws
+        coarse_only: bool = False,
     ) -> Dict[str, Dict[str, torch.Tensor]]:
         """Coarse + importance-sampled fine rendering of one ray chunk
-        (reference model.py:393-482). Draws not given come from
-        ``generator``."""
-        c = self.cfg
+        (reference model.py:393-482), ``cfg.samples`` points per ray. Draws
+        not given come from ``generator``. ``coarse_only`` returns the
+        coarse pass as both outputs."""
+        n_coarse, n_fine = self.cfg.samples
         rn = ray_d.shape[0]
         ray_o = scene.ray_o.expand(rn, 3)
         near = near_per_ray if near_per_ray is not None else scene.near.expand(rn)
         far = far_per_ray if far_per_ray is not None else scene.far.expand(rn)
 
-        points, z_val = sample_coarse(ray_o, ray_d, c.coarse_sample, near, far,
+        points, z_val = sample_coarse(ray_o, ray_d, n_coarse, near, far,
                                       u=u_coarse, generator=generator)
         pp_c = self._point_features(scene, enc, points)
         out_c = self._render_sequence(z_val, pp_c)
+        if coarse_only:
+            return {"coarse": out_c, "fine": out_c}
 
         points_f, z2 = sample_importance(ray_o, ray_d, out_c["weight"], z_val,
-                                         c.fine_sample, u=u_fine, generator=generator)
+                                         n_fine, u=u_fine, generator=generator)
         # the per-point stage is sample-independent: only the new fine
         # points are evaluated, and the merge by z is a permutation of the
         # coarse and fine outputs

@@ -5,10 +5,14 @@ Counterpart of the JAX package's ``pipeline/renderer.py`` (chunk loop
 without the device mesh and the brick planner. Rays are padded (edge
 rows) to a multiple of the chunk, rendered chunk by chunk in a Python
 loop, and cut back.
+
+Each chunk's uniform draws come from a ``torch.Generator``, or from the
+caller (``draws``: one ``(u_coarse, u_fine)`` pair per chunk), so that a
+test can feed the JAX package's key schedule.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,11 +34,17 @@ class SceneRenderer:
 
     def render_rays(self, scene: SceneInputs, enc: EncoderOutputs,
                     ray_d: np.ndarray, near: np.ndarray, far: np.ndarray,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Dict[str, np.ndarray]:
-        """Fine-pass rgb (N, 3), depth (N,) and opacity (N,) of N rays."""
+                    generator: Optional[torch.Generator] = None,
+                    draws: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]] = None,
+                    coarse_only: bool = False) -> Dict[str, np.ndarray]:
+        """Fine-pass rgb (N, 3), depth (N,) and opacity (N,) of N rays
+        (the coarse pass's with ``coarse_only``). ``draws``, if given, holds
+        each chunk's (u_coarse (chunk, n_coarse), u_fine (chunk, n_fine))."""
         n = ray_d.shape[0]
         pad = (-n) % self.chunk
+        n_chunks = (n + pad) // self.chunk
+        if draws is not None and len(draws) != n_chunks:
+            raise ValueError(f"{len(draws)} chunks of draws for {n_chunks} chunks")
 
         def dev(a):
             a = np.asarray(a, np.float32)
@@ -44,19 +54,27 @@ class SceneRenderer:
 
         rd, nr, fr = dev(ray_d), dev(near), dev(far)
         outs = {"rgb": [], "depth": [], "opacity": []}
-        for s in range(0, n + pad, self.chunk):
-            sl = slice(s, s + self.chunk)
+        for i in range(n_chunks):
+            sl = slice(i * self.chunk, (i + 1) * self.chunk)
+            u_c = u_f = None
+            if draws is not None:
+                u_c, u_f = (torch.as_tensor(np.asarray(u, np.float32), device=self.device)
+                            for u in draws[i])
             out = self.model.render_chunk(scene, enc, rd[sl], generator,
-                                          near_per_ray=nr[sl], far_per_ray=fr[sl])
+                                          near_per_ray=nr[sl], far_per_ray=fr[sl],
+                                          u_coarse=u_c, u_fine=u_f,
+                                          coarse_only=coarse_only)
             for k in outs:
                 outs[k].append(out["fine"][k])
         return {k: torch.cat(v)[:n].cpu().numpy() for k, v in outs.items()}
 
     def render_depth_view(self, scene: SceneInputs, enc: EncoderOutputs,
                           extras: Dict,
-                          generator: Optional[torch.Generator] = None
+                          generator: Optional[torch.Generator] = None,
+                          draws: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]] = None
                           ) -> Dict[str, np.ndarray]:
-        """Depth map + rgb of one full view (extract_geometry path).
+        """Depth map + rgb of one full view (extract_geometry path), the
+        coarse pass's under ``cfg.test_coarse_only``.
 
         Per-ray near/far are divided by the camera-frame ray z (ray
         distance -> z-depth bounds); the rendered ray distance is turned
@@ -67,7 +85,8 @@ class SceneRenderer:
         n = ray_d.shape[0]
         near = np.full(n, float(scene.near), np.float32) / cam_rd[:, 2]
         far = np.full(n, float(scene.far), np.float32) / cam_rd[:, 2]
-        out = self.render_rays(scene, enc, ray_d, near, far, generator)
+        out = self.render_rays(scene, enc, ray_d, near, far, generator, draws,
+                               coarse_only=self.model.cfg.test_coarse_only)
         h, w = extras["hw"]
         depth_mm = out["depth"] * cam_rd[:, 2] * extras["scale_mat"][0, 0]
         return {
