@@ -59,11 +59,29 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      ``cli.depth_fusion``, ``cli.clean_mesh`` and ``cli.dtu_eval`` against
      points on the sphere (accuracy and completeness within one voxel);
      each stage's time;
- 10. tests phase: the GPU unit tests of the kernels (``python -m pytest
+ 10. training phase (``pipeline/trainer.py``, ``pipeline/fit.py``): at the
+     full width of the JAX training default (``ndepths`` 48/32/8, 192
+     hypotheses, 64 + 64 samples, 1024 rays, 5 views at 640x512 on the
+     learn_sanity sphere, seeded weights, matcher frozen, Adam on the
+     rest): (a) one coarse 256-ray gradient step on the card against the
+     same step on the CPU (the matcher's outputs taken from the card on
+     both); (b) TRAIN_STEPS timed steps of the default route (kernels 1
+     and 2 on every step) and of route A (kernels 5 and 6, and 2): s/step,
+     peak memory, launches and weight-pack builds per step, and after each
+     step's forward kernel 1 at the updated weights against its plain
+     version (the stale-pack guard), then one default-route step under
+     torch.profiler (device ms of its encode, render and backward, busy
+     share, the costliest operations); (c) ``cli.run --debug`` on the
+     fixture's DTU training layout (``make_dtu_fixture.
+     write_train_layout``), then ``cli.run --extract_geometry --load_ckpt``
+     on the checkpoint it wrote; (d) ``script/learn_sanity.py
+     --mesh_eval`` at its defaults (120 MVS + 300 render steps, 160x128, 6
+     views), which must pass its rule;
+ 11. tests phase: the GPU unit tests of the kernels (``python -m pytest
      --noconftest -k on_gpu tests/test_torch_port_kernels.py``: every
      kernel against its plain version at further shapes, ragged edges and
      padded ray lengths) in a subprocess, which must pass;
- 11. prints a JSON line of per-kernel results, then the final
+ 12. prints a JSON line of per-kernel results, then the final
      ``{"ok": true, "device": {...}}`` line.
 Any failure exits non-zero without printing a result; without a CUDA card
 it exits 1 at once.
@@ -106,6 +124,9 @@ PIPELINE_WH = (800, 640)               # the DTU render size cli.run gives
 PIPELINE_VOXELS = (4.0, 1.5)
 # warm views per route in the A/B phase: 2 x AB_ROUNDS
 AB_ROUNDS = 2
+# training phase: the DTU training crop; timed steps per route
+TRAIN_WH = (640, 512)
+TRAIN_STEPS = {"off": 5, "A": 3}
 PORT = "uforecon_tpu_torch"
 # the JAX reference package, never imported here: the port's name without
 # its suffix
@@ -144,7 +165,11 @@ MUST_RUN = {"off": ("point_head", "ray_head"),
             "grad": ("tiny_attention", "tiny_attention_bwd"),
             "v2": ("point_head2", "ray_head"),
             "probe": ("block_row_gather",),
-            "pipeline": ("point_head", "ray_head")}
+            "pipeline": ("point_head", "ray_head"),
+            "train": ("point_head", "ray_head"),
+            "train_A": ("tiny_attention", "tiny_attention_bwd", "ray_head"),
+            "train_cli": ("point_head", "ray_head"),
+            "learn_sanity": ("point_head", "ray_head")}
 # H100 SXM data sheet at 700 W: FP32 outside the tensor cores, dense TF32
 # on the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -156,6 +181,7 @@ TENSOR_CORE = ("point_head", "ray_head", "ray_head_neus", "point_head2")
 
 def log(msg):
     print(msg, flush=True)
+
 
 
 def smi(fields):
@@ -816,17 +842,18 @@ def agree_with_cpu(model, sample, route):
     from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
 
     scene, extras = scene_inputs_from_sample(sample, "cuda")
-    enc = model.encode(scene)
     rn, sn = 256, model.cfg.coarse_sample
     idx = np.random.default_rng(SEED).choice(len(extras["ray_d"]), rn, replace=False)
     ray_d = torch.as_tensor(extras["ray_d"][idx], device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     u_c = torch.rand((rn, sn), generator=gen, device="cuda")
     u_f = torch.rand((rn, model.cfg.fine_sample), generator=gen, device="cuda")
-    out_gpu = model.render_chunk(scene, enc, ray_d, u_coarse=u_c, u_fine=u_f)
-    model_cpu = copy.deepcopy(model).cpu()
-    out_cpu = model_cpu.render_chunk(to_cpu(scene), to_cpu(enc), ray_d.cpu(),
-                                     u_coarse=u_c.cpu(), u_fine=u_f.cpu())
+    with torch.no_grad():
+        enc = model.encode(scene)
+        out_gpu = model.render_chunk(scene, enc, ray_d, u_coarse=u_c, u_fine=u_f)
+        model_cpu = copy.deepcopy(model).cpu()
+        out_cpu = model_cpu.render_chunk(to_cpu(scene), to_cpu(enc), ray_d.cpu(),
+                                         u_coarse=u_c.cpu(), u_fine=u_f.cpu())
     agree = {}
     for phase in ("coarse", "fine"):
         for key in ("depth", "rgb"):
@@ -889,7 +916,8 @@ def gradient_phase(model_a, sample, card):
     from uforecon_tpu_torch.ops.sampling import sample_coarse
 
     scene, extras = scene_inputs_from_sample(sample, "cuda")
-    enc = model_a.encode(scene)
+    with torch.no_grad():
+        enc = model_a.encode(scene)
     rn, sn = 256, model_a.cfg.coarse_sample
     idx = np.random.default_rng(SEED + 1).choice(len(extras["ray_d"]), rn, replace=False)
     ray_d = torch.as_tensor(extras["ray_d"][idx], device="cuda")
@@ -981,6 +1009,7 @@ def profile_phase(models, scene, enc, extras, card, chunks=8, rn=1024):
             for i in range(chunks)]
     result = {}
     for route, model in models.items():
+        @torch.no_grad()
         def run():
             gen = torch.Generator(device="cuda").manual_seed(SEED)
             for ray_d, near, far in args:
@@ -1224,6 +1253,320 @@ def pipeline_phase(model, card):
     return launches
 
 
+def step_profile(cfg, model, state, scene, batch, gen):
+    """One training step under torch.profiler: its wall ms (unprofiled, the
+    same step's shapes), its device ms and the device's busy share, the
+    host and device spans of its forward's encode and render (the rest is
+    the loss and the backward), and the operations with the most device
+    time. The gradients are dropped: no update."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from uforecon_tpu_torch.pipeline import trainer
+
+    def step():
+        with record_function("train_forward_encode"):
+            enc = model.encode(scene)
+        with record_function("train_forward_render"):
+            out = model.render_chunk(scene, enc, batch[0], gen)
+            loss, _ = trainer.render_losses(cfg, out, batch[1], batch[2], scene.near,
+                                            scene.far)
+        loss.backward()
+        state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    step()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+    labels = ("train_forward_encode", "train_forward_render")
+    # the labels' ranges appear on both timelines; they are spans, not work
+    dev = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and e.name not in labels]
+    if not dev:
+        raise AssertionError("the profiler recorded no device operation")
+    by_name = collections.Counter()
+    for e in dev:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    span = {(e.name, e.device_type == DeviceType.CUDA): e.time_range.elapsed_us() / 1e3
+            for e in prof.events() if e.name in labels}
+    busy = sum(by_name.values())
+    return {"wall_ms": wall_ms, "device_ms": busy, "device_busy_share": busy / wall_ms,
+            "device_ops": len(dev),
+            "host_ms": {n: span.get((n, False)) for n in labels},
+            "device_span_ms": {n: span.get((n, True)) for n in labels},
+            "top_ms": {k[:90]: round(v, 3) for k, v in by_name.most_common(12)}}
+
+
+def training_steps(cfg, model, state, sample, run, steps, card):
+    """``steps`` timed 1024-ray training steps of ``model`` (a route of
+    state's model) on the card, after one untimed warm-up step. After each
+    step's forward and backward, before its update: kernel 1 at the
+    current weights against its plain version on fresh inputs (those
+    launches and any pack build are not counted), which must reuse the
+    pack the step built (the stale-pack guard). Returns the run's
+    launches, per-step times, builds and launches, and the peak memory."""
+    import torch
+
+    from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
+    from uforecon_tpu_torch.ops import fused_point_head as fph
+    from uforecon_tpu_torch.pipeline import trainer
+    from uforecon_tpu_torch.pipeline.fit import _gather_ray_batch
+
+    scene, extras = scene_inputs_from_sample(sample, "cuda")
+    h, w = extras["hw"]
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen_in = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    wrappers, packs = launch_counts(), pack_counters()
+    nv = scene.source_imgs.shape[0]
+
+    def rays():
+        idx = rng.permutation(h * w)[:cfg.train_ray_num]
+        return [torch.as_tensor(a, device="cuda") for a in _gather_ray_batch(extras, idx)]
+
+    def pack_check():
+        saved = ({n: wr.launches for n, wr in wrappers.items()},
+                 {n: wr.pack_builds for n, wr in packs.items()})
+        n = 4096
+        mask = (torch.rand((nv, n), generator=gen_in, device="cuda") > 0.3).float()
+        inp = fph.PointHeadInputs(
+            img_feat=torch.randn((nv, n, 32), generator=gen_in, device="cuda"),
+            vol_feat=torch.randn((n, 24), generator=gen_in, device="cuda"),
+            sim_feat=torch.rand((n, 8), generator=gen_in, device="cuda") * 2 - 1,
+            depth_dist=0.3 * torch.randn((nv, n), generator=gen_in, device="cuda"),
+            dir_rel=0.1 * torch.randn((nv, n, 3), generator=gen_in, device="cuda"),
+            rgb=torch.rand((nv, n, 3), generator=gen_in, device="cuda"), mask=mask)
+        params = model.ray_transformer.point_head_params()
+        with torch.no_grad():
+            got = fph.point_head(inp, params)
+            want = fph.point_head_reference(inp, params)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        rebuilt = fph.point_head.pack_builds - saved[1]["point_head"]
+        for nm, wr in wrappers.items():
+            wr.launches = saved[0][nm]
+        for nm, wr in packs.items():
+            wr.pack_builds = saved[1][nm]
+        return err, rebuilt
+
+    trainer.grad_step(cfg, model, scene, *rays(), gen)       # warm-up
+    trainer.apply_step(state.optimizer, 1)
+    torch.cuda.synchronize()
+    for wr in wrappers.values():
+        wr.launches = 0
+    for wr in packs.values():
+        wr.pack_builds = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, per_step, builds, checks, losses = [], [], [], [], []
+    prev_l = {n: 0 for n in wrappers}
+    prev_b = {n: 0 for n in packs}
+    for _ in range(steps):
+        batch = rays()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = trainer.grad_step(cfg, model, scene, *batch, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if run == "train":
+            checks.append(pack_check())
+        t2 = time.perf_counter()
+        trainer.apply_step(state.optimizer, 1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t2 + t1 - t0)
+        losses.append(float(logs["train/loss_all"]))
+        now = {n: wr.launches for n, wr in wrappers.items()}
+        per_step.append({n: now[n] - prev_l[n] for n in MUST_RUN[run]})
+        prev_l = now
+        nb = {n: wr.pack_builds for n, wr in packs.items()}
+        builds.append({n: nb[n] - prev_b[n] for n in packs})
+        prev_b = nb
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {n: wr.launches for n, wr in wrappers.items()}
+    prof = step_profile(cfg, model, state, scene, rays(), gen) if run == "train" else None
+    for n, wr in wrappers.items():
+        wr.launches = launches[n]
+    log(f"[train] route {run}: {steps} steps of {cfg.train_ray_num} rays, {nv} source "
+        f"views {w}x{h}, {cfg.coarse_sample}+{cfg.fine_sample} samples: s/step "
+        f"{np.round(times, 4).tolist()} (median {np.median(times):.4f}), peak "
+        f"{peak:.2f} GiB, loss {np.round(losses, 5).tolist()}; launches per step "
+        f"{per_step}; weight packs built per step {builds} [{card}]")
+    check_launches(run, launches)
+    for i, step in enumerate(per_step):
+        idle = [n for n, c in step.items() if c < 1]
+        if idle:
+            raise AssertionError(f"{run} step {i}: kernels {idle} not launched")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{run}: loss not finite: {losses}")
+    result = {"s_per_step": times, "peak_gib": peak, "launches_per_step": per_step,
+              "pack_builds_per_step": builds, "losses": losses}
+    if prof is not None:
+        log(f"[train] route {run}: one more step under torch.profiler: " + json.dumps(prof)
+            + f" [{card}]")
+        result["profile"] = prof
+    if run == "train":
+        log(f"[train] stale-pack guard: after each step, kernel 1 at the weights the "
+            f"step used vs its plain version, max abs error "
+            f"{[f'{e:.3e}' for e, _ in checks]} (tol {TOL['token']}), packs built by "
+            f"the check {[b for _, b in checks]} (must be 0: the step built them)")
+        if any(b["point_head"] != 1 or b["ray_head"] != 1 for b in builds):
+            raise AssertionError(f"the heads did not build their packs once a step: {builds}")
+        if any(e > TOL["token"] or b != 0 for e, b in checks):
+            raise AssertionError(f"kernel 1 used a stale pack or disagrees: {checks}")
+        result["pack_check_err"] = [e for e, _ in checks]
+    return launches, result
+
+
+def training_phase(card):
+    """Training at the full width of the JAX training default (module
+    docstring, phase 10): (a) card against CPU, (b) timed steps, (c) the
+    training CLI and the reload of its checkpoint, (d) learn_sanity.
+    Returns the launches of each of its runs and its numbers."""
+    import contextlib
+    import io
+
+    import torch
+
+    from uforecon_tpu_torch.cli import run as cli_run
+    from uforecon_tpu_torch.config import Config
+    from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
+    from uforecon_tpu_torch.pipeline import trainer
+    from uforecon_tpu_torch.pipeline.fit import _gather_ray_batch, init_model
+    from uforecon_tpu_torch.script import learn_sanity
+    from uforecon_tpu_torch.script import make_dtu_fixture as fixture
+
+    w, h = TRAIN_WH
+    cfg = Config()
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    ds = learn_sanity.SphereDataset(learn_sanity.build_scene_views(6, h, w), 4,
+                                    cfg.numdepth)
+    sample = ds[0]
+    model = init_model(cfg, SEED, "cuda")
+    state = trainer.TrainState(model, trainer.make_optimizer(cfg, model))
+
+    # (a) one coarse 256-ray gradient step, card against CPU; both take the
+    # matcher's outputs of the card (frozen, without gradients)
+    scene, extras = scene_inputs_from_sample(sample, "cuda")
+    with torch.no_grad():
+        enc_m = model.matcher(scene.source_imgs, scene.proj_matrices, scene.depth_values)
+    rn = 256
+    idx = np.random.default_rng(SEED + 2).permutation(h * w)[:rn]
+    batch = _gather_ray_batch(extras, idx)
+    u_c = torch.rand((rn, cfg.coarse_sample),
+                     generator=torch.Generator().manual_seed(SEED)).numpy()
+    model_cpu = copy.deepcopy(model).cpu()
+    grads, logs = {}, {}
+    for side, dev, m, mo, sc in (("card", "cuda", model, enc_m, scene),
+                                 ("cpu", "cpu", model_cpu, to_cpu(enc_m), to_cpu(scene))):
+        m.matcher.forward = lambda *a, _mo=mo, **k: _mo
+        rays = [torch.as_tensor(a, device=dev) for a in batch]
+        u = torch.as_tensor(u_c, device=dev)
+        logs[side] = trainer.grad_step(cfg, m, sc, *rays, draws=(u, None), coarse_only=True)
+        grads[side] = {n: p.grad.detach().cpu() for n, p in trainer.trainable_parameters(m)}
+        del m.matcher.forward
+    state.optimizer.zero_grad(set_to_none=True)
+    loss_rel = abs(float(logs["card"]["train/loss_all"]) - float(logs["cpu"]["train/loss_all"])
+                   ) / abs(float(logs["cpu"]["train/loss_all"]))
+    # a leaf whose gradient is zero up to rounding (below 1e-6 of the
+    # largest; the radiance softmax's last bias shifts every view's logit
+    # alike) is held to that bound instead
+    top = max(g.abs().max().item() for g in grads["cpu"].values())
+    zero = {n for n, g in grads["cpu"].items() if g.abs().max().item() < 1e-6 * top}
+    zero_ok = all(grads["card"][n].abs().max().item() < 1e-6 * top for n in zero)
+    rel = {n: ((grads["card"][n] - g).abs().max() / g.abs().max()).item()
+           for n, g in grads["cpu"].items() if n not in zero}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[train] (a) coarse {rn}-ray gradient step at {w}x{h}, 4 source views, "
+        f"{cfg.coarse_sample} samples, card vs CPU: loss {float(logs['card']['train/loss_all']):.6f}"
+        f" vs {float(logs['cpu']['train/loss_all']):.6f} (rel {loss_rel:.2e}, tol 1e-4); "
+        f"{len(rel)} trainable leaves, max abs error over each leaf's largest gradient: "
+        f"worst {worst} (tol {TOL['route_grad_rel']}); zero up to rounding on both sides: "
+        f"{sorted(zero)} {zero_ok} [{card}]")
+    if not (loss_rel <= 1e-4 and max(rel.values()) <= TOL["route_grad_rel"] and zero_ok):
+        raise AssertionError("the training step disagrees between card and CPU")
+    out["card_vs_cpu"] = {"loss_rel": loss_rel, "grad_rel_max": max(rel.values())}
+    del model_cpu, enc_m
+
+    # (b) timed steps: the default route, then route A on the same weights
+    launches["train"], out["off"] = training_steps(cfg, model, state, sample, "train",
+                                                   TRAIN_STEPS["off"], card)
+    model_a = model.with_knobs(fused_point_head="never")
+    launches["train_A"], out["A"] = training_steps(cfg, model_a, state, sample, "train_A",
+                                                   TRAIN_STEPS["A"], card)
+    del model, model_a, state
+    torch.cuda.empty_cache()
+
+    # (c) the training CLI on the DTU training layout, then extraction from
+    # the checkpoint it wrote
+    wrappers = launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        root, logdir = os.path.join(tmp, "fixture"), os.path.join(tmp, "logs")
+        with contextlib.redirect_stdout(io.StringIO()):
+            paths = fixture.write_train_layout(root)
+            fixture.main([root, "--views", "23", "24", "33", "--wh", "800", "600"])
+        model_flags = ["--depth_pos_encoding", "--explicit_similarity"]
+        for wr in wrappers.values():
+            wr.launches = 0
+        t_cli = time.perf_counter()
+        st = cli_run.main(model_flags + [
+            "--debug", "--root_dir", root, "--train_list", paths["train"],
+            "--val_list", paths["val"], "--pair_file", paths["pair"], "--logdir", logdir])
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t_cli
+        launches["train_cli"] = {n: wr.launches for n, wr in wrappers.items()}
+        check_launches("train_cli", launches["train_cli"])
+        with open(os.path.join(logdir, "uforecon_tpu", "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        val = [r for r in recs if "val/loss_depth_fine" in r]
+        ckpt = os.path.join(logdir, "uforecon_tpu", "ckpt", "step_3.pt")
+        if not (st.step == 3 and len(val) == 1 and os.path.exists(ckpt)
+                and all(np.isfinite(v) for v in val[0].values())):
+            raise AssertionError(f"cli.run --debug: step {st.step}, validation {val}, "
+                                 f"checkpoint {os.path.exists(ckpt)}")
+        ex_out = os.path.join(tmp, "out")
+        stats = cli_run.main(model_flags + [
+            "--extract_geometry", "--root_dir", root, "--out_dir", ex_out,
+            "--test_scan", "scan24", "--img_wh", "320", "256", "--load_ckpt", ckpt])["scan24"]
+        for i in range(3):
+            e = np.load(os.path.join(ex_out, "depth", "scan24", f"{i:08d}.npy"),
+                        allow_pickle=True).item()
+            if e["depth"].shape != (256, 320) or not np.all(np.isfinite(e["depth"])):
+                raise AssertionError(f"extract from the trained checkpoint: view {i}")
+        log(f"[train] (c) cli.run --debug, DTU training layout {w}x{h}, 4 source views: "
+            f"3 steps, validation {json.dumps({k: round(v, 5) for k, v in val[0].items()})}, "
+            f"checkpoint step_3.pt, {t_cli:.1f} s, launches "
+            f"{ {n: launches['train_cli'][n] for n in MUST_RUN['train_cli']} }; then "
+            f"cli.run --extract_geometry --load_ckpt step_3.pt: {stats['views']} views "
+            f"320x256, finite depth maps [{card}]")
+        out["cli"] = {"seconds": t_cli, "val": val[0]}
+        del st
+    torch.cuda.empty_cache()
+
+    # (d) learn_sanity at its defaults
+    with tempfile.TemporaryDirectory() as tmp:
+        for wr in wrappers.values():
+            wr.launches = 0
+        buf = io.StringIO()
+        t_ls = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            code = learn_sanity.main(["--mesh_eval", "--logdir", tmp])
+        t_ls = time.perf_counter() - t_ls
+        launches["learn_sanity"] = {n: wr.launches for n, wr in wrappers.items()}
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"[train] (d) learn_sanity --mesh_eval (120 MVS + 300 render steps, 160x128, 6 "
+        f"views): {json.dumps(result)}, exit {code}, {t_ls:.1f} s (JAX package on a TPU: "
+        f"depth L1 0.2201 -> 0.0060 of span, mesh acc 2.80 % / comp 1.81 % of radius) "
+        f"[{card}]")
+    check_launches("learn_sanity", launches["learn_sanity"])
+    if code != 0:
+        raise AssertionError(f"learn_sanity failed its rule: {result}")
+    out["learn_sanity"] = {**result, "seconds": t_ls}
+    out["seconds"] = time.perf_counter() - t0
+    return launches, out
+
+
 def tests_phase(card):
     """The GPU unit tests of the kernels (``test_torch_port_kernels.py``,
     no JAX) in a subprocess, which reuses the built extension; they must
@@ -1290,12 +1633,15 @@ def main():
     launches["grad"] = gradient_phase(models["A"], sample, card)
     launches["probe"] = probe_phase(card)
     scene, extras = scene_inputs_from_sample(sample, "cuda")
-    enc = model.encode(scene)
+    with torch.no_grad():
+        enc = model.encode(scene)
     profile_phase({k: models[k] for k in ("off", "on", "A", "v2")}, scene, enc, extras,
                   card)
     ab_phase(models, scene, enc, extras, card)
     del scene, enc, extras
     launches["pipeline"] = pipeline_phase(model, card)
+    train_launches, train = training_phase(card)
+    launches.update(train_launches)
     tests_phase(card)
 
     kernels = []
@@ -1308,6 +1654,7 @@ def main():
                                                    for r in stats}}
                            if name in pack_counters() else {}),
                         **kres[name]})
+    log("[train] " + json.dumps(train))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

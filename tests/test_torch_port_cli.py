@@ -174,7 +174,7 @@ def test_flag_defaults_are_the_jax_ones():
 
 
 @pytest.mark.parametrize("flags,named", [
-    ([], "--extract_geometry"),
+    ([], "--depth_pos_encoding"),     # training too
     (["--extract_geometry"], "--depth_pos_encoding"),
     (["--mvs_depth_guide", "0"], "--mvs_depth_guide 0"),
     (["--use_dir_srdf"], "--use_dir_srdf"),
@@ -188,7 +188,7 @@ def test_flag_defaults_are_the_jax_ones():
     (["--mesh_shape", "2"], "--mesh_shape 2"),
 ])
 def test_unsupported_flag_sets_raise(flags, named):
-    base = [] if named in ("--extract_geometry", "--depth_pos_encoding") \
+    base = [] if named == "--depth_pos_encoding" \
         else ["--extract_geometry", "--depth_pos_encoding"]
     with pytest.raises(ValueError, match=named):
         run.main(base + flags)

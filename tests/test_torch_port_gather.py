@@ -96,7 +96,11 @@ def test_gather_modules_import_without_jax():
             "sys.modules['uforecon_tpu'] = None; "
             "import uforecon_tpu_torch.script.bench_tile_gather, "
             "uforecon_tpu_torch.ops.row_gather, "
-            "uforecon_tpu_torch.ops.fused_point_head2")
+            "uforecon_tpu_torch.ops.fused_point_head2, "
+            "uforecon_tpu_torch.pipeline.trainer, uforecon_tpu_torch.pipeline.fit, "
+            "uforecon_tpu_torch.pipeline.checkpoint, uforecon_tpu_torch.data.dtu_train, "
+            "uforecon_tpu_torch.utils.metrics, uforecon_tpu_torch.utils.logging, "
+            "uforecon_tpu_torch.script.learn_sanity, uforecon_tpu_torch.cli.run")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr

@@ -90,6 +90,7 @@ def slice_pair():
 
     port = UFORecon(_port_cfg())
     load_flax_variables(port, _np_tree(variables))
+    port.requires_grad_(False)   # the render path: no autograd graph
     p_scene = SceneInputs(
         **{k: ({s: _t(p) for s, p in v.items()} if isinstance(v, dict) else _t(v))
            for k, v in scene._asdict().items()})

@@ -177,6 +177,7 @@ def ablation_pair():
     port = UFORecon(pcfg)
     tree = _np_tree(variables)
     load_flax_variables(port, tree)
+    port.requires_grad_(False)   # the render path: no autograd graph
     p_scene = SceneInputs(
         **{k: ({s: _t(p) for s, p in v.items()} if isinstance(v, dict) else _t(v))
            for k, v in scene._asdict().items()})

@@ -1,4 +1,5 @@
-"""UFORecon in PyTorch and CUDA: the depth-map render path on one NVIDIA GPU.
+"""UFORecon in PyTorch and CUDA: the depth-map render path and training on
+one NVIDIA GPU.
 
 A port of the repository's JAX package (the directory beside this one,
 which stays the reference it is tested against). Module paths mirror the
@@ -15,7 +16,11 @@ the grouped cosine, the volume fusion and the ray head's NeuS epilogue
 view-transformer route (``fused_point_head='never'``, or without explicit
 similarity) the tiny linear attention and its backward
 (``ops/tiny_attention.py``).
-It runs on the CUDA card unless the caller passes ``device="cpu"``.
+Training: :func:`uforecon_tpu_torch.pipeline.fit.fit` (render training,
+matcher frozen) and :func:`~uforecon_tpu_torch.pipeline.fit.pretrain_mvs`
+(the matcher on ground-truth depth), with the steps of
+``pipeline/trainer.py``; ``cli/run.py`` runs both entry points.
+They run on the CUDA card unless the caller passes ``device="cpu"``.
 
 Importing the package imports neither ``jax`` nor the JAX package and
 builds no kernel: kernels are compiled at their first launch on a CUDA

@@ -1,4 +1,19 @@
-"""Depth maps of DTU scans on a CUDA card: the port's ``--extract_geometry``.
+"""Training on DTU, and depth maps of DTU scans, on a CUDA card.
+
+Training (without ``--extract_geometry``; ``script/train_dtu.sh``'s flags):
+
+    python -m uforecon_tpu_torch.cli.run --max_epochs 16 --batch_size 1 \\
+        --uforecon_lr 0.0001 --train_ray_num 1024 --train_n_view 5 \\
+        --view_selection_type best --volume_type correlation --volume_reso 96 \\
+        --mvs_depth_guide 1 --depth_pos_encoding --explicit_similarity \\
+        --root_dir DTU_TRAIN --logdir LOGDIR [--debug] [--val_only] [--device cpu]
+
+runs ``pipeline/fit.py``: ``--val_only`` one validation pass, ``--debug``
+3 steps then one validation and a checkpoint, else ``fit`` over
+``--max_epochs``. Checkpoints go to ``{logdir}/{exp_name}/ckpt/step_N.pt``
+and load with ``--load_ckpt``.
+
+Depth maps (the port's ``--extract_geometry``):
 
     python -m uforecon_tpu_torch.cli.run --extract_geometry --set 0 \\
         --volume_type correlation --volume_reso 96 --depth_pos_encoding \\
@@ -6,12 +21,13 @@
         --test_ray_num 800 --test_ref_view 23 24 33 --root_dir DTU_TEST \\
         --out_dir OUT --test_scan scan24 [--load_ckpt FILE] [--device cpu]
 
-Counterpart of the JAX package's ``cli/run.py`` ``run_extract`` with its
-flags (``config.config_from_args``): one scan, or the 15-scan DTU protocol
-when ``--test_scan`` is empty or ``scan1``. Each scan's depth maps go to
-``{out_dir}/depth/{scan}/`` (``pipeline/extract.py``), with one line
-``"{scan}: {views} views, {rays/s} rays/s"``. Training, GeneralFit and
-the similarity field are not ported; their flags raise.
+Counterpart of the JAX package's ``cli/run.py`` ``run_train`` and
+``run_extract`` with its flags (``config.config_from_args``). Extraction
+renders one scan, or the 15-scan DTU protocol when ``--test_scan`` is
+empty or ``scan1``; each scan's depth maps go to ``{out_dir}/depth/{scan}/``
+(``pipeline/extract.py``), with one line ``"{scan}: {views} views,
+{rays/s} rays/s"``. GeneralFit and the similarity field are not ported;
+their flags raise.
 """
 from __future__ import annotations
 
@@ -26,6 +42,7 @@ from ..device import resolve_device
 from ..eval.dtu_eval import DTU_EVAL_SCANS
 from ..models.uforecon import UFORecon
 from ..pipeline.extract import extract_geometry_for_dataset
+from ..pipeline.fit import fit, validate_only
 
 # DTU eval protocol scan list (reference main.py:150)
 TEST_SCANS = DTU_EVAL_SCANS
@@ -63,9 +80,22 @@ def run_extract(cfg: Config, device="cuda") -> Dict[str, Dict[str, float]]:
     return stats
 
 
-def main(argv=None) -> Dict[str, Dict[str, float]]:
+def run_train(cfg: Config, device="cuda"):
+    """Train (``fit``), or with ``--val_only`` validate, on ``device``:
+    the validation metrics, or the final ``TrainState``."""
+    if cfg.val_only:         # reference main.py:222 trainer.validate(...)
+        return validate_only(cfg, device=device)
+    if cfg.debug:            # a smoke run: 3 steps, one loader thread (main.py:107)
+        return fit(cfg, max_steps=3, val_every=3, log_every=1, n_workers=1,
+                   device=device)
+    return fit(cfg, device=device)
+
+
+def main(argv=None):
     cfg, device = config_from_args(argv)
-    return run_extract(cfg, device)
+    if cfg.extract_geometry:
+        return run_extract(cfg, device)
+    return run_train(cfg, device)
 
 
 if __name__ == "__main__":

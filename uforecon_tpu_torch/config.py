@@ -17,7 +17,9 @@ render; under ``extract_geometry`` it reads ``test_sample_coarse`` /
 ``test_sample_fine`` in their place, as the JAX package does
 (``models/uforecon.py:389-390``). ``test_coarse_only`` returns the coarse
 pass as both outputs. The scan, view and checkpoint fields are those of the
-JAX package's extract command; ``config_from_args`` parses its flags.
+JAX package's extract command, the training fields (``logdir`` ...
+``pair_file``, ``numdepth``) those of its training command, with the same
+names and defaults; ``config_from_args`` parses the flags of both.
 
 The three render-glue knobs keep the JAX names, values and defaults
 (``never``). In the JAX package ``auto`` means "on a TPU"; in the port
@@ -66,6 +68,23 @@ class Config:
     out_dir: str = "./outputs"
     seed: int = 0
     load_ckpt: str = ""
+    logdir: str = "./logdir"
+    exp_name: str = "uforecon_tpu"
+    debug: bool = False                  # training: 3 steps, one validation
+
+    # ---- training ----------------------------------------------------------
+    batch_size: int = 1                  # scenes averaged per optimizer step
+    max_epochs: int = 16
+    uforecon_lr: float = 1e-4
+    weight_rgb: float = 1.0
+    weight_depth: float = 1.0
+    train_n_view: int = 5                # ref + 4 source views
+    view_selection_type: str = "best"    # best | random
+    val_only: bool = False               # one validation pass (main.py:222)
+    train_ray_num: int = 1024            # rays per step and validation chunk
+    train_list: str = ""                 # DTU split lists and pair file
+    val_list: str = ""                   # ("" = the packaged ones)
+    pair_file: str = ""
 
     # ---- ray sampling ------------------------------------------------------
     coarse_sample: int = 64
@@ -85,6 +104,7 @@ class Config:
 
     # ---- correlation / cascade MVS ----------------------------------------
     ndepths: Tuple[int, ...] = (48, 32, 8)
+    numdepth: int = 192                  # the datasets' hypotheses in mm
     depth_inter_r: Tuple[float, ...] = (4.0, 2.0, 1.0)
     cr_base_chs: Tuple[int, ...] = (8, 8, 8)
 
@@ -165,9 +185,6 @@ def _floats(s) -> Tuple[float, ...]:
 # flag sets of the JAX package's CLI that select a model or a path the port
 # does not have: (test on the parsed flags, message naming the flag)
 _UNSUPPORTED = (
-    (lambda a: not a.extract_geometry,
-     "--extract_geometry is required: without it the JAX package trains, and "
-     "the port only extracts geometry"),
     (lambda a: not a.depth_pos_encoding,
      "--depth_pos_encoding is required: without it the JAX package builds a "
      "model with no depth PE, which the port does not have"),
@@ -195,8 +212,10 @@ _UNSUPPORTED = (
 
 
 def config_from_args(argv=None) -> Tuple["Config", str]:
-    """Parse the JAX package's extract flags (``uforecon_tpu/config.py:352``
-    ``config_from_args``: the same names and defaults) plus ``--device``.
+    """Parse the JAX package's flags (``uforecon_tpu/config.py:352``
+    ``config_from_args``: the same names and defaults), those of extraction
+    (``--extract_geometry``) and of training (without it), plus
+    ``--device``.
 
     Returns the Config and the device. Raises ``ValueError``, naming the
     flag, on a flag set that selects a model or a path the port does not
@@ -208,8 +227,8 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
 
     p = argparse.ArgumentParser(
         "uforecon_tpu_torch.cli.run",
-        description="Render the depth maps of DTU scans on a CUDA card (the "
-                    "JAX package's --extract_geometry). The port renders the "
+        description="Train on DTU, or with --extract_geometry render the depth "
+                    "maps of DTU scans, on a CUDA card. The port runs the "
                     "exact path: it has none of the JAX evaluation "
                     "approximations (volume_merge, kernel_precision, "
                     "image_gather_dtype).")
@@ -218,8 +237,28 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
     p.add_argument("--out_dir", type=str, default=d.out_dir)
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--load_ckpt", type=str, default=d.load_ckpt,
-                   help="a state-dict file or the reference's Lightning .ckpt "
-                        "(convert.load_weights); none renders random weights")
+                   help="a state-dict file, a checkpoint of the port's training or "
+                        "the reference's Lightning .ckpt (convert.load_weights); "
+                        "without it: seeded random weights")
+    p.add_argument("--logdir", type=str, default=d.logdir)
+    p.add_argument("--exp_name", type=str, default=d.exp_name)
+    p.add_argument("--debug", action="store_true",
+                   help="training: 3 steps, then one validation and a checkpoint")
+    p.add_argument("--batch_size", type=int, default=d.batch_size)
+    p.add_argument("--max_epochs", type=int, default=d.max_epochs)
+    p.add_argument("--uforecon_lr", type=float, default=d.uforecon_lr)
+    p.add_argument("--weight_rgb", type=float, default=d.weight_rgb)
+    p.add_argument("--weight_depth", type=float, default=d.weight_depth)
+    p.add_argument("--train_n_view", type=int, default=d.train_n_view)
+    p.add_argument("--view_selection_type", type=str, default=d.view_selection_type)
+    p.add_argument("--val_only", action="store_true")
+    p.add_argument("--train_ray_num", type=int, default=d.train_ray_num)
+    p.add_argument("--coarse_sample", type=int, default=d.coarse_sample)
+    p.add_argument("--fine_sample", type=int, default=d.fine_sample)
+    p.add_argument("--train_list", type=str, default=d.train_list)
+    p.add_argument("--val_list", type=str, default=d.val_list)
+    p.add_argument("--pair_file", type=str, default=d.pair_file)
+    p.add_argument("--numdepth", type=int, default=d.numdepth)
     p.add_argument("--test_sample_coarse", type=int, default=d.test_sample_coarse)
     p.add_argument("--test_sample_fine", type=int, default=d.test_sample_fine)
     p.add_argument("--extract_geometry", action="store_true")
@@ -256,8 +295,16 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
             raise ValueError(message.format(a=a))
     cfg = Config(
         root_dir=a.root_dir, out_dir=a.out_dir, seed=a.seed, load_ckpt=a.load_ckpt,
+        logdir=a.logdir, exp_name=a.exp_name, debug=a.debug,
+        batch_size=a.batch_size, max_epochs=a.max_epochs, uforecon_lr=a.uforecon_lr,
+        weight_rgb=a.weight_rgb, weight_depth=a.weight_depth,
+        train_n_view=a.train_n_view, view_selection_type=a.view_selection_type,
+        val_only=a.val_only, train_ray_num=a.train_ray_num,
+        coarse_sample=a.coarse_sample, fine_sample=a.fine_sample,
+        train_list=a.train_list, val_list=a.val_list, pair_file=a.pair_file,
+        numdepth=a.numdepth,
         test_sample_coarse=a.test_sample_coarse, test_sample_fine=a.test_sample_fine,
-        test_ray_num=a.test_ray_num, extract_geometry=True,
+        test_ray_num=a.test_ray_num, extract_geometry=a.extract_geometry,
         test_n_view=a.test_n_view, test_ref_view=tuple(a.test_ref_view),
         test_scan=a.test_scan, set=a.set, test_coarse_only=a.test_coarse_only,
         img_wh=tuple(a.img_wh), ndepths=_ints(a.ndepths),

@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``data/convert.py``. The sample dict is the
 reference-format contract the JAX data layer produces (reference
 dtu_train.py:442-497, the JAX package's ``data/dtu_test.py`` __getitem__);
 ``start_idx`` is 0 at test (the reference view is a source view) and 1 at
-train.
+train. The extras carry what training reads too (``ref_img``,
+``depths_h``, ``depths_mm``), as the JAX converter's do.
 """
 from __future__ import annotations
 
@@ -51,5 +52,12 @@ def scene_inputs_from_sample(sample: Dict, device=DEFAULT) -> Tuple[SceneInputs,
             sample.get("extrinsic_render_view", sample["w2cs"][0])),
         "intrinsic_render_view": np.asarray(
             sample.get("intrinsic_render_view", sample["intrinsics"][0])),
+        # training: the reference view's pixels and ground-truth depths
+        # (ray distances in scene units, and raw z-depths in mm)
+        "ref_img": np.asarray(sample["ref_img"], np.float32),
+        "depths_h": (np.asarray(sample["depths_h"], np.float32)
+                     if "depths_h" in sample else None),
+        "depths_mm": (np.asarray(sample["depths_mm"], np.float32)
+                      if "depths_mm" in sample else None),
     }
     return scene, extras

@@ -8,11 +8,20 @@ the reference view, per-view weights from PixelwiseNet, 3D U-Net
 regularisation, softmax and winner-take-all. The whole encoder repeats
 once per rotation of the view order, so that every view leads once.
 
+``train`` is an explicit argument, as in the JAX module (not
+``module.training``): with it the BatchNorms normalise with batch statistics
+and move their running statistics once per call, as flax's mutable
+``batch_stats`` do. Gradients stop at each stage's depth before the next
+stage's hypotheses (the JAX ``grad_method='detach'``). Rotation 0's
+per-stage probability volumes and hypotheses are returned as ``rot0``: MVS
+pretraining supervises them.
+
 Feature maps are channels-last (V, H, W, C) like the JAX module; cost
 volumes and depth maps carry no channel axis.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -131,9 +140,9 @@ class PixelwiseNet(nn.Module):
         self.Conv3dBnRelu_1 = Conv3dBnRelu(16, 8, kernel=1)
         self.Conv_0 = nn.Conv3d(8, 1, 1)
 
-    def forward(self, sim: torch.Tensor) -> torch.Tensor:
+    def forward(self, sim: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(N, D, H, W) correlations -> (N, H, W) weights."""
-        x = self.Conv3dBnRelu_1(self.Conv3dBnRelu_0(sim[:, None]))
+        x = self.Conv3dBnRelu_1(self.Conv3dBnRelu_0(sim[:, None], train), train)
         x = torch.sigmoid(self.Conv_0(x))
         return torch.amax(x, dim=2)[:, 0]
 
@@ -153,15 +162,16 @@ class CostRegNet(nn.Module):
         self.Deconv3dBnRelu_2 = Deconv3dBnRelu(2 * b, b)
         self.Conv_0 = nn.Conv3d(b, 1, 3, padding=1, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = [getattr(self, f"Conv3dBnRelu_{i}") for i in range(7)]
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        c = [functools.partial(getattr(self, f"Conv3dBnRelu_{i}"), train=train)
+             for i in range(7)]
         c0 = c[0](x)
         c2 = c[2](c[1](c0))
         c4 = c[4](c[3](c2))
         x = c[6](c[5](c4))
-        x = c4 + self.Deconv3dBnRelu_0(x)
-        x = c2 + self.Deconv3dBnRelu_1(x)
-        x = c0 + self.Deconv3dBnRelu_2(x)
+        x = c4 + self.Deconv3dBnRelu_0(x, train)
+        x = c2 + self.Deconv3dBnRelu_1(x, train)
+        x = c0 + self.Deconv3dBnRelu_2(x, train)
         return self.Conv_0(x)
 
 
@@ -191,22 +201,24 @@ class CascadeMatcher(nn.Module):
             setattr(self, f"cost_reg_{i}", CostRegNet(1, cr_base_chs[i]))
 
     def _run_stage(self, stage_idx, features, proj_matrices, depth_values,
-                   view_weights: Optional[torch.Tensor]):
+                   view_weights: Optional[torch.Tensor], train: bool):
         projs = combine_projection(proj_matrices)
         sim = _correlate_chunked(features[1:], projs[1:], projs[0],
                                  features[0], depth_values)   # (V-1, D, H, W)
         if view_weights is None:   # stage 1 only
-            view_weights = self.pixel_wise_net(sim)            # (V-1, H, W)
+            view_weights = self.pixel_wise_net(sim, train)     # (V-1, H, W)
         w = view_weights[:, None]
         agg = torch.sum(sim * w, dim=0) / (torch.sum(w, dim=0) + 1e-5)
-        cost_reg = getattr(self, f"cost_reg_{stage_idx}")(agg[None, None])[0, 0]
+        cost_reg = getattr(self, f"cost_reg_{stage_idx}")(agg[None, None], train)[0, 0]
         prob_volume = torch.softmax(cost_reg, dim=0)
         return {
             "depth": depth_wta(prob_volume, depth_values),
             "cost_volume": cost_reg,
+            "prob_volume": prob_volume,
+            "depth_values": depth_values,
         }, view_weights
 
-    def _rotation(self, feats, projs, depth_values, img_hw):
+    def _rotation(self, feats, projs, depth_values, img_hw, train):
         """One view-rotation pass: FMT pathway + 3-stage cascade."""
         h, w = img_hw
         feats_fmt = self.fmt_with_pathway(feats)
@@ -224,7 +236,7 @@ class CascadeMatcher(nn.Module):
             else:
                 # reference order: previous depth up to full resolution, then
                 # to stage resolution (a shrink at stage 2), then hypotheses
-                cur_full = upsample_depth(depth, (h, w))
+                cur_full = upsample_depth(depth.detach(), (h, w))
                 cur_stage = upsample_depth(cur_full, (hs, ws))
                 interval = self.depth_intervals_ratio[s] * depth_interval
                 hyp = depth_hypotheses_around(cur_stage, nd, interval)
@@ -233,36 +245,38 @@ class CascadeMatcher(nn.Module):
                     view_weights, (view_weights.shape[0], hs, ws))
             st, view_weights = self._run_stage(
                 s, feats_fmt[f"stage{s + 1}"], projs[f"stage{s + 1}"],
-                hyp, view_weights)
+                hyp, view_weights, train)
             depth = st["depth"]
-            out[f"cost_volume{s + 1}"] = st["cost_volume"]
-            out[f"depth{s + 1}"] = depth
+            out[f"stage{s + 1}"] = st
         return out
 
     def forward(self, imgs: torch.Tensor,
                 proj_matrices: Dict[str, torch.Tensor],
-                depth_values: torch.Tensor) -> Dict[str, torch.Tensor]:
+                depth_values: torch.Tensor, train: bool = False) -> Dict:
         """imgs (V, H, W, 3); proj_matrices stage -> (V, 2, 4, 4);
         depth_values (D0,) hypotheses in mm."""
         v, h, w, _ = imgs.shape
-        feats = self.feature(imgs)
+        feats = self.feature(imgs, train)
         rots = []
         for r in range(v):
             order = [(r + i) % v for i in range(v)]
             rots.append(self._rotation(
                 {k: f[order] for k, f in feats.items()},
                 {k: p[order] for k, p in proj_matrices.items()},
-                depth_values, (h, w)))
+                depth_values, (h, w), train))
         # pair features come from rotation 0's FMT-transformed stage1 (the
         # reference mutates its backbone feature dicts in place)
         fmt_stage1_rot0 = rots[0]["fmt_stage1"]
         aug0, aug1 = self.fmt_with_pathway.extract_cross_features(fmt_stage1_rot0, v)
-        n = len(self.ndepths)
+        stages = [f"stage{s + 1}" for s in range(len(self.ndepths))]
         return {
             "feat_stage1": fmt_stage1_rot0,
-            "cost_volumes": {f"stage{s + 1}": torch.stack(
-                [rt[f"cost_volume{s + 1}"] for rt in rots]) for s in range(n)},
-            "mvs_depth": torch.stack([rt[f"depth{n}"] for rt in rots]),
+            "cost_volumes": {st: torch.stack([rt[st]["cost_volume"] for rt in rots])
+                             for st in stages},
+            "mvs_depth": torch.stack([rt[stages[-1]]["depth"] for rt in rots]),
             "aug0": aug0,
             "aug1": aug1,
+            # pretraining aux: rotation 0's (D, h, w) per stage
+            "rot0": {st: {k: rots[0][st][k] for k in ("prob_volume", "depth_values")}
+                     for st in stages},
         }

@@ -8,6 +8,7 @@ outputs are channels-last like the JAX module:
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -15,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.deform_conv import deform_conv2d
-from .layers import ConvBnRelu, upsample_nearest_2x
+from .layers import BatchNorm2d, ConvBnRelu, upsample_nearest_2x
 
 
 class DCN(nn.Module):
@@ -50,15 +51,15 @@ class DCNBlock(nn.Module):
         super().__init__()
         self.ConvBnRelu_0 = ConvBnRelu(cin, mid, kernel=first_kernel)
         self.dcn0 = DCN(mid, mid)
-        self.BatchNorm_0 = nn.BatchNorm2d(mid)
+        self.BatchNorm_0 = BatchNorm2d(mid)
         self.dcn1 = DCN(mid, mid)
-        self.BatchNorm_1 = nn.BatchNorm2d(mid)
+        self.BatchNorm_1 = BatchNorm2d(mid)
         self.dcn2 = DCN(mid, out)
 
-    def forward(self, x):
-        x = self.ConvBnRelu_0(x)
-        x = F.relu(self.BatchNorm_0(self.dcn0(x)))
-        x = F.relu(self.BatchNorm_1(self.dcn1(x)))
+    def forward(self, x, train: bool = False):
+        x = self.ConvBnRelu_0(x, train)
+        x = F.relu(self.BatchNorm_0(self.dcn0(x), train))
+        x = F.relu(self.BatchNorm_1(self.dcn1(x), train))
         return self.dcn2(x)
 
 
@@ -79,9 +80,10 @@ class FeatureNet(nn.Module):
         self.inner2 = nn.Conv2d(b, 4 * b, 1, bias=True)
         self.out3 = DCNBlock(4 * b, 4 * b, b, first_kernel=3)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:
         x = x.permute(0, 3, 1, 2)
-        conv = [getattr(self, f"ConvBnRelu_{i}") for i in range(8)]
+        conv = [functools.partial(getattr(self, f"ConvBnRelu_{i}"), train=train)
+                for i in range(8)]
         conv0 = conv[1](conv[0](x))
         conv1 = conv[4](conv[3](conv[2](conv0)))
         conv2 = conv[7](conv[6](conv[5](conv1)))
@@ -91,9 +93,9 @@ class FeatureNet(nn.Module):
 
         out = {}
         intra = conv2
-        out["stage1"] = cl(self.out1(intra))
+        out["stage1"] = cl(self.out1(intra, train))
         intra = upsample_nearest_2x(intra) + self.inner1(conv1)
-        out["stage2"] = cl(self.out2(intra))
+        out["stage2"] = cl(self.out2(intra, train))
         intra = upsample_nearest_2x(intra) + self.inner2(conv0)
-        out["stage3"] = cl(self.out3(intra))
+        out["stage3"] = cl(self.out3(intra, train))
         return out

@@ -9,8 +9,16 @@ names are the flax scope names (``Conv_0``, ``BatchNorm_0``, ``Dense_0``
 Padding follows the JAX package, which matches the reference torch code:
 symmetric (k-1)/2 for convolutions, and ``ConvTranspose(k3, s2, p1, op1)``
 for the flax ``ConvTranspose(padding=(1, 2), transpose_kernel=True)``
-deconvolutions. BatchNorm runs on its running statistics (eps 1e-5, the
-flax default too): the port renders, it does not train.
+deconvolutions.
+
+BatchNorm follows flax (eps 1e-5, momentum 0.99): each BatchNorm module
+takes an explicit ``train`` argument, as the flax modules do, and ignores
+``module.training``. Without it, it normalises with its running
+statistics; with it, with the batch's statistics (flax's fast variance
+``E[x^2] - E[x]^2``, clipped at 0), and it moves its running mean and
+variance by ``0.99 * running + 0.01 * batch``. Flax's running variance takes
+the *biased* batch variance, where ``F.batch_norm`` takes the unbiased
+one, so train mode does not go through ``F.batch_norm``.
 """
 from __future__ import annotations
 
@@ -21,6 +29,37 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 LN_EPS = 1e-6   # flax LayerNorm default, used by every LayerNorm of the port
+BN_MOMENTUM = 0.01   # torch's convention for flax's momentum=0.99
+
+
+class _FlaxBatchNorm:
+    """The forward of ``BatchNorm2d`` / ``BatchNorm3d`` (see the module
+    docstring)."""
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        axes = [0, *range(2, x.ndim)]
+        mean = x.mean(axes)
+        var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1.0 - m) * self.running_var + m * var)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    def __init__(self, features: int):
+        super().__init__(features, momentum=BN_MOMENTUM)
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    def __init__(self, features: int):
+        super().__init__(features, momentum=BN_MOMENTUM)
 
 
 def layer_norm(dim: int) -> nn.LayerNorm:
@@ -35,11 +74,11 @@ class ConvBnRelu(nn.Module):
         super().__init__()
         self.Conv_0 = nn.Conv2d(cin, features, kernel, stride,
                                 padding=(kernel - 1) // 2, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(features)
+        self.BatchNorm_0 = BatchNorm2d(features)
         self.relu = relu
 
-    def forward(self, x):
-        x = self.BatchNorm_0(self.Conv_0(x))
+    def forward(self, x, train: bool = False):
+        x = self.BatchNorm_0(self.Conv_0(x), train)
         return F.relu(x) if self.relu else x
 
 
@@ -51,11 +90,11 @@ class Conv3dBnRelu(nn.Module):
         super().__init__()
         self.Conv_0 = nn.Conv3d(cin, features, kernel, stride,
                                 padding=(kernel - 1) // 2, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm3d(features)
+        self.BatchNorm_0 = BatchNorm3d(features)
         self.relu = relu
 
-    def forward(self, x):
-        x = self.BatchNorm_0(self.Conv_0(x))
+    def forward(self, x, train: bool = False):
+        x = self.BatchNorm_0(self.Conv_0(x), train)
         return F.relu(x) if self.relu else x
 
 
@@ -71,10 +110,10 @@ class Deconv3dBnRelu(nn.Module):
     def __init__(self, cin: int, features: int):
         super().__init__()
         self.ConvTranspose_0 = deconv3d(cin, features, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm3d(features)
+        self.BatchNorm_0 = BatchNorm3d(features)
 
-    def forward(self, x):
-        return F.relu(self.BatchNorm_0(self.ConvTranspose_0(x)))
+    def forward(self, x, train: bool = False):
+        return F.relu(self.BatchNorm_0(self.ConvTranspose_0(x), train))
 
 
 class MLP(nn.Module):

@@ -5,6 +5,13 @@ Counterpart of the JAX package's ``models/uforecon.py`` (reference
 code1/model.py:28-911), exact path only: per-stage f32 correlation
 volumes kept unpacked as (NV, 9, D, H, W) (8 feature channels + the
 sigmoid weight), f32 gather sources, f32 kernel math.
+
+Gradients follow the caller's grad mode, as in training (``pipeline/
+trainer.py``), with one cut: ``encode`` runs the cascade matcher without
+gradients (the JAX package's ``stop_gradient``; the matcher is frozen in
+render training), while the volume head (``mvs_volume``) and the NeuS
+``variance`` stay trainable. Inference callers (``pipeline/extract.py``,
+``pipeline/renderer.py``) run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -49,7 +56,7 @@ class EncoderOutputs(NamedTuple):
 
 
 class UFORecon(nn.Module):
-    """Generalisable sparse-view SRDF reconstruction model (inference)."""
+    """Generalisable sparse-view SRDF reconstruction model."""
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -77,13 +84,16 @@ class UFORecon(nn.Module):
         return other
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def encode(self, scene: SceneInputs) -> EncoderOutputs:
+    def encode(self, scene: SceneInputs, train: bool = False) -> EncoderOutputs:
+        """The view set's encoding; ``train`` runs the matcher's BatchNorms
+        on batch statistics (render training keeps them on their running
+        statistics, as JAX does)."""
         h, w = scene.source_imgs.shape[-3:-1]
         if h % 32 or w % 32:
             raise ValueError(f"image dims must be multiples of 32, got {h}x{w}")
-        enc = self.matcher(scene.source_imgs, scene.proj_matrices,
-                           scene.depth_values)
+        with torch.no_grad():
+            enc = self.matcher(scene.source_imgs, scene.proj_matrices,
+                               scene.depth_values, train)
         volumes = {}
         for stage, cv in enc["cost_volumes"].items():   # (NV, D, h, w)
             fw = []
@@ -135,7 +145,6 @@ class UFORecon(nn.Module):
         return out
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def render_chunk(
         self,
         scene: SceneInputs,
@@ -165,8 +174,9 @@ class UFORecon(nn.Module):
         if coarse_only:
             return {"coarse": out_c, "fine": out_c}
 
-        points_f, z2 = sample_importance(ray_o, ray_d, out_c["weight"], z_val,
-                                         n_fine, u=u_fine, generator=generator)
+        points_f, z2 = sample_importance(ray_o, ray_d, out_c["weight"].detach(),
+                                         z_val.detach(), n_fine, u=u_fine,
+                                         generator=generator)
         # the per-point stage is sample-independent: only the new fine
         # points are evaluated, and the merge by z is a permutation of the
         # coarse and fine outputs

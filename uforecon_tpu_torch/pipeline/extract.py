@@ -50,6 +50,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@torch.no_grad()
 def extract_geometry_for_dataset(model: UFORecon, dataset,
                                  out_dir: Optional[str] = None,
                                  device=DEFAULT, seed: int = 0,

@@ -32,6 +32,7 @@ class SceneRenderer:
         # test_ray_num rounded up to 256)
         self.chunk = chunk or max(1024, int(np.ceil(model.cfg.test_ray_num / 256)) * 256)
 
+    @torch.no_grad()
     def render_rays(self, scene: SceneInputs, enc: EncoderOutputs,
                     ray_d: np.ndarray, near: np.ndarray, far: np.ndarray,
                     generator: Optional[torch.Generator] = None,

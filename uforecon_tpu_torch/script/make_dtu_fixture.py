@@ -1,4 +1,4 @@
-"""Synthetic DTU-test fixture: posed views of a textured sphere at mm scales.
+"""Synthetic DTU fixtures: posed views of a textured sphere at mm scales.
 
     python -m uforecon_tpu_torch.script.make_dtu_fixture ROOT \\
         [--views 23 24 33 1 16 36] [--wh 1600 1200]
@@ -11,6 +11,19 @@ needs OpenCV and the JAX package), writing through ``data/io.py`` and
 intrinsics scaled to that size, for the chosen views of the original six
 (23 24 33 1 16 36, on a ring around the sphere). At 1600x1200 the files
 hold the same cameras and pixels as the original script's.
+
+``write_train_layout`` writes the DTU training layout instead (which
+``data/dtu_train.py`` reads): the same
+cameras and sphere, ``Cameras/train/{vid:08d}_cam.txt`` for all 49 view
+ids (the intrinsics of the 640x512 training crop divided by 4, as DTU's;
+ids outside the fixture repeat the first view's camera),
+``Rectified/{scan}_train/rect_{vid+1:03d}_{light}_r5000.png`` at 640x512
+for the 7 lights, ``Depths_raw/{scan}/depth_map_{vid:04d}.pfm`` at
+1600x1200 (the crop's pixels at the even rows and columns the loader keeps
+after halving, offset by (80, 44)), depth_min 300 mm (the sphere's near
+side is ~340 mm away), and ``lists/train.txt``,
+``lists/val.txt`` and ``pairs.txt`` (each view a reference, the others its
+sources, nearest first).
 
 ``sphere_depth`` gives the z-depth of the fixture's sphere seen through a
 camera, at the pixel coordinates the extract layout uses (pixel (x, y) at
@@ -121,6 +134,60 @@ def sphere_points(w2c: np.ndarray, k: np.ndarray, w: int, h: int) -> np.ndarray:
     hit, t, dirs, eye = _hit(np.asarray(w2c, np.float64),
                              np.asarray(k, np.float64)[:3, :3], xs, ys)
     return (eye + t[hit][:, None] * dirs[hit]).astype(np.float32)
+
+
+TRAIN_WH = (640, 512)
+TRAIN_FOCAL = 600.0
+TRAIN_DEPTH_RANGE = (300.0, 2.5)       # depth_min, interval (mm): 300-780 mm
+
+
+def write_train_layout(root: str, views: Sequence[int] = VIEWS, scan: str = "scan24",
+                       lights: int = 7) -> dict:
+    """Write the DTU training layout of the fixture (see the module
+    docstring); returns the paths of its train list, val list and pair
+    file."""
+    from ..data.io import write_pfm
+
+    extrinsics = cameras()
+    # the 640x512 training crop (the sphere ~300 px across) and the full
+    # 1600x1200 frame whose halved image it is cut from, at offset (80, 44)
+    k_crop = np.array([[TRAIN_FOCAL, 0, 320.0], [0, TRAIN_FOCAL, 256.0], [0, 0, 1.0]])
+    k_full = k_crop.copy()
+    k_full[0, 2] += 80
+    k_full[1, 2] += 44
+    k_full[:2] *= 2
+    k_cam = k_crop.copy()
+    k_cam[:2] /= 4
+    for d in ("Cameras/train", f"Rectified/{scan}_train", f"Depths_raw/{scan}", "lists"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for vid in range(49):
+        e = extrinsics[vid if vid in views else views[0]]
+        write_cam_file(os.path.join(root, "Cameras", "train", f"{vid:08d}_cam.txt"),
+                       e, k_cam, TRAIN_DEPTH_RANGE)
+    for vid in views:
+        e = extrinsics[vid]
+        img = render(e, k_crop, *TRAIN_WH)
+        for light in range(lights):
+            write_png(os.path.join(root, "Rectified", f"{scan}_train",
+                                   f"rect_{vid + 1:03d}_{light}_r5000.png"), img)
+        write_pfm(os.path.join(root, "Depths_raw", scan, f"depth_map_{vid:04d}.pfm"),
+                  sphere_depth(e, k_full, *WH))
+    paths = {"train": os.path.join(root, "lists", "train.txt"),
+             "val": os.path.join(root, "lists", "val.txt"),
+             "pair": os.path.join(root, "pairs.txt")}
+    for k in ("train", "val"):
+        with open(paths[k], "w") as f:
+            f.write(scan + "\n")
+    centre = {v: -extrinsics[v][:3, :3].T @ extrinsics[v][:3, 3] for v in views}
+    lines = [str(len(views))]
+    for ref in views:
+        srcs = sorted((v for v in views if v != ref),
+                      key=lambda v: np.linalg.norm(centre[v] - centre[ref]))
+        lines += [str(ref), f"{len(srcs)} " + " ".join(
+            f"{v} {100.0 - i:.1f}" for i, v in enumerate(srcs))]
+    with open(paths["pair"], "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return paths
 
 
 def main(argv=None):
