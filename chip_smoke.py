@@ -22,19 +22,31 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      at route A's L = S = 4 (65,536 and 65,537 points) and at the training
      shape L = S = 6; the volume fusion at 2, 3 and 5 views and the ragged
      65,537 points, timed with its inputs in the L2 (as the main path
-     finds them) and, at 3 views, after a 64 MB write (cold L2);
+     finds them) and, at 3 views, after a 64 MB write (cold L2); then the
+     heads' fast variants (kernel_precision 'fast': kernels 1, 2 and 3 at
+     widths 88 and 72, 4) at the same shapes, each against its fast plain
+     version (FAST_SHARE) and against the 3xTF32 kernel on the same inputs
+     (a distance of bf16's size), with bf16 tensor bounds beside the
+     3xTF32 ones;
   4. slice phase: ``extract_geometry_for_dataset`` on one DTU-scale view
      (800x640, 3 views, 192 hypotheses, 64 + 64 samples, seeded random
-     weights) by five routes: the default (knobs off), the render-glue
-     knobs on, route A (``fused_point_head='never'``: the view transformer
-     and the tiny-attention kernel, same weights), route B (the ablation
-     without explicit similarity, its own seeded weights) and route v2
-     (``point_head='v2'``: the split-weight point head, same weights),
-     checking each depth map written to disk and which kernels each run
-     launched and how often each head built its weight pack (once per
-     head and set of weights: the packs are cached); then, for each route,
-     that a small ray chunk of the same scene agrees with the plain
-     versions run on the CPU;
+     weights) by six routes: on the exact path (``config.EXACT``) the
+     default (knobs off), the render-glue knobs on, route A
+     (``fused_point_head='never'``: the view transformer and the
+     tiny-attention kernel, same weights), route B (the ablation without
+     explicit similarity, its own seeded weights) and route v2
+     (``point_head='v2'``: the split-weight point head, same weights); and
+     the shipped route, the JAX package's extraction defaults (merged
+     volumes, bf16 volumes and gather sources, fast heads: kernels 1 and 2
+     in fast, no volume fusion), checking each depth map written to disk,
+     the path each run resolved, which kernels each run launched and how
+     often each head built its weight pack (once per head, set of weights
+     and precision: the packs are cached); then, for each route, that a
+     small ray chunk of the same scene agrees with the plain versions run
+     on the CPU; the merged volume's bytes beside the JAX guard's count;
+     one 1024-ray chunk of the shipped route with the glue knobs on
+     (kernel 3 in fast) and one with ``point_head='v2'`` (kernel 4 in
+     fast);
   5. gradient phase: one backward through route A's per-point stage of a
      256-ray coarse chunk, through the tiny-attention backward kernel,
      against the same backward on the CPU;
@@ -42,9 +54,9 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      (``uforecon_tpu_torch/script/bench_tile_gather.py --mode probe``) at
      256 blocks: its JSON line, bit-equal first block, the kernel launched;
   7. profile phase: 8 render chunks of 1024 rays per route (off, on, A,
-     v2) under ``torch.profiler``: device operations, device ms and the
-     device's busy share per chunk, the operations the knobs-on route
-     removes, and routes A and v2 against knobs off;
+     v2, shipped) under ``torch.profiler``: device operations, device ms
+     and the device's busy share per chunk, the operations the knobs-on
+     route removes, and routes A, v2 and shipped against knobs off;
   8. A/B phase: AB_ROUNDS rounds of warm full views in the order off, on,
      on, off on one encoding (rays/s per view, SM clock and power read
      after each);
@@ -52,7 +64,9 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      CLIs. The fixture (``script/make_dtu_fixture.py``: a textured sphere
      at 1600x1200, views 23 24 33); ``cli.run`` at full width (800x640, 3
      views, 64 + 64 samples) on the seeded weights from a state-dict file
-     (``--load_ckpt``), launching kernels 1 and 2 on every view; on
+     (``--load_ckpt``) at its defaults (the JAX package's: kernels 1 and 2
+     in fast on every view) and with the exact flags (kernels 1 and 2 in
+     3xTF32), each scan's rays/s; on
      analytic depth maps of the sphere in the extract layout,
      ``cli.tsdf_fusion`` on the card at voxel 4 mm (the shipped size) and
      1.5 mm, each volume held against the same integration on the CPU;
@@ -63,9 +77,9 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      full width of the JAX training default (``ndepths`` 48/32/8, 192
      hypotheses, 64 + 64 samples, 1024 rays, 5 views at 640x512 on the
      learn_sanity sphere, seeded weights, matcher frozen, Adam on the
-     rest): (a) one coarse 256-ray gradient step on the card against the
-     same step on the CPU (the matcher's outputs taken from the card on
-     both); (b) TRAIN_STEPS timed steps of the default route (kernels 1
+     rest; volumes stored in bf16, kernels in 3xTF32): (a) one coarse
+     256-ray gradient step on the card against the same step on the CPU
+     (the matcher's outputs taken from the card on both); (b) TRAIN_STEPS timed steps of the default route (kernels 1
      and 2 on every step) and of route A (kernels 5 and 6, and 2): s/step,
      peak memory, launches and weight-pack builds per step, and after each
      step's forward kernel 1 at the updated weights against its plain
@@ -123,7 +137,7 @@ PIPELINE_VIEWS = (23, 24, 33)
 PIPELINE_WH = (800, 640)               # the DTU render size cli.run gives
 PIPELINE_VOXELS = (4.0, 1.5)
 # warm views per route in the A/B phase: 2 x AB_ROUNDS
-AB_ROUNDS = 2
+AB_ROUNDS = 1
 # training phase: the DTU training crop; timed steps per route
 TRAIN_WH = (640, 512)
 TRAIN_STEPS = {"off": 5, "A": 3}
@@ -152,11 +166,19 @@ KERNEL_SOURCES = {
     "block_row_gather": (f"{PORT}/csrc/row_gather.cu",
                          "script/bench_tile_gather.py:210"),
 }
+# the heads' bf16 instantiations (kernel_precision 'fast'), which replace
+# the same Pallas kernels run in the JAX package's 'fast' mode; counted on
+# the wrappers' launches_fast
+FAST = {"point_head_fast": "point_head", "ray_head_fast": "ray_head",
+        "ray_head_neus_fast": "ray_head_neus", "point_head2_fast": "point_head2"}
+KERNEL_SOURCES.update({f: KERNEL_SOURCES[k] for f, k in FAST.items()})
 # the run each kernel belongs to: its launches are read from that run
 ROUTE = {"point_head": "off", "ray_head": "off", "grouped_cosine": "on",
          "volume_fusion": "on", "ray_head_neus": "on", "tiny_attention": "A",
          "tiny_attention_bwd": "grad", "point_head2": "v2",
-         "block_row_gather": "probe"}
+         "block_row_gather": "probe", "point_head_fast": "shipped",
+         "ray_head_fast": "shipped", "ray_head_neus_fast": "shipped_on",
+         "point_head2_fast": "shipped_v2"}
 # the kernels each run must launch; every other kernel must stay idle
 MUST_RUN = {"off": ("point_head", "ray_head"),
             "on": ("point_head", "grouped_cosine", "volume_fusion", "ray_head_neus"),
@@ -164,19 +186,44 @@ MUST_RUN = {"off": ("point_head", "ray_head"),
             "B": ("tiny_attention", "ray_head"),
             "grad": ("tiny_attention", "tiny_attention_bwd"),
             "v2": ("point_head2", "ray_head"),
+            # the JAX defaults: merged volumes, bf16 volumes and gather
+            # sources, 'fast' heads; the merged query needs no fusion kernel
+            "shipped": ("point_head_fast", "ray_head_fast"),
+            "shipped_on": ("point_head_fast", "grouped_cosine", "ray_head_neus_fast"),
+            "shipped_v2": ("point_head2_fast", "ray_head_fast"),
             "probe": ("block_row_gather",),
-            "pipeline": ("point_head", "ray_head"),
+            "pipeline": ("point_head_fast", "ray_head_fast"),
+            "pipeline_exact": ("point_head", "ray_head"),
             "train": ("point_head", "ray_head"),
             "train_A": ("tiny_attention", "tiny_attention_bwd", "ray_head"),
             "train_cli": ("point_head", "ray_head"),
-            "learn_sanity": ("point_head", "ray_head")}
+            # it trains (3xTF32), then renders its depth maps and mesh on
+            # the extract path (fast)
+            "learn_sanity": ("point_head", "ray_head", "point_head_fast", "ray_head_fast")}
 # H100 SXM data sheet at 700 W: FP32 outside the tensor cores, dense TF32
-# on the tensor cores, HBM3
+# and dense bf16 on the tensor cores, HBM3
 PEAK_FLOPS = 67e12
 PEAK_TF32 = 494.7e12
+PEAK_BF16 = 989.4e12
 PEAK_BYTES = 3.35e12
-# the kernels whose layer GEMMs run on the tensor cores in 3xTF32
-TENSOR_CORE = ("point_head", "ray_head", "ray_head_neus", "point_head2")
+# the kernels whose layer GEMMs run on the tensor cores: in 3xTF32, and
+# their fast variants in bf16
+TENSOR_CORE = ("point_head", "ray_head", "ray_head_neus", "point_head2", *FAST)
+# a fast kernel against its fast plain version: both take products of
+# bf16-rounded operands but sum them in other orders, so now and then an
+# intermediate lands on the other side of a bf16 rounding and moves an
+# output by a bf16 step of that input; in the ray head a flip of one of a
+# ray's key-value sums moves that head's outputs in all the ray's samples
+# (measured on an H100: 95.2-99.4 % of elements within the tolerance, the
+# fewest at SN 128). At least FAST_SHARE of the elements of each
+# per-sample output within the 3xTF32 tolerance, none of any output
+# further off than the largest bf16 effect on it (the fast plain version
+# against the FP32 one); a kernel that rounds at one site more or fewer
+# than JAX misses the tolerance on most elements. The NeuS epilogue's
+# per-ray sums (rgb, depth, opacity: 87-94 % within the tolerance at SN
+# 128) take any flip of their ray's samples: they are held by the bound
+FAST_SHARE = 0.9
+PER_RAY = ("rgb", "depth", "opacity")
 
 
 def log(msg):
@@ -264,19 +311,29 @@ def bound(n_bytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def tensor_bound(n_bytes, gemm_flops, other_flops):
-    """The bounds of a kernel whose GEMMs run in 3xTF32 (three TF32
-    products per FP32 product on the tensor cores) and the rest in FP32:
-    {"bound_ms", "bound_by", "bound_rate", "fp32_bound_ms",
-    "fp32_bound_by"}, the FP32 bound as if every operation ran on the CUDA
-    cores."""
+def tensor_bound(n_bytes, gemm_flops, other_flops, fast=False):
+    """The bounds of a kernel whose GEMMs run on the tensor cores, in
+    3xTF32 (three TF32 products per FP32 product) or with ``fast`` in one
+    bf16 pass, and the rest in FP32: {"bound_ms", "bound_by", "bound_rate",
+    "fp32_bound_ms", "fp32_bound_by"}, the FP32 bound as if every operation
+    ran on the CUDA cores; with ``fast`` also "tf32_bound_ms", the 3xTF32
+    bound of the same operations."""
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = (3 * gemm_flops / PEAK_TF32 + other_flops / PEAK_FLOPS) * 1e3
+
+    def t_ops(gemm_ms):
+        return gemm_ms + other_flops / PEAK_FLOPS * 1e3
+
+    t_tf32 = t_ops(3 * gemm_flops / PEAK_TF32 * 1e3)
+    t = t_ops(gemm_flops / PEAK_BF16 * 1e3) if fast else t_tf32
     fp32_ms, fp32_by = bound(n_bytes, gemm_flops + other_flops)
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_rate": "tensor operations (3xTF32)",
-            "fp32_bound_ms": fp32_ms, "fp32_bound_by": fp32_by}
+    out = {"bound_ms": max(t_bytes, t),
+           "bound_by": "bytes" if t_bytes >= t else "operations",
+           "bound_rate": ("tensor operations (bf16, dense peak 989.4 TFLOP/s)" if fast
+                          else "tensor operations (3xTF32)"),
+           "fp32_bound_ms": fp32_ms, "fp32_bound_by": fp32_by}
+    if fast:
+        out["tf32_bound_ms"] = max(t_bytes, t_tf32)
+    return out
 
 
 def shares(ms, bounds):
@@ -555,6 +612,100 @@ def kernel_phase(model, model_b, card):
                              "bound_share", "fp32_bound_share")},
                          "by_width": by_c}
 
+    # the fast variants (kernel_precision 'fast') at the same shapes: each
+    # against its fast plain version (FAST_SHARE rule), and against the
+    # 3xTF32 kernel on the same inputs, which it must miss by bf16's size
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    def fast_case(name, wrapper, plain, args, tols, flops, pack, neus=False):
+        with torch.no_grad():
+            got = as_tuple(wrapper(*args, precision="fast"))
+            twin = as_tuple(plain(*args, precision="fast"))
+            exact = as_tuple(plain(*args))
+            tf32 = as_tuple(wrapper(*args))
+            torch.cuda.synchronize()
+            errs, shares_in, gaps, ok = {}, {}, {}, True
+            for key, a, b, e, tol in zip(tols, got, twin, exact, tols.values()):
+                # depth sums weights x z (up to 3 scene units): relative
+                # where it exceeds 1
+                scale = b.abs().clamp(min=1.0) if key == "depth" else 1.0
+                d = (a - b).abs() / scale
+                gap = ((b - e).abs() / scale).max().item()
+                errs[key], gaps[key] = d.max().item(), gap
+                shares_in[key] = (d <= tol).float().mean().item()
+                ok &= (errs[key] <= tol if gap <= tol
+                       else errs[key] <= gap and (key in PER_RAY
+                                                  or shares_in[key] >= FAST_SHARE))
+            vs_tf32 = max((a - t).abs().max().item() for a, t in zip(got, tf32))
+            k_ms, call_ms = kernel_times(lambda: wrapper(*args, precision="fast"))
+            p_ms = time_ms(lambda: plain(*args, precision="fast"))
+        bounds = tensor_bound(nbytes(*[a for a in args if torch.is_tensor(a)], pack, *got),
+                              *flops, fast=True)
+        log(f"[kernel] {name}: vs its fast plain version max err {errs} (tol {tols}), "
+            f"share within tol {shares_in} (min {FAST_SHARE}), bf16 effect (fast plain vs "
+            f"FP32 plain) {gaps} (per-ray outputs {PER_RAY} held by it alone); vs the "
+            f"3xTF32 kernel {vs_tf32:.3e}; kernel {k_ms:.3f} ms "
+            f"(call {call_ms:.3f}), fast plain {p_ms:.3f} ms, bf16 tensor bound "
+            f"{bounds['bound_ms']:.4f} ms ({bounds['bound_by']}, share "
+            f"{bounds['bound_ms'] / k_ms:.3f}), 3xTF32 bound {bounds['tf32_bound_ms']:.4f}"
+            f" ms, FP32 bound {bounds['fp32_bound_ms']:.4f} ms [{card}]")
+        case = {"ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms, **bounds,
+                "errors": errs, "share_within_tol": shares_in, "bf16_effect": gaps,
+                "vs_tf32": vs_tf32}
+        if neus:
+            in_regime, regime, _, _ = neus_check(got, twin)
+            case["regime"] = regime
+            if not in_regime:
+                raise AssertionError(f"{name} inputs leave compositing idle: {regime}")
+        if not (ok and 1e-4 < vs_tf32 < 0.1):
+            raise AssertionError(f"{name} disagrees with its fast plain version or is "
+                                 f"not the bf16 variant: {case}")
+        return case
+
+    def fast_result(cases):
+        """The per-chunk sums of several launches' cases."""
+        out = {k: sum(c[k] for c in cases) for k in ("ms", "call_ms", "plain_ms",
+                                                      "bound_ms", "fp32_bound_ms",
+                                                      "tf32_bound_ms")}
+        out.update({k: cases[-1][k] for k in ("bound_by", "bound_rate", "fp32_bound_by")})
+        out["max_abs_err"] = max(e for c in cases for e in c["errors"].values())
+        out["vs_tf32"] = max(c["vs_tf32"] for c in cases)
+        out.update(shares(out["ms"], out))
+        return out
+
+    results["point_head_fast"] = {**fast_result([fast_case(
+        f"point_head_fast P={p} NV={nv}", fph.point_head, fph.point_head_reference,
+        (inp, params), {"token": TOL["token"], "radiance": TOL["radiance"]},
+        point_head_flops(nv, p), fph.pack_weights(params, "fast"))])}
+    results["point_head2_fast"] = {**fast_result([fast_case(
+        f"point_head2_fast P={p} NV={nv}", fph2.point_head2, fph2.point_head2_reference,
+        (inp, params), {"token": TOL["token"], "radiance": TOL["radiance"]},
+        point_head2_flops(nv, p), fph2.pack_weights2(params, precision="fast"))])}
+    for name in ("ray_head", "ray_head_neus"):
+        neus = name == "ray_head_neus"
+        by_c = {}
+        for c, m in ((88, model), (72, model_b)):
+            rparams = m.ray_transformer.ray_head_params()
+            cases = []
+            for sn in (64, 128):
+                y = randn(1024, sn, c)
+                if neus:
+                    z = near + (far - near) * torch.sort(rand(1024, sn), dim=1).values
+                    args = (y, z, rand(1024, sn, 3), torch.exp(m.variance.detach() * 10.0),
+                            rparams)
+                    tols = {k: TOL["neus"] for k in NEUS_OUT}
+                    wrapper, plain = frh.ray_head_neus, frh.ray_head_neus_reference
+                else:
+                    args, tols = (y, rparams), {"srdf": TOL["srdf"]}
+                    wrapper, plain = frh.ray_head, frh.ray_head_reference
+                cases.append(fast_case(
+                    f"{name}_fast (1024, {sn}, {c})", wrapper, plain, args, tols,
+                    ray_head_flops(1024, sn, c=c, neus=neus),
+                    frh.pack_weights(rparams, "fast"), neus=neus))
+            by_c[c] = fast_result(cases)
+        results[f"{name}_fast"] = {**by_c[88], "by_width": by_c}
+
     # grouped cosine at (3, 65,536, 64) in the layout the sampler hands
     # over: channel-first memory, strides (64 P, 1, P)
     x = randn(nv, 64, p).permute(0, 2, 1)
@@ -756,6 +907,22 @@ def kernel_phase(model, model_b, card):
     return results
 
 
+class FastCount:
+    """A head wrapper's count of its fast launches (``launches_fast``),
+    read and reset as ``launches`` under the fast variant's name."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    @property
+    def launches(self):
+        return self.wrapper.launches_fast
+
+    @launches.setter
+    def launches(self, n):
+        self.wrapper.launches_fast = n
+
+
 def launch_counts():
     from uforecon_tpu_torch.ops.fused_point_head import point_head
     from uforecon_tpu_torch.ops.fused_point_head2 import point_head2
@@ -766,11 +933,13 @@ def launch_counts():
     from uforecon_tpu_torch.ops.tiny_attention import (
         tiny_linear_attention, tiny_linear_attention_backward)
 
-    return {"point_head": point_head, "ray_head": ray_head,
-            "grouped_cosine": grouped_cosine, "volume_fusion": volume_fusion,
-            "ray_head_neus": ray_head_neus, "tiny_attention": tiny_linear_attention,
-            "tiny_attention_bwd": tiny_linear_attention_backward,
-            "point_head2": point_head2, "block_row_gather": block_row_gather}
+    counts = {"point_head": point_head, "ray_head": ray_head,
+              "grouped_cosine": grouped_cosine, "volume_fusion": volume_fusion,
+              "ray_head_neus": ray_head_neus, "tiny_attention": tiny_linear_attention,
+              "tiny_attention_bwd": tiny_linear_attention_backward,
+              "point_head2": point_head2, "block_row_gather": block_row_gather}
+    counts.update({f: FastCount(counts[k]) for f, k in FAST.items()})
+    return counts
 
 
 def pack_counters():
@@ -820,7 +989,9 @@ def render_view(model, sample, route, card):
         saved = np.load(os.path.join(out_dir, "depth", "scan1", "00000000.npy"),
                         allow_pickle=True).item()
     depth = saved["depth"]
-    log(f"[slice] route {route}: 1 view 800x640, 3 views, 64+64 samples: encode "
+    path = "merged" if stats["merged"] else "per-stage"
+    log(f"[slice] route {route}: 1 view 800x640, 3 views, 64+64 samples, {path} "
+        f"volumes, kernel_precision {stats['kernel_precision']}: encode "
         f"{stats['encode_s']:.3f} s, render {stats['render_s']:.3f} s, "
         f"{stats['rays'] / stats['render_s']:.1f} rays/s over the render, peak "
         f"{peak_gb:.2f} GiB [{card}]")
@@ -836,7 +1007,8 @@ def render_view(model, sample, route, card):
 
 def agree_with_cpu(model, sample, route):
     """A 256-ray chunk of the scene with the kernels on the card against
-    the plain versions on the CPU, with the same draws."""
+    the plain versions on the CPU, with the same draws: the share of rays
+    within 2e-4 must reach 0.99. Returns the shares."""
     import torch
 
     from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
@@ -865,43 +1037,80 @@ def agree_with_cpu(model, sample, route):
         f"versions: share of rays within rtol=atol=2e-4: {agree}")
     if min(agree.values()) < 0.99:
         raise AssertionError(f"card and CPU renders disagree (route {route}): {agree}")
+    return agree
 
 
 def slice_phase(model, model_b, card):
     """The main path, extract_geometry_for_dataset on one full view, by
-    five routes: the render-glue knobs off and on, route A (the view
-    transformer), route v2 (the split-weight point head; all four on the
-    same weights) and route B (model_b, the ablation without explicit
-    similarity)."""
-    from uforecon_tpu_torch.config import FUSED_GLUE
+    six routes: the render-glue knobs off and on, route A (the view
+    transformer), route v2 (the split-weight point head), the shipped route
+    (the JAX package's extraction defaults: merged volumes, bf16 volumes
+    and gather sources, fast heads; all five on the same weights, the first
+    four on the exact path) and route B (model_b, the ablation without
+    explicit similarity)."""
+    from uforecon_tpu_torch.config import EXACT, FUSED_GLUE, Config
     from uforecon_tpu_torch.data.synthetic import dtu_scale_sample
     from uforecon_tpu_torch.ops import cuda_build
 
+    shipped = {k: getattr(Config(), k) for k in EXACT}
     models = {"off": model, "on": model.with_knobs(**FUSED_GLUE),
               "A": model.with_knobs(fused_point_head="never"), "B": model_b,
-              "v2": model.with_knobs(point_head="v2")}
+              "v2": model.with_knobs(point_head="v2"),
+              "shipped": model.with_knobs(extract_geometry=True, **shipped)}
     # route B's ray head runs at the kernel's second width
     if model_b.ray_transformer.ray_head_params().wq.shape[0] != 72:
         raise AssertionError("route B's ray-head width is not 72")
     sample = dtu_scale_sample()
     stats, launches = {}, {}
     # the packs the kernel phase built are dropped: each head builds its
-    # pack once per set of weights over the five views, at the first view
-    # that runs it (point_head: the shared weights; ray_head: those and
-    # route B's; point_head2: the shared weights)
+    # pack once per set of weights and precision over the six views, at
+    # the first view that runs it (point_head: the shared weights in
+    # 3xTF32 and in bf16; ray_head: those and route B's; point_head2: the
+    # shared weights)
     cuda_build.clear_pack_caches()
     for route, m in models.items():
         stats[route], launches[route] = render_view(m, sample, route, card)
         check_launches(route, launches[route])
+    if not stats["shipped"]["merged"] or stats["shipped"]["kernel_precision"] != "fast":
+        raise AssertionError(f"the shipped route resolved {stats['shipped']}")
     built = {n: sum(stats[r]["pack_builds"][n] for r in models)
              for n in pack_counters()}
-    log(f"[slice] weight packs built over the five views: {built} (one per head "
-        f"and set of weights)")
-    if built != {"point_head": 1, "ray_head": 2, "point_head2": 1}:
+    log(f"[slice] weight packs built over the six views: {built} (one per head, set "
+        f"of weights and precision)")
+    if built != {"point_head": 2, "ray_head": 3, "point_head2": 1}:
         raise AssertionError(f"a head rebuilt its weight pack: {built}")
     for route, m in models.items():
-        agree_with_cpu(m, sample, route)
+        stats[route]["cpu_agree"] = agree_with_cpu(m, sample, route)
     return models, sample, stats, launches
+
+
+def shipped_knob_runs(model_s, scene, enc, extras, card):
+    """One 1024-ray chunk of the shipped route with the render-glue knobs
+    on (kernels 1, 7 and 3 in fast; no volume fusion: the merged volume
+    fuses by itself) and one with point_head='v2' (kernels 4 and 2 in
+    fast). Returns each run's launches."""
+    import torch
+
+    from uforecon_tpu_torch.config import FUSED_GLUE
+
+    wrappers = launch_counts()
+    ray_d, near, far = chunk_args(scene, extras, 0, 1024)
+    launches = {}
+    for run, m in (("shipped_on", model_s.with_knobs(**FUSED_GLUE)),
+                   ("shipped_v2", model_s.with_knobs(point_head="v2"))):
+        for w in wrappers.values():
+            w.launches = 0
+        with torch.no_grad():
+            out = m.render_chunk(scene, enc, ray_d, torch.Generator(device="cuda"),
+                                 near_per_ray=near, far_per_ray=far)
+        torch.cuda.synchronize()
+        launches[run] = {k: w.launches for k, w in wrappers.items()}
+        log(f"[slice] route {run}: one 1024-ray chunk of the shipped route: launches "
+            f"{launches[run]} [{card}]")
+        check_launches(run, launches[run])
+        if not torch.isfinite(out["fine"]["depth"]).all():
+            raise AssertionError(f"{run}: depth not finite")
+    return launches
 
 
 def gradient_phase(model_a, sample, card):
@@ -995,10 +1204,11 @@ def chunk_args(scene, extras, start, rn):
     return ray_d, float(scene.near) / cam_z, float(scene.far) / cam_z
 
 
-def profile_phase(models, scene, enc, extras, card, chunks=8, rn=1024):
+def profile_phase(models, scene, encs, extras, card, chunks=8, rn=1024):
     """Device operations per render chunk of each route by name under
     torch.profiler, their device time, and the share of the unprofiled
-    wall time of the same chunks that the device was busy."""
+    wall time of the same chunks that the device was busy; encs[route] is
+    the route's encoding."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1013,7 +1223,7 @@ def profile_phase(models, scene, enc, extras, card, chunks=8, rn=1024):
         def run():
             gen = torch.Generator(device="cuda").manual_seed(SEED)
             for ray_d, near, far in args:
-                model.render_chunk(scene, enc, ray_d, gen, near_per_ray=near,
+                model.render_chunk(scene, encs[route], ray_d, gen, near_per_ray=near,
                                    far_per_ray=far)
             torch.cuda.synchronize()
 
@@ -1055,7 +1265,7 @@ def profile_phase(models, scene, enc, extras, card, chunks=8, rn=1024):
          - result["on"]["device_ops_per_chunk"],
          "by_name": {n: d for n, d in sorted(diff.items(), key=lambda kv: -abs(kv[1]))
                      if d != 0}}))
-    for route in ("A", "v2"):
+    for route in ("A", "v2", "shipped"):
         log(f"[profile] route {route} against knobs off, per chunk: " + json.dumps(
             {k: result[route][k] - result["off"][k]
              for k in ("device_ops_per_chunk", "device_ms_per_chunk")}))
@@ -1145,42 +1355,59 @@ def pipeline_phase(model, card):
 
         # kernel launches after each view's render
         wrappers = launch_counts()
-        per_view = []
         render_depth_view = SceneRenderer.render_depth_view
 
-        def counted(self, *args, **kwargs):
-            res = render_depth_view(self, *args, **kwargs)
-            per_view.append({n: wr.launches for n, wr in wrappers.items()})
-            return res
+        def cli_run(run_name, out_dir, extra):
+            """cli.run as a user runs it, its launches counted per view."""
+            per_view = []
 
-        for wr in wrappers.values():
-            wr.launches = 0
-        SceneRenderer.render_depth_view = counted
-        try:
-            stats = timed("extract_s", run.main, [
-                "--extract_geometry", "--set", "0", "--volume_type", "correlation",
-                "--volume_reso", "96", "--depth_pos_encoding", "--mvs_depth_guide", "1",
-                "--explicit_similarity", "--test_n_view", "3", "--test_ray_num", "800",
-                "--test_ref_view", *views, "--root_dir", root, "--out_dir", out,
-                "--test_scan", "scan24", "--load_ckpt", ckpt])["scan24"]
-        finally:
-            SceneRenderer.render_depth_view = render_depth_view
-        launches = {n: wr.launches for n, wr in wrappers.items()}
-        check_launches("pipeline", launches)
-        prev = {n: 0 for n in wrappers}
-        for i, snap in enumerate(per_view):
-            idle = [n for n in MUST_RUN["pipeline"] if snap[n] <= prev[n]]
-            if idle:
-                raise AssertionError(f"cli.run view {i}: kernels {idle} not launched")
-            prev = snap
-        if len(per_view) != 3:
-            raise AssertionError(f"cli.run rendered {len(per_view)} views, not 3")
-        log(f"[pipeline] cli.run, 3 views {w}x{h}, 64+64 samples, seeded weights from "
-            f"a state-dict file: {stats['rays_per_sec']:.1f} rays/s (the JAX "
-            f"statistic: all rays over the time after view 0's render), encode "
-            f"{stats['encode_s']:.3f} s, render {stats['render_s']:.3f} s, "
-            f"{times['extract_s']:.1f} s in all; launches per view "
-            f"{[{n: v[n] for n in MUST_RUN['pipeline']} for v in per_view]} [{card}]")
+            def counted(self, *args, **kwargs):
+                res = render_depth_view(self, *args, **kwargs)
+                per_view.append({n: wr.launches for n, wr in wrappers.items()})
+                return res
+
+            for wr in wrappers.values():
+                wr.launches = 0
+            SceneRenderer.render_depth_view = counted
+            try:
+                stats = timed(f"extract_{run_name}_s", run.main, [
+                    "--extract_geometry", "--set", "0", "--volume_type", "correlation",
+                    "--volume_reso", "96", "--depth_pos_encoding", "--mvs_depth_guide", "1",
+                    "--explicit_similarity", "--test_n_view", "3", "--test_ray_num", "800",
+                    "--test_ref_view", *views, "--root_dir", root, "--out_dir", out_dir,
+                    "--test_scan", "scan24", "--load_ckpt", ckpt, *extra])["scan24"]
+            finally:
+                SceneRenderer.render_depth_view = render_depth_view
+            launches = {n: wr.launches for n, wr in wrappers.items()}
+            check_launches(run_name, launches)
+            prev = {n: 0 for n in wrappers}
+            for i, snap in enumerate(per_view):
+                idle = [n for n in MUST_RUN[run_name] if snap[n] <= prev[n]]
+                if idle:
+                    raise AssertionError(f"cli.run view {i}: kernels {idle} not launched")
+                prev = snap
+            if len(per_view) != 3:
+                raise AssertionError(f"cli.run rendered {len(per_view)} views, not 3")
+            path = "merged" if stats["merged"] else "per-stage"
+            log(f"[pipeline] cli.run {' '.join(extra) or 'at its defaults'}, 3 views "
+                f"{w}x{h}, 64+64 samples, seeded weights from a state-dict file, "
+                f"{path} volumes, kernel_precision {stats['kernel_precision']}: "
+                f"{stats['rays_per_sec']:.1f} rays/s (the JAX statistic: all rays over "
+                f"the time after view 0's render), encode {stats['encode_s']:.3f} s, "
+                f"render {stats['render_s']:.3f} s, {times[f'extract_{run_name}_s']:.1f} s "
+                f"in all; launches per view "
+                f"{[{n: v[n] for n in MUST_RUN[run_name]} for v in per_view]} [{card}]")
+            return stats, launches
+
+        # at its defaults: the JAX package's extraction defaults
+        shipped, launches = cli_run("pipeline", out, [])
+        if not shipped["merged"] or shipped["kernel_precision"] != "fast":
+            raise AssertionError(f"cli.run at its defaults resolved {shipped}")
+        exact, launches_exact = cli_run("pipeline_exact", os.path.join(tmp, "out_exact"), [
+            "--volume_merge", "never", "--volume_dtype", "float32",
+            "--image_gather_dtype", "float32", "--kernel_precision", "highest"])
+        if exact["merged"] or exact["kernel_precision"] != "highest":
+            raise AssertionError(f"cli.run with the exact flags resolved {exact}")
 
         gt_points = []
         for i in range(3):
@@ -1250,7 +1477,10 @@ def pipeline_phase(model, card):
         + f" [{card}]")
     if not (np.isfinite(acc) and np.isfinite(comp) and acc < voxel and comp < voxel):
         raise AssertionError(f"the sphere mesh scores {acc}, {comp} mm")
-    return launches
+    log(f"[pipeline] cli.run rays/s: at its defaults {shipped['rays_per_sec']:.1f}, with "
+        f"the exact flags {exact['rays_per_sec']:.1f}; the sphere (analytic depth maps) "
+        f"at accuracy {acc:.4f} mm, completeness {comp:.4f} mm [{card}]")
+    return {"pipeline": launches, "pipeline_exact": launches_exact}
 
 
 def step_profile(cfg, model, state, scene, batch, gen):
@@ -1597,7 +1827,7 @@ def main():
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     try:
-        from uforecon_tpu_torch.config import Config
+        from uforecon_tpu_torch.config import EXACT, Config, merge_guard_bytes
         from uforecon_tpu_torch.convert import init_weights
         from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
         from uforecon_tpu_torch.models.uforecon import UFORecon
@@ -1616,11 +1846,13 @@ def main():
     cuda_build.extension()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
-    model = UFORecon(Config())
+    # the exact path (the routes of earlier slices); the shipped route is a
+    # with_knobs copy on the same weights
+    model = UFORecon(Config(**EXACT))
     init_weights(model, SEED)
     model.to("cuda")
     # route B: the ablation without explicit similarity, its own weights
-    model_b = UFORecon(Config(explicit_similarity=False))
+    model_b = UFORecon(Config(explicit_similarity=False, **EXACT))
     init_weights(model_b, SEED)
     model_b.to("cuda")
 
@@ -1629,17 +1861,27 @@ def main():
     log(f"[slice] render rays/s against knobs off in this process (the off run "
         f"is the process's first view): " + json.dumps(
             {r: stats["off"]["render_s"] / stats[r]["render_s"]
-             for r in ("on", "A", "B", "v2")}) + f" [{card}]")
+             for r in ("on", "A", "B", "v2", "shipped")}) + f" [{card}]")
     launches["grad"] = gradient_phase(models["A"], sample, card)
     launches["probe"] = probe_phase(card)
     scene, extras = scene_inputs_from_sample(sample, "cuda")
     with torch.no_grad():
         enc = model.encode(scene)
-    profile_phase({k: models[k] for k in ("off", "on", "A", "v2")}, scene, enc, extras,
-                  card)
+        enc_s = models["shipped"].encode(scene)
+    merged = enc_s.volumes["merged"]
+    log(f"[slice] shipped route: merged volume {tuple(merged.shape)} {merged.dtype}, "
+        f"{merged.numel() * merged.element_size()} bytes in the port's unpacked layout; "
+        f"the JAX package's guard counts {merge_guard_bytes(models['shipped'].cfg, 3, 640, 800)}"
+        f" bytes (its corner-packed layout) against merge_max_bytes "
+        f"{models['shipped'].cfg.merge_max_bytes}; the exact route's stage volumes "
+        f"{sum(v.numel() * v.element_size() for v in enc.volumes.values())} bytes")
+    launches.update(shipped_knob_runs(models["shipped"], scene, enc_s, extras, card))
+    routes = ("off", "on", "A", "v2", "shipped")
+    profile_phase({k: models[k] for k in routes}, scene,
+                  {k: enc_s if k == "shipped" else enc for k in routes}, extras, card)
     ab_phase(models, scene, enc, extras, card)
-    del scene, enc, extras
-    launches["pipeline"] = pipeline_phase(model, card)
+    del scene, enc, enc_s, merged, extras
+    launches.update(pipeline_phase(model, card))
     train_launches, train = training_phase(card)
     launches.update(train_launches)
     tests_phase(card)
@@ -1653,6 +1895,7 @@ def main():
                         **({"pack_builds_by_run": {r: stats[r]["pack_builds"][name]
                                                    for r in stats}}
                            if name in pack_counters() else {}),
+                        **({"precision": "fast"} if name in FAST else {}),
                         **kres[name]})
     log("[train] " + json.dumps(train))
     log(json.dumps({"kernels": kernels}))

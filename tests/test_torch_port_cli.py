@@ -8,7 +8,9 @@ The parity test writes the fixture (``script/make_dtu_fixture.py``, views
     ``kernel_precision='highest'``, f32 gather sources and volumes), in a
     process of its own (the JAX package keeps one kernel-precision mode per
     process), with its own initialised weights;
-  * ``python -m uforecon_tpu_torch.cli.run`` with the same flags,
+  * ``python -m uforecon_tpu_torch.cli.run`` with the same flags, the
+    exact path's four (``EXACT_FLAGS``; the port's defaults are the JAX
+    package's evaluation defaults, ``test_torch_port_shipped.py``),
     ``--device cpu`` and those weights bridged into a state-dict file
     (``--load_ckpt``), the JAX key schedule's uniform draws fed through
     ``extract_geometry_for_dataset``'s ``draws``: one key per view split
@@ -35,7 +37,7 @@ import pytest
 import torch
 
 from uforecon_tpu_torch.cli import clean_mesh, depth_fusion, dtu_eval, run, tsdf_fusion
-from uforecon_tpu_torch.config import Config, config_from_args
+from uforecon_tpu_torch.config import EXACT, Config, config_from_args
 from uforecon_tpu_torch.convert import save_state_dict
 from uforecon_tpu_torch.script import make_dtu_fixture
 
@@ -47,6 +49,9 @@ FLAGS = ["--extract_geometry", "--set", "0", "--volume_type", "correlation",
          "--test_ref_view", "23", "24", "33", "--test_scan", "scan24"]
 SMALL = ["--img_wh", "160", "128", "--ndepths", "8,8,8", "--test_sample_coarse", "8",
          "--test_sample_fine", "8", "--seed", str(SEED)]
+# the JAX package's exact path, which the JAX run below pins
+EXACT_FLAGS = ["--volume_merge", "never", "--volume_dtype", "float32",
+               "--image_gather_dtype", "float32", "--kernel_precision", "highest"]
 
 _JAX_EXTRACT = """
 import pickle, sys
@@ -112,9 +117,9 @@ def test_cli_depth_maps_match_jax(fixture_root, jax_run, tmp_path, monkeypatch):
     save_state_dict(str(ckpt), variables)
     monkeypatch.setattr(run, "extract_geometry_for_dataset", functools.partial(
         run.extract_geometry_for_dataset, draws=draws))
-    stats = run.main(FLAGS + SMALL + ["--root_dir", str(fixture_root),
-                                      "--out_dir", str(tmp_path / "out"),
-                                      "--load_ckpt", str(ckpt), "--device", "cpu"])
+    stats = run.main(FLAGS + SMALL + EXACT_FLAGS + [
+        "--root_dir", str(fixture_root), "--out_dir", str(tmp_path / "out"),
+        "--load_ckpt", str(ckpt), "--device", "cpu"])
     assert stats["scan24"]["views"] == 3 and stats["scan24"]["rays"] == 3 * 160 * 128
     for i in range(3):
         name = f"scan24/{i:08d}"
@@ -165,12 +170,25 @@ def test_flag_defaults_are_the_jax_ones():
                   "test_sample_coarse", "test_sample_fine",
                   "extract_geometry", "test_n_view", "test_ray_num", "test_ref_view",
                   "test_scan", "set", "test_coarse_only", "img_wh", "ndepths",
-                  "depth_inter_r", "cr_base_chs", "explicit_similarity"):
+                  "depth_inter_r", "cr_base_chs", "explicit_similarity",
+                  # the evaluation approximations, which the JAX CLI sets by
+                  # its defaults (its UFO_* environment overrides aside)
+                  "volume_merge", "merge_depth", "merge_pad", "merge_max_bytes",
+                  "volume_dtype", "image_gather_dtype", "kernel_precision"):
         assert getattr(cfg, field) == getattr(want, field), field
     assert cfg.samples == (want.test_sample_coarse, want.test_sample_fine)
     # without the flag, JAX builds the no-similarity ablation: so does the port
     cfg, _ = config_from_args(["--extract_geometry", "--depth_pos_encoding"])
     assert cfg.explicit_similarity is False
+    # the port's flags for them, which stand in for the UFO_* overrides
+    cfg, _ = config_from_args(["--extract_geometry", "--depth_pos_encoding", *EXACT_FLAGS,
+                               "--merge_depth", "12", "--merge_pad",
+                               "--merge_max_bytes", "0"])
+    assert {k: getattr(cfg, k) for k in EXACT} == EXACT
+    assert (cfg.merge_depth, cfg.merge_pad, cfg.merge_max_bytes) == (12, True, 0)
+    with pytest.raises(SystemExit):
+        config_from_args(["--extract_geometry", "--depth_pos_encoding",
+                          "--kernel_precision", "bogus"])
 
 
 @pytest.mark.parametrize("flags,named", [
@@ -206,7 +224,9 @@ def test_scan_loop_visits_the_dtu_test_scans(monkeypatch, scan, want):
     visited = []
     monkeypatch.setattr(run, "DtuFitSparse", lambda **kw: visited.append(kw) or [])
     monkeypatch.setattr(run, "extract_geometry_for_dataset",
-                        lambda model, ds, **kw: {"views": 0, "rays_per_sec": 0.0})
+                        lambda model, ds, **kw: {"views": 0, "rays_per_sec": 0.0,
+                                                 "merged": False,
+                                                 "kernel_precision": "fast"})
     monkeypatch.setattr(run, "init_weights", lambda model, seed: None)
     with pytest.warns(UserWarning, match="random weights"):
         stats = run.main(["--extract_geometry", "--depth_pos_encoding", "--test_scan",

@@ -35,7 +35,7 @@ from uforecon_tpu.data.dtu_train import MVSDataset as JaxMVSDataset
 from uforecon_tpu.pipeline import fit as jax_fit
 
 from uforecon_tpu_torch.cli import run
-from uforecon_tpu_torch.config import Config
+from uforecon_tpu_torch.config import EXACT, Config
 from uforecon_tpu_torch.convert import load_flax_variables, load_weights
 from uforecon_tpu_torch.data.dtu_train import MVSDataset
 from uforecon_tpu_torch.models.uforecon import UFORecon
@@ -152,7 +152,7 @@ def test_three_step_fit_matches_jax(tmp_path):
         k_c, k_f = jax.random.split(sub)
         draws.append((np.asarray(jax.random.uniform(k_c, (64, 8), jnp.float32)),
                       np.asarray(jax.random.uniform(k_f, (64, 8), jnp.float32))))
-    cfg = Config(**FIT, logdir=str(tmp_path / "port"))
+    cfg = Config(**FIT, **EXACT, logdir=str(tmp_path / "port"))
     model = UFORecon(cfg)
     load_flax_variables(model, variables)
     state = port_fit.fit(cfg, train_ds=ds, val_ds=[], model=model, max_steps=3,

@@ -42,7 +42,7 @@ import torch
 from uforecon_tpu.config import Config as JaxConfig
 from uforecon_tpu.models.uforecon import UFORecon as JaxUFORecon
 
-from uforecon_tpu_torch.config import FUSED_GLUE, Config
+from uforecon_tpu_torch.config import EXACT, FUSED_GLUE, Config
 from uforecon_tpu_torch.convert import load_flax_variables
 from uforecon_tpu_torch.models.uforecon import EncoderOutputs, SceneInputs, UFORecon
 
@@ -63,7 +63,7 @@ def _jax_cfg():
 
 def _port_cfg():
     return Config(ndepths=(8, 8, 8), fmt_layer_names=("self", "cross"),
-                  coarse_sample=SAMPLES, fine_sample=SAMPLES)
+                  coarse_sample=SAMPLES, fine_sample=SAMPLES, **EXACT)
 
 
 def _np_tree(tree):

@@ -52,7 +52,7 @@ from uforecon_tpu.pipeline import trainer as jax_trainer
 from uforecon_tpu.pipeline.fit import init_model as jax_init_model
 from uforecon_tpu.utils import metrics as jax_metrics
 
-from uforecon_tpu_torch.config import Config
+from uforecon_tpu_torch.config import EXACT, Config
 from uforecon_tpu_torch.convert import flax_to_state_dict, init_weights, load_flax_variables
 from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
 from uforecon_tpu_torch.models import layers
@@ -152,8 +152,9 @@ def jax_side():
 
 
 def _port(jax_side):
-    """A port model on the JAX weights, and the scene, rays and draws."""
-    model = UFORecon(Config(**SMALL))
+    """A port model on the JAX weights (the JAX side's exact knobs), and the
+    scene, rays and draws."""
+    model = UFORecon(Config(**SMALL, **EXACT))
     load_flax_variables(model, jax_side["variables"])
     scene, extras = scene_inputs_from_sample(jax_side["sample"], "cpu")
     rays = [torch.as_tensor(a) for a in _gather_ray_batch(extras, jax_side["idx"])]

@@ -32,7 +32,7 @@ from uforecon_tpu.models.uforecon import UFORecon as JaxUFORecon
 from uforecon_tpu.ops import fused_ray_head as jrh
 from uforecon_tpu.ops.pallas_attention import tiny_linear_attention as jax_tiny_attention
 
-from uforecon_tpu_torch.config import Config
+from uforecon_tpu_torch.config import EXACT, Config
 from uforecon_tpu_torch.convert import load_flax_variables
 from uforecon_tpu_torch.models.attention import LocalFeatureTransformer
 from uforecon_tpu_torch.models.uforecon import SceneInputs, UFORecon
@@ -156,7 +156,8 @@ def _ablation_cfgs():
                      volume_dtype="float32", image_gather_dtype="float32",
                      explicit_similarity=False)
     pcfg = Config(ndepths=(8, 8, 8), fmt_layer_names=("self", "cross"),
-                  coarse_sample=SAMPLES, fine_sample=SAMPLES, explicit_similarity=False)
+                  coarse_sample=SAMPLES, fine_sample=SAMPLES, explicit_similarity=False,
+                  **EXACT)
     return jcfg, pcfg
 
 

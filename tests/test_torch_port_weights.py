@@ -24,7 +24,7 @@ from uforecon_tpu.config import Config as JaxConfig
 from uforecon_tpu.data.torch_ckpt import uforecon_name_map
 from uforecon_tpu.models.uforecon import UFORecon as JaxUFORecon
 
-from uforecon_tpu_torch.config import Config
+from uforecon_tpu_torch.config import EXACT, Config
 from uforecon_tpu_torch.convert import (init_weights, load_flax_variables,
                                         load_weights, save_state_dict)
 from uforecon_tpu_torch.models.uforecon import UFORecon
@@ -81,7 +81,7 @@ def reference_state_dict(variables):
 
 
 def _port(**kw):
-    return UFORecon(Config(**SMALL, **kw))
+    return UFORecon(Config(**SMALL, **EXACT, **kw))
 
 
 def _assert_same_tensors(a, b):
@@ -170,8 +170,9 @@ def test_no_checkpoint_warns_and_renders_seeded_weights(monkeypatch):
     monkeypatch.setattr(run, "DtuFitSparse", lambda **kw: [])
     monkeypatch.setattr(run, "extract_geometry_for_dataset",
                         lambda model, ds, **kw: models.append(model) or {
-                            "views": 0, "rays_per_sec": 0.0})
-    cfg = Config(**SMALL, test_scan="scan24", seed=5)
+                            "views": 0, "rays_per_sec": 0.0, "merged": False,
+                            "kernel_precision": model.kernel_precision})
+    cfg = Config(**SMALL, **EXACT, test_scan="scan24", seed=5)
     with pytest.warns(UserWarning, match="random weights"):
         run.run_extract(cfg, "cpu")
     want = _port()

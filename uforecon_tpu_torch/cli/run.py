@@ -26,8 +26,13 @@ Counterpart of the JAX package's ``cli/run.py`` ``run_train`` and
 renders one scan, or the 15-scan DTU protocol when ``--test_scan`` is
 empty or ``scan1``; each scan's depth maps go to ``{out_dir}/depth/{scan}/``
 (``pipeline/extract.py``), with one line ``"{scan}: {views} views,
-{rays/s} rays/s"``. GeneralFit and the similarity field are not ported;
-their flags raise.
+{rays/s} rays/s"``, after the first scan's a line with what the run
+resolved: the volume path (merged or per stage) and the kernel precision.
+Its defaults are the JAX package's (merged volumes, bf16 volumes and
+gather sources, ``fast`` kernels); ``--volume_merge never --volume_dtype
+float32 --image_gather_dtype float32 --kernel_precision highest`` renders
+the exact path. GeneralFit and the similarity field are not ported; their
+flags raise.
 """
 from __future__ import annotations
 
@@ -75,6 +80,10 @@ def run_extract(cfg: Config, device="cuda") -> Dict[str, Dict[str, float]]:
                           test_view_pair=list(cfg.test_ref_view), **kw)
         stats[scan] = s = extract_geometry_for_dataset(
             model, ds, out_dir=cfg.out_dir, device=device, seed=cfg.seed)
+        if len(stats) == 1:
+            path = "merged volumes" if s["merged"] else "per-stage volumes"
+            print(f"resolved: {path}, kernel_precision {s['kernel_precision']}",
+                  flush=True)
         print(f"{scan}: {s['views']} views, {s['rays_per_sec']:.0f} rays/s",
               flush=True)
     return stats

@@ -2,15 +2,54 @@
 
 A copy of the JAX package's ``config.Config`` fields that encode and
 render read, with the same names and defaults (the repo's default DTU
-configuration). The port always runs the JAX package's exact path with
-correlation volumes (``volume_reso`` 96) and the MVS depth guide with its
-positional encoding. Explicit pairwise similarity is on by default;
-``explicit_similarity=False`` is the paper's ablation without it (no
-similarity query, no ``pre_sim_mlp``: d_view 64 and a ray-head width of
-72). The JAX evaluation approximations (merged stage volumes, bf16 gather
-sources, low-precision kernel math, brick gathers and the other TPU
-layout knobs) and the other ablations (``use_dir_srdf``, no depth guide,
-bf16 compute) do not exist here.
+configuration). The port builds correlation volumes (``volume_reso`` 96)
+and the MVS depth guide with its positional encoding. Explicit pairwise
+similarity is on by default; ``explicit_similarity=False`` is the paper's
+ablation without it (no similarity query, no ``pre_sim_mlp``: d_view 64
+and a ray-head width of 72). The JAX package's TPU layout knobs (brick
+gathers, corner packing, ``image_row_merge``) and the other ablations
+(``use_dir_srdf``, no depth guide, bf16 compute) do not exist here.
+
+The JAX package's evaluation approximations are here, with its names,
+values, defaults and validation (``uforecon_tpu/config.py:116-265``):
+  * ``volume_merge`` (``auto | always | never``, default ``auto``), with
+    ``merge_depth`` (0 = the last stage's depth), ``merge_pad`` and
+    ``merge_max_bytes`` (6 GiB): resample each view's three stage volumes
+    onto one grid at encode time (``ops/volume_merge.py``) and query one
+    volume per view. ``use_volume_merge`` decides: ``always``, or ``auto``
+    under ``extract_geometry`` unless the JAX guard's byte count
+    (``merge_guard_bytes``, the JAX package's corner-packed layout, which
+    ``merge_pad`` widens) exceeds ``merge_max_bytes``. The port's own
+    unpacked volume is 8x smaller; the guard stays so that one config picks
+    the same path in both packages.
+  * ``volume_dtype`` (``float32 | bfloat16``, default ``bfloat16``): the
+    storage type of the stage volumes (and of the merged volume), in
+    training too.
+  * ``image_gather_dtype`` (``float32 | bfloat16``, default ``bfloat16``):
+    the pair maps, the image features and rgb||depth are sampled from
+    sources of this type, under ``extract_geometry`` only (training keeps
+    float32). Sampling combines bf16 values with float32 weights into a
+    float32 result, as the JAX package does (``ops/grid_sample.py``).
+  * ``kernel_precision`` (``auto | highest | high | fast``, default
+    ``auto``): the products of the four head kernels (point head, ray head
+    and its NeuS variant, split-weight point head). ``resolve_kernel_
+    precision`` gives ``fast`` under ``extract_geometry`` and ``high``
+    otherwise. ``fast`` is the JAX package's single bf16 pass: both
+    operands rounded to bf16 (round to nearest even), products summed in
+    float32. ``highest`` and ``high`` both run the kernels' 3xTF32 products
+    (~1e-6 relative, within the tolerances that hold those JAX modes) and
+    the plain versions' float32 products. The resolution is per model
+    (``UFORecon.kernel_precision``), with no process-wide mode: the JAX
+    package pins one mode per process (``ops/kernel_precision.set_mode``)
+    because its jit caches would not see a change; the port has no such
+    cache, so two models of one process may run two modes. That differs
+    from JAX only in a process whose JAX kernels would trace under two
+    modes: JAX refuses an explicit second mode, and its ``auto`` keeps the
+    first (a process that trains and then extracts, as ``learn_sanity``'s
+    mesh evaluation, extracts at ``high`` there and at ``fast`` here). The
+    trainer refuses ``fast``, as JAX does.
+``EXACT`` sets all four to the exact path (``never`` / ``float32`` /
+``highest``), the configuration the JAX goldens pin.
 
 ``coarse_sample`` / ``fine_sample`` are the samples per ray of the
 render; under ``extract_geometry`` it reads ``test_sample_coarse`` /
@@ -29,7 +68,8 @@ tensors:
   * ``fused_similarity``: the grouped cosine of the explicit-similarity
     query (``ops/fused_similarity.py``);
   * ``fused_volume_fusion``: the cross-view fusion of the correlation-
-    volume samples (``ops/fused_volume_fusion.py``);
+    volume samples (``ops/fused_volume_fusion.py``; the merged volume's
+    query does not take it, as in JAX);
   * ``fused_neus_epilogue`` (``auto | never``): the ray head with the NeuS
     compositing in its epilogue (``ops/fused_ray_head.py ray_head_neus``).
 ``FUSED_GLUE`` sets all three on; ``UFORecon.with_knobs(**FUSED_GLUE)``
@@ -60,6 +100,9 @@ from typing import Tuple
 
 FUSED_GLUE = dict(fused_similarity="auto", fused_volume_fusion="auto",
                   fused_neus_epilogue="auto")
+# the JAX package's exact path, which its goldens pin
+EXACT = dict(volume_merge="never", volume_dtype="float32",
+             image_gather_dtype="float32", kernel_precision="highest")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +169,15 @@ class Config:
     fused_point_head: str = "auto"       # auto | always | never
     point_head: str = "v1"               # v1 | v2
 
+    # ---- evaluation approximations (see the module docstring) ------------
+    volume_dtype: str = "bfloat16"       # float32 | bfloat16
+    kernel_precision: str = "auto"       # auto | highest | high | fast
+    volume_merge: str = "auto"           # auto | always | never
+    merge_max_bytes: int = 6 << 30       # 'auto' falls back above; 0: no guard
+    image_gather_dtype: str = "bfloat16"  # float32 | bfloat16
+    merge_depth: int = 0                 # common-grid z-bins; 0 = ndepths[-1]
+    merge_pad: bool = False              # the JAX pack's 256-lane rows (guard only)
+
     @property
     def samples(self) -> Tuple[int, int]:
         """(coarse, fine) samples per ray of a render chunk."""
@@ -140,6 +192,10 @@ class Config:
             "fused_neus_epilogue": ("auto", "never"),
             "fused_point_head": ("auto", "always", "never"),
             "point_head": ("v1", "v2"),
+            "volume_merge": ("auto", "always", "never"),
+            "volume_dtype": ("float32", "bfloat16"),
+            "image_gather_dtype": ("float32", "bfloat16"),
+            "kernel_precision": ("auto", "highest", "high", "fast"),
         }
         for field, values in allowed.items():
             v = getattr(self, field)
@@ -172,6 +228,38 @@ class Config:
     @property
     def ray_trans_dim(self) -> int:
         return self.view_trans_dim + 8  # + order PE width
+
+
+def resolve_kernel_precision(cfg: Config) -> str:
+    """The head kernels' precision for a model of ``cfg``: ``auto`` gives
+    ``fast`` under ``extract_geometry`` and ``high`` otherwise, as the JAX
+    package's ``UFORecon.setup`` does (``models/uforecon.py:79-90``), per
+    model rather than per process."""
+    if cfg.kernel_precision != "auto":
+        return cfg.kernel_precision
+    return "fast" if cfg.extract_geometry else "high"
+
+
+def merge_guard_bytes(cfg: Config, nv: int, h: int, w: int) -> int:
+    """The JAX package's byte count of a merged volume, corner-packed as it
+    stores it (``models/uforecon.py:158-168``): nv x d_m x h x w x 8 corners
+    x (32 lanes with ``merge_pad``, else 8 features per stage + the weight)
+    x the bytes of ``volume_dtype``."""
+    d_m = cfg.merge_depth or cfg.ndepths[-1]
+    c_pack = 8 * (32 if cfg.merge_pad else 8 * len(cfg.ndepths) + 1)
+    return nv * d_m * h * w * c_pack * (4 if cfg.volume_dtype == "float32" else 2)
+
+
+def use_volume_merge(cfg: Config, nv: int, h: int, w: int) -> bool:
+    """Does ``encode`` merge the stage volumes of nv views at h x w? The JAX
+    decision (``models/uforecon.py:156-168``): ``always``; or ``auto`` under
+    ``extract_geometry``, unless ``merge_guard_bytes`` exceeds
+    ``merge_max_bytes`` (0 turns the guard off)."""
+    use = cfg.volume_merge == "always" or (cfg.volume_merge == "auto"
+                                           and cfg.extract_geometry)
+    if use and cfg.volume_merge == "auto" and cfg.merge_max_bytes:
+        return merge_guard_bytes(cfg, nv, h, w) <= cfg.merge_max_bytes
+    return use
 
 
 def _ints(s) -> Tuple[int, ...]:
@@ -215,23 +303,22 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
     """Parse the JAX package's flags (``uforecon_tpu/config.py:352``
     ``config_from_args``: the same names and defaults), those of extraction
     (``--extract_geometry``) and of training (without it), plus
-    ``--device``.
+    ``--device`` and the evaluation approximations' fields
+    (``--volume_merge`` ... ``--kernel_precision``, default as in
+    ``Config``), which stand in for the JAX package's ``UFO_*``
+    environment overrides; ``--volume_merge never --volume_dtype float32
+    --image_gather_dtype float32 --kernel_precision highest`` is the exact
+    path.
 
     Returns the Config and the device. Raises ``ValueError``, naming the
     flag, on a flag set that selects a model or a path the port does not
-    have, rather than rendering its default model. The port renders the
-    exact path: the JAX package's evaluation approximations
-    (``volume_merge``, ``kernel_precision``, ``image_gather_dtype``) do not
-    exist here."""
+    have, rather than rendering its default model."""
     import argparse
 
     p = argparse.ArgumentParser(
         "uforecon_tpu_torch.cli.run",
         description="Train on DTU, or with --extract_geometry render the depth "
-                    "maps of DTU scans, on a CUDA card. The port runs the "
-                    "exact path: it has none of the JAX evaluation "
-                    "approximations (volume_merge, kernel_precision, "
-                    "image_gather_dtype).")
+                    "maps of DTU scans, on a CUDA card.")
     d = Config()
     p.add_argument("--root_dir", type=str, default=d.root_dir)
     p.add_argument("--out_dir", type=str, default=d.out_dir)
@@ -287,6 +374,18 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
     p.add_argument("--compute_dtype", type=str, default="float32")
     p.add_argument("--encoder_dtype", type=str, default="")
     p.add_argument("--mesh_shape", type=str, default="1")
+    p.add_argument("--volume_merge", choices=("auto", "always", "never"),
+                   default=d.volume_merge)
+    p.add_argument("--merge_depth", type=int, default=d.merge_depth)
+    p.add_argument("--merge_pad", action="store_true",
+                   help="count the JAX package's 256-lane rows in the merge guard")
+    p.add_argument("--merge_max_bytes", type=int, default=d.merge_max_bytes)
+    p.add_argument("--volume_dtype", choices=("float32", "bfloat16"),
+                   default=d.volume_dtype)
+    p.add_argument("--image_gather_dtype", choices=("float32", "bfloat16"),
+                   default=d.image_gather_dtype)
+    p.add_argument("--kernel_precision", choices=("auto", "highest", "high", "fast"),
+                   default=d.kernel_precision)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cpu runs the kernels' plain PyTorch versions")
     a = p.parse_args(argv)
@@ -309,5 +408,8 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
         test_scan=a.test_scan, set=a.set, test_coarse_only=a.test_coarse_only,
         img_wh=tuple(a.img_wh), ndepths=_ints(a.ndepths),
         depth_inter_r=_floats(a.depth_inter_r), cr_base_chs=_ints(a.cr_base_chs),
-        explicit_similarity=a.explicit_similarity)
+        explicit_similarity=a.explicit_similarity,
+        volume_merge=a.volume_merge, merge_depth=a.merge_depth, merge_pad=a.merge_pad,
+        merge_max_bytes=a.merge_max_bytes, volume_dtype=a.volume_dtype,
+        image_gather_dtype=a.image_gather_dtype, kernel_precision=a.kernel_precision)
     return cfg, a.device

@@ -10,23 +10,23 @@ extern "C" int ufo_point_head(const float* img, const float* vol,
                               const float* sim, const float* dd,
                               const float* dir, const float* rgb,
                               const float* mask, const float* w, float* token,
-                              float* rad, int nv, int p, void* stream);
+                              float* rad, int nv, int p, int fast, void* stream);
 extern "C" int ufo_point_head_weight_count();
 extern "C" int ufo_point_head2(const float* img, const float* vol,
                                const float* sim, const float* dd,
                                const float* dir, const float* rgb,
                                const float* mask, const float* w, float* token,
-                               float* rad, int nv, int p, void* stream);
+                               float* rad, int nv, int p, int fast, void* stream);
 extern "C" int ufo_point_head2_weight_count();
 extern "C" int ufo_ray_head(const float* y, const float* w, float* srdf,
-                            int rn, int sn, int c, void* stream);
+                            int rn, int sn, int c, int fast, void* stream);
 extern "C" int ufo_ray_head_weight_count(int c);
 extern "C" long long ufo_ray_head_smem_bytes(int sn, int c);
 extern "C" int ufo_ray_head_neus(const float* y, const float* w,
                                  const float* z, const float* rad,
                                  const float* inv_s, float* srdf, float* weight,
                                  float* rgb, float* depth, float* opacity,
-                                 int rn, int sn, int c, void* stream);
+                                 int rn, int sn, int c, int fast, void* stream);
 extern "C" int ufo_grouped_cosine(const float* x, long long sv, long long sp,
                                   long long sc, float* out, int nv, int p,
                                   int c, int g, void* stream);
@@ -55,18 +55,19 @@ void check(int err, const char* what) {
               ufo_error_string(err), ")");
 }
 
+// fast: the bf16 instantiation (kernel_precision 'fast'), else 3xTF32
 void point_head(const at::Tensor& img, const at::Tensor& vol,
                 const at::Tensor& sim, const at::Tensor& dd,
                 const at::Tensor& dir, const at::Tensor& rgb,
                 const at::Tensor& mask, const at::Tensor& w,
-                at::Tensor& token, at::Tensor& rad) {
+                at::Tensor& token, at::Tensor& rad, bool fast) {
   const int nv = static_cast<int>(img.size(0));
   const int p = static_cast<int>(img.size(1));
   check(ufo_point_head(img.data_ptr<float>(), vol.data_ptr<float>(),
                        sim.data_ptr<float>(), dd.data_ptr<float>(),
                        dir.data_ptr<float>(), rgb.data_ptr<float>(),
                        mask.data_ptr<float>(), w.data_ptr<float>(),
-                       token.data_ptr<float>(), rad.data_ptr<float>(), nv, p,
+                       token.data_ptr<float>(), rad.data_ptr<float>(), nv, p, fast,
                        at::cuda::getCurrentCUDAStream().stream()),
         "point_head");
 }
@@ -75,22 +76,22 @@ void point_head2(const at::Tensor& img, const at::Tensor& vol,
                  const at::Tensor& sim, const at::Tensor& dd,
                  const at::Tensor& dir, const at::Tensor& rgb,
                  const at::Tensor& mask, const at::Tensor& w,
-                 at::Tensor& token, at::Tensor& rad) {
+                 at::Tensor& token, at::Tensor& rad, bool fast) {
   const int nv = static_cast<int>(img.size(0));
   const int p = static_cast<int>(img.size(1));
   check(ufo_point_head2(img.data_ptr<float>(), vol.data_ptr<float>(),
                         sim.data_ptr<float>(), dd.data_ptr<float>(),
                         dir.data_ptr<float>(), rgb.data_ptr<float>(),
                         mask.data_ptr<float>(), w.data_ptr<float>(),
-                        token.data_ptr<float>(), rad.data_ptr<float>(), nv, p,
+                        token.data_ptr<float>(), rad.data_ptr<float>(), nv, p, fast,
                         at::cuda::getCurrentCUDAStream().stream()),
         "point_head2");
 }
 
-void ray_head(const at::Tensor& y, const at::Tensor& w, at::Tensor& srdf) {
+void ray_head(const at::Tensor& y, const at::Tensor& w, at::Tensor& srdf, bool fast) {
   check(ufo_ray_head(y.data_ptr<float>(), w.data_ptr<float>(),
                      srdf.data_ptr<float>(), static_cast<int>(y.size(0)),
-                     static_cast<int>(y.size(1)), static_cast<int>(y.size(2)),
+                     static_cast<int>(y.size(1)), static_cast<int>(y.size(2)), fast,
                      at::cuda::getCurrentCUDAStream().stream()),
         "ray_head");
 }
@@ -99,7 +100,7 @@ void ray_head_neus(const at::Tensor& y, const at::Tensor& w,
                    const at::Tensor& z, const at::Tensor& rad,
                    const at::Tensor& inv_s, at::Tensor& srdf,
                    at::Tensor& weight, at::Tensor& rgb, at::Tensor& depth,
-                   at::Tensor& opacity) {
+                   at::Tensor& opacity, bool fast) {
   check(ufo_ray_head_neus(y.data_ptr<float>(), w.data_ptr<float>(),
                           z.data_ptr<float>(), rad.data_ptr<float>(),
                           inv_s.data_ptr<float>(), srdf.data_ptr<float>(),
@@ -107,7 +108,7 @@ void ray_head_neus(const at::Tensor& y, const at::Tensor& w,
                           depth.data_ptr<float>(), opacity.data_ptr<float>(),
                           static_cast<int>(y.size(0)),
                           static_cast<int>(y.size(1)),
-                          static_cast<int>(y.size(2)),
+                          static_cast<int>(y.size(2)), fast,
                           at::cuda::getCurrentCUDAStream().stream()),
         "ray_head_neus");
 }

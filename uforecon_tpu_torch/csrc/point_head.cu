@@ -46,6 +46,14 @@
 // issued by mma.sync) and the operand split and fragment loads most of
 // the rest; the weight ring's depth and the tile shape change nothing.
 // wgmma's rate and a tail without per-phase syncs are what is left.
+//
+// kFast (kernel_precision 'fast'): the JAX kernel's single bf16 pass at
+// its kernel_dot sites (fused_point_head.py:138-143, every layer product:
+// the pre-similarity MLP, q/k/v, merge, mlp1, mlp2, the radiance MLP).
+// The tensor-core layers run tc_gemm.cuh's bf16 mma.m16n8k16 on a pack of
+// bf16 planes, the small MLPs block_gemm's FP32 FMAs of bf16-rounded
+// operands (their weights bf16-rounded in the pack); the attention, the
+// LayerNorms and the softmax stay FP32, as in JAX.
 #include "common.cuh"
 #include "tc_gemm.cuh"
 
@@ -114,7 +122,7 @@ constexpr size_t smem_bytes() {
          ((size_t)tile_rows<NV>() * (2 * LD + 2 * LD) + tc::ring_floats(kStages, C2));
 }
 
-template <int NV>
+template <int NV, bool kFast>
 __global__ void __launch_bounds__(kPointThreads, 2) point_head_kernel(
     const float* __restrict__ img,    // (NV, P, CI)
     const float* __restrict__ vol,    // (P, CV)
@@ -197,11 +205,11 @@ __global__ void __launch_bounds__(kPointThreads, 2) point_head_kernel(
   __syncthreads();
 
   // 2. pre-similarity MLP on the block's points
-  block_linear<4>(s_in, SIN, SIN, W + O_SW0, W + O_SB0, s_h1, SH, TP, SH, true);
+  block_linear<4, kFast>(s_in, SIN, SIN, W + O_SW0, W + O_SB0, s_h1, SH, TP, SH, true);
   __syncthreads();
-  block_linear<4>(s_h1, SH, SH, W + O_SW1, W + O_SB1, s_h2, SH, TP, SH, true);
+  block_linear<4, kFast>(s_h1, SH, SH, W + O_SW1, W + O_SB1, s_h2, SH, TP, SH, true);
   __syncthreads();
-  block_linear<4>(s_h2, SH, SH, W + O_SW2, W + O_SB2, s16, SOUT, TP, SOUT, false);
+  block_linear<4, kFast>(s_h2, SH, SH, W + O_SW2, W + O_SB2, s16, SOUT, TP, SOUT, false);
   __syncthreads();
 
   // 3. the rest of the tokens: row p*L is the view token, row p*L + 1 + v
@@ -229,9 +237,9 @@ __global__ void __launch_bounds__(kPointThreads, 2) point_head_kernel(
 
   // 4. projections on the tensor cores (the scratch in Vb and Kb is dead
   //    now); each gemm ends in a block-wide sync
-  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + O_WQ, ring, Qb, LD, MTILES, C, false);
-  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + O_WK, ring, Kb, LD, MTILES, C, false);
-  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + O_WV, ring, Vb, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C, kFast>(X, LD, C, nullptr, 0, 0, W + O_WQ, ring, Qb, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C, kFast>(X, LD, C, nullptr, 0, 0, W + O_WK, ring, Kb, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C, kFast>(X, LD, C, nullptr, 0, 0, W + O_WV, ring, Vb, LD, MTILES, C, false);
   for (int i = tid; i < R * C; i += blockDim.x) {
     const int j = (i / C) * LD + i % C;
     Qb[j] = phi(Qb[j]);
@@ -268,12 +276,14 @@ __global__ void __launch_bounds__(kPointThreads, 2) point_head_kernel(
   __syncthreads();
 
   // 6. merge + LayerNorm -> Kb
-  tc::gemm<kStages, NT_C>(Qb, LD, C, nullptr, 0, 0, W + O_WM, ring, Kb, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C, kFast>(Qb, LD, C, nullptr, 0, 0, W + O_WM, ring,
+                                 Kb, LD, MTILES, C, false);
   tc::layernorm<C>(Kb, LD, R, W + O_N1S, W + O_N1B);
   // 7. mlp1 over [tokens | message] -> Qb|Vb (R x LD2)
-  tc::gemm<kStages, NT_C2>(X, LD, C, Kb, LD, C, W + O_W1, ring, Qb, LD2, MTILES, C2, true);
+  tc::gemm<kStages, NT_C2, kFast>(X, LD, C, Kb, LD, C, W + O_W1, ring, Qb, LD2, MTILES, C2, true);
   // 8. mlp2 -> Kb, LayerNorm added into X (the residual)
-  tc::gemm<kStages, NT_C>(Qb, LD2, C2, nullptr, 0, 0, W + O_W2, ring, Kb, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C, kFast>(Qb, LD2, C2, nullptr, 0, 0, W + O_W2, ring,
+                                 Kb, LD, MTILES, C, false);
   tc::layernorm<C>(Kb, LD, R, W + O_N2S, W + O_N2B, X, LD);
 
   // 9. view-token output
@@ -298,11 +308,11 @@ __global__ void __launch_bounds__(kPointThreads, 2) point_head_kernel(
     z[rr * CR + c] = X[(p * L + 1 + v) * LD + c];
   }
   __syncthreads();
-  block_linear<4>(z, CR, CR, W + O_RW0, W + O_RB0, h1, R1, RR, R1, true);
+  block_linear<4, kFast>(z, CR, CR, W + O_RW0, W + O_RB0, h1, R1, RR, R1, true);
   __syncthreads();
-  block_linear<4>(h1, R1, R1, W + O_RW1, W + O_RB1, h2, R2, RR, R2, true);
+  block_linear<4, kFast>(h1, R1, R1, W + O_RW1, W + O_RB1, h2, R2, RR, R2, true);
   __syncthreads();
-  block_linear<4>(h2, R2, R2, W + O_RW2, W + O_RB2, lg, 1, RR, 1, false);
+  block_linear<4, kFast>(h2, R2, R2, W + O_RW2, W + O_RB2, lg, 1, RR, 1, false);
   __syncthreads();
   for (int p = tid; p < TP; p += blockDim.x) {
     const int gp = p0 + p;
@@ -333,20 +343,31 @@ __global__ void __launch_bounds__(kPointThreads, 2) point_head_kernel(
   }
 }
 
+template <int NV, bool kFast>
+int launch_precision(const float* img, const float* vol, const float* sim,
+                     const float* dd, const float* dir, const float* rgb,
+                     const float* mask, const float* w, float* token, float* rad,
+                     int p, cudaStream_t stream) {
+  const size_t smem = smem_bytes<NV>();
+  cudaError_t e = cudaFuncSetAttribute(
+      point_head_kernel<NV, kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (p + TP - 1) / TP;
+  point_head_kernel<NV, kFast><<<grid, kPointThreads, smem, stream>>>(
+      img, vol, sim, dd, dir, rgb, mask, w, token, rad, p);
+  return (int)cudaGetLastError();
+}
+
 template <int NV>
 int launch(const float* img, const float* vol, const float* sim,
            const float* dd, const float* dir, const float* rgb,
            const float* mask, const float* w, float* token, float* rad,
-           int p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<NV>();
-  cudaError_t e = cudaFuncSetAttribute(
-      point_head_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = (p + TP - 1) / TP;
-  point_head_kernel<NV><<<grid, kPointThreads, smem, stream>>>(
-      img, vol, sim, dd, dir, rgb, mask, w, token, rad, p);
-  return (int)cudaGetLastError();
+           int p, bool fast, cudaStream_t stream) {
+  return fast ? launch_precision<NV, true>(img, vol, sim, dd, dir, rgb, mask, w, token,
+                                           rad, p, stream)
+              : launch_precision<NV, false>(img, vol, sim, dd, dir, rgb, mask, w, token,
+                                            rad, p, stream);
 }
 
 }  // namespace ph
@@ -354,20 +375,22 @@ int launch(const float* img, const float* vol, const float* sim,
 
 extern "C" int ufo_point_head_weight_count() { return ufo::ph::N_W; }
 
-// Returns a cudaError_t value (0 on success). nv must be 2..5.
+// Returns a cudaError_t value (0 on success). nv must be 2..5; fast picks
+// the bf16 instantiation (its pack holds bf16 planes).
 extern "C" int ufo_point_head(const float* img, const float* vol,
                               const float* sim, const float* dd,
                               const float* dir, const float* rgb,
                               const float* mask, const float* w, float* token,
-                              float* rad, int nv, int p, void* stream) {
+                              float* rad, int nv, int p, int fast, void* stream) {
   using namespace ufo::ph;
   if (p <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool f = fast != 0;
   switch (nv) {
-    case 2: return launch<2>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, s);
-    case 3: return launch<3>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, s);
-    case 4: return launch<4>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, s);
-    case 5: return launch<5>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, s);
+    case 2: return launch<2>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
+    case 3: return launch<3>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
+    case 4: return launch<4>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
+    case 5: return launch<5>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -37,9 +37,9 @@
 // rows at once through [img | pe] (zero in the token rows) and the
 // message, so the token rows get msg W1b and the view rows the whole
 // per-view sum; a pass adds w1a_tok or the shared part and takes the relu.
-// Radiance layer 0 runs there too, over [img | pe | dir | 1 | 0 0 0 0] and
-// m2 of each view row (k = 48 + 80: the 1 takes the bias, a row of the
-// weight planes, and four zero rows pad it to a multiple of 8), starting
+// Radiance layer 0 runs there too, over [img | pe | dir | 1 1 1 | 0 0] and
+// m2 of each view row (k = 48 + 80: the 1s take the bias, rows of the
+// weight planes, and two zero rows pad it to a multiple of 8), starting
 // from the point's shared part. The LayerNorms are tc::layernorm. Shared
 // memory: rows x 1200 bytes + 15,296 (shared input and products, token
 // constants) + 23,552 for the ring = 96,448 / 115,648 / 134,848 / 154,048
@@ -48,6 +48,17 @@
 // straight into their rows; a ragged last block element by element). The
 // pre-similarity MLP, the attention, the radiance tail 16 -> 8 -> 1 and
 // the softmax stay FP32 on the CUDA cores, one row per thread.
+//
+// kFast (kernel_precision 'fast'): the JAX kernel's single bf16 pass at
+// its kernel_dot sites (fused_point_head2.py:73-76): every layer product
+// on tc_gemm.cuh's bf16 mma.m16n8k16 or, for the small MLPs, as FP32 FMAs
+// of bf16-rounded operands; the attention's head sums and broadcasts,
+// which JAX takes as products with 0/1 matrices, round as those products
+// do: each score is a sum of bf16-rounded q k products and enters the
+// weighted sum bf16-rounded, and the denominator is bf16-rounded. The
+// radiance bias comes in three bf16 rows (its hi, mid and lo parts; one
+// row and two zero rows in 3xTF32), so it adds in FP32 as JAX's does. The
+// view token's own q/k/v and mlp1 rows stay FP32, as in JAX.
 #include "common.cuh"
 #include "tc_gemm.cuh"
 
@@ -68,9 +79,10 @@ constexpr int R1 = 16, R2 = 8;
 constexpr int GS = CV + SOUT;          // view-shared group [vol | sim16]
 constexpr int GV = CI + PE;            // per-view group [img | pe]
 constexpr int XW = GV + 3;             // a view row's raw inputs [img | pe | dir]
-// radiance layer 0's first operand: [img | pe | dir | 1 | 0...], the 1
-// taking the bias row of the weights, padded to a multiple of 8
-constexpr int XK = (XW + 1 + 7) / 8 * 8;   // 48
+constexpr int NB = 3;                  // bias rows (ops/fused_point_head2.py BIAS_ROWS)
+// radiance layer 0's first operand: [img | pe | dir | 1 1 1 | 0...], the
+// 1s taking the bias rows of the weights, padded to a multiple of 8
+constexpr int XK = (XW + NB + 7) / 8 * 8;   // 48
 constexpr int NSH = 3 * C + C2 + R1;   // shared projections: q | k | v | mlp1 | r0
 constexpr int NTAIL = C2 + R1;         // the shared mlp1 | r0 columns
 constexpr int TP = 16;                 // points per block
@@ -133,7 +145,7 @@ constexpr size_t smem_bytes() {
                           3 * C + tc::ring_floats(kStages, NTAIL));
 }
 
-template <int NV>
+template <int NV, bool kFast>
 __global__ void __launch_bounds__(kThreads, 2) point_head2_kernel(
     const float* __restrict__ img,    // (NV, P, CI)
     const float* __restrict__ vol,    // (P, CV)
@@ -230,18 +242,18 @@ __global__ void __launch_bounds__(kThreads, 2) point_head2_kernel(
         val = dir[pv * 3 + (c - GV)];
       }
     }
-    X[(TP + rr) * LX + c] = c == XW ? 1.f : val;
+    X[(TP + rr) * LX + c] = c >= XW && c < XW + NB ? 1.f : val;
   }
   tc::cp_async_wait<0>();
   __syncthreads();
 
   // 2. pre-similarity MLP into S[:, CV:]
-  block_linear<kSmallRows>(s_in, SIN, SIN, W + O_SW0, W + O_SB0, s_h1, SHID, TP, SHID, true);
+  block_linear<kSmallRows, kFast>(s_in, SIN, SIN, W + O_SW0, W + O_SB0, s_h1, SHID, TP, SHID, true);
   __syncthreads();
-  block_linear<kSmallRows>(s_h1, SHID, SHID, W + O_SW1, W + O_SB1, s_h2, SHID, TP, SHID,
+  block_linear<kSmallRows, kFast>(s_h1, SHID, SHID, W + O_SW1, W + O_SB1, s_h2, SHID, TP, SHID,
                            true);
   __syncthreads();
-  block_linear<kSmallRows>(s_h2, SHID, SHID, W + O_SW2, W + O_SB2, S + CV, LS, TP, SOUT,
+  block_linear<kSmallRows, kFast>(s_h2, SHID, SHID, W + O_SW2, W + O_SB2, S + CV, LS, TP, SOUT,
                            false);
   __syncthreads();
 
@@ -249,17 +261,17 @@ __global__ void __launch_bounds__(kThreads, 2) point_head2_kernel(
   //    column panels of sh (q | k and v into the token rows, mlp1 | r0 into
   //    T), then the view rows' [img | pe] through q | k and v; each gemm
   //    ends in a block-wide sync
-  tc::gemm<kStages, NT_SQK>(S, LS, GS, nullptr, 0, 0, W + O_SH, ring, QK, LQK, 1, 2 * C,
+  tc::gemm<kStages, NT_SQK, kFast>(S, LS, GS, nullptr, 0, 0, W + O_SH, ring, QK, LQK, 1, 2 * C,
                             false, NSH);
-  tc::gemm<kStages, NT_SV>(S, LS, GS, nullptr, 0, 0, W + O_SH + 2 * C, ring, Vb, LV, 1, C,
+  tc::gemm<kStages, NT_SV, kFast>(S, LS, GS, nullptr, 0, 0, W + O_SH + 2 * C, ring, Vb, LV, 1, C,
                            false, NSH);
-  tc::gemm<kStages, NT_ST>(S, LS, GS, nullptr, 0, 0, W + O_SH + 3 * C, ring, T, LT, 1,
+  tc::gemm<kStages, NT_ST, kFast>(S, LS, GS, nullptr, 0, 0, W + O_SH + 3 * C, ring, T, LT, 1,
                            NTAIL, false, NSH);
   // each view row's sums start from its point's shared part (view row
   // p * NV + v from token row p); phi of q and k in the epilogue
-  tc::gemm<kStages, NT_VQK>(X + TP * LX, LX, GV, nullptr, 0, 0, W + O_VQKV, ring,
+  tc::gemm<kStages, NT_VQK, kFast>(X + TP * LX, LX, GV, nullptr, 0, 0, W + O_VQKV, ring,
                             QK + TP * LQK, LQK, NV, 2 * C, tc::kPhi, 3 * C, QK, LQK, NV);
-  tc::gemm<kStages, NT_VV>(X + TP * LX, LX, GV, nullptr, 0, 0, W + O_VQKV + 2 * C, ring,
+  tc::gemm<kStages, NT_VV, kFast>(X + TP * LX, LX, GV, nullptr, 0, 0, W + O_VQKV + 2 * C, ring,
                            Vb + TP * LV, LV, NV, C, tc::kNone, 3 * C, Vb, LV, NV);
 
   // 4. linear attention among each point's L tokens, per head; token 0's
@@ -286,12 +298,14 @@ __global__ void __launch_bounds__(kThreads, 2) point_head2_kernel(
       const float* vv = s == 0 ? tok3 + 2 * C + h * DK : Vb + rs * LV + h * DK;
       float sc = 0.f;
 #pragma unroll
-      for (int d = 0; d < DK; ++d) sc = fmaf(q[d], ks[d], sc);
+      for (int d = 0; d < DK; ++d)
+        sc = kFast ? sc + bf16_round(q[d] * ks[d]) : fmaf(q[d], ks[d], sc);
       den += sc;
+      const float w = kFast ? bf16_round(sc) : sc;
 #pragma unroll
-      for (int d = 0; d < DK; ++d) acc[d] = fmaf(sc, vv[d], acc[d]);
+      for (int d = 0; d < DK; ++d) acc[d] = fmaf(w, vv[d], acc[d]);
     }
-    den += kAttnEps;
+    den = (kFast ? bf16_round(den) : den) + kAttnEps;
     float* out = QK + row * LQK + h * DK;
 #pragma unroll
     for (int d = 0; d < DK; ++d) out[d] = acc[d] / den;
@@ -299,13 +313,13 @@ __global__ void __launch_bounds__(kThreads, 2) point_head2_kernel(
   __syncthreads();
 
   // 5. merge + LayerNorm -> the message in Vb (v is dead)
-  tc::gemm<kStages, NT_C>(QK, LQK, C, nullptr, 0, 0, W + O_WM, ring, Vb, LV, L, C, false);
+  tc::gemm<kStages, NT_C, kFast>(QK, LQK, C, nullptr, 0, 0, W + O_WM, ring, Vb, LV, L, C, false);
   tc::layernorm<C>(Vb, LV, R, W + O_N1S, W + O_N1B);
 
   // 6. mlp1 over [[img | pe] | message] -> QK: the token rows get msg W1b
   //    (their X rows are zero), the view rows the whole per-view sum; then
   //    + w1a_tok or the point's shared part, and the relu
-  tc::gemm<kStages, NT_C2>(X, LX, GV, Vb, LV, C, W + O_VW1, ring, QK, LQK, L, C2, false);
+  tc::gemm<kStages, NT_C2, kFast>(X, LX, GV, Vb, LV, C, W + O_VW1, ring, QK, LQK, L, C2, false);
   constexpr int C2_4 = C2 / 4;
   for (int i = tid; i < R * C2_4; i += blockDim.x) {
     const int r = i / C2_4, j = 4 * (i - (i / C2_4) * C2_4);
@@ -319,7 +333,7 @@ __global__ void __launch_bounds__(kThreads, 2) point_head2_kernel(
   __syncthreads();
 
   // 7. mlp2 + LayerNorm -> m2 in Vb (the message is dead)
-  tc::gemm<kStages, NT_C>(QK, LQK, C2, nullptr, 0, 0, W + O_W2, ring, Vb, LV, L, C, false);
+  tc::gemm<kStages, NT_C, kFast>(QK, LQK, C2, nullptr, 0, 0, W + O_W2, ring, Vb, LV, L, C, false);
   tc::layernorm<C>(Vb, LV, R, W + O_N2S, W + O_N2B);
 
   // 8. view-token output: the token plus its m2
@@ -334,11 +348,11 @@ __global__ void __launch_bounds__(kThreads, 2) point_head2_kernel(
   float* z = QK;                      // RV x LZ (mlp1's output is dead)
   float* h2 = z + RV * LZ;            // RV x R2
   float* lg = h2 + RV * R2;           // RV
-  tc::gemm<kStages, NT_R>(X + TP * LX, LX, XK, Vb + TP * LV, LV, C, W + O_VRAD, ring, z, LZ,
+  tc::gemm<kStages, NT_R, kFast>(X + TP * LX, LX, XK, Vb + TP * LV, LV, C, W + O_VRAD, ring, z, LZ,
                           NV, R1, tc::kRelu, 0, T + C2, LT, NV);
-  block_linear<kSmallRows>(z, LZ, R1, W + O_RW1, W + O_RB1, h2, R2, RV, R2, true);
+  block_linear<kSmallRows, kFast>(z, LZ, R1, W + O_RW1, W + O_RB1, h2, R2, RV, R2, true);
   __syncthreads();
-  block_linear<kSmallRows>(h2, R2, R2, W + O_RW2, W + O_RB2, lg, 1, RV, 1, false);
+  block_linear<kSmallRows, kFast>(h2, R2, R2, W + O_RW2, W + O_RB2, lg, 1, RV, 1, false);
   __syncthreads();
   for (int p = tid; p < TP; p += blockDim.x) {
     const int gp = p0 + p;
@@ -369,20 +383,31 @@ __global__ void __launch_bounds__(kThreads, 2) point_head2_kernel(
   }
 }
 
+template <int NV, bool kFast>
+int launch_precision(const float* img, const float* vol, const float* sim,
+                     const float* dd, const float* dir, const float* rgb,
+                     const float* mask, const float* w, float* token, float* rad,
+                     int p, cudaStream_t stream) {
+  const size_t smem = smem_bytes<NV>();
+  cudaError_t e = cudaFuncSetAttribute(
+      point_head2_kernel<NV, kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (p + TP - 1) / TP;
+  point_head2_kernel<NV, kFast><<<grid, kThreads, smem, stream>>>(
+      img, vol, sim, dd, dir, rgb, mask, w, token, rad, p);
+  return (int)cudaGetLastError();
+}
+
 template <int NV>
 int launch(const float* img, const float* vol, const float* sim,
            const float* dd, const float* dir, const float* rgb,
            const float* mask, const float* w, float* token, float* rad,
-           int p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<NV>();
-  cudaError_t e = cudaFuncSetAttribute(
-      point_head2_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int grid = (p + TP - 1) / TP;
-  point_head2_kernel<NV><<<grid, kThreads, smem, stream>>>(
-      img, vol, sim, dd, dir, rgb, mask, w, token, rad, p);
-  return (int)cudaGetLastError();
+           int p, bool fast, cudaStream_t stream) {
+  return fast ? launch_precision<NV, true>(img, vol, sim, dd, dir, rgb, mask, w, token,
+                                           rad, p, stream)
+              : launch_precision<NV, false>(img, vol, sim, dd, dir, rgb, mask, w, token,
+                                            rad, p, stream);
 }
 
 }  // namespace ph2
@@ -390,20 +415,22 @@ int launch(const float* img, const float* vol, const float* sim,
 
 extern "C" int ufo_point_head2_weight_count() { return ufo::ph2::N_W; }
 
-// Returns a cudaError_t value (0 on success). nv must be 2..5.
+// Returns a cudaError_t value (0 on success). nv must be 2..5; fast picks
+// the bf16 instantiation (its pack holds bf16 planes).
 extern "C" int ufo_point_head2(const float* img, const float* vol,
                                const float* sim, const float* dd,
                                const float* dir, const float* rgb,
                                const float* mask, const float* w, float* token,
-                               float* rad, int nv, int p, void* stream) {
+                               float* rad, int nv, int p, int fast, void* stream) {
   using namespace ufo::ph2;
   if (p <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool f = fast != 0;
   switch (nv) {
-    case 2: return launch<2>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, s);
-    case 3: return launch<3>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, s);
-    case 4: return launch<4>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, s);
-    case 5: return launch<5>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, s);
+    case 2: return launch<2>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
+    case 3: return launch<3>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
+    case 4: return launch<4>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
+    case 5: return launch<5>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -49,6 +49,15 @@
 // of its 2C * SN floats), so the shared-memory size is the ray head's. The
 // product runs serially in one thread, in torch.cumprod's CPU order; the
 // JAX kernel's 0/1 matmuls and log-space cumprod were MXU devices.
+//
+// kFast (kernel_precision 'fast'): the JAX kernel's single bf16 pass at
+// its kernel_dot sites (fused_ray_head.py:85-87, 108-113): the layer
+// products (q/k/v, merge, mlp1, mlp2 on tc_gemm.cuh's bf16 mma.m16n8k16,
+// the density MLP as block_gemm's FP32 FMAs of bf16-rounded operands) and
+// the attention sums kv = sum_s phi(k_s) v_s^T, num = phi(q) kv and den =
+// phi(q) ksum, each with both operands rounded to bf16 and the products
+// summed in FP32 (ksum itself an FP32 sum). The NeuS epilogue does not
+// depend on it, as in JAX.
 #include "common.cuh"
 #include "tc_gemm.cuh"
 
@@ -176,7 +185,7 @@ struct NeusArgs {
   float* opacity;      // (RN,)
 };
 
-template <int C, bool kNeus>
+template <int C, bool kNeus, bool kFast>
 __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
     const float* __restrict__ y,   // (RN, SN, C)
     const float* __restrict__ W,   // packed weights, N_W floats
@@ -212,33 +221,40 @@ __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
   __syncthreads();
 
   // keys -> A, values -> B (each gemm ends in a block-wide sync)
-  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + Wd::O_WK, ring, A, LD, MTILES, C, false);
-  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + Wd::O_WV, ring, B, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C, kFast>(X, LD, C, nullptr, 0, 0, W + Wd::O_WK, ring,
+                                 A, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C, kFast>(X, LD, C, nullptr, 0, 0, W + Wd::O_WV, ring,
+                                 B, LD, MTILES, C, false);
   for (int i = tid; i < SN * C; i += blockDim.x) {
     const int j = (i / C) * LD + i % C;
     A[j] = phi(A[j]);
   }
   __syncthreads();
 
-  // per-ray attention state over the SN samples
+  // per-ray attention state over the SN samples; in kFast the sums of
+  // bf16-rounded products, kept bf16-rounded, as the later products take
+  // them
   for (int t = tid; t < NH * DK * DK; t += blockDim.x) {
     const int h = t / (DK * DK);
     const int d = (t / DK) % DK;
     const int m = t % DK;
     float acc = 0.f;
-    for (int s = 0; s < SN; ++s)
-      acc = fmaf(A[s * LD + h * DK + d], B[s * LD + h * DK + m], acc);
-    KV[t] = acc;
+    for (int s = 0; s < SN; ++s) {
+      const float k = A[s * LD + h * DK + d], v = B[s * LD + h * DK + m];
+      acc = kFast ? fmaf(bf16_round(k), bf16_round(v), acc) : fmaf(k, v, acc);
+    }
+    KV[t] = kFast ? bf16_round(acc) : acc;
   }
   for (int c = tid; c < C; c += blockDim.x) {
     float acc = 0.f;
     for (int s = 0; s < SN; ++s) acc += A[s * LD + c];
-    KS[c] = acc;
+    KS[c] = kFast ? bf16_round(acc) : acc;
   }
   __syncthreads();
 
   // queries -> A (keys are dead), attention output in place
-  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + Wd::O_WQ, ring, A, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C, kFast>(X, LD, C, nullptr, 0, 0, W + Wd::O_WQ, ring,
+                                 A, LD, MTILES, C, false);
   for (int t = tid; t < SN * NH; t += blockDim.x) {
     const int s = t / NH, h = t - (t / NH) * NH;
     float q[DK];
@@ -246,6 +262,7 @@ __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
 #pragma unroll
     for (int d = 0; d < DK; ++d) {
       q[d] = phi(A[s * LD + h * DK + d]);
+      if (kFast) q[d] = bf16_round(q[d]);
       den = fmaf(q[d], KS[h * DK + d], den);
     }
     den += kAttnEps;
@@ -264,27 +281,29 @@ __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
   __syncthreads();
 
   // merge + LayerNorm -> B (values are dead)
-  tc::gemm<kStages, NT_C>(A, LD, C, nullptr, 0, 0, W + Wd::O_WM, ring, B, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C, kFast>(A, LD, C, nullptr, 0, 0, W + Wd::O_WM, ring,
+                                 B, LD, MTILES, C, false);
   tc::layernorm<C>(B, LD, SN, W + Wd::O_N1S, W + Wd::O_N1B);
   // mlp1 over [tokens | message] -> A (SNP x LD2)
-  tc::gemm<kStages, NT_C2>(X, LD, C, B, LD, C, W + Wd::O_W1, ring, A, LD2, MTILES, C2, true);
+  tc::gemm<kStages, NT_C2, kFast>(X, LD, C, B, LD, C, W + Wd::O_W1, ring, A, LD2, MTILES, C2, true);
   // mlp2 -> B, LayerNorm added into X (the residual)
-  tc::gemm<kStages, NT_C>(A, LD2, C2, nullptr, 0, 0, W + Wd::O_W2, ring, B, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C, kFast>(A, LD2, C2, nullptr, 0, 0, W + Wd::O_W2, ring,
+                                 B, LD, MTILES, C, false);
   tc::layernorm<C>(B, LD, SN, W + Wd::O_N2S, W + Wd::O_N2B, X, LD);
 
   // density MLP: C -> 32 -> 16 -> 1
-  block_linear<4>(X, LD, C, W + Wd::O_DW0, W + Wd::O_DB0, A, D0, SN, D0, true);
+  block_linear<4, kFast>(X, LD, C, W + Wd::O_DW0, W + Wd::O_DB0, A, D0, SN, D0, true);
   __syncthreads();
-  block_linear<4>(A, D0, D0, W + Wd::O_DW1, W + Wd::O_DB1, B, D1, SN, D1, true);
+  block_linear<4, kFast>(A, D0, D0, W + Wd::O_DW1, W + Wd::O_DB1, B, D1, SN, D1, true);
   __syncthreads();
   const size_t r = blockIdx.x;
   if (!kNeus) {
-    block_linear<4>(B, D1, D1, W + Wd::O_DW2, W + Wd::O_DB2, srdf + r * SN, 1, SN, 1,
+    block_linear<4, kFast>(B, D1, D1, W + Wd::O_DW2, W + Wd::O_DB2, srdf + r * SN, 1, SN, 1,
                     false);
     return;
   }
   // srdf -> A[0, SN) (the hidden layer is dead); A[SN, 5 SN) is scratch
-  block_linear<4>(B, D1, D1, W + Wd::O_DW2, W + Wd::O_DB2, A, 1, SN, 1, false);
+  block_linear<4, kFast>(B, D1, D1, W + Wd::O_DW2, W + Wd::O_DB2, A, 1, SN, 1, false);
   __syncthreads();
   for (int s = tid; s < SN; s += blockDim.x) srdf[r * SN + s] = A[s];
   const float inv_s = fminf(fmaxf(__ldg(nz.inv_s), 1e-6f), 1e6f);
@@ -292,29 +311,34 @@ __global__ void __launch_bounds__(kRayThreads) ray_head_kernel(
                 nz.weight + r * SN, nz.rgb + r * 3, nz.depth + r, nz.opacity + r);
 }
 
-template <int C, bool kNeus>
+template <int C, bool kNeus, bool kFast>
 int launch_c(const float* y, const float* w, float* srdf, int rn, int sn,
              NeusArgs nz, void* stream) {
   const size_t smem = smem_bytes<C>(sn);
   cudaError_t e = cudaFuncSetAttribute(
-      ray_head_kernel<C, kNeus>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ray_head_kernel<C, kNeus, kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  ray_head_kernel<C, kNeus><<<rn, kRayThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(y, w, srdf, sn, nz);
+  ray_head_kernel<C, kNeus, kFast><<<rn, kRayThreads, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(y, w, srdf, sn,
+                                                                          nz);
   return (int)cudaGetLastError();
 }
 
-// The token widths the kernel is built for.
+// The token widths the kernel is built for, in both precisions.
 template <bool kNeus>
 int launch(const float* y, const float* w, float* srdf, int rn, int sn, int c,
-           NeusArgs nz, void* stream) {
+           bool fast, NeusArgs nz, void* stream) {
   if (rn <= 0) return 0;
   // tc::gemm gives each warp at most one m16 tile
   if (sn <= 0 || sn % 4 || padded_rows(sn) / 16 > kRayThreads / 32)
     return (int)cudaErrorInvalidValue;
-  if (c == 88) return launch_c<88, kNeus>(y, w, srdf, rn, sn, nz, stream);
-  if (c == 72) return launch_c<72, kNeus>(y, w, srdf, rn, sn, nz, stream);
+  if (c == 88)
+    return fast ? launch_c<88, kNeus, true>(y, w, srdf, rn, sn, nz, stream)
+                : launch_c<88, kNeus, false>(y, w, srdf, rn, sn, nz, stream);
+  if (c == 72)
+    return fast ? launch_c<72, kNeus, true>(y, w, srdf, rn, sn, nz, stream)
+                : launch_c<72, kNeus, false>(y, w, srdf, rn, sn, nz, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -333,19 +357,21 @@ extern "C" long long ufo_ray_head_smem_bytes(int sn, int c) {
 }
 
 // Returns a cudaError_t value (0 on success). sn must be a multiple of 4
-// and c (the token width) 72 or 88.
+// and c (the token width) 72 or 88; fast picks the bf16 instantiation (its
+// pack holds bf16 planes).
 extern "C" int ufo_ray_head(const float* y, const float* w, float* srdf,
-                            int rn, int sn, int c, void* stream) {
-  return ufo::rh::launch<false>(y, w, srdf, rn, sn, c, ufo::rh::NeusArgs{}, stream);
+                            int rn, int sn, int c, int fast, void* stream) {
+  return ufo::rh::launch<false>(y, w, srdf, rn, sn, c, fast != 0, ufo::rh::NeusArgs{},
+                                stream);
 }
 
-// The ray head with the NeuS epilogue; the same return and sn rule.
+// The ray head with the NeuS epilogue; the same return, sn and fast rule.
 extern "C" int ufo_ray_head_neus(const float* y, const float* w,
                                  const float* z, const float* rad,
                                  const float* inv_s, float* srdf, float* weight,
                                  float* rgb, float* depth, float* opacity,
-                                 int rn, int sn, int c, void* stream) {
+                                 int rn, int sn, int c, int fast, void* stream) {
   return ufo::rh::launch<true>(
-      y, w, srdf, rn, sn, c,
+      y, w, srdf, rn, sn, c, fast != 0,
       ufo::rh::NeusArgs{z, rad, inv_s, weight, rgb, depth, opacity}, stream);
 }

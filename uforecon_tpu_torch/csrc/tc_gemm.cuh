@@ -4,7 +4,9 @@
 //   out[r, c] = act(sum_k a1[r, k] w[k, c] + sum_k a2[r, k] w[k1 + k, c]),
 // act none, relu or phi (elu + 1), and optionally a start value per row,
 // over a tile of 16 * mtiles rows held in shared memory, on the tensor
-// cores with warp-level mma.sync.m16n8k8 in 3xTF32:
+// cores with warp-level mma.sync, in one of two precisions (kFast):
+//
+// 3xTF32 (kernel_precision 'highest' and 'high'), mma.m16n8k8 on TF32:
 //   * every operand x is split into two TF32 values, hi = RNA(x) and
 //     lo = RNA(x - hi), so x = hi + lo + O(2^-22 |x|);
 //   * a * b is taken as lo_a hi_b + hi_a lo_b, then + hi_a hi_b, each
@@ -15,14 +17,26 @@
 // integer operations on the float's bits: add half a TF32 ulp to the
 // magnitude, clear the 13 bits TF32 drops.
 //
+// bf16 (kernel_precision 'fast', the JAX package's single bf16 pass),
+// mma.m16n8k16 on bf16: the activations rounded to bf16 to nearest even
+// (cvt.rn.bf16x2.f32, JAX's astype(bfloat16)), the weights bf16 values
+// already; the product of two bf16 values is exact in FP32, so only the
+// order of the FP32 sums differs from JAX's. One product per FP32 product
+// at the bf16 rate (989 TFLOP/s dense).
+//
 // Weights are pre-split on the host: each matrix w (k1 + k2, n), (in,
-// out) row-major, is two planes in global memory, hi then lo. They are
-// staged through a ring of shared-memory slots, one k8 step (8 rows of
-// both planes) a slot, filled by cp.async kStages - 1 steps ahead, so each
-// weight byte comes from L2 once per block and the loads overlap the
-// products of earlier steps. Row strides are padded so that fragment
-// loads hit 32 distinct banks: activations n + 4 floats (an odd multiple
-// of 4 mod 32), weight slots n or n + 8 (8 or 24 mod 32).
+// out) row-major, is two planes in global memory, hi then lo (3xTF32), or
+// its bf16 values then a zero plane (bf16; the values are stored as FP32,
+// exactly). They are staged through a ring of shared-memory slots, one k
+// step a slot (3xTF32: 8 rows of both planes; bf16: 16 rows of the first,
+// rows past k1 + k2 reading the zero plane), filled by cp.async
+// kStages - 1 steps ahead, so each weight byte comes from L2 once per
+// block and the loads overlap the products of earlier steps. Row strides
+// are padded so that the 3xTF32 fragment loads hit 32 distinct banks:
+// activations n + 4 floats (an odd multiple of 4 mod 32), weight slots n or
+// n + 8 (8 or 24 mod 32). A bf16 k16 step takes its two 8-column halves
+// each from a1, a2 or zeros (past k1 + k2), so k1 and k2 need only be
+// multiples of 8 in both precisions.
 //
 // Each warp owns one 16-row tile and a run of up to NT_MAX 8-column tiles
 // of the output; warps split the columns of a row tile when there are
@@ -71,6 +85,23 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, FP32 accumulate. a:
+// rows g and g + 8 of k 2t, 2t + 1, then of k 2t + 8, 2t + 9; b: k 2t,
+// 2t + 1, then 2t + 8, 2t + 9 of column g; the lower k in the low half.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two bf16 values of FP32 weights that are bf16 values already (their low
+// 16 bits are zero): lo in the low half.
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
@@ -110,7 +141,7 @@ __host__ __device__ constexpr int col_tiles(int nwarps, int mtiles, int n) {
 // views start from their point's shared part.
 enum Act { kNone = 0, kRelu = 1, kPhi = 2 };
 
-template <int kStages, int NT_MAX>
+template <int kStages, int NT_MAX, bool kFast = false>
 __device__ void gemm(const float* a1, int lda1, int k1,
                      const float* a2, int lda2, int k2,
                      const float* __restrict__ w_hi, float* ring,
@@ -128,19 +159,23 @@ __device__ void gemm(const float* a1, int lda1, int k1,
   const int my0 = (warp - mt * wn) * nt;
   const int mine = mt < mtiles ? min(nt, ntiles - my0) : 0;
   const int K = k1 + k2;
-  const int steps = K / kStep;
+  constexpr int kK = kFast ? 2 * kStep : kStep;   // k of a step: one mma
+  const int steps = (K + kK - 1) / kK;
   const int ldw = w_ld(n);
   const int n4 = n >> 2;
   const int ldg = ldw_global > 0 ? ldw_global : n;
   const float* w_lo = w_hi + (size_t)K * ldg;
   const int row = mt * 16 + g;
 
-  // slot s % kStages <- rows 8s .. 8s + 7 of both planes
+  // slot s % kStages <- rows 8s .. 8s + 7 of both planes (3xTF32), or
+  // rows 16s .. 16s + 15 of the first (bf16; past K, the zero plane)
   auto load = [&](int s) {
     float* slot = ring + (s % kStages) * 2 * kStep * ldw;
     for (int i = threadIdx.x; i < 2 * kStep * n4; i += blockDim.x) {
       const int r = i / n4, c4 = i - r * n4;          // r < 8: hi, else lo
-      const float* src = (r < kStep ? w_hi : w_lo) + (size_t)(s * kStep + (r & 7)) * ldg;
+      const float* src =
+          kFast ? w_hi + (size_t)(s * kK + r) * ldg
+                : (r < kStep ? w_hi : w_lo) + (size_t)(s * kStep + (r & 7)) * ldg;
       cp_async16(slot + r * ldw + 4 * c4, src + 4 * c4);
     }
   };
@@ -172,33 +207,61 @@ __device__ void gemm(const float* a1, int lda1, int k1,
       if (s + kStages - 1 < steps) load(s + kStages - 1);
       cp_async_commit();
       if (np <= 0) continue;
-      const int k = s * kStep;
-      const float* a;
-      int lda, ka;
-      if (k < k1) {
-        a = a1; lda = lda1; ka = k;
-      } else {
-        a = a2; lda = lda2; ka = k - k1;
-      }
-      const float* ar = a + row * lda + ka + t;
-      uint32_t ahi[4], alo[4];
-      split(ar[0], ahi[0], alo[0]);
-      split(ar[8 * lda], ahi[1], alo[1]);
-      split(ar[4], ahi[2], alo[2]);
-      split(ar[8 * lda + 4], ahi[3], alo[3]);
-      const float* wh = ring + (s % kStages) * 2 * kStep * ldw + t * ldw +
-                        (my0 + p0) * 8 + g;
-      const float* wl = wh + kStep * ldw;
+      const float* slot = ring + (s % kStages) * 2 * kStep * ldw;
+      if constexpr (kFast) {
+        // the step's two 8-column halves of the activations, each from a1,
+        // a2 or zeros, rounded to bf16 in pairs
+        uint32_t a[4];
 #pragma unroll
-      for (int j = 0; j < NT_MAX; ++j) {
-        if (j < np) {
-          const uint32_t bh0 = __float_as_uint(wh[j * 8]);
-          const uint32_t bh1 = __float_as_uint(wh[4 * ldw + j * 8]);
-          const uint32_t bl0 = __float_as_uint(wl[j * 8]);
-          const uint32_t bl1 = __float_as_uint(wl[4 * ldw + j * 8]);
-          mma(acc[j], alo, bh0, bh1);
-          mma(acc[j], ahi, bl0, bl1);
-          mma(acc[j], ahi, bh0, bh1);
+        for (int h = 0; h < 2; ++h) {
+          const int kk = s * kK + h * kStep;
+          const float* ar = nullptr;
+          int lda = 0;
+          if (kk < k1) {
+            ar = a1 + row * lda1 + kk + 2 * t; lda = lda1;
+          } else if (kk < K) {
+            ar = a2 + row * lda2 + (kk - k1) + 2 * t; lda = lda2;
+          }
+          a[2 * h] = ar != nullptr ? bf16x2_rn(ar[0], ar[1]) : 0u;
+          a[2 * h + 1] = ar != nullptr ? bf16x2_rn(ar[8 * lda], ar[8 * lda + 1]) : 0u;
+        }
+        const float* wb = slot + 2 * t * ldw + (my0 + p0) * 8 + g;
+#pragma unroll
+        for (int j = 0; j < NT_MAX; ++j) {
+          if (j < np) {
+            const uint32_t b0 = bf16_pair(wb[j * 8], wb[ldw + j * 8]);
+            const uint32_t b1 = bf16_pair(wb[8 * ldw + j * 8], wb[9 * ldw + j * 8]);
+            mma_bf16(acc[j], a, b0, b1);
+          }
+        }
+      } else {
+        const int k = s * kStep;
+        const float* a;
+        int lda, ka;
+        if (k < k1) {
+          a = a1; lda = lda1; ka = k;
+        } else {
+          a = a2; lda = lda2; ka = k - k1;
+        }
+        const float* ar = a + row * lda + ka + t;
+        uint32_t ahi[4], alo[4];
+        split(ar[0], ahi[0], alo[0]);
+        split(ar[8 * lda], ahi[1], alo[1]);
+        split(ar[4], ahi[2], alo[2]);
+        split(ar[8 * lda + 4], ahi[3], alo[3]);
+        const float* wh = slot + t * ldw + (my0 + p0) * 8 + g;
+        const float* wl = wh + kStep * ldw;
+#pragma unroll
+        for (int j = 0; j < NT_MAX; ++j) {
+          if (j < np) {
+            const uint32_t bh0 = __float_as_uint(wh[j * 8]);
+            const uint32_t bh1 = __float_as_uint(wh[4 * ldw + j * 8]);
+            const uint32_t bl0 = __float_as_uint(wl[j * 8]);
+            const uint32_t bl1 = __float_as_uint(wl[4 * ldw + j * 8]);
+            mma(acc[j], alo, bh0, bh1);
+            mma(acc[j], ahi, bl0, bl1);
+            mma(acc[j], ahi, bh0, bh1);
+          }
         }
       }
     }

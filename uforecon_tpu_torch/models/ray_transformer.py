@@ -24,7 +24,14 @@ The submodules hold the weights under their flax names.
 ``fused`` of ``query_similarity`` / ``query_correlation_volume`` takes the
 Config knob's values: ``auto`` and ``always`` route the query's tail to the
 kernel wrapper (``ops/fused_similarity.py``, ``ops/fused_volume_fusion.py``),
-``never`` to its plain version.
+``never`` to its plain version. A merged volume
+(``Config.volume_merge``) is queried by ``ops/volume_merge.
+query_merged_volume``, which needs no fusion kernel, as in JAX.
+
+``precision`` (the resolved ``Config.kernel_precision``) goes to the head
+wrappers; ``source_dtype`` (``Config.image_gather_dtype`` on the extract
+path) is the type the pair maps, image features and rgb||depth are
+sampled from.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from ..ops.fused_similarity import grouped_cosine, grouped_cosine_reference, vie
 from ..ops.fused_volume_fusion import volume_fusion, volume_fusion_reference
 from ..ops.grid_sample import grid_sample_2d, grid_sample_3d, in_bounds_mask
 from ..ops.posenc import nerf_posenc, order_posenc
+from ..ops.volume_merge import query_merged_volume
 from .attention import LocalFeatureTransformer
 from .layers import MLP
 
@@ -56,8 +64,11 @@ def query_correlation_volume(
 ) -> torch.Tensor:
     """Weighted cross-view fusion of the per-stage frustum features
     (reference model.py:350-390): G = sum_n f_n w_n / sum_n w_n, with the
-    8 channels of every stage concatenated. Returns (RN, SN, 8 * stages)."""
+    8 channels of every stage concatenated. ``volumes`` may instead hold
+    one ``"merged"`` volume (JAX ``:83-91``). Returns (RN, SN, 8 * stages)."""
     _, xyz, _ = project_points_ndc(source_poses, points, near_far=near_far)
+    if "merged" in volumes:
+        return query_merged_volume(volumes["merged"], xyz)
     fws = [grid_sample_3d(vol, xyz, align_corners=True, padding_mode="zeros")
            for vol in volumes.values()]                       # (NV, RN, SN, 9)
     if fused == "never":
@@ -90,6 +101,7 @@ def query_similarity(
     n_groups: int = 8,
     pair_quirk: bool = True,
     fused: str = "never",
+    source_dtype: torch.dtype = torch.float32,
 ):
     """Explicit pairwise feature similarity (reference model.py:218-305).
 
@@ -97,14 +109,15 @@ def query_similarity(
     view i and the view-j map at the projection into view j
     (align_corners=True, border), channels split into ``n_groups``, cosine
     per group, mean over pairs. ``pair_quirk`` reproduces the reference's
-    FMT cross mode, which hands view j the pair's view-i map.
+    FMT cross mode, which hands view j the pair's view-i map. The maps are
+    sampled from ``source_dtype`` values (JAX ``:205-212``).
 
     Returns (feat_info (..., n_groups), xy (NV, ..., 2), valid (NV, ...)).
     """
     if n_views < 2:
         raise ValueError(f"explicit similarity needs >= 2 views, got {n_views}")
     xy, _, valid = project_points_ndc(source_poses, points)
-    merged = build_pair_maps(aug0, aug1, n_views, pair_quirk)
+    merged = build_pair_maps(aug0, aug1, n_views, pair_quirk).to(source_dtype)
     sampled = grid_sample_2d(merged, xy, align_corners=True, padding_mode="border")
     # a view of the sampler's channel-first output: the kernel reads it
     # without a copy
@@ -165,10 +178,14 @@ class RayTransformer(nn.Module):
         mvs_depths: torch.Tensor,          # (NV, H, W)
         fused: str = "auto",               # Config.fused_point_head
         point_head: str = "v1",            # Config.point_head
+        precision: str = "high",           # resolved Config.kernel_precision
+        source_dtype: torch.dtype = torch.float32,  # image-gather sources
     ) -> Dict[str, torch.Tensor]:
-        """Gathers the per-point features and runs the point head (v1, or
-        v2 by ``point_head``) or the view transformer (``_fused_ok``).
-        Returns ``token`` (RN, SN, C) and ``radiance`` (RN, SN, 3)."""
+        """Gathers the per-point features (image features and rgb||depth
+        from ``source_dtype`` sources, JAX ``:414-440``) and runs the point
+        head (v1, or v2 by ``point_head``, at ``precision``) or the view
+        transformer (``_fused_ok``). Returns ``token`` (RN, SN, C) and
+        ``radiance`` (RN, SN, 3)."""
         rn, sn, _ = points.shape
         nv = source_imgs.shape[0]
         n = rn * sn
@@ -179,10 +196,12 @@ class RayTransformer(nn.Module):
         v2 = v2 / torch.linalg.norm(v2, dim=-1, keepdim=True)
         dir_relative = v1 - v2                                  # (NV, RN, SN, 3)
 
-        img_feat = grid_sample_2d(source_feats, points_xy)      # (NV, RN, SN, C)
+        img_feat = grid_sample_2d(source_feats.to(source_dtype),
+                                  points_xy)                    # (NV, RN, SN, C)
         # rgb and the depth guide share the resolution and the grid
         rgbd = grid_sample_2d(
-            torch.cat([source_imgs, mvs_depths[..., None]], dim=-1), points_xy)
+            torch.cat([source_imgs, mvs_depths[..., None]], dim=-1).to(source_dtype),
+            points_xy)
         mask = in_bounds_mask(points_xy) * valid_depth          # (NV, RN, SN)
         cam = (torch.einsum("vij,rsj->vrsi", src_w2cs[:, :3, :3], points)
                + src_w2cs[:, None, None, :3, 3])
@@ -202,7 +221,7 @@ class RayTransformer(nn.Module):
                 dir_rel=dir_relative.reshape(nv, n, 3),
                 rgb=rgbd[..., :3].reshape(nv, n, 3),
                 mask=mask.reshape(nv, n)),
-            self.point_head_params(), self.n_heads)
+            self.point_head_params(), self.n_heads, precision)
         return {"token": token.reshape(rn, sn, -1),
                 "radiance": rad.reshape(rn, sn, 3)}
 
@@ -288,18 +307,19 @@ class RayTransformer(nn.Module):
         pe = _order_pe(self.pe_d_hid, sn, token.device)
         return torch.cat([token, pe.to(token.dtype)[None].expand(rn, sn, -1)], dim=-1)
 
-    def along_ray(self, token: torch.Tensor) -> torch.Tensor:
+    def along_ray(self, token: torch.Tensor, precision: str = "high") -> torch.Tensor:
         """Ray transformer over a z-sorted (RN, SN, C) sequence -> SRDF
-        (RN, SN)."""
-        return ray_head(self._ray_input(token), self.ray_head_params(), self.n_heads)
+        (RN, SN), the ray head at ``precision``."""
+        return ray_head(self._ray_input(token), self.ray_head_params(), self.n_heads,
+                        precision)
 
     def along_ray_neus(self, token: torch.Tensor, z_val: torch.Tensor,
-                       radiance: torch.Tensor, inv_s: torch.Tensor
-                       ) -> Dict[str, torch.Tensor]:
+                       radiance: torch.Tensor, inv_s: torch.Tensor,
+                       precision: str = "high") -> Dict[str, torch.Tensor]:
         """``along_ray`` + NeuS compositing through the epilogue kernel
         (``ray_head_neus``). Returns the ``neus_render`` dict plus ``srdf``."""
         srdf, weight, rgb, depth, opacity = ray_head_neus(
             self._ray_input(token), z_val, radiance, inv_s,
-            self.ray_head_params(), self.n_heads)
+            self.ray_head_params(), self.n_heads, precision)
         return {"rgb": rgb, "depth": depth, "opacity": opacity, "weight": weight,
                 "variance": 1.0 / inv_s, "srdf": srdf}

@@ -2,9 +2,13 @@
 ray chunk.
 
 Counterpart of the JAX package's ``models/uforecon.py`` (reference
-code1/model.py:28-911), exact path only: per-stage f32 correlation
-volumes kept unpacked as (NV, 9, D, H, W) (8 feature channels + the
-sigmoid weight), f32 gather sources, f32 kernel math.
+code1/model.py:28-911), with its evaluation approximations
+(``config.py``): the correlation volumes kept unpacked, per stage as
+(NV, 9, D, h, w) (8 feature channels + the sigmoid weight) or merged into
+one (NV, 25, D_m, H, W) volume per view (``ops/volume_merge.py``), stored
+at ``volume_dtype``; gather sources at ``image_gather_dtype`` under
+``extract_geometry``; the head kernels at ``kernel_precision``, resolved
+per model (``UFORecon.kernel_precision``).
 
 Gradients follow the caller's grad mode, as in training (``pipeline/
 trainer.py``), with one cut: ``encode`` runs the cascade matcher without
@@ -17,15 +21,17 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import warnings
 from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.nn as nn
 
-from ..config import Config
+from ..config import Config, resolve_kernel_precision, use_volume_merge
 from ..ops.camera import project_points_ndc
 from ..ops.rendering import neus_render
 from ..ops.sampling import sample_coarse, sample_importance
+from ..ops.volume_merge import merge_stage_volumes
 from .cascade import CascadeMatcher
 from .ray_transformer import RayTransformer, query_correlation_volume, query_similarity
 from .volumes import CostRegNetWeight
@@ -49,7 +55,8 @@ class SceneInputs(NamedTuple):
 
 class EncoderOutputs(NamedTuple):
     source_feats: torch.Tensor               # (NV, h1, w1, 32)
-    volumes: Dict[str, torch.Tensor]         # stage -> (NV, 9, D, h, w)
+    # stage -> (NV, 9, D, h, w), or {"merged": (NV, 25, D_m, H, W)}
+    volumes: Dict[str, torch.Tensor]
     aug0: torch.Tensor                       # (P, h1, w1, 32)
     aug1: torch.Tensor
     mvs_depths: torch.Tensor                 # (NV, H, W) scaled to the scene
@@ -78,29 +85,51 @@ class UFORecon(nn.Module):
 
     def with_knobs(self, **knobs) -> "UFORecon":
         """A shallow copy sharing this model's modules and weights, with
-        those ``cfg`` fields replaced (e.g. ``**config.FUSED_GLUE``)."""
+        those ``cfg`` fields replaced (e.g. ``**config.FUSED_GLUE``,
+        ``**config.EXACT``)."""
         other = copy.copy(self)
         other.cfg = dataclasses.replace(self.cfg, **knobs)
         return other
+
+    @property
+    def kernel_precision(self) -> str:
+        """The head kernels' precision, resolved from ``cfg``
+        (``config.resolve_kernel_precision``)."""
+        return resolve_kernel_precision(self.cfg)
 
     # ------------------------------------------------------------------
     def encode(self, scene: SceneInputs, train: bool = False) -> EncoderOutputs:
         """The view set's encoding; ``train`` runs the matcher's BatchNorms
         on batch statistics (render training keeps them on their running
-        statistics, as JAX does)."""
-        h, w = scene.source_imgs.shape[-3:-1]
+        statistics, as JAX does). The volume head runs per stage and view
+        rotation; with ``config.use_volume_merge`` the stage volumes are
+        merged, else each is stored at ``volume_dtype``. ``auto`` leaves
+        the merge only by the JAX byte guard, with a warning."""
+        c = self.cfg
+        nv, h, w = scene.source_imgs.shape[:3]
         if h % 32 or w % 32:
             raise ValueError(f"image dims must be multiples of 32, got {h}x{w}")
         with torch.no_grad():
             enc = self.matcher(scene.source_imgs, scene.proj_matrices,
                                scene.depth_values, train)
-        volumes = {}
+        fws = {}
         for stage, cv in enc["cost_volumes"].items():   # (NV, D, h, w)
             fw = []
             for r in range(cv.shape[0]):
                 f, wgt = self.mvs_volume(cv[r][None, None])
                 fw.append(torch.cat([f, wgt], dim=1)[0])
-            volumes[stage] = torch.stack(fw)
+            fws[stage] = torch.stack(fw)
+        dtype = torch.float32 if c.volume_dtype == "float32" else torch.bfloat16
+        merge = use_volume_merge(c, nv, h, w)
+        if c.volume_merge == "auto" and c.extract_geometry and not merge:
+            warnings.warn(f"volume_merge='auto': the merged volume of {nv} views at "
+                          f"{w}x{h} exceeds merge_max_bytes={c.merge_max_bytes}; "
+                          "querying the per-stage volumes", stacklevel=2)
+        if merge:
+            volumes = {"merged": merge_stage_volumes(
+                fws, c.merge_depth or c.ndepths[-1], (h, w), dtype)}
+        else:
+            volumes = {stage: fw.to(dtype) for stage, fw in fws.items()}
         return EncoderOutputs(
             source_feats=enc["feat_stage1"], volumes=volumes,
             aug0=enc["aug0"], aug1=enc["aug1"],
@@ -112,11 +141,15 @@ class UFORecon(nn.Module):
         """Per-point half of sample2rgb (model.py:308-332)."""
         c = self.cfg
         nv = scene.source_imgs.shape[0]
+        # bf16 image-gather sources on the extract path only (JAX
+        # models/uforecon.py:121,297-301)
+        gather_dtype = (torch.bfloat16 if c.image_gather_dtype == "bfloat16"
+                        and c.extract_geometry else torch.float32)
         if c.explicit_similarity:
             sim_feat, xy, valid = query_similarity(
                 points, scene.source_poses, enc.aug0, enc.aug1, nv,
                 n_groups=c.cos_n_group, pair_quirk=c.sim_pair_quirk,
-                fused=c.fused_similarity)
+                fused=c.fused_similarity, source_dtype=gather_dtype)
         else:
             sim_feat = None
             xy, _, valid = project_points_ndc(scene.source_poses, points)
@@ -129,7 +162,8 @@ class UFORecon(nn.Module):
             src_cam_pos=scene.src_cam_pos, src_w2cs=scene.src_w2cs,
             points_xy=xy, valid_depth=valid, fea_volume_feat=fea_volume_feat,
             sim_feat=sim_feat, mvs_depths=enc.mvs_depths,
-            fused=c.fused_point_head, point_head=c.point_head)
+            fused=c.fused_point_head, point_head=c.point_head,
+            precision=self.kernel_precision, source_dtype=gather_dtype)
 
     def _render_sequence(self, z_val: torch.Tensor,
                          pp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -138,8 +172,8 @@ class UFORecon(nn.Module):
         inv_s = torch.exp(self.variance * 10.0)
         if self.cfg.fused_neus_epilogue == "auto":
             return self.ray_transformer.along_ray_neus(
-                pp["token"], z_val, pp["radiance"], inv_s)
-        srdf = self.ray_transformer.along_ray(pp["token"])
+                pp["token"], z_val, pp["radiance"], inv_s, self.kernel_precision)
+        srdf = self.ray_transformer.along_ray(pp["token"], self.kernel_precision)
         out = neus_render(z_val, pp["radiance"], srdf, inv_s)
         out["srdf"] = srdf
         return out

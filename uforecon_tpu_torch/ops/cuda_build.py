@@ -13,10 +13,16 @@ raises.
 the kernel, backward differentiates the kernel's plain version. Every
 kernel wrapper of the port goes through it.
 
-The head kernels read their weights from one packed buffer each.
-``tf32_planes`` splits a matrix into the two TF32 planes their tensor-core
-layers take (3xTF32, ``csrc/tc_gemm.cuh``), and ``PackCache`` builds a
-pack once per set of weights.
+The head kernels read their weights from one packed buffer each, built
+for one kernel precision (``Config.kernel_precision``, resolved). In
+``highest`` and ``high`` ``tf32_planes`` splits a matrix into the two
+TF32 planes their tensor-core layers take (3xTF32, ``csrc/tc_gemm.cuh``);
+in ``fast`` ``bf16_planes`` gives its bf16 values and a zero plane in the
+same place, so one layout serves both and a k16 step past a matrix's last
+row reads zeros. ``PackCache`` builds a pack once per set of weights and
+precision. ``kernel_linear`` is the plain versions' product at a
+precision: float32, or the JAX package's ``fast`` (both operands rounded
+to bf16, ``bf16_round``, products summed in float32).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import functools
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -98,15 +105,71 @@ def tf32_planes(w: torch.Tensor) -> torch.Tensor:
     return torch.cat([hi.reshape(-1), lo.reshape(-1)])
 
 
+# resolved kernel precisions (config.resolve_kernel_precision)
+PRECISIONS = ("highest", "high", "fast")
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest, ties to even: JAX's
+    ``astype(bfloat16)`` and the kernels' ``cvt.rn.bf16x2.f32``), as
+    float32."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def bf16_planes(w: torch.Tensor) -> torch.Tensor:
+    """``w`` flattened as its bf16 values (``bf16_round``), then a zero
+    plane where ``tf32_planes`` puts the lo plane."""
+    hi = bf16_round(w.detach().float()).reshape(-1)
+    return torch.cat([hi, torch.zeros_like(hi)])
+
+
+def fast_linear(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
+    """``F.linear`` of bf16-rounded ``x`` and ``w``, the bias added in
+    float32: the JAX package's ``kernel_dot`` in ``fast`` (products of two
+    bf16 values are exact in float32; only the order of the sums
+    differs)."""
+    return F.linear(bf16_round(x), bf16_round(w), b)
+
+
+def is_fast(precision: str) -> bool:
+    """Is the resolved kernel precision ``fast``? Raises on a value that
+    is not one."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"kernel precision {precision!r} not in {PRECISIONS}")
+    return precision == "fast"
+
+
+def kernel_linear(precision: str):
+    """The plain versions' layer product at a resolved kernel precision:
+    ``fast_linear`` for ``fast``, ``F.linear`` (float32) otherwise."""
+    return fast_linear if is_fast(precision) else F.linear
+
+
+def operand_round(precision: str):
+    """What a ``kernel_dot`` operand goes through at a resolved kernel
+    precision: ``bf16_round`` for ``fast``, nothing otherwise."""
+    return bf16_round if is_fast(precision) else (lambda t: t)
+
+
+def count_launch(wrapper, fast: bool) -> None:
+    """One launch on a head wrapper's count: ``launches`` (3xTF32) or
+    ``launches_fast``."""
+    if fast:
+        wrapper.launches_fast += 1
+    else:
+        wrapper.launches += 1
+
 _PACK_CACHES = []
 
 
 class PackCache:
-    """Weight packs built once per set of weights.
+    """Weight packs built once per set of weights and kernel precision.
 
-    ``get(tensors, build)`` returns ``(pack, built)``: the pack ``build()``
-    made for these ``tensors`` (on one device) before, or a new one. The
-    key is the device and each tensor's ``(data_ptr, _version)``, so an
+    ``get(tensors, build, precision)`` returns ``(pack, built)``: the pack
+    ``build()`` made for these ``tensors`` (on one device) at this
+    precision before, or a new one. The key is the precision, the device
+    and each tensor's ``(data_ptr, _version)``, so two models sharing
+    weights at two precisions get two packs, and an
     in-place update (an optimiser step, ``load_state_dict``) or a move
     (``.to()``) builds anew and anything else reuses the pack. (Writes through ``.data`` do not
     bump ``_version`` and are not seen.) An entry holds its tensors'
@@ -118,8 +181,10 @@ class PackCache:
         self._entries = collections.OrderedDict()
         _PACK_CACHES.append(self)
 
-    def get(self, tensors, build):
-        key = (tensors[0].device, *[(t.data_ptr(), t._version) for t in tensors])
+    def get(self, tensors, build, precision: str = "high"):
+        is_fast(precision)
+        key = (precision, tensors[0].device,
+               *[(t.data_ptr(), t._version) for t in tensors])
         hit = self._entries.get(key)
         if hit is not None:
             self._entries.move_to_end(key)

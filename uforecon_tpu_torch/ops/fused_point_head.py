@@ -17,9 +17,24 @@ rows) in shared memory through the whole layer chain and streams the
 weight planes through a cp.async ring. The small MLPs, the LayerNorms,
 the attention and the softmax stay FP32 on the CUDA cores.
 
+``precision`` is the resolved ``Config.kernel_precision``. ``highest`` and
+``high`` run the kernel described above and an FP32 plain version.
+``fast`` runs the JAX package's single bf16 pass at its ``kernel_dot``
+sites (``uforecon_tpu/ops/fused_point_head.py:138-143``: the pre-
+similarity MLP, q/k/v, merge, mlp1, mlp2 and the radiance MLP): both
+operands of each product rounded to bf16 (round to nearest even), the
+products summed in FP32. The kernel's ``fast`` instantiation runs the
+tensor-core layers as one bf16 ``mma.m16n8k16`` pass and the small MLPs
+as FP32 FMAs of bf16-rounded operands; the plain version rounds at the
+same sites (``cuda_build.kernel_linear``). The attention and the softmax
+stay FP32 in every precision, as in JAX. The backward differentiates the
+FP32 plain version in every precision, as JAX's reference VJP does.
+
 The weight pack (``pack_weights``: the tensor-core matrices as TF32 hi and
-lo planes) is built once per set of weights and reused
-(``cached_pack_weights``; ``point_head.pack_builds`` counts the builds).
+lo planes, or in ``fast`` as bf16 values and a zero plane, with the small
+MLPs' weights bf16-rounded) is built once per set of weights and precision
+and reused (``cached_pack_weights``; ``point_head.pack_builds`` counts the
+builds).
 
 Layouts are point-major, what ``F.grid_sample`` gives once permuted:
 inputs (NV, P, C) / (P, C), outputs token (P, C) and radiance (P, 3). The
@@ -28,7 +43,8 @@ JAX module is feature-major; the tests transpose.
 ``point_head`` takes the plain version for CPU tensors only. For CUDA
 tensors it launches the kernel or raises, inside an autograd Function
 whose backward differentiates the plain version (the JAX ``_ph_bwd``
-pattern). ``point_head.launches`` counts kernel launches.
+pattern). ``point_head.launches`` counts the launches of the 3xTF32
+kernel, ``point_head.launches_fast`` those of the ``fast`` kernel.
 """
 from __future__ import annotations
 
@@ -92,19 +108,22 @@ def _unflat_params(ts) -> PointHeadParams:
 
 
 def point_head_reference(inp: PointHeadInputs, p: PointHeadParams,
-                         n_heads: int = 8, linear=F.linear
+                         n_heads: int = 8, precision: str = "high", linear=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch forward, mirroring the JAX ``point_head_reference``.
-    ``linear(x, w)`` computes the layers the kernel runs on the tensor
-    cores (q/k/v/merge, mlp1, mlp2); the tests pass an emulation of its
-    3xTF32 product. Returns (token (P, C), radiance (P, 3))."""
+    """Plain PyTorch forward, mirroring the JAX ``point_head_reference`` in
+    FP32, or in ``fast`` the JAX kernel's ``fast`` products. ``linear(x,
+    w)``, if given, computes the layers the kernel runs on the tensor cores
+    (q/k/v/merge, mlp1, mlp2); the tests pass an emulation of its 3xTF32
+    product. Returns (token (P, C), radiance (P, 3))."""
     nv, n, _ = inp.img_feat.shape
     c = p.view_token.numel()
     dk = c // n_heads
+    dense = cuda_build.kernel_linear(precision)
+    linear = linear or dense
 
-    s = F.relu(F.linear(inp.sim_feat, p.sim_w[0], p.sim_b[0]))
-    s = F.relu(F.linear(s, p.sim_w[1], p.sim_b[1]))
-    sim16 = F.linear(s, p.sim_w[2], p.sim_b[2])                   # (P, 16)
+    s = F.relu(dense(inp.sim_feat, p.sim_w[0], p.sim_b[0]))
+    s = F.relu(dense(s, p.sim_w[1], p.sim_b[1]))
+    sim16 = dense(s, p.sim_w[2], p.sim_b[2])                      # (P, 16)
 
     pe = nerf_posenc(inp.depth_dist[..., None], num_freqs=4)       # (NV, P, 8)
 
@@ -126,43 +145,48 @@ def point_head_reference(inp: PointHeadInputs, p: PointHeadParams,
     out = x + F.layer_norm(y, (c,), p.norm2_scale, p.norm2_bias, LN_EPS)
 
     z = torch.cat([out[1:], inp.dir_rel], dim=-1)                  # (NV, P, C+3)
-    z = F.relu(F.linear(z, p.rad_w[0], p.rad_b[0]))
-    z = F.relu(F.linear(z, p.rad_w[1], p.rad_b[1]))
-    z = F.linear(z, p.rad_w[2], p.rad_b[2])[..., 0]                # (NV, P)
+    z = F.relu(dense(z, p.rad_w[0], p.rad_b[0]))
+    z = F.relu(dense(z, p.rad_w[1], p.rad_b[1]))
+    z = dense(z, p.rad_w[2], p.rad_b[2])[..., 0]                   # (NV, P)
     z = torch.where(inp.mask == 0, torch.full_like(z, -1e9), z)
     w = torch.softmax(z, dim=0)
     rad = torch.einsum("vpc,vp->pc", inp.rgb, w)
     return out[0], rad
 
 
-def pack_weights(p: PointHeadParams) -> torch.Tensor:
+def pack_weights(p: PointHeadParams, precision: str = "high") -> torch.Tensor:
     """Flatten the weights in ``csrc/point_head.cu``'s order, matrices in
     (in, out) orientation; the tensor-core matrices (q, k, v, merge, mlp1,
-    mlp2) as their TF32 hi plane, then lo plane."""
-    tc = cuda_build.tf32_planes
+    mlp2) as their TF32 hi plane, then lo plane, or in ``fast`` as their
+    bf16 values and a zero plane (``cuda_build.bf16_planes``), and the
+    small MLPs' weights bf16-rounded."""
+    tc = cuda_build.bf16_planes if cuda_build.is_fast(precision) else cuda_build.tf32_planes
+    small = cuda_build.operand_round(precision)
     parts = [p.view_token, tc(p.wq.t()), tc(p.wk.t()), tc(p.wv.t()),
              tc(p.wmerge.t()), p.norm1_scale, p.norm1_bias, tc(p.w1.t()),
              tc(p.w2.t()), p.norm2_scale, p.norm2_bias]
     for w, b in zip(p.sim_w, p.sim_b):
-        parts += [w.t(), b]
+        parts += [small(w.t().detach().float()), b]
     for w, b in zip(p.rad_w, p.rad_b):
-        parts += [w.t(), b]
+        parts += [small(w.t().detach().float()), b]
     return torch.cat([t.detach().float().reshape(-1) for t in parts])
 
 
 _packs = cuda_build.PackCache()
 
 
-def cached_pack_weights(p: PointHeadParams) -> torch.Tensor:
-    """``pack_weights(p)``, built once per set of weights
-    (``cuda_build.PackCache``); ``point_head.pack_builds`` counts builds."""
-    pack, built = _packs.get(_flat_params(p), lambda: pack_weights(p))
+def cached_pack_weights(p: PointHeadParams, precision: str = "high") -> torch.Tensor:
+    """``pack_weights(p, precision)``, built once per set of weights and
+    precision (``cuda_build.PackCache``); ``point_head.pack_builds`` counts
+    builds."""
+    pack, built = _packs.get(_flat_params(p), lambda: pack_weights(p, precision),
+                             precision)
     point_head.pack_builds += built
     return pack
 
 
-def _launch(inp: PointHeadInputs, p: PointHeadParams,
-            n_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
+            precision: str = "high") -> Tuple[torch.Tensor, torch.Tensor]:
     nv, n, c_img = inp.img_feat.shape
     c = p.view_token.numel()
     d = _KERNEL_DIMS
@@ -179,14 +203,15 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams,
                              f"CUDA device, got {t.dtype} on {t.device}")
     ext = cuda_build.extension()
     ins = [cuda_build.aligned(t) for t in inp]
-    w = cached_pack_weights(p)
+    w = cached_pack_weights(p, precision)
     if w.numel() != ext.point_head_weight_count():
         raise ValueError("point_head weight pack does not match the kernel")
     token = torch.empty(n, c, device=dev, dtype=torch.float32)
     rad = torch.empty(n, 3, device=dev, dtype=torch.float32)
+    fast = cuda_build.is_fast(precision)
     with torch.cuda.device(dev):
-        ext.point_head(*ins, w, token, rad)
-    point_head.launches += 1
+        ext.point_head(*ins, w, token, rad, fast)
+    cuda_build.count_launch(point_head, fast)
     return token, rad
 
 
@@ -194,21 +219,23 @@ def _split(tensors):
     return PointHeadInputs(*tensors[:7]), _unflat_params(tensors[7:])
 
 
-# _point_head_fn(n_heads, *inputs, *params): CUDA kernel forward, backward
-# through the plain version
+# _point_head_fn((n_heads, precision), *inputs, *params): CUDA kernel
+# forward, backward through the FP32 plain version
 _point_head_fn = cuda_build.kernel_function(
-    lambda n_heads, *ts: _launch(*_split(ts), n_heads),
-    lambda n_heads, *ts: point_head_reference(*_split(ts), n_heads))
+    lambda st, *ts: _launch(*_split(ts), *st),
+    lambda st, *ts: point_head_reference(*_split(ts), st[0]))
 
 
-def point_head(inp: PointHeadInputs, p: PointHeadParams,
-               n_heads: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-point view head: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Returns (token (P, C), radiance (P, 3))."""
+def point_head(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
+               precision: str = "high") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-point view head at a resolved kernel precision: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors. Returns (token
+    (P, C), radiance (P, 3))."""
     if not inp.img_feat.is_cuda:
-        return point_head_reference(inp, p, n_heads)
-    return _point_head_fn(n_heads, *inp, *_flat_params(p))
+        return point_head_reference(inp, p, n_heads, precision)
+    return _point_head_fn((n_heads, precision), *inp, *_flat_params(p))
 
 
 point_head.launches = 0
+point_head.launches_fast = 0
 point_head.pack_builds = 0

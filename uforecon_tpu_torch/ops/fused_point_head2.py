@@ -25,22 +25,46 @@ matrices the kernel multiplies on the tensor cores in 3xTF32
 and mlp2) go in as a TF32 hi plane, then a lo plane
 (``cuda_build.tf32_planes``).
 
+``precision`` is the resolved ``Config.kernel_precision``. In
+``highest`` and ``high`` the kernel runs 3xTF32 and the plain version is
+the point head's FP32 one (the same function). In ``fast`` the function
+is the JAX split-weight kernel's: every ``kernel_dot`` of
+``uforecon_tpu/ops/fused_point_head2.py:73-76`` with both operands rounded
+to bf16 and the products summed in FP32, which is not the point head's
+``fast`` function. It rounds each feature group's input (so a view token
+is rounded in its parts, and the radiance layer takes the rounded token
+and the rounded m2 apart, not their rounded sum), and the attention's
+head sums and broadcasts are products with 0/1 matrices, so each
+(token, source) score is a sum of bf16-rounded q k products that enters
+the weighted sum bf16-rounded, and the denominator is bf16-rounded too
+(``point_head2_fast_reference``). The view token's own q/k/v and mlp1
+rows stay FP32 (the JAX wrapper's HIGHEST dots). The kernel's ``fast``
+instantiation runs its tensor-core layers as one bf16 ``mma.m16n8k16``
+pass on a pack of bf16 planes (the radiance bias row split into three
+bf16 rows, so that it adds in FP32 as JAX's bias does), and rounds its
+attention and small MLPs at the same sites.
+
 ``point_head2`` takes the plain version for CPU tensors only. For CUDA
 tensors it launches the kernel or raises, inside an autograd Function whose
-backward differentiates the plain version (the JAX ``_ph2_bwd`` delegates
-to the point head's backward the same way). ``point_head2.launches``
-counts kernel launches. The split pack is built once per set of weights
-(``cuda_build.PackCache``); ``point_head2.pack_builds`` counts the builds.
+backward differentiates the FP32 plain version (the JAX ``_ph2_bwd``
+delegates to the point head's backward the same way).
+``point_head2.launches`` counts the launches of the 3xTF32 kernel,
+``point_head2.launches_fast`` those of the ``fast`` kernel. The split pack
+is built once per set of weights and precision (``cuda_build.PackCache``);
+``point_head2.pack_builds`` counts the builds.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_build
-from .fused_point_head import (_KERNEL_DIMS, PointHeadInputs, PointHeadParams,
-                               _flat_params, _split, point_head_reference)
+from .fused_point_head import (_KERNEL_DIMS, EPS, LN_EPS, PointHeadInputs,
+                               PointHeadParams, _flat_params, _split,
+                               point_head_reference)
+from .posenc import nerf_posenc
 
 PE_DIM = 8      # NeRF PE of the depth distance, 4 frequencies
 # the matrices the kernel runs on the tensor cores: two planes each in the pack
@@ -52,18 +76,84 @@ PointHeadInputs2 = PointHeadInputs
 
 
 def point_head2_reference(inp: PointHeadInputs, p: PointHeadParams,
-                          n_heads: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch forward, mirroring the JAX ``point_head2_reference``
-    (the point head's reference behind transposes; the port's is
-    point-major already). Returns (token (P, C), radiance (P, 3))."""
+                          n_heads: int = 8, precision: str = "high"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch forward: in FP32 the point head's reference (the JAX
+    module's backward reference, point-major here already), in ``fast``
+    ``point_head2_fast_reference``. Returns (token (P, C), radiance
+    (P, 3))."""
+    if cuda_build.is_fast(precision):
+        return point_head2_fast_reference(inp, p, n_heads)
     return point_head_reference(inp, p, n_heads)
+
+
+def _tok_dot(tok: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The view token times an (out, in) weight, as the JAX wrapper's
+    HIGHEST-precision dots: in float64, whatever the card's TF32 setting."""
+    return (w.double() @ tok.double()).float()
+
+
+def point_head2_fast_reference(inp: PointHeadInputs, p: PointHeadParams,
+                               n_heads: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX split-weight kernel in ``fast`` (``uforecon_tpu/ops/
+    fused_point_head2.py`` ``_kernel``): each of its ``kernel_dot``
+    products with both operands rounded to bf16 and summed in FP32, in
+    the point head's weights. Returns (token (P, C), radiance (P, 3))."""
+    r, lin = cuda_build.bf16_round, cuda_build.fast_linear
+    nv, n, _ = inp.img_feat.shape
+    c = p.view_token.numel()
+    dk = c // n_heads
+    tok = p.view_token.reshape(-1)
+
+    s = F.relu(lin(inp.sim_feat, p.sim_w[0], p.sim_b[0]))
+    s = F.relu(lin(s, p.sim_w[1], p.sim_b[1]))
+    sim16 = lin(s, p.sim_w[2], p.sim_b[2])                         # (P, 16)
+    pe = nerf_posenc(inp.depth_dist[..., None], num_freqs=4)       # (NV, P, 8)
+    # the view rows' inputs: the products of their groups sum to one product
+    views = torch.cat([inp.img_feat, inp.vol_feat.expand(nv, n, -1),
+                       sim16.expand(nv, n, -1), pe], dim=-1)        # (NV, P, C)
+
+    def tok_rows(w):                                                # (1, P, C)
+        return _tok_dot(tok, w).expand(1, n, -1)
+
+    qf = F.elu(torch.cat([tok_rows(p.wq), lin(views, p.wq)])) + 1.0   # (L, P, C)
+    kf = F.elu(torch.cat([tok_rows(p.wk), lin(views, p.wk)])) + 1.0
+    vv = torch.cat([tok_rows(p.wv), lin(views, p.wv)])
+    l_ = nv + 1
+    # score (l, s) per head: the head sum of bf16-rounded q k products
+    sc = r(qf[:, None] * kf[None]).view(l_, l_, n, n_heads, dk).sum(-1)  # (L, S, P, H)
+    acc = torch.einsum("lsph,sphd->lphd", r(sc), vv.view(l_, n, n_heads, dk))
+    att = (acc / (r(sc.sum(dim=1))[..., None] + EPS)).reshape(l_, n, c)
+
+    msg = F.layer_norm(lin(att, p.wmerge), (c,), p.norm1_scale, p.norm1_bias, LN_EPS)
+    w1a, w1b = p.w1[:, :c], p.w1[:, c:]
+    x_w1 = torch.cat([_tok_dot(tok, w1a).expand(1, n, -1), lin(views, w1a)])
+    y = F.relu(x_w1 + lin(msg, w1b))
+    m2 = F.layer_norm(lin(y, p.w2), (c,), p.norm2_scale, p.norm2_bias, LN_EPS)
+    token = tok + m2[0]
+
+    # radiance layer 0: the token and m2 enter apart (out_v = x_v + m2_v)
+    r0 = p.rad_w[0]
+    z = (lin(views, r0[:, :c]) + lin(m2[1:], r0[:, :c]) + lin(inp.dir_rel, r0[:, c:])
+         + p.rad_b[0])
+    z = F.relu(lin(F.relu(z), p.rad_w[1], p.rad_b[1]))
+    z = lin(z, p.rad_w[2], p.rad_b[2])[..., 0]                      # (NV, P)
+    z = torch.where(inp.mask == 0, torch.full_like(z, -1e9), z)
+    w = torch.softmax(z, dim=0)
+    return token, torch.einsum("vpc,vp->pc", inp.rgb, w)
 
 
 def rad_rows(g_view: int) -> int:
     """Rows of the radiance layer 0's first operand in the kernel: [img |
-    pe] (g_view), dir (3), a 1 that takes the bias row, zeros up to a
+    pe] (g_view), dir (3), three 1s that take the bias rows, zeros up to a
     multiple of 8 (the tensor-core k step)."""
-    return (g_view + 4 + 7) // 8 * 8
+    return (g_view + 3 + BIAS_ROWS + 7) // 8 * 8
+
+
+# rows of the radiance bias in v_rad: the bias and two zero rows in 3xTF32
+# (whose planes carry it to 2^-22), its three-way bf16 split in fast (a
+# float32 bias, as JAX adds it)
+BIAS_ROWS = 3
 
 
 def layout2(c: int, c_img: int, c_vol: int, c_sim: int, s_hid: int = 32
@@ -108,12 +198,14 @@ def layout2(c: int, c_img: int, c_vol: int, c_sim: int, s_hid: int = 32
     return out
 
 
-def split_weights2(p: PointHeadParams, c_img: int = 32) -> Dict[str, torch.Tensor]:
+def split_weights2(p: PointHeadParams, c_img: int = 32,
+                   precision: str = "high") -> Dict[str, torch.Tensor]:
     """The weights split by feature group: ``layout2``'s parts by name,
     every matrix in (in, out) orientation and float32, as one plane. The
     port's weights are ``nn.Linear`` (out, in); the JAX slices are rows of
     (in, out). The token is [img c_img | vol | sim16 | pe 8]; the widths of
-    sim16 and vol follow from the weights."""
+    sim16 and vol follow from the weights. ``precision`` picks the
+    radiance bias rows (``BIAS_ROWS``)."""
     c = p.view_token.numel()
     c_sim = p.sim_w[2].shape[0]
     c_vol = c - c_img - c_sim - PE_DIM
@@ -132,10 +224,16 @@ def split_weights2(p: PointHeadParams, c_img: int = 32) -> Dict[str, torch.Tenso
     def view(w):              # rows of img, then pe
         return torch.cat([w[:o1], w[o3:c]])
 
-    # the token's own rows, as the JAX wrapper's HIGHEST-precision dots:
-    # in float64, whatever the card's TF32 setting
-    def tok_dot(w):
-        return (tok.double() @ w.double()).float()
+    def tok_dot(w):             # (in, out) here
+        return _tok_dot(tok, w.t())
+
+    b0 = f(p.rad_b[0])
+    if cuda_build.is_fast(precision):
+        hi = cuda_build.bf16_round(b0)
+        mid = cuda_build.bf16_round(b0 - hi)
+        bias = torch.stack([hi, mid, cuda_build.bf16_round(b0 - hi - mid)])
+    else:
+        bias = torch.cat([b0[None], b0.new_zeros(BIAS_ROWS - 1, b0.numel())])
 
     parts = {
         "tok": tok,
@@ -146,10 +244,11 @@ def split_weights2(p: PointHeadParams, c_img: int = 32) -> Dict[str, torch.Tenso
         "wm": f(p.wmerge).t(), "n1s": f(p.norm1_scale), "n1b": f(p.norm1_bias),
         "v_w1": torch.cat([view(w1a), w1b]),
         "w2": f(p.w2).t(), "n2s": f(p.norm2_scale), "n2b": f(p.norm2_bias),
-        # radiance layer 0: [img | pe] rows, dir rows, the bias (the kernel's
-        # 1 column), zero rows, then the C rows that take m2
-        "v_rad": torch.cat([view(r0), r0[c:c + 3], f(p.rad_b[0])[None],
-                            r0.new_zeros(rad_rows(g_view) - g_view - 4, r0.shape[1]),
+        # radiance layer 0: [img | pe] rows, dir rows, the bias rows (the
+        # kernel's 1 columns), zero rows, then the C rows that take m2
+        "v_rad": torch.cat([view(r0), r0[c:c + 3], bias,
+                            r0.new_zeros(rad_rows(g_view) - g_view - 3 - BIAS_ROWS,
+                                         r0.shape[1]),
                             r0[:c]]),
         "rw1": f(p.rad_w[1]).t(), "rb1": f(p.rad_b[1]),
         "rw2": f(p.rad_w[2]).t(), "rb2": f(p.rad_b[2]),
@@ -165,16 +264,26 @@ def split_weights2(p: PointHeadParams, c_img: int = 32) -> Dict[str, torch.Tenso
     return {name: parts[name] for name in lay if name != "total"}
 
 
-def pack_weights2(p: PointHeadParams, c_img: int = 32) -> torch.Tensor:
-    """``split_weights2(p)`` flattened in ``layout2``'s order, the matrices
-    of ``TC_MATRICES`` as their TF32 hi plane, then lo plane."""
-    parts = split_weights2(p, c_img)
-    return torch.cat([cuda_build.tf32_planes(t) if name in TC_MATRICES else t.reshape(-1)
+# the small MLPs' weights, which the kernel multiplies on the CUDA cores
+SMALL_MATRICES = ("sw0", "sw1", "sw2", "rw1", "rw2")
+
+
+def pack_weights2(p: PointHeadParams, c_img: int = 32,
+                  precision: str = "high") -> torch.Tensor:
+    """``split_weights2(p, c_img, precision)`` flattened in ``layout2``'s
+    order, the matrices of ``TC_MATRICES`` as their TF32 hi plane, then lo
+    plane, or in ``fast`` as their bf16 values and a zero plane, with the
+    ``SMALL_MATRICES`` bf16-rounded."""
+    tc = cuda_build.bf16_planes if cuda_build.is_fast(precision) else cuda_build.tf32_planes
+    small = cuda_build.operand_round(precision)
+    parts = split_weights2(p, c_img, precision)
+    return torch.cat([tc(t) if name in TC_MATRICES
+                      else (small(t) if name in SMALL_MATRICES else t).reshape(-1)
                       for name, t in parts.items()])
 
 
-def _launch(inp: PointHeadInputs, p: PointHeadParams,
-            n_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
+            precision: str = "high") -> Tuple[torch.Tensor, torch.Tensor]:
     nv, n, c_img = inp.img_feat.shape
     c = p.view_token.numel()
     d = _KERNEL_DIMS
@@ -197,37 +306,40 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams,
                              f"got {tuple(getattr(inp, name).shape)}")
     ext = cuda_build.extension()
     ins = [cuda_build.aligned(t) for t in inp]
-    w, built = _packs.get(_flat_params(p), lambda: pack_weights2(p))
+    w, built = _packs.get(_flat_params(p), lambda: pack_weights2(p, precision=precision),
+                          precision)
     point_head2.pack_builds += built
     if w.numel() != ext.point_head2_weight_count():
         raise ValueError("point_head2 weight pack does not match the kernel")
     token = torch.empty(n, c, device=dev, dtype=torch.float32)
     rad = torch.empty(n, 3, device=dev, dtype=torch.float32)
+    fast = cuda_build.is_fast(precision)
     with torch.cuda.device(dev):
-        ext.point_head2(*ins, w, token, rad)
-    point_head2.launches += 1
+        ext.point_head2(*ins, w, token, rad, fast)
+    cuda_build.count_launch(point_head2, fast)
     return token, rad
 
 
 _packs = cuda_build.PackCache()
 
 
-# _point_head2_fn(n_heads, *inputs, *params): CUDA kernel forward, backward
-# through the plain version
+# _point_head2_fn((n_heads, precision), *inputs, *params): CUDA kernel
+# forward, backward through the FP32 plain version
 _point_head2_fn = cuda_build.kernel_function(
-    lambda n_heads, *ts: _launch(*_split(ts), n_heads),
-    lambda n_heads, *ts: point_head2_reference(*_split(ts), n_heads))
+    lambda st, *ts: _launch(*_split(ts), *st),
+    lambda st, *ts: point_head2_reference(*_split(ts), st[0]))
 
 
-def point_head2(inp: PointHeadInputs, p: PointHeadParams,
-                n_heads: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Split-weight per-point view head: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. Returns (token (P, C), radiance
-    (P, 3))."""
+def point_head2(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
+                precision: str = "high") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split-weight per-point view head at a resolved kernel precision: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    Returns (token (P, C), radiance (P, 3))."""
     if not inp.img_feat.is_cuda:
-        return point_head2_reference(inp, p, n_heads)
-    return _point_head2_fn(n_heads, *inp, *_flat_params(p))
+        return point_head2_reference(inp, p, n_heads, precision)
+    return _point_head2_fn((n_heads, precision), *inp, *_flat_params(p))
 
 
 point_head2.launches = 0
+point_head2.launches_fast = 0
 point_head2.pack_builds = 0

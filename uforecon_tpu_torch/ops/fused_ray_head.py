@@ -18,10 +18,24 @@ cores in 3xTF32 (``csrc/tc_gemm.cuh``), their weight planes streamed
 through a cp.async ring; the density MLP, the LayerNorms and the attention
 stay FP32 on the CUDA cores.
 
+``precision`` is the resolved ``Config.kernel_precision``. ``highest`` and
+``high`` run the kernel described above and an FP32 plain version;
+``fast`` the JAX package's single bf16 pass at its ``kernel_dot`` sites
+(``uforecon_tpu/ops/fused_ray_head.py:85-87,108-113``): the layer products
+(q/k/v, merge, mlp1, mlp2 and the density MLP) and the linear-attention
+sums kv = sum_s phi(k_s) v_s^T, num = phi(q) kv and den = phi(q) ksum,
+each with both operands rounded to bf16 (round to nearest even) and the
+products summed in FP32; ksum itself is an FP32 sum. The kernel's
+``fast`` instantiation runs the tensor-core layers as one bf16
+``mma.m16n8k16`` pass; the plain version rounds at the same sites. The
+NeuS epilogue does not depend on the precision, as in JAX. The backward
+differentiates the FP32 plain version in every precision.
+
 The weight pack (``pack_weights``: the tensor-core matrices as TF32 hi and
-lo planes) is built once per set of weights (``cached_pack_weights``) and
-shared by ``ray_head`` and ``ray_head_neus``; ``ray_head.pack_builds``
-counts the builds of both.
+lo planes, or in ``fast`` as bf16 values and a zero plane with the density
+MLP's weights bf16-rounded) is built once per set of weights and
+precision (``cached_pack_weights``) and shared by ``ray_head`` and
+``ray_head_neus``; ``ray_head.pack_builds`` counts the builds of both.
 
 ``ray_head_neus`` is the same kernel with NeuS compositing in its epilogue
 (the JAX ``ray_head_neus_fused``): it also returns the weights and each
@@ -31,7 +45,8 @@ ray's rgb, depth and opacity, as ``ops/rendering.neus_render`` does.
 only. For CUDA tensors they launch the kernel or raise, inside an autograd
 Function whose backward differentiates the plain version (the JAX
 ``_rh_bwd`` / ``_rhn_bwd`` pattern). ``ray_head.launches`` and
-``ray_head_neus.launches`` count kernel launches.
+``ray_head_neus.launches`` count the launches of the 3xTF32 kernel,
+``.launches_fast`` those of the ``fast`` kernel.
 """
 from __future__ import annotations
 
@@ -77,49 +92,58 @@ def _unflat_params(ts) -> RayHeadParams:
                          dens_b=tuple(ts[13:16]))
 
 
-def ray_head_reference(y: torch.Tensor, p: RayHeadParams,
-                       n_heads: int = 8, linear=F.linear) -> torch.Tensor:
-    """Plain PyTorch forward, mirroring the JAX ``ray_head_reference``:
-    y (RN, SN, C) -> srdf (RN, SN). ``linear(x, w)`` computes the layers
-    the kernel runs on the tensor cores (q/k/v/merge, mlp1, mlp2); the
-    tests pass an emulation of its 3xTF32 product."""
+def ray_head_reference(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8,
+                       precision: str = "high", linear=None) -> torch.Tensor:
+    """Plain PyTorch forward, mirroring the JAX ``ray_head_reference`` in
+    FP32, or in ``fast`` the JAX kernel's ``fast`` products: y (RN, SN, C)
+    -> srdf (RN, SN). ``linear(x, w)``, if given, computes the layers the
+    kernel runs on the tensor cores (q/k/v/merge, mlp1, mlp2); the tests
+    pass an emulation of its 3xTF32 product."""
     rn, sn, c = y.shape
     dk = c // n_heads
+    dense = cuda_build.kernel_linear(precision)
+    linear = linear or dense
+    r = cuda_build.operand_round(precision)      # the attention sums' operands
     qf = (F.elu(linear(y, p.wq)) + 1.0).view(rn, sn, n_heads, dk)
     kf = (F.elu(linear(y, p.wk)) + 1.0).view(rn, sn, n_heads, dk)
     vh = linear(y, p.wv).view(rn, sn, n_heads, dk)
-    kv = torch.einsum("bshd,bshm->bhmd", kf, vh)
-    den = torch.einsum("blhd,bhd->blh", qf, kf.sum(dim=1)) + EPS
-    att = torch.einsum("blhd,bhmd->blhm", qf, kv) / den[..., None]
+    kv = torch.einsum("bshd,bshm->bhmd", r(kf), r(vh))
+    den = torch.einsum("blhd,bhd->blh", r(qf), r(kf.sum(dim=1))) + EPS
+    att = torch.einsum("blhd,bhmd->blhm", r(qf), r(kv)) / den[..., None]
     msg = F.layer_norm(linear(att.reshape(rn, sn, c), p.wmerge), (c,),
                        p.norm1_scale, p.norm1_bias, LN_EPS)
     m2 = linear(F.relu(linear(torch.cat([y, msg], -1), p.w1)), p.w2)
     out = y + F.layer_norm(m2, (c,), p.norm2_scale, p.norm2_bias, LN_EPS)
-    d = F.relu(F.linear(out, p.dens_w[0], p.dens_b[0]))
-    d = F.relu(F.linear(d, p.dens_w[1], p.dens_b[1]))
-    return F.linear(d, p.dens_w[2], p.dens_b[2])[..., 0]
+    d = F.relu(dense(out, p.dens_w[0], p.dens_b[0]))
+    d = F.relu(dense(d, p.dens_w[1], p.dens_b[1]))
+    return dense(d, p.dens_w[2], p.dens_b[2])[..., 0]
 
 
-def pack_weights(p: RayHeadParams) -> torch.Tensor:
+def pack_weights(p: RayHeadParams, precision: str = "high") -> torch.Tensor:
     """Flatten the weights in ``csrc/ray_head.cu``'s order, matrices in
     (in, out) orientation; the tensor-core matrices (q, k, v, merge, mlp1,
-    mlp2) as their TF32 hi plane, then lo plane."""
-    tc = cuda_build.tf32_planes
+    mlp2) as their TF32 hi plane, then lo plane, or in ``fast`` as their
+    bf16 values and a zero plane, and the density MLP's weights
+    bf16-rounded."""
+    tc = cuda_build.bf16_planes if cuda_build.is_fast(precision) else cuda_build.tf32_planes
+    small = cuda_build.operand_round(precision)
     parts = [tc(p.wq.t()), tc(p.wk.t()), tc(p.wv.t()), tc(p.wmerge.t()),
              p.norm1_scale, p.norm1_bias, tc(p.w1.t()), tc(p.w2.t()),
              p.norm2_scale, p.norm2_bias]
     for w, b in zip(p.dens_w, p.dens_b):
-        parts += [w.t(), b]
+        parts += [small(w.t().detach().float()), b]
     return torch.cat([t.detach().float().reshape(-1) for t in parts])
 
 
 _packs = cuda_build.PackCache()
 
 
-def cached_pack_weights(p: RayHeadParams) -> torch.Tensor:
-    """``pack_weights(p)``, built once per set of weights
-    (``cuda_build.PackCache``); ``ray_head.pack_builds`` counts builds."""
-    pack, built = _packs.get(_flat_params(p), lambda: pack_weights(p))
+def cached_pack_weights(p: RayHeadParams, precision: str = "high") -> torch.Tensor:
+    """``pack_weights(p, precision)``, built once per set of weights and
+    precision (``cuda_build.PackCache``); ``ray_head.pack_builds`` counts
+    builds."""
+    pack, built = _packs.get(_flat_params(p), lambda: pack_weights(p, precision),
+                             precision)
     ray_head.pack_builds += built
     return pack
 
@@ -132,7 +156,8 @@ def _smem_limit(dev: torch.device) -> int:
                    "shared_memory_per_block_optin", 232448)
 
 
-def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, *extra: torch.Tensor):
+def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, precision: str,
+             *extra: torch.Tensor):
     """Checks what the kernel takes; returns the extension and the weight
     pack."""
     rn, sn, c = y.shape
@@ -151,39 +176,44 @@ def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, *extra: torch.Tens
     if smem > limit:
         raise ValueError(f"ray_head kernel: SN={sn} needs {smem} bytes of "
                          f"shared memory, the card allows {limit}")
-    w = cached_pack_weights(p)
+    w = cached_pack_weights(p, precision)
     if w.numel() != ext.ray_head_weight_count(c):
         raise ValueError("ray_head weight pack does not match the kernel")
     return ext, w
 
 
-def _launch(y: torch.Tensor, p: RayHeadParams, n_heads: int) -> torch.Tensor:
-    ext, w = _prepare(y, p, n_heads)
+def _launch(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8,
+            precision: str = "high") -> torch.Tensor:
+    ext, w = _prepare(y, p, n_heads, precision)
     rn, sn, _ = y.shape
     y = cuda_build.aligned(y)
     srdf = torch.empty(rn, sn, device=y.device, dtype=torch.float32)
+    fast = cuda_build.is_fast(precision)
     with torch.cuda.device(y.device):
-        ext.ray_head(y, w, srdf)
-    ray_head.launches += 1
+        ext.ray_head(y, w, srdf, fast)
+    cuda_build.count_launch(ray_head, fast)
     return srdf
 
 
-# _ray_head_fn(n_heads, y, *params): CUDA kernel forward, backward through
-# the plain version
+# _ray_head_fn((n_heads, precision), y, *params): CUDA kernel forward,
+# backward through the FP32 plain version
 _ray_head_fn = cuda_build.kernel_function(
-    lambda n_heads, y, *ps: _launch(y, _unflat_params(ps), n_heads),
-    lambda n_heads, y, *ps: ray_head_reference(y, _unflat_params(ps), n_heads))
+    lambda st, y, *ps: _launch(y, _unflat_params(ps), *st),
+    lambda st, y, *ps: ray_head_reference(y, _unflat_params(ps), st[0]))
 
 
-def ray_head(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8) -> torch.Tensor:
-    """Along-ray SRDF head: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. y (RN, SN, C) -> srdf (RN, SN)."""
+def ray_head(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8,
+             precision: str = "high") -> torch.Tensor:
+    """Along-ray SRDF head at a resolved kernel precision: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors. y (RN, SN, C) ->
+    srdf (RN, SN)."""
     if not y.is_cuda:
-        return ray_head_reference(y, p, n_heads)
-    return _ray_head_fn(n_heads, y, *_flat_params(p))
+        return ray_head_reference(y, p, n_heads, precision)
+    return _ray_head_fn((n_heads, precision), y, *_flat_params(p))
 
 
 ray_head.launches = 0
+ray_head.launches_fast = 0
 ray_head.pack_builds = 0
 
 
@@ -196,17 +226,18 @@ ray_head.pack_builds = 0
 
 def ray_head_neus_reference(y: torch.Tensor, z: torch.Tensor, rad: torch.Tensor,
                             inv_s: torch.Tensor, p: RayHeadParams,
-                            n_heads: int = 8):
+                            n_heads: int = 8, precision: str = "high"):
     """Plain PyTorch forward, mirroring the JAX ``ray_head_neus_reference``:
     ``ray_head_reference`` followed by ``ops/rendering.neus_render``.
     y (RN, SN, C), z (RN, SN), rad (RN, SN, 3), inv_s () -> srdf (RN, SN),
     weight (RN, SN), rgb (RN, 3), depth (RN,), opacity (RN,)."""
-    srdf = ray_head_reference(y, p, n_heads)
+    srdf = ray_head_reference(y, p, n_heads, precision)
     out = neus_render(z, rad, srdf, inv_s)
     return srdf, out["weight"], out["rgb"], out["depth"], out["opacity"]
 
 
-def _launch_neus(y, z, rad, inv_s, p: RayHeadParams, n_heads: int):
+def _launch_neus(y, z, rad, inv_s, p: RayHeadParams, n_heads: int = 8,
+                 precision: str = "high"):
     rn, sn, _ = y.shape
     if tuple(z.shape) != (rn, sn) or tuple(rad.shape) != (rn, sn, 3) \
             or inv_s.numel() != 1:
@@ -214,34 +245,37 @@ def _launch_neus(y, z, rad, inv_s, p: RayHeadParams, n_heads: int):
                          f"and a scalar inv_s for y (RN, SN, C) = "
                          f"{tuple(y.shape)}, got {tuple(z.shape)}, "
                          f"{tuple(rad.shape)}, {tuple(inv_s.shape)}")
-    ext, w = _prepare(y, p, n_heads, z, rad, inv_s)
+    ext, w = _prepare(y, p, n_heads, precision, z, rad, inv_s)
     dev = y.device
     outs = [torch.empty(shape, device=dev, dtype=torch.float32)
             for shape in ((rn, sn), (rn, sn), (rn, 3), (rn,), (rn,))]
+    fast = cuda_build.is_fast(precision)
     with torch.cuda.device(dev):
         ext.ray_head_neus(cuda_build.aligned(y), w, z.contiguous(), rad.contiguous(),
-                          inv_s.contiguous(), *outs)
-    ray_head_neus.launches += 1
+                          inv_s.contiguous(), *outs, fast)
+    cuda_build.count_launch(ray_head_neus, fast)
     return tuple(outs)
 
 
-# _ray_head_neus_fn(n_heads, y, z, rad, inv_s, *params): CUDA kernel
-# forward, backward through the plain version
+# _ray_head_neus_fn((n_heads, precision), y, z, rad, inv_s, *params): CUDA
+# kernel forward, backward through the FP32 plain version
 _ray_head_neus_fn = cuda_build.kernel_function(
-    lambda n_heads, y, z, rad, inv_s, *ps: _launch_neus(
-        y, z, rad, inv_s, _unflat_params(ps), n_heads),
-    lambda n_heads, y, z, rad, inv_s, *ps: ray_head_neus_reference(
-        y, z, rad, inv_s, _unflat_params(ps), n_heads))
+    lambda st, y, z, rad, inv_s, *ps: _launch_neus(
+        y, z, rad, inv_s, _unflat_params(ps), *st),
+    lambda st, y, z, rad, inv_s, *ps: ray_head_neus_reference(
+        y, z, rad, inv_s, _unflat_params(ps), st[0]))
 
 
 def ray_head_neus(y: torch.Tensor, z: torch.Tensor, rad: torch.Tensor,
-                  inv_s: torch.Tensor, p: RayHeadParams, n_heads: int = 8):
-    """Along-ray SRDF head + NeuS compositing: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. Returns (srdf, weight, rgb,
-    depth, opacity)."""
+                  inv_s: torch.Tensor, p: RayHeadParams, n_heads: int = 8,
+                  precision: str = "high"):
+    """Along-ray SRDF head + NeuS compositing at a resolved kernel
+    precision: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors. Returns (srdf, weight, rgb, depth, opacity)."""
     if not y.is_cuda:
-        return ray_head_neus_reference(y, z, rad, inv_s, p, n_heads)
-    return _ray_head_neus_fn(n_heads, y, z, rad, inv_s, *_flat_params(p))
+        return ray_head_neus_reference(y, z, rad, inv_s, p, n_heads, precision)
+    return _ray_head_neus_fn((n_heads, precision), y, z, rad, inv_s, *_flat_params(p))
 
 
 ray_head_neus.launches = 0
+ray_head_neus.launches_fast = 0

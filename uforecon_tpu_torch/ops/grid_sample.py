@@ -7,6 +7,15 @@ are the semantics the JAX functions were written to match. The packed
 samplers of the JAX package are bit-equal to the unpacked ones and are not
 ported.
 
+A source may be bfloat16 (``Config.volume_dtype``,
+``Config.image_gather_dtype``). The JAX package gathers such a source's
+bf16 values and combines them with float32 weights into a float32 result
+(bf16 times f32 promotes to f32): the samplers here sample the source's
+float32 conversion, which holds the same values, so the result is that
+float32 function (``F.grid_sample`` on the bf16 tensor itself would round
+its output to bf16 as well). The conversion is a copy of the source per
+call, in float32.
+
 Conventions per call site (JAX ``ray_transformer.py``):
   * image features and rgb||depth: ``align_corners=False``, zeros;
   * pair-match maps: ``align_corners=True``, border;
@@ -24,13 +33,20 @@ def in_bounds_mask(grid: torch.Tensor) -> torch.Tensor:
     return ok.to(torch.float32)
 
 
+def _float_source(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 source's float32 values (exact); other sources as they are."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def grid_sample_2d(image: torch.Tensor, grid: torch.Tensor,
                    align_corners: bool = False,
                    padding_mode: str = "zeros") -> torch.Tensor:
     """Bilinear sample ``image`` (N, H, W, C) at ``grid`` (N, ..., 2)
-    normalised (x, y) coordinates. Returns (N, ..., C)."""
+    normalised (x, y) coordinates. Returns (N, ..., C), float32 for a bf16
+    image."""
     if padding_mode not in ("zeros", "border"):
         raise ValueError(padding_mode)
+    image = _float_source(image)
     n, _, _, c = image.shape
     lead = grid.shape[1:-1]
     g = grid.reshape(n, 1, -1, 2)
@@ -45,9 +61,11 @@ def grid_sample_3d(volume: torch.Tensor, grid: torch.Tensor,
                    padding_mode: str = "zeros") -> torch.Tensor:
     """Trilinear sample ``volume`` (N, C, D, H, W), channels-first as it is
     stored, at ``grid`` (N, ..., 3) normalised (x, y, z) coordinates
-    (x indexes W, y H, z D). Returns (N, ..., C)."""
+    (x indexes W, y H, z D). Returns (N, ..., C), float32 for a bf16
+    volume."""
     if padding_mode not in ("zeros", "border"):
         raise ValueError(padding_mode)
+    volume = _float_source(volume)
     n, c = volume.shape[:2]
     lead = grid.shape[1:-1]
     g = grid.reshape(n, 1, 1, -1, 3)

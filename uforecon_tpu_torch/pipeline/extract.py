@@ -65,11 +65,13 @@ def extract_geometry_for_dataset(model: UFORecon, dataset,
     ``SceneRenderer.render_rays``).
 
     Returns the view and ray counts, the encode and render seconds summed
-    over views (host clock, each ending in a device synchronise), and the
-    JAX package's rays/s: every view's rays over the time from the end of
+    over views (host clock, each ending in a device synchronise), the JAX
+    package's rays/s: every view's rays over the time from the end of
     the first view's render to the end of the loop (so the kernel builds
     and first-call costs of view 0 are outside it; with one view it times
-    only that view's file writes)."""
+    only that view's file writes), and what the run resolved: whether the
+    encodings merged their volumes (``merged``, from the encodings; None
+    without a view) and the head kernels' ``kernel_precision``."""
     out_dir = out_dir or model.cfg.out_dir
     renderer = SceneRenderer(model, device=device)
     gen = torch.Generator(device=renderer.device)
@@ -77,6 +79,7 @@ def extract_geometry_for_dataset(model: UFORecon, dataset,
     total_rays = 0
     t_enc = t_ren = 0.0
     t_start = None
+    merged = None
     for i in range(len(dataset)):
         sample = dataset[i]
         scene, extras = scene_inputs_from_sample(sample, renderer.device)
@@ -84,6 +87,7 @@ def extract_geometry_for_dataset(model: UFORecon, dataset,
         enc = model.encode(scene)
         _sync(renderer.device)
         t1 = time.perf_counter()
+        merged = "merged" in enc.volumes
         out = renderer.render_depth_view(scene, enc, extras, gen,
                                          None if draws is None else draws[i])
         t2 = time.perf_counter()       # render_rays ends in a host copy
@@ -97,4 +101,6 @@ def extract_geometry_for_dataset(model: UFORecon, dataset,
                            extras["intrinsic_render_view"], previews=previews)
     elapsed = max(time.perf_counter() - (t_start or time.perf_counter()), 1e-9)
     return {"views": len(dataset), "rays": total_rays, "encode_s": t_enc,
-            "render_s": t_ren, "rays_per_sec": total_rays / elapsed}
+            "render_s": t_ren, "rays_per_sec": total_rays / elapsed,
+            "merged": merged,
+            "kernel_precision": model.kernel_precision}

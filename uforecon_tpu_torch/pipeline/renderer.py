@@ -9,6 +9,11 @@ loop, and cut back.
 Each chunk's uniform draws come from a ``torch.Generator``, or from the
 caller (``draws``: one ``(u_coarse, u_fine)`` pair per chunk), so that a
 test can feed the JAX package's key schedule.
+
+The chunk follows the JAX rule (``uforecon_tpu/pipeline/renderer.py:35-45``:
+512 rays on the merged-volume path, else 1024, raised to ``test_ray_num``
+rounded up to 256), keyed off the path the encoding took (its volumes),
+where the JAX package reads the config's request.
 """
 from __future__ import annotations
 
@@ -21,16 +26,26 @@ from ..device import DEFAULT, resolve_device
 from ..models.uforecon import EncoderOutputs, SceneInputs, UFORecon
 
 
+def chunk_size(test_ray_num: int, merged: bool) -> int:
+    """Rays per render chunk: 512 on the merged-volume path, else 1024,
+    raised to ``test_ray_num`` rounded up to 256."""
+    return max(512 if merged else 1024, int(np.ceil(test_ray_num / 256)) * 256)
+
+
 class SceneRenderer:
     """Holds the model, its device (the card unless the caller asks for the
-    CPU) and the ray-chunk size."""
+    CPU) and the ray-chunk size (``chunk``, or ``chunk_size`` of the
+    encoding's path)."""
 
     def __init__(self, model: UFORecon, device=DEFAULT, chunk: Optional[int] = None):
         self.model = model
         self.device = resolve_device(device)
-        # the JAX exact path's chunk rule (1024 rays, or the configured
-        # test_ray_num rounded up to 256)
-        self.chunk = chunk or max(1024, int(np.ceil(model.cfg.test_ray_num / 256)) * 256)
+        self.chunk = chunk
+
+    def chunk_for(self, enc: EncoderOutputs) -> int:
+        """The chunk of a render of ``enc``."""
+        return self.chunk or chunk_size(self.model.cfg.test_ray_num,
+                                        "merged" in enc.volumes)
 
     @torch.no_grad()
     def render_rays(self, scene: SceneInputs, enc: EncoderOutputs,
@@ -42,8 +57,9 @@ class SceneRenderer:
         (the coarse pass's with ``coarse_only``). ``draws``, if given, holds
         each chunk's (u_coarse (chunk, n_coarse), u_fine (chunk, n_fine))."""
         n = ray_d.shape[0]
-        pad = (-n) % self.chunk
-        n_chunks = (n + pad) // self.chunk
+        chunk = self.chunk_for(enc)
+        pad = (-n) % chunk
+        n_chunks = (n + pad) // chunk
         if draws is not None and len(draws) != n_chunks:
             raise ValueError(f"{len(draws)} chunks of draws for {n_chunks} chunks")
 
@@ -56,7 +72,7 @@ class SceneRenderer:
         rd, nr, fr = dev(ray_d), dev(near), dev(far)
         outs = {"rgb": [], "depth": [], "opacity": []}
         for i in range(n_chunks):
-            sl = slice(i * self.chunk, (i + 1) * self.chunk)
+            sl = slice(i * chunk, (i + 1) * chunk)
             u_c = u_f = None
             if draws is not None:
                 u_c, u_f = (torch.as_tensor(np.asarray(u, np.float32), device=self.device)

@@ -108,7 +108,14 @@ def grad_step(cfg: Config, model: UFORecon, scene: SceneInputs, ray_d: torch.Ten
     ``batch_size`` accumulation: the gradients are added into each
     trainable parameter's ``.grad``. Returns the logged terms (detached).
     ``coarse_only`` trains on the coarse pass alone (it stands in for both
-    passes in the loss)."""
+    passes in the loss). A model whose kernel precision resolves to
+    ``fast`` is refused, as the JAX trainer refuses it
+    (``uforecon_tpu/pipeline/trainer.py:108-114``): its bf16 forward
+    against the FP32 backward was measured to destabilise render training."""
+    if model.kernel_precision == "fast":
+        raise ValueError("kernel_precision 'fast' is inference-only: its bf16 "
+                         "forward against the FP32 backward destabilises render "
+                         "training; use 'high' or 'highest'")
     u_c, u_f = draws if draws is not None else (None, None)
     out = model.render_chunk(scene, model.encode(scene), ray_d, generator, u_coarse=u_c,
                              u_fine=u_f, coarse_only=coarse_only)

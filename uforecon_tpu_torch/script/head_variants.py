@@ -104,19 +104,19 @@ PATCHES = {
     "nogemm": [("tc_gemm.cuh", '  static_assert(kStages >= 2, "the ring needs two slots or more");',
                 '  static_assert(kStages >= 2, "the ring needs two slots or more");\n'
                 '  if (threadIdx.x < 100000) return;')],
-    "onemma": [("tc_gemm.cuh", "          mma(acc[j], alo, bh0, bh1);\n"
-                "          mma(acc[j], ahi, bl0, bl1);\n", "")],
+    "onemma": [("tc_gemm.cuh", "            mma(acc[j], alo, bh0, bh1);\n"
+                "            mma(acc[j], ahi, bl0, bl1);\n", "")],
     "nosync": [("tc_gemm.cuh", "      cp_async_wait<kStages - 2>();\n", ""),
                ("tc_gemm.cuh", "      // s - 1, whose slot the prefetch below refills\n"
                 "      __syncthreads();\n", "")],
     "noload": [("tc_gemm.cuh", "      if (s + kStages - 1 < steps) load(s + kStages - 1);",
                 "      if (s + kStages - 1 < steps && s < 0) load(s + kStages - 1);")],
-    "ph_sim": [("point_head.cu", *_skip("  block_linear<4>(s_in, SIN, SIN,")),
-               ("point_head.cu", *_skip("  block_linear<4>(s_h1, SH, SH,")),
-               ("point_head.cu", *_skip("  block_linear<4>(s_h2, SH, SH,"))],
-    "ph_rad": [("point_head.cu", *_skip("  block_linear<4>(z, CR, CR,")),
-               ("point_head.cu", *_skip("  block_linear<4>(h1, R1, R1,")),
-               ("point_head.cu", *_skip("  block_linear<4>(h2, R2, R2,"))],
+    "ph_sim": [("point_head.cu", *_skip("  block_linear<4, kFast>(s_in, SIN, SIN,")),
+               ("point_head.cu", *_skip("  block_linear<4, kFast>(s_h1, SH, SH,")),
+               ("point_head.cu", *_skip("  block_linear<4, kFast>(s_h2, SH, SH,"))],
+    "ph_rad": [("point_head.cu", *_skip("  block_linear<4, kFast>(z, CR, CR,")),
+               ("point_head.cu", *_skip("  block_linear<4, kFast>(h1, R1, R1,")),
+               ("point_head.cu", *_skip("  block_linear<4, kFast>(h2, R2, R2,"))],
     "ph_attn": [("point_head.cu", *_empty_loop(
         "  for (int t = tid; t < R * NH; t += blockDim.x) {", "R * NH"))],
     "ph_ln": [("point_head.cu", *_skip("  tc::layernorm<C>(Kb, LD, R, W + O_N1S")),
@@ -125,12 +125,12 @@ PATCHES = {
         "  for (int i = tid; i < NV * TP * CT; i += blockDim.x) {", "NV * TP * CT"))],
     "ph_softmax": [("point_head.cu", *_empty_loop(
         "  for (int p = tid; p < TP; p += blockDim.x) {", "TP"))],
-    "ph2_sim": [("point_head2.cu", *_skip("  block_linear<kSmallRows>(s_in, SIN, SIN,")),
-                ("point_head2.cu", *_skip("  block_linear<kSmallRows>(s_h1, SHID, SHID,")),
-                ("point_head2.cu", *_skip("  block_linear<kSmallRows>(s_h2, SHID, SHID,"))],
-    "ph2_shared": [("point_head2.cu", *_skip("  tc::gemm<kStages, NT_SQK>(S, LS, GS,")),
-                   ("point_head2.cu", *_skip("  tc::gemm<kStages, NT_SV>(S, LS, GS,")),
-                   ("point_head2.cu", *_skip("  tc::gemm<kStages, NT_ST>(S, LS, GS,"))],
+    "ph2_sim": [("point_head2.cu", *_skip("  block_linear<kSmallRows, kFast>(s_in, SIN, SIN,")),
+                ("point_head2.cu", *_skip("  block_linear<kSmallRows, kFast>(s_h1, SHID, SHID,")),
+                ("point_head2.cu", *_skip("  block_linear<kSmallRows, kFast>(s_h2, SHID, SHID,"))],
+    "ph2_shared": [("point_head2.cu", *_skip("  tc::gemm<kStages, NT_SQK, kFast>(S, LS, GS,")),
+                   ("point_head2.cu", *_skip("  tc::gemm<kStages, NT_SV, kFast>(S, LS, GS,")),
+                   ("point_head2.cu", *_skip("  tc::gemm<kStages, NT_ST, kFast>(S, LS, GS,"))],
     "ph2_in": [("point_head2.cu", *_empty_loop(
         "  for (int i = tid; i < RV * XR; i += blockDim.x) {", "RV * XR"))],
     "ph2_pass": [("point_head2.cu", *_empty_loop(
@@ -139,9 +139,9 @@ PATCHES = {
         "  for (int t = tid; t < TP * L * NH; t += blockDim.x) {", "TP * L * NH"))],
     "ph2_ln": [("point_head2.cu", *_skip("  tc::layernorm<C>(Vb, LV, R, W + O_N1S")),
                ("point_head2.cu", *_skip("  tc::layernorm<C>(Vb, LV, R, W + O_N2S"))],
-    "ph2_rad": [("point_head2.cu", *_skip("  tc::gemm<kStages, NT_R>(X + TP * LX, LX, XK,")),
-                ("point_head2.cu", *_skip("  block_linear<kSmallRows>(z, LZ, R1,")),
-                ("point_head2.cu", *_skip("  block_linear<kSmallRows>(h2, R2, R2,"))],
+    "ph2_rad": [("point_head2.cu", *_skip("  tc::gemm<kStages, NT_R, kFast>(X + TP * LX, LX, XK,")),
+                ("point_head2.cu", *_skip("  block_linear<kSmallRows, kFast>(z, LZ, R1,")),
+                ("point_head2.cu", *_skip("  block_linear<kSmallRows, kFast>(h2, R2, R2,"))],
     "ph2_softmax": [("point_head2.cu", *_empty_loop(
         "  for (int p = tid; p < TP; p += blockDim.x) {", "TP"))],
     "ta_phi": [("tiny_attention.cu", *_empty_loop(
@@ -173,8 +173,8 @@ PATCHES = {
         "  for (int t = tid; t < SN * NH; t += blockDim.x) {", "SN * NH"))],
     "rh_ln": [("ray_head.cu", *_skip("  tc::layernorm<C>(B, LD, SN, W + Wd::O_N1S")),
               ("ray_head.cu", *_skip("  tc::layernorm<C>(B, LD, SN, W + Wd::O_N2S"))],
-    "rh_density": [("ray_head.cu", *_skip("  block_linear<4>(X, LD, C, W + Wd::O_DW0")),
-                   ("ray_head.cu", *_skip("  block_linear<4>(A, D0, D0,"))],
+    "rh_density": [("ray_head.cu", *_skip("  block_linear<4, kFast>(X, LD, C, W + Wd::O_DW0")),
+                   ("ray_head.cu", *_skip("  block_linear<4, kFast>(A, D0, D0,"))],
 }
 
 
@@ -303,10 +303,10 @@ def _cases(seed: int, kernels):
 def _bind(kernel, lib):
     """The kernel's C entry point with its argument types."""
     c = ctypes
-    if kernel in ("ph", "ph2"):   # (10 pointers, nv, p, stream)
-        fn, types = getattr(lib, f"ufo_point_head{kernel[2:]}"), [c.c_void_p] * 10 + [c.c_int] * 2
-    elif kernel == "rh":          # ufo_ray_head(y, w, srdf, rn, sn, c, stream)
-        fn, types = lib.ufo_ray_head, [c.c_void_p] * 3 + [c.c_int] * 3
+    if kernel in ("ph", "ph2"):   # (10 pointers, nv, p, fast, stream)
+        fn, types = getattr(lib, f"ufo_point_head{kernel[2:]}"), [c.c_void_p] * 10 + [c.c_int] * 3
+    elif kernel == "rh":          # ufo_ray_head(y, w, srdf, rn, sn, c, fast, stream)
+        fn, types = lib.ufo_ray_head, [c.c_void_p] * 3 + [c.c_int] * 4
     elif kernel == "ta":          # ufo_tiny_attention_fwd(q, k, v, o, b, l, s, h, d, m, stream)
         fn, types = lib.ufo_tiny_attention_fwd, [c.c_void_p] * 4 + [c.c_int] * 6
     elif kernel == "tb":          # ufo_tiny_attention_bwd(q, k, v, g, dq, dk, dv, b, l, s, h, d, m, stream)
@@ -327,7 +327,7 @@ def _runs(kernel, fn, cases, stream):
         w, ref = cases[kernel]
         nv, p = inp.img_feat.shape[:2]
         tok, rad = torch.empty(p, 80, device="cuda"), torch.empty(p, 3, device="cuda")
-        call = [*map(ptr, (*inp, w, tok, rad)), i(nv), i(p), stream]
+        call = [*map(ptr, (*inp, w, tok, rad)), i(nv), i(p), i(0), stream]
         return {"": (lambda: fn(*call),
                      lambda: max((tok - ref[0]).abs().max().item(),
                                  (rad - ref[1]).abs().max().item()))}
@@ -343,7 +343,7 @@ def _runs(kernel, fn, cases, stream):
         w, ref = cases["rh"]
         for sn, y in cases["ys"].items():
             srdf = torch.empty(1024, sn, device="cuda")
-            call = [ptr(y), ptr(w), ptr(srdf), i(1024), i(sn), i(88), stream]
+            call = [ptr(y), ptr(w), ptr(srdf), i(1024), i(sn), i(88), i(0), stream]
             runs[f" SN {sn}"] = (lambda c=call: fn(*c),
                                  lambda s=srdf, r=ref[sn]: (s - r).abs().max().item())
         return runs
