@@ -22,7 +22,9 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      at route A's L = S = 4 (65,536 and 65,537 points) and at the training
      shape L = S = 6; the volume fusion at 2, 3 and 5 views and the ragged
      65,537 points, timed with its inputs in the L2 (as the main path
-     finds them) and, at 3 views, after a 64 MB write (cold L2); then the
+     finds them) and, at 3 views, after a 64 MB write (cold L2); the
+     grouped cosine at 3 views and at the 5-view similarity field's
+     (5, 65,536, 128); then the
      heads' fast variants (kernel_precision 'fast': kernels 1, 2 and 3 at
      widths 88 and 72, 4) at the same shapes, each against its fast plain
      version (FAST_SHARE) and against the 3xTF32 kernel on the same inputs
@@ -73,7 +75,18 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      ``cli.depth_fusion``, ``cli.clean_mesh`` and ``cli.dtu_eval`` against
      points on the sphere (accuracy and completeness within one voxel);
      each stage's time;
- 10. training phase (``pipeline/trainer.py``, ``pipeline/fit.py``): at the
+ 10. general phase: the custom-capture flow (``--test_general``): the
+     port's GeneralFit fixture (``script/make_general_fixture.py``, 5 views
+     of a sphere at 768x576 as baseline JPEGs and masks) and the host time
+     of ``read_jpeg``; ``cli.run --test_general --dataset blendedmvs
+     --use_mask`` at full width (64 + 64 samples, seeded weights from a
+     state-dict file) at 3 views at its defaults with
+     ``--extract_similarity --sim_reso 128`` (fast kernels 1 and 2 on every
+     view, then 32 launches of kernel 7 for the field), with the exact
+     flags, and at 5 views (per-stage volumes by the JAX guard; peak
+     memory); a chunk of the field and the scene's first 256 rays, card
+     against CPU; ``cli.tsdf_fusion --dataset general``;
+ 11. training phase (``pipeline/trainer.py``, ``pipeline/fit.py``): at the
      full width of the JAX training default (``ndepths`` 48/32/8, 192
      hypotheses, 64 + 64 samples, 1024 rays, 5 views at 640x512 on the
      learn_sanity sphere, seeded weights, matcher frozen, Adam on the
@@ -91,11 +104,11 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      on the checkpoint it wrote; (d) ``script/learn_sanity.py
      --mesh_eval`` at its defaults (120 MVS + 300 render steps, 160x128, 6
      views), which must pass its rule;
- 11. tests phase: the GPU unit tests of the kernels (``python -m pytest
+ 12. tests phase: the GPU unit tests of the kernels (``python -m pytest
      --noconftest -k on_gpu tests/test_torch_port_kernels.py``: every
      kernel against its plain version at further shapes, ragged edges and
      padded ray lengths) in a subprocess, which must pass;
- 12. prints a JSON line of per-kernel results, then the final
+ 13. prints a JSON line of per-kernel results, then the final
      ``{"ok": true, "device": {...}}`` line.
 Any failure exits non-zero without printing a result; without a CUDA card
 it exits 1 at once.
@@ -136,6 +149,13 @@ NEUS_OUT = ("srdf", "weight", "rgb", "depth", "opacity")
 PIPELINE_VIEWS = (23, 24, 33)
 PIPELINE_WH = (800, 640)               # the DTU render size cli.run gives
 PIPELINE_VOXELS = (4.0, 1.5)
+# general phase: the GeneralFit fixture's scan and size (768x576, BlendedMVS),
+# the view sets rendered, and the similarity field's resolution: 128^3
+# points, 32 chunks of 65,536 (pipeline/extract.py)
+GENERAL_SCAN = "scan_sphere"
+GENERAL_WH = (768, 576)
+GENERAL_SIM_RESO = 128
+GENERAL_SIM_CHUNKS = GENERAL_SIM_RESO ** 3 // 65536
 # warm views per route in the A/B phase: 2 x AB_ROUNDS
 AB_ROUNDS = 1
 # training phase: the DTU training crop; timed steps per route
@@ -197,9 +217,15 @@ MUST_RUN = {"off": ("point_head", "ray_head"),
             "train": ("point_head", "ray_head"),
             "train_A": ("tiny_attention", "tiny_attention_bwd", "ray_head"),
             "train_cli": ("point_head", "ray_head"),
-            # it trains (3xTF32), then renders its depth maps and mesh on
-            # the extract path (fast)
-            "learn_sanity": ("point_head", "ray_head", "point_head_fast", "ray_head_fast")}
+            # it trains, then renders its depth maps and mesh at the
+            # trainer's precision (3xTF32), as the JAX package's process does
+            "learn_sanity": ("point_head", "ray_head"),
+            # cli.run --test_general: its renders at the defaults and exact,
+            # at 3 and 5 views; the similarity field, kernel 7 alone
+            "general": ("point_head_fast", "ray_head_fast"),
+            "general_exact": ("point_head", "ray_head"),
+            "general_5": ("point_head_fast", "ray_head_fast"),
+            "general_sim": ("grouped_cosine",)}
 # H100 SXM data sheet at 700 W: FP32 outside the tensor cores, dense TF32
 # and dense bf16 on the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -437,11 +463,11 @@ def kernel_phase(model, model_b, card):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
+    def randn(*shape, scale=1.0, g=gen):
+        return torch.randn(shape, generator=g, device=dev) * scale
 
-    def rand(*shape):
-        return torch.rand(shape, generator=gen, device=dev)
+    def rand(*shape, g=gen):
+        return torch.rand(shape, generator=g, device=dev)
 
     rt = model.ray_transformer
     results = {}
@@ -450,14 +476,15 @@ def kernel_phase(model, model_b, card):
     # pairs masked and the first 256 points masked in every view
     nv, p = 3, 1024 * 64
 
-    def point_inputs(n):
-        mask = (rand(nv, n) > 0.3).float()
+    def point_inputs(n, views=nv, g=gen):
+        mask = (rand(views, n, g=g) > 0.3).float()
         mask[:, :256] = 0.0
         return fph.PointHeadInputs(
-            img_feat=randn(nv, n, 32), vol_feat=randn(n, 24),
-            sim_feat=rand(n, 8) * 2 - 1,
-            depth_dist=randn(nv, n, scale=0.3), dir_rel=randn(nv, n, 3, scale=0.1),
-            rgb=rand(nv, n, 3), mask=mask)
+            img_feat=randn(views, n, 32, g=g), vol_feat=randn(n, 24, g=g),
+            sim_feat=rand(n, 8, g=g) * 2 - 1,
+            depth_dist=randn(views, n, scale=0.3, g=g),
+            dir_rel=randn(views, n, 3, scale=0.1, g=g), rgb=rand(views, n, 3, g=g),
+            mask=mask)
 
     inp = point_inputs(p)
     params = rt.point_head_params()
@@ -674,10 +701,17 @@ def kernel_phase(model, model_b, card):
         out.update(shares(out["ms"], out))
         return out
 
-    results["point_head_fast"] = {**fast_result([fast_case(
-        f"point_head_fast P={p} NV={nv}", fph.point_head, fph.point_head_reference,
-        (inp, params), {"token": TOL["token"], "radiance": TOL["radiance"]},
-        point_head_flops(nv, p), fph.pack_weights(params, "fast"))])}
+    # and at 5 views, as the general phase's 5-view set runs it (one launch
+    # per 1024-ray chunk and stage, 65,536 points); drawn from a generator
+    # of its own, so the other cases keep their inputs
+    inp5 = point_inputs(p, views=5, g=torch.Generator(device=dev).manual_seed(SEED + 5))
+    fast_views = {views: fast_result([fast_case(
+        f"point_head_fast P={p} NV={views}", fph.point_head, fph.point_head_reference,
+        (x, params), {"token": TOL["token"], "radiance": TOL["radiance"]},
+        point_head_flops(views, p), fph.pack_weights(params, "fast"))])
+        for views, x in ((nv, inp), (5, inp5))}
+    results["point_head_fast"] = {**fast_views[nv], "max_abs_err": max(
+        x["max_abs_err"] for x in fast_views.values()), "by_views": fast_views}
     results["point_head2_fast"] = {**fast_result([fast_case(
         f"point_head2_fast P={p} NV={nv}", fph2.point_head2, fph2.point_head2_reference,
         (inp, params), {"token": TOL["token"], "radiance": TOL["radiance"]},
@@ -724,9 +758,28 @@ def kernel_phase(model, model_b, card):
         f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
     if not err <= TOL["cosine"]:
         raise AssertionError("grouped_cosine kernel disagrees with its plain version")
-    results["grouped_cosine"] = {"max_abs_err": err, "ms": k_ms, "call_ms": call_ms,
-                                 "plain_ms": p_ms,
-                                 "bound_ms": b_ms, "bound_by": b_by}
+    by_views = {nv: {"max_abs_err": err, "ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by}}
+    # and at 5 views, (5, 65,536, 128): a chunk of a 5-view set's
+    # similarity field (pipeline/extract.py), in the same layout
+    x5 = randn(5, 128, p).permute(0, 2, 1)
+    with torch.no_grad():
+        got5 = fsim.grouped_cosine(x5, 8)
+        want5 = fsim.grouped_cosine_reference(x5, 8)
+        torch.cuda.synchronize()
+        err5 = (got5 - want5).abs().max().item()
+        k5_ms, call5_ms = kernel_times(lambda: fsim.grouped_cosine(x5, 8))
+        p5_ms = time_ms(lambda: fsim.grouped_cosine_reference(x5, 8))
+    b5_ms, b5_by = bound(nbytes(x5, got5), p * 10 * (6 * 32 + 8 * 6))
+    log(f"[kernel] grouped_cosine {tuple(x5.shape)} strides {x5.stride()}: max abs err "
+        f"{err5:.3e} (tol {TOL['cosine']}); kernel {k5_ms:.4f} ms (call {call5_ms:.4f}), "
+        f"plain {p5_ms:.4f} ms, bound {b5_ms:.4f} ms ({b5_by}) [{card}]")
+    if not err5 <= TOL["cosine"]:
+        raise AssertionError("grouped_cosine kernel disagrees with its plain version "
+                             "at 5 views")
+    by_views[5] = {"max_abs_err": err5, "ms": k5_ms, "call_ms": call5_ms,
+                   "plain_ms": p5_ms, "bound_ms": b5_ms, "bound_by": b5_by}
+    results["grouped_cosine"] = {**by_views[nv], "by_views": by_views}
 
     # volume fusion at 3 x (NV, 65,536, 9), channel-first as the sampler
     # gives it, sigmoid-range weights; the first 512 points have zero
@@ -1311,6 +1364,72 @@ def ab_phase(models, scene, enc, extras, card):
         f"on {won} of {len(rates['on'])} [{card}]")
 
 
+def cli_run(tag, run_name, base, extra, scan, n_views, wh, card):
+    """``cli.run`` (``base + extra``) as a user runs it, its launches counted
+    after each view's render and at its end: every kernel MUST_RUN names
+    for the run launched on every view and no other, ``n_views`` views
+    rendered, and the printed 'resolved' line names the path taken. Returns
+    the scan's statistics (with the run's seconds and peak device memory),
+    the launches up to the last view's render and those after it."""
+    import contextlib
+    import io
+
+    import torch
+
+    from uforecon_tpu_torch.cli import run
+    from uforecon_tpu_torch.pipeline.renderer import SceneRenderer
+
+    wrappers = launch_counts()
+    render_depth_view = SceneRenderer.render_depth_view
+    per_view = []
+
+    def counted(self, *args, **kwargs):
+        res = render_depth_view(self, *args, **kwargs)
+        per_view.append({n: wr.launches for n, wr in wrappers.items()})
+        return res
+
+    for wr in wrappers.values():
+        wr.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    SceneRenderer.render_depth_view = counted
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            stats = run.main(base + extra)[scan]
+    finally:
+        SceneRenderer.render_depth_view = render_depth_view
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    total = {n: wr.launches for n, wr in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(per_view) != n_views:
+        raise AssertionError(f"{run_name}: cli.run rendered {len(per_view)} views, "
+                             f"not {n_views}")
+    check_launches(run_name, per_view[-1])
+    prev = {n: 0 for n in wrappers}
+    for i, snap in enumerate(per_view):
+        idle = [n for n in MUST_RUN[run_name] if snap[n] <= prev[n]]
+        if idle:
+            raise AssertionError(f"{run_name} view {i}: kernels {idle} not launched")
+        prev = snap
+    path = "merged" if stats["merged"] else "per-stage"
+    resolved = f"resolved: {path} volumes, kernel_precision {stats['kernel_precision']}"
+    if resolved not in printed.getvalue():
+        raise AssertionError(f"{run_name}: cli.run printed no '{resolved}' line")
+    log(f"[{tag}] cli.run {' '.join(extra) or 'at its defaults'}, {n_views} views "
+        f"{wh[0]}x{wh[1]}, 64+64 samples, seeded weights from a state-dict file, "
+        f"{path} volumes, "
+        f"kernel_precision {stats['kernel_precision']}: {stats['rays_per_sec']:.1f} "
+        f"rays/s (the JAX statistic: all rays over the time after view 0's render), "
+        f"encode {stats['encode_s']:.3f} s, render {stats['render_s']:.3f} s, "
+        f"{seconds:.1f} s in all, peak {peak:.2f} GiB; launches per view "
+        f"{[{n: v[n] for n in MUST_RUN[run_name]} for v in per_view]}; printed "
+        f"{printed.getvalue().strip().splitlines()} [{card}]")
+    return ({**stats, "seconds": seconds, "peak_gib": peak}, per_view[-1],
+            {n: total[n] - per_view[-1][n] for n in total})
+
+
 def pipeline_phase(model, card):
     """The shipped DTU evaluation flow through the port's CLIs, as a user
     runs it: the fixture at 1600x1200 (``script/make_dtu_fixture.py``),
@@ -1328,10 +1447,9 @@ def pipeline_phase(model, card):
 
     import torch
 
-    from uforecon_tpu_torch.cli import clean_mesh, depth_fusion, dtu_eval, run, tsdf_fusion
+    from uforecon_tpu_torch.cli import clean_mesh, depth_fusion, dtu_eval, tsdf_fusion
     from uforecon_tpu_torch.data.io import write_ply
     from uforecon_tpu_torch.fusion.tsdf import TSDFVolume, scan_bounds, scan_entries
-    from uforecon_tpu_torch.pipeline.renderer import SceneRenderer
     from uforecon_tpu_torch.script import make_dtu_fixture as fixture
 
     w, h = PIPELINE_WH
@@ -1353,59 +1471,23 @@ def pipeline_phase(model, card):
         ckpt = os.path.join(tmp, "weights.pt")
         torch.save(model.state_dict(), ckpt)
 
-        # kernel launches after each view's render
-        wrappers = launch_counts()
-        render_depth_view = SceneRenderer.render_depth_view
-
-        def cli_run(run_name, out_dir, extra):
-            """cli.run as a user runs it, its launches counted per view."""
-            per_view = []
-
-            def counted(self, *args, **kwargs):
-                res = render_depth_view(self, *args, **kwargs)
-                per_view.append({n: wr.launches for n, wr in wrappers.items()})
-                return res
-
-            for wr in wrappers.values():
-                wr.launches = 0
-            SceneRenderer.render_depth_view = counted
-            try:
-                stats = timed(f"extract_{run_name}_s", run.main, [
-                    "--extract_geometry", "--set", "0", "--volume_type", "correlation",
-                    "--volume_reso", "96", "--depth_pos_encoding", "--mvs_depth_guide", "1",
-                    "--explicit_similarity", "--test_n_view", "3", "--test_ray_num", "800",
-                    "--test_ref_view", *views, "--root_dir", root, "--out_dir", out_dir,
-                    "--test_scan", "scan24", "--load_ckpt", ckpt, *extra])["scan24"]
-            finally:
-                SceneRenderer.render_depth_view = render_depth_view
-            launches = {n: wr.launches for n, wr in wrappers.items()}
-            check_launches(run_name, launches)
-            prev = {n: 0 for n in wrappers}
-            for i, snap in enumerate(per_view):
-                idle = [n for n in MUST_RUN[run_name] if snap[n] <= prev[n]]
-                if idle:
-                    raise AssertionError(f"cli.run view {i}: kernels {idle} not launched")
-                prev = snap
-            if len(per_view) != 3:
-                raise AssertionError(f"cli.run rendered {len(per_view)} views, not 3")
-            path = "merged" if stats["merged"] else "per-stage"
-            log(f"[pipeline] cli.run {' '.join(extra) or 'at its defaults'}, 3 views "
-                f"{w}x{h}, 64+64 samples, seeded weights from a state-dict file, "
-                f"{path} volumes, kernel_precision {stats['kernel_precision']}: "
-                f"{stats['rays_per_sec']:.1f} rays/s (the JAX statistic: all rays over "
-                f"the time after view 0's render), encode {stats['encode_s']:.3f} s, "
-                f"render {stats['render_s']:.3f} s, {times[f'extract_{run_name}_s']:.1f} s "
-                f"in all; launches per view "
-                f"{[{n: v[n] for n in MUST_RUN[run_name]} for v in per_view]} [{card}]")
-            return stats, launches
-
+        base = ["--extract_geometry", "--set", "0", "--volume_type", "correlation",
+                "--volume_reso", "96", "--depth_pos_encoding", "--mvs_depth_guide", "1",
+                "--explicit_similarity", "--test_n_view", "3", "--test_ray_num", "800",
+                "--test_ref_view", *views, "--root_dir", root, "--test_scan", "scan24",
+                "--load_ckpt", ckpt]
         # at its defaults: the JAX package's extraction defaults
-        shipped, launches = cli_run("pipeline", out, [])
+        shipped, launches, _ = cli_run("pipeline", "pipeline", base + ["--out_dir", out],
+                                       [], "scan24", 3, (w, h), card)
+        times["extract_pipeline_s"] = shipped["seconds"]
         if not shipped["merged"] or shipped["kernel_precision"] != "fast":
             raise AssertionError(f"cli.run at its defaults resolved {shipped}")
-        exact, launches_exact = cli_run("pipeline_exact", os.path.join(tmp, "out_exact"), [
-            "--volume_merge", "never", "--volume_dtype", "float32",
-            "--image_gather_dtype", "float32", "--kernel_precision", "highest"])
+        exact, launches_exact, _ = cli_run(
+            "pipeline", "pipeline_exact", base + ["--out_dir", os.path.join(tmp, "out_exact")],
+            ["--volume_merge", "never", "--volume_dtype", "float32",
+             "--image_gather_dtype", "float32", "--kernel_precision", "highest"],
+            "scan24", 3, (w, h), card)
+        times["extract_pipeline_exact_s"] = exact["seconds"]
         if exact["merged"] or exact["kernel_precision"] != "highest":
             raise AssertionError(f"cli.run with the exact flags resolved {exact}")
 
@@ -1481,6 +1563,145 @@ def pipeline_phase(model, card):
         f"the exact flags {exact['rays_per_sec']:.1f}; the sphere (analytic depth maps) "
         f"at accuracy {acc:.4f} mm, completeness {comp:.4f} mm [{card}]")
     return {"pipeline": launches, "pipeline_exact": launches_exact}
+
+
+def general_phase(model, card):
+    """The custom-capture flow (GeneralFit, ``--test_general``) through the
+    port's CLIs, as a user runs it on a BlendedMVS-style scan: the port's
+    fixture (``script/make_general_fixture.py``: 5 views of a sphere at
+    768x576, baseline JPEGs and masks, written and read without OpenCV)
+    built here, and the host time of ``read_jpeg`` on one of its images;
+    ``cli.run --extract_geometry --test_general --dataset blendedmvs
+    --use_mask`` at full width on this model's weights (a state-dict file)
+    at 3 views at its defaults with ``--extract_similarity --sim_reso 128``
+    (fast kernels 1 and 2 on every view; then kernel 7 alone, 32 launches
+    for the field), with the exact flags (3xTF32 kernels 1 and 2), and at
+    5 views at its defaults (the JAX guard's 7,077,888,000 bytes: per-stage
+    volumes; peak memory); then one 65,536-point chunk of the field on the
+    card against the CPU's on the card's encoding (``cosine`` tolerance,
+    the same -1 cells), the first 256 rays of the scene on the card against
+    the CPU (``agree_with_cpu``), and ``cli.tsdf_fusion --dataset general``
+    on the 3-view depth maps, which must write the mesh. Returns the
+    launches counted per run and the phase's numbers."""
+    import contextlib
+    import io
+
+    import torch
+
+    from uforecon_tpu_torch.cli import tsdf_fusion
+    from uforecon_tpu_torch.config import EXACT, Config
+    from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
+    from uforecon_tpu_torch.data.general_fit import GeneralFit
+    from uforecon_tpu_torch.data.image import read_jpeg
+    from uforecon_tpu_torch.pipeline.extract import similarity_field_chunk, similarity_grid
+    from uforecon_tpu_torch.script import make_general_fixture
+
+    w, h = GENERAL_WH
+    scan = GENERAL_SCAN
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "general")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            make_general_fixture.main([root, scan])
+        out["fixture_s"] = time.perf_counter() - t0
+        image = os.path.join(root, scan, "blended_images", "00000000_masked.jpg")
+        t0 = time.perf_counter()
+        pixels = read_jpeg(image)
+        out["read_jpeg_s"] = time.perf_counter() - t0
+        log(f"[general] fixture (5 views {w}x{h}, JPEG images and masks) written in "
+            f"{out['fixture_s']:.2f} s; read_jpeg of one {pixels.shape[1]}x"
+            f"{pixels.shape[0]} quality-95 image: {out['read_jpeg_s']:.3f} s on the host "
+            f"({os.cpu_count()} cores)")
+        ckpt = os.path.join(tmp, "weights.pt")
+        torch.save(model.state_dict(), ckpt)
+
+        def general_run(run_name, n_view, out_dir, extra):
+            """cli.run --test_general, each view's depth map checked."""
+            base = ["--extract_geometry", "--test_general", "--dataset", "blendedmvs",
+                    "--use_mask", "--volume_type", "correlation", "--volume_reso", "96",
+                    "--depth_pos_encoding", "--mvs_depth_guide", "1",
+                    "--explicit_similarity", "--test_n_view", str(n_view),
+                    "--test_ref_view", *map(str, range(n_view)), "--test_ray_num", "800",
+                    "--root_dir", root, "--out_dir", out_dir, "--test_scan", scan,
+                    "--load_ckpt", ckpt]
+            stats, rendered, after = cli_run("general", run_name, base, extra, scan,
+                                             n_view, (w, h), card)
+            for i in range(n_view):
+                e = np.load(os.path.join(out_dir, "depth", scan, f"refview{i}.npy"),
+                            allow_pickle=True).item()
+                if e["depth"].shape != (h, w) or not np.all(np.isfinite(e["depth"])):
+                    raise AssertionError(f"{run_name} refview{i}: depth {e['depth'].shape}")
+            out[run_name] = {k: v for k, v in stats.items() if k != "rays"}
+            launches[run_name] = rendered
+            return stats, after
+
+        out3 = os.path.join(tmp, "out3")
+        shipped, after = general_run("general", 3, out3, [
+            "--extract_similarity", "--sim_reso", str(GENERAL_SIM_RESO)])
+        if not shipped["merged"] or shipped["kernel_precision"] != "fast":
+            raise AssertionError(f"cli.run --test_general at its defaults resolved {shipped}")
+        # the similarity field: kernel 7 alone, one launch per 65,536 points
+        launches["general_sim"] = after
+        check_launches("general_sim", after)
+        if after["grouped_cosine"] != GENERAL_SIM_CHUNKS:
+            raise AssertionError(f"the field launched kernel 7 {after['grouped_cosine']} "
+                                 f"times, not {GENERAL_SIM_CHUNKS}")
+        ply = os.path.join(out3, "similarity", f"{scan}.ply")
+        if not os.path.exists(ply):
+            raise AssertionError(f"--extract_similarity wrote no {ply}")
+        log(f"[general] similarity field {GENERAL_SIM_RESO}^3: {shipped['similarity_s']:.3f} "
+            f"s (encode and {GENERAL_SIM_CHUNKS} chunks of 65,536 points), kernel 7 "
+            f"launches {after['grouped_cosine']}, mesh {ply} [{card}]")
+        exact, _ = general_run("general_exact", 3, os.path.join(tmp, "out_exact"), [
+            "--volume_merge", "never", "--volume_dtype", "float32",
+            "--image_gather_dtype", "float32", "--kernel_precision", "highest"])
+        if exact["merged"] or exact["kernel_precision"] != "highest":
+            raise AssertionError(f"cli.run --test_general exact resolved {exact}")
+        five, _ = general_run("general_5", 5, os.path.join(tmp, "out5"), [])
+        if five["merged"] or five["kernel_precision"] != "fast":
+            raise AssertionError(f"cli.run --test_general at 5 views resolved {five}; the "
+                                 "JAX guard gives per-stage volumes there")
+
+        # one chunk of the field (the grid's middle one), card vs CPU on the
+        # card's encoding, and the scene's first rays card vs CPU
+        model_s = model.with_knobs(extract_geometry=True,
+                                   **{k: getattr(Config(), k) for k in EXACT})
+        ds = GeneralFit(root, scan, n_views=3, test_ref_view=[0, 1, 2],
+                        dataset="blendedmvs", use_mask=True)
+        sample = ds[0]
+        scene, _ = scene_inputs_from_sample(sample, "cuda")
+        grid = similarity_grid(GENERAL_SIM_RESO)
+        mid = GENERAL_SIM_CHUNKS // 2 * 65536
+        pts = torch.as_tensor(grid[mid:mid + 65536])
+        with torch.no_grad():
+            enc = model_s.encode(scene)
+            card_vals = similarity_field_chunk(scene, enc, pts.cuda()).cpu().numpy()
+            cpu_vals = similarity_field_chunk(to_cpu(scene), to_cpu(enc), pts).numpy()
+        seen = card_vals != -1.0
+        err = float(np.abs(card_vals - cpu_vals).max())
+        log(f"[general] field chunk {mid // 65536} (65,536 points, {seen.mean():.4f} seen "
+            f"by every view): card vs CPU max abs err {err:.3e} (tol {TOL['cosine']}), "
+            f"-1 cells equal {np.array_equal(seen, cpu_vals != -1.0)} [{card}]")
+        if not err <= TOL["cosine"] or not np.array_equal(seen, cpu_vals != -1.0) \
+                or not seen.any():
+            raise AssertionError("the card's similarity field disagrees with the CPU's")
+        del enc, scene
+        out["field_chunk"] = {"max_abs_err": err, "seen_share": float(seen.mean())}
+        out["agree"] = agree_with_cpu(model_s, sample, "general")
+
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tsdf_fusion.main(["--out_dir", out3, "--n_view", "3", "--voxel_size", "4",
+                              "--test_scan", scan, "--dataset", "general"])
+        out["tsdf_s"] = time.perf_counter() - t0
+        mesh = os.path.join(out3, "mesh", f"{scan}.ply")
+        if not os.path.exists(mesh):
+            raise AssertionError(f"cli.tsdf_fusion --dataset general wrote no {mesh}")
+        log(f"[general] cli.tsdf_fusion --dataset general on the 3-view depth maps: "
+            f"{out['tsdf_s']:.2f} s, {mesh} ({os.path.getsize(mesh)} bytes) [{card}]")
+    torch.cuda.empty_cache()
+    return launches, out
 
 
 def step_profile(cfg, model, state, scene, batch, gen):
@@ -1658,7 +1879,7 @@ def training_phase(card):
 
     import torch
 
-    from uforecon_tpu_torch.cli import run as cli_run
+    from uforecon_tpu_torch.cli import run
     from uforecon_tpu_torch.config import Config
     from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
     from uforecon_tpu_torch.pipeline import trainer
@@ -1740,7 +1961,7 @@ def training_phase(card):
         for wr in wrappers.values():
             wr.launches = 0
         t_cli = time.perf_counter()
-        st = cli_run.main(model_flags + [
+        st = run.main(model_flags + [
             "--debug", "--root_dir", root, "--train_list", paths["train"],
             "--val_list", paths["val"], "--pair_file", paths["pair"], "--logdir", logdir])
         torch.cuda.synchronize()
@@ -1756,7 +1977,7 @@ def training_phase(card):
             raise AssertionError(f"cli.run --debug: step {st.step}, validation {val}, "
                                  f"checkpoint {os.path.exists(ckpt)}")
         ex_out = os.path.join(tmp, "out")
-        stats = cli_run.main(model_flags + [
+        stats = run.main(model_flags + [
             "--extract_geometry", "--root_dir", root, "--out_dir", ex_out,
             "--test_scan", "scan24", "--img_wh", "320", "256", "--load_ckpt", ckpt])["scan24"]
         for i in range(3):
@@ -1882,6 +2103,8 @@ def main():
     ab_phase(models, scene, enc, extras, card)
     del scene, enc, enc_s, merged, extras
     launches.update(pipeline_phase(model, card))
+    general_launches, general = general_phase(model, card)
+    launches.update(general_launches)
     train_launches, train = training_phase(card)
     launches.update(train_launches)
     tests_phase(card)
@@ -1897,6 +2120,7 @@ def main():
                            if name in pack_counters() else {}),
                         **({"precision": "fast"} if name in FAST else {}),
                         **kres[name]})
+    log("[general] " + json.dumps(general))
     log("[train] " + json.dumps(train))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

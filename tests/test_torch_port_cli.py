@@ -21,9 +21,11 @@ The depth maps agree within 2e-4 relative on >= 99 % of pixels (the slice
 tolerance: a ~1e-7 difference can flip an importance-sampling bin), and
 their extrinsic and intrinsic to 1e-6.
 
-The other tests hold the flag handling: the JAX defaults, each flag set
-the port cannot build raising with the flag named, the 15-scan loop, and
-every CLI of the port asking for the card by default.
+The other tests hold the flag handling: every option of the JAX parser
+with its default, the six flags the JAX package leaves unread accepted and
+dropped, each flag set the port cannot build raising with the flag named
+(``--grad_method undetached`` among them), the 15-scan loop, and every CLI
+of the port asking for the card by default.
 """
 import functools
 import os
@@ -158,19 +160,45 @@ def test_cli_renders_with_and_without_explicit_similarity(fixture_root, tmp_path
         assert d["depth"].shape == (128, 160) and np.all(np.isfinite(d["depth"]))
 
 
+def _parser(config_from_args_fn, argv):
+    """The ArgumentParser that ``config_from_args_fn`` builds, caught as it
+    parses ``argv``."""
+    import argparse
+
+    seen = []
+    parse = argparse.ArgumentParser.parse_args
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args",
+                  lambda self, *a, **k: seen.append(self) or parse(self, *a, **k))
+        config_from_args_fn(argv)
+    return {a.dest: a for a in seen[0]._actions if a.dest != "help"}
+
+
 def test_flag_defaults_are_the_jax_ones():
     from uforecon_tpu.config import config_from_args as jax_config_from_args
 
-    cfg, device = config_from_args(["--extract_geometry", "--depth_pos_encoding",
-                                    "--explicit_similarity"])
-    want = jax_config_from_args(["--extract_geometry", "--depth_pos_encoding",
-                                 "--explicit_similarity"])
+    argv = ["--extract_geometry", "--depth_pos_encoding", "--explicit_similarity"]
+    # every option of the JAX parser, with its spelling, arity, type and default
+    want_opts, got_opts = _parser(jax_config_from_args, argv), _parser(config_from_args,
+                                                                         argv)
+    assert len(want_opts) == 58 and set(want_opts) <= set(got_opts)
+    for dest, w in want_opts.items():
+        g = got_opts[dest]
+        assert (g.option_strings, g.nargs, g.const, g.type, g.default) == \
+            (w.option_strings, w.nargs, w.const, w.type, w.default), dest
+    assert set(got_opts) - set(want_opts) == {
+        "volume_merge", "merge_depth", "merge_pad", "merge_max_bytes", "volume_dtype",
+        "image_gather_dtype", "kernel_precision", "device"}
+    cfg, device = config_from_args(argv)
+    want = jax_config_from_args(argv)
     assert device == "cuda"
     for field in ("root_dir", "out_dir", "seed", "load_ckpt",
                   "test_sample_coarse", "test_sample_fine",
                   "extract_geometry", "test_n_view", "test_ray_num", "test_ref_view",
                   "test_scan", "set", "test_coarse_only", "img_wh", "ndepths",
                   "depth_inter_r", "cr_base_chs", "explicit_similarity",
+                  "test_general", "dataset", "use_mask", "extract_similarity",
+                  "sim_reso", "sim_threshold",
                   # the evaluation approximations, which the JAX CLI sets by
                   # its defaults (its UFO_* environment overrides aside)
                   "volume_merge", "merge_depth", "merge_pad", "merge_max_bytes",
@@ -201,8 +229,7 @@ def test_flag_defaults_are_the_jax_ones():
     (["--share_cr"], "--share_cr"),
     (["--compute_dtype", "bfloat16"], "--compute_dtype bfloat16"),
     (["--encoder_dtype", "bfloat16"], "--encoder_dtype bfloat16"),
-    (["--test_general"], "--test_general"),
-    (["--extract_similarity"], "--extract_similarity"),
+    (["--grad_method", "undetached"], "--grad_method undetached"),
     (["--mesh_shape", "2"], "--mesh_shape 2"),
 ])
 def test_unsupported_flag_sets_raise(flags, named):
@@ -210,6 +237,27 @@ def test_unsupported_flag_sets_raise(flags, named):
         else ["--extract_geometry", "--depth_pos_encoding"]
     with pytest.raises(ValueError, match=named):
         run.main(base + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--test_dir", "some/dir"], ["--depth_dir", "some/dir"], ["--patch_size", "3"],
+    ["--sW", "2"], ["--sH", "2"], ["--only_reference_frustum"],
+    ["--grad_method", "detach"]])
+def test_inert_jax_flags_are_accepted_and_dropped(flags):
+    """The flags the JAX package accepts and never reads (its
+    ``config.py:7-15``) parse, and change nothing; ``detach`` is what the
+    port always does."""
+    base = ["--extract_geometry", "--depth_pos_encoding"]
+    assert config_from_args(base + flags) == config_from_args(base)
+
+
+def test_general_and_similarity_flags_reach_the_config():
+    cfg, _ = config_from_args(["--extract_geometry", "--depth_pos_encoding",
+                               "--test_general", "--dataset", "blendedmvs", "--use_mask",
+                               "--extract_similarity", "--sim_reso", "64",
+                               "--sim_threshold", "0.9"])
+    assert (cfg.test_general, cfg.dataset, cfg.use_mask, cfg.extract_similarity,
+            cfg.sim_reso, cfg.sim_threshold) == (True, "blendedmvs", True, True, 64, 0.9)
 
 
 def test_supported_dtype_flags_parse():

@@ -100,7 +100,15 @@ def test_gather_modules_import_without_jax():
             "uforecon_tpu_torch.pipeline.trainer, uforecon_tpu_torch.pipeline.fit, "
             "uforecon_tpu_torch.pipeline.checkpoint, uforecon_tpu_torch.data.dtu_train, "
             "uforecon_tpu_torch.utils.metrics, uforecon_tpu_torch.utils.logging, "
-            "uforecon_tpu_torch.script.learn_sanity, uforecon_tpu_torch.cli.run")
+            "uforecon_tpu_torch.script.learn_sanity, uforecon_tpu_torch.cli.run, "
+            "uforecon_tpu_torch.data.image, uforecon_tpu_torch.data.general_fit, "
+            "uforecon_tpu_torch.data.colmap, uforecon_tpu_torch.cli.colmap2mvsnet, "
+            "uforecon_tpu_torch.pipeline.extract, "
+            "uforecon_tpu_torch.script.make_general_fixture; "
+            # and every other module of the port
+            "import importlib, pkgutil, uforecon_tpu_torch; "
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "uforecon_tpu_torch.__path__, 'uforecon_tpu_torch.')]")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr

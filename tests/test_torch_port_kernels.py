@@ -619,8 +619,22 @@ def test_fast_kernel_matches_plain_on_gpu(rng, cuda_device, kernel):
     """The bf16 instantiation against the fast plain version: counted on
     ``launches_fast``, not on ``launches``, and away from the 3xTF32 kernel
     by bf16's size."""
+    _check_fast_kernel(rng, cuda_device, kernel)
+
+
+@pytest.mark.parametrize("nv", [2, 4, 5])
+@pytest.mark.parametrize("kernel", ["point_head", "point_head2"])
+def test_fast_point_head_kernels_match_plain_at_each_view_count_on_gpu(rng, cuda_device,
+                                                                      kernel, nv):
+    """The fast point heads at the other view counts a render gives them
+    (``--test_n_view`` 2 to 5), as test_fast_kernel_matches_plain_on_gpu
+    holds them at 3."""
+    _check_fast_kernel(rng, cuda_device, kernel, nv=nv)
+
+
+def _check_fast_kernel(rng, cuda_device, kernel, nv=3):
     if kernel.startswith("point_head"):
-        inputs, params = _point_case(rng, nv=3, n=1001)
+        inputs, params = _point_case(rng, nv=nv, n=1001)
         args = (pph.PointHeadInputs(**{k: _t(v).to(cuda_device) for k, v in inputs.items()}),
                 _on(cuda_device, _port_params(pph.PointHeadParams, params)))
         mod = pph if kernel == "point_head" else pph2

@@ -45,9 +45,11 @@ values, defaults and validation (``uforecon_tpu/config.py:116-265``):
     cache, so two models of one process may run two modes. That differs
     from JAX only in a process whose JAX kernels would trace under two
     modes: JAX refuses an explicit second mode, and its ``auto`` keeps the
-    first (a process that trains and then extracts, as ``learn_sanity``'s
-    mesh evaluation, extracts at ``high`` there and at ``fast`` here). The
-    trainer refuses ``fast``, as JAX does.
+    first. A process that trains and then extracts, as ``learn_sanity``'s
+    mesh evaluation, therefore extracts at ``high`` in JAX; the port's
+    ``learn_sanity`` passes its trainer's resolved mode to the evaluation's
+    config, so it extracts at ``high`` too. The trainer refuses ``fast``,
+    as JAX does.
 ``EXACT`` sets all four to the exact path (``never`` / ``float32`` /
 ``highest``), the configuration the JAX goldens pin.
 
@@ -56,9 +58,15 @@ render; under ``extract_geometry`` it reads ``test_sample_coarse`` /
 ``test_sample_fine`` in their place, as the JAX package does
 (``models/uforecon.py:389-390``). ``test_coarse_only`` returns the coarse
 pass as both outputs. The scan, view and checkpoint fields are those of the
-JAX package's extract command, the training fields (``logdir`` ...
-``pair_file``, ``numdepth``) those of its training command, with the same
-names and defaults; ``config_from_args`` parses the flags of both.
+JAX package's extract command (with ``test_general``, ``dataset`` and
+``use_mask`` for GeneralFit, and ``extract_similarity``, ``sim_reso`` and
+``sim_threshold`` for the similarity field), the training fields
+(``logdir`` ... ``pair_file``, ``numdepth``) those of its training command,
+with the same names and defaults; ``config_from_args`` parses every flag of
+the JAX parser. Six of them are inert in the JAX package too and are
+accepted and dropped: ``--test_dir``, ``--depth_dir``, ``--patch_size``,
+``--sW``, ``--sH`` and ``--only_reference_frustum``
+(``uforecon_tpu/config.py:7-15``).
 
 The three render-glue knobs keep the JAX names, values and defaults
 (``never``). In the JAX package ``auto`` means "on a TPU"; in the port
@@ -138,6 +146,12 @@ class Config:
 
     # ---- testing (the extract command) -----------------------------------
     extract_geometry: bool = False
+    test_general: bool = False           # GeneralFit in place of the DTU scans
+    dataset: str = "dtu"                 # GeneralFit: blendedmvs | mvimage | ...
+    use_mask: bool = False               # GeneralFit: apply masks/{vid}_mask.jpg
+    extract_similarity: bool = False     # + the mean-similarity field's mesh
+    sim_reso: int = 128
+    sim_threshold: float = 0.99
     test_n_view: int = 3
     test_ref_view: Tuple[int, ...] = (23, 24, 33)
     test_scan: str = "scan1"
@@ -290,10 +304,9 @@ _UNSUPPORTED = (
      "--compute_dtype {a.compute_dtype}: the port computes in float32"),
     (lambda a: a.encoder_dtype not in ("", "float32"),
      "--encoder_dtype {a.encoder_dtype}: the port computes in float32"),
-    (lambda a: a.test_general,
-     "--test_general: the GeneralFit dataset is not ported"),
-    (lambda a: a.extract_similarity,
-     "--extract_similarity: the similarity field is not ported"),
+    (lambda a: a.grad_method != "detach",
+     "--grad_method {a.grad_method}: the port always detaches the cascade's "
+     "depth hypotheses (detach)"),
     (lambda a: _ints(a.mesh_shape) != (1,),
      "--mesh_shape {a.mesh_shape}: the port renders on one card"),
 )
@@ -312,14 +325,20 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
 
     Returns the Config and the device. Raises ``ValueError``, naming the
     flag, on a flag set that selects a model or a path the port does not
-    have, rather than rendering its default model."""
+    have (``--grad_method undetached`` among them: the port always
+    detaches), rather than rendering its default model."""
     import argparse
 
     p = argparse.ArgumentParser(
         "uforecon_tpu_torch.cli.run",
         description="Train on DTU, or with --extract_geometry render the depth "
-                    "maps of DTU scans, on a CUDA card.")
+                    "maps of DTU scans or (--test_general) of a custom capture, "
+                    "on a CUDA card.")
     d = Config()
+    p.add_argument("--dataset", type=str, default=d.dataset,
+                   help="GeneralFit's layout: blendedmvs; any other value reads "
+                        "images/{vid:08d}.jpg at 960x544 (mvimage also fixes "
+                        "near/far to 400/900)")
     p.add_argument("--root_dir", type=str, default=d.root_dir)
     p.add_argument("--out_dir", type=str, default=d.out_dir)
     p.add_argument("--seed", type=int, default=d.seed)
@@ -331,6 +350,7 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
     p.add_argument("--exp_name", type=str, default=d.exp_name)
     p.add_argument("--debug", action="store_true",
                    help="training: 3 steps, then one validation and a checkpoint")
+    p.add_argument("--use_mask", action="store_true")
     p.add_argument("--batch_size", type=int, default=d.batch_size)
     p.add_argument("--max_epochs", type=int, default=d.max_epochs)
     p.add_argument("--uforecon_lr", type=float, default=d.uforecon_lr)
@@ -339,6 +359,7 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
     p.add_argument("--train_n_view", type=int, default=d.train_n_view)
     p.add_argument("--view_selection_type", type=str, default=d.view_selection_type)
     p.add_argument("--val_only", action="store_true")
+    p.add_argument("--depth_dir", type=str, default=None, help="accepted and unused")
     p.add_argument("--train_ray_num", type=int, default=d.train_ray_num)
     p.add_argument("--coarse_sample", type=int, default=d.coarse_sample)
     p.add_argument("--fine_sample", type=int, default=d.fine_sample)
@@ -348,6 +369,9 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
     p.add_argument("--numdepth", type=int, default=d.numdepth)
     p.add_argument("--test_sample_coarse", type=int, default=d.test_sample_coarse)
     p.add_argument("--test_sample_fine", type=int, default=d.test_sample_fine)
+    p.add_argument("--patch_size", type=int, default=1, help="accepted and unused")
+    p.add_argument("--sW", type=int, default=1, help="accepted and unused")
+    p.add_argument("--sH", type=int, default=1, help="accepted and unused")
     p.add_argument("--extract_geometry", action="store_true")
     p.add_argument("--test_general", action="store_true")
     p.add_argument("--test_n_view", type=int, default=d.test_n_view)
@@ -359,10 +383,14 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
     p.add_argument("--set", type=int, default=d.set)
     p.add_argument("--test_coarse_only", action="store_true")
     p.add_argument("--extract_similarity", action="store_true")
+    p.add_argument("--sim_reso", type=int, default=d.sim_reso)
+    p.add_argument("--sim_threshold", type=float, default=d.sim_threshold)
+    p.add_argument("--test_dir", type=str, default="", help="accepted and unused")
     p.add_argument("--ndepths", type=str, default="48,32,8")
     p.add_argument("--depth_inter_r", type=str, default="4,2,1")
     p.add_argument("--cr_base_chs", type=str, default="8,8,8")
     p.add_argument("--share_cr", action="store_true")
+    p.add_argument("--grad_method", type=str, default="detach")
     p.add_argument("--volume_type", type=str, default="correlation")
     p.add_argument("--volume_reso", type=int, default=96)
     p.add_argument("--mvs_depth_guide", type=int, default=1)
@@ -371,6 +399,8 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
                    help="without it: the paper's ablation without explicit "
                         "similarity, as in the JAX package")
     p.add_argument("--use_dir_srdf", action="store_true")
+    p.add_argument("--only_reference_frustum", action="store_true",
+                   help="accepted and unused")
     p.add_argument("--compute_dtype", type=str, default="float32")
     p.add_argument("--encoder_dtype", type=str, default="")
     p.add_argument("--mesh_shape", type=str, default="1")
@@ -404,6 +434,9 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
         numdepth=a.numdepth,
         test_sample_coarse=a.test_sample_coarse, test_sample_fine=a.test_sample_fine,
         test_ray_num=a.test_ray_num, extract_geometry=a.extract_geometry,
+        test_general=a.test_general, dataset=a.dataset, use_mask=a.use_mask,
+        extract_similarity=a.extract_similarity, sim_reso=a.sim_reso,
+        sim_threshold=a.sim_threshold,
         test_n_view=a.test_n_view, test_ref_view=tuple(a.test_ref_view),
         test_scan=a.test_scan, set=a.set, test_coarse_only=a.test_coarse_only,
         img_wh=tuple(a.img_wh), ndepths=_ints(a.ndepths),

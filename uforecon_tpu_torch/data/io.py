@@ -103,6 +103,15 @@ def read_pair_file(path) -> List[Tuple[int, List[int]]]:
     return out
 
 
+def write_pair_file(path, pairs: List[Tuple[int, List[Tuple[int, float]]]]) -> None:
+    """Write pair.txt from [(ref, [(src, score), ...]), ...]."""
+    with open(path, "w") as f:
+        f.write(f"{len(pairs)}\n")
+        for ref, srcs in pairs:
+            f.write(f"{ref}\n{len(srcs)} ")
+            f.write(" ".join(f"{v} {s:.4f}" for v, s in srcs) + "\n")
+
+
 # --------------------------------------------------------------------------
 # PLY (binary little-endian + ascii read; binary write)
 # --------------------------------------------------------------------------

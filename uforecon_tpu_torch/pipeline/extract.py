@@ -6,8 +6,12 @@ depth layout, which the fusion tools read:
     {out_dir}/{scan}/depth/{name}.png   normalised depth preview  (previews)
     {out_dir}/rgb/{scan}/{name}.png     rgb preview               (previews)
 The previews are PNGs written by ``data/image.py`` (the JAX package writes
-the rgb preview as a JPEG through PIL; the port has neither PIL nor a JPEG
-codec). The port's fusion tools read the rgb previews as colours.
+the rgb preview as a JPEG through PIL). The port's fusion tools read the
+rgb previews as colours.
+
+``extract_similarity_field`` and ``similarity_mesh`` are the
+``--extract_similarity`` path: the mean explicit-similarity field of one
+view set over a grid, and its iso-surface.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import torch
 from ..data.convert import scene_inputs_from_sample
 from ..data.image import write_png
 from ..device import DEFAULT
-from ..models.uforecon import UFORecon
+from ..models.ray_transformer import query_similarity
+from ..models.uforecon import EncoderOutputs, SceneInputs, UFORecon
 from .renderer import SceneRenderer
 
 
@@ -104,3 +109,63 @@ def extract_geometry_for_dataset(model: UFORecon, dataset,
             "render_s": t_ren, "rays_per_sec": total_rays / elapsed,
             "merged": merged,
             "kernel_precision": model.kernel_precision}
+
+
+@torch.no_grad()
+def similarity_field_chunk(scene: SceneInputs, enc: EncoderOutputs, points: torch.Tensor,
+                           n_groups: int = 8) -> torch.Tensor:
+    """The mean pairwise similarity at ``points`` (P, 3), on their device:
+    ``query_similarity``'s 8-group cosine averaged over the groups, -1
+    where a view sees a point at a depth that is not positive. The pair
+    maps are sampled from float32, as in JAX (no ``image_gather_dtype``
+    here), and the cosine takes the grouped-cosine wrapper, JAX's
+    ``fused='auto'``: the kernel for the card's tensors
+    (``ops/fused_similarity.py``, which raises if it cannot launch), its
+    plain version for the CPU's. Returns (P,)."""
+    sim, _, valid = query_similarity(points[None], scene.source_poses, enc.aug0, enc.aug1,
+                                     int(scene.source_imgs.shape[0]), n_groups=n_groups,
+                                     fused="auto")
+    return torch.where(valid[:, 0].all(dim=0), sim[0].mean(dim=-1),
+                       torch.full_like(sim[0, :, 0], -1.0))
+
+
+def similarity_grid(reso: int, bound: float = 1.0) -> np.ndarray:
+    """The field's points, (reso^3, 3) float32 over [-bound, bound]^3 in
+    ``ij`` order."""
+    axis = np.linspace(-bound, bound, reso, dtype=np.float32)
+    return np.stack(np.meshgrid(axis, axis, axis, indexing="ij"), -1).reshape(-1, 3)
+
+
+@torch.no_grad()
+def extract_similarity_field(model: UFORecon, scene: SceneInputs, reso: int = 128,
+                             chunk: int = 65536, bound: float = 1.0) -> np.ndarray:
+    """The mean pairwise-similarity field over a reso^3 grid in
+    [-bound, bound]^3 (the JAX package's ``extract_similarity_field``;
+    reference model.py:844-911): encode once, then
+    ``similarity_field_chunk`` in chunks of ``chunk`` points, the last one
+    padded. Returns (reso, reso, reso) float32."""
+    enc = model.encode(scene)
+    grid = similarity_grid(reso, bound)
+    out = np.empty(len(grid), np.float32)
+    for s in range(0, len(grid), chunk):
+        blk = grid[s:s + chunk]
+        n = len(blk)
+        if n < chunk:
+            blk = np.concatenate([blk, np.zeros((chunk - n, 3), np.float32)])
+        pts = torch.as_tensor(blk, device=scene.source_poses.device)
+        out[s:s + n] = similarity_field_chunk(scene, enc, pts,
+                                              model.cfg.cos_n_group)[:n].cpu().numpy()
+    return out.reshape(reso, reso, reso)
+
+
+def similarity_mesh(field: np.ndarray, threshold: float = 0.99, bound: float = 1.0):
+    """Marching cubes of the similarity field at ``threshold`` (the
+    reference's mcubes level 0.99, model.py:880), the surface where the
+    similarity falls below it; vertices mapped back to [-bound, bound]^3.
+    Returns (vertices (N, 3), faces (M, 3))."""
+    from ..fusion.marching import marching_cubes
+
+    verts, faces = marching_cubes(-np.asarray(field), level=-threshold)
+    if len(verts):
+        verts = verts / (field.shape[0] - 1) * (2 * bound) - bound
+    return verts, faces

@@ -18,8 +18,10 @@ It passes when the trained L1 is below 0.6x the untrained one; with
 (``fusion/tsdf.py``, its largest component, ``postproc/clean_mesh.py``)
 lies within 10 % of the radius of the sphere, both ways (accuracy and
 completeness). It prints one JSON line and exits 0 on a pass.
-``--resume`` skips training and scores the latest checkpoint under
-``--logdir``. Runs on the card unless ``--device cpu``.
+After training, the renders take the trainer's kernel precision (``high``),
+as the JAX package's process does; ``--resume`` skips training and scores
+the latest checkpoint under ``--logdir`` at the extract default (``fast``).
+Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -179,10 +181,15 @@ class SphereDataset:
                            self.ndepth)
 
 
-def make_renderer(model: UFORecon, device) -> SceneRenderer:
+def make_renderer(model: UFORecon, device, precision: str = "auto") -> SceneRenderer:
     """A renderer of the extract path (test sample counts) on the same
-    weights."""
-    return SceneRenderer(model.with_knobs(extract_geometry=True), device, chunk=1024)
+    weights, its head kernels at ``precision``. After training, the caller
+    passes the trainer's resolved mode: the JAX package's process keeps the
+    mode its training kernels traced under (``high``), where a fresh
+    extract model's ``auto`` would give ``fast``."""
+    return SceneRenderer(model.with_knobs(extract_geometry=True,
+                                          kernel_precision=precision),
+                         device, chunk=1024)
 
 
 def _render_depth(renderer: SceneRenderer, sample, seed: int):
@@ -290,7 +297,8 @@ def main(argv=None) -> int:
         print(f"restored step {step}", flush=True)
         renderer = make_renderer(model, device)
         result = {"resumed_step": int(step),
-                  "depth_l1": round(render_depth_error(renderer, ds[0]), 4)}
+                  "depth_l1": round(render_depth_error(renderer, ds[0]), 4),
+                  "kernel_precision": renderer.model.kernel_precision}
         if args.mesh_eval:
             result.update(mesh_eval(renderer, ds))
         print(json.dumps(result))
@@ -299,7 +307,7 @@ def main(argv=None) -> int:
     print("stage 1: MVS pretraining...", flush=True)
     state = pretrain_mvs(cfg, train_ds=ds, max_steps=args.mvs_steps, log_every=20,
                          n_workers=2, device=device)
-    renderer = make_renderer(state.model, device)
+    renderer = make_renderer(state.model, device, state.model.kernel_precision)
     err0 = render_depth_error(renderer, ds[0])
     print(f"depth L1 (pre render-training): {err0:.4f} of depth span", flush=True)
 
@@ -312,6 +320,7 @@ def main(argv=None) -> int:
         "depth_l1_after": round(err1, 4),
         "improvement": round(err0 / max(err1, 1e-9), 2),
         "pass": bool(err1 < err0 * 0.6),
+        "kernel_precision": renderer.model.kernel_precision,
     }
     if args.mesh_eval:
         result.update(mesh_eval(renderer, ds))
