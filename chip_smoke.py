@@ -9,10 +9,11 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
   2. builds the port's CUDA kernels from ``uforecon_tpu_torch/csrc``;
   3. kernel phase: each of the nine kernels against its plain PyTorch
      version on the card at main-path shapes (the ray head and its NeuS
-     variant at both token widths, 88 and 72; the split-weight point head
-     at 65,536 and the ragged 65,537 points, timed beside the point head on
-     the same inputs; the row gather at 2048 blocks of 4096 rows, bit for
-     bit, timed beside ``torch.index_select``), with max abs errors,
+     variant at both token widths, 88 and 72, on random weights of each
+     width; the split-weight point head at 65,536 and the ragged 65,537
+     points, timed beside the point head on the same inputs; the row
+     gather at 2048 blocks of 4096 rows, bit for bit, timed beside
+     ``torch.index_select``), with max abs errors,
      CUDA-event times (median of several runs) of kernel and plain version,
      and the bound (the least time the card could take for the work; for
      the point heads and the ray head, whose layer GEMMs run on the tensor
@@ -29,7 +30,10 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      widths 88 and 72, 4) at the same shapes, each against its fast plain
      version (FAST_SHARE) and against the 3xTF32 kernel on the same inputs
      (a distance of bf16's size), with bf16 tensor bounds beside the
-     3xTF32 ones;
+     3xTF32 ones; kernels 2 and 3 (both precisions) also at the other model
+     configurations' widths and lengths (CONFIG_RAY_SHAPES: C 112 at SN 64,
+     128 and 256, C 80 and 64 at SN 64 and 128, C 88 at SN 256), on random
+     weights of each width, resident and streamed tiles;
   4. slice phase: ``extract_geometry_for_dataset`` on one DTU-scale view
      (800x640, 3 views, 192 hypotheses, 64 + 64 samples, seeded random
      weights) by six routes: on the exact path (``config.EXACT``) the
@@ -86,7 +90,16 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      flags, and at 5 views (per-stage volumes by the JAX guard; peak
      memory); a chunk of the field and the scene's first 256 rays, card
      against CPU; ``cli.tsdf_fusion --dataset general``;
- 11. training phase (``pipeline/trainer.py``, ``pipeline/fit.py``): at the
+ 11. configs phase: the JAX package's other model configurations
+     (CONFIGS: the feature grid without depth PE, no depth PE,
+     ``use_dir_srdf``, ``volume_reso`` 0, and the default model at 128 + 128
+     samples), each with seeded weights on the exact path rendering one
+     1024-ray chunk of the slice's scene on the card (kernels 5 and 2; at
+     128 + 128, 1 and 2) against the CPU; then ``cli.run --use_dir_srdf
+     --test_sample_coarse 128 --test_sample_fine 128`` at its defaults on
+     the DTU sphere fixture at 800x640 (ray-head width 112 at SN 128 and 256,
+     fast kernels 5 and 2 on every view): rays/s and peak memory;
+ 12. training phase (``pipeline/trainer.py``, ``pipeline/fit.py``): at the
      full width of the JAX training default (``ndepths`` 48/32/8, 192
      hypotheses, 64 + 64 samples, 1024 rays, 5 views at 640x512 on the
      learn_sanity sphere, seeded weights, matcher frozen, Adam on the
@@ -104,11 +117,11 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      on the checkpoint it wrote; (d) ``script/learn_sanity.py
      --mesh_eval`` at its defaults (120 MVS + 300 render steps, 160x128, 6
      views), which must pass its rule;
- 12. tests phase: the GPU unit tests of the kernels (``python -m pytest
+ 13. tests phase: the GPU unit tests of the kernels (``python -m pytest
      --noconftest -k on_gpu tests/test_torch_port_kernels.py``: every
      kernel against its plain version at further shapes, ragged edges and
      padded ray lengths) in a subprocess, which must pass;
- 13. prints a JSON line of per-kernel results, then the final
+ 14. prints a JSON line of per-kernel results, then the final
      ``{"ok": true, "device": {...}}`` line.
 Any failure exits non-zero without printing a result; without a CUDA card
 it exits 1 at once.
@@ -192,6 +205,21 @@ KERNEL_SOURCES = {
 FAST = {"point_head_fast": "point_head", "ray_head_fast": "ray_head",
         "ray_head_neus_fast": "ray_head_neus", "point_head2_fast": "point_head2"}
 KERNEL_SOURCES.update({f: KERNEL_SOURCES[k] for f, k in FAST.items()})
+# configs phase: the JAX package's other model configurations (flags of
+# both packages' Config), each rendering a 1024-ray chunk of the slice's
+# scene on the card against the CPU; their ray-head widths (d_view + 8) and
+# lengths (64 + 64 samples: SN 64 and 128; 128 + 128: 128 and 256)
+CONFIGS = {
+    "featuregrid": dict(volume_type="featuregrid", mvs_depth_guide=0,
+                        depth_pos_encoding=False),            # C 72
+    "no_depth_pe": dict(depth_pos_encoding=False),            # C 80
+    "dir_srdf": dict(use_dir_srdf=True),                      # C 112
+    "no_volume": dict(volume_reso=0),                         # C 64
+    "samples_128": dict(coarse_sample=128, fine_sample=128),  # C 88, SN 128 + 256
+}
+CONFIG_RAY_SHAPES = ((112, (64, 128, 256)), (80, (64, 128)), (64, (64, 128)),
+                     (88, (256,)))
+CONFIG_CHUNK = 1024
 # the run each kernel belongs to: its launches are read from that run
 ROUTE = {"point_head": "off", "ray_head": "off", "grouped_cosine": "on",
          "volume_fusion": "on", "ray_head_neus": "on", "tiny_attention": "A",
@@ -225,7 +253,14 @@ MUST_RUN = {"off": ("point_head", "ray_head"),
             "general": ("point_head_fast", "ray_head_fast"),
             "general_exact": ("point_head", "ray_head"),
             "general_5": ("point_head_fast", "ray_head_fast"),
-            "general_sim": ("grouped_cosine",)}
+            "general_sim": ("grouped_cosine",),
+            # the other model configurations: the view transformer (no
+            # point-head kernel, JAX's gate) and the ray head at their widths;
+            # the default model at 128 + 128 samples
+            **{f"config_{name}": ("tiny_attention", "ray_head") for name in CONFIGS
+               if name != "samples_128"},
+            "config_samples_128": ("point_head", "ray_head"),
+            "config_cli": ("tiny_attention", "ray_head_fast")}
 # H100 SXM data sheet at 700 W: FP32 outside the tensor cores, dense TF32
 # and dense bf16 on the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -447,9 +482,9 @@ def neus_check(got, want):
     return in_regime, regime, size, rel
 
 
-def kernel_phase(model, model_b, card):
-    """Each kernel vs its plain version on the card at main-path shapes;
-    model_b is route B's model (ray-head width 72)."""
+def kernel_phase(model, card):
+    """Each kernel vs its plain version on the card at main-path shapes,
+    the point heads on model's weights."""
     import torch
 
     from uforecon_tpu_torch.ops import fused_point_head as fph
@@ -560,21 +595,21 @@ def kernel_phase(model, model_b, card):
     # ray head, with and without the NeuS epilogue: one render chunk
     # launches it once at SN 64 (coarse) and once at SN 128 (fine), so the
     # per-chunk figures are the sums over the two; at width 88 (the
-    # default's weights) and 72 (route B's). At these weights a part of the
-    # random tokens' srdf is negative, so compositing matters; neus_check
-    # fails the run where it does not
+    # default) and 72 (route B), on random weights of each width
+    # (random_ray_params)
     near, far = 425.0 / 300.0, 900.0 / 300.0
 
-    def ray_head_case(name, m, c, sn):
+    def ray_head_case(name, head, c, sn):
         """One launch of the ray head (or its NeuS variant) at width c and
-        SN samples on m's weights, against its plain version."""
+        SN samples on head = (RayHeadParams, NeuS variance), against its
+        plain version."""
         neus = name == "ray_head_neus"
         tol = TOL["neus" if neus else "srdf"]
-        rparams = m.ray_transformer.ray_head_params()
+        rparams, variance = head
         y = randn(1024, sn, c)
         if neus:
             z = near + (far - near) * torch.sort(rand(1024, sn), dim=1).values
-            args = (y, z, rand(1024, sn, 3), torch.exp(m.variance.detach() * 10.0))
+            args = (y, z, rand(1024, sn, 3), torch.exp(variance * 10.0))
             kern, plain = frh.ray_head_neus, frh.ray_head_neus_reference
         else:
             args = (y,)
@@ -594,7 +629,9 @@ def kernel_phase(model, model_b, card):
         bounds = tensor_bound(nbytes(*args, frh.pack_weights(rparams), *got),
                               *ray_head_flops(1024, sn, c=c, neus=neus))
         err = max(err_by.values())
-        log(f"[kernel] {name} (1024, {sn}, {c}): max err {err:.3e} {err_by} "
+        rows = frh.tile_rows(sn, c, neus)
+        log(f"[kernel] {name} (1024, {sn}, {c}), tiles of {rows} rows "
+            f"({'resident' if rows >= sn else 'streamed'}): max err {err:.3e} {err_by} "
             f"(tol {tol}); kernel {k_ms:.3f} ms (call {call_ms:.3f}, call - kernel "
             f"{call_ms - k_ms:.3f}), plain {p_ms:.3f} ms, tensor bound "
             f"{bounds['bound_ms']:.4f} ms ({bounds['bound_by']}, share "
@@ -602,7 +639,7 @@ def kernel_phase(model, model_b, card):
             f"{bounds['fp32_bound_ms']:.4f} ms (share "
             f"{bounds['fp32_bound_ms'] / k_ms:.3f}) [{card}]")
         case = {"ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms, **bounds,
-                "errors": err_by}
+                "errors": err_by, "tile_rows": rows}
         if neus:
             in_regime, regime, size, rel = neus_check(got, want)
             log(f"[kernel] {name} C={c} SN={sn}: inputs {regime}; median |output| "
@@ -618,10 +655,25 @@ def kernel_phase(model, model_b, card):
             raise AssertionError(f"{name} kernel disagrees at C={c} SN={sn}: {err_by}")
         return case
 
+    # the ray heads' weights: random, of each width, drawn as the GPU unit
+    # tests draw them, so that their srdf crosses zero inside the rays and
+    # compositing matters (neus_check fails the run where it does not)
+    def random_ray_params(c):
+        def w(o, i):
+            return randn(o, i, scale=1.0 / np.sqrt(i))
+        return (frh.RayHeadParams(
+            wq=w(c, c), wk=w(c, c), wv=w(c, c), wmerge=w(c, c),
+            norm1_scale=1 + randn(c, scale=0.1), norm1_bias=randn(c, scale=0.1),
+            w1=w(2 * c, 2 * c), w2=w(c, 2 * c), norm2_scale=1 + randn(c, scale=0.1),
+            norm2_bias=randn(c, scale=0.1), dens_w=(w(32, c), w(16, 32), w(1, 16)),
+            dens_b=(randn(32, scale=0.1), randn(16, scale=0.1), randn(1, scale=0.1))),
+            torch.tensor(0.3, device=dev))
+
+    heads = {c: random_ray_params(c) for c in (88, 72)}
     for name in ("ray_head", "ray_head_neus"):
         by_c = {}
-        for c, m in ((88, model), (72, model_b)):
-            cases = {sn: ray_head_case(name, m, c, sn) for sn in (64, 128)}
+        for c in (88, 72):
+            cases = {sn: ray_head_case(name, heads[c], c, sn) for sn in (64, 128)}
             by_c[c] = {k: sum(x[k] for x in cases.values())
                        for k in ("ms", "call_ms", "plain_ms", "bound_ms",
                                  "fp32_bound_ms")}
@@ -638,6 +690,16 @@ def kernel_phase(model, model_b, card):
                              "bound_rate", "fp32_bound_ms", "fp32_bound_by",
                              "bound_share", "fp32_bound_share")},
                          "by_width": by_c}
+
+    # the other model configurations' widths and lengths (configs phase)
+    config_heads = {c: random_ray_params(c) for c, _ in CONFIG_RAY_SHAPES}
+    for name in ("ray_head", "ray_head_neus"):
+        results[name]["by_shape"] = {
+            f"C{c} SN{sn}": ray_head_case(name, config_heads[c], c, sn)
+            for c, sns in CONFIG_RAY_SHAPES for sn in sns}
+        results[name]["max_abs_err"] = max(
+            results[name]["max_abs_err"],
+            *(e for x in results[name]["by_shape"].values() for e in x["errors"].values()))
 
     # the fast variants (kernel_precision 'fast') at the same shapes: each
     # against its fast plain version (FAST_SHARE rule), and against the
@@ -719,15 +781,14 @@ def kernel_phase(model, model_b, card):
     for name in ("ray_head", "ray_head_neus"):
         neus = name == "ray_head_neus"
         by_c = {}
-        for c, m in ((88, model), (72, model_b)):
-            rparams = m.ray_transformer.ray_head_params()
+        for c in (88, 72):
+            rparams, variance = heads[c]
             cases = []
             for sn in (64, 128):
                 y = randn(1024, sn, c)
                 if neus:
                     z = near + (far - near) * torch.sort(rand(1024, sn), dim=1).values
-                    args = (y, z, rand(1024, sn, 3), torch.exp(m.variance.detach() * 10.0),
-                            rparams)
+                    args = (y, z, rand(1024, sn, 3), torch.exp(variance * 10.0), rparams)
                     tols = {k: TOL["neus"] for k in NEUS_OUT}
                     wrapper, plain = frh.ray_head_neus, frh.ray_head_neus_reference
                 else:
@@ -738,7 +799,27 @@ def kernel_phase(model, model_b, card):
                     ray_head_flops(1024, sn, c=c, neus=neus),
                     frh.pack_weights(rparams, "fast"), neus=neus))
             by_c[c] = fast_result(cases)
-        results[f"{name}_fast"] = {**by_c[88], "by_width": by_c}
+        by_shape = {}
+        for c, sns in CONFIG_RAY_SHAPES:
+            rparams, variance = config_heads[c]
+            for sn in sns:
+                y = randn(1024, sn, c)
+                if neus:
+                    z = near + (far - near) * torch.sort(rand(1024, sn), dim=1).values
+                    args = (y, z, rand(1024, sn, 3), torch.exp(variance * 10.0), rparams)
+                    tols = {k: TOL["neus"] for k in NEUS_OUT}
+                    wrapper, plain = frh.ray_head_neus, frh.ray_head_neus_reference
+                else:
+                    args, tols = (y, rparams), {"srdf": TOL["srdf"]}
+                    wrapper, plain = frh.ray_head, frh.ray_head_reference
+                by_shape[f"C{c} SN{sn}"] = fast_result([fast_case(
+                    f"{name}_fast (1024, {sn}, {c}), tiles of "
+                    f"{frh.tile_rows(sn, c, neus)} rows", wrapper, plain, args, tols,
+                    ray_head_flops(1024, sn, c=c, neus=neus),
+                    frh.pack_weights(rparams, "fast"), neus=neus)])
+        results[f"{name}_fast"] = {**by_c[88], "by_width": by_c, "by_shape": by_shape}
+        results[f"{name}_fast"]["max_abs_err"] = max(
+            by_c[88]["max_abs_err"], *(x["max_abs_err"] for x in by_shape.values()))
 
     # grouped cosine at (3, 65,536, 64) in the layout the sampler hands
     # over: channel-first memory, strides (64 P, 1, P)
@@ -1011,7 +1092,9 @@ def check_launches(run, launches):
 
 
 def to_cpu(x):
-    """Tensors, dicts and named tuples of them, on the CPU."""
+    """Tensors, dicts and named tuples of them (None as it is), on the CPU."""
+    if x is None:
+        return None
     if isinstance(x, dict):
         return {k: to_cpu(v) for k, v in x.items()}
     if isinstance(x, tuple) and hasattr(x, "_fields"):
@@ -1061,7 +1144,16 @@ def render_view(model, sample, route, card):
 def agree_with_cpu(model, sample, route):
     """A 256-ray chunk of the scene with the kernels on the card against
     the plain versions on the CPU, with the same draws: the share of rays
-    within 2e-4 must reach 0.99. Returns the shares."""
+    within 2e-4 must reach 0.99. A model whose heads run in ``fast`` is
+    held by the size of the bf16 effect instead (the rule of
+    tests/test_torch_port_general_cli.py): the fast plain versions and the
+    fast kernels sum bf16-rounded products in other orders, so now and
+    then an intermediate rounds the other way, and where the weights
+    composite a surface the flip moves the coarse weights, the fine
+    samples and the ray's outputs; per output, the median card-CPU
+    distance at most 0.2 of the median distance between the CPU's fast and
+    FP32 (``highest``) renders of the chunk, and the max at most twice its
+    max. Returns the shares (and, in fast, the medians)."""
     import torch
 
     from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
@@ -1073,24 +1165,39 @@ def agree_with_cpu(model, sample, route):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     u_c = torch.rand((rn, sn), generator=gen, device="cuda")
     u_f = torch.rand((rn, model.cfg.fine_sample), generator=gen, device="cuda")
+    fast = model.kernel_precision == "fast"
     with torch.no_grad():
         enc = model.encode(scene)
         out_gpu = model.render_chunk(scene, enc, ray_d, u_coarse=u_c, u_fine=u_f)
         model_cpu = copy.deepcopy(model).cpu()
-        out_cpu = model_cpu.render_chunk(to_cpu(scene), to_cpu(enc), ray_d.cpu(),
-                                         u_coarse=u_c.cpu(), u_fine=u_f.cpu())
-    agree = {}
+        args = (to_cpu(scene), to_cpu(enc), ray_d.cpu())
+        draws = dict(u_coarse=u_c.cpu(), u_fine=u_f.cpu())
+        out_cpu = model_cpu.render_chunk(*args, **draws)
+        if fast:
+            out_fp32 = model_cpu.with_knobs(kernel_precision="highest").render_chunk(
+                *args, **draws)
+    agree, effect, ok_fast = {}, {}, True
     for phase in ("coarse", "fine"):
         for key in ("depth", "rgb"):
             a = out_gpu[phase][key].cpu().numpy()
             b = out_cpu[phase][key].numpy()
             ok = np.isclose(a, b, rtol=2e-4, atol=2e-4).reshape(rn, -1).all(axis=1)
             agree[f"{phase}_{key}"] = float(ok.mean())
+            if fast:
+                d, gap = np.abs(a - b), np.abs(b - out_fp32[phase][key].numpy())
+                effect[f"{phase}_{key}"] = {
+                    "median": float(np.median(d)), "effect_median": float(np.median(gap)),
+                    "max": float(d.max()), "effect_max": float(gap.max())}
+                ok_fast &= bool(np.median(d) <= max(0.2 * np.median(gap), 2e-4)
+                                and d.max() <= max(2 * gap.max(), 2e-4))
     log(f"[slice] route {route}: {rn}-ray chunk, card kernels vs CPU plain "
-        f"versions: share of rays within rtol=atol=2e-4: {agree}")
-    if min(agree.values()) < 0.99:
-        raise AssertionError(f"card and CPU renders disagree (route {route}): {agree}")
-    return agree
+        f"versions: share of rays within rtol=atol=2e-4: {agree}"
+        + (f"; fast: distances against the bf16 effect (CPU fast vs FP32) {effect}"
+           if fast else ""))
+    if (not ok_fast) if fast else min(agree.values()) < 0.99:
+        raise AssertionError(f"card and CPU renders disagree (route {route}): {agree} "
+                             f"{effect}")
+    return {**agree, **({"fast_vs_effect": effect} if fast else {})}
 
 
 def slice_phase(model, model_b, card):
@@ -1364,7 +1471,7 @@ def ab_phase(models, scene, enc, extras, card):
         f"on {won} of {len(rates['on'])} [{card}]")
 
 
-def cli_run(tag, run_name, base, extra, scan, n_views, wh, card):
+def cli_run(tag, run_name, base, extra, scan, n_views, wh, card, samples="64+64"):
     """``cli.run`` (``base + extra``) as a user runs it, its launches counted
     after each view's render and at its end: every kernel MUST_RUN names
     for the run launched on every view and no other, ``n_views`` views
@@ -1418,8 +1525,7 @@ def cli_run(tag, run_name, base, extra, scan, n_views, wh, card):
     if resolved not in printed.getvalue():
         raise AssertionError(f"{run_name}: cli.run printed no '{resolved}' line")
     log(f"[{tag}] cli.run {' '.join(extra) or 'at its defaults'}, {n_views} views "
-        f"{wh[0]}x{wh[1]}, 64+64 samples, seeded weights from a state-dict file, "
-        f"{path} volumes, "
+        f"{wh[0]}x{wh[1]}, {samples} samples, seeded weights, {path} volumes, "
         f"kernel_precision {stats['kernel_precision']}: {stats['rays_per_sec']:.1f} "
         f"rays/s (the JAX statistic: all rays over the time after view 0's render), "
         f"encode {stats['encode_s']:.3f} s, render {stats['render_s']:.3f} s, "
@@ -1702,6 +1808,111 @@ def general_phase(model, card):
             f"{out['tsdf_s']:.2f} s, {mesh} ({os.path.getsize(mesh)} bytes) [{card}]")
     torch.cuda.empty_cache()
     return launches, out
+
+
+def configs_phase(card):
+    """The JAX package's other model configurations (CONFIGS) on the card.
+    Each, a model of its own with seeded weights on the exact path
+    (``config.EXACT``), renders one CONFIG_CHUNK-ray chunk of the slice's
+    scene, its launches counted (the view transformer's tiny attention and
+    the ray head at the configuration's width; the default model at 128 +
+    128 samples the point head, and the ray head streamed at SN 256); then
+    the same chunk with the same draws on the card's encoding through the
+    plain versions on the CPU (rays within 2e-4 on >= 99 %). Then
+    ``cli.run --use_dir_srdf --test_sample_coarse 128 --test_sample_fine
+    128`` at its defaults on the DTU sphere fixture at 800x640: ray-head
+    width 112 at SN 128 and 256 in fast, its rays/s and peak memory.
+    Returns the launches of each run and the phase's figures."""
+    import contextlib
+    import io
+
+    import torch
+
+    from uforecon_tpu_torch.config import EXACT, Config
+    from uforecon_tpu_torch.convert import init_weights
+    from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
+    from uforecon_tpu_torch.data.synthetic import dtu_scale_sample
+    from uforecon_tpu_torch.models.uforecon import UFORecon
+    from uforecon_tpu_torch.script import make_dtu_fixture as fixture
+
+    sample = dtu_scale_sample()
+    wrappers = launch_counts()
+    launches, figures = {}, {}
+    rn = CONFIG_CHUNK
+    for name, flags in CONFIGS.items():
+        model = UFORecon(Config(**EXACT, **flags))
+        init_weights(model, SEED)
+        model.to("cuda").requires_grad_(False)
+        n_coarse, n_fine = model.cfg.samples
+        scene, extras = scene_inputs_from_sample(sample, "cuda")
+        idx = np.random.default_rng(SEED).choice(len(extras["ray_d"]), rn, replace=False)
+        ray_d = torch.as_tensor(extras["ray_d"][idx], device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        u_c = torch.rand((rn, n_coarse), generator=gen, device="cuda")
+        u_f = torch.rand((rn, n_fine), generator=gen, device="cuda")
+        with torch.no_grad():
+            enc = model.encode(scene)
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            out = model.render_chunk(scene, enc, ray_d, u_coarse=u_c, u_fine=u_f)
+            torch.cuda.synchronize()
+            run = f"config_{name}"
+            launches[run] = {k: w.launches for k, w in wrappers.items()}
+            check_launches(run, launches[run])
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            t0 = time.perf_counter()
+            model.render_chunk(scene, enc, ray_d, u_coarse=u_c, u_fine=u_f)
+            torch.cuda.synchronize()
+            chunk_ms = (time.perf_counter() - t0) * 1e3
+            out_cpu = copy.deepcopy(model).cpu().render_chunk(
+                to_cpu(scene), to_cpu(enc), ray_d.cpu(), u_coarse=u_c.cpu(),
+                u_fine=u_f.cpu())
+        agree = {}
+        for phase in ("coarse", "fine"):
+            for key in ("depth", "rgb"):
+                a = out[phase][key].cpu().numpy()
+                if not np.all(np.isfinite(a)):
+                    raise AssertionError(f"config {name}: non-finite {phase} {key}")
+                ok = np.isclose(a, out_cpu[phase][key].numpy(), rtol=2e-4,
+                                atol=2e-4).reshape(rn, -1).all(axis=1)
+                agree[f"{phase}_{key}"] = float(ok.mean())
+        rt = model.ray_transformer
+        figures[name] = {"d_view": rt.d_view, "ray_head_width": rt.d_view + 8,
+                         "samples": [n_coarse, n_fine], "chunk_ms": chunk_ms,
+                         "peak_gib": peak, "cpu_agree": agree,
+                         "volume": ("feature grid" if enc.fea_grid is not None else
+                                    "per-stage" if enc.volumes else "none")}
+        log(f"[configs] {name} {flags}: d_view {rt.d_view}, ray head width "
+            f"{rt.d_view + 8}, {n_coarse}+{n_fine} samples, {figures[name]['volume']} "
+            f"volume; one {rn}-ray chunk {chunk_ms:.2f} ms (host clock, warm), peak "
+            f"{peak:.2f} GiB; launches {launches[run]}; card vs CPU share of rays "
+            f"within rtol=atol=2e-4 {agree} [{card}]")
+        if min(agree.values()) < 0.99:
+            raise AssertionError(f"config {name}: card and CPU renders disagree: {agree}")
+        del model, scene, enc, out, out_cpu
+        torch.cuda.empty_cache()
+
+    # the hardest ray-head shape a flag set gives, through the CLI at its
+    # defaults: width 112, 128 + 128 samples
+    views = [str(v) for v in PIPELINE_VIEWS]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "fixture")
+        with contextlib.redirect_stdout(io.StringIO()):
+            fixture.main([root, "--views", *views])
+        base = ["--extract_geometry", "--set", "0", "--depth_pos_encoding",
+                "--explicit_similarity", "--test_n_view", "3", "--test_ref_view", *views,
+                "--root_dir", root, "--test_scan", "scan24", "--seed", str(SEED),
+                "--out_dir", os.path.join(tmp, "out")]
+        extra = ["--use_dir_srdf", "--test_sample_coarse", "128", "--test_sample_fine", "128"]
+        stats, launches["config_cli"], _ = cli_run("configs", "config_cli", base, extra,
+                                                   "scan24", 3, PIPELINE_WH, card,
+                                                   samples="128+128")
+    if not stats["merged"] or stats["kernel_precision"] != "fast":
+        raise AssertionError(f"cli.run --use_dir_srdf resolved {stats}")
+    figures["cli_dir_srdf_128"] = {k: stats[k] for k in (
+        "rays_per_sec", "encode_s", "render_s", "seconds", "peak_gib")}
+    return launches, figures
 
 
 def step_profile(cfg, model, state, scene, batch, gen):
@@ -2077,7 +2288,7 @@ def main():
     init_weights(model_b, SEED)
     model_b.to("cuda")
 
-    kres = kernel_phase(model, model_b, card)
+    kres = kernel_phase(model, card)
     models, sample, stats, launches = slice_phase(model, model_b, card)
     log(f"[slice] render rays/s against knobs off in this process (the off run "
         f"is the process's first view): " + json.dumps(
@@ -2105,6 +2316,8 @@ def main():
     launches.update(pipeline_phase(model, card))
     general_launches, general = general_phase(model, card)
     launches.update(general_launches)
+    config_launches, configs = configs_phase(card)
+    launches.update(config_launches)
     train_launches, train = training_phase(card)
     launches.update(train_launches)
     tests_phase(card)
@@ -2121,6 +2334,7 @@ def main():
                         **({"precision": "fast"} if name in FAST else {}),
                         **kres[name]})
     log("[general] " + json.dumps(general))
+    log("[configs] " + json.dumps(configs))
     log("[train] " + json.dumps(train))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from uforecon_tpu_torch import config
 from uforecon_tpu_torch.cli import clean_mesh, depth_fusion, dtu_eval, run, tsdf_fusion
 from uforecon_tpu_torch.config import EXACT, Config, config_from_args
 from uforecon_tpu_torch.convert import save_state_dict
@@ -197,6 +198,8 @@ def test_flag_defaults_are_the_jax_ones():
                   "extract_geometry", "test_n_view", "test_ray_num", "test_ref_view",
                   "test_scan", "set", "test_coarse_only", "img_wh", "ndepths",
                   "depth_inter_r", "cr_base_chs", "explicit_similarity",
+                  "volume_type", "volume_reso", "mvs_depth_guide", "depth_pos_encoding",
+                  "use_dir_srdf",
                   "test_general", "dataset", "use_mask", "extract_similarity",
                   "sim_reso", "sim_threshold",
                   # the evaluation approximations, which the JAX CLI sets by
@@ -219,24 +222,59 @@ def test_flag_defaults_are_the_jax_ones():
                           "--kernel_precision", "bogus"])
 
 
-@pytest.mark.parametrize("flags,named", [
-    ([], "--depth_pos_encoding"),     # training too
-    (["--extract_geometry"], "--depth_pos_encoding"),
-    (["--mvs_depth_guide", "0"], "--mvs_depth_guide 0"),
-    (["--use_dir_srdf"], "--use_dir_srdf"),
-    (["--volume_type", "featuregrid"], "--volume_type featuregrid"),
-    (["--volume_reso", "0"], "--volume_reso 0"),
-    (["--share_cr"], "--share_cr"),
-    (["--compute_dtype", "bfloat16"], "--compute_dtype bfloat16"),
-    (["--encoder_dtype", "bfloat16"], "--encoder_dtype bfloat16"),
-    (["--grad_method", "undetached"], "--grad_method undetached"),
-    (["--mesh_shape", "2"], "--mesh_shape 2"),
+EXTRACT = ["--extract_geometry", "--depth_pos_encoding"]
+
+
+# the flag sets the port refuses, each naming its flag: the model
+# configurations of the next case in training (they render, below), and
+# what the port does not have at all
+@pytest.mark.parametrize("argv,named", [
+    ([], "--depth_pos_encoding"),
+    (["--depth_pos_encoding", "--mvs_depth_guide", "0"], "--mvs_depth_guide 0"),
+    (["--depth_pos_encoding", "--use_dir_srdf"], "--use_dir_srdf"),
+    (["--depth_pos_encoding", "--volume_type", "featuregrid"], "--volume_type featuregrid"),
+    (["--depth_pos_encoding", "--volume_reso", "0"], "--volume_reso 0"),
+    (EXTRACT + ["--volume_type", "grid"], "--volume_type grid"),
+    (EXTRACT + ["--share_cr"], "--share_cr"),
+    (EXTRACT + ["--compute_dtype", "bfloat16"], "--compute_dtype bfloat16"),
+    (EXTRACT + ["--encoder_dtype", "bfloat16"], "--encoder_dtype bfloat16"),
+    (EXTRACT + ["--grad_method", "undetached"], "--grad_method undetached"),
+    (EXTRACT + ["--mesh_shape", "2"], "--mesh_shape 2"),
 ])
-def test_unsupported_flag_sets_raise(flags, named):
-    base = [] if named == "--depth_pos_encoding" \
-        else ["--extract_geometry", "--depth_pos_encoding"]
+def test_unsupported_flag_sets_raise(argv, named):
     with pytest.raises(ValueError, match=named):
-        run.main(base + flags)
+        run.main(argv)
+
+
+# the JAX package's other model configurations: each extracts, with its
+# JAX widths (view-token width d_view = image 32 + volume 24 / 16 / 0 +
+# similarity 16 / 0 + depth PE 8 / 0 + direction PE 24 / 0; the ray head's
+# is d_view + 8); without --explicit_similarity the CLI builds the ablation
+@pytest.mark.parametrize("flags,d_view", [
+    (["--extract_geometry"], 56),                              # no depth PE
+    (EXTRACT + ["--mvs_depth_guide", "0"], 56),
+    (EXTRACT + ["--use_dir_srdf"], 88),
+    (EXTRACT + ["--explicit_similarity", "--use_dir_srdf"], 104),
+    (EXTRACT + ["--volume_type", "featuregrid"], 56),
+    (["--extract_geometry", "--volume_type", "featuregrid", "--mvs_depth_guide", "0",
+      "--explicit_similarity"], 64),
+    (EXTRACT + ["--volume_reso", "0", "--explicit_similarity"], 56),
+    (EXTRACT + ["--test_sample_coarse", "128", "--test_sample_fine", "96"], 64),
+])
+def test_model_configuration_flags_are_accepted(flags, d_view):
+    from uforecon_tpu.config import config_from_args as jax_config_from_args
+
+    cfg, _ = config_from_args(flags)
+    jcfg = jax_config_from_args(flags)
+    for field in ("volume_type", "volume_reso", "mvs_depth_guide", "depth_pos_encoding",
+                  "use_dir_srdf", "explicit_similarity", "test_sample_coarse",
+                  "test_sample_fine", "effective_fea_volume_dim", "depth_dim",
+                  "sim_feat_fix"):
+        assert getattr(cfg, field) == getattr(jcfg, field), field
+    assert cfg.view_trans_dim == d_view and cfg.ray_trans_dim == d_view + 8
+    # only the default configuration merges its (correlation) volumes
+    assert config.use_volume_merge(cfg, 3, 640, 800) == (cfg.volume_type == "correlation"
+                                                         and cfg.volume_reso > 0)
 
 
 @pytest.mark.parametrize("flags", [

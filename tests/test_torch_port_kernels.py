@@ -41,6 +41,12 @@ NEUS_RTOL = 2e-4  # chip_smoke.py measures 3.3e-5 at main-path shapes
 # samples per ray: the main path's 64 and 128, and SN % 16 != 0, where the
 # ray-head kernel pads its rows to whole m16 tiles
 SN_CASES = [8, 20, 36, 64, 128]
+# every ray-head width a JAX flag set gives (img 32 + volume 0/16/24 +
+# similarity 0/16 + depth PE 0/8 + direction PE 0/24 + order PE 8), and
+# sample counts from one through resident rays to streamed ones (SN 256 and
+# 512 take several tiles at every width past 56; C 112 from SN 112 on)
+RAY_WIDTHS = list(range(40, 113, 8))
+RAY_LENGTHS = [1, 50, 64, 128, 256, 512]
 
 
 @pytest.fixture
@@ -176,9 +182,12 @@ def test_kernel_launchers_reject_shapes_they_do_not_take(rng):
     with pytest.raises(ValueError, match="point_head kernel takes"):
         pph._launch(pph.PointHeadInputs(**{k: _t(v) for k, v in inputs.items()}),
                     _port_params(pph.PointHeadParams, params), 8)
-    y, rparams = _ray_case(rng, rn=2, sn=6)
-    with pytest.raises(ValueError, match="SN % 4"):
+    y, rparams = _ray_case(rng, rn=2, sn=6, c=84)   # C not a multiple of 8
+    with pytest.raises(ValueError, match="C % 8"):
         prh._launch(_t(y), _port_params(prh.RayHeadParams, rparams), 8)
+    y, rparams = _ray_case(rng, rn=2, sn=6, c=40)
+    with pytest.raises(ValueError, match="8 heads"):
+        prh._launch(_t(y), _port_params(prh.RayHeadParams, rparams), 4)
     y, rparams = _ray_case(rng, rn=2, sn=8)
     z, rad, inv_s = _neus_case(rng, 2, 8)
     with pytest.raises(ValueError, match="ray_head_neus kernel takes"):
@@ -198,7 +207,7 @@ def test_kernel_launchers_reject_shapes_they_do_not_take(rng):
         pvf._launch(nine)
     with pytest.raises(ValueError, match="float32 tensors on one CUDA"):
         pvf._launch(fws)
-    y, rparams = _ray_case(rng, rn=2, sn=8, c=80)
+    y, rparams = _ray_case(rng, rn=2, sn=8, c=120)   # wider than any flag set gives
     with pytest.raises(ValueError, match="C in"):
         prh._launch(_t(y), _port_params(prh.RayHeadParams, rparams), 8)
     # outside the JAX rule (L, S <= 8, head dim <= 16), or not on the card
@@ -632,7 +641,7 @@ def test_fast_point_head_kernels_match_plain_at_each_view_count_on_gpu(rng, cuda
     _check_fast_kernel(rng, cuda_device, kernel, nv=nv)
 
 
-def _check_fast_kernel(rng, cuda_device, kernel, nv=3):
+def _check_fast_kernel(rng, cuda_device, kernel, nv=3, c=None, sn=64):
     if kernel.startswith("point_head"):
         inputs, params = _point_case(rng, nv=nv, n=1001)
         args = (pph.PointHeadInputs(**{k: _t(v).to(cuda_device) for k, v in inputs.items()}),
@@ -641,10 +650,15 @@ def _check_fast_kernel(rng, cuda_device, kernel, nv=3):
         wrapper = getattr(mod, kernel)
         plain = getattr(mod, f"{kernel}_reference")
     else:
-        c = 72 if kernel == "ray_head_72" else 88
-        y, rparams = _ray_case(rng, rn=37, sn=64, c=c)
+        c = c or (72 if kernel == "ray_head_72" else 88)
+        # the share rule counts elements, and a ray whose attention state
+        # rounds the other way moves all its samples: enough rays that one
+        # such ray is a small part of the count (37 rays at SN 64, at
+        # least 32,768 samples past it)
+        rn = 37 if sn == 64 else max(37, 32768 // sn)
+        y, rparams = _ray_case(rng, rn=rn, sn=sn, c=c)
         rp = _on(cuda_device, _port_params(prh.RayHeadParams, rparams))
-        extra = _neus_case(rng, 37, 64) if kernel == "ray_head_neus" else ()
+        extra = _neus_case(rng, rn, sn) if kernel == "ray_head_neus" else ()
         args = (*[_t(a).to(cuda_device) for a in (y, *extra)], rp)
         wrapper = prh.ray_head_neus if kernel == "ray_head_neus" else prh.ray_head
         plain = prh.ray_head_neus_reference if kernel == "ray_head_neus" else prh.ray_head_reference
@@ -657,11 +671,12 @@ def _check_fast_kernel(rng, cuda_device, kernel, nv=3):
         fast, exact = plain(*args, precision="fast"), plain(*args)
     as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
     for i, (g, f, e) in enumerate(zip(*map(as_tuple, (got, fast, exact)))):
-        assert torch.isfinite(g).all()
-        # the NeuS outputs past srdf and weight are per-ray sums
-        _fast_close(g, f, e, per_ray=kernel == "ray_head_neus" and i >= 2)
+        assert g.shape == f.shape and torch.isfinite(g).all()
+        if g.numel():   # the NeuS weights of a one-sample ray are empty
+            # the NeuS outputs past srdf and weight are per-ray sums
+            _fast_close(g, f, e, per_ray=kernel == "ray_head_neus" and i >= 2)
     assert 1e-4 < max((g - t).abs().max().item()
-                      for g, t in zip(*map(as_tuple, (got, tf32)))) < 0.5
+                      for g, t in zip(*map(as_tuple, (got, tf32))) if g.numel()) < 0.5
 
 
 @pytest.mark.parametrize("nv", [2, 3, 5])
@@ -729,10 +744,13 @@ def test_default_config_gives_the_kernel_widths():
 
 # the forward kernel's tiles hold 4 points at L = 4, H = 8 (route A, D 10;
 # route B, D 8): B below one tile, one past a multiple of it, and route B's
-# D = 8 at the main path's ragged B
+# D = 8 at the main path's ragged B; the view transformer of the other
+# model configurations at D 9 (no depth PE) and 13 (use_dir_srdf; the
+# feature grid without depth PE is D 8)
 @pytest.mark.parametrize("b,l,h,d", [(65537, 4, 8, 10), (1000, 4, 8, 8), (333, 6, 8, 10),
                                      (77, 8, 3, 16), (5, 2, 1, 1), (3, 4, 8, 10),
-                                     (1025, 4, 8, 10), (65537, 4, 8, 8)])
+                                     (1025, 4, 8, 10), (65537, 4, 8, 8),
+                                     (65537, 4, 8, 9), (65537, 4, 8, 13)])
 def test_tiny_attention_kernel_matches_plain_on_gpu(rng, cuda_device, b, l, h, d):
     q, k, v = (_t(a).to(cuda_device) for a in _attention_case(rng, b, l, l, h, d, d))
     before = pta.tiny_linear_attention.launches
@@ -782,6 +800,40 @@ def test_ray_head_width_72_kernels_match_plain_on_gpu(rng, cuda_device, sn):
                           prh.ray_head_neus_reference(*args, rp)):
         torch.testing.assert_close(a, b, rtol=2e-5 if name == "depth" else 0,
                                    atol=2e-5, msg=name)
+
+
+@pytest.mark.parametrize("sn", RAY_LENGTHS)
+@pytest.mark.parametrize("c", RAY_WIDTHS)
+def test_ray_head_kernels_match_plain_at_every_width_and_length_on_gpu(rng, cuda_device,
+                                                                      c, sn):
+    """The ray head and its NeuS variant (3xTF32) at every width a flag set
+    gives and at sample counts from 1 to 512, resident and streamed; at SN
+    1 the NeuS weights are empty and its sums 0, as neus_render's."""
+    y, rparams = _ray_case(rng, rn=37, sn=sn, c=c)
+    rp = _on(cuda_device, _port_params(prh.RayHeadParams, rparams))
+    args = [_t(a).to(cuda_device) for a in (y, *_neus_case(rng, 37, sn))]
+    before = (prh.ray_head.launches, prh.ray_head_neus.launches)
+    with torch.no_grad():
+        got = prh.ray_head(args[0], rp)
+        got_neus = prh.ray_head_neus(*args, rp)
+    assert (prh.ray_head.launches, prh.ray_head_neus.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, prh.ray_head_reference(args[0], rp), rtol=0, atol=2e-5)
+    for name, a, b in zip(("srdf", "weight", "rgb", "depth", "opacity"), got_neus,
+                          prh.ray_head_neus_reference(*args, rp)):
+        torch.testing.assert_close(a, b, rtol=2e-5 if name == "depth" else 0,
+                                   atol=2e-5, msg=name)
+
+
+@pytest.mark.parametrize("sn", RAY_LENGTHS)
+@pytest.mark.parametrize("c", RAY_WIDTHS)
+@pytest.mark.parametrize("kernel", ["ray_head", "ray_head_neus"])
+def test_fast_ray_head_kernels_match_plain_at_every_width_and_length_on_gpu(
+        rng, cuda_device, kernel, c, sn):
+    """The bf16 ray heads at the same widths and lengths, by the rule of
+    test_fast_kernel_matches_plain_on_gpu."""
+    _check_fast_kernel(rng, cuda_device, kernel, c=c, sn=sn)
 
 
 def test_head_variants_patch_the_kernel_sources_once():

@@ -252,14 +252,25 @@ def test_fused_point_head_validates_like_jax():
     for bad in ("on", "AUTO"):
         with pytest.raises(ValueError, match="fused_point_head"):
             Config(fused_point_head=bad)
-    # the point-head kernel needs the similarity: JAX raises when it
+    # the point-head kernel needs the full feature set: JAX raises when it
     # traces, the port when the configuration is made, and its gate too
     with pytest.raises(ValueError, match="fused_point_head='always'"):
         Config(fused_point_head="always", explicit_similarity=False)
     from uforecon_tpu_torch.models.ray_transformer import RayTransformer
 
+    # JAX's gate (its _fused_ok): the volume's 24 correlation features, the
+    # similarity and the depth distance, no direction PE
+    rt, vol, sim, dd = RayTransformer(), torch.zeros(2, 24), torch.zeros(1), torch.zeros(1)
     with pytest.raises(ValueError, match="fused_point_head='always'"):
-        RayTransformer._fused_ok(None, "always")
-    assert [RayTransformer._fused_ok(torch.zeros(1), v) for v in values] == \
-        [True, True, False]
-    assert not RayTransformer._fused_ok(None, "auto")
+        rt._fused_ok(vol, None, dd, "always")
+    assert [rt._fused_ok(vol, sim, dd, v) for v in values] == [True, True, False]
+    for lacking in ((vol, None, dd), (None, sim, dd), (vol, sim, None),
+                    (torch.zeros(2, 16), sim, dd)):       # the feature grid's 16
+        assert not rt._fused_ok(*lacking, "auto")
+        with pytest.raises(ValueError, match="fused_point_head='always'"):
+            rt._fused_ok(*lacking, "always")
+    assert not RayTransformer(use_dir_srdf=True)._fused_ok(vol, sim, dd, "auto")
+    for flags in (dict(depth_pos_encoding=False), dict(use_dir_srdf=True),
+                  dict(volume_reso=0), dict(volume_type="featuregrid")):
+        with pytest.raises(ValueError, match="fused_point_head='always'"):
+            Config(fused_point_head="always", **flags)

@@ -38,8 +38,12 @@ empty or ``scan1``, or with ``--test_general`` the one scan
 its ``pair.txt``, or of ``--test_ref_view``). Each scan's depth maps go to
 ``{out_dir}/depth/{scan}/`` (``pipeline/extract.py``), with one line
 ``"{scan}: {views} views, {rays/s} rays/s"``, after the first scan's a line
-with what the run resolved: the volume path (merged or per stage) and the
-kernel precision. With ``--extract_similarity`` each scan's first sample
+with what the run resolved: the volume path (merged or per-stage
+correlation volumes, the feature grid, or no volume) and the kernel
+precision. The model flags are the JAX package's (``--volume_type``,
+``--volume_reso``, ``--mvs_depth_guide``, ``--depth_pos_encoding``,
+``--use_dir_srdf``, ``--explicit_similarity``; any ``--test_sample_*``);
+training takes the default configuration only. With ``--extract_similarity`` each scan's first sample
 also gives the mean-similarity field at ``--sim_reso`` and its mesh at
 ``--sim_threshold``, ``{out_dir}/similarity/{scan}.ply``. Its defaults are
 the JAX package's (merged volumes, bf16 volumes and gather sources,
@@ -95,6 +99,13 @@ def datasets(cfg: Config) -> Iterator[Tuple[str, object]]:
                                  test_view_pair=list(cfg.test_ref_view), **kw)
 
 
+def volume_path(cfg: Config, merged: bool) -> str:
+    """The volume path a run took, as its resolved line names it."""
+    if cfg.correlation_volume:
+        return "merged volumes" if merged else "per-stage volumes"
+    return "feature grid" if cfg.feature_grid else "no volume"
+
+
 def run_extract(cfg: Config, device="cuda") -> Dict[str, Dict[str, float]]:
     """Render every view of every scan of ``cfg`` (and with
     ``--extract_similarity`` each scan's similarity mesh); returns each
@@ -114,8 +125,8 @@ def run_extract(cfg: Config, device="cuda") -> Dict[str, Dict[str, float]]:
         stats[scan] = s = extract_geometry_for_dataset(
             model, ds, out_dir=cfg.out_dir, device=device, seed=cfg.seed)
         if len(stats) == 1:
-            path = "merged volumes" if s["merged"] else "per-stage volumes"
-            print(f"resolved: {path}, kernel_precision {s['kernel_precision']}",
+            print(f"resolved: {volume_path(cfg, s['merged'])}, "
+                  f"kernel_precision {s['kernel_precision']}",
                   flush=True)
         print(f"{scan}: {s['views']} views, {s['rays_per_sec']:.0f} rays/s",
               flush=True)

@@ -2,13 +2,22 @@
 
 A copy of the JAX package's ``config.Config`` fields that encode and
 render read, with the same names and defaults (the repo's default DTU
-configuration). The port builds correlation volumes (``volume_reso`` 96)
-and the MVS depth guide with its positional encoding. Explicit pairwise
-similarity is on by default; ``explicit_similarity=False`` is the paper's
-ablation without it (no similarity query, no ``pre_sim_mlp``: d_view 64
-and a ray-head width of 72). The JAX package's TPU layout knobs (brick
-gathers, corner packing, ``image_row_merge``) and the other ablations
-(``use_dir_srdf``, no depth guide, bf16 compute) do not exist here.
+configuration: correlation volumes, ``volume_reso`` 96, the MVS depth
+guide with its positional encoding, explicit similarity). The model
+configurations of the JAX package are here too, with its flags:
+  * ``volume_type`` ``correlation`` (per-stage frustum volumes, 24
+    features) or ``featuregrid`` (one ``volume_reso``^3 grid regularised
+    by a 3D U-Net, 16 features); ``volume_reso`` 0 builds no volume;
+  * ``mvs_depth_guide`` <= 0 or no ``depth_pos_encoding``: no depth PE;
+  * ``use_dir_srdf``: the view-direction PE (24 features);
+  * ``explicit_similarity=False``: the paper's ablation (no similarity
+    query, no ``pre_sim_mlp``).
+The view-token width is their sum (``view_trans_dim``: 32 + 0/16/24 +
+0/16 + 0/8 + 0/24) and the ray head's 8 more, 40 .. 112; every one of
+these configurations renders through the view transformer (JAX's gate),
+and training them is not ported (``config_from_args`` refuses it). The
+JAX package's TPU layout knobs (brick gathers, corner packing,
+``image_row_merge``) and bf16 compute do not exist here.
 
 The JAX package's evaluation approximations are here, with its names,
 values, defaults and validation (``uforecon_tpu/config.py:116-265``):
@@ -174,6 +183,11 @@ class Config:
     fea_volume_dim: int = 24             # 8ch x 3 cascade stages
     cos_n_group: int = 8
     explicit_similarity: bool = True
+    volume_type: str = "correlation"     # correlation | featuregrid
+    volume_reso: int = 96                # featuregrid side; 0: no volume
+    mvs_depth_guide: int = 1             # <= 0: no depth guide, no depth PE
+    depth_pos_encoding: bool = True
+    use_dir_srdf: bool = False           # + view-direction PE (24)
 
     # ---- render-glue kernels (see the module docstring) ----------------
     fused_similarity: str = "never"      # auto | always | never
@@ -210,16 +224,17 @@ class Config:
             "volume_dtype": ("float32", "bfloat16"),
             "image_gather_dtype": ("float32", "bfloat16"),
             "kernel_precision": ("auto", "highest", "high", "fast"),
+            "volume_type": ("correlation", "featuregrid"),
         }
         for field, values in allowed.items():
             v = getattr(self, field)
             if v not in values:
                 raise ValueError(f"Config.{field}={v!r} not in {values}")
-        if self.fused_point_head == "always" and not self.explicit_similarity:
+        if self.fused_point_head == "always" and not self.full_point_features:
             raise ValueError("fused_point_head='always' needs the point-head "
-                             "kernel's full feature set, which includes explicit "
-                             "similarity; use 'auto' to allow the view-transformer "
-                             "route")
+                             "kernel's full feature set (correlation volume, explicit "
+                             "similarity, depth PE, no use_dir_srdf); use 'auto' to "
+                             "allow the view-transformer route")
         if len(self.ndepths) != 3:
             raise ValueError(f"the cascade has 3 stages, got ndepths={self.ndepths}")
         if len(self.depth_inter_r) != len(self.ndepths) or \
@@ -228,16 +243,56 @@ class Config:
 
     # dims that the ray transformer sees (JAX config.py:274-304)
     @property
+    def correlation_volume(self) -> bool:
+        """Does encode build the per-stage correlation volumes?"""
+        return self.volume_type == "correlation" and self.volume_reso > 0
+
+    @property
+    def feature_grid(self) -> bool:
+        """Does encode build the featuregrid volume?"""
+        return self.volume_type == "featuregrid" and self.volume_reso > 0
+
+    @property
+    def effective_fea_volume_dim(self) -> int:
+        """Volume features per point: 0 without a volume, 16 from the
+        feature grid's U-Net, ``fea_volume_dim`` (8 x stages) from the
+        correlation volumes."""
+        if self.volume_reso <= 0:
+            return 0
+        return 16 if self.feature_grid else self.fea_volume_dim
+
+    @property
     def sim_feat_fix(self) -> int:
         return 16 if self.explicit_similarity else 0   # pre-similarity MLP output
 
     @property
+    def depth_guide(self) -> bool:
+        """Do the points carry the NeRF PE of their MVS depth distance?"""
+        return self.mvs_depth_guide > 0 and self.depth_pos_encoding
+
+    @property
     def depth_dim(self) -> int:
-        return 8      # NeRF PE of the depth distance, num_freqs=4
+        return 8 if self.depth_guide else 0   # NeRF PE, num_freqs=4
+
+    @property
+    def dir_dim(self) -> int:
+        """The view-direction PE: 4 frequencies x sin, cos x 3, without the
+        raw direction. The JAX config says 27 (with it); the JAX model
+        builds 24 (``models/ray_transformer.py:346-357``: 27 would give a
+        prime width no head count divides), and this follows the model."""
+        return 24 if self.use_dir_srdf else 0
+
+    @property
+    def full_point_features(self) -> bool:
+        """Has every point the point-head kernel's full feature set (the JAX
+        gate, ``models/ray_transformer.py:505-521``)?"""
+        return (self.correlation_volume and self.explicit_similarity
+                and self.depth_guide and not self.use_dir_srdf)
 
     @property
     def view_trans_dim(self) -> int:
-        return self.img_feat_dim + self.fea_volume_dim + self.sim_feat_fix + self.depth_dim
+        return (self.img_feat_dim + self.effective_fea_volume_dim + self.sim_feat_fix
+                + self.depth_dim + self.dir_dim)
 
     @property
     def ray_trans_dim(self) -> int:
@@ -266,9 +321,12 @@ def merge_guard_bytes(cfg: Config, nv: int, h: int, w: int) -> int:
 
 def use_volume_merge(cfg: Config, nv: int, h: int, w: int) -> bool:
     """Does ``encode`` merge the stage volumes of nv views at h x w? The JAX
-    decision (``models/uforecon.py:156-168``): ``always``; or ``auto`` under
-    ``extract_geometry``, unless ``merge_guard_bytes`` exceeds
-    ``merge_max_bytes`` (0 turns the guard off)."""
+    decision (``models/uforecon.py:156-170``): only correlation volumes
+    merge; ``always``, or ``auto`` under ``extract_geometry``, unless
+    ``merge_guard_bytes`` exceeds ``merge_max_bytes`` (0 turns the guard
+    off)."""
+    if not cfg.correlation_volume:
+        return False
     use = cfg.volume_merge == "always" or (cfg.volume_merge == "auto"
                                            and cfg.extract_geometry)
     if use and cfg.volume_merge == "auto" and cfg.merge_max_bytes:
@@ -284,20 +342,32 @@ def _floats(s) -> Tuple[float, ...]:
     return tuple(float(x) for x in str(s).split(",") if x)
 
 
+# training flag sets of model configurations the port renders but does not
+# train yet (their view-transformer route trains in JAX)
+_NOT_TRAINED = "(training it is not ported: add --extract_geometry to render)"
+_UNTRAINED = (
+    (lambda a: not a.depth_pos_encoding,
+     "--depth_pos_encoding is required for training: a model without the depth "
+     "PE " + _NOT_TRAINED),
+    (lambda a: a.mvs_depth_guide <= 0,
+     "--mvs_depth_guide {a.mvs_depth_guide}: a model without the depth guide "
+     + _NOT_TRAINED),
+    (lambda a: a.use_dir_srdf,
+     "--use_dir_srdf: a model with the view-direction PE " + _NOT_TRAINED),
+    (lambda a: a.volume_type != "correlation",
+     "--volume_type {a.volume_type}: a model without correlation volumes "
+     + _NOT_TRAINED),
+    (lambda a: a.volume_reso <= 0,
+     "--volume_reso {a.volume_reso}: a model without volume features "
+     + _NOT_TRAINED),
+)
+
 # flag sets of the JAX package's CLI that select a model or a path the port
 # does not have: (test on the parsed flags, message naming the flag)
 _UNSUPPORTED = (
-    (lambda a: not a.depth_pos_encoding,
-     "--depth_pos_encoding is required: without it the JAX package builds a "
-     "model with no depth PE, which the port does not have"),
-    (lambda a: a.mvs_depth_guide <= 0,
-     "--mvs_depth_guide {a.mvs_depth_guide}: a model with no depth PE is not ported"),
-    (lambda a: a.use_dir_srdf,
-     "--use_dir_srdf: the view-direction encoding of the ray head is not ported"),
-    (lambda a: a.volume_type != "correlation",
-     "--volume_type {a.volume_type}: only correlation volumes are ported"),
-    (lambda a: a.volume_reso <= 0,
-     "--volume_reso {a.volume_reso}: a model without volume features is not ported"),
+    (lambda a: a.volume_type not in ("correlation", "featuregrid"),
+     "--volume_type {a.volume_type}: the JAX package builds correlation or "
+     "featuregrid volumes"),
     (lambda a: a.share_cr,
      "--share_cr: one shared cost-regularisation net is not ported"),
     (lambda a: a.compute_dtype != "float32",
@@ -326,7 +396,8 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
     Returns the Config and the device. Raises ``ValueError``, naming the
     flag, on a flag set that selects a model or a path the port does not
     have (``--grad_method undetached`` among them: the port always
-    detaches), rather than rendering its default model."""
+    detaches; training any model but the default configuration), rather
+    than running its default model."""
     import argparse
 
     p = argparse.ArgumentParser(
@@ -419,7 +490,8 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cpu runs the kernels' plain PyTorch versions")
     a = p.parse_args(argv)
-    for unsupported, message in _UNSUPPORTED:
+    refused = _UNSUPPORTED + (() if a.extract_geometry else _UNTRAINED)
+    for unsupported, message in refused:
         if unsupported(a):
             raise ValueError(message.format(a=a))
     cfg = Config(
@@ -441,7 +513,9 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
         test_scan=a.test_scan, set=a.set, test_coarse_only=a.test_coarse_only,
         img_wh=tuple(a.img_wh), ndepths=_ints(a.ndepths),
         depth_inter_r=_floats(a.depth_inter_r), cr_base_chs=_ints(a.cr_base_chs),
-        explicit_similarity=a.explicit_similarity,
+        explicit_similarity=a.explicit_similarity, volume_type=a.volume_type,
+        volume_reso=a.volume_reso, mvs_depth_guide=a.mvs_depth_guide,
+        depth_pos_encoding=a.depth_pos_encoding, use_dir_srdf=a.use_dir_srdf,
         volume_merge=a.volume_merge, merge_depth=a.merge_depth, merge_pad=a.merge_pad,
         merge_max_bytes=a.merge_max_bytes, volume_dtype=a.volume_dtype,
         image_gather_dtype=a.image_gather_dtype, kernel_precision=a.kernel_precision)

@@ -169,18 +169,39 @@ def load_weights(model: nn.Module, path: str) -> None:
         sd, torch_ckpt.uforecon_name_map(), leaf_shape))
 
 
+def _trunc_normal(shape, gen: torch.Generator) -> torch.Tensor:
+    """Standard normal draws truncated to [-2, 2], by the inverse CDF of
+    uniform draws between the bounds' CDFs (``jax.random.truncated_normal``'s
+    method)."""
+    lo, hi = (float(torch.special.ndtr(torch.tensor(b))) for b in (-2.0, 2.0))
+    u = lo + (hi - lo) * torch.rand(shape, generator=gen, dtype=torch.float64)
+    return torch.special.ndtri(u).clamp(-2.0, 2.0).float()
+
+
+# std of the standard normal truncated at +-2 (flax's variance_scaling
+# divides by it so the truncated draws keep the variance asked for)
+TRUNC_STD = 0.87962566103423978
+
+
 def init_weights(model: nn.Module, seed: int = 0) -> None:
-    """Seeded random weights (flax-style initialisers): conv and dense
-    kernels normal(0, 1/fan_in), biases 0, norms identity, BN running
-    statistics (0, 1), the DCN offset/mask convs 0 (a plain conv with 0.5
-    modulation at start), the view token normal(0, 1) and the NeuS
-    variance 0.3."""
+    """Seeded random weights from flax's initialisers, parameter by
+    parameter, the draws from one ``torch.Generator``:
+      * Dense, Conv and ConvTranspose kernels: ``lecun_normal``, a normal
+        truncated at 2 sigma and scaled to variance 1 / fan_in, fan_in as
+        flax counts it: the input features x the kernel taps; for flax's
+        ``ConvTranspose(transpose_kernel=True)`` kernel (k..., out, in) the
+        second-to-last axis, the transposed conv's output channels;
+      * the DCN weights: ``variance_scaling(1/3, fan_in, uniform)``, uniform
+        in +-sqrt(1 / fan_in) (JAX ``models/featurenet.py:51-54``);
+      * biases 0, norms at identity, BN running statistics (0, 1), the DCN
+        offset/mask convs 0 (a plain conv with 0.5 modulation at start), the
+        view token normal(0, 1) and the NeuS variance 0.3."""
     from .models.featurenet import DCN
 
     gen = torch.Generator().manual_seed(seed)
 
-    def normal_(w: torch.Tensor, fan_in: int) -> None:
-        w.copy_(torch.randn(w.shape, generator=gen) / np.sqrt(fan_in))
+    def lecun_(w: torch.Tensor, fan_in: int) -> None:
+        w.copy_(_trunc_normal(w.shape, gen) * (np.sqrt(1.0 / fan_in) / TRUNC_STD))
 
     with torch.no_grad():
         for name, mod in model.named_modules():
@@ -191,7 +212,9 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
                     mod.running_mean.zero_()
                     mod.running_var.fill_(1.0)
             elif isinstance(mod, DCN):
-                normal_(mod.weight, mod.weight[0].numel())
+                limit = np.sqrt(1.0 / mod.weight[0].numel())
+                mod.weight.copy_((torch.rand(mod.weight.shape, generator=gen) * 2 - 1)
+                                 * limit)
                 mod.bias.zero_()
                 mod.conv_offset_mask.weight.zero_()
                 mod.conv_offset_mask.bias.zero_()
@@ -199,10 +222,11 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
                 if name.endswith("conv_offset_mask"):
                     continue    # zeroed with its DCN
                 w = mod.weight
-                # a transposed conv's fan-in is its input channels x taps
-                fan_in = (w.shape[0] * w[0, 0].numel()
+                # torch's ConvTranspose weight is (in, out, k...): flax's
+                # fan-in axis is its out
+                fan_in = (w.shape[1] * w[0, 0].numel()
                           if isinstance(mod, nn.ConvTranspose3d) else w[0].numel())
-                normal_(w, fan_in)
+                lecun_(w, fan_in)
                 if mod.bias is not None:
                     mod.bias.zero_()
         model.ray_transformer.view_token.copy_(

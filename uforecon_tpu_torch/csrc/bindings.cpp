@@ -21,7 +21,8 @@ extern "C" int ufo_point_head2_weight_count();
 extern "C" int ufo_ray_head(const float* y, const float* w, float* srdf,
                             int rn, int sn, int c, int fast, void* stream);
 extern "C" int ufo_ray_head_weight_count(int c);
-extern "C" long long ufo_ray_head_smem_bytes(int sn, int c);
+extern "C" int ufo_ray_head_tile_rows(int sn, int c, int neus, long long limit);
+extern "C" long long ufo_ray_head_smem_bytes(int sn, int c, int neus, long long limit);
 extern "C" int ufo_ray_head_neus(const float* y, const float* w,
                                  const float* z, const float* rad,
                                  const float* inv_s, float* srdf, float* weight,
@@ -188,6 +189,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("point_head2_weight_count", &ufo_point_head2_weight_count);
   m.def("ray_head", &ray_head, "fused along-ray SRDF head (csrc/ray_head.cu)");
   m.def("ray_head_weight_count", &ufo_ray_head_weight_count);
+  m.def("ray_head_tile_rows", &ufo_ray_head_tile_rows);
   m.def("ray_head_smem_bytes", &ufo_ray_head_smem_bytes);
   m.def("ray_head_neus", &ray_head_neus,
         "fused along-ray SRDF head with the NeuS epilogue (csrc/ray_head.cu)");

@@ -288,27 +288,28 @@ __device__ void gemm(const float* a1, int lda1, int k1,
   }
 }
 
-// LayerNorm over the C features of each of `rows` rows of x (stride ld),
-// the layer chains' other per-row step: common.cuh's block_layernorm
-// with the same sums in the same order (one warp per row, two-pass mean
-// and variance, eps kLnEps), but each warp reads its lanes' scale and
-// bias once and takes two rows at a time, so the L2 round trips and the
-// shuffle chains overlap. The result goes back into x, or with residual
-// set is added to residual (stride ldr) instead. Ends in __syncthreads().
-template <int C>
-__device__ void layernorm(float* x, int ld, int rows,
-                          const float* __restrict__ scale,
-                          const float* __restrict__ bias,
-                          float* residual = nullptr, int ldr = 0) {
-  constexpr int J = (C + 31) / 32;   // features per lane
+// LayerNorm over the n features of each of `rows` rows of x (stride ld),
+// n <= CMAX, the layer chains' other per-row step: common.cuh's
+// block_layernorm with the same sums in the same order (one warp per row,
+// two-pass mean and variance, eps kLnEps), but each warp reads its lanes'
+// scale and bias once and takes two rows at a time, so the L2 round trips
+// and the shuffle chains overlap. The result goes back into x, or with
+// residual set is added to residual (stride ldr) instead. Ends in
+// __syncthreads().
+template <int CMAX>
+__device__ void layernorm_n(float* x, int ld, int rows, int n,
+                            const float* __restrict__ scale,
+                            const float* __restrict__ bias,
+                            float* residual = nullptr, int ldr = 0) {
+  constexpr int J = (CMAX + 31) / 32;   // features per lane
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   float sc[J], bi[J];
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int c = lane + 32 * j;
-    sc[j] = c < C ? __ldg(scale + c) : 0.f;
-    bi[j] = c < C ? __ldg(bias + c) : 0.f;
+    sc[j] = c < n ? __ldg(scale + c) : 0.f;
+    bi[j] = c < n ? __ldg(bias + c) : 0.f;
   }
   for (int r0 = 2 * (threadIdx.x >> 5); r0 < rows; r0 += 2 * nwarps) {
     float v[2][J], mean[2], inv[2];
@@ -318,22 +319,22 @@ __device__ void layernorm(float* x, int ld, int rows,
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int c = lane + 32 * j;
-        v[h][j] = c < C && r0 + h < rows ? x[(r0 + h) * ld + c] : 0.f;
-        if (c < C) s += v[h][j];
+        v[h][j] = c < n && r0 + h < rows ? x[(r0 + h) * ld + c] : 0.f;
+        if (c < n) s += v[h][j];
       }
-      mean[h] = warp_sum(s) / C;
+      mean[h] = warp_sum(s) / n;
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float q = 0.f;
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        if (lane + 32 * j < C) {
+        if (lane + 32 * j < n) {
           const float d = v[h][j] - mean[h];
           q += d * d;
         }
       }
-      inv[h] = rsqrtf(warp_sum(q) / C + kLnEps);
+      inv[h] = rsqrtf(warp_sum(q) / n + kLnEps);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -341,7 +342,7 @@ __device__ void layernorm(float* x, int ld, int rows,
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int c = lane + 32 * j;
-        if (c >= C) continue;
+        if (c >= n) continue;
         const float y = (v[h][j] - mean[h]) * inv[h] * sc[j] + bi[j];
         if (residual != nullptr) residual[(r0 + h) * ldr + c] += y;
         else x[(r0 + h) * ld + c] = y;
@@ -349,6 +350,14 @@ __device__ void layernorm(float* x, int ld, int rows,
     }
   }
   __syncthreads();
+}
+
+// layernorm_n over exactly C features.
+template <int C>
+__device__ void layernorm(float* x, int ld, int rows, const float* __restrict__ scale,
+                          const float* __restrict__ bias, float* residual = nullptr,
+                          int ldr = 0) {
+  layernorm_n<C>(x, ld, rows, C, scale, bias, residual, ldr);
 }
 
 }  // namespace tc

@@ -2,17 +2,21 @@
 
 Counterpart of the JAX package's ``models/ray_transformer.py`` (reference
 code1/ray_transformer.py:86-331). Per sample point it fuses sampled image
-features (32), correlation-volume features (24), pairwise similarity
+features (32), volume features (24 from the correlation volumes, 16 from
+the feature grid, none at ``volume_reso`` 0), pairwise similarity
 (8 cosine groups -> 16 through pre_sim_mlp; absent without explicit
-similarity) and the NeRF PE of the MVS depth distance (8); a view token
-runs through a linear-attention view transformer, a ray transformer runs
-along the sample axis, an SRDF MLP follows, and the radiance is a masked
-softmax blend over views.
+similarity), the NeRF PE of the MVS depth distance (8; absent without the
+depth guide or its PE) and, with ``use_dir_srdf``, the NeRF PE of each
+view's relative direction (24: 4 frequencies, without the raw direction,
+as the JAX model builds it); a view token runs through a linear-attention
+view transformer, a ray transformer runs along the sample axis, an SRDF
+MLP follows, and the radiance is a masked softmax blend over views.
 
 ``per_point`` takes one of two routes, by the JAX package's gate
 (``_fused_ok``) and the ``fused_point_head`` knob: the point head, which
-needs the full feature set, or the view-transformer modules, whose
-attention goes to the tiny-attention kernels (``ops/tiny_attention.py``).
+needs the full feature set (correlation volume, similarity, depth PE, no
+direction PE), or the view-transformer modules, whose attention goes to
+the tiny-attention kernels (``ops/tiny_attention.py``).
 The point head is the point-head kernel wrapper
 (``ops/fused_point_head.py``) or, with ``point_head='v2'``, the
 split-weight point head (``ops/fused_point_head2.py``) on the same inputs
@@ -140,13 +144,14 @@ class RayTransformer(nn.Module):
     samples only) and ``along_ray`` (over a z-sorted sequence)."""
 
     def __init__(self, img_feat_dim: int = 32, fea_volume_dim: int = 24,
-                 sim_feat_fix: int = 16, depth_dim: int = 8,
+                 sim_feat_fix: int = 16, depth_dim: int = 8, use_dir_srdf: bool = False,
                  pe_d_hid: int = 8, n_heads: int = 8, sim_feat_dim: int = 8):
         super().__init__()
         self.img_feat_dim = img_feat_dim
         self.fea_volume_dim = fea_volume_dim
         self.sim_feat_fix = sim_feat_fix
         self.depth_dim = depth_dim
+        self.use_dir_srdf = use_dir_srdf
         self.pe_d_hid = pe_d_hid
         self.n_heads = n_heads
         d = self.d_view
@@ -161,7 +166,8 @@ class RayTransformer(nn.Module):
 
     @property
     def d_view(self) -> int:
-        return self.img_feat_dim + self.fea_volume_dim + self.sim_feat_fix + self.depth_dim
+        d = self.img_feat_dim + self.fea_volume_dim + self.sim_feat_fix + self.depth_dim
+        return d + 24 if self.use_dir_srdf else d   # the direction PE
 
     def per_point(
         self,
@@ -173,9 +179,9 @@ class RayTransformer(nn.Module):
         src_w2cs: torch.Tensor,            # (NV, 4, 4)
         points_xy: torch.Tensor,           # (NV, RN, SN, 2)
         valid_depth: torch.Tensor,         # (NV, RN, SN)
-        fea_volume_feat: torch.Tensor,     # (RN, SN, Dv)
+        fea_volume_feat: Optional[torch.Tensor],  # (RN, SN, Dv); None: no volume
         sim_feat: Optional[torch.Tensor],  # (RN, SN, 8); None without similarity
-        mvs_depths: torch.Tensor,          # (NV, H, W)
+        mvs_depths: Optional[torch.Tensor],  # (NV, H, W); None: no depth PE
         fused: str = "auto",               # Config.fused_point_head
         point_head: str = "v1",            # Config.point_head
         precision: str = "high",           # resolved Config.kernel_precision
@@ -199,15 +205,18 @@ class RayTransformer(nn.Module):
         img_feat = grid_sample_2d(source_feats.to(source_dtype),
                                   points_xy)                    # (NV, RN, SN, C)
         # rgb and the depth guide share the resolution and the grid
-        rgbd = grid_sample_2d(
-            torch.cat([source_imgs, mvs_depths[..., None]], dim=-1).to(source_dtype),
-            points_xy)
+        rgb_src = source_imgs
+        if mvs_depths is not None:
+            rgb_src = torch.cat([source_imgs, mvs_depths[..., None]], dim=-1)
+        rgbd = grid_sample_2d(rgb_src.to(source_dtype), points_xy)
         mask = in_bounds_mask(points_xy) * valid_depth          # (NV, RN, SN)
-        cam = (torch.einsum("vij,rsj->vrsi", src_w2cs[:, :3, :3], points)
-               + src_w2cs[:, None, None, :3, 3])
-        depth_dist = rgbd[..., 3] - cam[..., 2]                 # (NV, RN, SN)
+        depth_dist = None
+        if mvs_depths is not None:
+            cam = (torch.einsum("vij,rsj->vrsi", src_w2cs[:, :3, :3], points)
+                   + src_w2cs[:, None, None, :3, 3])
+            depth_dist = rgbd[..., 3] - cam[..., 2]             # (NV, RN, SN)
 
-        if not self._fused_ok(sim_feat, fused):
+        if not self._fused_ok(fea_volume_feat, sim_feat, depth_dist, fused):
             return self._per_point_view_transformer(
                 img_feat, fea_volume_feat, sim_feat, depth_dist, dir_relative,
                 rgbd[..., :3], mask)
@@ -225,29 +234,34 @@ class RayTransformer(nn.Module):
         return {"token": token.reshape(rn, sn, -1),
                 "radiance": rad.reshape(rn, sn, 3)}
 
-    @staticmethod
-    def _fused_ok(sim_feat: Optional[torch.Tensor], fused: str) -> bool:
+    def _fused_ok(self, fea_volume_feat, sim_feat, depth_dist, fused: str) -> bool:
         """Route the per-point stage to the point-head kernel? The JAX gate
         (``RayTransformer._fused_ok``): the kernel needs the full feature
-        set, of which the port can lack only the similarity; ``auto``
-        takes it where it is there, ``always`` raises where it is not."""
+        set (volume features, similarity, depth distance, no direction PE);
+        ``auto`` takes it where it is there, ``always`` raises where it is
+        not. The point-head kernels are built for the correlation volume's
+        24 features (JAX's are generic in the widths): the feature grid's
+        16 take the view transformer, which computes the same function."""
         if fused == "never":
             return False
-        full = sim_feat is not None
+        full = (fea_volume_feat is not None and fea_volume_feat.shape[-1] == 24
+                and sim_feat is not None and depth_dist is not None
+                and not self.use_dir_srdf)
         if fused == "always" and not full:
             raise ValueError(
                 "fused_point_head='always' but the point-head kernel's "
                 "prerequisites are not met (needs correlation volume + explicit "
-                "similarity + depth PE features); use 'auto' to allow the view "
-                "transformer")
+                "similarity + depth PE features, use_dir_srdf off); use 'auto' to "
+                "allow the view transformer")
         return full
 
     def _per_point_view_transformer(self, img_feat, fea_volume_feat, sim_feat,
                                     depth_dist, dir_relative, img_rgb, mask):
         """The per-point stage through the view-transformer modules (JAX
         ``per_point`` past its fused branch): (RN*SN, NV, C) view tokens
-        after the view token, one LoFTR layer, then the masked radiance
-        softmax."""
+        (image features | volume | similarity | depth PE | direction PE,
+        each where the configuration has it) after the view token, one
+        LoFTR layer, then the masked radiance softmax."""
         nv, rn, sn, _ = img_feat.shape
         n = rn * sn
 
@@ -257,10 +271,16 @@ class RayTransformer(nn.Module):
         def shared(a):            # (RN, SN, C) -> (RN*SN, NV, C)
             return a.reshape(n, 1, -1).expand(n, nv, -1)
 
-        parts = [per_view(img_feat), shared(fea_volume_feat)]
+        parts = [per_view(img_feat)]
+        if fea_volume_feat is not None:
+            parts.append(shared(fea_volume_feat))
         if sim_feat is not None:
             parts.append(shared(self.pre_sim_mlp(sim_feat)))
-        parts.append(per_view(nerf_posenc(depth_dist[..., None], num_freqs=4)))
+        if depth_dist is not None:
+            parts.append(per_view(nerf_posenc(depth_dist[..., None], num_freqs=4)))
+        if self.use_dir_srdf:
+            parts.append(per_view(nerf_posenc(dir_relative, num_freqs=4,
+                                              include_input=False)))
         x = torch.cat(parts, dim=-1)
         token = self.view_token.reshape(1, 1, -1).expand(n, 1, -1)
         x = self.density_view_transformer(torch.cat([token.to(x.dtype), x], dim=1))

@@ -8,7 +8,12 @@ code1/model.py:28-911), with its evaluation approximations
 one (NV, 25, D_m, H, W) volume per view (``ops/volume_merge.py``), stored
 at ``volume_dtype``; gather sources at ``image_gather_dtype`` under
 ``extract_geometry``; the head kernels at ``kernel_precision``, resolved
-per model (``UFORecon.kernel_precision``).
+per model (``UFORecon.kernel_precision``). Its model configurations too:
+the ``featuregrid`` volume (``models/volumes.FeatureVolume``, one (16, Z,
+Y, X) grid per view set, sampled at the world points with
+``align_corners=False`` and zeros), no volume at ``volume_reso`` 0, no
+depth guide without ``mvs_depth_guide`` / ``depth_pos_encoding``, and the
+direction PE with ``use_dir_srdf``.
 
 Gradients follow the caller's grad mode, as in training (``pipeline/
 trainer.py``), with one cut: ``encode`` runs the cascade matcher without
@@ -29,12 +34,13 @@ import torch.nn as nn
 
 from ..config import Config, resolve_kernel_precision, use_volume_merge
 from ..ops.camera import project_points_ndc
+from ..ops.grid_sample import grid_sample_3d
 from ..ops.rendering import neus_render
 from ..ops.sampling import sample_coarse, sample_importance
 from ..ops.volume_merge import merge_stage_volumes
 from .cascade import CascadeMatcher
 from .ray_transformer import RayTransformer, query_correlation_volume, query_similarity
-from .volumes import CostRegNetWeight
+from .volumes import CostRegNetWeight, FeatureVolume
 
 
 class SceneInputs(NamedTuple):
@@ -55,11 +61,13 @@ class SceneInputs(NamedTuple):
 
 class EncoderOutputs(NamedTuple):
     source_feats: torch.Tensor               # (NV, h1, w1, 32)
-    # stage -> (NV, 9, D, h, w), or {"merged": (NV, 25, D_m, H, W)}
+    # stage -> (NV, 9, D, h, w), or {"merged": (NV, 25, D_m, H, W)}; {}
+    # without correlation volumes
     volumes: Dict[str, torch.Tensor]
     aug0: torch.Tensor                       # (P, h1, w1, 32)
     aug1: torch.Tensor
     mvs_depths: torch.Tensor                 # (NV, H, W) scaled to the scene
+    fea_grid: Optional[torch.Tensor] = None  # (16, Z, Y, X): featuregrid only
 
 
 class UFORecon(nn.Module):
@@ -75,10 +83,14 @@ class UFORecon(nn.Module):
         self.matcher = CascadeMatcher(
             ndepths=c.ndepths, depth_intervals_ratio=c.depth_inter_r,
             cr_base_chs=c.cr_base_chs, fmt_layer_names=c.fmt_layer_names)
-        self.mvs_volume = CostRegNetWeight(1, base_channels=8)
+        if c.correlation_volume:
+            self.mvs_volume = CostRegNetWeight(1, base_channels=8)
+        elif c.feature_grid:
+            self.feature_volume = FeatureVolume(c.volume_reso, cin=c.img_feat_dim)
         self.ray_transformer = RayTransformer(
-            img_feat_dim=c.img_feat_dim, fea_volume_dim=c.fea_volume_dim,
-            sim_feat_fix=c.sim_feat_fix, depth_dim=c.depth_dim)
+            img_feat_dim=c.img_feat_dim, fea_volume_dim=c.effective_fea_volume_dim,
+            sim_feat_fix=c.sim_feat_fix, depth_dim=c.depth_dim,
+            use_dir_srdf=c.use_dir_srdf)
         # NeuS deviation scalar (reference single_variance_network.py:5-11)
         self.variance = nn.Parameter(torch.tensor(0.3))
         self.eval()
@@ -101,10 +113,12 @@ class UFORecon(nn.Module):
     def encode(self, scene: SceneInputs, train: bool = False) -> EncoderOutputs:
         """The view set's encoding; ``train`` runs the matcher's BatchNorms
         on batch statistics (render training keeps them on their running
-        statistics, as JAX does). The volume head runs per stage and view
-        rotation; with ``config.use_volume_merge`` the stage volumes are
-        merged, else each is stored at ``volume_dtype``. ``auto`` leaves
-        the merge only by the JAX byte guard, with a warning."""
+        statistics, as JAX does). The correlation volume head runs per
+        stage and view rotation; with ``config.use_volume_merge`` the stage
+        volumes are merged, else each is stored at ``volume_dtype``.
+        ``auto`` leaves the merge only by the JAX byte guard, with a
+        warning. The featuregrid path builds its grid instead; at
+        ``volume_reso`` 0 there is no volume."""
         c = self.cfg
         nv, h, w = scene.source_imgs.shape[:3]
         if h % 32 or w % 32:
@@ -112,6 +126,13 @@ class UFORecon(nn.Module):
         with torch.no_grad():
             enc = self.matcher(scene.source_imgs, scene.proj_matrices,
                                scene.depth_values, train)
+        outs = dict(source_feats=enc["feat_stage1"], volumes={}, aug0=enc["aug0"],
+                    aug1=enc["aug1"], mvs_depths=enc["mvs_depth"] * scene.scale_factor)
+        if not c.correlation_volume:
+            if c.feature_grid:
+                outs["fea_grid"] = self.feature_volume(enc["feat_stage1"],
+                                                       scene.source_poses, train)
+            return EncoderOutputs(**outs)
         fws = {}
         for stage, cv in enc["cost_volumes"].items():   # (NV, D, h, w)
             fw = []
@@ -130,10 +151,7 @@ class UFORecon(nn.Module):
                 fws, c.merge_depth or c.ndepths[-1], (h, w), dtype)}
         else:
             volumes = {stage: fw.to(dtype) for stage, fw in fws.items()}
-        return EncoderOutputs(
-            source_feats=enc["feat_stage1"], volumes=volumes,
-            aug0=enc["aug0"], aug1=enc["aug1"],
-            mvs_depths=enc["mvs_depth"] * scene.scale_factor)
+        return EncoderOutputs(**{**outs, "volumes": volumes})
 
     # ------------------------------------------------------------------
     def _point_features(self, scene: SceneInputs, enc: EncoderOutputs,
@@ -153,15 +171,20 @@ class UFORecon(nn.Module):
         else:
             sim_feat = None
             xy, _, valid = project_points_ndc(scene.source_poses, points)
-        fea_volume_feat = query_correlation_volume(
-            points, scene.source_poses, enc.volumes, (scene.near, scene.far),
-            fused=c.fused_volume_fusion)
+        fea_volume_feat = None
+        if c.correlation_volume:
+            fea_volume_feat = query_correlation_volume(
+                points, scene.source_poses, enc.volumes, (scene.near, scene.far),
+                fused=c.fused_volume_fusion)
+        elif enc.fea_grid is not None:
+            fea_volume_feat = grid_sample_3d(enc.fea_grid[None], points[None],
+                                             align_corners=False, padding_mode="zeros")[0]
         return self.ray_transformer.per_point(
             points=points, source_imgs=scene.source_imgs,
             source_feats=enc.source_feats, ref_cam_pos=scene.ref_cam_pos,
             src_cam_pos=scene.src_cam_pos, src_w2cs=scene.src_w2cs,
             points_xy=xy, valid_depth=valid, fea_volume_feat=fea_volume_feat,
-            sim_feat=sim_feat, mvs_depths=enc.mvs_depths,
+            sim_feat=sim_feat, mvs_depths=enc.mvs_depths if c.depth_guide else None,
             fused=c.fused_point_head, point_head=c.point_head,
             precision=self.kernel_precision, source_dtype=gather_dtype)
 

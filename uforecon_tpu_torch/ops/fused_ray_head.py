@@ -4,19 +4,23 @@ the wrapper that picks between them.
 Replaces the Pallas TPU kernel the JAX package's ``ops/fused_ray_head.py``
 ``ray_head_fused``: over each ray's (SN, C) z-sorted tokens, one LoFTR
 linear-attention layer across the samples, then the density MLP
-C -> 32 -> 16 -> 1. The kernel is ``csrc/ray_head.cu``, built for the
-token widths C = 88 (the default configuration) and 72 (without explicit
-similarity), like the JAX kernel, which is generic in C.
+C -> 32 -> 16 -> 1. The kernel is ``csrc/ray_head.cu``; like the JAX
+kernel it takes any token width C (here a multiple of 8 up to 112: every
+width a JAX flag set gives, 40 .. 112) and any sample count SN >= 1.
 
 Bound on the H100: arithmetic (~8.3e4 multiply-adds per sample against
-356 bytes at C = 88). Design: one 512-thread block per ray keeps its SN x C
-tokens (rows padded to whole m16 tiles), the SN x 2C hidden layer and the
-per-ray linear-attention state (8 heads x C/8 x C/8 key-value sums, taken
-in kv order so nothing SN x SN exists, summed over the real samples only)
-in shared memory. The q/k/v/merge, mlp1 and mlp2 layers run on the tensor
-cores in 3xTF32 (``csrc/tc_gemm.cuh``), their weight planes streamed
-through a cp.async ring; the density MLP, the LayerNorms and the attention
-stay FP32 on the CUDA cores.
+356 bytes at C = 88). Design: one 512-thread block per ray. The samples
+meet only in the per-ray linear-attention state (8 heads x C/8 x C/8
+key-value sums and the key sums, taken in kv order so nothing SN x SN
+exists, summed over the real samples only), so the kernel takes the ray
+in tiles of samples: phase 1 sums the state tile by tile, phase 2 runs
+the rest of the layer and the density MLP tile by tile. A ray that fits
+one tile in shared memory stays resident (its tokens read once); a longer
+one streams tiles of 128 .. 16 rows (``tile_rows``). The q/k/v/merge,
+mlp1 and mlp2 layers run on the tensor cores in 3xTF32
+(``csrc/tc_gemm.cuh``), their weight planes streamed through a cp.async
+ring; the density MLP, the LayerNorms and the attention stay FP32 on the
+CUDA cores.
 
 ``precision`` is the resolved ``Config.kernel_precision``. ``highest`` and
 ``high`` run the kernel described above and an FP32 plain version;
@@ -61,7 +65,7 @@ from .rendering import neus_render
 
 EPS = 1e-6      # linear attention denominator
 LN_EPS = 1e-6   # flax LayerNorm epsilon
-_KERNEL_C = (72, 88)
+_KERNEL_C_MAX = 112   # token widths: multiples of 8 up to this
 _KERNEL_HEADS = 8
 
 
@@ -92,6 +96,31 @@ def _unflat_params(ts) -> RayHeadParams:
                          dens_b=tuple(ts[13:16]))
 
 
+def _phi(x: torch.Tensor) -> torch.Tensor:
+    """elu(x) + 1 as the kernel computes it, x + 1 or exp(x) (the JAX
+    kernel's form too): elu(x) + 1 takes exp(x) - 1 + 1, which rounds away
+    the low bits of a small exp(x), and in ``fast`` a bf16 rounding of the
+    result then lands on the other side now and then (1.3e-5 of values)."""
+    return torch.where(x > 0, x + 1.0, torch.exp(torch.clamp(x, max=0.0)))
+
+
+def _state_in_sample_order(kr: torch.Tensor, vr: torch.Tensor, kf: torch.Tensor):
+    """The attention state of ``fast`` summed as the kernel sums it: each
+    entry of kv = sum_s k_s v_s^T (products of the bf16-rounded kr, vr,
+    exact in float32) and of ksum = sum_s kf_s, one sample after another
+    in float32. Its bf16 rounding then flips only where a sample's own
+    inputs do, not on the order of a long sum (which moved every sample of
+    a ray at C 112, SN 256). Returns kv (RN, H, DK, DK) as (b, h, m, d) and
+    ksum (RN, H, DK)."""
+    kv = torch.zeros(kr.shape[0], kr.shape[2], kr.shape[3], kr.shape[3],
+                     dtype=kr.dtype, device=kr.device)
+    ksum = torch.zeros_like(kf[:, 0])
+    for s in range(kr.shape[1]):
+        kv = kv + vr[:, s, :, :, None] * kr[:, s, :, None, :]
+        ksum = ksum + kf[:, s]
+    return kv, ksum
+
+
 def ray_head_reference(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8,
                        precision: str = "high", linear=None) -> torch.Tensor:
     """Plain PyTorch forward, mirroring the JAX ``ray_head_reference`` in
@@ -104,11 +133,14 @@ def ray_head_reference(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8,
     dense = cuda_build.kernel_linear(precision)
     linear = linear or dense
     r = cuda_build.operand_round(precision)      # the attention sums' operands
-    qf = (F.elu(linear(y, p.wq)) + 1.0).view(rn, sn, n_heads, dk)
-    kf = (F.elu(linear(y, p.wk)) + 1.0).view(rn, sn, n_heads, dk)
+    qf = _phi(linear(y, p.wq)).view(rn, sn, n_heads, dk)
+    kf = _phi(linear(y, p.wk)).view(rn, sn, n_heads, dk)
     vh = linear(y, p.wv).view(rn, sn, n_heads, dk)
-    kv = torch.einsum("bshd,bshm->bhmd", r(kf), r(vh))
-    den = torch.einsum("blhd,bhd->blh", r(qf), r(kf.sum(dim=1))) + EPS
+    if cuda_build.is_fast(precision):
+        kv, ksum = _state_in_sample_order(r(kf), r(vh), kf)
+    else:
+        kv, ksum = torch.einsum("bshd,bshm->bhmd", kf, vh), kf.sum(dim=1)
+    den = torch.einsum("blhd,bhd->blh", r(qf), r(ksum)) + EPS
     att = torch.einsum("blhd,bhmd->blhm", r(qf), r(kv)) / den[..., None]
     msg = F.layer_norm(linear(att.reshape(rn, sn, c), p.wmerge), (c,),
                        p.norm1_scale, p.norm1_bias, LN_EPS)
@@ -157,13 +189,13 @@ def _smem_limit(dev: torch.device) -> int:
 
 
 def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, precision: str,
-             *extra: torch.Tensor):
+             *extra: torch.Tensor, neus: bool = False):
     """Checks what the kernel takes; returns the extension and the weight
     pack."""
     rn, sn, c = y.shape
-    if c not in _KERNEL_C or n_heads != _KERNEL_HEADS or sn % 4:
-        raise ValueError(f"ray_head kernel takes C in {_KERNEL_C}, "
-                         f"{_KERNEL_HEADS} heads and SN % 4 == 0, got C={c}, "
+    if c % 8 or not 0 < c <= _KERNEL_C_MAX or n_heads != _KERNEL_HEADS or sn < 1:
+        raise ValueError(f"ray_head kernel takes C in 8..{_KERNEL_C_MAX} with C % 8 "
+                         f"== 0, {_KERNEL_HEADS} heads and SN >= 1, got C={c}, "
                          f"{n_heads} heads, SN={sn}")
     dev = y.device
     for t in [y, *extra] + _flat_params(p):
@@ -171,15 +203,22 @@ def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, precision: str,
             raise ValueError("ray_head kernel takes float32 tensors on one "
                              f"CUDA device, got {t.dtype} on {t.device}")
     ext = cuda_build.extension()
-    smem = ext.ray_head_smem_bytes(sn, c)
     limit = _smem_limit(dev)
-    if smem > limit:
-        raise ValueError(f"ray_head kernel: SN={sn} needs {smem} bytes of "
-                         f"shared memory, the card allows {limit}")
+    if ext.ray_head_smem_bytes(sn, c, neus, limit) < 0:
+        raise ValueError(f"ray_head kernel: no tile fits the card's {limit} bytes "
+                         f"of shared memory at C={c}, SN={sn}")
     w = cached_pack_weights(p, precision)
     if w.numel() != ext.ray_head_weight_count(c):
         raise ValueError("ray_head weight pack does not match the kernel")
     return ext, w
+
+
+def tile_rows(sn: int, c: int, neus: bool = False, device=None) -> int:
+    """Rows of the kernel's sample tiles for a ray of ``sn`` samples at
+    width ``c`` on ``device``'s card: the whole ray rounded up to 16
+    (resident) where it fits, else 128, 64, 32 or 16 (streamed)."""
+    dev = torch.device(device or "cuda")
+    return cuda_build.extension().ray_head_tile_rows(sn, c, neus, _smem_limit(dev))
 
 
 def _launch(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8,
@@ -245,7 +284,7 @@ def _launch_neus(y, z, rad, inv_s, p: RayHeadParams, n_heads: int = 8,
                          f"and a scalar inv_s for y (RN, SN, C) = "
                          f"{tuple(y.shape)}, got {tuple(z.shape)}, "
                          f"{tuple(rad.shape)}, {tuple(inv_s.shape)}")
-    ext, w = _prepare(y, p, n_heads, precision, z, rad, inv_s)
+    ext, w = _prepare(y, p, n_heads, precision, z, rad, inv_s, neus=True)
     dev = y.device
     outs = [torch.empty(shape, device=dev, dtype=torch.float32)
             for shape in ((rn, sn), (rn, sn), (rn, 3), (rn,), (rn,))]
@@ -254,6 +293,8 @@ def _launch_neus(y, z, rad, inv_s, p: RayHeadParams, n_heads: int = 8,
         ext.ray_head_neus(cuda_build.aligned(y), w, z.contiguous(), rad.contiguous(),
                           inv_s.contiguous(), *outs, fast)
     cuda_build.count_launch(ray_head_neus, fast)
+    if sn == 1:   # neus_render's weights have no interval to live on
+        outs[1] = outs[1][:, :0]
     return tuple(outs)
 
 

@@ -1,7 +1,8 @@
 """Positional encodings (counterpart of the JAX package's ``ops/posenc.py``).
 
   * sine 2D image PE of the matching transformer (numpy, static);
-  * NeRF frequency encoding of the depth distance (torch);
+  * NeRF frequency encoding of the depth distance and of the view
+    direction (torch);
   * sinusoidal sample-order encoding along a ray (numpy, static).
 """
 from __future__ import annotations
@@ -26,10 +27,12 @@ def sine_image_pe(d_model: int, height: int, width: int) -> np.ndarray:
     return np.transpose(pe, (1, 2, 0))
 
 
-def nerf_posenc(x: torch.Tensor, num_freqs: int) -> torch.Tensor:
+def nerf_posenc(x: torch.Tensor, num_freqs: int,
+                include_input: bool = False) -> torch.Tensor:
     """NeRF frequency encoding [sin(f0 x), cos(f0 x), sin(f1 x), ...] of the
     last axis, channel-major: (..., d) -> (..., 2 * num_freqs * d), with
-    f_k = pi * 2^k and cos as sin at phase pi/2."""
+    f_k = pi * 2^k and cos as sin at phase pi/2; ``include_input`` puts x
+    itself first (+ d)."""
     freqs = float(np.pi) * (2.0 ** np.arange(num_freqs, dtype=np.float32))
     freqs = np.repeat(freqs, 2).astype(np.float32)
     phases = np.zeros(2 * num_freqs, dtype=np.float32)
@@ -37,7 +40,8 @@ def nerf_posenc(x: torch.Tensor, num_freqs: int) -> torch.Tensor:
     f = torch.as_tensor(freqs, device=x.device)[:, None]
     ph = torch.as_tensor(phases, device=x.device)[:, None]
     emb = torch.sin(x[..., None, :] * f + ph)
-    return emb.reshape(*x.shape[:-1], 2 * num_freqs * x.shape[-1])
+    emb = emb.reshape(*x.shape[:-1], 2 * num_freqs * x.shape[-1])
+    return torch.cat([x, emb], dim=-1) if include_input else emb
 
 
 def order_posenc(d_hid: int, n_samples: int) -> np.ndarray:

@@ -168,13 +168,13 @@ PATCHES = {
                       "  for (int i = threadIdx.x; i < n * (S * F / 4); i += kThreads) "
                       "run[i] = rows[i];", "n * (S * F / 4)"))],
     "rh_kv": [("ray_head.cu", *_empty_loop(
-        "  for (int t = tid; t < NH * DK * DK; t += blockDim.x) {", "NH * DK * DK"))],
+        "    for (int e = tid; e < NH * DK * DK; e += blockDim.x) {", "NH * DK * DK"))],
     "rh_attn": [("ray_head.cu", *_empty_loop(
-        "  for (int t = tid; t < SN * NH; t += blockDim.x) {", "SN * NH"))],
-    "rh_ln": [("ray_head.cu", *_skip("  tc::layernorm<C>(B, LD, SN, W + Wd::O_N1S")),
-              ("ray_head.cu", *_skip("  tc::layernorm<C>(B, LD, SN, W + Wd::O_N2S"))],
-    "rh_density": [("ray_head.cu", *_skip("  block_linear<4, kFast>(X, LD, C, W + Wd::O_DW0")),
-                   ("ray_head.cu", *_skip("  block_linear<4, kFast>(A, D0, D0,"))],
+        "    for (int e = tid; e < rows * NH; e += blockDim.x) {", "rows * NH"))],
+    "rh_ln": [("ray_head.cu", *_skip("    tc::layernorm_n<CMAX>(B, LD, rows, C, W + L.o_n1s")),
+              ("ray_head.cu", *_skip("    tc::layernorm_n<CMAX>(B, LD, rows, C, W + L.o_n2s"))],
+    "rh_density": [("ray_head.cu", *_skip("    block_linear<4, kFast>(X, LD, C, W + L.o_dw0")),
+                   ("ray_head.cu", *_skip("    block_linear<4, kFast>(A, D0, D0,"))],
 }
 
 
