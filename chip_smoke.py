@@ -33,7 +33,9 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      3xTF32 ones; kernels 2 and 3 (both precisions) also at the other model
      configurations' widths and lengths (CONFIG_RAY_SHAPES: C 112 at SN 64,
      128 and 256, C 80 and 64 at SN 64 and 128, C 88 at SN 256), on random
-     weights of each width, resident and streamed tiles;
+     weights of each width, resident and streamed tiles; kernels 1 and 4
+     (both precisions) also at the feature grid's volume width 16 (tokens
+     of 72), on random weights of that width;
   4. slice phase: ``extract_geometry_for_dataset`` on one DTU-scale view
      (800x640, 3 views, 192 hypotheses, 64 + 64 samples, seeded random
      weights) by six routes: on the exact path (``config.EXACT``) the
@@ -49,7 +51,8 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      often each head built its weight pack (once per head, set of weights
      and precision: the packs are cached); then, for each route, that a
      small ray chunk of the same scene agrees with the plain versions run
-     on the CPU; the merged volume's bytes beside the JAX guard's count;
+     on the CPU (a fast route by the size of the bf16 effect: medians,
+     max, and ray by ray); the merged volume's bytes beside the JAX guard's count;
      one 1024-ray chunk of the shipped route with the glue knobs on
      (kernel 3 in fast) and one with ``point_head='v2'`` (kernel 4 in
      fast);
@@ -91,11 +94,13 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      memory); a chunk of the field and the scene's first 256 rays, card
      against CPU; ``cli.tsdf_fusion --dataset general``;
  11. configs phase: the JAX package's other model configurations
-     (CONFIGS: the feature grid without depth PE, no depth PE,
-     ``use_dir_srdf``, ``volume_reso`` 0, and the default model at 128 + 128
-     samples), each with seeded weights on the exact path rendering one
-     1024-ray chunk of the slice's scene on the card (kernels 5 and 2; at
-     128 + 128, 1 and 2) against the CPU; then ``cli.run --use_dir_srdf
+     (CONFIGS: the feature grid without depth PE, the feature grid with
+     the depth guide and the similarity, no depth PE, ``use_dir_srdf``,
+     ``volume_reso`` 0, and the default model at 128 + 128 samples), each
+     with seeded weights on the exact path rendering one 1024-ray chunk
+     of the slice's scene on the card (kernels 5 and 2; the guided
+     feature grid kernel 1 at tokens of 72 and 2; at 128 + 128, 1 and 2)
+     against the CPU; then ``cli.run --use_dir_srdf
      --test_sample_coarse 128 --test_sample_fine 128`` at its defaults on
      the DTU sphere fixture at 800x640 (ray-head width 112 at SN 128 and 256,
      fast kernels 5 and 2 on every view): rays/s and peak memory;
@@ -212,6 +217,9 @@ KERNEL_SOURCES.update({f: KERNEL_SOURCES[k] for f, k in FAST.items()})
 CONFIGS = {
     "featuregrid": dict(volume_type="featuregrid", mvs_depth_guide=0,
                         depth_pos_encoding=False),            # C 72
+    # with the depth guide and the similarity, JAX's gate sends the feature
+    # grid to the point head (tokens of 72)
+    "featuregrid_guided": dict(volume_type="featuregrid"),    # C 80
     "no_depth_pe": dict(depth_pos_encoding=False),            # C 80
     "dir_srdf": dict(use_dir_srdf=True),                      # C 112
     "no_volume": dict(volume_reso=0),                         # C 64
@@ -256,9 +264,11 @@ MUST_RUN = {"off": ("point_head", "ray_head"),
             "general_sim": ("grouped_cosine",),
             # the other model configurations: the view transformer (no
             # point-head kernel, JAX's gate) and the ray head at their widths;
-            # the default model at 128 + 128 samples
+            # the guided feature grid and the default model at 128 + 128
+            # samples take the point head
             **{f"config_{name}": ("tiny_attention", "ray_head") for name in CONFIGS
-               if name != "samples_128"},
+               if name not in ("samples_128", "featuregrid_guided")},
+            "config_featuregrid_guided": ("point_head", "ray_head"),
             "config_samples_128": ("point_head", "ray_head"),
             "config_cli": ("tiny_attention", "ray_head_fast")}
 # H100 SXM data sheet at 700 W: FP32 outside the tensor cores, dense TF32
@@ -285,6 +295,11 @@ TENSOR_CORE = ("point_head", "ray_head", "ray_head_neus", "point_head2", *FAST)
 # 128) take any flip of their ray's samples: they are held by the bound
 FAST_SHARE = 0.9
 PER_RAY = ("rgb", "depth", "opacity")
+# a fast route's render, card vs CPU (agree_with_cpu): at least RAY_SHARE
+# of the rays no further apart than RAY_EFFECT times that ray's bf16
+# effect (CPU fast vs CPU FP32), or 2e-4
+RAY_SHARE = 0.97
+RAY_EFFECT = 2.0
 
 
 def log(msg):
@@ -511,11 +526,11 @@ def kernel_phase(model, card):
     # pairs masked and the first 256 points masked in every view
     nv, p = 3, 1024 * 64
 
-    def point_inputs(n, views=nv, g=gen):
+    def point_inputs(n, views=nv, g=gen, c_vol=24):
         mask = (rand(views, n, g=g) > 0.3).float()
         mask[:, :256] = 0.0
         return fph.PointHeadInputs(
-            img_feat=randn(views, n, 32, g=g), vol_feat=randn(n, 24, g=g),
+            img_feat=randn(views, n, 32, g=g), vol_feat=randn(n, c_vol, g=g),
             sim_feat=rand(n, 8, g=g) * 2 - 1,
             depth_dist=randn(views, n, scale=0.3, g=g),
             dir_rel=randn(views, n, 3, scale=0.1, g=g), rgb=rand(views, n, 3, g=g),
@@ -778,6 +793,66 @@ def kernel_phase(model, card):
         f"point_head2_fast P={p} NV={nv}", fph2.point_head2, fph2.point_head2_reference,
         (inp, params), {"token": TOL["token"], "radiance": TOL["radiance"]},
         point_head2_flops(nv, p), fph2.pack_weights2(params, precision="fast"))])}
+
+    # the feature grid's 16 volume features (tokens of 72, heads of 9; the
+    # configs phase's featuregrid_guided): both point heads in 3xTF32 and
+    # fast at the main path's P and NV, on random weights of that width
+    # drawn as the GPU unit tests draw them, from a generator of their own
+    g16 = torch.Generator(device=dev).manual_seed(SEED + 16)
+    inp16 = point_inputs(p, g=g16, c_vol=16)
+
+    def linear_w(o, i):
+        return randn(o, i, scale=1.0 / np.sqrt(i), g=g16)
+
+    c16 = 72
+    params16 = fph.PointHeadParams(
+        view_token=randn(c16, g=g16), wq=linear_w(c16, c16), wk=linear_w(c16, c16),
+        wv=linear_w(c16, c16), wmerge=linear_w(c16, c16),
+        norm1_scale=1 + randn(c16, scale=0.1, g=g16), norm1_bias=randn(c16, scale=0.1, g=g16),
+        w1=linear_w(2 * c16, 2 * c16), w2=linear_w(c16, 2 * c16),
+        norm2_scale=1 + randn(c16, scale=0.1, g=g16), norm2_bias=randn(c16, scale=0.1, g=g16),
+        sim_w=(linear_w(32, 8), linear_w(32, 32), linear_w(16, 32)),
+        sim_b=tuple(randn(n, scale=0.1, g=g16) for n in (32, 32, 16)),
+        rad_w=(linear_w(16, c16 + 3), linear_w(8, 16), linear_w(1, 8)),
+        rad_b=tuple(randn(n, scale=0.1, g=g16) for n in (16, 8, 1)))
+    heads16 = {"point_head": (fph.point_head, fph.point_head_reference,
+                              point_head_flops(nv, p, c=c16), fph.pack_weights),
+               "point_head2": (fph2.point_head2, fph2.point_head2_reference,
+                               point_head2_flops(nv, p, c=c16, g_shared=32),
+                               lambda w, precision="high": fph2.pack_weights2(
+                                   w, precision=precision))}
+    for name, (wrapper, plain, flops16, pack) in heads16.items():
+        with torch.no_grad():
+            tok, rad = wrapper(inp16, params16)
+            tok_ref, rad_ref = plain(inp16, params16)
+            torch.cuda.synchronize()
+            err_t = (tok - tok_ref).abs().max().item()
+            err_r = (rad - rad_ref).abs().max().item()
+            err_masked = (rad[:256] - inp16.rgb[:, :256].mean(0)).abs().max().item()
+            k_ms, call_ms = kernel_times(lambda: wrapper(inp16, params16))
+            p_ms = time_ms(lambda: plain(inp16, params16))
+        bounds16 = tensor_bound(nbytes(*inp16, pack(params16), tok, rad), *flops16)
+        log(f"[kernel] {name} P={p} NV={nv} C={c16} (feature grid): max|token err| "
+            f"{err_t:.3e} (tol {TOL['token']}), max|radiance err| {err_r:.3e} (tol "
+            f"{TOL['radiance']}), all-masked points vs mean rgb {err_masked:.3e}; kernel "
+            f"{k_ms:.3f} ms (call {call_ms:.3f}), plain {p_ms:.3f} ms, tensor bound "
+            f"{bounds16['bound_ms']:.4f} ms ({bounds16['bound_by']}, share "
+            f"{bounds16['bound_ms'] / k_ms:.3f}) [{card}]")
+        if not (err_t <= TOL["token"] and err_r <= TOL["radiance"]
+                and err_masked <= TOL["radiance"]):
+            raise AssertionError(f"{name} kernel disagrees with its plain version at "
+                                 f"C={c16}")
+        results[name]["feature_grid"] = {
+            "max_abs_err": max(err_t, err_r), "ms": k_ms, "call_ms": call_ms,
+            "plain_ms": p_ms, **bounds16, **shares(k_ms, bounds16)}
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err_t, err_r)
+        fast16 = fast_result([fast_case(
+            f"{name}_fast P={p} NV={nv} C={c16} (feature grid)", wrapper, plain,
+            (inp16, params16), {"token": TOL["token"], "radiance": TOL["radiance"]},
+            flops16, pack(params16, precision="fast"))])
+        results[f"{name}_fast"]["feature_grid"] = fast16
+        results[f"{name}_fast"]["max_abs_err"] = max(
+            results[f"{name}_fast"]["max_abs_err"], fast16["max_abs_err"])
     for name in ("ray_head", "ray_head_neus"):
         neus = name == "ray_head_neus"
         by_c = {}
@@ -1145,15 +1220,21 @@ def agree_with_cpu(model, sample, route):
     """A 256-ray chunk of the scene with the kernels on the card against
     the plain versions on the CPU, with the same draws: the share of rays
     within 2e-4 must reach 0.99. A model whose heads run in ``fast`` is
-    held by the size of the bf16 effect instead (the rule of
-    tests/test_torch_port_general_cli.py): the fast plain versions and the
-    fast kernels sum bf16-rounded products in other orders, so now and
-    then an intermediate rounds the other way, and where the weights
+    held by the size of the bf16 effect instead: the fast plain versions
+    and the fast kernels sum bf16-rounded products in other orders, so now
+    and then an intermediate rounds the other way, and where the weights
     composite a surface the flip moves the coarse weights, the fine
-    samples and the ray's outputs; per output, the median card-CPU
-    distance at most 0.2 of the median distance between the CPU's fast and
-    FP32 (``highest``) renders of the chunk, and the max at most twice its
-    max. Returns the shares (and, in fast, the medians)."""
+    samples and the ray's outputs. Per output, against the bf16 effect
+    (the distance between the CPU's fast and FP32 (``highest``) renders of
+    the chunk): the median card-CPU distance at most 0.2 of the effect's
+    median and the max at most twice its max (the rule of
+    tests/test_torch_port_general_cli.py), and ray by ray, on at least
+    RAY_SHARE of the rays, the ray's card-CPU distance (its largest over
+    the output's elements) at most RAY_EFFECT times that ray's effect, or
+    2e-4. A fault in a minority of rays (a slot, a tile) fails the last.
+    The control, the card's 3xTF32 kernels (no bf16 rounding at all) in
+    place of the fast ones against the same CPU render, is measured and
+    reported beside it. Returns the shares (and, in fast, the distances)."""
     import torch
 
     from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
@@ -1176,6 +1257,12 @@ def agree_with_cpu(model, sample, route):
         if fast:
             out_fp32 = model_cpu.with_knobs(kernel_precision="highest").render_chunk(
                 *args, **draws)
+            out_ctrl = model.with_knobs(kernel_precision="highest").render_chunk(
+                scene, enc, ray_d, u_coarse=u_c, u_fine=u_f)
+
+    def per_ray(x):
+        return x.reshape(rn, -1).max(axis=1)
+
     agree, effect, ok_fast = {}, {}, True
     for phase in ("coarse", "fine"):
         for key in ("depth", "rgb"):
@@ -1185,15 +1272,28 @@ def agree_with_cpu(model, sample, route):
             agree[f"{phase}_{key}"] = float(ok.mean())
             if fast:
                 d, gap = np.abs(a - b), np.abs(b - out_fp32[phase][key].numpy())
+                ctrl = np.abs(out_ctrl[phase][key].cpu().numpy() - b)
+                d_r, gap_r, ctrl_r = per_ray(d), per_ray(gap), per_ray(ctrl)
+                # the share of rays within k times their own effect (or 2e-4)
+                within = {k: {"fast": float((d_r <= np.maximum(k * gap_r, 2e-4)).mean()),
+                              "control": float((ctrl_r <= np.maximum(k * gap_r, 2e-4)).mean())}
+                          for k in (0.5, 1.0, RAY_EFFECT, 4.0)}
                 effect[f"{phase}_{key}"] = {
                     "median": float(np.median(d)), "effect_median": float(np.median(gap)),
-                    "max": float(d.max()), "effect_max": float(gap.max())}
+                    "max": float(d.max()), "effect_max": float(gap.max()),
+                    "control_median": float(np.median(ctrl)),
+                    "ray_median": float(np.median(d_r)),
+                    "ray_effect_median": float(np.median(gap_r)),
+                    "ray_control_median": float(np.median(ctrl_r)),
+                    "rays_within_k_effect": within}
                 ok_fast &= bool(np.median(d) <= max(0.2 * np.median(gap), 2e-4)
-                                and d.max() <= max(2 * gap.max(), 2e-4))
+                                and d.max() <= max(2 * gap.max(), 2e-4)
+                                and within[RAY_EFFECT]["fast"] >= RAY_SHARE)
     log(f"[slice] route {route}: {rn}-ray chunk, card kernels vs CPU plain "
         f"versions: share of rays within rtol=atol=2e-4: {agree}"
-        + (f"; fast: distances against the bf16 effect (CPU fast vs FP32) {effect}"
-           if fast else ""))
+        + (f"; fast: distances against the bf16 effect (CPU fast vs FP32) and the "
+           f"control (card 3xTF32 vs CPU fast); per-ray rule: >= {RAY_SHARE} of rays "
+           f"within {RAY_EFFECT} x their effect or 2e-4: {effect}" if fast else ""))
     if (not ok_fast) if fast else min(agree.values()) < 0.99:
         raise AssertionError(f"card and CPU renders disagree (route {route}): {agree} "
                              f"{effect}")
@@ -1815,8 +1915,9 @@ def configs_phase(card):
     Each, a model of its own with seeded weights on the exact path
     (``config.EXACT``), renders one CONFIG_CHUNK-ray chunk of the slice's
     scene, its launches counted (the view transformer's tiny attention and
-    the ray head at the configuration's width; the default model at 128 +
-    128 samples the point head, and the ray head streamed at SN 256); then
+    the ray head at the configuration's width; the guided feature grid the
+    point head at tokens of 72; the default model at 128 + 128 samples the
+    point head, and the ray head streamed at SN 256); then
     the same chunk with the same draws on the card's encoding through the
     plain versions on the CPU (rays within 2e-4 on >= 99 %). Then
     ``cli.run --use_dir_srdf --test_sample_coarse 128 --test_sample_fine

@@ -42,6 +42,8 @@ JAX_EXACT = dict(volume_merge="never", volume_dtype="float32",
 CASES = {
     "featuregrid": (dict(volume_type="featuregrid", volume_reso=16, mvs_depth_guide=0,
                          depth_pos_encoding=False), 64, 8),
+    # the point head at tokens of 72 (test_torch_port_configs_guided.py)
+    "featuregrid_guided": (dict(volume_type="featuregrid", volume_reso=16), 64, 8),
     "no_depth_pe": (dict(depth_pos_encoding=False), 64, 8),
     "dir_srdf": (dict(use_dir_srdf=True), 64, 8),
     "no_volume": (dict(volume_reso=0), 64, 8),

@@ -36,9 +36,12 @@ def _jax_point(inputs, params):
     return np.asarray(tok).T, np.asarray(rad).T
 
 
+# volume width 24 (the correlation volume) and 16 (the feature grid, tokens
+# of 72: JAX's gate sends it to the point head too)
+@pytest.mark.parametrize("c_vol", [24, 16])
 @pytest.mark.parametrize("nv", [2, 3])
-def test_point_head_reference_matches_jax(rng, nv):
-    inputs, params = _point_case(rng, nv=nv)
+def test_point_head_reference_matches_jax(rng, nv, c_vol):
+    inputs, params = _point_case(rng, nv=nv, c_vol=c_vol)
     tok_ref, rad_ref = _jax_point(inputs, params)
     tok, rad = pph.point_head_reference(
         pph.PointHeadInputs(**{k: _t(v) for k, v in inputs.items()}),

@@ -58,11 +58,15 @@ def _t(x):
     return torch.as_tensor(np.array(x, np.float32))
 
 
-def _point_case(rng, nv=3, n=96, c=C):
+def _point_case(rng, nv=3, n=96, c_vol=24):
+    """Point-head inputs and flax-oriented weights at volume width c_vol
+    (24: the correlation volume, tokens of C = 80; 16: the feature grid,
+    tokens of 72)."""
+    c = 32 + c_vol + 16 + 8
     r = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)
     mask = (rng.uniform(size=(nv, n)) > 0.3).astype(np.float32)
     mask[:, :5] = 0.0                      # points masked in every view
-    inputs = dict(img_feat=r(nv, n, 32), vol_feat=r(n, 24), sim_feat=r(n, 8),
+    inputs = dict(img_feat=r(nv, n, 32), vol_feat=r(n, c_vol), sim_feat=r(n, 8),
                   depth_dist=r(nv, n, scale=0.3), dir_rel=r(nv, n, 3, scale=0.1),
                   rgb=rng.uniform(size=(nv, n, 3)).astype(np.float32), mask=mask)
     w = lambda i, o: r(i, o, scale=1.0 / np.sqrt(i))   # flax (in, out)
@@ -182,6 +186,12 @@ def test_kernel_launchers_reject_shapes_they_do_not_take(rng):
     with pytest.raises(ValueError, match="point_head kernel takes"):
         pph._launch(pph.PointHeadInputs(**{k: _t(v) for k, v in inputs.items()}),
                     _port_params(pph.PointHeadParams, params), 8)
+    # volume widths the kernels are not built for: only 24 and 16 are
+    inputs, params = _point_case(rng, n=8, c_vol=8)
+    for launch, name in ((pph._launch, "point_head"), (pph2._launch, "point_head2")):
+        with pytest.raises(ValueError, match=f"{name} kernel takes"):
+            launch(pph.PointHeadInputs(**{k: _t(v) for k, v in inputs.items()}),
+                   _port_params(pph.PointHeadParams, params), 8)
     y, rparams = _ray_case(rng, rn=2, sn=6, c=84)   # C not a multiple of 8
     with pytest.raises(ValueError, match="C % 8"):
         prh._launch(_t(y), _port_params(prh.RayHeadParams, rparams), 8)
@@ -622,6 +632,30 @@ def _fast_close(got, fast, exact, per_ray=False, tol=2e-5):
     assert d.max().item() <= gap and gap < 0.5, (d.max().item(), gap)
 
 
+def _fast_close_by_effect(got, fast, exact, tol=2e-5, per_ray=False):
+    """A fast ray head's output against its fast plain version by the size
+    of the bf16 effect (fast plain against FP32 plain), the rule of
+    test_torch_port_ray_widths.py: the median distance at most 0.2 of the
+    effect's median (a kernel that rounds at one site more or fewer than
+    the plain version misses it) and every element within the effect's
+    largest, each bound at least tol. The element-share rule
+    (``_fast_close``) counts samples, and at widths past 100 and long rays
+    the flips of single bf16 roundings nearly use it up: 0.922-0.926 of
+    the elements within tol on 1024 rays at C 112, SN 256 on the card,
+    whatever order the attention state is summed in, and on 37 rays that
+    share spreads by several points (0.883-0.890 on the card). A per-ray
+    sum (``per_ray``) is held by the median alone: a flip moves it by more
+    than the largest bf16 effect on 37 rays now and then (1.4e-4 against
+    8.5e-5 at C 48, SN 512 on the card), and the caller holds it to the
+    kernel's own weights instead."""
+    d = (got - fast).abs()
+    gap = (fast - exact).abs()
+    assert d.median().item() <= max(0.2 * gap.median().item(), tol), \
+        (d.median().item(), gap.median().item())
+    assert gap.max().item() < 0.5 and (per_ray or d.max().item() <= max(gap.max().item(), tol)), \
+        (d.max().item(), gap.max().item())
+
+
 @pytest.mark.parametrize("kernel", ["point_head", "point_head2", "ray_head_88",
                                     "ray_head_72", "ray_head_neus"])
 def test_fast_kernel_matches_plain_on_gpu(rng, cuda_device, kernel):
@@ -641,9 +675,36 @@ def test_fast_point_head_kernels_match_plain_at_each_view_count_on_gpu(rng, cuda
     _check_fast_kernel(rng, cuda_device, kernel, nv=nv)
 
 
-def _check_fast_kernel(rng, cuda_device, kernel, nv=3, c=None, sn=64):
+@pytest.mark.parametrize("nv", [2, 3, 5])
+@pytest.mark.parametrize("kernel", ["point_head", "point_head2"])
+def test_point_head_kernels_at_the_feature_grid_width_match_plain_on_gpu(rng, cuda_device,
+                                                                       kernel, nv):
+    """The feature grid's 16 volume features (tokens of 72, heads of 9),
+    which JAX's gate sends to the point head too: the 3xTF32 kernel within
+    the tolerances of test_point_head_kernel_matches_plain_on_gpu (a
+    ragged P, the first 5 points masked in every view), the bf16 one by
+    the rule of test_fast_kernel_matches_plain_on_gpu."""
+    inputs, params = _point_case(rng, nv=nv, n=1001, c_vol=16)
+    inp = pph.PointHeadInputs(**{k: _t(v).to(cuda_device) for k, v in inputs.items()})
+    p = _on(cuda_device, _port_params(pph.PointHeadParams, params))
+    mod = pph if kernel == "point_head" else pph2
+    wrapper, plain = getattr(mod, kernel), getattr(mod, f"{kernel}_reference")
+    before = wrapper.launches
+    with torch.no_grad():
+        tok, rad = wrapper(inp, p)
+    tok_ref, rad_ref = plain(inp, p)
+    assert wrapper.launches == before + 1 and tok.shape == (1001, 72)
+    assert torch.isfinite(tok).all() and torch.isfinite(rad).all()
+    torch.testing.assert_close(tok, tok_ref, rtol=0, atol=2e-5)
+    torch.testing.assert_close(rad, rad_ref, rtol=0, atol=2e-6)
+    torch.testing.assert_close(rad[:5], inp.rgb[:, :5].mean(0), rtol=0, atol=2e-6)
+    _check_fast_kernel(rng, cuda_device, kernel, nv=nv, c_vol=16)
+
+
+def _check_fast_kernel(rng, cuda_device, kernel, nv=3, c=None, sn=64, c_vol=24,
+                       by_effect=False):
     if kernel.startswith("point_head"):
-        inputs, params = _point_case(rng, nv=nv, n=1001)
+        inputs, params = _point_case(rng, nv=nv, n=1001, c_vol=c_vol)
         args = (pph.PointHeadInputs(**{k: _t(v).to(cuda_device) for k, v in inputs.items()}),
                 _on(cuda_device, _port_params(pph.PointHeadParams, params)))
         mod = pph if kernel == "point_head" else pph2
@@ -651,11 +712,7 @@ def _check_fast_kernel(rng, cuda_device, kernel, nv=3, c=None, sn=64):
         plain = getattr(mod, f"{kernel}_reference")
     else:
         c = c or (72 if kernel == "ray_head_72" else 88)
-        # the share rule counts elements, and a ray whose attention state
-        # rounds the other way moves all its samples: enough rays that one
-        # such ray is a small part of the count (37 rays at SN 64, at
-        # least 32,768 samples past it)
-        rn = 37 if sn == 64 else max(37, 32768 // sn)
+        rn = 37
         y, rparams = _ray_case(rng, rn=rn, sn=sn, c=c)
         rp = _on(cuda_device, _port_params(prh.RayHeadParams, rparams))
         extra = _neus_case(rng, rn, sn) if kernel == "ray_head_neus" else ()
@@ -672,9 +729,25 @@ def _check_fast_kernel(rng, cuda_device, kernel, nv=3, c=None, sn=64):
     as_tuple = lambda x: x if isinstance(x, tuple) else (x,)
     for i, (g, f, e) in enumerate(zip(*map(as_tuple, (got, fast, exact)))):
         assert g.shape == f.shape and torch.isfinite(g).all()
-        if g.numel():   # the NeuS weights of a one-sample ray are empty
+        if not g.numel():   # the NeuS weights of a one-sample ray are empty
+            continue
+        if by_effect:
+            # the NeuS per-ray sums take every flip of their ray's samples
+            # at once, where the bf16 effect on them partly cancels: held
+            # by the median, and exactly to the kernel's own weights below
+            _fast_close_by_effect(g, f, e, per_ray=kernel == "ray_head_neus" and i >= 2)
+        else:
             # the NeuS outputs past srdf and weight are per-ray sums
             _fast_close(g, f, e, per_ray=kernel == "ray_head_neus" and i >= 2)
+    if by_effect and kernel == "ray_head_neus":
+        # rgb, depth and opacity: the sums of the kernel's own weights over
+        # the ray's radiance, z and ones (float32 sums in another order)
+        _, w, rgb, depth, opacity = got
+        z, rad = args[1], args[2]
+        for name, a, b in (("rgb", rgb, torch.einsum("rs,rsc->rc", w, rad[:, :w.shape[1]])),
+                           ("depth", depth, (w * z[:, :w.shape[1]]).sum(-1)),
+                           ("opacity", opacity, w.sum(-1))):
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5, msg=name)
     assert 1e-4 < max((g - t).abs().max().item()
                       for g, t in zip(*map(as_tuple, (got, tf32))) if g.numel()) < 0.5
 
@@ -831,9 +904,11 @@ def test_ray_head_kernels_match_plain_at_every_width_and_length_on_gpu(rng, cuda
 @pytest.mark.parametrize("kernel", ["ray_head", "ray_head_neus"])
 def test_fast_ray_head_kernels_match_plain_at_every_width_and_length_on_gpu(
         rng, cuda_device, kernel, c, sn):
-    """The bf16 ray heads at the same widths and lengths, by the rule of
-    test_fast_kernel_matches_plain_on_gpu."""
-    _check_fast_kernel(rng, cuda_device, kernel, c=c, sn=sn)
+    """The bf16 ray heads at the same widths and lengths, by the size of
+    the bf16 effect (``_fast_close_by_effect``); chip_smoke.py's kernel
+    phase holds the configurations' shapes by the element share
+    (FAST_SHARE) on 1024 rays."""
+    _check_fast_kernel(rng, cuda_device, kernel, c=c, sn=sn, by_effect=True)
 
 
 def test_head_variants_patch_the_kernel_sources_once():

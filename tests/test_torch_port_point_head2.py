@@ -60,9 +60,10 @@ def _port_inputs(inputs):
     return pph2.PointHeadInputs2(**{k: _t(v) for k, v in inputs.items()})
 
 
+@pytest.mark.parametrize("c_vol", [24, 16])
 @pytest.mark.parametrize("nv", [2, 3, 5])
-def test_point_head2_reference_matches_jax(rng, nv):
-    inputs, params = _point_case(rng, nv=nv)
+def test_point_head2_reference_matches_jax(rng, nv, c_vol):
+    inputs, params = _point_case(rng, nv=nv, c_vol=c_vol)
     tok_ref, rad_ref = jph2.point_head2_reference(
         jph2.PointHeadInputs2(**{k: jnp.asarray(v) for k, v in inputs.items()}),
         _jax_params(params))
@@ -191,13 +192,15 @@ def _split_algebra(inp, pack, widths, n_heads=8, tc_mm=None):
     return token, rad
 
 
+@pytest.mark.parametrize("c_vol", [24, 16])
 @pytest.mark.parametrize("nv", [2, 3, 5])
-def test_split_algebra_of_the_weight_pack_matches_plain(rng, nv):
-    """At the kernel's widths (C 80: img 32, vol 24, sim16 16, pe 8)."""
-    inputs, params = _point_case(rng, nv=nv)
+def test_split_algebra_of_the_weight_pack_matches_plain(rng, nv, c_vol):
+    """At the kernel's widths (C 80: img 32, vol 24, sim16 16, pe 8; with
+    the feature grid's vol 16, C 72)."""
+    inputs, params = _point_case(rng, nv=nv, c_vol=c_vol)
     inp = _port_inputs(inputs)
     p = _port_params(pph.PointHeadParams, params)
-    tok, rad = _split_algebra(inp, pph2.pack_weights2(p), (80, 32, 24, 16, 32))
+    tok, rad = _split_algebra(inp, pph2.pack_weights2(p), (56 + c_vol, 32, c_vol, 16, 32))
     tok_ref, rad_ref = pph2.point_head2_reference(inp, p)
     torch.testing.assert_close(tok, tok_ref, **TOL)
     torch.testing.assert_close(rad, rad_ref, **TOL)

@@ -258,19 +258,25 @@ def test_fused_point_head_validates_like_jax():
         Config(fused_point_head="always", explicit_similarity=False)
     from uforecon_tpu_torch.models.ray_transformer import RayTransformer
 
-    # JAX's gate (its _fused_ok): the volume's 24 correlation features, the
-    # similarity and the depth distance, no direction PE
-    rt, vol, sim, dd = RayTransformer(), torch.zeros(2, 24), torch.zeros(1), torch.zeros(1)
-    with pytest.raises(ValueError, match="fused_point_head='always'"):
-        rt._fused_ok(vol, None, dd, "always")
-    assert [rt._fused_ok(vol, sim, dd, v) for v in values] == [True, True, False]
-    for lacking in ((vol, None, dd), (None, sim, dd), (vol, sim, None),
-                    (torch.zeros(2, 16), sim, dd)):       # the feature grid's 16
-        assert not rt._fused_ok(*lacking, "auto")
+    # JAX's gate (its _fused_ok): volume features of either kind (the
+    # correlation volume's 24, the feature grid's 16), the similarity and
+    # the depth distance, no direction PE
+    rt, sim, dd = RayTransformer(), torch.zeros(1), torch.zeros(1)
+    for vol in (torch.zeros(2, 24), torch.zeros(2, 16)):
         with pytest.raises(ValueError, match="fused_point_head='always'"):
-            rt._fused_ok(*lacking, "always")
-    assert not RayTransformer(use_dir_srdf=True)._fused_ok(vol, sim, dd, "auto")
+            rt._fused_ok(vol, None, dd, "always")
+        assert [rt._fused_ok(vol, sim, dd, v) for v in values] == [True, True, False]
+        for lacking in ((vol, None, dd), (None, sim, dd), (vol, sim, None)):
+            assert not rt._fused_ok(*lacking, "auto")
+            with pytest.raises(ValueError, match="fused_point_head='always'"):
+                rt._fused_ok(*lacking, "always")
+        assert not RayTransformer(use_dir_srdf=True)._fused_ok(vol, sim, dd, "auto")
     for flags in (dict(depth_pos_encoding=False), dict(use_dir_srdf=True),
-                  dict(volume_reso=0), dict(volume_type="featuregrid")):
+                  dict(volume_reso=0), dict(volume_type="featuregrid", mvs_depth_guide=0)):
         with pytest.raises(ValueError, match="fused_point_head='always'"):
             Config(fused_point_head="always", **flags)
+    # the feature grid with the depth guide and the similarity: JAX builds
+    # it with 'always' and its gate takes the point head
+    assert Config(fused_point_head="always",
+                  volume_type="featuregrid").full_point_features
+    JaxConfig(fused_point_head="always", volume_type="featuregrid")

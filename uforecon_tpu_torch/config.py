@@ -13,9 +13,11 @@ configurations of the JAX package are here too, with its flags:
   * ``explicit_similarity=False``: the paper's ablation (no similarity
     query, no ``pre_sim_mlp``).
 The view-token width is their sum (``view_trans_dim``: 32 + 0/16/24 +
-0/16 + 0/8 + 0/24) and the ray head's 8 more, 40 .. 112; every one of
-these configurations renders through the view transformer (JAX's gate),
-and training them is not ported (``config_from_args`` refuses it). The
+0/16 + 0/8 + 0/24) and the ray head's 8 more, 40 .. 112. JAX's gate
+sends a configuration with a volume of either kind, the similarity and
+the depth guide (and no direction PE) to the point head (the feature
+grid's at tokens of 72), every other one to the view transformer.
+Training them is not ported (``config_from_args`` refuses it). The
 JAX package's TPU layout knobs (brick gathers, corner packing,
 ``image_row_merge``) and bf16 compute do not exist here.
 
@@ -232,7 +234,7 @@ class Config:
                 raise ValueError(f"Config.{field}={v!r} not in {values}")
         if self.fused_point_head == "always" and not self.full_point_features:
             raise ValueError("fused_point_head='always' needs the point-head "
-                             "kernel's full feature set (correlation volume, explicit "
+                             "kernel's full feature set (a volume, explicit "
                              "similarity, depth PE, no use_dir_srdf); use 'auto' to "
                              "allow the view-transformer route")
         if len(self.ndepths) != 3:
@@ -286,7 +288,7 @@ class Config:
     def full_point_features(self) -> bool:
         """Has every point the point-head kernel's full feature set (the JAX
         gate, ``models/ray_transformer.py:505-521``)?"""
-        return (self.correlation_volume and self.explicit_similarity
+        return (self.volume_reso > 0 and self.explicit_similarity
                 and self.depth_guide and not self.use_dir_srdf)
 
     @property

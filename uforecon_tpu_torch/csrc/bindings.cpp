@@ -10,14 +10,14 @@ extern "C" int ufo_point_head(const float* img, const float* vol,
                               const float* sim, const float* dd,
                               const float* dir, const float* rgb,
                               const float* mask, const float* w, float* token,
-                              float* rad, int nv, int p, int fast, void* stream);
-extern "C" int ufo_point_head_weight_count();
+                              float* rad, int cv, int nv, int p, int fast, void* stream);
+extern "C" int ufo_point_head_weight_count(int cv);
 extern "C" int ufo_point_head2(const float* img, const float* vol,
                                const float* sim, const float* dd,
                                const float* dir, const float* rgb,
                                const float* mask, const float* w, float* token,
-                               float* rad, int nv, int p, int fast, void* stream);
-extern "C" int ufo_point_head2_weight_count();
+                               float* rad, int cv, int nv, int p, int fast, void* stream);
+extern "C" int ufo_point_head2_weight_count(int cv);
 extern "C" int ufo_ray_head(const float* y, const float* w, float* srdf,
                             int rn, int sn, int c, int fast, void* stream);
 extern "C" int ufo_ray_head_weight_count(int c);
@@ -62,13 +62,14 @@ void point_head(const at::Tensor& img, const at::Tensor& vol,
                 const at::Tensor& dir, const at::Tensor& rgb,
                 const at::Tensor& mask, const at::Tensor& w,
                 at::Tensor& token, at::Tensor& rad, bool fast) {
+  const int cv = static_cast<int>(vol.size(1));
   const int nv = static_cast<int>(img.size(0));
   const int p = static_cast<int>(img.size(1));
   check(ufo_point_head(img.data_ptr<float>(), vol.data_ptr<float>(),
                        sim.data_ptr<float>(), dd.data_ptr<float>(),
                        dir.data_ptr<float>(), rgb.data_ptr<float>(),
                        mask.data_ptr<float>(), w.data_ptr<float>(),
-                       token.data_ptr<float>(), rad.data_ptr<float>(), nv, p, fast,
+                       token.data_ptr<float>(), rad.data_ptr<float>(), cv, nv, p, fast,
                        at::cuda::getCurrentCUDAStream().stream()),
         "point_head");
 }
@@ -78,13 +79,14 @@ void point_head2(const at::Tensor& img, const at::Tensor& vol,
                  const at::Tensor& dir, const at::Tensor& rgb,
                  const at::Tensor& mask, const at::Tensor& w,
                  at::Tensor& token, at::Tensor& rad, bool fast) {
+  const int cv = static_cast<int>(vol.size(1));
   const int nv = static_cast<int>(img.size(0));
   const int p = static_cast<int>(img.size(1));
   check(ufo_point_head2(img.data_ptr<float>(), vol.data_ptr<float>(),
                         sim.data_ptr<float>(), dd.data_ptr<float>(),
                         dir.data_ptr<float>(), rgb.data_ptr<float>(),
                         mask.data_ptr<float>(), w.data_ptr<float>(),
-                        token.data_ptr<float>(), rad.data_ptr<float>(), nv, p, fast,
+                        token.data_ptr<float>(), rad.data_ptr<float>(), cv, nv, p, fast,
                         at::cuda::getCurrentCUDAStream().stream()),
         "point_head2");
 }

@@ -11,6 +11,11 @@
 //   * radiance MLP 83 -> 16 -> 8 -> 1 per view, softmax over views masked
 //     at -1e9, rgb blend.
 // Only the view-token output (80) and the radiance (3) leave the kernel.
+// Those are the widths of the correlation volume's 24 features. The
+// feature grid's 16 (--volume_type featuregrid with the depth guide and
+// the similarity, which the JAX gate also sends here) give tokens of 72,
+// heads of 9, mlp 144 -> 144 -> 72 and a radiance input of 75: the volume
+// width is a template parameter (Dims<CV>), both widths are instantiated.
 //
 // What bounds it on the H100: arithmetic. A point costs ~2.6e5 multiply-
 // adds (the four token rows through the 80x80 and 160x160 layers)
@@ -60,54 +65,63 @@
 namespace ufo {
 namespace ph {
 
-constexpr int C = 80;      // token width
 constexpr int CI = 32;     // image-feature channels
-constexpr int CV = 24;     // volume-feature channels
 constexpr int SIN = 8;     // cosine groups
 constexpr int SH = 32;     // pre-similarity hidden width
 constexpr int SOUT = 16;   // pre-similarity output width
+constexpr int PE = 8;      // NeRF PE of the depth distance
 constexpr int NH = 8;      // heads
-constexpr int DK = C / NH; // head width 10
-constexpr int C2 = 2 * C;
-constexpr int CR = C + 3;  // radiance MLP input
 constexpr int R1 = 16, R2 = 8;
 constexpr int TP = 16;     // points per block
 constexpr int kPointThreads = 320;
 constexpr int kStages = 2; // weight ring slots
-constexpr int LD = tc::act_ld(C);    // 84
-constexpr int LD2 = tc::act_ld(C2);  // 164, mlp1's output in Q|V
 
-// Offsets into the packed weight buffer; the Python wrapper packs in this
-// order, every matrix in (in, out) row-major orientation, the tensor-core
-// matrices as a TF32 hi plane followed by its lo plane.
-constexpr int O_TOK = 0;
-constexpr int O_WQ = O_TOK + C;
-constexpr int O_WK = O_WQ + 2 * C * C;
-constexpr int O_WV = O_WK + 2 * C * C;
-constexpr int O_WM = O_WV + 2 * C * C;
-constexpr int O_N1S = O_WM + 2 * C * C;
-constexpr int O_N1B = O_N1S + C;
-constexpr int O_W1 = O_N1B + C;
-constexpr int O_W2 = O_W1 + 2 * C2 * C2;
-constexpr int O_N2S = O_W2 + 2 * C2 * C;
-constexpr int O_N2B = O_N2S + C;
-constexpr int O_SW0 = O_N2B + C;
-constexpr int O_SB0 = O_SW0 + SIN * SH;
-constexpr int O_SW1 = O_SB0 + SH;
-constexpr int O_SB1 = O_SW1 + SH * SH;
-constexpr int O_SW2 = O_SB1 + SH;
-constexpr int O_SB2 = O_SW2 + SH * SOUT;
-constexpr int O_RW0 = O_SB2 + SOUT;
-constexpr int O_RB0 = O_RW0 + CR * R1;
-constexpr int O_RW1 = O_RB0 + R1;
-constexpr int O_RB1 = O_RW1 + R1 * R2;
-constexpr int O_RW2 = O_RB1 + R2;
-constexpr int O_RB2 = O_RW2 + R2;
-constexpr int N_W = O_RB2 + 1;
-// cp.async reads the tensor-core planes in 16-byte pieces
-static_assert(O_WQ % 4 == 0 && O_WK % 4 == 0 && O_WV % 4 == 0 && O_WM % 4 == 0 &&
-                  O_W1 % 4 == 0 && O_W2 % 4 == 0,
-              "tensor-core weight planes must start 16-byte aligned");
+// The widths and the packed-weight offsets at a volume width CV: 24 (the
+// correlation volume: tokens of 80, heads of 10) or 16 (the feature grid:
+// tokens of 72, heads of 9). Both are instantiated; the layers' k and n
+// stay multiples of 8, as tc_gemm.cuh needs.
+template <int CV_>
+struct Dims {
+  static constexpr int CV = CV_;                 // volume-feature channels
+  static constexpr int C = CI + CV + SOUT + PE;  // token width
+  static constexpr int DK = C / NH;              // head width
+  static constexpr int C2 = 2 * C;
+  static constexpr int CR = C + 3;               // radiance MLP input
+  static constexpr int LD = tc::act_ld(C);       // 84 / 76
+  static constexpr int LD2 = tc::act_ld(C2);     // 164 / 148, mlp1's output in Q|V
+  // Offsets into the packed weight buffer; the Python wrapper packs in
+  // this order, every matrix in (in, out) row-major orientation, the
+  // tensor-core matrices as a TF32 hi plane followed by its lo plane.
+  static constexpr int O_TOK = 0;
+  static constexpr int O_WQ = O_TOK + C;
+  static constexpr int O_WK = O_WQ + 2 * C * C;
+  static constexpr int O_WV = O_WK + 2 * C * C;
+  static constexpr int O_WM = O_WV + 2 * C * C;
+  static constexpr int O_N1S = O_WM + 2 * C * C;
+  static constexpr int O_N1B = O_N1S + C;
+  static constexpr int O_W1 = O_N1B + C;
+  static constexpr int O_W2 = O_W1 + 2 * C2 * C2;
+  static constexpr int O_N2S = O_W2 + 2 * C2 * C;
+  static constexpr int O_N2B = O_N2S + C;
+  static constexpr int O_SW0 = O_N2B + C;
+  static constexpr int O_SB0 = O_SW0 + SIN * SH;
+  static constexpr int O_SW1 = O_SB0 + SH;
+  static constexpr int O_SB1 = O_SW1 + SH * SH;
+  static constexpr int O_SW2 = O_SB1 + SH;
+  static constexpr int O_SB2 = O_SW2 + SH * SOUT;
+  static constexpr int O_RW0 = O_SB2 + SOUT;
+  static constexpr int O_RB0 = O_RW0 + CR * R1;
+  static constexpr int O_RW1 = O_RB0 + R1;
+  static constexpr int O_RB1 = O_RW1 + R1 * R2;
+  static constexpr int O_RW2 = O_RB1 + R2;
+  static constexpr int O_RB2 = O_RW2 + R2;
+  static constexpr int N_W = O_RB2 + 1;
+  static_assert(C % NH == 0 && C % 8 == 0 && CV % 4 == 0, "widths the kernel tiles");
+  // cp.async reads the tensor-core planes in 16-byte pieces
+  static_assert(O_WQ % 4 == 0 && O_WK % 4 == 0 && O_WV % 4 == 0 && O_WM % 4 == 0 &&
+                    O_W1 % 4 == 0 && O_W2 % 4 == 0,
+                "tensor-core weight planes must start 16-byte aligned");
+};
 
 constexpr float kPi = 3.14159265358979323846f;
 
@@ -116,13 +130,14 @@ __host__ __device__ constexpr int tile_rows() {
   return TP * (NV + 1);
 }
 
-template <int NV>
+template <int CV, int NV>
 constexpr size_t smem_bytes() {
+  using D = Dims<CV>;
   return sizeof(float) *
-         ((size_t)tile_rows<NV>() * (2 * LD + 2 * LD) + tc::ring_floats(kStages, C2));
+         ((size_t)tile_rows<NV>() * (2 * D::LD + 2 * D::LD) + tc::ring_floats(kStages, D::C2));
 }
 
-template <int NV, bool kFast>
+template <int CV, int NV, bool kFast>
 __global__ void __launch_bounds__(kPointThreads, 2) point_head_kernel(
     const float* __restrict__ img,    // (NV, P, CI)
     const float* __restrict__ vol,    // (P, CV)
@@ -135,6 +150,14 @@ __global__ void __launch_bounds__(kPointThreads, 2) point_head_kernel(
     float* __restrict__ token_out,    // (P, C)
     float* __restrict__ rad_out,      // (P, 3)
     int P) {
+  using D = Dims<CV>;
+  constexpr int C = D::C, DK = D::DK, C2 = D::C2, CR = D::CR, LD = D::LD, LD2 = D::LD2;
+  constexpr int O_TOK = D::O_TOK, O_WQ = D::O_WQ, O_WK = D::O_WK, O_WV = D::O_WV,
+                O_WM = D::O_WM, O_N1S = D::O_N1S, O_N1B = D::O_N1B, O_W1 = D::O_W1,
+                O_W2 = D::O_W2, O_N2S = D::O_N2S, O_N2B = D::O_N2B, O_SW0 = D::O_SW0,
+                O_SB0 = D::O_SB0, O_SW1 = D::O_SW1, O_SB1 = D::O_SB1, O_SW2 = D::O_SW2,
+                O_SB2 = D::O_SB2, O_RW0 = D::O_RW0, O_RB0 = D::O_RB0, O_RW1 = D::O_RW1,
+                O_RB1 = D::O_RB1, O_RW2 = D::O_RW2, O_RB2 = D::O_RB2;
   constexpr int L = NV + 1;           // tokens per point
   constexpr int R = tile_rows<NV>();  // token rows of the block
   constexpr int RR = TP * NV;         // radiance rows of the block
@@ -343,54 +366,67 @@ __global__ void __launch_bounds__(kPointThreads, 2) point_head_kernel(
   }
 }
 
-template <int NV, bool kFast>
+template <int CV, int NV, bool kFast>
 int launch_precision(const float* img, const float* vol, const float* sim,
                      const float* dd, const float* dir, const float* rgb,
                      const float* mask, const float* w, float* token, float* rad,
                      int p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<NV>();
+  const size_t smem = smem_bytes<CV, NV>();
   cudaError_t e = cudaFuncSetAttribute(
-      point_head_kernel<NV, kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      point_head_kernel<CV, NV, kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (p + TP - 1) / TP;
-  point_head_kernel<NV, kFast><<<grid, kPointThreads, smem, stream>>>(
+  point_head_kernel<CV, NV, kFast><<<grid, kPointThreads, smem, stream>>>(
       img, vol, sim, dd, dir, rgb, mask, w, token, rad, p);
   return (int)cudaGetLastError();
 }
 
-template <int NV>
+template <int CV>
 int launch(const float* img, const float* vol, const float* sim,
            const float* dd, const float* dir, const float* rgb,
            const float* mask, const float* w, float* token, float* rad,
-           int p, bool fast, cudaStream_t stream) {
-  return fast ? launch_precision<NV, true>(img, vol, sim, dd, dir, rgb, mask, w, token,
-                                           rad, p, stream)
-              : launch_precision<NV, false>(img, vol, sim, dd, dir, rgb, mask, w, token,
-                                            rad, p, stream);
+           int nv, int p, bool fast, cudaStream_t s) {
+#define UFO_PH_CASE(NV)                                                                    \
+  case NV:                                                                                 \
+    return fast ? launch_precision<CV, NV, true>(img, vol, sim, dd, dir, rgb, mask, w,     \
+                                                 token, rad, p, s)                         \
+                : launch_precision<CV, NV, false>(img, vol, sim, dd, dir, rgb, mask, w,    \
+                                                  token, rad, p, s);
+  switch (nv) {
+    UFO_PH_CASE(2)
+    UFO_PH_CASE(3)
+    UFO_PH_CASE(4)
+    UFO_PH_CASE(5)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef UFO_PH_CASE
 }
 
 }  // namespace ph
 }  // namespace ufo
 
-extern "C" int ufo_point_head_weight_count() { return ufo::ph::N_W; }
+// The packed weights' length at volume width cv (16 or 24), else -1.
+extern "C" int ufo_point_head_weight_count(int cv) {
+  using namespace ufo::ph;
+  return cv == 24 ? Dims<24>::N_W : cv == 16 ? Dims<16>::N_W : -1;
+}
 
-// Returns a cudaError_t value (0 on success). nv must be 2..5; fast picks
-// the bf16 instantiation (its pack holds bf16 planes).
+// Returns a cudaError_t value (0 on success). cv (the volume width) must
+// be 16 or 24 and nv 2..5; fast picks the bf16 instantiation (its pack
+// holds bf16 planes).
 extern "C" int ufo_point_head(const float* img, const float* vol,
                               const float* sim, const float* dd,
                               const float* dir, const float* rgb,
                               const float* mask, const float* w, float* token,
-                              float* rad, int nv, int p, int fast, void* stream) {
+                              float* rad, int cv, int nv, int p, int fast, void* stream) {
   using namespace ufo::ph;
   if (p <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool f = fast != 0;
-  switch (nv) {
-    case 2: return launch<2>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
-    case 3: return launch<3>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
-    case 4: return launch<4>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
-    case 5: return launch<5>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
+  switch (cv) {
+    case 24: return launch<24>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, nv, p, f, s);
+    case 16: return launch<16>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, nv, p, f, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,7 +6,9 @@
 // depth distance, one LoFTR layer over the view token and NV view tokens,
 // masked radiance softmax) on the same point-major inputs and weights, but
 // never builds a view's 80-channel token [img 32 | vol 24 | sim16 16 |
-// pe 8]. Each consumer of a token is split by feature group against the
+// pe 8] (72 channels with the feature grid's 16 volume features: the
+// volume width is a template parameter, Dims<CV>, and both widths are
+// instantiated, as in point_head.cu). Each consumer of a token is split by feature group against the
 // raw inputs:
 //   q/k/v_v = [img_v | pe_v] Wview + [vol | sim16] Wshared,
 //   mlp1_v  = [img_v | pe_v] W1a_view + [vol | sim16] W1a_shared + msg_v W1b,
@@ -65,72 +67,79 @@
 namespace ufo {
 namespace ph2 {
 
-constexpr int C = 80;        // token width
 constexpr int CI = 32;       // image-feature channels
-constexpr int CV = 24;       // volume-feature channels
 constexpr int SIN = 8;       // cosine groups
 constexpr int SHID = 32;     // pre-similarity hidden width
 constexpr int SOUT = 16;     // pre-similarity output width (sim16)
 constexpr int PE = 8;        // NeRF PE width
 constexpr int NH = 8;        // heads
-constexpr int DK = C / NH;   // head width 10
-constexpr int C2 = 2 * C;
 constexpr int R1 = 16, R2 = 8;
-constexpr int GS = CV + SOUT;          // view-shared group [vol | sim16]
 constexpr int GV = CI + PE;            // per-view group [img | pe]
 constexpr int XW = GV + 3;             // a view row's raw inputs [img | pe | dir]
 constexpr int NB = 3;                  // bias rows (ops/fused_point_head2.py BIAS_ROWS)
 // radiance layer 0's first operand: [img | pe | dir | 1 1 1 | 0...], the
 // 1s taking the bias rows of the weights, padded to a multiple of 8
 constexpr int XK = (XW + NB + 7) / 8 * 8;   // 48
-constexpr int NSH = 3 * C + C2 + R1;   // shared projections: q | k | v | mlp1 | r0
-constexpr int NTAIL = C2 + R1;         // the shared mlp1 | r0 columns
 constexpr int TP = 16;                 // points per block
 constexpr int kThreads = 320;
 constexpr int kStages = 2;             // weight ring slots
 constexpr int kSmallRows = 1;          // rows per thread in the small CUDA-core MLPs
 constexpr int LX = tc::act_ld(XK);     // 52: rows of X
-constexpr int LS = tc::act_ld(GS);     // 44: rows of S
 constexpr int LZ = tc::act_ld(R1);     // 20: radiance layer 0's output
-constexpr int LQK = tc::act_ld(2 * C); // 164: q | k, later mlp1's output
-constexpr int LV = tc::act_ld(C);      // 84: v, later the message and m2
-constexpr int LT = tc::act_ld(NTAIL);  // 180: the shared mlp1 | r0 parts
-static_assert(CI + CV + SOUT + PE == C, "token groups must fill the token");
 static_assert(XK <= LX, "a view row's radiance input must fit its row");
 
-// Offsets into the packed weight buffer (ops/fused_point_head2.py
-// layout2), every matrix in (in, out) row-major orientation; the
-// tensor-core matrices as a TF32 hi plane followed by its lo plane.
-constexpr int O_TOK = 0;                      // view token (C)
-constexpr int O_TQKV = O_TOK + C;             // view token @ wq | wk | wv (3 x C)
-constexpr int O_W1T = O_TQKV + 3 * C;         // view token @ w1[:C] (C2)
-constexpr int O_SH = O_W1T + C2;              // 2 planes of GS x NSH
-constexpr int O_VQKV = O_SH + 2 * GS * NSH;   // 2 planes of GV x 3C
-constexpr int O_WM = O_VQKV + 2 * GV * 3 * C; // 2 planes of C x C
-constexpr int O_N1S = O_WM + 2 * C * C;
-constexpr int O_N1B = O_N1S + C;
-constexpr int O_VW1 = O_N1B + C;              // 2 planes of (GV + C) x C2: view rows, then w1[C:]
-constexpr int O_W2 = O_VW1 + 2 * (GV + C) * C2;  // 2 planes of C2 x C
-constexpr int O_N2S = O_W2 + 2 * C2 * C;
-constexpr int O_N2B = O_N2S + C;
-constexpr int O_SW0 = O_N2B + C;
-constexpr int O_SB0 = O_SW0 + SIN * SHID;
-constexpr int O_SW1 = O_SB0 + SHID;
-constexpr int O_SB1 = O_SW1 + SHID * SHID;
-constexpr int O_SW2 = O_SB1 + SHID;
-constexpr int O_SB2 = O_SW2 + SHID * SOUT;
-constexpr int O_VRAD = O_SB2 + SOUT;          // 2 planes of (XK + C) x R1: view, dir,
-                                              // bias, zero rows, then r0[:C]
-constexpr int O_RW1 = O_VRAD + 2 * (XK + C) * R1;
-constexpr int O_RB1 = O_RW1 + R1 * R2;
-constexpr int O_RW2 = O_RB1 + R2;
-constexpr int O_RB2 = O_RW2 + R2;
-constexpr int N_W = O_RB2 + 1;
-// cp.async reads the tensor-core planes, and their column panels, in
-// 16-byte pieces
-static_assert(O_SH % 4 == 0 && O_VQKV % 4 == 0 && O_WM % 4 == 0 && O_VW1 % 4 == 0 &&
-                  O_W2 % 4 == 0 && O_VRAD % 4 == 0 && NSH % 4 == 0 && (3 * C) % 4 == 0,
-              "tensor-core weight planes must start 16-byte aligned");
+// The widths and the packed-weight offsets at a volume width CV: 24 (the
+// correlation volume: tokens of 80, heads of 10) or 16 (the feature grid:
+// tokens of 72, heads of 9). Both are instantiated.
+template <int CV_>
+struct Dims {
+  static constexpr int CV = CV_;                 // volume-feature channels
+  static constexpr int C = CI + CV + SOUT + PE;  // token width
+  static constexpr int DK = C / NH;              // head width
+  static constexpr int C2 = 2 * C;
+  static constexpr int GS = CV + SOUT;           // view-shared group [vol | sim16]
+  static constexpr int NSH = 3 * C + C2 + R1;    // shared projections: q | k | v | mlp1 | r0
+  static constexpr int NTAIL = C2 + R1;          // the shared mlp1 | r0 columns
+  static constexpr int LS = tc::act_ld(GS);      // 44 / 36: rows of S
+  static constexpr int LQK = tc::act_ld(2 * C);  // 164 / 148: q | k, later mlp1's output
+  static constexpr int LV = tc::act_ld(C);       // 84 / 76: v, later the message and m2
+  static constexpr int LT = tc::act_ld(NTAIL);   // 180 / 164: the shared mlp1 | r0 parts
+  // Offsets into the packed weight buffer (ops/fused_point_head2.py
+  // layout2), every matrix in (in, out) row-major orientation; the
+  // tensor-core matrices as a TF32 hi plane followed by its lo plane.
+  static constexpr int O_TOK = 0;                      // view token (C)
+  static constexpr int O_TQKV = O_TOK + C;             // view token @ wq | wk | wv (3 x C)
+  static constexpr int O_W1T = O_TQKV + 3 * C;         // view token @ w1[:C] (C2)
+  static constexpr int O_SH = O_W1T + C2;              // 2 planes of GS x NSH
+  static constexpr int O_VQKV = O_SH + 2 * GS * NSH;   // 2 planes of GV x 3C
+  static constexpr int O_WM = O_VQKV + 2 * GV * 3 * C; // 2 planes of C x C
+  static constexpr int O_N1S = O_WM + 2 * C * C;
+  static constexpr int O_N1B = O_N1S + C;
+  static constexpr int O_VW1 = O_N1B + C;  // 2 planes of (GV + C) x C2: view rows, then w1[C:]
+  static constexpr int O_W2 = O_VW1 + 2 * (GV + C) * C2;  // 2 planes of C2 x C
+  static constexpr int O_N2S = O_W2 + 2 * C2 * C;
+  static constexpr int O_N2B = O_N2S + C;
+  static constexpr int O_SW0 = O_N2B + C;
+  static constexpr int O_SB0 = O_SW0 + SIN * SHID;
+  static constexpr int O_SW1 = O_SB0 + SHID;
+  static constexpr int O_SB1 = O_SW1 + SHID * SHID;
+  static constexpr int O_SW2 = O_SB1 + SHID;
+  static constexpr int O_SB2 = O_SW2 + SHID * SOUT;
+  static constexpr int O_VRAD = O_SB2 + SOUT;  // 2 planes of (XK + C) x R1: view, dir,
+                                               // bias, zero rows, then r0[:C]
+  static constexpr int O_RW1 = O_VRAD + 2 * (XK + C) * R1;
+  static constexpr int O_RB1 = O_RW1 + R1 * R2;
+  static constexpr int O_RW2 = O_RB1 + R2;
+  static constexpr int O_RB2 = O_RW2 + R2;
+  static constexpr int N_W = O_RB2 + 1;
+  static_assert(C % NH == 0 && C % 8 == 0 && GS % 8 == 0 && CV % 4 == 0,
+                "widths the kernel tiles");
+  // cp.async reads the tensor-core planes, and their column panels, in
+  // 16-byte pieces
+  static_assert(O_SH % 4 == 0 && O_VQKV % 4 == 0 && O_WM % 4 == 0 && O_VW1 % 4 == 0 &&
+                    O_W2 % 4 == 0 && O_VRAD % 4 == 0 && NSH % 4 == 0 && (3 * C) % 4 == 0,
+                "tensor-core weight planes must start 16-byte aligned");
+};
 
 constexpr float kPi = 3.14159265358979323846f;
 
@@ -139,13 +148,14 @@ __host__ __device__ constexpr int tile_rows() {
   return TP * (NV + 1);
 }
 
-template <int NV>
+template <int CV, int NV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)tile_rows<NV>() * (LQK + LV + LX) + TP * (LS + LT) +
-                          3 * C + tc::ring_floats(kStages, NTAIL));
+  using D = Dims<CV>;
+  return sizeof(float) * ((size_t)tile_rows<NV>() * (D::LQK + D::LV + LX) +
+                          TP * (D::LS + D::LT) + 3 * D::C + tc::ring_floats(kStages, D::NTAIL));
 }
 
-template <int NV, bool kFast>
+template <int CV, int NV, bool kFast>
 __global__ void __launch_bounds__(kThreads, 2) point_head2_kernel(
     const float* __restrict__ img,    // (NV, P, CI)
     const float* __restrict__ vol,    // (P, CV)
@@ -158,6 +168,15 @@ __global__ void __launch_bounds__(kThreads, 2) point_head2_kernel(
     float* __restrict__ token_out,    // (P, C)
     float* __restrict__ rad_out,      // (P, 3)
     int P) {
+  using D = Dims<CV>;
+  constexpr int C = D::C, DK = D::DK, C2 = D::C2, GS = D::GS, NSH = D::NSH,
+                NTAIL = D::NTAIL, LS = D::LS, LQK = D::LQK, LV = D::LV, LT = D::LT;
+  constexpr int O_TOK = D::O_TOK, O_TQKV = D::O_TQKV, O_W1T = D::O_W1T, O_SH = D::O_SH,
+                O_VQKV = D::O_VQKV, O_WM = D::O_WM, O_N1S = D::O_N1S, O_N1B = D::O_N1B,
+                O_VW1 = D::O_VW1, O_W2 = D::O_W2, O_N2S = D::O_N2S, O_N2B = D::O_N2B,
+                O_SW0 = D::O_SW0, O_SB0 = D::O_SB0, O_SW1 = D::O_SW1, O_SB1 = D::O_SB1,
+                O_SW2 = D::O_SW2, O_SB2 = D::O_SB2, O_VRAD = D::O_VRAD, O_RW1 = D::O_RW1,
+                O_RB1 = D::O_RB1, O_RW2 = D::O_RW2, O_RB2 = D::O_RB2;
   constexpr int L = NV + 1;           // tokens per point
   constexpr int R = tile_rows<NV>();  // rows of the block: TP token rows, then RV
   constexpr int RV = TP * NV;         // view rows, row TP + p * NV + v
@@ -383,54 +402,67 @@ __global__ void __launch_bounds__(kThreads, 2) point_head2_kernel(
   }
 }
 
-template <int NV, bool kFast>
+template <int CV, int NV, bool kFast>
 int launch_precision(const float* img, const float* vol, const float* sim,
                      const float* dd, const float* dir, const float* rgb,
                      const float* mask, const float* w, float* token, float* rad,
                      int p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<NV>();
+  const size_t smem = smem_bytes<CV, NV>();
   cudaError_t e = cudaFuncSetAttribute(
-      point_head2_kernel<NV, kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      point_head2_kernel<CV, NV, kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (p + TP - 1) / TP;
-  point_head2_kernel<NV, kFast><<<grid, kThreads, smem, stream>>>(
+  point_head2_kernel<CV, NV, kFast><<<grid, kThreads, smem, stream>>>(
       img, vol, sim, dd, dir, rgb, mask, w, token, rad, p);
   return (int)cudaGetLastError();
 }
 
-template <int NV>
+template <int CV>
 int launch(const float* img, const float* vol, const float* sim,
            const float* dd, const float* dir, const float* rgb,
            const float* mask, const float* w, float* token, float* rad,
-           int p, bool fast, cudaStream_t stream) {
-  return fast ? launch_precision<NV, true>(img, vol, sim, dd, dir, rgb, mask, w, token,
-                                           rad, p, stream)
-              : launch_precision<NV, false>(img, vol, sim, dd, dir, rgb, mask, w, token,
-                                            rad, p, stream);
+           int nv, int p, bool fast, cudaStream_t s) {
+#define UFO_PH2_CASE(NV)                                                                   \
+  case NV:                                                                                 \
+    return fast ? launch_precision<CV, NV, true>(img, vol, sim, dd, dir, rgb, mask, w,     \
+                                                 token, rad, p, s)                         \
+                : launch_precision<CV, NV, false>(img, vol, sim, dd, dir, rgb, mask, w,    \
+                                                  token, rad, p, s);
+  switch (nv) {
+    UFO_PH2_CASE(2)
+    UFO_PH2_CASE(3)
+    UFO_PH2_CASE(4)
+    UFO_PH2_CASE(5)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef UFO_PH2_CASE
 }
 
 }  // namespace ph2
 }  // namespace ufo
 
-extern "C" int ufo_point_head2_weight_count() { return ufo::ph2::N_W; }
+// The packed weights' length at volume width cv (16 or 24), else -1.
+extern "C" int ufo_point_head2_weight_count(int cv) {
+  using namespace ufo::ph2;
+  return cv == 24 ? Dims<24>::N_W : cv == 16 ? Dims<16>::N_W : -1;
+}
 
-// Returns a cudaError_t value (0 on success). nv must be 2..5; fast picks
-// the bf16 instantiation (its pack holds bf16 planes).
+// Returns a cudaError_t value (0 on success). cv (the volume width) must
+// be 16 or 24 and nv 2..5; fast picks the bf16 instantiation (its pack
+// holds bf16 planes).
 extern "C" int ufo_point_head2(const float* img, const float* vol,
                                const float* sim, const float* dd,
                                const float* dir, const float* rgb,
                                const float* mask, const float* w, float* token,
-                               float* rad, int nv, int p, int fast, void* stream) {
+                               float* rad, int cv, int nv, int p, int fast, void* stream) {
   using namespace ufo::ph2;
   if (p <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool f = fast != 0;
-  switch (nv) {
-    case 2: return launch<2>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
-    case 3: return launch<3>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
-    case 4: return launch<4>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
-    case 5: return launch<5>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, f, s);
+  switch (cv) {
+    case 24: return launch<24>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, nv, p, f, s);
+    case 16: return launch<16>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, nv, p, f, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,8 +14,8 @@ MLP follows, and the radiance is a masked softmax blend over views.
 
 ``per_point`` takes one of two routes, by the JAX package's gate
 (``_fused_ok``) and the ``fused_point_head`` knob: the point head, which
-needs the full feature set (correlation volume, similarity, depth PE, no
-direction PE), or the view-transformer modules, whose attention goes to
+needs the full feature set (a volume of either kind, similarity, depth PE,
+no direction PE), or the view-transformer modules, whose attention goes to
 the tiny-attention kernels (``ops/tiny_attention.py``).
 The point head is the point-head kernel wrapper
 (``ops/fused_point_head.py``) or, with ``point_head='v2'``, the
@@ -239,19 +239,17 @@ class RayTransformer(nn.Module):
         (``RayTransformer._fused_ok``): the kernel needs the full feature
         set (volume features, similarity, depth distance, no direction PE);
         ``auto`` takes it where it is there, ``always`` raises where it is
-        not. The point-head kernels are built for the correlation volume's
-        24 features (JAX's are generic in the widths): the feature grid's
-        16 take the view transformer, which computes the same function."""
+        not. The volume is either kind: the point-head kernels take the
+        correlation volume's 24 features and the feature grid's 16."""
         if fused == "never":
             return False
-        full = (fea_volume_feat is not None and fea_volume_feat.shape[-1] == 24
-                and sim_feat is not None and depth_dist is not None
-                and not self.use_dir_srdf)
+        full = (fea_volume_feat is not None and sim_feat is not None
+                and depth_dist is not None and not self.use_dir_srdf)
         if fused == "always" and not full:
             raise ValueError(
                 "fused_point_head='always' but the point-head kernel's "
-                "prerequisites are not met (needs correlation volume + explicit "
-                "similarity + depth PE features, use_dir_srdf off); use 'auto' to "
+                "prerequisites are not met (needs volume + explicit similarity + "
+                "depth PE features, use_dir_srdf off); use 'auto' to "
                 "allow the view transformer")
         return full
 

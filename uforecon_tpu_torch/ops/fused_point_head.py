@@ -36,6 +36,10 @@ MLPs' weights bf16-rounded) is built once per set of weights and precision
 and reused (``cached_pack_weights``; ``point_head.pack_builds`` counts the
 builds).
 
+The kernel is built for the correlation volume's 24 features (tokens of
+80, heads of 10) and the feature grid's 16 (tokens of 72, heads of 9):
+the JAX gate sends both to it (``KERNEL_VOL_WIDTHS``).
+
 Layouts are point-major, what ``F.grid_sample`` gives once permuted:
 inputs (NV, P, C) / (P, C), outputs token (P, C) and radiance (P, 3). The
 JAX module is feature-major; the tests transpose.
@@ -58,7 +62,15 @@ from .posenc import nerf_posenc
 
 EPS = 1e-6      # linear attention denominator
 LN_EPS = 1e-6   # flax LayerNorm epsilon
-_KERNEL_DIMS = dict(c=80, c_img=32, c_vol=24, c_sim=8, n_heads=8)
+# the kernels' volume widths: the correlation volume's 24 features, the
+# feature grid's 16 (tokens of 80 and 72)
+KERNEL_VOL_WIDTHS = (24, 16)
+
+
+def kernel_dims(c_vol: int) -> dict:
+    """The widths the point-head kernels take at volume width ``c_vol``:
+    tokens of img 32 | vol | sim16 16 | depth PE 8, 8 heads."""
+    return dict(c=32 + c_vol + 16 + 8, c_img=32, c_vol=c_vol, c_sim=8, n_heads=8)
 
 
 class PointHeadParams(NamedTuple):
@@ -189,12 +201,12 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
             precision: str = "high") -> Tuple[torch.Tensor, torch.Tensor]:
     nv, n, c_img = inp.img_feat.shape
     c = p.view_token.numel()
-    d = _KERNEL_DIMS
-    dims = dict(c=c, c_img=c_img, c_vol=inp.vol_feat.shape[-1],
-                c_sim=inp.sim_feat.shape[-1], n_heads=n_heads)
-    if dims != d or not 2 <= nv <= 5:
-        raise ValueError(f"point_head kernel takes {d} and 2..5 views, got "
-                         f"{dims} and {nv} views")
+    c_vol = inp.vol_feat.shape[-1]
+    dims = dict(c=c, c_img=c_img, c_vol=c_vol, c_sim=inp.sim_feat.shape[-1],
+                n_heads=n_heads)
+    if c_vol not in KERNEL_VOL_WIDTHS or dims != kernel_dims(c_vol) or not 2 <= nv <= 5:
+        raise ValueError(f"point_head kernel takes {kernel_dims(24)} or "
+                         f"{kernel_dims(16)} and 2..5 views, got {dims} and {nv} views")
     dev = inp.img_feat.device
     tensors = list(inp) + _flat_params(p)
     for t in tensors:
@@ -204,7 +216,7 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
     ext = cuda_build.extension()
     ins = [cuda_build.aligned(t) for t in inp]
     w = cached_pack_weights(p, precision)
-    if w.numel() != ext.point_head_weight_count():
+    if w.numel() != ext.point_head_weight_count(c_vol):
         raise ValueError("point_head weight pack does not match the kernel")
     token = torch.empty(n, c, device=dev, dtype=torch.float32)
     rad = torch.empty(n, 3, device=dev, dtype=torch.float32)

@@ -61,8 +61,8 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .fused_point_head import (_KERNEL_DIMS, EPS, LN_EPS, PointHeadInputs,
-                               PointHeadParams, _flat_params, _split,
+from .fused_point_head import (KERNEL_VOL_WIDTHS, EPS, LN_EPS, PointHeadInputs,
+                               PointHeadParams, _flat_params, _split, kernel_dims,
                                point_head_reference)
 from .posenc import nerf_posenc
 
@@ -286,12 +286,13 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
             precision: str = "high") -> Tuple[torch.Tensor, torch.Tensor]:
     nv, n, c_img = inp.img_feat.shape
     c = p.view_token.numel()
-    d = _KERNEL_DIMS
-    dims = dict(c=c, c_img=c_img, c_vol=inp.vol_feat.shape[-1],
-                c_sim=inp.sim_feat.shape[-1], n_heads=n_heads)
-    if dims != d or not 2 <= nv <= 5:
-        raise ValueError(f"point_head2 kernel takes {d} and 2..5 views, got "
-                         f"{dims} and {nv} views")
+    c_vol = inp.vol_feat.shape[-1]
+    dims = dict(c=c, c_img=c_img, c_vol=c_vol, c_sim=inp.sim_feat.shape[-1],
+                n_heads=n_heads)
+    d = kernel_dims(c_vol)
+    if c_vol not in KERNEL_VOL_WIDTHS or dims != d or not 2 <= nv <= 5:
+        raise ValueError(f"point_head2 kernel takes {kernel_dims(24)} or "
+                         f"{kernel_dims(16)} and 2..5 views, got {dims} and {nv} views")
     dev = inp.img_feat.device
     for t in list(inp) + _flat_params(p):
         if t.device != dev or t.dtype != torch.float32 or not t.is_cuda:
@@ -309,7 +310,7 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
     w, built = _packs.get(_flat_params(p), lambda: pack_weights2(p, precision=precision),
                           precision)
     point_head2.pack_builds += built
-    if w.numel() != ext.point_head2_weight_count():
+    if w.numel() != ext.point_head2_weight_count(c_vol):
         raise ValueError("point_head2 weight pack does not match the kernel")
     token = torch.empty(n, c, device=dev, dtype=torch.float32)
     rad = torch.empty(n, 3, device=dev, dtype=torch.float32)

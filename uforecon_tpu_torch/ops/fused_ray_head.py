@@ -29,7 +29,11 @@ CUDA cores.
 (q/k/v, merge, mlp1, mlp2 and the density MLP) and the linear-attention
 sums kv = sum_s phi(k_s) v_s^T, num = phi(q) kv and den = phi(q) ksum,
 each with both operands rounded to bf16 (round to nearest even) and the
-products summed in FP32; ksum itself is an FP32 sum. The kernel's
+products summed in FP32; ksum itself is an FP32 sum. The kernel sums the
+state in sample order, the plain version in einsum's: now and then an
+entry's bf16 rounding lands on the other side, one of the sources of the
+flips the card's checks allow for (``chip_smoke.py`` FAST_SHARE). The
+kernel's
 ``fast`` instantiation runs the tensor-core layers as one bf16
 ``mma.m16n8k16`` pass; the plain version rounds at the same sites. The
 NeuS epilogue does not depend on the precision, as in JAX. The backward
@@ -104,23 +108,6 @@ def _phi(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, x + 1.0, torch.exp(torch.clamp(x, max=0.0)))
 
 
-def _state_in_sample_order(kr: torch.Tensor, vr: torch.Tensor, kf: torch.Tensor):
-    """The attention state of ``fast`` summed as the kernel sums it: each
-    entry of kv = sum_s k_s v_s^T (products of the bf16-rounded kr, vr,
-    exact in float32) and of ksum = sum_s kf_s, one sample after another
-    in float32. Its bf16 rounding then flips only where a sample's own
-    inputs do, not on the order of a long sum (which moved every sample of
-    a ray at C 112, SN 256). Returns kv (RN, H, DK, DK) as (b, h, m, d) and
-    ksum (RN, H, DK)."""
-    kv = torch.zeros(kr.shape[0], kr.shape[2], kr.shape[3], kr.shape[3],
-                     dtype=kr.dtype, device=kr.device)
-    ksum = torch.zeros_like(kf[:, 0])
-    for s in range(kr.shape[1]):
-        kv = kv + vr[:, s, :, :, None] * kr[:, s, :, None, :]
-        ksum = ksum + kf[:, s]
-    return kv, ksum
-
-
 def ray_head_reference(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8,
                        precision: str = "high", linear=None) -> torch.Tensor:
     """Plain PyTorch forward, mirroring the JAX ``ray_head_reference`` in
@@ -136,11 +123,8 @@ def ray_head_reference(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8,
     qf = _phi(linear(y, p.wq)).view(rn, sn, n_heads, dk)
     kf = _phi(linear(y, p.wk)).view(rn, sn, n_heads, dk)
     vh = linear(y, p.wv).view(rn, sn, n_heads, dk)
-    if cuda_build.is_fast(precision):
-        kv, ksum = _state_in_sample_order(r(kf), r(vh), kf)
-    else:
-        kv, ksum = torch.einsum("bshd,bshm->bhmd", kf, vh), kf.sum(dim=1)
-    den = torch.einsum("blhd,bhd->blh", r(qf), r(ksum)) + EPS
+    kv = torch.einsum("bshd,bshm->bhmd", r(kf), r(vh))
+    den = torch.einsum("blhd,bhd->blh", r(qf), r(kf.sum(dim=1))) + EPS
     att = torch.einsum("blhd,bhmd->blhm", r(qf), r(kv)) / den[..., None]
     msg = F.layer_norm(linear(att.reshape(rn, sn, c), p.wmerge), (c,),
                        p.norm1_scale, p.norm1_bias, LN_EPS)

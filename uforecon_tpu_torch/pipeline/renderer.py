@@ -13,11 +13,7 @@ test can feed the JAX package's key schedule.
 The chunk follows the JAX rule (``uforecon_tpu/pipeline/renderer.py:35-45``:
 512 rays on the merged-volume path, else 1024, raised to ``test_ray_num``
 rounded up to 256), keyed off the path the encoding took (its volumes),
-where the JAX package reads the config's request. Past the default 64 + 64
-samples per ray it shrinks, in steps of 256 rays, so that a chunk holds no
-more samples than the default's (JAX keeps the chunk and lets XLA place
-the larger working set): at 128 + 128 samples 512 rays of the per-stage
-path.
+where the JAX package reads the config's request.
 """
 from __future__ import annotations
 
@@ -30,18 +26,10 @@ from ..device import DEFAULT, resolve_device
 from ..models.uforecon import EncoderOutputs, SceneInputs, UFORecon
 
 
-DEFAULT_SAMPLES = 128   # 64 coarse + 64 fine per ray
-
-
-def chunk_size(test_ray_num: int, merged: bool, samples: int = DEFAULT_SAMPLES) -> int:
+def chunk_size(test_ray_num: int, merged: bool) -> int:
     """Rays per render chunk: 512 on the merged-volume path, else 1024,
-    raised to ``test_ray_num`` rounded up to 256; for rays of more than the
-    default 128 samples, cut to hold no more samples than that (a multiple
-    of 256 rays, at least 256)."""
-    chunk = max(512 if merged else 1024, int(np.ceil(test_ray_num / 256)) * 256)
-    if samples > DEFAULT_SAMPLES:
-        chunk = max(256, chunk * DEFAULT_SAMPLES // samples // 256 * 256)
-    return chunk
+    raised to ``test_ray_num`` rounded up to 256."""
+    return max(512 if merged else 1024, int(np.ceil(test_ray_num / 256)) * 256)
 
 
 class SceneRenderer:
@@ -56,9 +44,8 @@ class SceneRenderer:
 
     def chunk_for(self, enc: EncoderOutputs) -> int:
         """The chunk of a render of ``enc``."""
-        cfg = self.model.cfg
-        return self.chunk or chunk_size(cfg.test_ray_num, "merged" in enc.volumes,
-                                        sum(cfg.samples))
+        return self.chunk or chunk_size(self.model.cfg.test_ray_num,
+                                        "merged" in enc.volumes)
 
     @torch.no_grad()
     def render_rays(self, scene: SceneInputs, enc: EncoderOutputs,

@@ -303,8 +303,8 @@ def _cases(seed: int, kernels):
 def _bind(kernel, lib):
     """The kernel's C entry point with its argument types."""
     c = ctypes
-    if kernel in ("ph", "ph2"):   # (10 pointers, nv, p, fast, stream)
-        fn, types = getattr(lib, f"ufo_point_head{kernel[2:]}"), [c.c_void_p] * 10 + [c.c_int] * 3
+    if kernel in ("ph", "ph2"):   # (10 pointers, cv, nv, p, fast, stream)
+        fn, types = getattr(lib, f"ufo_point_head{kernel[2:]}"), [c.c_void_p] * 10 + [c.c_int] * 4
     elif kernel == "rh":          # ufo_ray_head(y, w, srdf, rn, sn, c, fast, stream)
         fn, types = lib.ufo_ray_head, [c.c_void_p] * 3 + [c.c_int] * 4
     elif kernel == "ta":          # ufo_tiny_attention_fwd(q, k, v, o, b, l, s, h, d, m, stream)
@@ -327,7 +327,8 @@ def _runs(kernel, fn, cases, stream):
         w, ref = cases[kernel]
         nv, p = inp.img_feat.shape[:2]
         tok, rad = torch.empty(p, 80, device="cuda"), torch.empty(p, 3, device="cuda")
-        call = [*map(ptr, (*inp, w, tok, rad)), i(nv), i(p), i(0), stream]
+        call = [*map(ptr, (*inp, w, tok, rad)), i(inp.vol_feat.shape[1]), i(nv), i(p), i(0),
+                stream]
         return {"": (lambda: fn(*call),
                      lambda: max((tok - ref[0]).abs().max().item(),
                                  (rad - ref[1]).abs().max().item()))}
