@@ -21,11 +21,11 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      share of its bounds; the tiny attention at route A's head width 10
      and route B's 8, at 65,536 and the ragged 65,537 points; its backward
      at route A's L = S = 4 (65,536 and 65,537 points) and at the training
-     shape L = S = 6; the volume fusion at 2, 3 and 5 views and the ragged
-     65,537 points, timed with its inputs in the L2 (as the main path
-     finds them) and, at 3 views, after a 64 MB write (cold L2); the
-     grouped cosine at 3 views and at the 5-view similarity field's
-     (5, 65,536, 128); then the
+     shape L = S = 6; the volume fusion at 2, 3, 5 and 11 views and the
+     ragged 65,537 points, timed with its inputs in the L2 (as the main
+     path finds them) and, at 3 views, after a 64 MB write (cold L2); the
+     grouped cosine at 3 views, at the 5-view similarity field's
+     (5, 65,536, 128) and at 11 views' 55 pairs (11, 65,536, 320); then the
      heads' fast variants (kernel_precision 'fast': kernels 1, 2 and 3 at
      widths 88 and 72, 4) at the same shapes, each against its fast plain
      version (FAST_SHARE) and against the 3xTF32 kernel on the same inputs
@@ -35,7 +35,8 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      128 and 256, C 80 and 64 at SN 64 and 128, C 88 at SN 256), on random
      weights of each width, resident and streamed tiles; kernels 1 and 4
      (both precisions) also at the feature grid's volume width 16 (tokens
-     of 72), on random weights of that width;
+     of 72), on random weights of that width, and at 6, 8 and 11 views
+     (VIEWS_NV: DTU's evaluation set 1 has 11);
   4. slice phase: ``extract_geometry_for_dataset`` on one DTU-scale view
      (800x640, 3 views, 192 hypotheses, 64 + 64 samples, seeded random
      weights) by six routes: on the exact path (``config.EXACT``) the
@@ -110,8 +111,9 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      learn_sanity sphere, seeded weights, matcher frozen, Adam on the
      rest; volumes stored in bf16, kernels in 3xTF32): (a) one coarse
      256-ray gradient step on the card against the same step on the CPU
-     (the matcher's outputs taken from the card on both); (b) TRAIN_STEPS timed steps of the default route (kernels 1
-     and 2 on every step) and of route A (kernels 5 and 6, and 2): s/step,
+     (the matcher's outputs taken from the card on both); (b) TRAIN_STEPS
+     timed steps of the default route (kernels 1 and 2 on every step) and
+     of route A (kernels 5 and 6, and 2): s/step,
      peak memory, launches and weight-pack builds per step, and after each
      step's forward kernel 1 at the updated weights against its plain
      version (the stale-pack guard), then one default-route step under
@@ -119,14 +121,23 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      share, the costliest operations); (c) ``cli.run --debug`` on the
      fixture's DTU training layout (``make_dtu_fixture.
      write_train_layout``), then ``cli.run --extract_geometry --load_ckpt``
-     on the checkpoint it wrote; (d) ``script/learn_sanity.py
+     on the checkpoint it wrote; (d) in step 14;
+ 13. views phase: DTU's evaluation set 1 (the fixture's 11 views at
+     800x640, ``script/make_dtu_fixture.py``): ``cli.run --extract_geometry
+     --set 1`` at its defaults at 11 views and at 4 (the JAX guard's
+     per-stage volumes): fast kernels 1 and 2 on every view, rays/s,
+     encode seconds, peak memory; then a 1024-ray chunk at 6, 8 and 11
+     views on the card against the CPU, on the exact path and at the JAX
+     extraction defaults (``views_phase`` says how each is held);
+ 14. beside those chunks, each in a process of its own (nothing of the
+     three is timed): the training phase's (d), ``script/learn_sanity.py
      --mesh_eval`` at its defaults (120 MVS + 300 render steps, 160x128, 6
-     views), which must pass its rule;
- 13. tests phase: the GPU unit tests of the kernels (``python -m pytest
-     --noconftest -k on_gpu tests/test_torch_port_kernels.py``: every
-     kernel against its plain version at further shapes, ragged edges and
-     padded ray lengths) in a subprocess, which must pass;
- 14. prints a JSON line of per-kernel results, then the final
+     views), which must pass its rule, and the GPU unit tests of the
+     kernels (``python -m pytest --noconftest -k on_gpu
+     tests/test_torch_port_kernels.py``: every kernel against its plain
+     version at further shapes, ragged edges and padded ray lengths),
+     which must pass;
+ 15. prints a JSON line of per-kernel results, then the final
      ``{"ok": true, "device": {...}}`` line.
 Any failure exits non-zero without printing a result; without a CUDA card
 it exits 1 at once.
@@ -174,6 +185,12 @@ GENERAL_SCAN = "scan_sphere"
 GENERAL_WH = (768, 576)
 GENERAL_SIM_RESO = 128
 GENERAL_SIM_CHUNKS = GENERAL_SIM_RESO ** 3 // 65536
+# views phase: DTU's evaluation set 1 (data/dtu_test.SET1_VIEW_LIST, 11
+# views): the view counts of its card-vs-CPU chunks and of the kernel
+# phase's extra point-head cases; cli.run --set 1 at 11 views and at 4 (the
+# JAX merge guard's per-stage volumes) at the DTU render size
+VIEWS_NV = (6, 8, 11)
+VIEWS_CLI = (11, 4)
 # warm views per route in the A/B phase: 2 x AB_ROUNDS
 AB_ROUNDS = 1
 # training phase: the DTU training crop; timed steps per route
@@ -185,7 +202,7 @@ PORT = "uforecon_tpu_torch"
 JAX_PACKAGE = PORT.removesuffix("_torch")
 # kernel -> (its source, the Pallas function it replaces)
 KERNEL_SOURCES = {
-    "point_head": (f"{PORT}/csrc/point_head.cu",
+    "point_head": (f"{PORT}/csrc/point_head.cuh",
                    f"{JAX_PACKAGE}/ops/fused_point_head.py:207"),
     "ray_head": (f"{PORT}/csrc/ray_head.cu",
                  f"{JAX_PACKAGE}/ops/fused_ray_head.py:134"),
@@ -199,7 +216,7 @@ KERNEL_SOURCES = {
                        f"{JAX_PACKAGE}/ops/pallas_attention.py:190"),
     "tiny_attention_bwd": (f"{PORT}/csrc/tiny_attention.cu",
                            f"{JAX_PACKAGE}/ops/pallas_attention.py:147"),
-    "point_head2": (f"{PORT}/csrc/point_head2.cu",
+    "point_head2": (f"{PORT}/csrc/point_head2.cuh",
                     f"{JAX_PACKAGE}/ops/fused_point_head2.py:163"),
     "block_row_gather": (f"{PORT}/csrc/row_gather.cu",
                          "script/bench_tile_gather.py:210"),
@@ -270,7 +287,14 @@ MUST_RUN = {"off": ("point_head", "ray_head"),
                if name not in ("samples_128", "featuregrid_guided")},
             "config_featuregrid_guided": ("point_head", "ray_head"),
             "config_samples_128": ("point_head", "ray_head"),
-            "config_cli": ("tiny_attention", "ray_head_fast")}
+            "config_cli": ("tiny_attention", "ray_head_fast"),
+            # DTU's evaluation set 1: a chunk at 6, 8 and 11 views on the
+            # exact path and at the JAX extraction defaults, and cli.run at
+            # its defaults at 11 views and at 4
+            **{f"views_exact_{nv}": ("point_head", "ray_head") for nv in VIEWS_NV},
+            **{f"views_shipped_{nv}": ("point_head_fast", "ray_head_fast") for nv in VIEWS_NV},
+            "views_cli": ("point_head_fast", "ray_head_fast"),
+            **{f"views_cli_{nv}": ("point_head_fast", "ray_head_fast") for nv in VIEWS_CLI[1:]}}
 # H100 SXM data sheet at 700 W: FP32 outside the tensor cores, dense TF32
 # and dense bf16 on the tensor cores, HBM3
 PEAK_FLOPS = 67e12
@@ -815,44 +839,75 @@ def kernel_phase(model, card):
         sim_b=tuple(randn(n, scale=0.1, g=g16) for n in (32, 32, 16)),
         rad_w=(linear_w(16, c16 + 3), linear_w(8, 16), linear_w(1, 8)),
         rad_b=tuple(randn(n, scale=0.1, g=g16) for n in (16, 8, 1)))
-    heads16 = {"point_head": (fph.point_head, fph.point_head_reference,
-                              point_head_flops(nv, p, c=c16), fph.pack_weights),
-               "point_head2": (fph2.point_head2, fph2.point_head2_reference,
-                               point_head2_flops(nv, p, c=c16, g_shared=32),
-                               lambda w, precision="high": fph2.pack_weights2(
-                                   w, precision=precision))}
-    for name, (wrapper, plain, flops16, pack) in heads16.items():
+
+    def pack2(w, precision="high"):
+        return fph2.pack_weights2(w, precision=precision)
+
+    def point_head_cases(name, label, wrapper, plain, x, prm, flops, pack):
+        """A point head at one shape: the 3xTF32 kernel against its plain
+        version (TOL, the all-masked points' mean rgb), timed, with its
+        tensor bound; then its fast variant (fast_case). Returns both
+        results."""
         with torch.no_grad():
-            tok, rad = wrapper(inp16, params16)
-            tok_ref, rad_ref = plain(inp16, params16)
+            tok, rad = wrapper(x, prm)
+            tok_ref, rad_ref = plain(x, prm)
             torch.cuda.synchronize()
             err_t = (tok - tok_ref).abs().max().item()
             err_r = (rad - rad_ref).abs().max().item()
-            err_masked = (rad[:256] - inp16.rgb[:, :256].mean(0)).abs().max().item()
-            k_ms, call_ms = kernel_times(lambda: wrapper(inp16, params16))
-            p_ms = time_ms(lambda: plain(inp16, params16))
-        bounds16 = tensor_bound(nbytes(*inp16, pack(params16), tok, rad), *flops16)
-        log(f"[kernel] {name} P={p} NV={nv} C={c16} (feature grid): max|token err| "
-            f"{err_t:.3e} (tol {TOL['token']}), max|radiance err| {err_r:.3e} (tol "
-            f"{TOL['radiance']}), all-masked points vs mean rgb {err_masked:.3e}; kernel "
-            f"{k_ms:.3f} ms (call {call_ms:.3f}), plain {p_ms:.3f} ms, tensor bound "
-            f"{bounds16['bound_ms']:.4f} ms ({bounds16['bound_by']}, share "
-            f"{bounds16['bound_ms'] / k_ms:.3f}) [{card}]")
+            err_masked = (rad[:256] - x.rgb[:, :256].mean(0)).abs().max().item()
+            k_ms, call_ms = kernel_times(lambda: wrapper(x, prm))
+            p_ms = time_ms(lambda: plain(x, prm))
+        bounds_x = tensor_bound(nbytes(*x, pack(prm), tok, rad), *flops)
+        log(f"[kernel] {name} {label}: max|token err| {err_t:.3e} (tol {TOL['token']}), "
+            f"max|radiance err| {err_r:.3e} (tol {TOL['radiance']}), all-masked points vs "
+            f"mean rgb {err_masked:.3e}; kernel {k_ms:.3f} ms (call {call_ms:.3f}), plain "
+            f"{p_ms:.3f} ms, tensor bound {bounds_x['bound_ms']:.4f} ms "
+            f"({bounds_x['bound_by']}, share {bounds_x['bound_ms'] / k_ms:.3f}) [{card}]")
         if not (err_t <= TOL["token"] and err_r <= TOL["radiance"]
                 and err_masked <= TOL["radiance"]):
-            raise AssertionError(f"{name} kernel disagrees with its plain version at "
-                                 f"C={c16}")
-        results[name]["feature_grid"] = {
-            "max_abs_err": max(err_t, err_r), "ms": k_ms, "call_ms": call_ms,
-            "plain_ms": p_ms, **bounds16, **shares(k_ms, bounds16)}
-        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err_t, err_r)
-        fast16 = fast_result([fast_case(
-            f"{name}_fast P={p} NV={nv} C={c16} (feature grid)", wrapper, plain,
-            (inp16, params16), {"token": TOL["token"], "radiance": TOL["radiance"]},
-            flops16, pack(params16, precision="fast"))])
-        results[f"{name}_fast"]["feature_grid"] = fast16
-        results[f"{name}_fast"]["max_abs_err"] = max(
-            results[f"{name}_fast"]["max_abs_err"], fast16["max_abs_err"])
+            raise AssertionError(f"{name} kernel disagrees with its plain version at {label}")
+        exact = {"max_abs_err": max(err_t, err_r), "ms": k_ms, "call_ms": call_ms,
+                 "plain_ms": p_ms, **bounds_x, **shares(k_ms, bounds_x)}
+        fast = fast_result([fast_case(
+            f"{name}_fast {label}", wrapper, plain, (x, prm),
+            {"token": TOL["token"], "radiance": TOL["radiance"]}, flops,
+            pack(prm, precision="fast"))])
+        return exact, fast
+
+    def file_case(name, exact, fast, views=None):
+        """Files a point head's results, in both precisions, as its feature
+        grid's or under by_views, and their errors into the kernel's."""
+        for n, r in ((name, exact), (f"{name}_fast", fast)):
+            if views is None:
+                results[n]["feature_grid"] = r
+            else:
+                results[n].setdefault("by_views", {})[views] = r
+            results[n]["max_abs_err"] = max(results[n]["max_abs_err"], r["max_abs_err"])
+
+    heads16 = {"point_head": (fph.point_head, fph.point_head_reference,
+                              point_head_flops(nv, p, c=c16), fph.pack_weights),
+               "point_head2": (fph2.point_head2, fph2.point_head2_reference,
+                               point_head2_flops(nv, p, c=c16, g_shared=32), pack2)}
+    for name, (wrapper, plain, flops16, pack) in heads16.items():
+        file_case(name, *point_head_cases(
+            name, f"P={p} NV={nv} C={c16} (feature grid)", wrapper, plain, inp16, params16,
+            flops16, pack))
+
+    # more views (DTU's evaluation set 1 has 11: --test_n_view up to 11):
+    # both point heads in both precisions at NV 6, 8 and 11 on the main
+    # path's 65,536 points and the shared weights, each view count's inputs
+    # from a generator of its own
+    for views in VIEWS_NV:
+        x = point_inputs(p, views=views,
+                         g=torch.Generator(device=dev).manual_seed(SEED + 100 + views))
+        for name, wrapper, plain, flops, pack in (
+                ("point_head", fph.point_head, fph.point_head_reference,
+                 point_head_flops(views, p), fph.pack_weights),
+                ("point_head2", fph2.point_head2, fph2.point_head2_reference,
+                 point_head2_flops(views, p), pack2)):
+            file_case(name, *point_head_cases(name, f"P={p} NV={views}", wrapper, plain, x,
+                                              params, flops, pack), views=views)
+        del x
     for name in ("ray_head", "ray_head_neus"):
         neus = name == "ray_head_neus"
         by_c = {}
@@ -935,7 +990,34 @@ def kernel_phase(model, card):
                              "at 5 views")
     by_views[5] = {"max_abs_err": err5, "ms": k5_ms, "call_ms": call5_ms,
                    "plain_ms": p5_ms, "bound_ms": b5_ms, "bound_by": b5_by}
-    results["grouped_cosine"] = {**by_views[nv], "by_views": by_views}
+    del x5, got5, want5
+    # and at 11 views, (11, 65,536, 320): the 55 pairs of a render chunk of
+    # DTU's evaluation set 1, in the same layout, from a generator of its own
+    v11 = VIEWS_NV[-1]
+    x11 = randn(v11, (v11 - 1) * 32, p,
+                g=torch.Generator(device=dev).manual_seed(SEED + 200)).permute(0, 2, 1)
+    with torch.no_grad():
+        got11 = fsim.grouped_cosine(x11, 8)
+        want11 = fsim.grouped_cosine_reference(x11, 8)
+        torch.cuda.synchronize()
+        err11 = (got11 - want11).abs().max().item()
+        k11_ms, call11_ms = kernel_times(lambda: fsim.grouped_cosine(x11, 8))
+        p11_ms = time_ms(lambda: fsim.grouped_cosine_reference(x11, 8))
+    pairs11 = v11 * (v11 - 1) // 2
+    b11_ms, b11_by = bound(nbytes(x11, got11), p * pairs11 * (6 * 32 + 8 * 6))
+    log(f"[kernel] grouped_cosine {tuple(x11.shape)} ({pairs11} pairs) strides "
+        f"{x11.stride()}: max abs err {err11:.3e} (tol {TOL['cosine']}); kernel "
+        f"{k11_ms:.4f} ms (call {call11_ms:.4f}), plain {p11_ms:.4f} ms, bound "
+        f"{b11_ms:.4f} ms ({b11_by}, share {b11_ms / k11_ms:.3f}) [{card}]")
+    if not err11 <= TOL["cosine"]:
+        raise AssertionError(f"grouped_cosine kernel disagrees with its plain version "
+                             f"at {v11} views")
+    by_views[v11] = {"max_abs_err": err11, "ms": k11_ms, "call_ms": call11_ms,
+                     "plain_ms": p11_ms, "bound_ms": b11_ms, "bound_by": b11_by}
+    del x11, got11, want11
+    results["grouped_cosine"] = {**by_views[nv], "by_views": by_views,
+                                 "max_abs_err": max(x["max_abs_err"]
+                                                    for x in by_views.values())}
 
     # volume fusion at 3 x (NV, 65,536, 9), channel-first as the sampler
     # gives it, sigmoid-range weights; the first 512 points have zero
@@ -943,19 +1025,21 @@ def kernel_phase(model, card):
     # the inputs in the L2, as F.grid_sample leaves them there just before
     # the kernel (the table's time), and after a 64 MB write (cold L2); 2
     # and 5 views and the ragged 65,537 points are checked and timed warm
-    def fusion_inputs(n_views, n):
+    def fusion_inputs(n_views, n, g=gen):
         fws = []
         for _ in range(3):
-            fw = randn(n_views, 9, n)
-            fw[:, 8] = rand(n_views, n)
+            fw = randn(n_views, 9, n, g=g)
+            fw[:, 8] = rand(n_views, n, g=g)
             fw[:, 8, :512] = 0.0
             fws.append(fw.permute(0, 2, 1))
         return fws
 
     flush = torch.empty(16 * 2 ** 20, device=dev)   # 64 MB, more than the L2's 50
     fusion = {}
-    for n_views, n in ((3, p), (3, p + 1), (2, p), (5, p)):
-        fws = fusion_inputs(n_views, n)
+    for n_views, n in ((3, p), (3, p + 1), (2, p), (5, p), (VIEWS_NV[-1], p)):
+        # 11 views (DTU's evaluation set 1) from a generator of its own
+        fws = (fusion_inputs(n_views, n) if n_views <= 5 else fusion_inputs(
+            n_views, n, g=torch.Generator(device=dev).manual_seed(SEED + 300)))
         with torch.no_grad():
             got = fvf.volume_fusion(*fws)
             want = fvf.volume_fusion_reference(fws)
@@ -985,7 +1069,7 @@ def kernel_phase(model, card):
     del flush
     results["volume_fusion"] = {**fusion[3, p], "max_abs_err": max(
         f["max_abs_err"] for f in fusion.values()), "ragged": fusion[3, p + 1],
-        "nv2": fusion[2, p], "nv5": fusion[5, p]}
+        "nv2": fusion[2, p], "nv5": fusion[5, p], "nv11": fusion[VIEWS_NV[-1], p]}
     # tiny attention, forward and backward, at route A's shape: one
     # 1024-ray chunk x 64 samples, the view token and 3 views, 8 heads of
     # 10; the forward also at a ragged batch and at route B's head width 8
@@ -1216,8 +1300,8 @@ def render_view(model, sample, route, card):
     return {**stats, "peak_gib": peak_gb, "pack_builds": builds}, launches
 
 
-def agree_with_cpu(model, sample, route):
-    """A 256-ray chunk of the scene with the kernels on the card against
+def agree_with_cpu(model, sample, route, rn=256, tag="slice"):
+    """An rn-ray chunk of the scene with the kernels on the card against
     the plain versions on the CPU, with the same draws: the share of rays
     within 2e-4 must reach 0.99. A model whose heads run in ``fast`` is
     held by the size of the bf16 effect instead: the fast plain versions
@@ -1234,13 +1318,15 @@ def agree_with_cpu(model, sample, route):
     2e-4. A fault in a minority of rays (a slot, a tile) fails the last.
     The control, the card's 3xTF32 kernels (no bf16 rounding at all) in
     place of the fast ones against the same CPU render, is measured and
-    reported beside it. Returns the shares (and, in fast, the distances)."""
+    reported beside it. Returns the shares (and, in fast, the distances) and the kernels the
+    card's render launched."""
     import torch
 
     from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
 
     scene, extras = scene_inputs_from_sample(sample, "cuda")
-    rn, sn = 256, model.cfg.coarse_sample
+    sn = model.cfg.coarse_sample
+    wrappers = launch_counts()
     idx = np.random.default_rng(SEED).choice(len(extras["ray_d"]), rn, replace=False)
     ray_d = torch.as_tensor(extras["ray_d"][idx], device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1249,7 +1335,11 @@ def agree_with_cpu(model, sample, route):
     fast = model.kernel_precision == "fast"
     with torch.no_grad():
         enc = model.encode(scene)
+        for w in wrappers.values():
+            w.launches = 0
         out_gpu = model.render_chunk(scene, enc, ray_d, u_coarse=u_c, u_fine=u_f)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
         model_cpu = copy.deepcopy(model).cpu()
         args = (to_cpu(scene), to_cpu(enc), ray_d.cpu())
         draws = dict(u_coarse=u_c.cpu(), u_fine=u_f.cpu())
@@ -1289,7 +1379,7 @@ def agree_with_cpu(model, sample, route):
                 ok_fast &= bool(np.median(d) <= max(0.2 * np.median(gap), 2e-4)
                                 and d.max() <= max(2 * gap.max(), 2e-4)
                                 and within[RAY_EFFECT]["fast"] >= RAY_SHARE)
-    log(f"[slice] route {route}: {rn}-ray chunk, card kernels vs CPU plain "
+    log(f"[{tag}] route {route}: {rn}-ray chunk, card kernels vs CPU plain "
         f"versions: share of rays within rtol=atol=2e-4: {agree}"
         + (f"; fast: distances against the bf16 effect (CPU fast vs FP32) and the "
            f"control (card 3xTF32 vs CPU fast); per-ray rule: >= {RAY_SHARE} of rays "
@@ -1297,7 +1387,7 @@ def agree_with_cpu(model, sample, route):
     if (not ok_fast) if fast else min(agree.values()) < 0.99:
         raise AssertionError(f"card and CPU renders disagree (route {route}): {agree} "
                              f"{effect}")
-    return {**agree, **({"fast_vs_effect": effect} if fast else {})}
+    return {**agree, **({"fast_vs_effect": effect} if fast else {}), "launches": launches}
 
 
 def slice_phase(model, model_b, card):
@@ -2016,6 +2106,90 @@ def configs_phase(card):
     return launches, figures
 
 
+def views_phase(model, card, before_chunks):
+    """DTU's evaluation set 1 (11 views) through the port: the fixture's 11
+    views at the DTU render size (``script/make_dtu_fixture.py``,
+    each id its own camera); ``cli.run --extract_geometry --set 1`` at its
+    defaults at 11 views and at 4 (the guard's per-stage volumes from 4
+    views on), which must launch fast kernels 1 and 2 on every view; then,
+    after before_chunks() (which starts the work that runs beside them), one
+    1024-ray chunk of the first view at 6, 8 and 11 views on the card
+    against the CPU (``agree_with_cpu``), on the exact path (kernels 1 and 2
+    in 3xTF32: >= 0.99 of the rays within 2e-4) and at the JAX extraction
+    defaults (fast kernels 1 and 2; per-stage volumes, by the JAX guard:
+    held by the bf16 effect's median, max and per-ray rule), with the
+    launches of the card's chunk. The chunks time nothing, so other
+    processes may share the card and the host then. Returns the launches
+    of the runs and their figures."""
+    import contextlib
+    import io
+
+    import torch
+
+    from uforecon_tpu_torch.config import EXACT, Config
+    from uforecon_tpu_torch.data.dtu_test import SET1_VIEW_LIST, DtuFitSparse
+    from uforecon_tpu_torch.script import make_dtu_fixture as fixture
+
+    w, h = PIPELINE_WH
+    shipped = model.with_knobs(extract_geometry=True,
+                               **{k: getattr(Config(), k) for k in EXACT})
+    launches, figures = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "fixture")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            fixture.main([root, "--views", *map(str, SET1_VIEW_LIST), "--wh", str(w),
+                          str(h)])
+        log(f"[views] fixture: the 11 views of DTU's evaluation set 1 at {w}x{h} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ckpt = os.path.join(tmp, "weights.pt")
+        torch.save(model.state_dict(), ckpt)
+        for nv in VIEWS_CLI:
+            run = "views_cli" if nv == VIEWS_CLI[0] else f"views_cli_{nv}"
+            base = ["--extract_geometry", "--set", "1", "--volume_type", "correlation",
+                    "--volume_reso", "96", "--depth_pos_encoding", "--mvs_depth_guide", "1",
+                    "--explicit_similarity", "--test_n_view", str(nv), "--test_ray_num",
+                    "800", "--root_dir", root, "--test_scan", "scan24", "--load_ckpt", ckpt,
+                    "--out_dir", os.path.join(tmp, f"out{nv}")]
+            stats, launches[run], _ = cli_run("views", run, base, [], "scan24", nv, (w, h),
+                                              card)
+            if stats["merged"] or stats["kernel_precision"] != "fast":
+                raise AssertionError(f"cli.run --set 1 at {nv} views resolved {stats}: the "
+                                     "JAX guard keeps per-stage volumes above 3 views")
+            for i in range(nv):
+                e = np.load(os.path.join(tmp, f"out{nv}", "depth", "scan24", f"{i:08d}.npy"),
+                            allow_pickle=True).item()
+                if e["depth"].shape != (h, w) or not np.all(np.isfinite(e["depth"])):
+                    raise AssertionError(f"cli.run --set 1 at {nv} views: view {i}'s depth "
+                                         "map is not finite at the render size")
+            figures[run] = {k: stats[k] for k in ("rays_per_sec", "encode_s", "render_s",
+                                                  "seconds", "peak_gib", "merged",
+                                                  "kernel_precision")}
+            figures[run]["point_head_fast_per_view"] = launches[run]["point_head_fast"] / nv
+            figures[run]["ray_head_fast_per_view"] = launches[run]["ray_head_fast"] / nv
+
+        before_chunks()
+        for nv in VIEWS_NV:
+            sample = DtuFitSparse(root, "scan24", n_views=nv, set=1, img_wh=(w, h))[0]
+            for route, m in (("exact", model), ("shipped", shipped)):
+                run = f"views_{route}_{nv}"
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                agree = agree_with_cpu(m, sample, run, rn=CONFIG_CHUNK, tag="views")
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                launches[run] = agree.pop("launches")
+                check_launches(run, launches[run])
+                figures[run] = {"cpu_agree": agree, "peak_gib": peak,
+                                "seconds": time.perf_counter() - t0}
+                log(f"[views] {run}: {nv} views, one {CONFIG_CHUNK}-ray chunk: launches "
+                    f"{ {k: v for k, v in launches[run].items() if v} }, peak {peak:.2f} "
+                    f"GiB (encode, chunk), {figures[run]['seconds']:.1f} s with the CPU's "
+                    f"render [{card}]")
+            del sample
+    log("[views] " + json.dumps(figures) + f" [{card}]")
+    return launches, figures
+
+
 def step_profile(cfg, model, state, scene, batch, gen):
     """One training step under torch.profiler: its wall ms (unprofiled, the
     same step's shapes), its device ms and the device's busy share, the
@@ -2183,9 +2357,10 @@ def training_steps(cfg, model, state, sample, run, steps, card):
 
 def training_phase(card):
     """Training at the full width of the JAX training default (module
-    docstring, phase 10): (a) card against CPU, (b) timed steps, (c) the
-    training CLI and the reload of its checkpoint, (d) learn_sanity.
-    Returns the launches of each of its runs and its numbers."""
+    docstring, phase 12): (a) card against CPU, (b) timed steps, (c) the
+    training CLI and the reload of its checkpoint; (d), learn_sanity, runs
+    beside the views phase's chunks (``start_learn_sanity``). Returns the
+    launches of each of its runs and its numbers."""
     import contextlib
     import io
 
@@ -2307,44 +2482,100 @@ def training_phase(card):
         del st
     torch.cuda.empty_cache()
 
-    # (d) learn_sanity at its defaults
-    with tempfile.TemporaryDirectory() as tmp:
-        for wr in wrappers.values():
-            wr.launches = 0
-        buf = io.StringIO()
-        t_ls = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            code = learn_sanity.main(["--mesh_eval", "--logdir", tmp])
-        t_ls = time.perf_counter() - t_ls
-        launches["learn_sanity"] = {n: wr.launches for n, wr in wrappers.items()}
-    result = json.loads(buf.getvalue().strip().splitlines()[-1])
-    log(f"[train] (d) learn_sanity --mesh_eval (120 MVS + 300 render steps, 160x128, 6 "
-        f"views): {json.dumps(result)}, exit {code}, {t_ls:.1f} s (JAX package on a TPU: "
-        f"depth L1 0.2201 -> 0.0060 of span, mesh acc 2.80 % / comp 1.81 % of radius) "
-        f"[{card}]")
-    check_launches("learn_sanity", launches["learn_sanity"])
-    if code != 0:
-        raise AssertionError(f"learn_sanity failed its rule: {result}")
-    out["learn_sanity"] = {**result, "seconds": t_ls}
     out["seconds"] = time.perf_counter() - t0
     return launches, out
 
 
-def tests_phase(card):
-    """The GPU unit tests of the kernels (``test_torch_port_kernels.py``,
-    no JAX) in a subprocess, which reuses the built extension; they must
-    pass."""
+# learn_sanity in a process of its own (its launches counted there), so
+# that it runs beside the views phase's card-vs-CPU chunks and the GPU unit
+# tests: argv root, logdir, then learn_sanity's own arguments
+LEARN_SANITY_RUNNER = """
+import contextlib, io, json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from uforecon_tpu_torch.script import learn_sanity
+wrappers = chip_smoke.launch_counts()
+for wr in wrappers.values():
+    wr.launches = 0
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    code = learn_sanity.main(["--mesh_eval", "--logdir", sys.argv[2], *sys.argv[3:]])
+print(json.dumps({"code": code, "result": json.loads(buf.getvalue().strip().splitlines()[-1]),
+                  "launches": {n: wr.launches for n, wr in wrappers.items()}}))
+"""
+
+
+def start_process(cmd, tmp):
+    """cmd started from the checkout's root, its output into files in tmp
+    (a pipe could fill and stall it); returns what finish_process needs."""
     root = os.path.dirname(os.path.abspath(__file__))
+    outs = [open(os.path.join(tmp, name), "w+") for name in ("out.txt", "err.txt")]
+    proc = subprocess.Popen(cmd, cwd=root, stdout=outs[0], stderr=outs[1], text=True)
+    return proc, outs, time.perf_counter()
+
+
+def finish_process(started, timeout):
+    """Waits for a start_process; returns (exit code, stdout, stderr,
+    seconds since its start)."""
+    proc, outs, t0 = started
+    try:
+        code = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    texts = []
+    for f in outs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    return code, texts[0], texts[1], time.perf_counter() - t0
+
+
+def start_learn_sanity(tmp, extra=()):
+    """(d) of the training phase: ``script/learn_sanity.py --mesh_eval`` at
+    its defaults (120 MVS + 300 render steps, 160x128, 6 views) in a
+    process of its own."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return start_process([sys.executable, "-c", LEARN_SANITY_RUNNER, root, tmp, *extra], tmp)
+
+
+def finish_learn_sanity(started, card):
+    """learn_sanity's result, which must pass its rule, with the kernels
+    it launched (MUST_RUN) and its seconds beside the other work."""
+    code, out, err, seconds = finish_process(started, timeout=900)
+    if code != 0 or not out.strip():
+        log(out[-4000:] + err[-4000:])
+        raise AssertionError(f"learn_sanity's process failed (exit {code})")
+    res = json.loads(out.strip().splitlines()[-1])
+    result, launches = res["result"], res["launches"]
+    log(f"[train] (d) learn_sanity --mesh_eval (120 MVS + 300 render steps, 160x128, 6 "
+        f"views): {json.dumps(result)}, exit {res['code']}, {seconds:.1f} s beside the "
+        f"views phase's chunks and the GPU unit tests (JAX package on a TPU: depth L1 "
+        f"0.2201 -> 0.0060 of span, mesh acc 2.80 % / comp 1.81 % of radius) [{card}]")
+    check_launches("learn_sanity", launches)
+    if res["code"] != 0:
+        raise AssertionError(f"learn_sanity failed its rule: {result}")
+    return launches, {**result, "seconds": seconds}
+
+
+def start_tests(tmp):
+    """The GPU unit tests of the kernels (``test_torch_port_kernels.py``,
+    no JAX) in a process of their own, which reuses the built extension."""
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-k", "on_gpu", "-q",
            "-p", "no:cacheprovider", os.path.join("tests", "test_torch_port_kernels.py")]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=900)
-    lines = out.stdout.strip().splitlines()
-    log(f"[tests] {' '.join(cmd[2:])}: {lines[-1] if lines else ''} "
-        f"({time.perf_counter() - t0:.1f} s) [{card}]")
-    if out.returncode != 0:
-        log(out.stdout[-6000:] + out.stderr[-2000:])
-        raise AssertionError(f"the GPU unit tests failed (exit {out.returncode})")
+    return start_process(cmd, tmp)
+
+
+def finish_tests(started, card):
+    """The GPU unit tests must pass."""
+    code, out, err, seconds = finish_process(started, timeout=900)
+    lines = out.strip().splitlines()
+    log(f"[tests] pytest --noconftest -k on_gpu tests/test_torch_port_kernels.py: "
+        f"{lines[-1] if lines else ''} ({seconds:.1f} s) [{card}]")
+    if code != 0:
+        log(out[-6000:] + err[-2000:])
+        raise AssertionError(f"the GPU unit tests failed (exit {code})")
 
 
 def main():
@@ -2389,7 +2620,17 @@ def main():
     init_weights(model_b, SEED)
     model_b.to("cuda")
 
+    # seconds per phase, logged at the end (the run must stay inside its
+    # time limit)
+    phase_s, t_phase = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_phase[0], 1)
+        t_phase[0] = now
+
     kres = kernel_phase(model, card)
+    lap("kernel")
     models, sample, stats, launches = slice_phase(model, model_b, card)
     log(f"[slice] render rays/s against knobs off in this process (the off run "
         f"is the process's first view): " + json.dumps(
@@ -2414,14 +2655,43 @@ def main():
                   {k: enc_s if k == "shipped" else enc for k in routes}, extras, card)
     ab_phase(models, scene, enc, extras, card)
     del scene, enc, enc_s, merged, extras
+    lap("slice, grad, probe, profile, ab")
     launches.update(pipeline_phase(model, card))
+    lap("pipeline")
     general_launches, general = general_phase(model, card)
     launches.update(general_launches)
+    lap("general")
     config_launches, configs = configs_phase(card)
     launches.update(config_launches)
+    lap("configs")
     train_launches, train = training_phase(card)
     launches.update(train_launches)
-    tests_phase(card)
+    lap("train (a)-(c)")
+    # learn_sanity and the GPU unit tests, each in a process of its own,
+    # beside the views phase's card-vs-CPU chunks (none of the three is
+    # timed; its cli.run scans, which are, run before them)
+    with tempfile.TemporaryDirectory() as side_tmp:
+        side = {}
+
+        def before_chunks():
+            lap("views: fixture and cli.run")
+            for name, start in (("learn_sanity", start_learn_sanity), ("tests", start_tests)):
+                os.makedirs(os.path.join(side_tmp, name))
+                side[name] = start(os.path.join(side_tmp, name))
+
+        try:
+            views_launches, views = views_phase(model, card, before_chunks)
+            launches.update(views_launches)
+            finish_tests(side["tests"], card)
+            launches["learn_sanity"], train["learn_sanity"] = finish_learn_sanity(
+                side["learn_sanity"], card)
+        except BaseException:
+            for proc, _, _ in side.values():   # no process outlives the run
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            raise
+    lap("views chunks, learn_sanity and the GPU unit tests side by side")
 
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
@@ -2436,7 +2706,9 @@ def main():
                         **kres[name]})
     log("[general] " + json.dumps(general))
     log("[configs] " + json.dumps(configs))
+    log("[views] " + json.dumps(views))
     log("[train] " + json.dumps(train))
+    log("[time] seconds per phase after the build: " + json.dumps(phase_s))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

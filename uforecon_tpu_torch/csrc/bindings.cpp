@@ -129,7 +129,7 @@ void grouped_cosine(const at::Tensor& sampled, at::Tensor& out) {
         "grouped_cosine");
 }
 
-// three (NV, P, 9) stage samples sharing their strides, NV <= 8 -> out
+// three (NV, P, 9) stage samples sharing their strides, NV <= 11 -> out
 // (P, 24) on a 16-byte boundary
 void volume_fusion(const at::Tensor& fw0, const at::Tensor& fw1,
                    const at::Tensor& fw2, at::Tensor& out) {

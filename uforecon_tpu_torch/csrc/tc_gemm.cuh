@@ -24,6 +24,16 @@
 // order of the FP32 sums differs from JAX's. One product per FP32 product
 // at the bf16 rate (989 TFLOP/s dense).
 //
+// bf16 summed by FMAs (kFast with kFmaSum, the point head's NV 6..11
+// instances): the same bf16 operands, each product added by one FP32 FMA
+// on the CUDA cores, k in order from the start value, i.e. the sums of a
+// BLAS sgemm kernel that runs k in order (MKL's, measured bit-equal on
+// these shapes). The tensor cores' bf16 mma adds its k16 products inside
+// the unit, aligned and not rounded to nearest, which moves an output by a
+// few FP32 units; at 6 or more views those moves reach the fine pass of a
+// fast render often enough to move it beyond the per-ray rule against the
+// CPU. Same fragment layout, same ring, same epilogue.
+//
 // Weights are pre-split on the host: each matrix w (k1 + k2, n), (in,
 // out) row-major, is two planes in global memory, hi then lo (3xTF32), or
 // its bf16 values then a zero plane (bf16; the values are stored as FP32,
@@ -141,7 +151,7 @@ __host__ __device__ constexpr int col_tiles(int nwarps, int mtiles, int n) {
 // views start from their point's shared part.
 enum Act { kNone = 0, kRelu = 1, kPhi = 2 };
 
-template <int kStages, int NT_MAX, bool kFast = false>
+template <int kStages, int NT_MAX, bool kFast = false, bool kFmaSum = false>
 __device__ void gemm(const float* a1, int lda1, int k1,
                      const float* a2, int lda2, int k2,
                      const float* __restrict__ w_hi, float* ring,
@@ -208,7 +218,38 @@ __device__ void gemm(const float* a1, int lda1, int k1,
       cp_async_commit();
       if (np <= 0) continue;
       const float* slot = ring + (s % kStages) * 2 * kStep * ldw;
-      if constexpr (kFast) {
+      if constexpr (kFast && kFmaSum) {
+        // each output element (rows g, g + 8; columns 2t, 2t + 1 of each
+        // tile) adds its products k by k; a half past k1 + k2 adds nothing
+        const float* wb = slot + (my0 + p0) * 8 + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kk = s * kK + h * kStep;
+          const float* ar = nullptr;
+          int lda = 0;
+          if (kk < k1) {
+            ar = a1 + row * lda1 + kk; lda = lda1;
+          } else if (kk < K) {
+            ar = a2 + row * lda2 + (kk - k1); lda = lda2;
+          }
+          if (ar == nullptr) continue;
+#pragma unroll
+          for (int q = 0; q < kStep; ++q) {
+            const float x0 = bf16_round(ar[q]), x1 = bf16_round(ar[8 * lda + q]);
+            const float* wr = wb + (h * kStep + q) * ldw;
+#pragma unroll
+            for (int j = 0; j < NT_MAX; ++j) {
+              if (j < np) {
+                const float2 w = *reinterpret_cast<const float2*>(wr + j * 8);
+                acc[j][0] = fmaf(x0, w.x, acc[j][0]);
+                acc[j][1] = fmaf(x0, w.y, acc[j][1]);
+                acc[j][2] = fmaf(x1, w.x, acc[j][2]);
+                acc[j][3] = fmaf(x1, w.y, acc[j][3]);
+              }
+            }
+          }
+        }
+      } else if constexpr (kFast) {
         // the step's two 8-column halves of the activations, each from a1,
         // a2 or zeros, rounded to bf16 in pairs
         uint32_t a[4];

@@ -16,13 +16,14 @@
 // 27.5 MB fit in the 50 MB L2, and on the main path F.grid_sample writes
 // them just before this kernel reads them.
 //
-// Design: one thread per point, NV a template parameter (1..8), so the
-// loop over views unrolls and a view's loads no longer wait for the
-// previous view's arithmetic (at NV = 3 ptxas keeps 48 registers, so the
-// 81 loads go out in a few groups, not all at once). Threads take
-// neighbouring points: on the channel-first layout that F.grid_sample
-// gives (strides (9 P, 1, P), which the port's sampler hands over as a
-// view without a copy) each load of a warp is 128 contiguous bytes. A
+// Design: one thread per point, NV a template parameter (1..11: DTU's
+// evaluation set 1 has 11 views), so the loop over views unrolls and a
+// view's loads no longer wait for the previous view's arithmetic (at
+// NV = 3 ptxas keeps 48 registers, so the 81 loads go out in a few
+// groups, not all at once). Threads take neighbouring points: on the
+// channel-first layout that F.grid_sample gives (strides (9 P, 1, P),
+// which the port's sampler hands over as a view without a copy) each load
+// of a warp is 128 contiguous bytes. A
 // block's output rows are one contiguous run of kThreads x 96 bytes: each
 // thread puts its 24 outputs into shared memory as six float4, and the
 // block stores the run as coalesced 16-byte stores (a thread's own 24
@@ -37,7 +38,7 @@ namespace vf {
 
 constexpr int S = 3;           // cascade stages
 constexpr int F = 8;           // features per stage
-constexpr int kMaxViews = 8;   // NV the kernel is built for
+constexpr int kMaxViews = 11;  // NV the kernel is built for
 constexpr int kThreads = 64;   // points a block
 constexpr float kEps = 1e-8f;
 
@@ -111,7 +112,7 @@ extern "C" int ufo_volume_fusion_features() { return ufo::vf::F; }
 extern "C" int ufo_volume_fusion_max_views() { return ufo::vf::kMaxViews; }
 
 // Returns a cudaError_t value (0 on success; cudaErrorInvalidValue for NV
-// outside 1..8). fw holds S pointers to (NV, P, F + 1) tensors sharing the
+// outside 1..11). fw holds S pointers to (NV, P, F + 1) tensors sharing the
 // strides sv, sp, sc (in elements); out starts on a 16-byte boundary.
 extern "C" int ufo_volume_fusion(const float* const* fw, long long sv,
                                  long long sp, long long sc, float* out,
@@ -130,6 +131,9 @@ extern "C" int ufo_volume_fusion(const float* const* fw, long long sv,
     case 5: return launch<5>(in, sv, sp, sc, out, p, st);
     case 6: return launch<6>(in, sv, sp, sc, out, p, st);
     case 7: return launch<7>(in, sv, sp, sc, out, p, st);
-    default: return launch<8>(in, sv, sp, sc, out, p, st);
+    case 8: return launch<8>(in, sv, sp, sc, out, p, st);
+    case 9: return launch<9>(in, sv, sp, sc, out, p, st);
+    case 10: return launch<10>(in, sv, sp, sc, out, p, st);
+    default: return launch<11>(in, sv, sp, sc, out, p, st);
   }
 }

@@ -13,9 +13,12 @@ mlp1 and mlp2 layers run on the tensor cores in 3xTF32
 (``csrc/tc_gemm.cuh``: each operand split into a TF32 hi and lo part,
 three products summed in FP32), accurate to a few FP32 roundings; a
 320-thread block keeps the activations of 16 points (16 x (NV + 1) token
-rows) in shared memory through the whole layer chain and streams the
+rows; from 9 views on, 144 / (NV + 1) points, the most shared memory
+holds) in shared memory through the whole layer chain and streams the
 weight planes through a cp.async ring. The small MLPs, the LayerNorms,
-the attention and the softmax stay FP32 on the CUDA cores.
+the attention and the softmax stay FP32 on the CUDA cores. The kernel
+takes 2..11 views (``KERNEL_MAX_VIEWS``; DTU's evaluation set 1 has 11);
+the JAX kernel has no limit, and the wrapper raises above it.
 
 ``precision`` is the resolved ``Config.kernel_precision``. ``highest`` and
 ``high`` run the kernel described above and an FP32 plain version.
@@ -24,10 +27,13 @@ sites (``uforecon_tpu/ops/fused_point_head.py:138-143``: the pre-
 similarity MLP, q/k/v, merge, mlp1, mlp2 and the radiance MLP): both
 operands of each product rounded to bf16 (round to nearest even), the
 products summed in FP32. The kernel's ``fast`` instantiation runs the
-tensor-core layers as one bf16 ``mma.m16n8k16`` pass and the small MLPs
-as FP32 FMAs of bf16-rounded operands; the plain version rounds at the
-same sites (``cuda_build.kernel_linear``). The attention and the softmax
-stay FP32 in every precision, as in JAX. The backward differentiates the
+tensor-core layers as one bf16 ``mma.m16n8k16`` pass (from 6 views on,
+as FP32 FMAs of the same bf16 operands, k in order: the sums of the
+plain version on the CPU, bit for bit) and the small MLPs as FP32 FMAs
+of bf16-rounded operands; the plain version rounds at the same sites
+(``cuda_build.kernel_linear``). The attention and the softmax stay FP32
+in every precision, as in JAX, and elu + 1 is x + 1 or exp(x) in both,
+as in the JAX kernel and reference. The backward differentiates the
 FP32 plain version in every precision, as JAX's reference VJP does.
 
 The weight pack (``pack_weights``: the tensor-core matrices as TF32 hi and
@@ -58,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .fused_ray_head import _phi
 from .posenc import nerf_posenc
 
 EPS = 1e-6      # linear attention denominator
@@ -65,6 +72,9 @@ LN_EPS = 1e-6   # flax LayerNorm epsilon
 # the kernels' volume widths: the correlation volume's 24 features, the
 # feature grid's 16 (tokens of 80 and 72)
 KERNEL_VOL_WIDTHS = (24, 16)
+# the view counts the point-head kernels are built for (csrc/point_head*.cu
+# kMaxViews)
+KERNEL_MAX_VIEWS = 11
 
 
 def kernel_dims(c_vol: int) -> dict:
@@ -145,8 +155,8 @@ def point_head_reference(inp: PointHeadInputs, p: PointHeadParams,
     x = torch.cat([p.view_token.reshape(1, 1, c).expand(1, n, c), views], 0)
     l_ = nv + 1
 
-    q = (F.elu(linear(x, p.wq)) + 1.0).view(l_, n, n_heads, dk)
-    k = (F.elu(linear(x, p.wk)) + 1.0).view(l_, n, n_heads, dk)
+    q = _phi(linear(x, p.wq)).view(l_, n, n_heads, dk)
+    k = _phi(linear(x, p.wk)).view(l_, n, n_heads, dk)
     v = linear(x, p.wv).view(l_, n, n_heads, dk)
     sc = torch.einsum("lphd,sphd->lsph", q, k)
     den = sc.sum(dim=1) + EPS                                      # (L, P, H)
@@ -204,9 +214,12 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
     c_vol = inp.vol_feat.shape[-1]
     dims = dict(c=c, c_img=c_img, c_vol=c_vol, c_sim=inp.sim_feat.shape[-1],
                 n_heads=n_heads)
-    if c_vol not in KERNEL_VOL_WIDTHS or dims != kernel_dims(c_vol) or not 2 <= nv <= 5:
+    if not 2 <= nv <= KERNEL_MAX_VIEWS:
+        raise ValueError(f"point_head kernel takes 2..{KERNEL_MAX_VIEWS} views, "
+                         f"got {nv} views")
+    if c_vol not in KERNEL_VOL_WIDTHS or dims != kernel_dims(c_vol):
         raise ValueError(f"point_head kernel takes {kernel_dims(24)} or "
-                         f"{kernel_dims(16)} and 2..5 views, got {dims} and {nv} views")
+                         f"{kernel_dims(16)}, got {dims}")
     dev = inp.img_feat.device
     tensors = list(inp) + _flat_params(p)
     for t in tensors:

@@ -14,7 +14,7 @@ view token's own q/k/v and mlp1 rows are constants computed here, on the
 host. At the defaults (3 views) that is ~203.3k FMAs per point against the
 point head's ~264.7k. The kernel is ``csrc/point_head2.cu``: its layer
 GEMMs run on the tensor cores in 3xTF32 (``csrc/tc_gemm.cuh``), as the
-point head's do.
+point head's do, and it takes 2..11 views (``KERNEL_MAX_VIEWS``).
 
 ``split_weights2`` builds the split: the row slices at the feature-group
 offsets 0 / 32 / 56 / 72 / 80 of wq, wk, wv, w1[:C] and rad_w[0] in (in,
@@ -61,9 +61,10 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .fused_point_head import (KERNEL_VOL_WIDTHS, EPS, LN_EPS, PointHeadInputs,
-                               PointHeadParams, _flat_params, _split, kernel_dims,
-                               point_head_reference)
+from .fused_point_head import (KERNEL_MAX_VIEWS, KERNEL_VOL_WIDTHS, EPS, LN_EPS,
+                               PointHeadInputs, PointHeadParams, _flat_params, _split,
+                               kernel_dims, point_head_reference)
+from .fused_ray_head import _phi
 from .posenc import nerf_posenc
 
 PE_DIM = 8      # NeRF PE of the depth distance, 4 frequencies
@@ -116,8 +117,8 @@ def point_head2_fast_reference(inp: PointHeadInputs, p: PointHeadParams,
     def tok_rows(w):                                                # (1, P, C)
         return _tok_dot(tok, w).expand(1, n, -1)
 
-    qf = F.elu(torch.cat([tok_rows(p.wq), lin(views, p.wq)])) + 1.0   # (L, P, C)
-    kf = F.elu(torch.cat([tok_rows(p.wk), lin(views, p.wk)])) + 1.0
+    qf = _phi(torch.cat([tok_rows(p.wq), lin(views, p.wq)]))   # (L, P, C)
+    kf = _phi(torch.cat([tok_rows(p.wk), lin(views, p.wk)]))
     vv = torch.cat([tok_rows(p.wv), lin(views, p.wv)])
     l_ = nv + 1
     # score (l, s) per head: the head sum of bf16-rounded q k products
@@ -290,9 +291,12 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
     dims = dict(c=c, c_img=c_img, c_vol=c_vol, c_sim=inp.sim_feat.shape[-1],
                 n_heads=n_heads)
     d = kernel_dims(c_vol)
-    if c_vol not in KERNEL_VOL_WIDTHS or dims != d or not 2 <= nv <= 5:
+    if not 2 <= nv <= KERNEL_MAX_VIEWS:
+        raise ValueError(f"point_head2 kernel takes 2..{KERNEL_MAX_VIEWS} views, "
+                         f"got {nv} views")
+    if c_vol not in KERNEL_VOL_WIDTHS or dims != d:
         raise ValueError(f"point_head2 kernel takes {kernel_dims(24)} or "
-                         f"{kernel_dims(16)} and 2..5 views, got {dims} and {nv} views")
+                         f"{kernel_dims(16)}, got {dims}")
     dev = inp.img_feat.device
     for t in list(inp) + _flat_params(p):
         if t.device != dev or t.dtype != torch.float32 or not t.is_cuda:

@@ -50,19 +50,38 @@ def pair_slots(n_views: int) -> List[Tuple[int, int]]:
 
 def grouped_cosine_reference(sampled: torch.Tensor, n_groups: int) -> torch.Tensor:
     """Plain PyTorch forward, mirroring the JAX ``grouped_cosine_reference``:
-    sampled (NV, P, (NV-1) C) -> (P, n_groups)."""
+    sampled (NV, P, (NV-1) C) -> (P, n_groups). Every pair at once: each
+    pair's two (C, P) maps taken from the channel-first blocks (a view of
+    the sampler's layout) into (pairs, n_groups, C / n_groups, P): a loop
+    over the NV (NV - 1) / 2 pairs, a few small operations each, was bound
+    by its launches (~11 ms at 11 views and 65,536 points on an H100). A
+    group's sums run over its channels in order, the same on the card and
+    the CPU."""
     nv, n, cc = sampled.shape
     c = cc // (nv - 1)
     g = c // n_groups
-    cos_all = []
-    for (i, j), (ki, kj) in zip(view_pairs(nv), pair_slots(nv)):
-        gi = sampled[i, :, ki * c:(ki + 1) * c].reshape(n, n_groups, g)
-        gj = sampled[j, :, kj * c:(kj + 1) * c].reshape(n, n_groups, g)
-        dot = torch.sum(gi * gj, dim=-1)
-        ni = torch.sqrt(torch.sum(gi * gi, dim=-1))
-        nj = torch.sqrt(torch.sum(gj * gj, dim=-1))
-        cos_all.append(dot / torch.clamp(ni * nj, min=EPS))
-    return torch.mean(torch.stack(cos_all), dim=0)
+    pairs, slots = view_pairs(nv), pair_slots(nv)
+    # row v * (nv - 1) + k: view v's k-th pair map, (C, P)
+    maps = sampled.permute(0, 2, 1).reshape(nv * (nv - 1), c, n)
+
+    def side(k):
+        rows = torch.tensor([pr[k] * (nv - 1) + sl[k] for pr, sl in zip(pairs, slots)],
+                            device=sampled.device)
+        return maps.index_select(0, rows).view(len(pairs), n_groups, g, n)
+
+    gi, gj = side(0), side(1)
+
+    def group_sum(y):
+        acc = y[:, :, 0]
+        for e in range(1, g):
+            acc = acc + y[:, :, e]
+        return acc                                  # (pairs, n_groups, P)
+
+    dot = group_sum(gi * gj)
+    ni = torch.sqrt(group_sum(gi * gi))
+    nj = torch.sqrt(group_sum(gj * gj))
+    cos = dot / torch.clamp(ni * nj, min=EPS)
+    return torch.mean(cos, dim=0).t().contiguous()
 
 
 def _launch(sampled: torch.Tensor, n_groups: int) -> torch.Tensor:

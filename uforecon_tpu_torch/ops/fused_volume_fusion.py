@@ -9,7 +9,7 @@ side. The kernel is ``csrc/volume_fusion.cu``.
 
 Bound on the H100: bytes (at P = 65,536 and 3 views it reads 21.2 MB and
 writes 6.3 MB, 0.0082 ms). Design: one thread per point, the number of
-views NV (1..8) a template parameter so that a view's loads do not wait
+views NV (1..11) a template parameter so that a view's loads do not wait
 for the previous view's, and a block's output rows stored as one
 coalesced run through shared memory. The kernel takes any strides shared
 by the three stages; ``query_correlation_volume`` hands it the
@@ -33,7 +33,7 @@ from . import cuda_build
 EPS = 1e-8  # fusion denominator
 _KERNEL_STAGES = 3
 _KERNEL_FEATURES = 8
-_KERNEL_MAX_VIEWS = 8
+_KERNEL_MAX_VIEWS = 11
 
 
 def volume_fusion_reference(fws: Sequence[torch.Tensor]) -> torch.Tensor:

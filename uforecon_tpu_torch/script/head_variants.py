@@ -1,5 +1,5 @@
-"""Where the kernels' time goes: variants of ``csrc/point_head.cu``,
-``csrc/point_head2.cu``, ``csrc/ray_head.cu``, ``csrc/tiny_attention.cu``
+"""Where the kernels' time goes: variants of ``csrc/point_head.cuh``,
+``csrc/point_head2.cuh``, ``csrc/ray_head.cu``, ``csrc/tiny_attention.cu``
 (forward and backward) and ``csrc/volume_fusion.cu`` timed apart on one
 GPU.
 
@@ -54,17 +54,24 @@ import torch
 
 from ..ops import cuda_build
 
-SOURCE = {"ph": "point_head.cu", "ph2": "point_head2.cu", "rh": "ray_head.cu",
+# kernel -> the source that holds it (which the constants and patches name)
+SOURCE = {"ph": "point_head.cuh", "ph2": "point_head2.cuh", "rh": "ray_head.cu",
           "ta": "tiny_attention.cu", "tb": "tiny_attention.cu", "vf": "volume_fusion.cu"}
+# kernel -> the files nvcc compiles into its library (the point heads'
+# instances of 2..5 views and of 6..11 views are separate files)
+UNITS = {"ph": ("point_head.cu", "point_head_views.cu", "point_head_views_9_11.cu"),
+         "ph2": ("point_head2.cu", "point_head2_views.cu")}
 # kernel -> NAME -> (the source's line, its replacement with {} for VALUE)
 CONSTANTS = {
-    "ph": {"TP": ("constexpr int TP = 16;", "constexpr int TP = {};"),
+    "ph": {"TP": ("constexpr int TP_MAX = 16;", "constexpr int TP_MAX = {};"),
            "T": ("constexpr int kPointThreads = 320;", "constexpr int kPointThreads = {};"),
            "S": ("constexpr int kStages = 2;", "constexpr int kStages = {};"),
-           "LB": ("__launch_bounds__(kPointThreads, 2)", "__launch_bounds__(kPointThreads, {})")},
+           "LB": ("__launch_bounds__(kPointThreads, NV <= 5 ? 2 : 1)",
+                  "__launch_bounds__(kPointThreads, {})")},
     "ph2": {"T": ("constexpr int kThreads = 320;", "constexpr int kThreads = {};"),
             "S": ("constexpr int kStages = 2;", "constexpr int kStages = {};"),
-            "LB": ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, {})"),
+            "LB": ("__launch_bounds__(kThreads, NV <= 5 ? 2 : 1)",
+                   "__launch_bounds__(kThreads, {})"),
             "SR": ("constexpr int kSmallRows = 1;", "constexpr int kSmallRows = {};")},
     "rh": {"T": ("constexpr int kRayThreads = 512;", "constexpr int kRayThreads = {};"),
            "S": ("constexpr int kStages = 2;", "constexpr int kStages = {};")},
@@ -111,38 +118,38 @@ PATCHES = {
                 "      __syncthreads();\n", "")],
     "noload": [("tc_gemm.cuh", "      if (s + kStages - 1 < steps) load(s + kStages - 1);",
                 "      if (s + kStages - 1 < steps && s < 0) load(s + kStages - 1);")],
-    "ph_sim": [("point_head.cu", *_skip("  block_linear<4, kFast>(s_in, SIN, SIN,")),
-               ("point_head.cu", *_skip("  block_linear<4, kFast>(s_h1, SH, SH,")),
-               ("point_head.cu", *_skip("  block_linear<4, kFast>(s_h2, SH, SH,"))],
-    "ph_rad": [("point_head.cu", *_skip("  block_linear<4, kFast>(z, CR, CR,")),
-               ("point_head.cu", *_skip("  block_linear<4, kFast>(h1, R1, R1,")),
-               ("point_head.cu", *_skip("  block_linear<4, kFast>(h2, R2, R2,"))],
-    "ph_attn": [("point_head.cu", *_empty_loop(
-        "  for (int t = tid; t < R * NH; t += blockDim.x) {", "R * NH"))],
-    "ph_ln": [("point_head.cu", *_skip("  tc::layernorm<C>(Kb, LD, R, W + O_N1S")),
-              ("point_head.cu", *_skip("  tc::layernorm<C>(Kb, LD, R, W + O_N2S"))],
-    "ph_pe": [("point_head.cu", *_empty_loop(
-        "  for (int i = tid; i < NV * TP * CT; i += blockDim.x) {", "NV * TP * CT"))],
-    "ph_softmax": [("point_head.cu", *_empty_loop(
-        "  for (int p = tid; p < TP; p += blockDim.x) {", "TP"))],
-    "ph2_sim": [("point_head2.cu", *_skip("  block_linear<kSmallRows, kFast>(s_in, SIN, SIN,")),
-                ("point_head2.cu", *_skip("  block_linear<kSmallRows, kFast>(s_h1, SHID, SHID,")),
-                ("point_head2.cu", *_skip("  block_linear<kSmallRows, kFast>(s_h2, SHID, SHID,"))],
-    "ph2_shared": [("point_head2.cu", *_skip("  tc::gemm<kStages, NT_SQK, kFast>(S, LS, GS,")),
-                   ("point_head2.cu", *_skip("  tc::gemm<kStages, NT_SV, kFast>(S, LS, GS,")),
-                   ("point_head2.cu", *_skip("  tc::gemm<kStages, NT_ST, kFast>(S, LS, GS,"))],
-    "ph2_in": [("point_head2.cu", *_empty_loop(
-        "  for (int i = tid; i < RV * XR; i += blockDim.x) {", "RV * XR"))],
-    "ph2_pass": [("point_head2.cu", *_empty_loop(
-        "  for (int i = tid; i < R * C2_4; i += blockDim.x) {", "R * C2_4"))],
-    "ph2_attn": [("point_head2.cu", *_empty_loop(
+    "ph_sim": [("point_head.cuh", *_skip("  block_linear<4, kFast>(s_in, SIN, SIN,")),
+               ("point_head.cuh", *_skip("  block_linear<4, kFast>(s_h1, SH, SH,")),
+               ("point_head.cuh", *_skip("  block_linear<4, kFast>(s_h2, SH, SH,"))],
+    "ph_rad": [("point_head.cuh", *_skip("  block_linear<4, kFast>(z, CR, CR,")),
+               ("point_head.cuh", *_skip("  block_linear<4, kFast>(h1, R1, R1,")),
+               ("point_head.cuh", *_skip("  block_linear<4, kFast>(h2, R2, R2,"))],
+    "ph_attn": [("point_head.cuh", *_empty_loop(
         "  for (int t = tid; t < TP * L * NH; t += blockDim.x) {", "TP * L * NH"))],
-    "ph2_ln": [("point_head2.cu", *_skip("  tc::layernorm<C>(Vb, LV, R, W + O_N1S")),
-               ("point_head2.cu", *_skip("  tc::layernorm<C>(Vb, LV, R, W + O_N2S"))],
-    "ph2_rad": [("point_head2.cu", *_skip("  tc::gemm<kStages, NT_R, kFast>(X + TP * LX, LX, XK,")),
-                ("point_head2.cu", *_skip("  block_linear<kSmallRows, kFast>(z, LZ, R1,")),
-                ("point_head2.cu", *_skip("  block_linear<kSmallRows, kFast>(h2, R2, R2,"))],
-    "ph2_softmax": [("point_head2.cu", *_empty_loop(
+    "ph_ln": [("point_head.cuh", *_skip("  tc::layernorm<C>(Kb, LD, R, W + O_N1S")),
+              ("point_head.cuh", *_skip("  tc::layernorm<C>(Kb, LD, R, W + O_N2S"))],
+    "ph_pe": [("point_head.cuh", *_empty_loop(
+        "  for (int i = tid; i < NV * TP * CT; i += blockDim.x) {", "NV * TP * CT"))],
+    "ph_softmax": [("point_head.cuh", *_empty_loop(
+        "  for (int p = tid; p < TP; p += blockDim.x) {", "TP"))],
+    "ph2_sim": [("point_head2.cuh", *_skip("  block_linear<kSmallRows, kFast>(s_in, SIN, SIN,")),
+                ("point_head2.cuh", *_skip("  block_linear<kSmallRows, kFast>(s_h1, SHID, SHID,")),
+                ("point_head2.cuh", *_skip("  block_linear<kSmallRows, kFast>(s_h2, SHID, SHID,"))],
+    "ph2_shared": [("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_SQK, kFast>(S, LS, GS,")),
+                   ("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_SV, kFast>(S, LS, GS,")),
+                   ("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_ST, kFast>(S, LS, GS,"))],
+    "ph2_in": [("point_head2.cuh", *_empty_loop(
+        "  for (int i = tid; i < RV * XR; i += blockDim.x) {", "RV * XR"))],
+    "ph2_pass": [("point_head2.cuh", *_empty_loop(
+        "  for (int i = tid; i < R * C2_4; i += blockDim.x) {", "R * C2_4"))],
+    "ph2_attn": [("point_head2.cuh", *_empty_loop(
+        "  for (int t = tid; t < TP * L * NH; t += blockDim.x) {", "TP * L * NH"))],
+    "ph2_ln": [("point_head2.cuh", *_skip("  tc::layernorm<C>(Vb, LV, R, W + O_N1S")),
+               ("point_head2.cuh", *_skip("  tc::layernorm<C>(Vb, LV, R, W + O_N2S"))],
+    "ph2_rad": [("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_R, kFast>(X + RT * LX, LX, XK,")),
+                ("point_head2.cuh", *_skip("  block_linear<kSmallRows, kFast>(z, LZ, R1,")),
+                ("point_head2.cuh", *_skip("  block_linear<kSmallRows, kFast>(h2, R2, R2,"))],
+    "ph2_softmax": [("point_head2.cuh", *_empty_loop(
         "  for (int p = tid; p < TP; p += blockDim.x) {", "TP"))],
     "ta_phi": [("tiny_attention.cu", *_empty_loop(
         "    for (int j = tid; j < tile * rk / 4; j += blockDim.x) {", "tile * rk / 4"))],
@@ -211,7 +218,7 @@ def _build(variant: str, root: Path):
     lib = d / "lib.so"
     cmd = ["nvcc", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "--expt-relaxed-constexpr", "-shared", "-Xcompiler", "-fPIC", "-o",
-           str(lib), str(d / SOURCE[kernel])]
+           str(lib), *[str(d / u) for u in UNITS.get(kernel, (SOURCE[kernel],))]]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True), lib
 

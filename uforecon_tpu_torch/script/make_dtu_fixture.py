@@ -8,9 +8,12 @@ needs OpenCV and the JAX package), writing through ``data/io.py`` and
 ``data/image.py``: ``{root}/cameras/{vid:08d}_cam.txt`` (in DTU's
 1600x1200 pixel frame, depth_min 425 mm, interval 2.5 mm) and
 ``{root}/scan24/image/{vid:06d}.png`` at ``--wh``, raytraced with the
-intrinsics scaled to that size, for the chosen views of the original six
-(23 24 33 1 16 36, on a ring around the sphere). At 1600x1200 the files
-hold the same cameras and pixels as the original script's.
+intrinsics scaled to that size, for the chosen views: any of the original
+six (23 24 33 1 16 36, on a ring around the sphere) and of DTU's
+evaluation set 1 (``data/dtu_test.SET1_VIEW_LIST``: ``--views 43 42 44
+33 34 32 45 23 41 24 31``). The ids set 1 adds sit on a second, higher
+ring, each with a camera of its own. At 1600x1200 the six
+original views hold the same cameras and pixels as the original script's.
 
 ``write_train_layout`` writes the DTU training layout instead (which
 ``data/dtu_train.py`` reads): the same
@@ -38,10 +41,15 @@ from typing import Sequence
 
 import numpy as np
 
+from ..data.dtu_test import SET1_VIEW_LIST
 from ..data.image import write_png
 from ..data.io import write_cam_file
 
 VIEWS = (23, 24, 33, 1, 16, 36)
+# the ids of DTU's evaluation set 1 that VIEWS lacks, in that list's
+# order: a second ring of cameras
+SET1_EXTRA = tuple(v for v in SET1_VIEW_LIST if v not in VIEWS)
+ALL_VIEWS = VIEWS + SET1_EXTRA
 WH = (1600, 1200)                      # DTU's image size; the cameras' frame
 CENTER = np.array([0.0, 0.0, 600.0])   # sphere centre, mm
 RADIUS = 120.0
@@ -72,13 +80,21 @@ def intrinsic(wh: Sequence[int] = WH) -> np.ndarray:
 
 
 def cameras() -> dict:
-    """View id -> w2c extrinsic: the six views on a ring around the sphere."""
+    """View id -> w2c extrinsic: the six views on a ring around the sphere,
+    then set 1's other ids on a higher ring between them, as far from the
+    centre (~450 mm); the six come from the first draws, as they always
+    did."""
     rng = np.random.default_rng(7)
     out = {}
     for i, vid in enumerate(VIEWS):
         ang = 2 * np.pi * i / len(VIEWS)
         eye = CENTER + np.array(
             [420 * np.sin(ang), -180 + 40 * rng.random(), -420 * np.cos(ang)])
+        out[vid] = look_at(eye, CENTER)
+    for i, vid in enumerate(SET1_EXTRA):
+        ang = 2 * np.pi * (i + 0.5) / len(SET1_EXTRA)
+        eye = CENTER + np.array(
+            [380 * np.sin(ang), -260 + 40 * rng.random(), -380 * np.cos(ang)])
         out[vid] = look_at(eye, CENTER)
     return out
 
@@ -194,7 +210,7 @@ def main(argv=None):
     p = argparse.ArgumentParser("uforecon_tpu_torch.script.make_dtu_fixture")
     p.add_argument("root", nargs="?", default="dtu_fixture")
     p.add_argument("--views", type=int, nargs="+", default=list(VIEWS),
-                   choices=VIEWS, help="which of the six views to write")
+                   choices=ALL_VIEWS, help="which views to write (default the six)")
     p.add_argument("--wh", type=int, nargs=2, default=list(WH),
                    help="size W H of the written images")
     a = p.parse_args(argv)
