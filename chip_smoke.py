@@ -19,9 +19,10 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      the point heads and the ray head, whose layer GEMMs run on the tensor
      cores in 3xTF32, the tensor bound beside the FP32 bound), with each kernel's
      share of its bounds; the tiny attention at route A's head width 10
-     and route B's 8, at 65,536 and the ragged 65,537 points; its backward
-     at route A's L = S = 4 (65,536 and 65,537 points) and at the training
-     shape L = S = 6; the volume fusion at 2, 3, 5 and 11 views and the
+     and route B's 8, at 65,536 and the ragged 65,537 points, and at the
+     training configurations' L = S = 5 with heads of 9 and 13; its
+     backward at route A's L = S = 4 (65,536 and 65,537 points), at the
+     training shape L = S = 6 and at L = S = 5 with heads of 10, 9 and 13; the volume fusion at 2, 3, 5 and 11 views and the
      ragged 65,537 points, timed with its inputs in the L2 (as the main
      path finds them) and, at 3 views, after a 64 MB write (cold L2); the
      grouped cosine at 3 views, at the 5-view similarity field's
@@ -104,7 +105,11 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      against the CPU; then ``cli.run --use_dir_srdf
      --test_sample_coarse 128 --test_sample_fine 128`` at its defaults on
      the DTU sphere fixture at 800x640 (ray-head width 112 at SN 128 and 256,
-     fast kernels 5 and 2 on every view): rays/s and peak memory;
+     fast kernels 5 and 2 on every view): rays/s and peak memory; and a
+     1024-ray chunk of each bf16 policy at the JAX extraction defaults,
+     card vs CPU (``--encoder_dtype bfloat16``: fast kernels 1 and 2, held
+     as a fast route; ``--compute_dtype bfloat16``: kernel 5 alone, by the
+     bf16 effect's distribution);
  12. training phase (``pipeline/trainer.py``, ``pipeline/fit.py``): at the
      full width of the JAX training default (``ndepths`` 48/32/8, 192
      hypotheses, 64 + 64 samples, 1024 rays, 5 views at 640x512 on the
@@ -121,11 +126,23 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      share, the costliest operations); (c) ``cli.run --debug`` on the
      fixture's DTU training layout (``make_dtu_fixture.
      write_train_layout``), then ``cli.run --extract_geometry --load_ckpt``
-     on the checkpoint it wrote; (d) in step 14;
+     on the checkpoint it wrote; (d) in step 14; (e) every model
+     configuration, cascade flag and precision policy the JAX CLI trains
+     (TRAIN_CONFIGS: the feature grid without and with the depth guide, no
+     depth PE, no depth guide, ``use_dir_srdf``, ``volume_reso`` 0,
+     ``share_cr``, ``--encoder_dtype bfloat16``, ``--compute_dtype
+     bfloat16``), each with seeded weights: a coarse 128-ray step at
+     320x256 card vs CPU, then two timed full steps at the training default
+     (s/step, peak memory, the kernels JAX's gates imply on every step),
+     then ``cli.run --debug`` with ``--use_dir_srdf --share_cr
+     --encoder_dtype bfloat16 --grad_method undetached`` and the
+     extraction from its checkpoint with the same flags;
  13. views phase: DTU's evaluation set 1 (the fixture's 11 views at
      800x640, ``script/make_dtu_fixture.py``): ``cli.run --extract_geometry
-     --set 1`` at its defaults at 11 views and at 4 (the JAX guard's
-     per-stage volumes): fast kernels 1 and 2 on every view, rays/s,
+     --set 1`` at its defaults at 11 views (at 480x384, 36 % of the rays,
+     the guard's per-stage volumes still: at 800x640 it took a quarter of
+     the run) and at 4 (the JAX
+     guard's per-stage volumes): fast kernels 1 and 2 on every view, rays/s,
      encode seconds, peak memory; then a 1024-ray chunk at 6, 8 and 11
      views on the card against the CPU, on the exact path and at the JAX
      extraction defaults (``views_phase`` says how each is held);
@@ -191,6 +208,12 @@ GENERAL_SIM_CHUNKS = GENERAL_SIM_RESO ** 3 // 65536
 # JAX merge guard's per-stage volumes) at the DTU render size
 VIEWS_NV = (6, 8, 11)
 VIEWS_CLI = (11, 4)
+# the 11-view scan renders at 36 % of the rays (it took 270.8 s of the run
+# at 800x640): the smallest size of multiples of 32 at which the JAX guard
+# still keeps its per-stage volumes (its byte count above merge_max_bytes);
+# the 4-view scan, the chunks and the kernel phase's NV 11 rows stay at the
+# full size
+VIEWS_CLI_WH = {11: (480, 384)}
 # warm views per route in the A/B phase: 2 x AB_ROUNDS
 AB_ROUNDS = 1
 # training phase: the DTU training crop; timed steps per route
@@ -245,6 +268,28 @@ CONFIGS = {
 CONFIG_RAY_SHAPES = ((112, (64, 128, 256)), (80, (64, 128)), (64, (64, 128)),
                      (88, (256,)))
 CONFIG_CHUNK = 1024
+# training phase (e): the model configurations, cascade flags and precision
+# policies the JAX CLI trains (flags of the port's Config), each a coarse
+# step card vs CPU at TRAIN_CFG_A_WH with TRAIN_CFG_A_RAYS rays and
+# TRAIN_CFG_STEPS timed steps at the training default
+TRAIN_CONFIGS = {
+    "featuregrid": dict(volume_type="featuregrid", mvs_depth_guide=0,
+                        depth_pos_encoding=False),
+    "featuregrid_guided": dict(volume_type="featuregrid"),
+    "no_depth_pe": dict(depth_pos_encoding=False),
+    "no_depth_guide": dict(mvs_depth_guide=0),
+    "dir_srdf": dict(use_dir_srdf=True),
+    "no_volume": dict(volume_reso=0),
+    "share_cr": dict(share_cr=True),
+    "mixed": dict(encoder_dtype="bfloat16"),
+    "bf16": dict(compute_dtype="bfloat16"),
+}
+TRAIN_CFG_A_WH = (320, 256)
+TRAIN_CFG_A_RAYS = 128
+TRAIN_CFG_STEPS = 2
+TRAIN_CFG_CLI = ["--depth_pos_encoding", "--explicit_similarity", "--use_dir_srdf",
+                 "--share_cr", "--encoder_dtype", "bfloat16", "--grad_method",
+                 "undetached"]
 # the run each kernel belongs to: its launches are read from that run
 ROUTE = {"point_head": "off", "ray_head": "off", "grouped_cosine": "on",
          "volume_fusion": "on", "ray_head_neus": "on", "tiny_attention": "A",
@@ -270,6 +315,22 @@ MUST_RUN = {"off": ("point_head", "ray_head"),
             "train": ("point_head", "ray_head"),
             "train_A": ("tiny_attention", "tiny_attention_bwd", "ray_head"),
             "train_cli": ("point_head", "ray_head"),
+            "train_cli_extract": ("point_head_fast", "ray_head_fast"),
+            # the training configurations (TRAIN_CONFIGS), as JAX's gates
+            # route them: the point head where the full feature set is
+            # there in float32, the view transformer (kernel 5 and its
+            # backward, kernel 6) elsewhere, the ray head in float32 only
+            **{f"train_cfg_{name}": ("point_head", "ray_head")
+               for name in ("featuregrid_guided", "share_cr", "mixed")},
+            **{f"train_cfg_{name}": ("tiny_attention", "tiny_attention_bwd", "ray_head")
+               for name in ("featuregrid", "no_depth_pe", "no_depth_guide", "dir_srdf",
+                            "no_volume")},
+            "train_cfg_bf16": ("tiny_attention", "tiny_attention_bwd"),
+            "train_cfg_cli": ("tiny_attention", "tiny_attention_bwd", "ray_head"),
+            "train_cfg_cli_extract": ("tiny_attention", "ray_head_fast"),
+            # a chunk of each bf16 policy at the JAX extraction defaults
+            "config_mixed": ("point_head_fast", "ray_head_fast"),
+            "config_bf16": ("tiny_attention",),
             # it trains, then renders its depth maps and mesh at the
             # trainer's precision (3xTF32), as the JAX package's process does
             "learn_sanity": ("point_head", "ray_head"),
@@ -1073,13 +1134,17 @@ def kernel_phase(model, card):
     # tiny attention, forward and backward, at route A's shape: one
     # 1024-ray chunk x 64 samples, the view token and 3 views, 8 heads of
     # 10; the forward also at a ragged batch and at route B's head width 8
-    def attention_inputs(b, d=10):
-        return (randn(b, 4, 8, d), randn(b, 4, 8, d), randn(b, 4, 8, d))
+    def attention_inputs(b, d=10, l_=4):
+        return (randn(b, l_, 8, d), randn(b, l_, 8, d), randn(b, l_, 8, d))
 
+    # and at the training configurations' shapes: the view token and 4
+    # source views (L = S = 5), heads of 9 (no depth PE or guide) and 13
+    # (use_dir_srdf), 65,536 points a pass
     fwd = {}
-    for d, b in ((10, p), (10, p + 1), (8, p), (8, p + 1)):
-        dims = dict(l=4, s=4, h=8, d=d, m=d)
-        q, k, v = attention_inputs(b, d)
+    for d, b, l_ in ((10, p, 4), (10, p + 1, 4), (8, p, 4), (8, p + 1, 4), (9, p, 5),
+                     (13, p, 5)):
+        dims = dict(l=l_, s=l_, h=8, d=d, m=d)
+        q, k, v = attention_inputs(b, d, l_)
         with torch.no_grad():
             got = fta.tiny_linear_attention(q, k, v)
             want = fta.tiny_linear_attention_reference(q, k, v)
@@ -1089,7 +1154,7 @@ def kernel_phase(model, card):
             k_ms, call_ms = kernel_times(lambda: fta.tiny_linear_attention(q, k, v))
             p_ms = time_ms(lambda: fta.tiny_linear_attention_reference(q, k, v))
         b_ms, b_by = bound(nbytes(q, k, v, got), attention_flops(b, **dims))
-        log(f"[kernel] tiny_attention B={b} L=S=4 H=8 D=M={d}: max abs err {err:.3e} "
+        log(f"[kernel] tiny_attention B={b} L=S={l_} H=8 D=M={d}: max abs err {err:.3e} "
             f"(rtol = atol = {TOL['attention']}); kernel {k_ms:.4f} ms (call "
             f"{call_ms:.4f}), plain "
             f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, share {b_ms / k_ms:.3f}) "
@@ -1101,16 +1166,20 @@ def kernel_phase(model, card):
     results["tiny_attention"] = {**fwd[10, p], "max_abs_err": max(f["max_abs_err"]
                                                                    for f in fwd.values()),
                                  "ragged": fwd[10, p + 1], "d8": fwd[8, p],
-                                 "d8_ragged": fwd[8, p + 1]}
+                                 "d8_ragged": fwd[8, p + 1], "train_l5_d9": fwd[9, p],
+                                 "train_l5_d13": fwd[13, p]}
 
     # its backward kernel against torch.autograd through the plain forward,
-    # at route A's L = S = 4 (65,536 and the ragged 65,537 points) and at
-    # the training shape the JAX package names (L = S = 6: the view token
-    # and train_n_view 5)
+    # at route A's L = S = 4 (65,536 and the ragged 65,537 points), at the
+    # training shape the JAX package names (L = S = 6: the view token and
+    # train_n_view 5), and at the training configurations' L = S = 5 (the
+    # view token and 4 source views) with heads of 10 (--compute_dtype
+    # bfloat16), 9 and 13
     bwd = {}
-    for l_, b in ((4, p), (4, p + 1), (6, p)):
-        dims = dict(l=l_, s=l_, h=8, d=10, m=10)
-        q, k, v, g = (randn(b, l_, 8, 10) for _ in range(4))
+    for l_, b, d in ((4, p, 10), (4, p + 1, 10), (6, p, 10), (5, p, 10), (5, p, 9),
+                     (5, p, 13)):
+        dims = dict(l=l_, s=l_, h=8, d=d, m=d)
+        q, k, v, g = (randn(b, l_, 8, d) for _ in range(4))
         qkv = [t.clone().requires_grad_() for t in (q, k, v)]
         want = torch.autograd.grad(fta.tiny_linear_attention_reference(*qkv), qkv, g)
         with torch.no_grad():
@@ -1133,7 +1202,7 @@ def kernel_phase(model, card):
         a_ms = time_ms(autograd_plain)
         b_ms, b_by = bound(nbytes(q, k, v, g, *got),
                            attention_flops(b, **dims, backward=True))
-        log(f"[kernel] tiny_attention_bwd B={b} L=S={l_} H=8 D=M=10: max abs err vs "
+        log(f"[kernel] tiny_attention_bwd B={b} L=S={l_} H=8 D=M={d}: max abs err vs "
             f"autograd of the plain forward {errs} (rtol = atol = "
             f"{TOL['attention_grad']}), vs the plain backward {twin_err:.3e}; kernel "
             f"{k_ms:.4f} ms (call {call_ms:.4f}), plain backward {p_ms:.4f} ms, autograd "
@@ -1141,15 +1210,16 @@ def kernel_phase(model, card):
             f"{b_ms / k_ms:.3f}) [{card}]")
         if not excess <= TOL["attention_grad"]:
             raise AssertionError(f"tiny_attention backward kernel disagrees at B={b} "
-                                 f"L={l_}: {errs}")
-        bwd[l_, b] = {"max_abs_err": max(errs.values()), "ms": k_ms, "call_ms": call_ms,
+                                 f"L={l_} D={d}: {errs}")
+        bwd[l_, b, d] = {"max_abs_err": max(errs.values()), "ms": k_ms, "call_ms": call_ms,
                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                       "errors": errs, "plain_backward_err": twin_err,
                       "autograd_plain_ms": a_ms}
         del q, k, v, g, qkv, want, got, twin
-    results["tiny_attention_bwd"] = {**bwd[4, p], "max_abs_err": max(
-        x["max_abs_err"] for x in bwd.values()), "ragged": bwd[4, p + 1],
-        "train_l6": bwd[6, p]}
+    results["tiny_attention_bwd"] = {**bwd[4, p, 10], "max_abs_err": max(
+        x["max_abs_err"] for x in bwd.values()), "ragged": bwd[4, p + 1, 10],
+        "train_l6": bwd[6, p, 10], "train_l5_d10": bwd[5, p, 10],
+        "train_l5_d9": bwd[5, p, 9], "train_l5_d13": bwd[5, p, 13]}
 
     # row gather at the probe's shape: 2048 blocks of 4096 rows of 128 bf16,
     # random in-block indices; bit for bit against its plain version, timed
@@ -1388,6 +1458,72 @@ def agree_with_cpu(model, sample, route, rn=256, tag="slice"):
         raise AssertionError(f"card and CPU renders disagree (route {route}): {agree} "
                              f"{effect}")
     return {**agree, **({"fast_vs_effect": effect} if fast else {}), "launches": launches}
+
+
+def bf16_chunk_card_vs_cpu(model, sample, run, rn, card):
+    """An rn-ray chunk of a bf16 ray transformer (``--compute_dtype
+    bfloat16``) on the card against the CPU on the card's encoding, with
+    the same draws, by the bf16 rule over the distribution
+    (``tests/test_torch_port_bf16_model.py``): per output, the median
+    card-CPU distance within the median bf16 effect and its 97th
+    percentile within twice the effect's, the effect being the CPU's
+    render of the same weights in the mixed policy (float32 ray
+    transformer) on the same encoding. The card's view transformer runs
+    the tiny attention in float32 (the JAX wrapper's cast), the CPU's in
+    bf16, as JAX does on each. Returns the distances and the card's
+    launches."""
+    import dataclasses
+
+    import torch
+
+    from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
+    from uforecon_tpu_torch.models.uforecon import UFORecon
+
+    scene, extras = scene_inputs_from_sample(sample, "cuda")
+    wrappers = launch_counts()
+    idx = np.random.default_rng(SEED).choice(len(extras["ray_d"]), rn, replace=False)
+    ray_d = torch.as_tensor(extras["ray_d"][idx], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    u_c = torch.rand((rn, model.cfg.coarse_sample), generator=gen, device="cuda")
+    u_f = torch.rand((rn, model.cfg.fine_sample), generator=gen, device="cuda")
+    ref = UFORecon(dataclasses.replace(model.cfg, compute_dtype="float32",
+                                       encoder_dtype="bfloat16"))
+    ref.load_state_dict(model.state_dict())
+    ref.requires_grad_(False)
+    with torch.no_grad():
+        enc = model.encode(scene)
+        for w in wrappers.values():
+            w.launches = 0
+        out_gpu = model.render_chunk(scene, enc, ray_d, u_coarse=u_c, u_fine=u_f)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        args = (to_cpu(scene), to_cpu(enc), ray_d.cpu())
+        draws = dict(u_coarse=u_c.cpu(), u_fine=u_f.cpu())
+        out_cpu = copy.deepcopy(model).cpu().render_chunk(*args, **draws)
+        out_ref = ref.render_chunk(*args, **draws)
+    dist, ok = {}, True
+    for phase in ("coarse", "fine"):
+        for key in ("depth", "rgb", "opacity"):
+            a = out_gpu[phase][key].float().cpu().numpy()
+            b = out_cpu[phase][key].float().numpy()
+            if not np.all(np.isfinite(a)):
+                raise AssertionError(f"{run}: non-finite {phase} {key}")
+            d, e = np.abs(a - b), np.abs(b - out_ref[phase][key].float().numpy())
+            q_d, q_e = np.percentile(d, 100 * RAY_SHARE), np.percentile(e, 100 * RAY_SHARE)
+            dist[f"{phase}_{key}"] = {"median": float(np.median(d)),
+                                      "effect_median": float(np.median(e)),
+                                      "q97": float(q_d), "effect_q97": float(q_e),
+                                      "rays_within_2x_effect": float(np.mean(
+                                          d.reshape(rn, -1).max(1)
+                                          <= 2 * e.reshape(rn, -1).max(1)))}
+            ok &= bool(np.median(d) <= max(np.median(e), 2e-4) and q_d <= max(2 * q_e, 2e-4))
+    log(f"[configs] {run}: {rn}-ray chunk, bf16 ray transformer, card vs CPU against "
+        f"the bf16 effect (CPU bf16 vs its float32 trained half): {json.dumps(dist)} "
+        f"[{card}]")
+    if not ok:
+        raise AssertionError(f"{run}: card and CPU bf16 renders disagree beyond the bf16 "
+                             f"effect: {dist}")
+    return {"bf16_vs_effect": dist, "launches": launches}
 
 
 def slice_phase(model, model_b, card):
@@ -2084,6 +2220,28 @@ def configs_phase(card):
         del model, scene, enc, out, out_cpu
         torch.cuda.empty_cache()
 
+    # the two bf16 policies at the JAX extraction defaults: a chunk each,
+    # card against CPU
+    for name, flags in (("mixed", dict(encoder_dtype="bfloat16")),
+                        ("bf16", dict(compute_dtype="bfloat16"))):
+        model = UFORecon(Config(extract_geometry=True, **flags))
+        init_weights(model, SEED)
+        model.to("cuda").requires_grad_(False)
+        run = f"config_{name}"
+        t0 = time.perf_counter()
+        if name == "mixed":
+            agree = agree_with_cpu(model, sample, run, rn=rn, tag="configs")
+        else:
+            agree = bf16_chunk_card_vs_cpu(model, sample, run, rn, card)
+        launches[run] = agree.pop("launches")
+        check_launches(run, launches[run])
+        figures[name] = {"flags": flags, "cpu_agree": agree,
+                         "seconds": time.perf_counter() - t0}
+        log(f"[configs] {name} {flags} at the extraction defaults: one {rn}-ray chunk, "
+            f"launches { {k: v for k, v in launches[run].items() if v} } [{card}]")
+        del model
+        torch.cuda.empty_cache()
+
     # the hardest ray-head shape a flag set gives, through the CLI at its
     # defaults: width 112, 128 + 128 samples
     views = [str(v) for v in PIPELINE_VIEWS]
@@ -2146,20 +2304,23 @@ def views_phase(model, card, before_chunks):
         torch.save(model.state_dict(), ckpt)
         for nv in VIEWS_CLI:
             run = "views_cli" if nv == VIEWS_CLI[0] else f"views_cli_{nv}"
-            base = ["--extract_geometry", "--set", "1", "--volume_type", "correlation",
+            # the 11-view scan at a quarter of the rays (VIEWS_CLI_WH)
+            w_r, h_r = VIEWS_CLI_WH.get(nv, (w, h))
+            base = ["--img_wh", str(w_r), str(h_r),
+                    "--extract_geometry", "--set", "1", "--volume_type", "correlation",
                     "--volume_reso", "96", "--depth_pos_encoding", "--mvs_depth_guide", "1",
                     "--explicit_similarity", "--test_n_view", str(nv), "--test_ray_num",
                     "800", "--root_dir", root, "--test_scan", "scan24", "--load_ckpt", ckpt,
                     "--out_dir", os.path.join(tmp, f"out{nv}")]
-            stats, launches[run], _ = cli_run("views", run, base, [], "scan24", nv, (w, h),
-                                              card)
+            stats, launches[run], _ = cli_run("views", run, base, [], "scan24", nv,
+                                              (w_r, h_r), card)
             if stats["merged"] or stats["kernel_precision"] != "fast":
                 raise AssertionError(f"cli.run --set 1 at {nv} views resolved {stats}: the "
                                      "JAX guard keeps per-stage volumes above 3 views")
             for i in range(nv):
                 e = np.load(os.path.join(tmp, f"out{nv}", "depth", "scan24", f"{i:08d}.npy"),
                             allow_pickle=True).item()
-                if e["depth"].shape != (h, w) or not np.all(np.isfinite(e["depth"])):
+                if e["depth"].shape != (h_r, w_r) or not np.all(np.isfinite(e["depth"])):
                     raise AssertionError(f"cli.run --set 1 at {nv} views: view {i}'s depth "
                                          "map is not finite at the render size")
             figures[run] = {k: stats[k] for k in ("rays_per_sec", "encode_s", "render_s",
@@ -2355,6 +2516,188 @@ def training_steps(cfg, model, state, sample, run, steps, card):
     return launches, result
 
 
+def coarse_step_card_vs_cpu(cfg, model, sample, rn, tag, card, reference=None,
+                            spread=False):
+    """One coarse rn-ray gradient step on the card against the same step on
+    the CPU, both fed the card's matcher outputs (frozen, without
+    gradients) and the same draws; the gradients are dropped. float32
+    training: the loss within 1e-4 relative, each trainable leaf within
+    TOL['route_grad_rel'] of its largest gradient (with ``spread``, or 4x
+    what a relative 1e-7 change of the weights moves the card's own
+    gradient of that leaf, where that is more: measured up to ~3e-4, so
+    a leaf reaches past 1e-3 only where the step is that sensitive), a
+    leaf whose gradient is zero up to rounding (below 1e-6 of the
+    largest; the radiance softmax's last bias shifts every view's logit
+    alike) so on both sides.
+    A bf16 policy by the bf16 rule over the distribution
+    (``tests/test_torch_port_bf16_model.py``): the effect is the card's
+    step of ``reference``, the same weights one policy up (the mixed
+    policy for ``--compute_dtype bfloat16``, float32 for ``--encoder_dtype
+    bfloat16``) on its own matcher's outputs; the card's loss no further
+    from the CPU's than twice the effect (or 1e-4 relative), the trainable
+    gradient as a whole (each leaf over its largest, those zero up to
+    rounding left out) within twice the effect's norm. Returns the
+    figures."""
+    import torch
+
+    from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
+    from uforecon_tpu_torch.pipeline import trainer
+    from uforecon_tpu_torch.pipeline.fit import _gather_ray_batch
+
+    scene, extras = scene_inputs_from_sample(sample, "cuda")
+    h, w = extras["hw"]
+    with torch.no_grad():
+        enc_m = model.matcher(scene.source_imgs, scene.proj_matrices, scene.depth_values)
+    idx = np.random.default_rng(SEED + 2).permutation(h * w)[:rn]
+    batch = _gather_ray_batch(extras, idx)
+    u_c = torch.rand((rn, cfg.coarse_sample),
+                     generator=torch.Generator().manual_seed(SEED)).numpy()
+    sides = [("card", "cuda", model, enc_m, scene),
+             ("cpu", "cpu", copy.deepcopy(model).cpu(), to_cpu(enc_m), to_cpu(scene))]
+    if reference is not None:
+        with torch.no_grad():
+            enc_r = reference.matcher(scene.source_imgs, scene.proj_matrices,
+                                      scene.depth_values)
+        sides.append(("effect", "cuda", reference, enc_r, scene))
+    elif spread:
+        # the step's own sensitivity: the card's step on weights moved by a
+        # relative 1e-7 (seeded)
+        moved = copy.deepcopy(model)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        with torch.no_grad():
+            for p in moved.parameters():
+                p.mul_(1.0 + 1e-7 * torch.randn(p.shape, generator=gen, device="cuda"))
+        sides.append(("moved", "cuda", moved, enc_m, scene))
+    grads, logs = {}, {}
+    for side, dev, m, mo, sc in sides:
+        m.matcher.forward = lambda *a, _mo=mo, **k: _mo
+        rays = [torch.as_tensor(a, device=dev) for a in batch]
+        u = torch.as_tensor(u_c, device=dev)
+        logs[side] = trainer.grad_step(m.cfg, m, sc, *rays, draws=(u, None),
+                                       coarse_only=True)
+        grads[side] = {n: p.grad.detach().cpu() for n, p in trainer.trainable_parameters(m)}
+        del m.matcher.forward
+        for _, p in trainer.trainable_parameters(m):
+            p.grad = None
+    loss = {k: float(v["train/loss_all"]) for k, v in logs.items()}
+    loss_rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+    if reference is None:
+        top = max(g.abs().max().item() for g in grads["cpu"].values())
+        zero = {n for n, g in grads["cpu"].items() if g.abs().max().item() < 1e-6 * top}
+        zero_ok = all(grads["card"][n].abs().max().item() < 1e-6 * top for n in zero)
+        rel = {n: ((grads["card"][n] - g).abs().max() / g.abs().max()).item()
+               for n, g in grads["cpu"].items() if n not in zero}
+        # a leaf the step's own float32 rounding moves further is held to 4x
+        # that movement (tests/torch_train_configs_common.py's rule)
+        tol = {n: max(TOL["route_grad_rel"], 4 * (
+            (grads["moved"][n] - grads["card"][n]).abs().max()
+            / grads["card"][n].abs().max()).item() if spread else 0.0) for n in rel}
+        worst = sorted(rel.items(), key=lambda kv: -kv[1] / tol[kv[0]])[:5]
+        log(f"[{tag}] coarse {rn}-ray gradient step at {w}x{h}, "
+            f"{scene.source_imgs.shape[0]} views, {cfg.coarse_sample} samples, "
+            f"card vs CPU: loss {loss['card']:.6f} vs {loss['cpu']:.6f} (rel "
+            f"{loss_rel:.2e}, tol 1e-4); {len(rel)} trainable leaves, max abs error over "
+            f"each leaf's largest gradient: worst {[(n, e, tol[n]) for n, e in worst]} "
+            f"(with each leaf's tolerance: {TOL['route_grad_rel']}, or 4x its movement "
+            f"under a 1e-7 change of the weights); zero up to rounding on both sides: "
+            f"{sorted(zero)} {zero_ok} [{card}]")
+        if not (loss_rel <= 1e-4 and all(e <= tol[n] for n, e in rel.items())
+                and zero_ok):
+            raise AssertionError(f"{tag}: the training step disagrees between card "
+                                 "and CPU")
+        return {"loss_rel": loss_rel, "grad_rel_max": max(rel.values()),
+                "grad_rel_over_tol_max": max(e / tol[n] for n, e in rel.items())}
+    # each leaf over its largest gradient; a leaf whose gradient is zero up
+    # to rounding (below 1e-6 of the largest; the radiance softmax's last
+    # bias) carries no scale of its own and is left out
+    top = max(g.abs().max().item() for g in grads["cpu"].values())
+    scale = {n: g.abs().max().item() for n, g in grads["cpu"].items()
+             if g.abs().max().item() >= 1e-6 * top}
+
+    def flat(a, b):
+        return torch.cat([((grads[a][n] - grads[b][n]) / scale[n]).ravel()
+                          for n in sorted(scale)])
+
+    diff, effect = flat("card", "cpu").norm().item(), flat("cpu", "effect").norm().item()
+    loss_effect = abs(loss["cpu"] - loss["effect"])
+    log(f"[{tag}] coarse {rn}-ray gradient step at {w}x{h}, "
+        f"{cfg.encoder_dtype or cfg.compute_dtype} matcher, {cfg.compute_dtype} "
+        f"trained half, card vs CPU by "
+        f"the bf16 rule: loss {loss['card']:.6f} vs {loss['cpu']:.6f} (one policy up on "
+        f"the card {loss['effect']:.6f}); gradient distance {diff:.4e} against the bf16 "
+        f"effect's {effect:.4e} (each leaf over its largest; tol 2x) [{card}]")
+    if not (abs(loss["card"] - loss["cpu"]) <= max(2 * loss_effect, 1e-4 * abs(loss["cpu"]))
+            and diff <= 2 * effect):
+        raise AssertionError(f"{tag}: the bf16 training step disagrees between card and "
+                             "CPU beyond the bf16 effect")
+    return {"loss_rel": loss_rel, "grad_distance": diff, "grad_effect": effect}
+
+
+def train_cli(model_flags, run_name, tag, card):
+    """``cli.run --debug`` with ``model_flags`` on the fixture's DTU training
+    layout (3 steps, one validation, a checkpoint), then ``cli.run
+    --extract_geometry --load_ckpt`` of that checkpoint with the same
+    flags at 320x256, which must give finite depth maps; the training
+    run's launches (MUST_RUN[run_name]) and the extraction's
+    (MUST_RUN[run_name + '_extract']) are checked."""
+    import contextlib
+    import io
+
+    import torch
+
+    from uforecon_tpu_torch.cli import run
+    from uforecon_tpu_torch.script import make_dtu_fixture as fixture
+
+    w, h = TRAIN_WH
+    wrappers = launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        root, logdir = os.path.join(tmp, "fixture"), os.path.join(tmp, "logs")
+        with contextlib.redirect_stdout(io.StringIO()):
+            paths = fixture.write_train_layout(root)
+            fixture.main([root, "--views", "23", "24", "33", "--wh", "800", "600"])
+        for wr in wrappers.values():
+            wr.launches = 0
+        t_cli = time.perf_counter()
+        st = run.main(model_flags + [
+            "--debug", "--root_dir", root, "--train_list", paths["train"],
+            "--val_list", paths["val"], "--pair_file", paths["pair"], "--logdir", logdir])
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t_cli
+        launches = {n: wr.launches for n, wr in wrappers.items()}
+        check_launches(run_name, launches)
+        with open(os.path.join(logdir, "uforecon_tpu", "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        val = [r for r in recs if "val/loss_depth_fine" in r]
+        ckpt = os.path.join(logdir, "uforecon_tpu", "ckpt", "step_3.pt")
+        if not (st.step == 3 and len(val) == 1 and os.path.exists(ckpt)
+                and all(np.isfinite(v) for v in val[0].values())):
+            raise AssertionError(f"cli.run --debug {model_flags}: step {st.step}, "
+                                 f"validation {val}, checkpoint {os.path.exists(ckpt)}")
+        for wr in wrappers.values():
+            wr.launches = 0
+        ex_out = os.path.join(tmp, "out")
+        stats = run.main(model_flags + [
+            "--extract_geometry", "--root_dir", root, "--out_dir", ex_out,
+            "--test_scan", "scan24", "--img_wh", "320", "256", "--load_ckpt", ckpt])["scan24"]
+        check_launches(run_name + "_extract",
+                       {n: wr.launches for n, wr in wrappers.items()})
+        for i in range(3):
+            e = np.load(os.path.join(ex_out, "depth", "scan24", f"{i:08d}.npy"),
+                        allow_pickle=True).item()
+            if e["depth"].shape != (256, 320) or not np.all(np.isfinite(e["depth"])):
+                raise AssertionError(f"extract from the trained checkpoint "
+                                     f"{model_flags}: view {i}")
+        log(f"[train] {tag} cli.run {' '.join(model_flags)} --debug, DTU training "
+            f"layout {w}x{h}, 4 source views: 3 steps, validation "
+            f"{json.dumps({k: round(v, 5) for k, v in val[0].items()})}, checkpoint "
+            f"step_3.pt, {t_cli:.1f} s, launches "
+            f"{ {n: launches[n] for n in MUST_RUN[run_name]} }; then cli.run "
+            f"--extract_geometry --load_ckpt step_3.pt with the same flags: "
+            f"{stats['views']} views 320x256, finite depth maps [{card}]")
+        del st
+    return launches, {"seconds": t_cli, "val": val[0]}
+
+
 def training_phase(card):
     """Training at the full width of the JAX training default (module
     docstring, phase 12): (a) card against CPU, (b) timed steps, (c) the
@@ -2366,13 +2709,10 @@ def training_phase(card):
 
     import torch
 
-    from uforecon_tpu_torch.cli import run
     from uforecon_tpu_torch.config import Config
-    from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
     from uforecon_tpu_torch.pipeline import trainer
-    from uforecon_tpu_torch.pipeline.fit import _gather_ray_batch, init_model
+    from uforecon_tpu_torch.pipeline.fit import init_model
     from uforecon_tpu_torch.script import learn_sanity
-    from uforecon_tpu_torch.script import make_dtu_fixture as fixture
 
     w, h = TRAIN_WH
     cfg = Config()
@@ -2386,46 +2726,9 @@ def training_phase(card):
 
     # (a) one coarse 256-ray gradient step, card against CPU; both take the
     # matcher's outputs of the card (frozen, without gradients)
-    scene, extras = scene_inputs_from_sample(sample, "cuda")
-    with torch.no_grad():
-        enc_m = model.matcher(scene.source_imgs, scene.proj_matrices, scene.depth_values)
-    rn = 256
-    idx = np.random.default_rng(SEED + 2).permutation(h * w)[:rn]
-    batch = _gather_ray_batch(extras, idx)
-    u_c = torch.rand((rn, cfg.coarse_sample),
-                     generator=torch.Generator().manual_seed(SEED)).numpy()
-    model_cpu = copy.deepcopy(model).cpu()
-    grads, logs = {}, {}
-    for side, dev, m, mo, sc in (("card", "cuda", model, enc_m, scene),
-                                 ("cpu", "cpu", model_cpu, to_cpu(enc_m), to_cpu(scene))):
-        m.matcher.forward = lambda *a, _mo=mo, **k: _mo
-        rays = [torch.as_tensor(a, device=dev) for a in batch]
-        u = torch.as_tensor(u_c, device=dev)
-        logs[side] = trainer.grad_step(cfg, m, sc, *rays, draws=(u, None), coarse_only=True)
-        grads[side] = {n: p.grad.detach().cpu() for n, p in trainer.trainable_parameters(m)}
-        del m.matcher.forward
+    out["card_vs_cpu"] = coarse_step_card_vs_cpu(cfg, model, sample, 256, "train (a)",
+                                                 card)
     state.optimizer.zero_grad(set_to_none=True)
-    loss_rel = abs(float(logs["card"]["train/loss_all"]) - float(logs["cpu"]["train/loss_all"])
-                   ) / abs(float(logs["cpu"]["train/loss_all"]))
-    # a leaf whose gradient is zero up to rounding (below 1e-6 of the
-    # largest; the radiance softmax's last bias shifts every view's logit
-    # alike) is held to that bound instead
-    top = max(g.abs().max().item() for g in grads["cpu"].values())
-    zero = {n for n, g in grads["cpu"].items() if g.abs().max().item() < 1e-6 * top}
-    zero_ok = all(grads["card"][n].abs().max().item() < 1e-6 * top for n in zero)
-    rel = {n: ((grads["card"][n] - g).abs().max() / g.abs().max()).item()
-           for n, g in grads["cpu"].items() if n not in zero}
-    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
-    log(f"[train] (a) coarse {rn}-ray gradient step at {w}x{h}, 4 source views, "
-        f"{cfg.coarse_sample} samples, card vs CPU: loss {float(logs['card']['train/loss_all']):.6f}"
-        f" vs {float(logs['cpu']['train/loss_all']):.6f} (rel {loss_rel:.2e}, tol 1e-4); "
-        f"{len(rel)} trainable leaves, max abs error over each leaf's largest gradient: "
-        f"worst {worst} (tol {TOL['route_grad_rel']}); zero up to rounding on both sides: "
-        f"{sorted(zero)} {zero_ok} [{card}]")
-    if not (loss_rel <= 1e-4 and max(rel.values()) <= TOL["route_grad_rel"] and zero_ok):
-        raise AssertionError("the training step disagrees between card and CPU")
-    out["card_vs_cpu"] = {"loss_rel": loss_rel, "grad_rel_max": max(rel.values())}
-    del model_cpu, enc_m
 
     # (b) timed steps: the default route, then route A on the same weights
     launches["train"], out["off"] = training_steps(cfg, model, state, sample, "train",
@@ -2438,52 +2741,74 @@ def training_phase(card):
 
     # (c) the training CLI on the DTU training layout, then extraction from
     # the checkpoint it wrote
-    wrappers = launch_counts()
-    with tempfile.TemporaryDirectory() as tmp:
-        root, logdir = os.path.join(tmp, "fixture"), os.path.join(tmp, "logs")
-        with contextlib.redirect_stdout(io.StringIO()):
-            paths = fixture.write_train_layout(root)
-            fixture.main([root, "--views", "23", "24", "33", "--wh", "800", "600"])
-        model_flags = ["--depth_pos_encoding", "--explicit_similarity"]
-        for wr in wrappers.values():
-            wr.launches = 0
-        t_cli = time.perf_counter()
-        st = run.main(model_flags + [
-            "--debug", "--root_dir", root, "--train_list", paths["train"],
-            "--val_list", paths["val"], "--pair_file", paths["pair"], "--logdir", logdir])
-        torch.cuda.synchronize()
-        t_cli = time.perf_counter() - t_cli
-        launches["train_cli"] = {n: wr.launches for n, wr in wrappers.items()}
-        check_launches("train_cli", launches["train_cli"])
-        with open(os.path.join(logdir, "uforecon_tpu", "metrics.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
-        val = [r for r in recs if "val/loss_depth_fine" in r]
-        ckpt = os.path.join(logdir, "uforecon_tpu", "ckpt", "step_3.pt")
-        if not (st.step == 3 and len(val) == 1 and os.path.exists(ckpt)
-                and all(np.isfinite(v) for v in val[0].values())):
-            raise AssertionError(f"cli.run --debug: step {st.step}, validation {val}, "
-                                 f"checkpoint {os.path.exists(ckpt)}")
-        ex_out = os.path.join(tmp, "out")
-        stats = run.main(model_flags + [
-            "--extract_geometry", "--root_dir", root, "--out_dir", ex_out,
-            "--test_scan", "scan24", "--img_wh", "320", "256", "--load_ckpt", ckpt])["scan24"]
-        for i in range(3):
-            e = np.load(os.path.join(ex_out, "depth", "scan24", f"{i:08d}.npy"),
-                        allow_pickle=True).item()
-            if e["depth"].shape != (256, 320) or not np.all(np.isfinite(e["depth"])):
-                raise AssertionError(f"extract from the trained checkpoint: view {i}")
-        log(f"[train] (c) cli.run --debug, DTU training layout {w}x{h}, 4 source views: "
-            f"3 steps, validation {json.dumps({k: round(v, 5) for k, v in val[0].items()})}, "
-            f"checkpoint step_3.pt, {t_cli:.1f} s, launches "
-            f"{ {n: launches['train_cli'][n] for n in MUST_RUN['train_cli']} }; then "
-            f"cli.run --extract_geometry --load_ckpt step_3.pt: {stats['views']} views "
-            f"320x256, finite depth maps [{card}]")
-        out["cli"] = {"seconds": t_cli, "val": val[0]}
-        del st
+    launches["train_cli"], out["cli"] = train_cli(
+        ["--depth_pos_encoding", "--explicit_similarity"], "train_cli", "(c)", card)
     torch.cuda.empty_cache()
 
     out["seconds"] = time.perf_counter() - t0
     return launches, out
+
+
+def train_configs_phase(card):
+    """(e) of the training phase: each of TRAIN_CONFIGS (the JAX package's
+    other model configurations, ``share_cr``, and both bf16 policies), a
+    model of its own with seeded weights at the JAX training default:
+    one coarse gradient step card against CPU at TRAIN_CFG_A_WH with
+    TRAIN_CFG_A_RAYS rays (``coarse_step_card_vs_cpu``; the bf16 policy's
+    effect is its weights in the mixed policy), then TRAIN_CFG_STEPS timed
+    full 1024-ray steps at 640x512 (``training_steps``: s/step, peak
+    memory, the launches JAX's gates imply on every step); then
+    ``cli.run --debug`` with TRAIN_CFG_CLI and the extraction from its
+    checkpoint with the same flags (``train_cli``). Returns the launches
+    of each run and the figures."""
+    import torch
+
+    from uforecon_tpu_torch.config import Config
+    from uforecon_tpu_torch.models.uforecon import UFORecon
+    from uforecon_tpu_torch.pipeline import trainer
+    from uforecon_tpu_torch.pipeline.fit import init_model
+    from uforecon_tpu_torch.script import learn_sanity
+
+    w, h = TRAIN_WH
+    numdepth = Config().numdepth
+    sample = learn_sanity.SphereDataset(learn_sanity.build_scene_views(6, h, w), 4,
+                                        numdepth)[0]
+    wa, ha = TRAIN_CFG_A_WH
+    sample_a = learn_sanity.SphereDataset(learn_sanity.build_scene_views(6, ha, wa), 4,
+                                          numdepth)[0]
+    launches, figures = {}, {}
+    for name, flags in TRAIN_CONFIGS.items():
+        t0 = time.perf_counter()
+        cfg = Config(**flags)
+        model = init_model(cfg, SEED, "cuda")
+        state = trainer.TrainState(model, trainer.make_optimizer(cfg, model))
+        reference = None
+        if cfg.encoder_torch_dtype == torch.bfloat16:
+            # one policy up: bf16 -> mixed, mixed -> float32
+            up = ("encoder_dtype", "bfloat16") if cfg.compute_dtype == "bfloat16" else (
+                "encoder_dtype", "float32")
+            reference = UFORecon(Config(**{**flags, "compute_dtype": "float32", up[0]: up[1]}))
+            reference.load_state_dict(model.state_dict())
+            reference.to("cuda")
+            trainer.make_optimizer(reference.cfg, reference)
+        a = coarse_step_card_vs_cpu(cfg, model, sample_a, TRAIN_CFG_A_RAYS,
+                                    f"train (e) {name}", card, reference, spread=True)
+        run = f"train_cfg_{name}"
+        launches[run], steps = training_steps(cfg, model, state, sample, run,
+                                              TRAIN_CFG_STEPS, card)
+        figures[name] = {"flags": flags, "card_vs_cpu": a,
+                         "s_per_step": steps["s_per_step"], "peak_gib": steps["peak_gib"],
+                         "launches_per_step": steps["launches_per_step"],
+                         "seconds": time.perf_counter() - t0}
+        del model, state, reference
+        torch.cuda.empty_cache()
+    launches["train_cfg_cli"], figures["cli"] = train_cli(TRAIN_CFG_CLI, "train_cfg_cli",
+                                                          "(e)", card)
+    torch.cuda.empty_cache()
+    log("[train] (e) s/step (median) and peak GiB per configuration: " + json.dumps(
+        {n: (float(np.median(f["s_per_step"])), round(f["peak_gib"], 3))
+         for n, f in figures.items() if n != "cli"}) + f" [{card}]")
+    return launches, figures
 
 
 # learn_sanity in a process of its own (its launches counted there), so
@@ -2667,6 +2992,9 @@ def main():
     train_launches, train = training_phase(card)
     launches.update(train_launches)
     lap("train (a)-(c)")
+    cfg_launches, train["configs"] = train_configs_phase(card)
+    launches.update(cfg_launches)
+    lap("train (e) configurations")
     # learn_sanity and the GPU unit tests, each in a process of its own,
     # beside the views phase's card-vs-CPU chunks (none of the three is
     # timed; its cli.run scans, which are, run before them)

@@ -24,8 +24,9 @@ their extrinsic and intrinsic to 1e-6.
 The other tests hold the flag handling: every option of the JAX parser
 with its default, the six flags the JAX package leaves unread accepted and
 dropped, each flag set the port cannot build raising with the flag named
-(``--grad_method undetached`` among them), the 15-scan loop, and every CLI
-of the port asking for the card by default.
+(a ``--mesh_shape`` of several cards, an unknown ``--volume_type``), the
+flag sets it used to refuse reaching the Config, the 15-scan loop, and
+every CLI of the port asking for the card by default.
 """
 import functools
 import os
@@ -225,25 +226,50 @@ def test_flag_defaults_are_the_jax_ones():
 EXTRACT = ["--extract_geometry", "--depth_pos_encoding"]
 
 
-# the flag sets the port refuses, each naming its flag: the model
-# configurations of the next case in training (they render, below), and
-# what the port does not have at all
+# the flag sets the port refuses, each naming its flag: a path it does not
+# have (several cards) and a volume type the JAX package does not build
 @pytest.mark.parametrize("argv,named", [
-    ([], "--depth_pos_encoding"),
-    (["--depth_pos_encoding", "--mvs_depth_guide", "0"], "--mvs_depth_guide 0"),
-    (["--depth_pos_encoding", "--use_dir_srdf"], "--use_dir_srdf"),
-    (["--depth_pos_encoding", "--volume_type", "featuregrid"], "--volume_type featuregrid"),
-    (["--depth_pos_encoding", "--volume_reso", "0"], "--volume_reso 0"),
-    (EXTRACT + ["--volume_type", "grid"], "--volume_type grid"),
-    (EXTRACT + ["--share_cr"], "--share_cr"),
-    (EXTRACT + ["--compute_dtype", "bfloat16"], "--compute_dtype bfloat16"),
-    (EXTRACT + ["--encoder_dtype", "bfloat16"], "--encoder_dtype bfloat16"),
-    (EXTRACT + ["--grad_method", "undetached"], "--grad_method undetached"),
     (EXTRACT + ["--mesh_shape", "2"], "--mesh_shape 2"),
+    (EXTRACT + ["--volume_type", "grid"], "--volume_type grid"),
+    (["--depth_pos_encoding", "--mesh_shape", "1,2"], "--mesh_shape 1,2"),
 ])
 def test_unsupported_flag_sets_raise(argv, named):
     with pytest.raises(ValueError, match=named):
         run.main(argv)
+
+
+# the flag sets the port used to refuse: every model configuration trains,
+# and the cascade flags and precision policies train and extract, each
+# reaching the Config as the JAX CLI's Config has it
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--depth_pos_encoding", "--mvs_depth_guide", "0"],
+    ["--depth_pos_encoding", "--use_dir_srdf"],
+    ["--depth_pos_encoding", "--volume_type", "featuregrid"],
+    ["--depth_pos_encoding", "--volume_reso", "0"],
+    EXTRACT + ["--share_cr"],
+    EXTRACT + ["--compute_dtype", "bfloat16"],
+    EXTRACT + ["--encoder_dtype", "bfloat16"],
+    ["--depth_pos_encoding", "--grad_method", "undetached", "--share_cr",
+     "--encoder_dtype", "bfloat16"],
+])
+def test_formerly_refused_flag_sets_reach_the_config(argv):
+    from uforecon_tpu.config import config_from_args as jax_config_from_args
+
+    cfg, _ = config_from_args(argv)
+    jcfg = jax_config_from_args(argv)
+    for field in ("extract_geometry", "share_cr", "grad_method", "compute_dtype",
+                  "encoder_dtype", "volume_type", "volume_reso", "mvs_depth_guide",
+                  "depth_pos_encoding", "use_dir_srdf"):
+        assert getattr(cfg, field) == getattr(jcfg, field), field
+
+
+@pytest.mark.parametrize("field,value", [("compute_dtype", "float16"),
+                                         ("encoder_dtype", "bf16"),
+                                         ("grad_method", "detached")])
+def test_unknown_precision_and_cascade_values_raise(field, value):
+    with pytest.raises(ValueError, match=field):
+        config_from_args(EXTRACT + [f"--{field}", value])
 
 
 # the JAX package's other model configurations: each extracts, with its

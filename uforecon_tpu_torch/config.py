@@ -16,10 +16,27 @@ The view-token width is their sum (``view_trans_dim``: 32 + 0/16/24 +
 0/16 + 0/8 + 0/24) and the ray head's 8 more, 40 .. 112. JAX's gate
 sends a configuration with a volume of either kind, the similarity and
 the depth guide (and no direction PE) to the point head (the feature
-grid's at tokens of 72), every other one to the view transformer.
-Training them is not ported (``config_from_args`` refuses it). The
-JAX package's TPU layout knobs (brick gathers, corner packing,
-``image_row_merge``) and bf16 compute do not exist here.
+grid's at tokens of 72), every other one to the view transformer. Each
+of them trains. So do the JAX package's cascade flags: ``share_cr`` (one
+cost-regularisation U-Net at base 8 for every stage) and ``grad_method``
+(``detach``, or ``undetached``: the next stage's hypotheses keep the
+gradient of the previous stage's depth, which only MVS pretraining
+sees). The JAX package's TPU layout knobs (brick gathers, corner packing,
+``image_row_merge``) do not exist here.
+
+The JAX precision policies are here with its names and resolution
+(``uforecon_tpu/models/uforecon.py:91-95``): ``compute_dtype``
+(``float32 | bfloat16``) is the dtype of the volume head
+(``CostRegNetWeight`` or ``FeatureVolume``) and of the ray transformer;
+the cascade matcher takes ``encoder_dtype or compute_dtype`` (``""``
+follows ``compute_dtype``; ``--encoder_dtype bfloat16`` alone is JAX's
+mixed policy: a bf16 matcher and a float32 trained half). In a module of
+either dtype, as in flax, convolutions and dense layers compute in it,
+BatchNorm and LayerNorm in float32, and the parameters, their gradients
+and the optimizer state stay float32 (``models/layers.py``). JAX's gates
+send a bfloat16 ray transformer past the point-head and ray-head kernels
+(the view transformer and its tiny-attention kernels take it; the ray
+stage runs the modules), as they do.
 
 The JAX package's evaluation approximations are here, with its names,
 values, defaults and validation (``uforecon_tpu/config.py:116-265``):
@@ -175,6 +192,8 @@ class Config:
     numdepth: int = 192                  # the datasets' hypotheses in mm
     depth_inter_r: Tuple[float, ...] = (4.0, 2.0, 1.0)
     cr_base_chs: Tuple[int, ...] = (8, 8, 8)
+    share_cr: bool = False               # one cost-regularisation net, base 8
+    grad_method: str = "detach"          # detach | undetached
 
     # ---- model -------------------------------------------------------------
     # reference-shipped similarity semantics (see ray_transformer
@@ -190,6 +209,9 @@ class Config:
     mvs_depth_guide: int = 1             # <= 0: no depth guide, no depth PE
     depth_pos_encoding: bool = True
     use_dir_srdf: bool = False           # + view-direction PE (24)
+    # precision policies (see the module docstring)
+    compute_dtype: str = "float32"       # float32 | bfloat16
+    encoder_dtype: str = ""              # "" (= compute_dtype) | float32 | bfloat16
 
     # ---- render-glue kernels (see the module docstring) ----------------
     fused_similarity: str = "never"      # auto | always | never
@@ -227,6 +249,9 @@ class Config:
             "image_gather_dtype": ("float32", "bfloat16"),
             "kernel_precision": ("auto", "highest", "high", "fast"),
             "volume_type": ("correlation", "featuregrid"),
+            "grad_method": ("detach", "undetached"),
+            "compute_dtype": ("float32", "bfloat16"),
+            "encoder_dtype": ("", "float32", "bfloat16"),
         }
         for field, values in allowed.items():
             v = getattr(self, field)
@@ -242,6 +267,20 @@ class Config:
         if len(self.depth_inter_r) != len(self.ndepths) or \
                 len(self.cr_base_chs) != len(self.ndepths):
             raise ValueError("depth_inter_r and cr_base_chs need one entry per stage")
+
+    @property
+    def dtype(self):
+        """The torch dtype of the volume head and the ray transformer."""
+        import torch
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+    @property
+    def encoder_torch_dtype(self):
+        """The torch dtype of the cascade matcher: ``encoder_dtype``, or
+        ``compute_dtype`` where it is empty."""
+        import torch
+        dt = self.encoder_dtype or self.compute_dtype
+        return torch.bfloat16 if dt == "bfloat16" else torch.float32
 
     # dims that the ray transformer sees (JAX config.py:274-304)
     @property
@@ -344,41 +383,12 @@ def _floats(s) -> Tuple[float, ...]:
     return tuple(float(x) for x in str(s).split(",") if x)
 
 
-# training flag sets of model configurations the port renders but does not
-# train yet (their view-transformer route trains in JAX)
-_NOT_TRAINED = "(training it is not ported: add --extract_geometry to render)"
-_UNTRAINED = (
-    (lambda a: not a.depth_pos_encoding,
-     "--depth_pos_encoding is required for training: a model without the depth "
-     "PE " + _NOT_TRAINED),
-    (lambda a: a.mvs_depth_guide <= 0,
-     "--mvs_depth_guide {a.mvs_depth_guide}: a model without the depth guide "
-     + _NOT_TRAINED),
-    (lambda a: a.use_dir_srdf,
-     "--use_dir_srdf: a model with the view-direction PE " + _NOT_TRAINED),
-    (lambda a: a.volume_type != "correlation",
-     "--volume_type {a.volume_type}: a model without correlation volumes "
-     + _NOT_TRAINED),
-    (lambda a: a.volume_reso <= 0,
-     "--volume_reso {a.volume_reso}: a model without volume features "
-     + _NOT_TRAINED),
-)
-
 # flag sets of the JAX package's CLI that select a model or a path the port
 # does not have: (test on the parsed flags, message naming the flag)
 _UNSUPPORTED = (
     (lambda a: a.volume_type not in ("correlation", "featuregrid"),
      "--volume_type {a.volume_type}: the JAX package builds correlation or "
      "featuregrid volumes"),
-    (lambda a: a.share_cr,
-     "--share_cr: one shared cost-regularisation net is not ported"),
-    (lambda a: a.compute_dtype != "float32",
-     "--compute_dtype {a.compute_dtype}: the port computes in float32"),
-    (lambda a: a.encoder_dtype not in ("", "float32"),
-     "--encoder_dtype {a.encoder_dtype}: the port computes in float32"),
-    (lambda a: a.grad_method != "detach",
-     "--grad_method {a.grad_method}: the port always detaches the cascade's "
-     "depth hypotheses (detach)"),
     (lambda a: _ints(a.mesh_shape) != (1,),
      "--mesh_shape {a.mesh_shape}: the port renders on one card"),
 )
@@ -396,10 +406,11 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
     path.
 
     Returns the Config and the device. Raises ``ValueError``, naming the
-    flag, on a flag set that selects a model or a path the port does not
-    have (``--grad_method undetached`` among them: the port always
-    detaches; training any model but the default configuration), rather
-    than running its default model."""
+    flag, on a flag set that selects a path the port does not have (a
+    ``--mesh_shape`` of several cards, an unknown ``--volume_type``),
+    rather than running its default model; ``Config`` raises on an unknown
+    ``--grad_method``, ``--compute_dtype`` or ``--encoder_dtype``. Every
+    model configuration and precision policy trains and extracts."""
     import argparse
 
     p = argparse.ArgumentParser(
@@ -492,8 +503,7 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cpu runs the kernels' plain PyTorch versions")
     a = p.parse_args(argv)
-    refused = _UNSUPPORTED + (() if a.extract_geometry else _UNTRAINED)
-    for unsupported, message in refused:
+    for unsupported, message in _UNSUPPORTED:
         if unsupported(a):
             raise ValueError(message.format(a=a))
     cfg = Config(
@@ -515,6 +525,8 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
         test_scan=a.test_scan, set=a.set, test_coarse_only=a.test_coarse_only,
         img_wh=tuple(a.img_wh), ndepths=_ints(a.ndepths),
         depth_inter_r=_floats(a.depth_inter_r), cr_base_chs=_ints(a.cr_base_chs),
+        share_cr=a.share_cr, grad_method=a.grad_method,
+        compute_dtype=a.compute_dtype, encoder_dtype=a.encoder_dtype,
         explicit_similarity=a.explicit_similarity, volume_type=a.volume_type,
         volume_reso=a.volume_reso, mvs_depth_guide=a.mvs_depth_guide,
         depth_pos_encoding=a.depth_pos_encoding, use_dir_srdf=a.use_dir_srdf,

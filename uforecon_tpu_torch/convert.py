@@ -134,7 +134,8 @@ def load_weights(model: nn.Module, path: str) -> None:
         ``torch.save(model.state_dict())``);
       * the reference's PyTorch Lightning ``.ckpt`` (or its bare state
         dict): its tensors are renamed by the reference name map
-        (``data/torch_ckpt.py uforecon_name_map``) onto flax leaves.
+        (``data/torch_ckpt.py uforecon_name_map``, of the model's
+        ``share_cr`` and ``volume_type``) onto flax leaves.
 
     An orbax checkpoint directory (the JAX package's ``--load_ckpt``)
     raises: convert it with ``save_state_dict`` on a host with JAX. Any
@@ -165,8 +166,10 @@ def load_weights(model: nn.Module, path: str) -> None:
         t = own.get(_state_key(path))
         return None if t is None else _inverse_layout(t.shape, path[-1])
 
-    load_flax_variables(model, torch_ckpt.convert_named(
-        sd, torch_ckpt.uforecon_name_map(), leaf_shape))
+    cfg = model.cfg
+    name_map = torch_ckpt.uforecon_name_map(share_cr=cfg.share_cr,
+                                            volume_type=cfg.volume_type)
+    load_flax_variables(model, torch_ckpt.convert_named(sd, name_map, leaf_shape))
 
 
 def _trunc_normal(shape, gen: torch.Generator) -> torch.Tensor:

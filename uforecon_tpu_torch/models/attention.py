@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from ..ops.tiny_attention import (EPS, phi, tiny_linear_attention,
                                   tiny_linear_attention_reference,
                                   within_kernel_rule)
-from .layers import layer_norm
+from .layers import Linear, layer_norm
 
 
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -50,13 +50,13 @@ class FMTEncoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int):
         super().__init__()
         self.n_heads = n_heads
-        self.q_proj = nn.Linear(d_model, d_model)
-        self.k_proj = nn.Linear(d_model, d_model)
-        self.v_proj = nn.Linear(d_model, d_model)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.q_proj = Linear(d_model, d_model)
+        self.k_proj = Linear(d_model, d_model)
+        self.v_proj = Linear(d_model, d_model)
+        self.out_proj = Linear(d_model, d_model)
         self.norm1 = layer_norm(d_model)
-        self.ff1 = nn.Linear(d_model, 2 * d_model)
-        self.ff2 = nn.Linear(2 * d_model, d_model)
+        self.ff1 = Linear(d_model, 2 * d_model)
+        self.ff2 = Linear(2 * d_model, d_model)
         self.norm2 = layer_norm(d_model)
 
     def forward(self, x: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
@@ -80,13 +80,13 @@ class LoFTREncoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int):
         super().__init__()
         self.n_heads = n_heads
-        self.q_proj = nn.Linear(d_model, d_model, bias=False)
-        self.k_proj = nn.Linear(d_model, d_model, bias=False)
-        self.v_proj = nn.Linear(d_model, d_model, bias=False)
-        self.merge = nn.Linear(d_model, d_model, bias=False)
+        self.q_proj = Linear(d_model, d_model, bias=False)
+        self.k_proj = Linear(d_model, d_model, bias=False)
+        self.v_proj = Linear(d_model, d_model, bias=False)
+        self.merge = Linear(d_model, d_model, bias=False)
         self.norm1 = layer_norm(d_model)
-        self.mlp1 = nn.Linear(2 * d_model, 2 * d_model, bias=False)
-        self.mlp2 = nn.Linear(2 * d_model, d_model, bias=False)
+        self.mlp1 = Linear(2 * d_model, 2 * d_model, bias=False)
+        self.mlp2 = Linear(2 * d_model, d_model, bias=False)
         self.norm2 = layer_norm(d_model)
 
     def forward(self, x: torch.Tensor, source: torch.Tensor) -> torch.Tensor:

@@ -11,10 +11,18 @@ once per rotation of the view order, so that every view leads once.
 ``train`` is an explicit argument, as in the JAX module (not
 ``module.training``): with it the BatchNorms normalise with batch statistics
 and move their running statistics once per call, as flax's mutable
-``batch_stats`` do. Gradients stop at each stage's depth before the next
-stage's hypotheses (the JAX ``grad_method='detach'``). Rotation 0's
-per-stage probability volumes and hypotheses are returned as ``rot0``: MVS
-pretraining supervises them.
+``batch_stats`` do. With ``grad_method='detach'`` (the default) gradients
+stop at each stage's depth before the next stage's hypotheses; with
+``undetached`` they flow on, as in the JAX module. ``share_cr`` builds one
+cost-regularisation U-Net at base 8 (``cost_reg_shared``) that every stage
+calls, the JAX ``share_cr``; otherwise each stage has its own
+(``cost_reg_{i}`` at ``cr_base_chs[i]``). Under a bf16 ``set_compute_dtype``
+the warp grid and the hypotheses stay float32 (JAX computes the geometry in
+float32 whatever the features' dtype: a bf16 pixel coordinate is ~2 px off
+at W = 640); the correlation is float32 because the sampler returns
+float32 from a bf16 source, as JAX's bf16 rows times float32 weights do.
+Rotation 0's per-stage probability volumes and hypotheses are returned as
+``rot0``: MVS pretraining supervises them.
 
 Feature maps are channels-last (V, H, W, C) like the JAX module; cost
 volumes and depth maps carry no channel axis.
@@ -29,7 +37,7 @@ import torch.nn as nn
 
 from ..ops.grid_sample import grid_sample_2d
 from ..ops.resize import resize_linear, resize_nearest
-from .layers import Conv3dBnRelu, Deconv3dBnRelu
+from .layers import Conv3d, Conv3dBnRelu, Deconv3dBnRelu, sigmoid, softmax
 
 
 # --------------------------------------------------------------------------
@@ -138,12 +146,12 @@ class PixelwiseNet(nn.Module):
         super().__init__()
         self.Conv3dBnRelu_0 = Conv3dBnRelu(1, 16, kernel=1)
         self.Conv3dBnRelu_1 = Conv3dBnRelu(16, 8, kernel=1)
-        self.Conv_0 = nn.Conv3d(8, 1, 1)
+        self.Conv_0 = Conv3d(8, 1, 1)
 
     def forward(self, sim: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(N, D, H, W) correlations -> (N, H, W) weights."""
         x = self.Conv3dBnRelu_1(self.Conv3dBnRelu_0(sim[:, None], train), train)
-        x = torch.sigmoid(self.Conv_0(x))
+        x = sigmoid(self.Conv_0(x))
         return torch.amax(x, dim=2)[:, 0]
 
 
@@ -160,7 +168,7 @@ class CostRegNet(nn.Module):
         self.Deconv3dBnRelu_0 = Deconv3dBnRelu(8 * b, 4 * b)
         self.Deconv3dBnRelu_1 = Deconv3dBnRelu(4 * b, 2 * b)
         self.Deconv3dBnRelu_2 = Deconv3dBnRelu(2 * b, b)
-        self.Conv_0 = nn.Conv3d(b, 1, 3, padding=1, bias=False)
+        self.Conv_0 = Conv3d(b, 1, 3, padding=1, bias=False)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         c = [functools.partial(getattr(self, f"Conv3dBnRelu_{i}"), train=train)
@@ -185,11 +193,14 @@ class CascadeMatcher(nn.Module):
                  depth_intervals_ratio: Sequence[float] = (4.0, 2.0, 1.0),
                  cr_base_chs: Sequence[int] = (8, 8, 8),
                  base_channels: int = 8,
-                 fmt_layer_names: Sequence[str] = ("self", "cross") * 4):
+                 fmt_layer_names: Sequence[str] = ("self", "cross") * 4,
+                 grad_method: str = "detach", share_cr: bool = False):
         super().__init__()
         from .featurenet import FeatureNet
         from .fmt import FMTWithPathway
 
+        self.grad_method = grad_method
+        self.share_cr = share_cr
         self.ndepths = tuple(ndepths)
         self.depth_intervals_ratio = tuple(depth_intervals_ratio)
         self.feature = FeatureNet(base_channels)
@@ -197,8 +208,18 @@ class CascadeMatcher(nn.Module):
             base_channels=base_channels, d_model=base_channels * 4,
             layer_names=fmt_layer_names)
         self.pixel_wise_net = PixelwiseNet()
-        for i in range(len(self.ndepths)):
-            setattr(self, f"cost_reg_{i}", CostRegNet(1, cr_base_chs[i]))
+        if share_cr:
+            # one net for all stages, base 8 (JAX cascade.py:344-350)
+            self.cost_reg_shared = CostRegNet(1, 8)
+        else:
+            for i in range(len(self.ndepths)):
+                setattr(self, f"cost_reg_{i}", CostRegNet(1, cr_base_chs[i]))
+
+    def cost_reg(self, stage_idx: int) -> CostRegNet:
+        """The cost-regularisation net of a stage."""
+        if self.share_cr:
+            return self.cost_reg_shared
+        return getattr(self, f"cost_reg_{stage_idx}")
 
     def _run_stage(self, stage_idx, features, proj_matrices, depth_values,
                    view_weights: Optional[torch.Tensor], train: bool):
@@ -209,8 +230,8 @@ class CascadeMatcher(nn.Module):
             view_weights = self.pixel_wise_net(sim, train)     # (V-1, H, W)
         w = view_weights[:, None]
         agg = torch.sum(sim * w, dim=0) / (torch.sum(w, dim=0) + 1e-5)
-        cost_reg = getattr(self, f"cost_reg_{stage_idx}")(agg[None, None], train)[0, 0]
-        prob_volume = torch.softmax(cost_reg, dim=0)
+        cost_reg = self.cost_reg(stage_idx)(agg[None, None], train)[0, 0]
+        prob_volume = softmax(cost_reg, dim=0)
         return {
             "depth": depth_wta(prob_volume, depth_values),
             "cost_volume": cost_reg,
@@ -236,7 +257,8 @@ class CascadeMatcher(nn.Module):
             else:
                 # reference order: previous depth up to full resolution, then
                 # to stage resolution (a shrink at stage 2), then hypotheses
-                cur_full = upsample_depth(depth.detach(), (h, w))
+                cur = depth.detach() if self.grad_method == "detach" else depth
+                cur_full = upsample_depth(cur, (h, w))
                 cur_stage = upsample_depth(cur_full, (hs, ws))
                 interval = self.depth_intervals_ratio[s] * depth_interval
                 hyp = depth_hypotheses_around(cur_stage, nd, interval)

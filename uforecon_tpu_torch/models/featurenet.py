@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.deform_conv import deform_conv2d
-from .layers import BatchNorm2d, ConvBnRelu, upsample_nearest_2x
+from .layers import BatchNorm2d, Conv2d, ConvBnRelu, sigmoid, upsample_nearest_2x
 
 
 class DCN(nn.Module):
@@ -28,8 +28,8 @@ class DCN(nn.Module):
         super().__init__()
         kk = kernel * kernel
         self.kk = kk
-        self.conv_offset_mask = nn.Conv2d(cin, 3 * kk, kernel,
-                                          padding=(kernel - 1) // 2)
+        self.conv_offset_mask = Conv2d(cin, 3 * kk, kernel,
+                                       padding=(kernel - 1) // 2)
         self.weight = nn.Parameter(torch.empty(features, cin, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -38,7 +38,7 @@ class DCN(nn.Module):
         kk = self.kk
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1)        # (N, H, W, 3KK)
         offsets = om[..., :2 * kk].reshape(*om.shape[:-1], kk, 2)
-        mask = torch.sigmoid(om[..., 2 * kk:])
+        mask = sigmoid(om[..., 2 * kk:])
         out = deform_conv2d(x.permute(0, 2, 3, 1), offsets, mask,
                             self.weight, self.bias)
         return out.permute(0, 3, 1, 2)
@@ -75,9 +75,9 @@ class FeatureNet(nn.Module):
         for i, (ci, co, k, s) in enumerate(chans):
             setattr(self, f"ConvBnRelu_{i}", ConvBnRelu(ci, co, k, s))
         self.out1 = DCNBlock(4 * b, 4 * b, 4 * b, first_kernel=1)
-        self.inner1 = nn.Conv2d(2 * b, 4 * b, 1, bias=True)
+        self.inner1 = Conv2d(2 * b, 4 * b, 1, bias=True)
         self.out2 = DCNBlock(4 * b, 4 * b, 2 * b, first_kernel=3)
-        self.inner2 = nn.Conv2d(b, 4 * b, 1, bias=True)
+        self.inner2 = Conv2d(b, 4 * b, 1, bias=True)
         self.out3 = DCNBlock(4 * b, 4 * b, b, first_kernel=3)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> Dict[str, torch.Tensor]:

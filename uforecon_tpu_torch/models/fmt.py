@@ -21,6 +21,7 @@ import torch.nn as nn
 from ..ops.posenc import sine_image_pe
 from ..ops.resize import resize_linear
 from .attention import FMTEncoderLayer
+from .layers import Conv2d
 
 
 def _flatten(x: torch.Tensor) -> torch.Tensor:
@@ -96,13 +97,13 @@ class FMTWithPathway(nn.Module):
         super().__init__()
         b = base_channels
         self.fmt = FMT(d_model, n_heads, layer_names)
-        self.dim_reduction_1 = nn.Conv2d(4 * b, 2 * b, 1, bias=False)
-        self.dim_reduction_2 = nn.Conv2d(2 * b, b, 1, bias=False)
-        self.smooth_1 = nn.Conv2d(2 * b, 2 * b, 3, padding=1, bias=False)
-        self.smooth_2 = nn.Conv2d(b, b, 3, padding=1, bias=False)
+        self.dim_reduction_1 = Conv2d(4 * b, 2 * b, 1, bias=False)
+        self.dim_reduction_2 = Conv2d(2 * b, b, 1, bias=False)
+        self.smooth_1 = Conv2d(2 * b, 2 * b, 3, padding=1, bias=False)
+        self.smooth_2 = Conv2d(b, b, 3, padding=1, bias=False)
 
     @staticmethod
-    def _conv_cl(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    def _conv_cl(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
         return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
     def _pathway(self, stage1, stage2, stage3):

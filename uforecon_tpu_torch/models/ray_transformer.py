@@ -32,6 +32,13 @@ kernel wrapper (``ops/fused_similarity.py``, ``ops/fused_volume_fusion.py``),
 (``Config.volume_merge``) is queried by ``ops/volume_merge.
 query_merged_volume``, which needs no fusion kernel, as in JAX.
 
+The ray transformer computes in ``dtype`` (``Config.compute_dtype``;
+its cast layers are set by ``UFORecon``). JAX's gates run the point-head
+and ray-head kernels in float32 only (``_fused_ok``, ``_fused_ray_ok``):
+a bf16 ray transformer takes the view transformer (its tiny attention in
+float32 on the kernels, cast back) and runs the ray stage through its
+modules, with no kernel, as JAX does.
+
 ``precision`` (the resolved ``Config.kernel_precision``) goes to the head
 wrappers; ``source_dtype`` (``Config.image_gather_dtype`` on the extract
 path) is the type the pair maps, image features and rgb||depth are
@@ -56,7 +63,7 @@ from ..ops.grid_sample import grid_sample_2d, grid_sample_3d, in_bounds_mask
 from ..ops.posenc import nerf_posenc, order_posenc
 from ..ops.volume_merge import query_merged_volume
 from .attention import LocalFeatureTransformer
-from .layers import MLP
+from .layers import MLP, softmax
 
 
 def query_correlation_volume(
@@ -145,8 +152,10 @@ class RayTransformer(nn.Module):
 
     def __init__(self, img_feat_dim: int = 32, fea_volume_dim: int = 24,
                  sim_feat_fix: int = 16, depth_dim: int = 8, use_dir_srdf: bool = False,
-                 pe_d_hid: int = 8, n_heads: int = 8, sim_feat_dim: int = 8):
+                 pe_d_hid: int = 8, n_heads: int = 8, sim_feat_dim: int = 8,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.img_feat_dim = img_feat_dim
         self.fea_volume_dim = fea_volume_dim
         self.sim_feat_fix = sim_feat_fix
@@ -244,12 +253,13 @@ class RayTransformer(nn.Module):
         if fused == "never":
             return False
         full = (fea_volume_feat is not None and sim_feat is not None
-                and depth_dist is not None and not self.use_dir_srdf)
+                and depth_dist is not None and not self.use_dir_srdf
+                and self.dtype == torch.float32)
         if fused == "always" and not full:
             raise ValueError(
                 "fused_point_head='always' but the point-head kernel's "
                 "prerequisites are not met (needs volume + explicit similarity + "
-                "depth PE features, use_dir_srdf off); use 'auto' to "
+                "depth PE features, use_dir_srdf off, float32 compute); use 'auto' to "
                 "allow the view transformer")
         return full
 
@@ -289,7 +299,7 @@ class RayTransformer(nn.Module):
             torch.cat([vf, dir_relative.permute(1, 2, 0, 3)], dim=-1))
         m = mask.permute(1, 2, 0)[..., None]                     # (RN, SN, NV, 1)
         xw = torch.where(m == 0, torch.full_like(xw, -1e9), xw)
-        w = torch.softmax(xw, dim=-2)
+        w = softmax(xw, dim=-2)
         radiance = (img_rgb.permute(1, 2, 0, 3) * w).sum(dim=2)  # (RN, SN, 3)
         return {"token": x[:, 0].reshape(rn, sn, -1), "radiance": radiance}
 
@@ -325,11 +335,20 @@ class RayTransformer(nn.Module):
         pe = _order_pe(self.pe_d_hid, sn, token.device)
         return torch.cat([token, pe.to(token.dtype)[None].expand(rn, sn, -1)], dim=-1)
 
+    @property
+    def fused_ray_ok(self) -> bool:
+        """Does the ray stage take the ray-head kernels? JAX's
+        ``_fused_ray_ok``: only in float32."""
+        return self.dtype == torch.float32
+
     def along_ray(self, token: torch.Tensor, precision: str = "high") -> torch.Tensor:
         """Ray transformer over a z-sorted (RN, SN, C) sequence -> SRDF
-        (RN, SN), the ray head at ``precision``."""
-        return ray_head(self._ray_input(token), self.ray_head_params(), self.n_heads,
-                        precision)
+        (RN, SN): the ray head at ``precision``, or, in bf16, the ray
+        transformer's modules (SRDF in bf16, as JAX's flax path gives it)."""
+        y = self._ray_input(token)
+        if not self.fused_ray_ok:
+            return self.density_mlp(self.density_ray_transformer(y))[..., 0]
+        return ray_head(y, self.ray_head_params(), self.n_heads, precision)
 
     def along_ray_neus(self, token: torch.Tensor, z_val: torch.Tensor,
                        radiance: torch.Tensor, inv_s: torch.Tensor,

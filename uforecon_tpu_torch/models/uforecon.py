@@ -13,7 +13,13 @@ the ``featuregrid`` volume (``models/volumes.FeatureVolume``, one (16, Z,
 Y, X) grid per view set, sampled at the world points with
 ``align_corners=False`` and zeros), no volume at ``volume_reso`` 0, no
 depth guide without ``mvs_depth_guide`` / ``depth_pos_encoding``, and the
-direction PE with ``use_dir_srdf``.
+direction PE with ``use_dir_srdf``; and its precision policies: the
+matcher in ``Config.encoder_torch_dtype``, the volume head and the ray
+transformer in ``Config.dtype`` (``models/layers.set_compute_dtype``, the
+JAX ``UFORecon.setup``'s ``enc_dtype`` / ``dtype``). Encode returns what
+those modules give: under a bf16 matcher its stage-1 features and pair
+maps come out of LayerNorms in float32 and its cost volumes in bf16, which
+a float32 volume head takes as float32, as flax promotes them.
 
 Gradients follow the caller's grad mode, as in training (``pipeline/
 trainer.py``), with one cut: ``encode`` runs the cascade matcher without
@@ -39,6 +45,7 @@ from ..ops.rendering import neus_render
 from ..ops.sampling import sample_coarse, sample_importance
 from ..ops.volume_merge import merge_stage_volumes
 from .cascade import CascadeMatcher
+from .layers import set_compute_dtype
 from .ray_transformer import RayTransformer, query_correlation_volume, query_similarity
 from .volumes import CostRegNetWeight, FeatureVolume
 
@@ -82,15 +89,20 @@ class UFORecon(nn.Module):
         self.cfg = c = cfg
         self.matcher = CascadeMatcher(
             ndepths=c.ndepths, depth_intervals_ratio=c.depth_inter_r,
-            cr_base_chs=c.cr_base_chs, fmt_layer_names=c.fmt_layer_names)
+            cr_base_chs=c.cr_base_chs, fmt_layer_names=c.fmt_layer_names,
+            grad_method=c.grad_method, share_cr=c.share_cr)
+        set_compute_dtype(self.matcher, c.encoder_torch_dtype)
         if c.correlation_volume:
             self.mvs_volume = CostRegNetWeight(1, base_channels=8)
+            set_compute_dtype(self.mvs_volume, c.dtype)
         elif c.feature_grid:
             self.feature_volume = FeatureVolume(c.volume_reso, cin=c.img_feat_dim)
+            set_compute_dtype(self.feature_volume, c.dtype)
         self.ray_transformer = RayTransformer(
             img_feat_dim=c.img_feat_dim, fea_volume_dim=c.effective_fea_volume_dim,
             sim_feat_fix=c.sim_feat_fix, depth_dim=c.depth_dim,
-            use_dir_srdf=c.use_dir_srdf)
+            use_dir_srdf=c.use_dir_srdf, dtype=c.dtype)
+        set_compute_dtype(self.ray_transformer, c.dtype)
         # NeuS deviation scalar (reference single_variance_network.py:5-11)
         self.variance = nn.Parameter(torch.tensor(0.3))
         self.eval()
@@ -193,7 +205,8 @@ class UFORecon(nn.Module):
         """Ray transformer -> SRDF -> NeuS compositing (model.py:332-348),
         in one kernel when ``fused_neus_epilogue`` is 'auto'."""
         inv_s = torch.exp(self.variance * 10.0)
-        if self.cfg.fused_neus_epilogue == "auto":
+        if (self.cfg.fused_neus_epilogue == "auto"
+                and self.ray_transformer.fused_ray_ok):
             return self.ray_transformer.along_ray_neus(
                 pp["token"], z_val, pp["radiance"], inv_s, self.kernel_precision)
         srdf = self.ray_transformer.along_ray(pp["token"], self.kernel_precision)

@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.grid_sample import grid_sample_2d, in_bounds_mask
-from .layers import MLP, Conv3dBnRelu, Deconv3dBnRelu, deconv3d
+from .layers import MLP, Conv3d, Conv3dBnRelu, Deconv3dBnRelu, deconv3d, sigmoid
 
 
 class CostRegNetWeight(nn.Module):
@@ -31,7 +31,7 @@ class CostRegNetWeight(nn.Module):
         b = base_channels
 
         def conv(ci, co, s):
-            return nn.Conv3d(ci, co, 3, stride=s, padding=1)
+            return Conv3d(ci, co, 3, stride=s, padding=1)
 
         self.conv0 = conv(cin, b, 1)
         self.conv1 = conv(b, 2 * b, 2)
@@ -43,8 +43,8 @@ class CostRegNetWeight(nn.Module):
         self.conv7 = deconv3d(8 * b, 4 * b, bias=True)
         self.conv9 = deconv3d(4 * b, 2 * b, bias=True)
         self.conv11 = deconv3d(2 * b, b, bias=True)
-        self.features = nn.Conv3d(b, 8, 3, padding=1, bias=False)
-        self.weights = nn.Conv3d(b, 1, 3, padding=1, bias=False)
+        self.features = Conv3d(b, 8, 3, padding=1, bias=False)
+        self.weights = Conv3d(b, 1, 3, padding=1, bias=False)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         c0 = self.conv0(x)
@@ -54,7 +54,7 @@ class CostRegNetWeight(nn.Module):
         z = c4 + self.conv7(z)
         z = c2 + self.conv9(z)
         z = c0 + self.conv11(z)
-        return self.features(z), torch.sigmoid(self.weights(z))
+        return self.features(z), sigmoid(self.weights(z))
 
 
 class VolumeRegularization(nn.Module):
@@ -69,7 +69,7 @@ class VolumeRegularization(nn.Module):
             setattr(self, f"Conv3dBnRelu_{i}", Conv3dBnRelu(ci, co, stride=s))
         for i, (ci, co) in enumerate([(48, 32), (32, 16), (16, 16)]):
             setattr(self, f"Deconv3dBnRelu_{i}", Deconv3dBnRelu(ci, co))
-        self.Conv_0 = nn.Conv3d(16, 16, 3, padding=1)
+        self.Conv_0 = Conv3d(16, 16, 3, padding=1)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x0 = self.Conv3dBnRelu_0(x, train)

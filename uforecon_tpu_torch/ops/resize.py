@@ -42,12 +42,20 @@ def linear_weight_matrix(in_size: int, out_size: int,
 
 def resize_linear(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.image.resize(x, shape, method='linear')`` for any axes whose
-    size changes (shrinking axes are antialiased)."""
+    size changes (shrinking axes are antialiased). A bf16 tensor is
+    resized in bf16, each contraction rounded to bf16, in the order
+    ``jax.image.resize``'s einsum takes for two axes: the cheaper order in
+    multiply-adds first, the earlier axis on a tie."""
     if len(shape) != x.ndim:
         raise ValueError(f"shape {tuple(shape)} vs tensor rank {x.ndim}")
-    for d, (n_in, n_out) in enumerate(zip(x.shape, shape)):
-        if n_in == n_out:
-            continue
+    axes = [(d, (n_in, n_out)) for d, (n_in, n_out) in enumerate(zip(x.shape, shape))
+            if n_in != n_out]
+    if x.dtype == torch.bfloat16 and len(axes) == 2:
+        (_, (ia, oa)), (_, (ib, ob)) = axes
+        # multiply-adds of the two orders, over the size of the other axes
+        if ia * ib * oa + ib * oa * ob > ia * ib * ob + ia * ob * oa:
+            axes.reverse()
+    for d, (n_in, n_out) in axes:
         w = linear_weight_matrix(n_in, n_out, x.device).to(x.dtype)
         x = torch.movedim(torch.tensordot(torch.movedim(x, d, -1), w, dims=1), -1, d)
     return x

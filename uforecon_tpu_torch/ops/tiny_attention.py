@@ -170,7 +170,12 @@ def tiny_linear_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
     """elu+1 linear attention over tiny token sets: the CUDA kernels for
     CUDA tensors, the plain version for CPU tensors. q (B, L, H, D),
-    k (B, S, H, D), v (B, S, H, M) -> (B, L, H, M)."""
+    k (B, S, H, D), v (B, S, H, M) -> (B, L, H, M). Other dtypes than
+    float32 (a bf16 view transformer) compute in float32 and return the
+    input's dtype, as the JAX wrapper casts (``ops/pallas_attention.py:
+    204-209``); the gradients come back through the casts."""
+    if q.dtype != torch.float32:
+        return tiny_linear_attention(q.float(), k.float(), v.float()).to(q.dtype)
     if not q.is_cuda:
         return tiny_linear_attention_reference(q, k, v)
     return _TinyAttention.apply(q, k, v)

@@ -1,7 +1,8 @@
 """End-to-end learning check on a synthetic textured sphere, through the port.
 
     python -m uforecon_tpu_torch.script.learn_sanity [--mvs_steps 120] \\
-        [--render_steps 300] [--mesh_eval] [--resume] [--logdir DIR] [--device cpu]
+        [--render_steps 300] [--dtype bfloat16] [--mesh_eval] [--resume] \\
+        [--logdir DIR] [--device cpu]
 
 A copy of the repository's ``script/learn_sanity.py`` on the port, with
 the same scene, settings and pass rule:
@@ -257,7 +258,7 @@ def mesh_eval(renderer: SceneRenderer, ds) -> dict:
     }
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser("uforecon_tpu_torch.script.learn_sanity")
     ap.add_argument("--h", type=int, default=128)
     ap.add_argument("--w", type=int, default=160)
@@ -267,6 +268,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mvs_steps", type=int, default=120)
     ap.add_argument("--render_steps", type=int, default=300)
     ap.add_argument("--lr", type=float, default=5e-4)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="compute_dtype: the bfloat16 row trains the volume head "
+                         "and the ray transformer in bf16 (the matcher follows), "
+                         "and this gates its learning end to end")
     ap.add_argument("--logdir", type=str,
                     default=os.path.join(tempfile.gettempdir(), "learn_sanity"))
     ap.add_argument("--mesh_eval", action="store_true",
@@ -275,12 +280,22 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", action="store_true",
                     help="skip training; score the latest checkpoint under logdir")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def build_config(args: argparse.Namespace) -> Config:
+    """The script's training configuration (the JAX script's)."""
+    return Config(ndepths=(24, 16, 8), numdepth=args.ndepth, coarse_sample=32,
+                  fine_sample=32, test_sample_coarse=32, test_sample_fine=32,
+                  train_ray_num=512, train_n_view=args.n_src + 1, uforecon_lr=args.lr,
+                  compute_dtype=args.dtype, logdir=args.logdir, exp_name="sanity",
+                  max_epochs=1)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     device = resolve_device(args.device)
-    cfg = Config(ndepths=(24, 16, 8), numdepth=args.ndepth, coarse_sample=32,
-                 fine_sample=32, test_sample_coarse=32, test_sample_fine=32,
-                 train_ray_num=512, train_n_view=args.n_src + 1, uforecon_lr=args.lr,
-                 logdir=args.logdir, exp_name="sanity", max_epochs=1)
+    cfg = build_config(args)
 
     print(f"raytracing {args.views} views at {args.w}x{args.h}...", flush=True)
     ds = SphereDataset(build_scene_views(args.views, args.h, args.w), args.n_src,
