@@ -70,7 +70,10 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      route removes, and routes A, v2 and shipped against knobs off;
   8. A/B phase: AB_ROUNDS rounds of warm full views in the order off, on,
      on, off on one encoding (rays/s per view, SM clock and power read
-     after each);
+     after each); then the slice view's encode with cuDNN's deterministic
+     algorithms (as ``UFORecon.encode`` runs) and without, alternated:
+     the shipped route's (extraction) and the exact route's with a
+     backward (training);
   9. pipeline phase: the shipped DTU evaluation flow through the port's
      CLIs. The fixture (``script/make_dtu_fixture.py``: a textured sphere
      at 1600x1200, views 23 24 33); ``cli.run`` at full width (800x640, 3
@@ -83,7 +86,9 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      1.5 mm, each volume held against the same integration on the CPU;
      ``cli.depth_fusion``, ``cli.clean_mesh`` and ``cli.dtu_eval`` against
      points on the sphere (accuracy and completeness within one voxel);
-     each stage's time;
+     each stage's time; and the cards phase's (a): ``cli.run --mesh_shape 2``
+     at its defaults, which on one card resolves to 1 (its printed line
+     says so) and writes the depth files of ``--mesh_shape 1`` bit for bit;
  10. general phase: the custom-capture flow (``--test_general``): the
      port's GeneralFit fixture (``script/make_general_fixture.py``, 5 views
      of a sphere at 768x576 as baseline JPEGs and masks) and the host time
@@ -118,7 +123,7 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      256-ray gradient step on the card against the same step on the CPU
      (the matcher's outputs taken from the card on both); (b) TRAIN_STEPS
      timed steps of the default route (kernels 1 and 2 on every step) and
-     of route A (kernels 5 and 6, and 2): s/step,
+     of route A (kernels 5 and 6, and 2; TRAIN_STEPS): s/step,
      peak memory, launches and weight-pack builds per step, and after each
      step's forward kernel 1 at the updated weights against its plain
      version (the stale-pack guard), then one default-route step under
@@ -126,14 +131,14 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      share, the costliest operations); (c) ``cli.run --debug`` on the
      fixture's DTU training layout (``make_dtu_fixture.
      write_train_layout``), then ``cli.run --extract_geometry --load_ckpt``
-     on the checkpoint it wrote; (d) in step 14; (e) every model
+     on the checkpoint it wrote; (d) in step 15; (e) every model
      configuration, cascade flag and precision policy the JAX CLI trains
      (TRAIN_CONFIGS: the feature grid without and with the depth guide, no
      depth PE, no depth guide, ``use_dir_srdf``, ``volume_reso`` 0,
      ``share_cr``, ``--encoder_dtype bfloat16``, ``--compute_dtype
      bfloat16``), each with seeded weights: a coarse 128-ray step at
-     320x256 card vs CPU, then two timed full steps at the training default
-     (s/step, peak memory, the kernels JAX's gates imply on every step),
+     320x256 card vs CPU, then TRAIN_CFG_STEPS timed full steps at the
+     training default (s/step, peak memory, the kernels JAX's gates imply on every step),
      then ``cli.run --debug`` with ``--use_dir_srdf --share_cr
      --encoder_dtype bfloat16 --grad_method undetached`` and the
      extraction from its checkpoint with the same flags;
@@ -146,15 +151,30 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      encode seconds, peak memory; then a 1024-ray chunk at 6, 8 and 11
      views on the card against the CPU, on the exact path and at the JAX
      extraction defaults (``views_phase`` says how each is held);
- 14. beside those chunks, each in a process of its own (nothing of the
-     three is timed): the training phase's (d), ``script/learn_sanity.py
-     --mesh_eval`` at its defaults (120 MVS + 300 render steps, 160x128, 6
-     views), which must pass its rule, and the GPU unit tests of the
+ 14. cards phase (``parallel/sharding.py``, after the views phase's
+     chunks): one 1024-ray training step at the
+     JAX training default (640x512, kernels 1 and 2) on one rank, then the
+     slice's 800x640 view at the CLI defaults (fast kernels 1 and 2)
+     through ``extract_geometry_for_dataset`` and that step on
+     CARDS_RANKS gloo ranks that share this card (each its share of the
+     rays; NCCL refuses two ranks on one card): rank 0's depth map equal
+     to the slice phase's shipped route bit for bit, the all-reduced
+     step's loss within rtol 1e-3 and its gradient tree within relative L2
+     2e-2 of one rank's, each rank's kernel launches counted. Ranks
+     sharing a card measure correctness only. With two cards or more the
+     same runs over NCCL across the cards (rays/s and s/step per card
+     count); with one, a line says it was not run;
+ 15. from step 9 on, beside steps 9, 10, 13 and 14, each in a process of
+     its own: steps 11 and 12 (SIDE_PHASES, one process, in that order),
+     the training phase's (d), ``script/learn_sanity.py --mesh_eval`` at its defaults (120 MVS + 300
+     render steps, 160x128, 6 views), which must pass its rule, and the GPU unit tests of the
      kernels (``python -m pytest --noconftest -k on_gpu
      tests/test_torch_port_kernels.py``: every kernel against its plain
      version at further shapes, ragged edges and padded ray lengths),
-     which must pass;
- 15. prints a JSON line of per-kernel results, then the final
+     which must pass. The device timings (steps 3-8) are done by then; the
+     host-clock figures of steps 9-14 (rays/s, s/step) are taken with the
+     card and the host shared among these processes;
+ 16. prints a JSON line of per-kernel results, then the final
      ``{"ok": true, "device": {...}}`` line.
 Any failure exits non-zero without printing a result; without a CUDA card
 it exits 1 at once.
@@ -218,7 +238,10 @@ VIEWS_CLI_WH = {11: (480, 384)}
 AB_ROUNDS = 1
 # training phase: the DTU training crop; timed steps per route
 TRAIN_WH = (640, 512)
-TRAIN_STEPS = {"off": 5, "A": 3}
+TRAIN_STEPS = {"off": 3, "A": 2}
+# cards phase: ranks along the ray axis (parallel/sharding.py); on one card
+# they share it over gloo (NCCL refuses two ranks on one card)
+CARDS_RANKS = 2
 PORT = "uforecon_tpu_torch"
 # the JAX reference package, never imported here: the port's name without
 # its suffix
@@ -286,7 +309,7 @@ TRAIN_CONFIGS = {
 }
 TRAIN_CFG_A_WH = (320, 256)
 TRAIN_CFG_A_RAYS = 128
-TRAIN_CFG_STEPS = 2
+TRAIN_CFG_STEPS = 1
 TRAIN_CFG_CLI = ["--depth_pos_encoding", "--explicit_similarity", "--use_dir_srdf",
                  "--share_cr", "--encoder_dtype", "bfloat16", "--grad_method",
                  "undetached"]
@@ -316,6 +339,11 @@ MUST_RUN = {"off": ("point_head", "ray_head"),
             "train_A": ("tiny_attention", "tiny_attention_bwd", "ray_head"),
             "train_cli": ("point_head", "ray_head"),
             "train_cli_extract": ("point_head_fast", "ray_head_fast"),
+            # cards phase: cli.run --mesh_shape 2 at its defaults; each rank's
+            # share of a view at the defaults, and of a training step
+            "pipeline_mesh2": ("point_head_fast", "ray_head_fast"),
+            "cards_render": ("point_head_fast", "ray_head_fast"),
+            "cards_step": ("point_head", "ray_head"),
             # the training configurations (TRAIN_CONFIGS), as JAX's gates
             # route them: the point head where the full feature set is
             # there in float32, the view transformer (kernel 5 and its
@@ -1333,7 +1361,7 @@ def to_cpu(x):
 
 def render_view(model, sample, route, card):
     """One full view through extract_geometry_for_dataset; returns its
-    stats and the kernel launches counted during it."""
+    stats (with its depth map) and the kernel launches counted during it."""
     import torch
 
     from uforecon_tpu_torch.pipeline.extract import extract_geometry_for_dataset
@@ -1367,7 +1395,7 @@ def render_view(model, sample, route, card):
                              f"{np.isfinite(depth).mean():.4f}")
     log(f"[slice] route {route}: depth map (640, 800) finite, range "
         f"[{depth.min():.1f}, {depth.max():.1f}] mm")
-    return {**stats, "peak_gib": peak_gb, "pack_builds": builds}, launches
+    return {**stats, "peak_gib": peak_gb, "pack_builds": builds, "depth": depth}, launches
 
 
 def agree_with_cpu(model, sample, route, rn=256, tag="slice"):
@@ -1554,8 +1582,10 @@ def slice_phase(model, model_b, card):
     # 3xTF32 and in bf16; ray_head: those and route B's; point_head2: the
     # shared weights)
     cuda_build.clear_pack_caches()
+    depths = {}
     for route, m in models.items():
         stats[route], launches[route] = render_view(m, sample, route, card)
+        depths[route] = stats[route].pop("depth")
         check_launches(route, launches[route])
     if not stats["shipped"]["merged"] or stats["shipped"]["kernel_precision"] != "fast":
         raise AssertionError(f"the shipped route resolved {stats['shipped']}")
@@ -1567,7 +1597,7 @@ def slice_phase(model, model_b, card):
         raise AssertionError(f"a head rebuilt its weight pack: {built}")
     for route, m in models.items():
         stats[route]["cpu_agree"] = agree_with_cpu(m, sample, route)
-    return models, sample, stats, launches
+    return models, sample, stats, launches, depths["shipped"]
 
 
 def shipped_knob_runs(model_s, scene, enc, extras, card):
@@ -1646,6 +1676,60 @@ def gradient_phase(model_a, sample, card):
     if not max(rel.values()) <= TOL["route_grad_rel"]:
         raise AssertionError(f"route A gradients disagree between card and CPU: {rel}")
     return launches
+
+
+def encode_determinism(model_x, model_t, scene, card):
+    """Seconds of one encode of the slice's view with cuDNN's deterministic
+    algorithms (as ``UFORecon.encode`` runs it) and without (its body,
+    ``_encode``, with the flag off), alternated in this process after one
+    untimed call of each (on, off, off, on): the shipped route's encode
+    (extraction, no gradient) and the exact route's encode with the
+    backward of its outputs' sum (training reaches the volume head's
+    transposed 3D convolutions so)."""
+    import torch
+
+    def leaves(x):
+        if torch.is_tensor(x):
+            yield x
+        elif isinstance(x, dict):
+            for v in x.values():
+                yield from leaves(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                yield from leaves(v)
+
+    def extract():
+        with torch.no_grad():
+            model_x._encode(scene, False)
+
+    def train():
+        enc = model_t._encode(scene, False)
+        sum(t.float().sum() for t in leaves(enc) if t.requires_grad).backward()
+        model_t.zero_grad(set_to_none=True)
+
+    before = torch.backends.cudnn.deterministic
+    res = {}
+    try:
+        for kind, fn in (("extraction", extract), ("training", train)):
+            res[kind] = {True: [], False: []}
+            for i, det in enumerate((True, False, True, False, False, True)):
+                torch.backends.cudnn.deterministic = det
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if i >= 2:
+                    res[kind][det].append(time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.deterministic = before
+    figures = {kind: {"deterministic_s": r[True], "default_s": r[False],
+                      "ratio_of_medians": float(np.median(r[True]) / np.median(r[False]))}
+               for kind, r in res.items()}
+    log(f"[slice] encode of the 800x640 view, 3 views, with cudnn.deterministic (as "
+        f"UFORecon.encode runs) and without, alternated: extraction (shipped route, no "
+        f"gradient) and training (exact route, forward and the backward of its outputs' "
+        f"sum): {json.dumps(figures)} [{card}]")
+    return figures
 
 
 def probe_phase(card, blocks=256):
@@ -1797,11 +1881,13 @@ def ab_phase(models, scene, enc, extras, card):
         f"on {won} of {len(rates['on'])} [{card}]")
 
 
-def cli_run(tag, run_name, base, extra, scan, n_views, wh, card, samples="64+64"):
+def cli_run(tag, run_name, base, extra, scan, n_views, wh, card, samples="64+64",
+            mesh="1"):
     """``cli.run`` (``base + extra``) as a user runs it, its launches counted
     after each view's render and at its end: every kernel MUST_RUN names
     for the run launched on every view and no other, ``n_views`` views
-    rendered, and the printed 'resolved' line names the path taken. Returns
+    rendered, and the printed 'resolved' line names the path taken and
+    that ``--mesh_shape`` (``mesh``, as passed) resolved to this card. Returns
     the scan's statistics (with the run's seconds and peak device memory),
     the launches up to the last view's render and those after it."""
     import contextlib
@@ -1847,7 +1933,8 @@ def cli_run(tag, run_name, base, extra, scan, n_views, wh, card, samples="64+64"
             raise AssertionError(f"{run_name} view {i}: kernels {idle} not launched")
         prev = snap
     path = "merged" if stats["merged"] else "per-stage"
-    resolved = f"resolved: {path} volumes, kernel_precision {stats['kernel_precision']}"
+    resolved = (f"resolved: {path} volumes, kernel_precision {stats['kernel_precision']}, "
+                f"--mesh_shape {mesh} -> 1 card")
     if resolved not in printed.getvalue():
         raise AssertionError(f"{run_name}: cli.run printed no '{resolved}' line")
     log(f"[{tag}] cli.run {' '.join(extra) or 'at its defaults'}, {n_views} views "
@@ -1914,6 +2001,22 @@ def pipeline_phase(model, card):
         times["extract_pipeline_s"] = shipped["seconds"]
         if not shipped["merged"] or shipped["kernel_precision"] != "fast":
             raise AssertionError(f"cli.run at its defaults resolved {shipped}")
+        # the cards phase's (a): --mesh_shape 2 resolves to this one card
+        # (cli_run checks the printed line) and writes the same depth files
+        t_mesh = time.perf_counter()
+        out_mesh = os.path.join(tmp, "out_mesh2")
+        _, launches_mesh, _ = cli_run("cards", "pipeline_mesh2", base + ["--out_dir", out_mesh],
+                                      ["--mesh_shape", "2"], "scan24", 3, (w, h), card,
+                                      mesh="2")
+        for i in range(3):
+            got, want = (np.load(os.path.join(d, "depth", "scan24", f"{i:08d}.npy"),
+                                 allow_pickle=True).item()["depth"] for d in (out_mesh, out))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"cli.run --mesh_shape 2 view {i}: depth differs from "
+                                     f"--mesh_shape 1's (max {np.abs(got - want).max()})")
+        times["cards_cli_s"] = time.perf_counter() - t_mesh
+        log(f"[cards] (a) cli.run --mesh_shape 2 on this one card: resolved to 1 card, its "
+            f"3 depth maps equal --mesh_shape 1's bit for bit [{card}]")
         exact, launches_exact, _ = cli_run(
             "pipeline", "pipeline_exact", base + ["--out_dir", os.path.join(tmp, "out_exact")],
             ["--volume_merge", "never", "--volume_dtype", "float32",
@@ -1994,7 +2097,8 @@ def pipeline_phase(model, card):
     log(f"[pipeline] cli.run rays/s: at its defaults {shipped['rays_per_sec']:.1f}, with "
         f"the exact flags {exact['rays_per_sec']:.1f}; the sphere (analytic depth maps) "
         f"at accuracy {acc:.4f} mm, completeness {comp:.4f} mm [{card}]")
-    return {"pipeline": launches, "pipeline_exact": launches_exact}
+    return ({"pipeline": launches, "pipeline_exact": launches_exact,
+             "pipeline_mesh2": launches_mesh}, times["cards_cli_s"])
 
 
 def general_phase(model, card):
@@ -2270,15 +2374,14 @@ def views_phase(model, card, before_chunks):
     each id its own camera); ``cli.run --extract_geometry --set 1`` at its
     defaults at 11 views and at 4 (the guard's per-stage volumes from 4
     views on), which must launch fast kernels 1 and 2 on every view; then,
-    after before_chunks() (which starts the work that runs beside them), one
+    after before_chunks() (which main uses to log the scans' seconds), one
     1024-ray chunk of the first view at 6, 8 and 11 views on the card
     against the CPU (``agree_with_cpu``), on the exact path (kernels 1 and 2
     in 3xTF32: >= 0.99 of the rays within 2e-4) and at the JAX extraction
     defaults (fast kernels 1 and 2; per-stage volumes, by the JAX guard:
     held by the bf16 effect's median, max and per-ray rule), with the
-    launches of the card's chunk. The chunks time nothing, so other
-    processes may share the card and the host then. Returns the launches
-    of the runs and their figures."""
+    launches of the card's chunk. Returns the launches of the runs and
+    their figures."""
     import contextlib
     import io
 
@@ -2702,7 +2805,7 @@ def training_phase(card):
     """Training at the full width of the JAX training default (module
     docstring, phase 12): (a) card against CPU, (b) timed steps, (c) the
     training CLI and the reload of its checkpoint; (d), learn_sanity, runs
-    beside the views phase's chunks (``start_learn_sanity``). Returns the
+    in a process of its own (``start_learn_sanity``). Returns the
     launches of each of its runs and its numbers."""
     import contextlib
     import io
@@ -2712,15 +2815,11 @@ def training_phase(card):
     from uforecon_tpu_torch.config import Config
     from uforecon_tpu_torch.pipeline import trainer
     from uforecon_tpu_torch.pipeline.fit import init_model
-    from uforecon_tpu_torch.script import learn_sanity
 
-    w, h = TRAIN_WH
     cfg = Config()
     out, launches = {}, {}
     t0 = time.perf_counter()
-    ds = learn_sanity.SphereDataset(learn_sanity.build_scene_views(6, h, w), 4,
-                                    cfg.numdepth)
-    sample = ds[0]
+    sample = train_sample()
     model = init_model(cfg, SEED, "cuda")
     state = trainer.TrainState(model, trainer.make_optimizer(cfg, model))
 
@@ -2811,11 +2910,232 @@ def train_configs_phase(card):
     return launches, figures
 
 
+def train_sample():
+    """The training phase's scene: the learn_sanity sphere at the DTU
+    training crop, 5 views."""
+    from uforecon_tpu_torch.config import Config
+    from uforecon_tpu_torch.script import learn_sanity
+
+    w, h = TRAIN_WH
+    return learn_sanity.SphereDataset(learn_sanity.build_scene_views(6, h, w), 4,
+                                      Config().numdepth)[0]
+
+
+def cards_step_inputs(device):
+    """One training step's model (seeded, the JAX training default), scene
+    and ray batch (TRAIN_WH, 1024 rays), and a seeded generator."""
+    import torch
+
+    from uforecon_tpu_torch.config import Config
+    from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
+    from uforecon_tpu_torch.pipeline import trainer
+    from uforecon_tpu_torch.pipeline.fit import _gather_ray_batch, init_model
+
+    cfg = Config()
+    model = init_model(cfg, SEED, device)
+    trainer.make_optimizer(cfg, model)
+    scene, extras = scene_inputs_from_sample(train_sample(), device)
+    h, w = extras["hw"]
+    idx = np.random.default_rng(SEED).permutation(h * w)[:cfg.train_ray_num]
+    rays = [torch.as_tensor(a, device=device) for a in _gather_ray_batch(extras, idx)]
+    return cfg, model, scene, rays, torch.Generator(device=device).manual_seed(SEED)
+
+
+def cards_rank(device, weights):
+    """One rank of the cards phase (``parallel.sharding.spawn``): the
+    slice's 800x640 view at the CLI defaults through
+    extract_geometry_for_dataset (this rank's share of its rays; rank 0
+    writes the depth map), then this rank's share of one 1024-ray training
+    step at the JAX training default, all-reduced. Returns rank 0's depth
+    map, step logs and gradients, and every rank's launches and seconds."""
+    import torch
+
+    from uforecon_tpu_torch.config import Config
+    from uforecon_tpu_torch.data.synthetic import dtu_scale_sample
+    from uforecon_tpu_torch.models.uforecon import UFORecon
+    from uforecon_tpu_torch.parallel import sharding
+    from uforecon_tpu_torch.pipeline import trainer
+    from uforecon_tpu_torch.pipeline.extract import extract_geometry_for_dataset
+
+    wrappers = launch_counts()
+    model = UFORecon(Config(extract_geometry=True))
+    model.load_state_dict(torch.load(weights, map_location="cpu"))
+    model.to(device)
+    out = {"rank": sharding.rank()}
+    with tempfile.TemporaryDirectory() as out_dir:
+        for wr in wrappers.values():
+            wr.launches = 0
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        stats = extract_geometry_for_dataset(model, [dtu_scale_sample()], out_dir=out_dir,
+                                             device=device, seed=SEED, previews=False)
+        torch.cuda.synchronize(device)
+        out["render_s"] = time.perf_counter() - t0
+        out["render_launches"] = {n: wr.launches for n, wr in wrappers.items()}
+        out["rays"] = stats["rays"]
+        if sharding.rank() == 0:
+            out["depth"] = np.load(os.path.join(out_dir, "depth", "scan1", "00000000.npy"),
+                                   allow_pickle=True).item()["depth"]
+    del model
+    cfg, model, scene, rays, gen = cards_step_inputs(device)
+    for wr in wrappers.values():
+        wr.launches = 0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    logs = trainer.all_reduce_step(model, trainer.grad_step(cfg, model, scene, *rays, gen))
+    torch.cuda.synchronize(device)
+    out["step_s"] = time.perf_counter() - t0
+    out["step_launches"] = {n: wr.launches for n, wr in wrappers.items()}
+    if sharding.rank() == 0:
+        out["logs"] = {k: float(v) for k, v in logs.items()}
+        out["grads"] = {n: p.grad.cpu().numpy() for n, p in trainer.trainable_parameters(model)
+                        if p.grad is not None}
+    return out
+
+
+def cards_run(weights, world, backend, card, reference):
+    """``world`` ranks of ``cards_rank`` against ``reference`` (the same
+    work on one rank): rank 0's depth map bit for bit, the step's loss
+    within rtol 1e-3 and its gradient tree within relative L2 2e-2 (the CPU
+    test's rule), every rank's kernels (MUST_RUN cards_render, cards_step).
+    Returns the launches of each rank's runs and the figures."""
+    from uforecon_tpu_torch.parallel import sharding
+
+    device = "cuda:0" if backend == "gloo" else "cuda"
+    ranks = sharding.spawn(cards_rank, world, (weights,), device=device, backend=backend)
+    launches = {}
+    for r in ranks:
+        for run in ("render", "step"):
+            launches[f"cards_{run}_{backend}_r{r['rank']}"] = r[f"{run}_launches"]
+            check_launches(f"cards_{run}", r[f"{run}_launches"])
+    r0 = ranks[0]
+    if not np.array_equal(r0["depth"], reference["depth"]):
+        raise AssertionError(f"{world} ranks ({backend}): the depth map differs from one "
+                             f"rank's (max {np.abs(r0['depth'] - reference['depth']).max()})")
+    g, want = r0["grads"], reference["grads"]
+    if set(g) != set(want):
+        raise AssertionError(f"{world} ranks ({backend}): other gradients than one rank's")
+    rel = (sum(float(np.sum((g[n] - want[n]) ** 2)) for n in g)
+           / max(sum(float(np.sum(want[n] ** 2)) for n in g), 1e-30)) ** 0.5
+    loss, loss_1 = r0["logs"]["train/loss_all"], reference["logs"]["train/loss_all"]
+    loss_rel = abs(loss - loss_1) / abs(loss_1)
+    res = {"world": world, "backend": backend,
+           "render_s": [r["render_s"] for r in ranks],
+           "rays_per_sec": r0["rays"] / max(r["render_s"] for r in ranks),
+           "s_per_step": [r["step_s"] for r in ranks], "loss_rel": loss_rel,
+           "grad_rel_l2": rel}
+    log(f"[cards] {world} ranks over {backend} on {device}: the 800x640 view at the CLI "
+        f"defaults equals one rank's bit for bit; the 1024-ray step's loss {loss:.6f} "
+        f"against {loss_1:.6f} (rel {loss_rel:.2e}), gradient tree rel-L2 {rel:.2e} "
+        f"(limits 1e-3, 2e-2); render s per rank {np.round(res['render_s'], 3).tolist()} "
+        f"({res['rays_per_sec']:.1f} rays/s over the slowest), step s per rank "
+        f"{np.round(res['s_per_step'], 3).tolist()}; launches per rank: render "
+        f"{[{n: r['render_launches'][n] for n in MUST_RUN['cards_render']} for r in ranks]}, "
+        f"step {[{n: r['step_launches'][n] for n in MUST_RUN['cards_step']} for r in ranks]}"
+        f" [{card}]")
+    if loss_rel > 1e-3 or rel > 2e-2:
+        raise AssertionError(f"{world} ranks ({backend}): the step differs from one rank's: "
+                             f"loss rel {loss_rel}, gradient rel-L2 {rel}")
+    return launches, res
+
+
+def cards_phase(model, shipped_depth, card):
+    """(b)-(d) of the cards phase: one rank's training step, then
+    CARDS_RANKS gloo ranks on this card (which measure correctness only:
+    they share the card), and with two cards or more, NCCL ranks across
+    them (rays/s and s/step per card count). The one-rank render they are
+    held to is the slice phase's shipped route (``shipped_depth``: the
+    same view, weights, configuration and seed; the encoding is
+    deterministic). Returns the launches of each rank's runs and the
+    figures."""
+    import torch
+
+    from uforecon_tpu_torch.pipeline import trainer
+
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "weights.pt")
+        torch.save(model.state_dict(), weights)
+        ref = {"depth": shipped_depth}
+        cfg, step_model, scene, rays, gen = cards_step_inputs("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = trainer.grad_step(cfg, step_model, scene, *rays, gen)
+        torch.cuda.synchronize()
+        ref["step_s"] = time.perf_counter() - t0
+        ref["logs"] = {k: float(v) for k, v in logs.items()}
+        ref["grads"] = {n: p.grad.cpu().numpy()
+                        for n, p in trainer.trainable_parameters(step_model)
+                        if p.grad is not None}
+        del step_model, scene, rays
+        torch.cuda.empty_cache()
+        out["one"] = {"step_s": ref["step_s"]}
+        log(f"[cards] one rank: one 1024-ray step at 640x512 {ref['step_s']:.3f} s (the "
+            f"view: the slice phase's shipped route) [{card}]")
+        run_launches, out["gloo"] = cards_run(weights, CARDS_RANKS, "gloo", card, ref)
+        launches.update(run_launches)
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            run_launches, out["nccl"] = cards_run(weights, cards, "nccl", card, ref)
+            launches.update(run_launches)
+        else:
+            log(f"[cards] NCCL across cards: not run, this machine has {cards} card")
+    return launches, out
+
+
+# the phases that run in a process of their own, in this order, beside the
+# main process's pipeline, general, views and cards phases (each takes the
+# card's name and returns the launches of its runs and its figures), with
+# their names in the [time] line
+SIDE_PHASES = {"configs_phase": "configs", "training_phase": "train (a)-(c)",
+               "train_configs_phase": "train (e) configurations"}
+# argv root, the JSON file for the results, then the phases' names
+PHASES_RUNNER = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+card = chip_smoke.smi("name,power.limit")
+out = {}
+for name in sys.argv[3:]:
+    t0 = time.perf_counter()
+    launches, figures = getattr(chip_smoke, name)(card)
+    out[name] = {"launches": launches, "figures": figures,
+                 "seconds": time.perf_counter() - t0}
+with open(sys.argv[2], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def start_phases(tmp):
+    """SIDE_PHASES in a process of their own (PHASES_RUNNER)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return start_process([sys.executable, "-c", PHASES_RUNNER, root,
+                          os.path.join(tmp, "phases.json"), *SIDE_PHASES], tmp)
+
+
+def finish_phases(started, card):
+    """Waits for SIDE_PHASES, logs what they logged and returns, per
+    phase, its launches, figures and seconds; they must have passed."""
+    code, out, err, seconds = finish_process(started, timeout=1100)
+    for line in out.strip().splitlines():
+        log(line)
+    if code != 0:
+        log(err[-6000:])
+        raise AssertionError(f"the phases {list(SIDE_PHASES)} failed in their process "
+                             f"(exit {code})")
+    log(f"[side] {', '.join(SIDE_PHASES.values())}: in a process beside the pipeline, "
+        f"general, views and cards phases, ended within {seconds:.1f} s of its start "
+        f"[{card}]")
+    with open(os.path.join(os.path.dirname(started[1][0].name), "phases.json")) as f:
+        return json.load(f)
+
+
 # learn_sanity in a process of its own (its launches counted there), so
-# that it runs beside the views phase's card-vs-CPU chunks and the GPU unit
-# tests: argv root, logdir, then learn_sanity's own arguments
+# that it runs beside the other phases: argv root, logdir, then
+# learn_sanity's own arguments
 LEARN_SANITY_RUNNER = """
-import contextlib, io, json, sys
+import contextlib, io, json, sys, time
+t0 = time.perf_counter()
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 from uforecon_tpu_torch.script import learn_sanity
@@ -2826,7 +3146,8 @@ buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     code = learn_sanity.main(["--mesh_eval", "--logdir", sys.argv[2], *sys.argv[3:]])
 print(json.dumps({"code": code, "result": json.loads(buf.getvalue().strip().splitlines()[-1]),
-                  "launches": {n: wr.launches for n, wr in wrappers.items()}}))
+                  "launches": {n: wr.launches for n, wr in wrappers.items()},
+                  "seconds": time.perf_counter() - t0}))
 """
 
 
@@ -2868,15 +3189,15 @@ def start_learn_sanity(tmp, extra=()):
 def finish_learn_sanity(started, card):
     """learn_sanity's result, which must pass its rule, with the kernels
     it launched (MUST_RUN) and its seconds beside the other work."""
-    code, out, err, seconds = finish_process(started, timeout=900)
+    code, out, err, _ = finish_process(started, timeout=900)
     if code != 0 or not out.strip():
         log(out[-4000:] + err[-4000:])
         raise AssertionError(f"learn_sanity's process failed (exit {code})")
     res = json.loads(out.strip().splitlines()[-1])
-    result, launches = res["result"], res["launches"]
+    result, launches, seconds = res["result"], res["launches"], res["seconds"]
     log(f"[train] (d) learn_sanity --mesh_eval (120 MVS + 300 render steps, 160x128, 6 "
         f"views): {json.dumps(result)}, exit {res['code']}, {seconds:.1f} s beside the "
-        f"views phase's chunks and the GPU unit tests (JAX package on a TPU: depth L1 "
+        f"other phases and the GPU unit tests (JAX package on a TPU: depth L1 "
         f"0.2201 -> 0.0060 of span, mesh acc 2.80 % / comp 1.81 % of radius) [{card}]")
     check_launches("learn_sanity", launches)
     if res["code"] != 0:
@@ -2897,7 +3218,7 @@ def finish_tests(started, card):
     code, out, err, seconds = finish_process(started, timeout=900)
     lines = out.strip().splitlines()
     log(f"[tests] pytest --noconftest -k on_gpu tests/test_torch_port_kernels.py: "
-        f"{lines[-1] if lines else ''} ({seconds:.1f} s) [{card}]")
+        f"{lines[-1] if lines else ''} (ended within {seconds:.1f} s of its start) [{card}]")
     if code != 0:
         log(out[-6000:] + err[-2000:])
         raise AssertionError(f"the GPU unit tests failed (exit {code})")
@@ -2956,7 +3277,7 @@ def main():
 
     kres = kernel_phase(model, card)
     lap("kernel")
-    models, sample, stats, launches = slice_phase(model, model_b, card)
+    models, sample, stats, launches, shipped_depth = slice_phase(model, model_b, card)
     log(f"[slice] render rays/s against knobs off in this process (the off run "
         f"is the process's first view): " + json.dumps(
             {r: stats["off"]["render_s"] / stats[r]["render_s"]
@@ -2979,37 +3300,40 @@ def main():
     profile_phase({k: models[k] for k in routes}, scene,
                   {k: enc_s if k == "shipped" else enc for k in routes}, extras, card)
     ab_phase(models, scene, enc, extras, card)
-    del scene, enc, enc_s, merged, extras
+    del enc, enc_s, merged
+    encode_determinism(models["shipped"], model, scene, card)
+    del scene, extras
     lap("slice, grad, probe, profile, ab")
-    launches.update(pipeline_phase(model, card))
-    lap("pipeline")
-    general_launches, general = general_phase(model, card)
-    launches.update(general_launches)
-    lap("general")
-    config_launches, configs = configs_phase(card)
-    launches.update(config_launches)
-    lap("configs")
-    train_launches, train = training_phase(card)
-    launches.update(train_launches)
-    lap("train (a)-(c)")
-    cfg_launches, train["configs"] = train_configs_phase(card)
-    launches.update(cfg_launches)
-    lap("train (e) configurations")
-    # learn_sanity and the GPU unit tests, each in a process of its own,
-    # beside the views phase's card-vs-CPU chunks (none of the three is
-    # timed; its cli.run scans, which are, run before them)
+    # the device timings are done: from here on the configs and training
+    # phases (SIDE_PHASES), learn_sanity and the GPU unit tests run, each in
+    # a process of its own, beside the pipeline, general, views and cards
+    # phases, which share the card and the host with them
     with tempfile.TemporaryDirectory() as side_tmp:
         side = {}
-
-        def before_chunks():
-            lap("views: fixture and cli.run")
-            for name, start in (("learn_sanity", start_learn_sanity), ("tests", start_tests)):
-                os.makedirs(os.path.join(side_tmp, name))
-                side[name] = start(os.path.join(side_tmp, name))
-
+        for name, start in (("phases", start_phases), ("learn_sanity", start_learn_sanity),
+                            ("tests", start_tests)):
+            os.makedirs(os.path.join(side_tmp, name))
+            side[name] = start(os.path.join(side_tmp, name))
         try:
-            views_launches, views = views_phase(model, card, before_chunks)
+            pipeline_launches, cards_cli_s = pipeline_phase(model, card)
+            launches.update(pipeline_launches)
+            lap("pipeline")
+            general_launches, general = general_phase(model, card)
+            launches.update(general_launches)
+            lap("general")
+            views_launches, views = views_phase(
+                model, card, lambda: lap("views: fixture and cli.run"))
             launches.update(views_launches)
+            lap("views chunks")
+            cards_launches, cards = cards_phase(model, shipped_depth, card)
+            launches.update(cards_launches)
+            lap("cards (b)-(d)")
+            phases = finish_phases(side["phases"], card)
+            for res in phases.values():
+                launches.update(res["launches"])
+            configs = phases["configs_phase"]["figures"]
+            train = phases["training_phase"]["figures"]
+            train["configs"] = phases["train_configs_phase"]["figures"]
             finish_tests(side["tests"], card)
             launches["learn_sanity"], train["learn_sanity"] = finish_learn_sanity(
                 side["learn_sanity"], card)
@@ -3019,7 +3343,10 @@ def main():
                     proc.kill()
                     proc.wait()
             raise
-    lap("views chunks, learn_sanity and the GPU unit tests side by side")
+    lap("the side processes after the cards phase")
+    phase_s["cards (a), in pipeline"] = round(cards_cli_s, 1)
+    for name, label in SIDE_PHASES.items():
+        phase_s[f"{label}, in a process beside them"] = round(phases[name]["seconds"], 1)
 
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
@@ -3036,6 +3363,7 @@ def main():
     log("[configs] " + json.dumps(configs))
     log("[views] " + json.dumps(views))
     log("[train] " + json.dumps(train))
+    log("[cards] " + json.dumps(cards))
     log("[time] seconds per phase after the build: " + json.dumps(phase_s))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -226,16 +226,31 @@ def test_flag_defaults_are_the_jax_ones():
 EXTRACT = ["--extract_geometry", "--depth_pos_encoding"]
 
 
-# the flag sets the port refuses, each naming its flag: a path it does not
-# have (several cards) and a volume type the JAX package does not build
+# the flag set the port refuses, naming its flag: a volume type the JAX
+# package does not build
 @pytest.mark.parametrize("argv,named", [
-    (EXTRACT + ["--mesh_shape", "2"], "--mesh_shape 2"),
     (EXTRACT + ["--volume_type", "grid"], "--volume_type grid"),
-    (["--depth_pos_encoding", "--mesh_shape", "1,2"], "--mesh_shape 1,2"),
 ])
 def test_unsupported_flag_sets_raise(argv, named):
     with pytest.raises(ValueError, match=named):
         run.main(argv)
+
+
+# --mesh_shape, refused until the port ran on several cards, reaches the
+# Config as the JAX CLI's Config has it (its resolution to ranks:
+# tests/test_torch_port_sharding.py)
+@pytest.mark.parametrize("argv", [
+    EXTRACT + ["--mesh_shape", "2"],
+    ["--depth_pos_encoding", "--mesh_shape", "1,2"],
+    EXTRACT + ["--mesh_shape", "4,2"],
+])
+def test_mesh_shape_reaches_the_config(argv):
+    from uforecon_tpu.config import config_from_args as jax_config_from_args
+
+    cfg, _ = config_from_args(argv)
+    jcfg = jax_config_from_args(argv)
+    assert cfg.mesh_shape == jcfg.mesh_shape
+    assert cfg.extract_geometry == jcfg.extract_geometry
 
 
 # the flag sets the port used to refuse: every model configuration trains,

@@ -11,10 +11,9 @@ against the JAX package.
     learn_sanity sphere (4 samples at 32x32), with the JAX key schedule's
     draws fed to the port: the coarse loss terms of each step within 1e-4
     relative (the fine pass can move an importance-sampling bin);
-  * ``cli.run --debug --device cpu`` on the fixture's DTU training layout
-    (``make_dtu_fixture.write_train_layout``): 3 steps, a validation and a
-    checkpoint, which then loads through ``cli.run --extract_geometry
-    --load_ckpt`` and renders;
+  * a checkpoint of the training loop loads through ``cli.run
+    --extract_geometry --load_ckpt`` and renders (``cli.run --debug``
+    itself: ``test_torch_cli_train.py``);
   * the port's ``learn_sanity`` at tiny settings: its sphere samples equal
     the repository script's, training and ``--resume`` run end to end;
   * the training entry points ask for the card by default.
@@ -36,7 +35,7 @@ from uforecon_tpu.pipeline import fit as jax_fit
 
 from uforecon_tpu_torch.cli import run
 from uforecon_tpu_torch.config import EXACT, Config
-from uforecon_tpu_torch.convert import load_flax_variables, load_weights
+from uforecon_tpu_torch.convert import load_flax_variables
 from uforecon_tpu_torch.data.dtu_train import MVSDataset
 from uforecon_tpu_torch.models.uforecon import UFORecon
 from uforecon_tpu_torch.pipeline import fit as port_fit
@@ -171,8 +170,8 @@ def test_three_step_fit_matches_jax(tmp_path):
 
 
 # --------------------------------------------------------------------------
-# the training CLI on the DTU training layout, then extraction from its
-# checkpoint
+# the extraction CLI on a checkpoint of the training loop (the training CLI
+# itself: tests/test_torch_cli_train.py)
 # --------------------------------------------------------------------------
 
 SMALL_MODEL = ["--depth_pos_encoding", "--explicit_similarity", "--ndepths", "8,8,8"]
@@ -181,45 +180,41 @@ SMALL_MODEL = ["--depth_pos_encoding", "--explicit_similarity", "--ndepths", "8,
 @pytest.fixture(scope="module")
 def fixture_root(tmp_path_factory):
     root = tmp_path_factory.mktemp("fixture")
-    paths = make_dtu_fixture.write_train_layout(str(root), views=(23, 24, 33))
     make_dtu_fixture.main([str(root), "--views", "23", "24", "33", "--wh", "320", "240"])
-    return root, paths
+    return root
 
 
-def test_cli_debug_trains_validates_and_checkpoints(fixture_root, tmp_path):
-    root, paths = fixture_root
-    logdir = tmp_path / "logs"
-    state = run.main(SMALL_MODEL + [
-        "--debug", "--root_dir", str(root), "--train_list", paths["train"],
-        "--val_list", paths["val"], "--pair_file", paths["pair"], "--logdir", str(logdir),
-        "--train_n_view", "3", "--coarse_sample", "4", "--fine_sample", "4",
-        "--train_ray_num", "2048", "--device", "cpu"])
-    assert state.step == 3
-    with open(logdir / "uforecon_tpu" / "metrics.jsonl") as f:
-        recs = [json.loads(line) for line in f]
-    assert [r["step"] for r in recs if "train/loss_all" in r] == [1, 2, 3]
-    val = [r for r in recs if "val/loss_depth_fine" in r]
-    assert len(val) == 1 and val[0]["step"] == 3
-    assert all(np.isfinite(v) for v in val[0].values())
-    ckpt = logdir / "uforecon_tpu" / "ckpt" / "step_3.pt"
-    assert ckpt.exists()
+def test_cli_extracts_from_a_training_checkpoint(fixture_root, tmp_path, monkeypatch):
+    """A checkpoint as ``fit`` writes it (``CheckpointManager.save`` of
+    ``fit._checkpoint``: weights, Adam state, step) loads through
+    ``cli.run --extract_geometry --load_ckpt``, which renders with its
+    weights."""
+    cfg, _ = run.config_from_args(SMALL_MODEL)
+    model = port_fit.init_model(cfg, 3, "cpu")
+    state = port_fit.TrainState(model, port_fit.make_optimizer(cfg, model), 3)
+    ckpt = CheckpointManager(str(tmp_path / "ckpt")).save(
+        3, port_fit._checkpoint(state), {"val/loss_depth_fine": 0.5})
+    loaded = []
+    extract = run.extract_geometry_for_dataset
 
-    # the checkpoint loads through the extract CLI and renders
+    def spy(m, ds, **kw):
+        loaded.append(m)
+        return extract(m, ds, **kw)
+
     out = tmp_path / "out"
+    monkeypatch.setattr(run, "extract_geometry_for_dataset", spy)
     stats = run.main(SMALL_MODEL + [
-        "--extract_geometry", "--root_dir", str(root), "--out_dir", str(out),
-        "--test_scan", "scan24", "--test_ref_view", "23", "24", "33", "--img_wh", "160",
-        "128", "--test_sample_coarse", "4", "--test_sample_fine", "4", "--load_ckpt",
-        str(ckpt), "--device", "cpu"])
+        "--extract_geometry", "--root_dir", str(fixture_root), "--out_dir", str(out),
+        "--test_scan", "scan24", "--test_ref_view", "23", "24", "33", "--img_wh",
+        "160", "128", "--test_sample_coarse", "4", "--test_sample_fine", "4",
+        "--load_ckpt", ckpt, "--device", "cpu"])
     assert stats["scan24"]["views"] == 3
     for i in range(3):
         d = np.load(out / "depth" / "scan24" / f"{i:08d}.npy", allow_pickle=True).item()
         assert d["depth"].shape == (128, 160) and np.all(np.isfinite(d["depth"]))
-    # and holds the trained weights
-    trained = UFORecon(state.model.cfg)
-    load_weights(trained, str(ckpt))
-    for k, v in state.model.state_dict().items():
-        assert torch.equal(trained.state_dict()[k], v.cpu()), k
+    # it rendered with the checkpoint's weights
+    for k, v in model.state_dict().items():
+        assert torch.equal(loaded[0].state_dict()[k], v), k
 
 
 def test_training_asks_for_the_card_by_default(monkeypatch, tmp_path):

@@ -229,6 +229,9 @@ class Config:
     image_gather_dtype: str = "bfloat16"  # float32 | bfloat16
     merge_depth: int = 0                 # common-grid z-bins; 0 = ndepths[-1]
     merge_pad: bool = False              # the JAX pack's 256-lane rows (guard only)
+    # ranks along the ray axis (parallel/sharding.py): extraction takes
+    # min(mesh_shape[0], cards), training prod(mesh_shape) (cli/run.py)
+    mesh_shape: Tuple[int, ...] = (1,)
 
     @property
     def samples(self) -> Tuple[int, int]:
@@ -389,8 +392,6 @@ _UNSUPPORTED = (
     (lambda a: a.volume_type not in ("correlation", "featuregrid"),
      "--volume_type {a.volume_type}: the JAX package builds correlation or "
      "featuregrid volumes"),
-    (lambda a: _ints(a.mesh_shape) != (1,),
-     "--mesh_shape {a.mesh_shape}: the port renders on one card"),
 )
 
 
@@ -406,9 +407,8 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
     path.
 
     Returns the Config and the device. Raises ``ValueError``, naming the
-    flag, on a flag set that selects a path the port does not have (a
-    ``--mesh_shape`` of several cards, an unknown ``--volume_type``),
-    rather than running its default model; ``Config`` raises on an unknown
+    flag, on a flag set that selects a path the port does not have (an
+    unknown ``--volume_type``), rather than running its default model; ``Config`` raises on an unknown
     ``--grad_method``, ``--compute_dtype`` or ``--encoder_dtype``. Every
     model configuration and precision policy trains and extracts."""
     import argparse
@@ -532,5 +532,6 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
         depth_pos_encoding=a.depth_pos_encoding, use_dir_srdf=a.use_dir_srdf,
         volume_merge=a.volume_merge, merge_depth=a.merge_depth, merge_pad=a.merge_pad,
         merge_max_bytes=a.merge_max_bytes, volume_dtype=a.volume_dtype,
-        image_gather_dtype=a.image_gather_dtype, kernel_precision=a.kernel_precision)
+        image_gather_dtype=a.image_gather_dtype, kernel_precision=a.kernel_precision,
+        mesh_shape=_ints(a.mesh_shape))
     return cfg, a.device

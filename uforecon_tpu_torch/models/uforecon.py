@@ -30,6 +30,7 @@ render training), while the volume head (``mvs_volume``) and the NeuS
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import warnings
@@ -42,7 +43,7 @@ from ..config import Config, resolve_kernel_precision, use_volume_merge
 from ..ops.camera import project_points_ndc
 from ..ops.grid_sample import grid_sample_3d
 from ..ops.rendering import neus_render
-from ..ops.sampling import sample_coarse, sample_importance
+from ..ops.sampling import chunk_draws, sample_coarse, sample_importance
 from ..ops.volume_merge import merge_stage_volumes
 from .cascade import CascadeMatcher
 from .layers import set_compute_dtype
@@ -75,6 +76,16 @@ class EncoderOutputs(NamedTuple):
     aug1: torch.Tensor
     mvs_depths: torch.Tensor                 # (NV, H, W) scaled to the scene
     fea_grid: Optional[torch.Tensor] = None  # (16, Z, Y, X): featuregrid only
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
 
 
 class UFORecon(nn.Module):
@@ -130,7 +141,16 @@ class UFORecon(nn.Module):
         volumes are merged, else each is stored at ``volume_dtype``.
         ``auto`` leaves the merge only by the JAX byte guard, with a
         warning. The featuregrid path builds its grid instead; at
-        ``volume_reso`` 0 there is no volume."""
+        ``volume_reso`` 0 there is no volume. cuDNN takes deterministic
+        algorithms here (its backward, in training, the ones it picks):
+        otherwise a transposed 3D convolution of the volume head may add
+        with atomics, and two encodings of one view differ in their last
+        bits (seen on an H100), which the fine pass can turn into
+        millimetres of depth."""
+        with _deterministic_cudnn():
+            return self._encode(scene, train)
+
+    def _encode(self, scene: SceneInputs, train: bool) -> EncoderOutputs:
         c = self.cfg
         nv, h, w = scene.source_imgs.shape[:3]
         if h % 32 or w % 32:
@@ -157,7 +177,7 @@ class UFORecon(nn.Module):
         if c.volume_merge == "auto" and c.extract_geometry and not merge:
             warnings.warn(f"volume_merge='auto': the merged volume of {nv} views at "
                           f"{w}x{h} exceeds merge_max_bytes={c.merge_max_bytes}; "
-                          "querying the per-stage volumes", stacklevel=2)
+                          "querying the per-stage volumes", stacklevel=3)
         if merge:
             volumes = {"merged": merge_stage_volumes(
                 fws, c.merge_depth or c.ndepths[-1], (h, w), dtype)}
@@ -229,10 +249,13 @@ class UFORecon(nn.Module):
     ) -> Dict[str, Dict[str, torch.Tensor]]:
         """Coarse + importance-sampled fine rendering of one ray chunk
         (reference model.py:393-482), ``cfg.samples`` points per ray. Draws
-        not given come from ``generator``. ``coarse_only`` returns the
-        coarse pass as both outputs."""
+        not given come from ``generator`` (``chunk_draws``). ``coarse_only``
+        returns the coarse pass as both outputs."""
         n_coarse, n_fine = self.cfg.samples
         rn = ray_d.shape[0]
+        if u_coarse is None and u_fine is None:
+            u_coarse, u_fine = chunk_draws(rn, self.cfg.samples, generator, ray_d.device,
+                                           coarse_only)
         ray_o = scene.ray_o.expand(rn, 3)
         near = near_per_ray if near_per_ray is not None else scene.near.expand(rn)
         far = far_per_ray if far_per_ray is not None else scene.far.expand(rn)

@@ -13,8 +13,10 @@ bf16 values and combines them with float32 weights into a float32 result
 (bf16 times f32 promotes to f32): the samplers here sample the source's
 float32 conversion, which holds the same values, so the result is that
 float32 function (``F.grid_sample`` on the bf16 tensor itself would round
-its output to bf16 as well). The conversion is a copy of the source per
-call, in float32.
+its output to bf16 as well). The conversion is a float32 copy of the
+source: per call on the card, which keeps no second copy of its sources;
+on the CPU, where a full-size stage volume's copy takes about 0.1 s, once
+per source (``_float_source``).
 
 Conventions per call site (JAX ``ray_transformer.py``):
   * image features and rgb||depth: ``align_corners=False``, zeros;
@@ -34,8 +36,19 @@ def in_bounds_mask(grid: torch.Tensor) -> torch.Tensor:
 
 
 def _float_source(x: torch.Tensor) -> torch.Tensor:
-    """A bf16 source's float32 values (exact); other sources as they are."""
-    return x.float() if x.dtype == torch.bfloat16 else x
+    """A bf16 source's float32 values (exact); other sources as they are.
+    On the CPU the copy is kept on the source for the calls that follow,
+    while the source is unchanged and the call records its gradient as the
+    copy's did."""
+    if x.dtype != torch.bfloat16:
+        return x
+    if x.device.type != "cpu" or x.is_inference():
+        return x.float()
+    key = (x._version, torch.is_grad_enabled() and x.requires_grad)
+    kept = getattr(x, "_float32_copy", None)
+    if kept is None or kept[0] != key:
+        kept = x._float32_copy = (key, x.float())
+    return kept[1]
 
 
 def grid_sample_2d(image: torch.Tensor, grid: torch.Tensor,

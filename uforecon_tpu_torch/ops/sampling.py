@@ -5,6 +5,10 @@ code1/encoder_utils/sampler.py:7-108). The uniform draws ``u`` are an
 argument: when it is not given they come from ``generator`` (a
 ``torch.Generator`` on the rays' device). torch cannot reproduce JAX's
 threefry bits, so the tests pass both sides the same ``u``.
+
+``chunk_draws`` is the draw schedule of one ray chunk: every render and
+training step that draws from a generator draws through it, so that a
+chunk's draws are the same on one rank as on several.
 """
 from __future__ import annotations
 
@@ -17,6 +21,20 @@ def _uniform(shape, like: torch.Tensor,
              generator: Optional[torch.Generator]) -> torch.Tensor:
     return torch.rand(shape, generator=generator, device=like.device,
                       dtype=like.dtype)
+
+
+def chunk_draws(rn: int, samples: Tuple[int, int],
+                generator: Optional[torch.Generator], device,
+                coarse_only: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The uniform draws of one chunk of ``rn`` rays, in the order the
+    render takes them from ``generator``: (rn, n_coarse) for
+    ``sample_coarse``, then (rn, n_fine) for ``sample_importance`` (None
+    with ``coarse_only``)."""
+    n_coarse, n_fine = samples
+    u_c = torch.rand((rn, n_coarse), generator=generator, device=device)
+    u_f = None if coarse_only else torch.rand((rn, n_fine), generator=generator,
+                                              device=device)
+    return u_c, u_f
 
 
 def sample_coarse(

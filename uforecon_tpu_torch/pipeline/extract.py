@@ -64,6 +64,8 @@ def extract_geometry_for_dataset(model: UFORecon, dataset,
     """Render all views of one per-scan dataset (any list-like of
     reference-format sample dicts) and write the depth layout, on the card
     unless the caller asks for ``device="cpu"``; without a card it raises.
+    In a process group (``parallel/sharding.py``) every rank renders its
+    share of each view's rays and rank 0 writes the files.
 
     Draws come from a generator seeded with ``seed``, or from ``draws``:
     per view, one ``(u_coarse, u_fine)`` pair per ray chunk (see
@@ -74,7 +76,9 @@ def extract_geometry_for_dataset(model: UFORecon, dataset,
     package's rays/s: every view's rays over the time from the end of
     the first view's render to the end of the loop (so the kernel builds
     and first-call costs of view 0 are outside it; with one view it times
-    only that view's file writes), and what the run resolved: whether the
+    only that view's file writes; on rank 0 of a process group, every
+    rank's rays, as rank 0's render ends when it has gathered them), and
+    what the run resolved: whether the
     encodings merged their volumes (``merged``, from the encodings; None
     without a view) and the head kernels' ``kernel_precision``."""
     out_dir = out_dir or model.cfg.out_dir
@@ -100,6 +104,8 @@ def extract_geometry_for_dataset(model: UFORecon, dataset,
         t_enc += t1 - t0
         t_ren += t2 - t1
         total_rays += extras["ray_d"].shape[0]
+        if out is None:             # a rank other than 0 renders only
+            continue
         parts = str(extras["meta"]).split("-")
         save_depth_outputs(out_dir, parts[1], parts[-1], out["depth"], out["rgb"],
                            extras["extrinsic_render_view"],

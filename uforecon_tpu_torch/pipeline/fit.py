@@ -20,6 +20,15 @@ or from ``draws``: one ``(u_coarse, u_fine)`` pair per scene step.
 
 Everything runs on ``device``: the card unless the caller asks for the
 CPU; without a card it raises.
+
+In a process group of N ranks (``parallel/sharding.py``; the JAX loop's
+mesh, ``fit.py:296-313,331-332``) ``fit`` is data parallel along the ray
+axis: every rank starts from rank 0's weights, draws the same scenes,
+``rn = ceil(train_ray_num / N) * N`` rays and draws, takes its contiguous
+share of them (``trainer.grad_step``), and the gradients are
+summed over the ranks once per optimizer step (``trainer.all_reduce_step``),
+JAX's psum step. Rank 0 validates, logs and checkpoints while the others
+wait. ``pretrain_mvs`` and ``validate_only`` run on one device, as in JAX.
 """
 from __future__ import annotations
 
@@ -35,11 +44,12 @@ from ..convert import init_weights, load_weights
 from ..data.convert import scene_inputs_from_sample
 from ..device import DEFAULT, resolve_device
 from ..models.uforecon import UFORecon
+from ..parallel import sharding
 from ..utils.logging import Log, MetricWriter
 from ..utils.metrics import psnr
 from .checkpoint import CheckpointManager
-from .trainer import (TrainState, apply_step, grad_step, make_optimizer,
-                      make_pretrain_optimizer, mvs_pretrain_step, val_step)
+from .trainer import (TrainState, all_reduce_step, apply_step, grad_step,
+                      make_optimizer, make_pretrain_optimizer, mvs_pretrain_step, val_step)
 
 PKG_DATA = os.path.join(os.path.dirname(__file__), "..", "data", "dtu")
 
@@ -250,8 +260,11 @@ def fit(cfg: Config, train_ds=None, val_ds=None, model: Optional[UFORecon] = Non
     by default one epoch is one pass over ``train_ds`` and validation runs
     at each epoch's end (check_val_every_n_epoch=1, reference main.py:210).
     ``model`` (default: ``init_model`` with ``cfg.seed``) is trained in
-    place; ``--load_ckpt`` fills it first."""
+    place; ``--load_ckpt`` fills it first. ``draws``: one ``(u_coarse,
+    u_fine)`` pair of the whole step's rays per scene step (each rank
+    takes its rows)."""
     device = resolve_device(device)
+    world, main = sharding.world_size(), sharding.rank() == 0
     if train_ds is None or val_ds is None:
         tds, vds = make_train_val_datasets(cfg)
         train_ds = train_ds or tds
@@ -261,23 +274,28 @@ def fit(cfg: Config, train_ds=None, val_ds=None, model: Optional[UFORecon] = Non
         Log.info("initializing model...")
         model = init_model(cfg, cfg.seed, device)
     _maybe_restore(model, cfg.load_ckpt)
+    sharding.broadcast_module_(model)
     state = TrainState(model, make_optimizer(cfg, model))
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     draws = iter(draws) if draws is not None else None
+    rn = -(-cfg.train_ray_num // world) * world
 
     logdir = os.path.join(cfg.logdir, cfg.exp_name)
-    writer = MetricWriter(logdir)
-    ckpt = CheckpointManager(os.path.join(logdir, "ckpt"))
+    writer = MetricWriter(logdir) if main else None
+    ckpt = CheckpointManager(os.path.join(logdir, "ckpt")) if main else None
 
     batch = max(1, cfg.batch_size)
     steps_per_epoch = max(1, len(train_ds) // batch)
     total_steps = max_steps or cfg.max_epochs * steps_per_epoch
 
     def validate():
-        metrics = run_validation(cfg, model, val_ds, device,
-                                 max_samples=1 if cfg.debug else None)
-        writer.scalars(state.step, metrics)
-        ckpt.save(state.step, _checkpoint(state), metrics)
+        metrics = None
+        if main:
+            metrics = run_validation(cfg, model, val_ds, device,
+                                     max_samples=1 if cfg.debug else None)
+            writer.scalars(state.step, metrics)
+            ckpt.save(state.step, _checkpoint(state), metrics)
+        sharding.barrier()
         return metrics
 
     epoch = 0
@@ -291,7 +309,7 @@ def fit(cfg: Config, train_ds=None, val_ds=None, model: Optional[UFORecon] = Non
             for sample in _prefetch(train_ds, order, n_workers=n_workers):
                 scene, extras = scene_inputs_from_sample(sample, device)
                 h, w = extras["hw"]
-                ray_idx = rng_np.permutation(h * w)[:cfg.train_ray_num]
+                ray_idx = rng_np.permutation(h * w)[:rn]
                 ray_d, rgb_gt, depth_gt = _on(device, *_gather_ray_batch(extras, ray_idx))
                 u = None if draws is None else _on(device, *next(draws))
                 logs = grad_step(cfg, model, scene, ray_d, rgb_gt, depth_gt, gen, u)
@@ -300,11 +318,12 @@ def fit(cfg: Config, train_ds=None, val_ds=None, model: Optional[UFORecon] = Non
                 n_acc += 1
                 if n_acc < batch:
                     continue
+                logs_sum = all_reduce_step(model, logs_sum)
                 apply_step(state.optimizer, n_acc)
                 logs = {k: float(v) / n_acc for k, v in logs_sum.items()}
                 logs_sum, n_acc = None, 0
                 state = state._replace(step=state.step + 1)
-                if state.step % log_every == 0 or state.step == 1:
+                if main and (state.step % log_every == 0 or state.step == 1):
                     writer.scalars(state.step, logs)
                     Log.info(f"step {state.step}/{total_steps} "
                              f"loss={logs['train/loss_all']:.4f}")
@@ -315,8 +334,10 @@ def fit(cfg: Config, train_ds=None, val_ds=None, model: Optional[UFORecon] = Non
             epoch += 1
             if not val_every and state.step <= total_steps:
                 metrics = validate()
-                Log.ok(f"epoch {epoch}: "
-                       + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+                if main:
+                    Log.ok(f"epoch {epoch}: "
+                           + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state

@@ -39,6 +39,8 @@ import torch.nn.functional as F
 from ..config import Config
 from ..models.uforecon import SceneInputs, UFORecon
 from ..ops.resize import resize_nearest
+from ..ops.sampling import chunk_draws
+from ..parallel import sharding
 
 Draws = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -73,17 +75,28 @@ def make_optimizer(cfg: Config, model: UFORecon, **adam_kw) -> torch.optim.Adam:
     return torch.optim.Adam(params, lr=cfg.uforecon_lr, **adam_kw)
 
 
+def depth_mask(depth_gt: torch.Tensor, near, far) -> torch.Tensor:
+    """1 where the depth loss counts a ray: ground truth present and inside
+    [near, far] (model.py:552-566)."""
+    return ((depth_gt != 0) & (depth_gt >= near) & (depth_gt <= far)).float()
+
+
 def render_losses(cfg: Config, out: Dict, rgb_gt: torch.Tensor,
-                  depth_gt: torch.Tensor, near: torch.Tensor, far: torch.Tensor
+                  depth_gt: torch.Tensor, near: torch.Tensor, far: torch.Tensor,
+                  totals: Optional[Tuple[int, torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """RGB mse + masked depth l1 over the coarse and fine passes
-    (model.py:552-566)."""
+    (model.py:552-566): the means over these rays, or with ``totals``
+    (rays, rays with a depth loss) of a whole step of which these rays are
+    one rank's share, over the step's counts, so that the ranks' terms add
+    up to the step's (JAX's loss over rays sharded along the mesh)."""
     c, f = out["coarse"], out["fine"]
-    loss_rgb_c = torch.mean((c["rgb"] - rgb_gt) ** 2)
-    loss_rgb_f = torch.mean((f["rgb"] - rgb_gt) ** 2)
-
-    mask = ((depth_gt != 0) & (depth_gt >= near) & (depth_gt <= far)).float()
-    denom = torch.clamp(mask.sum(), min=1.0)
+    mask = depth_mask(depth_gt, near, far)
+    n_rays, n_depth = totals if totals is not None else (rgb_gt.shape[0], mask.sum())
+    n_rgb = n_rays * rgb_gt.shape[-1]
+    loss_rgb_c = torch.sum((c["rgb"] - rgb_gt) ** 2) / n_rgb
+    loss_rgb_f = torch.sum((f["rgb"] - rgb_gt) ** 2) / n_rgb
+    denom = torch.clamp(n_depth, min=1.0)
     loss_d_c = torch.sum(torch.abs(c["depth"] - depth_gt) * mask) / denom
     loss_d_f = torch.sum(torch.abs(f["depth"] - depth_gt) * mask) / denom
 
@@ -104,24 +117,59 @@ def grad_step(cfg: Config, model: UFORecon, scene: SceneInputs, ray_d: torch.Ten
               rgb_gt: torch.Tensor, depth_gt: torch.Tensor,
               generator: Optional[torch.Generator] = None, draws: Draws = None,
               coarse_only: bool = False) -> Dict[str, torch.Tensor]:
-    """Loss and gradients of ONE scene's ray chunk, the unit of
+    """Loss and gradients of ONE scene's ray batch, the unit of
     ``batch_size`` accumulation: the gradients are added into each
     trainable parameter's ``.grad``. Returns the logged terms (detached).
-    ``coarse_only`` trains on the coarse pass alone (it stands in for both
-    passes in the loss). A model whose kernel precision resolves to
-    ``fast`` is refused, as the JAX trainer refuses it
-    (``uforecon_tpu/pipeline/trainer.py:108-114``): its bf16 forward
-    against the FP32 backward was measured to destabilise render training."""
+    The draws not given are ``chunk_draws`` of the whole batch from
+    ``generator``. ``coarse_only`` trains on the coarse pass alone (it
+    stands in for both passes in the loss).
+
+    In a process group (``parallel/sharding.py``) every rank is given the
+    whole batch and draws and takes its contiguous share of the rays; the
+    loss is normalised by the whole batch's ray and depth counts, so that
+    the ranks' gradients and logged terms add up to the batch's
+    (``all_reduce_step``). Every rank draws alike from its generator.
+
+    A model whose kernel precision resolves to ``fast`` is refused, as the
+    JAX trainer refuses it (``uforecon_tpu/pipeline/trainer.py:108-114``):
+    its bf16 forward against the FP32 backward was measured to destabilise
+    render training."""
     if model.kernel_precision == "fast":
         raise ValueError("kernel_precision 'fast' is inference-only: its bf16 "
                          "forward against the FP32 backward destabilises render "
                          "training; use 'high' or 'highest'")
-    u_c, u_f = draws if draws is not None else (None, None)
+    world, rank = sharding.world_size(), sharding.rank()
+    totals = (ray_d.shape[0], depth_mask(depth_gt, scene.near, scene.far).sum())
+    if draws is None:
+        draws = chunk_draws(ray_d.shape[0], model.cfg.samples, generator, ray_d.device,
+                            coarse_only)
+    ray_d, rgb_gt, depth_gt, u_c, u_f = (
+        None if a is None else sharding.shard_rays(a, rank, world)
+        for a in (ray_d, rgb_gt, depth_gt, *draws))
     out = model.render_chunk(scene, model.encode(scene), ray_d, generator, u_coarse=u_c,
                              u_fine=u_f, coarse_only=coarse_only)
-    loss, logs = render_losses(cfg, out, rgb_gt, depth_gt, scene.near, scene.far)
+    loss, logs = render_losses(cfg, out, rgb_gt, depth_gt, scene.near, scene.far, totals)
     loss.backward()
     return {k: v.detach() for k, v in logs.items()}
+
+
+def all_reduce_step(model: UFORecon, logs: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """Sum the trainable gradients and the logged terms of ``grad_step``
+    over the ranks (one all-reduce each; JAX's psum), once per optimizer
+    step; ``train/variance``, which every rank computes alike, is
+    averaged. Returns the logs; outside a process group they and the
+    gradients stay as they are."""
+    world = sharding.world_size()
+    sharding.all_reduce_sum_([p.grad for _, p in trainable_parameters(model)
+                              if p.grad is not None])
+    names = list(logs)
+    vals = torch.stack([logs[k].float().reshape(()) for k in names])
+    sharding.all_reduce_sum_([vals])
+    out = dict(zip(names, vals.unbind()))
+    if "train/variance" in out:
+        out["train/variance"] = out["train/variance"] / world
+    return out
 
 
 def apply_step(optimizer: torch.optim.Optimizer, n_scenes: int) -> None:
