@@ -37,7 +37,10 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      weights of each width, resident and streamed tiles; kernels 1 and 4
      (both precisions) also at the feature grid's volume width 16 (tokens
      of 72), on random weights of that width, and at 6, 8 and 11 views
-     (VIEWS_NV: DTU's evaluation set 1 has 11);
+     (VIEWS_NV: DTU's evaluation set 1 has 11); fast kernel 1 at every
+     view count from 2 to 11 (FAST_NV); kernels 1, 4 (both precisions) and
+     8 past the compiled-in counts, at 12 and 49 views on 16,384 points
+     (VIEWS_PAST: the streamed kernels and the fusion's runtime count);
   4. slice phase: ``extract_geometry_for_dataset`` on one DTU-scale view
      (800x640, 3 views, 192 hypotheses, 64 + 64 samples, seeded random
      weights) by six routes: on the exact path (``config.EXACT``) the
@@ -187,6 +190,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 import numpy as np
 
@@ -228,6 +232,20 @@ GENERAL_SIM_CHUNKS = GENERAL_SIM_RESO ** 3 // 65536
 # JAX merge guard's per-stage volumes) at the DTU render size
 VIEWS_NV = (6, 8, 11)
 VIEWS_CLI = (11, 4)
+# view counts past the 11 the kernels compile in (a custom capture's pair
+# file with more sources; DTU's 49 views in training), at a small P, in
+# the kernel phase; and the views phase's one chunk at 12 views (the
+# fixture's 11 ids of set 1 and one more, each its own camera) of 1024
+# rays, as the phase's other chunks. The per-ray rule is at the edge of
+# what the card's render holds there with the heads' plain versions too
+# (script/views_agreement.py, four draws of 256 rays and three of 1024:
+# the kernels missed it on 3 of 7, both heads' plain versions on the card
+# on 3 of 7; at 256 rays this chunk's draw misses it with either)
+VIEWS_PAST = (12, 49)
+VIEWS_PAST_P = 16384
+VIEWS_CHUNK = (12, 1024, 16)   # views, rays (CONFIG_CHUNK), the extra view's id
+# the view counts at which the kernel phase holds fast kernel 1
+FAST_NV = tuple(range(2, 12))
 # the 11-view scan renders at 36 % of the rays (it took 270.8 s of the run
 # at 800x640): the smallest size of multiples of 32 at which the JAX guard
 # still keeps its per-stage volumes (its byte count above merge_max_bytes);
@@ -273,6 +291,9 @@ KERNEL_SOURCES = {
 FAST = {"point_head_fast": "point_head", "ray_head_fast": "ray_head",
         "ray_head_neus_fast": "ray_head_neus", "point_head2_fast": "point_head2"}
 KERNEL_SOURCES.update({f: KERNEL_SOURCES[k] for f, k in FAST.items()})
+# fast kernel 1 is a design of its own: persistent blocks, resident weights
+KERNEL_SOURCES["point_head_fast"] = (f"{PORT}/csrc/point_head_fast.cuh",
+                                     KERNEL_SOURCES["point_head"][1])
 # configs phase: the JAX package's other model configurations (flags of
 # both packages' Config), each rendering a 1024-ray chunk of the slice's
 # scene on the card against the CPU; their ray-head widths (d_view + 8) and
@@ -381,7 +402,8 @@ MUST_RUN = {"off": ("point_head", "ray_head"),
             # exact path and at the JAX extraction defaults, and cli.run at
             # its defaults at 11 views and at 4
             **{f"views_exact_{nv}": ("point_head", "ray_head") for nv in VIEWS_NV},
-            **{f"views_shipped_{nv}": ("point_head_fast", "ray_head_fast") for nv in VIEWS_NV},
+            **{f"views_shipped_{nv}": ("point_head_fast", "ray_head_fast")
+               for nv in (*VIEWS_NV, VIEWS_CHUNK[0])},
             "views_cli": ("point_head_fast", "ray_head_fast"),
             **{f"views_cli_{nv}": ("point_head_fast", "ray_head_fast") for nv in VIEWS_CLI[1:]}}
 # H100 SXM data sheet at 700 W: FP32 outside the tensor cores, dense TF32
@@ -537,21 +559,24 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def point_head_flops(nv, p, c=80):
+def point_head_flops(nv, p, c=80, fast=False):
     """Multiply-adds x 2 of the point head per launch, as (GEMM, other):
     per token (NV views + the view token) the q/k/v/merge projections and
     the 2C -> 2C -> C MLP, the layers on the tensor cores; the similarity
     MLP per point, attention across the tokens and the radiance MLP per
-    view."""
+    view. In ``fast`` the two small MLPs are bf16 products too (sites of
+    JAX's kernel_dot, whose operands it rounds to bf16) and count with the
+    GEMMs, at every view count, however the kernel sums them."""
     tokens = nv + 1
     sim = 2 * (8 * 32 + 32 * 32 + 32 * 16)
     per_token = 4 * 2 * c * c + 2 * (2 * c) ** 2 + 2 * (2 * c) * c
     attn = 4 * tokens * tokens * c
     rad = 2 * ((c + 3) * 16 + 16 * 8 + 8)
-    return p * tokens * per_token, p * (sim + attn + nv * rad)
+    gemm, small = p * tokens * per_token, p * (sim + nv * rad)
+    return (gemm + small, p * attn) if fast else (gemm, small + p * attn)
 
 
-def point_head2_flops(nv, p, c=80, g_view=40, g_shared=40):
+def point_head2_flops(nv, p, c=80, g_view=40, g_shared=40, fast=False):
     """Multiply-adds x 2 of the split-weight point head per launch, as
     (GEMM, other). On the tensor cores: once per point the view-shared
     groups [vol | sim16] through the q/k/v, mlp1 and radiance rows; per
@@ -559,7 +584,9 @@ def point_head2_flops(nv, p, c=80, g_view=40, g_shared=40):
     m2] through the radiance layer 0 (the function's work, not the
     kernel's zero padding); per token (NV views + the view token) merge,
     mlp1's message half and mlp2. On the CUDA cores: the similarity MLP,
-    attention across the tokens, and the radiance tail per view."""
+    attention across the tokens, and the radiance tail per view; in
+    ``fast`` the similarity MLP and the radiance tail count with the GEMMs
+    (bf16 products, as point_head_flops has it)."""
     tokens = nv + 1
     sim = 8 * 32 + 32 * 32 + 32 * 16
     shared = g_shared * (3 * c + 2 * c + 16)
@@ -567,7 +594,8 @@ def point_head2_flops(nv, p, c=80, g_view=40, g_shared=40):
     per_token = c * c + c * 2 * c + 2 * c * c
     attn = 2 * tokens * tokens * c
     rad_tail = nv * (16 * 8 + 8)
-    return 2 * p * (shared + view + tokens * per_token), 2 * p * (sim + attn + rad_tail)
+    gemm, small = 2 * p * (shared + view + tokens * per_token), 2 * p * (sim + rad_tail)
+    return (gemm + small, 2 * p * attn) if fast else (gemm, small + 2 * p * attn)
 
 
 def attention_flops(b, l, s, h, d, m, backward=False):
@@ -898,14 +926,14 @@ def kernel_phase(model, card):
     fast_views = {views: fast_result([fast_case(
         f"point_head_fast P={p} NV={views}", fph.point_head, fph.point_head_reference,
         (x, params), {"token": TOL["token"], "radiance": TOL["radiance"]},
-        point_head_flops(views, p), fph.pack_weights(params, "fast"))])
+        point_head_flops(views, p, fast=True), fph.pack_weights(params, "fast"))])
         for views, x in ((nv, inp), (5, inp5))}
     results["point_head_fast"] = {**fast_views[nv], "max_abs_err": max(
         x["max_abs_err"] for x in fast_views.values()), "by_views": fast_views}
     results["point_head2_fast"] = {**fast_result([fast_case(
         f"point_head2_fast P={p} NV={nv}", fph2.point_head2, fph2.point_head2_reference,
         (inp, params), {"token": TOL["token"], "radiance": TOL["radiance"]},
-        point_head2_flops(nv, p), fph2.pack_weights2(params, precision="fast"))])}
+        point_head2_flops(nv, p, fast=True), fph2.pack_weights2(params, precision="fast"))])}
 
     # the feature grid's 16 volume features (tokens of 72, heads of 9; the
     # configs phase's featuregrid_guided): both point heads in 3xTF32 and
@@ -935,8 +963,8 @@ def kernel_phase(model, card):
     def point_head_cases(name, label, wrapper, plain, x, prm, flops, pack):
         """A point head at one shape: the 3xTF32 kernel against its plain
         version (TOL, the all-masked points' mean rgb), timed, with its
-        tensor bound; then its fast variant (fast_case). Returns both
-        results."""
+        tensor bound; then its fast variant (fast_case). flops(fast): the
+        head's flop count in that precision. Returns both results."""
         with torch.no_grad():
             tok, rad = wrapper(x, prm)
             tok_ref, rad_ref = plain(x, prm)
@@ -946,7 +974,7 @@ def kernel_phase(model, card):
             err_masked = (rad[:256] - x.rgb[:, :256].mean(0)).abs().max().item()
             k_ms, call_ms = kernel_times(lambda: wrapper(x, prm))
             p_ms = time_ms(lambda: plain(x, prm))
-        bounds_x = tensor_bound(nbytes(*x, pack(prm), tok, rad), *flops)
+        bounds_x = tensor_bound(nbytes(*x, pack(prm), tok, rad), *flops(fast=False))
         log(f"[kernel] {name} {label}: max|token err| {err_t:.3e} (tol {TOL['token']}), "
             f"max|radiance err| {err_r:.3e} (tol {TOL['radiance']}), all-masked points vs "
             f"mean rgb {err_masked:.3e}; kernel {k_ms:.3f} ms (call {call_ms:.3f}), plain "
@@ -959,7 +987,7 @@ def kernel_phase(model, card):
                  "plain_ms": p_ms, **bounds_x, **shares(k_ms, bounds_x)}
         fast = fast_result([fast_case(
             f"{name}_fast {label}", wrapper, plain, (x, prm),
-            {"token": TOL["token"], "radiance": TOL["radiance"]}, flops,
+            {"token": TOL["token"], "radiance": TOL["radiance"]}, flops(fast=True),
             pack(prm, precision="fast"))])
         return exact, fast
 
@@ -974,9 +1002,10 @@ def kernel_phase(model, card):
             results[n]["max_abs_err"] = max(results[n]["max_abs_err"], r["max_abs_err"])
 
     heads16 = {"point_head": (fph.point_head, fph.point_head_reference,
-                              point_head_flops(nv, p, c=c16), fph.pack_weights),
+                              partial(point_head_flops, nv, p, c=c16), fph.pack_weights),
                "point_head2": (fph2.point_head2, fph2.point_head2_reference,
-                               point_head2_flops(nv, p, c=c16, g_shared=32), pack2)}
+                               partial(point_head2_flops, nv, p, c=c16, g_shared=32),
+                               pack2)}
     for name, (wrapper, plain, flops16, pack) in heads16.items():
         file_case(name, *point_head_cases(
             name, f"P={p} NV={nv} C={c16} (feature grid)", wrapper, plain, inp16, params16,
@@ -991,11 +1020,41 @@ def kernel_phase(model, card):
                          g=torch.Generator(device=dev).manual_seed(SEED + 100 + views))
         for name, wrapper, plain, flops, pack in (
                 ("point_head", fph.point_head, fph.point_head_reference,
-                 point_head_flops(views, p), fph.pack_weights),
+                 partial(point_head_flops, views, p), fph.pack_weights),
                 ("point_head2", fph2.point_head2, fph2.point_head2_reference,
-                 point_head2_flops(views, p), pack2)):
+                 partial(point_head2_flops, views, p), pack2)):
             file_case(name, *point_head_cases(name, f"P={p} NV={views}", wrapper, plain, x,
                                               params, flops, pack), views=views)
+        del x
+    # fast kernel 1 at the other view counts of 2..11 (FAST_NV), on the
+    # main path's 65,536 points, each count's inputs from a generator of its
+    # own
+    fast1 = results["point_head_fast"]
+    for views in FAST_NV:
+        if views in fast1["by_views"]:
+            continue
+        x = point_inputs(p, views=views,
+                         g=torch.Generator(device=dev).manual_seed(SEED + 100 + views))
+        fast1["by_views"][views] = fast_result([fast_case(
+            f"point_head_fast P={p} NV={views}", fph.point_head, fph.point_head_reference,
+            (x, params), {"token": TOL["token"], "radiance": TOL["radiance"]},
+            point_head_flops(views, p, fast=True), fph.pack_weights(params, "fast"))])
+        fast1["max_abs_err"] = max(fast1["max_abs_err"],
+                                   fast1["by_views"][views]["max_abs_err"])
+        del x
+    # past the 11 views the kernels compile in (VIEWS_PAST): both point
+    # heads in both precisions on 16,384 points, the streamed kernels
+    for views in VIEWS_PAST:
+        x = point_inputs(VIEWS_PAST_P, views=views,
+                         g=torch.Generator(device=dev).manual_seed(SEED + 100 + views))
+        for name, wrapper, plain, flops, pack in (
+                ("point_head", fph.point_head, fph.point_head_reference,
+                 partial(point_head_flops, views, VIEWS_PAST_P),
+                 partial(fph.pack_weights, streamed=True)),
+                ("point_head2", fph2.point_head2, fph2.point_head2_reference,
+                 partial(point_head2_flops, views, VIEWS_PAST_P), pack2)):
+            file_case(name, *point_head_cases(name, f"P={VIEWS_PAST_P} NV={views}", wrapper,
+                                              plain, x, params, flops, pack), views=views)
         del x
     for name in ("ray_head", "ray_head_neus"):
         neus = name == "ray_head_neus"
@@ -1125,10 +1184,13 @@ def kernel_phase(model, card):
 
     flush = torch.empty(16 * 2 ** 20, device=dev)   # 64 MB, more than the L2's 50
     fusion = {}
-    for n_views, n in ((3, p), (3, p + 1), (2, p), (5, p), (VIEWS_NV[-1], p)):
-        # 11 views (DTU's evaluation set 1) from a generator of its own
+    for n_views, n in ((3, p), (3, p + 1), (2, p), (5, p), (VIEWS_NV[-1], p),
+                       *((v, VIEWS_PAST_P) for v in VIEWS_PAST)):
+        # 11 views (DTU's evaluation set 1) and the counts past it (the
+        # runtime count) each from a generator of its own
         fws = (fusion_inputs(n_views, n) if n_views <= 5 else fusion_inputs(
-            n_views, n, g=torch.Generator(device=dev).manual_seed(SEED + 300)))
+            n_views, n, g=torch.Generator(device=dev).manual_seed(
+                SEED + 300 + (n_views if n_views > VIEWS_NV[-1] else 0))))
         with torch.no_grad():
             got = fvf.volume_fusion(*fws)
             want = fvf.volume_fusion_reference(fws)
@@ -1158,7 +1220,8 @@ def kernel_phase(model, card):
     del flush
     results["volume_fusion"] = {**fusion[3, p], "max_abs_err": max(
         f["max_abs_err"] for f in fusion.values()), "ragged": fusion[3, p + 1],
-        "nv2": fusion[2, p], "nv5": fusion[5, p], "nv11": fusion[VIEWS_NV[-1], p]}
+        "nv2": fusion[2, p], "nv5": fusion[5, p], "nv11": fusion[VIEWS_NV[-1], p],
+        **{f"nv{v}": fusion[v, VIEWS_PAST_P] for v in VIEWS_PAST}}
     # tiny attention, forward and backward, at route A's shape: one
     # 1024-ray chunk x 64 samples, the view token and 3 views, 8 heads of
     # 10; the forward also at a ragged batch and at route B's head width 8
@@ -1398,7 +1461,7 @@ def render_view(model, sample, route, card):
     return {**stats, "peak_gib": peak_gb, "pack_builds": builds, "depth": depth}, launches
 
 
-def agree_with_cpu(model, sample, route, rn=256, tag="slice"):
+def agree_with_cpu(model, sample, route, rn=256, tag="slice", seed=SEED, check=True):
     """An rn-ray chunk of the scene with the kernels on the card against
     the plain versions on the CPU, with the same draws: the share of rays
     within 2e-4 must reach 0.99. A model whose heads run in ``fast`` is
@@ -1416,8 +1479,11 @@ def agree_with_cpu(model, sample, route, rn=256, tag="slice"):
     2e-4. A fault in a minority of rays (a slot, a tile) fails the last.
     The control, the card's 3xTF32 kernels (no bf16 rounding at all) in
     place of the fast ones against the same CPU render, is measured and
-    reported beside it. Returns the shares (and, in fast, the distances) and the kernels the
-    card's render launched."""
+    reported beside it. The rays and the draws come from ``seed``. Returns
+    the shares (and, in fast, the distances) and the kernels the card's
+    render launched; with ``check`` False it does not raise, and adds
+    whether the rules held ("ok") and, in fast, the rays that broke
+    the per-ray rule ("rays_beyond")."""
     import torch
 
     from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
@@ -1425,9 +1491,9 @@ def agree_with_cpu(model, sample, route, rn=256, tag="slice"):
     scene, extras = scene_inputs_from_sample(sample, "cuda")
     sn = model.cfg.coarse_sample
     wrappers = launch_counts()
-    idx = np.random.default_rng(SEED).choice(len(extras["ray_d"]), rn, replace=False)
+    idx = np.random.default_rng(seed).choice(len(extras["ray_d"]), rn, replace=False)
     ray_d = torch.as_tensor(extras["ray_d"][idx], device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     u_c = torch.rand((rn, sn), generator=gen, device="cuda")
     u_f = torch.rand((rn, model.cfg.fine_sample), generator=gen, device="cuda")
     fast = model.kernel_precision == "fast"
@@ -1451,7 +1517,7 @@ def agree_with_cpu(model, sample, route, rn=256, tag="slice"):
     def per_ray(x):
         return x.reshape(rn, -1).max(axis=1)
 
-    agree, effect, ok_fast = {}, {}, True
+    agree, effect, ok_fast, beyond = {}, {}, True, np.zeros(rn, dtype=bool)
     for phase in ("coarse", "fine"):
         for key in ("depth", "rgb"):
             a = out_gpu[phase][key].cpu().numpy()
@@ -1462,6 +1528,7 @@ def agree_with_cpu(model, sample, route, rn=256, tag="slice"):
                 d, gap = np.abs(a - b), np.abs(b - out_fp32[phase][key].numpy())
                 ctrl = np.abs(out_ctrl[phase][key].cpu().numpy() - b)
                 d_r, gap_r, ctrl_r = per_ray(d), per_ray(gap), per_ray(ctrl)
+                beyond |= d_r > np.maximum(RAY_EFFECT * gap_r, 2e-4)
                 # the share of rays within k times their own effect (or 2e-4)
                 within = {k: {"fast": float((d_r <= np.maximum(k * gap_r, 2e-4)).mean()),
                               "control": float((ctrl_r <= np.maximum(k * gap_r, 2e-4)).mean())}
@@ -1482,10 +1549,16 @@ def agree_with_cpu(model, sample, route, rn=256, tag="slice"):
         + (f"; fast: distances against the bf16 effect (CPU fast vs FP32) and the "
            f"control (card 3xTF32 vs CPU fast); per-ray rule: >= {RAY_SHARE} of rays "
            f"within {RAY_EFFECT} x their effect or 2e-4: {effect}" if fast else ""))
-    if (not ok_fast) if fast else min(agree.values()) < 0.99:
+    ok = ok_fast if fast else min(agree.values()) >= 0.99
+    if check and not ok:
         raise AssertionError(f"card and CPU renders disagree (route {route}): {agree} "
                              f"{effect}")
-    return {**agree, **({"fast_vs_effect": effect} if fast else {}), "launches": launches}
+    out = {**agree, **({"fast_vs_effect": effect} if fast else {}), "launches": launches}
+    if not check:
+        out["ok"] = ok
+        if fast:
+            out["rays_beyond"] = np.flatnonzero(beyond).tolist()
+    return out
 
 
 def bf16_chunk_card_vs_cpu(model, sample, run, rn, card):
@@ -2380,8 +2453,10 @@ def views_phase(model, card, before_chunks):
     in 3xTF32: >= 0.99 of the rays within 2e-4) and at the JAX extraction
     defaults (fast kernels 1 and 2; per-stage volumes, by the JAX guard:
     held by the bf16 effect's median, max and per-ray rule), with the
-    launches of the card's chunk. Returns the launches of the runs and
-    their figures."""
+    launches of the card's chunk; and one 1024-ray chunk at 12 views (set
+    1's ids and one more, VIEWS_CHUNK: past the 11 the kernels compile in)
+    at the extraction defaults by the same rule. Returns the launches of
+    the runs and their figures."""
     import contextlib
     import io
 
@@ -2398,11 +2473,12 @@ def views_phase(model, card, before_chunks):
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "fixture")
         t0 = time.perf_counter()
+        nv_past, rn_past, extra_id = VIEWS_CHUNK
         with contextlib.redirect_stdout(io.StringIO()):
-            fixture.main([root, "--views", *map(str, SET1_VIEW_LIST), "--wh", str(w),
-                          str(h)])
-        log(f"[views] fixture: the 11 views of DTU's evaluation set 1 at {w}x{h} in "
-            f"{time.perf_counter() - t0:.1f} s")
+            fixture.main([root, "--views", *map(str, SET1_VIEW_LIST), str(extra_id), "--wh",
+                          str(w), str(h)])
+        log(f"[views] fixture: the 11 views of DTU's evaluation set 1 and view "
+            f"{extra_id} at {w}x{h} in {time.perf_counter() - t0:.1f} s")
         ckpt = os.path.join(tmp, "weights.pt")
         torch.save(model.state_dict(), ckpt)
         for nv in VIEWS_CLI:
@@ -2433,23 +2509,32 @@ def views_phase(model, card, before_chunks):
             figures[run]["ray_head_fast_per_view"] = launches[run]["ray_head_fast"] / nv
 
         before_chunks()
-        for nv in VIEWS_NV:
-            sample = DtuFitSparse(root, "scan24", n_views=nv, set=1, img_wh=(w, h))[0]
-            for route, m in (("exact", model), ("shipped", shipped)):
+        # set 1's chunks at VIEWS_NV, then one chunk past the compiled-in
+        # counts (set 1's 11 ids and one more: the streamed kernel 1) at the
+        # extraction defaults
+        chunks = [(nv, DtuFitSparse(root, "scan24", n_views=nv, set=1, img_wh=(w, h)),
+                   (("exact", CONFIG_CHUNK), ("shipped", CONFIG_CHUNK))) for nv in VIEWS_NV]
+        chunks.append((nv_past, DtuFitSparse(root, "scan24", n_views=nv_past, set=0,
+                                             test_view_pair=[*SET1_VIEW_LIST, extra_id],
+                                             img_wh=(w, h)), (("shipped", rn_past),)))
+        for nv, data, routes in chunks:
+            sample = data[0]
+            for route, rn in routes:
+                m = {"exact": model, "shipped": shipped}[route]
                 run = f"views_{route}_{nv}"
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
-                agree = agree_with_cpu(m, sample, run, rn=CONFIG_CHUNK, tag="views")
+                agree = agree_with_cpu(m, sample, run, rn=rn, tag="views")
                 peak = torch.cuda.max_memory_allocated() / 2 ** 30
                 launches[run] = agree.pop("launches")
                 check_launches(run, launches[run])
                 figures[run] = {"cpu_agree": agree, "peak_gib": peak,
                                 "seconds": time.perf_counter() - t0}
-                log(f"[views] {run}: {nv} views, one {CONFIG_CHUNK}-ray chunk: launches "
+                log(f"[views] {run}: {nv} views, one {rn}-ray chunk: launches "
                     f"{ {k: v for k, v in launches[run].items() if v} }, peak {peak:.2f} "
                     f"GiB (encode, chunk), {figures[run]['seconds']:.1f} s with the CPU's "
                     f"render [{card}]")
-            del sample
+            del sample, data
     log("[views] " + json.dumps(figures) + f" [{card}]")
     return launches, figures
 

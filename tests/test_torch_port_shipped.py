@@ -208,10 +208,16 @@ def test_pack_cache_keys_the_precision():
     assert pph.cached_pack_weights(p, "fast") is fast and pph.cached_pack_weights(p) is high
     assert pph.point_head.pack_builds == before + 2
     torch.testing.assert_close(fast, pph.pack_weights(p, "fast"), rtol=0, atol=0)
-    assert not torch.equal(high, fast) and high.numel() == fast.numel()
-    # the fast pack: bf16 values, then a zero plane where the lo plane was
+    # the fast kernel's pack is its weight image; the streamed kernel's
+    # (past 11 views) a third entry, in the 3xTF32 pack's layout
+    assert torch.equal(fast, pph.fast_image(p))
+    streamed = pph.cached_pack_weights(p, "fast", streamed=True)
+    assert pph.cached_pack_weights(p, "fast", streamed=True) is streamed
+    assert pph.point_head.pack_builds == before + 3
+    assert not torch.equal(high, streamed) and high.numel() == streamed.numel()
+    # bf16 values, then a zero plane where the lo plane was
     c = 80
-    wq = fast[c:c + 2 * c * c]
+    wq = streamed[c:c + 2 * c * c]
     assert torch.equal(wq[:c * c], cuda_build.bf16_round(p.wq.t().reshape(-1)))
     assert not wq[c * c:].any()
     with pytest.raises(ValueError, match="precision"):

@@ -10,14 +10,19 @@ extern "C" int ufo_point_head(const float* img, const float* vol,
                               const float* sim, const float* dd,
                               const float* dir, const float* rgb,
                               const float* mask, const float* w, float* token,
-                              float* rad, int cv, int nv, int p, int fast, void* stream);
+                              float* rad, float* scratch, int cv, int nv, int p, int fast,
+                              void* stream);
 extern "C" int ufo_point_head_weight_count(int cv);
+extern "C" int ufo_point_head_fast_pack_bytes(int cv);
+extern "C" long long ufo_point_head_scratch_floats(int cv, int nv, int p);
 extern "C" int ufo_point_head2(const float* img, const float* vol,
                                const float* sim, const float* dd,
                                const float* dir, const float* rgb,
                                const float* mask, const float* w, float* token,
-                               float* rad, int cv, int nv, int p, int fast, void* stream);
+                               float* rad, float* scratch, int cv, int nv, int p, int fast,
+                               void* stream);
 extern "C" int ufo_point_head2_weight_count(int cv);
+extern "C" long long ufo_point_head2_scratch_floats(int cv, int nv, int p);
 extern "C" int ufo_ray_head(const float* y, const float* w, float* srdf,
                             int rn, int sn, int c, int fast, void* stream);
 extern "C" int ufo_ray_head_weight_count(int c);
@@ -56,12 +61,13 @@ void check(int err, const char* what) {
               ufo_error_string(err), ")");
 }
 
-// fast: the bf16 instantiation (kernel_precision 'fast'), else 3xTF32
+// fast: the bf16 kernels (kernel_precision 'fast'), else 3xTF32; scratch:
+// the floats point_head_scratch_floats asks for (past 11 views)
 void point_head(const at::Tensor& img, const at::Tensor& vol,
                 const at::Tensor& sim, const at::Tensor& dd,
                 const at::Tensor& dir, const at::Tensor& rgb,
                 const at::Tensor& mask, const at::Tensor& w,
-                at::Tensor& token, at::Tensor& rad, bool fast) {
+                at::Tensor& token, at::Tensor& rad, at::Tensor& scratch, bool fast) {
   const int cv = static_cast<int>(vol.size(1));
   const int nv = static_cast<int>(img.size(0));
   const int p = static_cast<int>(img.size(1));
@@ -69,7 +75,8 @@ void point_head(const at::Tensor& img, const at::Tensor& vol,
                        sim.data_ptr<float>(), dd.data_ptr<float>(),
                        dir.data_ptr<float>(), rgb.data_ptr<float>(),
                        mask.data_ptr<float>(), w.data_ptr<float>(),
-                       token.data_ptr<float>(), rad.data_ptr<float>(), cv, nv, p, fast,
+                       token.data_ptr<float>(), rad.data_ptr<float>(),
+                       scratch.data_ptr<float>(), cv, nv, p, fast,
                        at::cuda::getCurrentCUDAStream().stream()),
         "point_head");
 }
@@ -78,7 +85,7 @@ void point_head2(const at::Tensor& img, const at::Tensor& vol,
                  const at::Tensor& sim, const at::Tensor& dd,
                  const at::Tensor& dir, const at::Tensor& rgb,
                  const at::Tensor& mask, const at::Tensor& w,
-                 at::Tensor& token, at::Tensor& rad, bool fast) {
+                 at::Tensor& token, at::Tensor& rad, at::Tensor& scratch, bool fast) {
   const int cv = static_cast<int>(vol.size(1));
   const int nv = static_cast<int>(img.size(0));
   const int p = static_cast<int>(img.size(1));
@@ -86,7 +93,8 @@ void point_head2(const at::Tensor& img, const at::Tensor& vol,
                         sim.data_ptr<float>(), dd.data_ptr<float>(),
                         dir.data_ptr<float>(), rgb.data_ptr<float>(),
                         mask.data_ptr<float>(), w.data_ptr<float>(),
-                        token.data_ptr<float>(), rad.data_ptr<float>(), cv, nv, p, fast,
+                        token.data_ptr<float>(), rad.data_ptr<float>(),
+                       scratch.data_ptr<float>(), cv, nv, p, fast,
                         at::cuda::getCurrentCUDAStream().stream()),
         "point_head2");
 }
@@ -129,7 +137,7 @@ void grouped_cosine(const at::Tensor& sampled, at::Tensor& out) {
         "grouped_cosine");
 }
 
-// three (NV, P, 9) stage samples sharing their strides, NV <= 11 -> out
+// three (NV, P, 9) stage samples sharing their strides, NV >= 1 -> out
 // (P, 24) on a 16-byte boundary
 void volume_fusion(const at::Tensor& fw0, const at::Tensor& fw1,
                    const at::Tensor& fw2, at::Tensor& out) {
@@ -186,9 +194,12 @@ void row_gather(const at::Tensor& src, const at::Tensor& idx, at::Tensor& out,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("point_head", &point_head, "fused per-point view head (csrc/point_head.cu)");
   m.def("point_head_weight_count", &ufo_point_head_weight_count);
+  m.def("point_head_fast_pack_bytes", &ufo_point_head_fast_pack_bytes);
+  m.def("point_head_scratch_floats", &ufo_point_head_scratch_floats);
   m.def("point_head2", &point_head2,
         "split-weight per-point view head (csrc/point_head2.cu)");
   m.def("point_head2_weight_count", &ufo_point_head2_weight_count);
+  m.def("point_head2_scratch_floats", &ufo_point_head2_scratch_floats);
   m.def("ray_head", &ray_head, "fused along-ray SRDF head (csrc/ray_head.cu)");
   m.def("ray_head_weight_count", &ufo_ray_head_weight_count);
   m.def("ray_head_tile_rows", &ufo_ray_head_tile_rows);

@@ -71,21 +71,16 @@
 // the rest; the weight ring's depth and the tile shape change nothing.
 // wgmma's rate and a tail without per-phase syncs are what is left.
 //
-// kFast (kernel_precision 'fast'): the JAX kernel's single bf16 pass at
-// its kernel_dot sites (fused_point_head.py:138-143, every layer product:
-// the pre-similarity MLP, q/k/v, merge, mlp1, mlp2, the radiance MLP).
-// The tensor-core layers run tc_gemm.cuh's bf16 mma.m16n8k16 on a pack of
-// bf16 planes, the small MLPs block_gemm's FP32 FMAs of bf16-rounded
-// operands (their weights bf16-rounded in the pack); the attention, the
-// LayerNorms and the softmax stay FP32, as in JAX. From 6 views on the
-// layers take the same bf16 operands but add each product by an FP32 FMA,
-// k in order (tc_gemm.cuh kFmaSum), the plain version's sums on the CPU
-// bit for bit: the mma's own additions move the outputs by a few FP32
-// units, and at 6 or more views the fine pass of a fast render turns
-// those into depth moves beyond the per-ray rule against the CPU (at 11
-// views 0.937 of the rays within twice their bf16 effect, where 0.97 are
-// needed). The products still take bf16 operands; only where they are
-// summed moved, from the tensor cores to the CUDA cores.
+// This file's kernel is the 3xTF32 one (kernel_precision 'highest' and
+// 'high': the exact path and training) at NV 2..11. kernel_precision
+// 'fast' (the JAX kernel's single bf16 pass) runs point_head_fast.cuh's
+// kernel at NV 2..11: persistent blocks with the bf16 weights resident in
+// shared memory, two point tiles a block on named barriers, every layer
+// and both small MLPs on the tensor cores up to 5 views, the layers
+// FMA-summed from 6 on (its header has the design, its bound and its
+// times). Past 11 views both precisions run point_head_stream.cu, which
+// streams the token rows through shared memory in two passes. Dims, the
+// pack layout and the tile helpers here serve all three.
 #pragma once
 
 #include "common.cuh"
@@ -103,7 +98,7 @@ constexpr int NH = 8;      // heads
 constexpr int R1 = 16, R2 = 8;
 constexpr int TP_MAX = 16; // points per block where they fit
 constexpr int kMaxRows = 144;  // token rows a block holds at most
-constexpr int kMaxViews = 11;  // the largest NV instantiated
+constexpr int kMaxViews = 11;  // the largest NV compiled in; past it, point_head_stream.cu
 constexpr int kPointThreads = 320;
 constexpr int kStages = 2; // weight ring slots
 
@@ -177,7 +172,7 @@ constexpr size_t smem_bytes() {
          ((size_t)tile_rows<NV>() * (2 * D::LD + 2 * D::LD) + tc::ring_floats(kStages, D::C2));
 }
 
-template <int CV, int NV, bool kFast>
+template <int CV, int NV>
 __global__ void __launch_bounds__(kPointThreads, NV <= 5 ? 2 : 1) point_head_kernel(
     const float* __restrict__ img,    // (NV, P, CI)
     const float* __restrict__ vol,    // (P, CV)
@@ -199,8 +194,6 @@ __global__ void __launch_bounds__(kPointThreads, NV <= 5 ? 2 : 1) point_head_ker
                 O_SB2 = D::O_SB2, O_RW0 = D::O_RW0, O_RB0 = D::O_RB0, O_RW1 = D::O_RW1,
                 O_RB1 = D::O_RB1, O_RW2 = D::O_RW2, O_RB2 = D::O_RB2;
   constexpr int TP = tile_points<NV>();
-  // fast at 6+ views: the layer sums by FP32 FMAs, k in order (tc_gemm.cuh)
-  constexpr bool kFmaSum = kFast && NV > 5;
   constexpr int L = NV + 1;           // tokens per point
   constexpr int R = tile_rows<NV>();  // token rows of the block, TP * L of them real
   constexpr int RR = TP * NV;         // radiance rows of the block
@@ -272,11 +265,11 @@ __global__ void __launch_bounds__(kPointThreads, NV <= 5 ? 2 : 1) point_head_ker
   __syncthreads();
 
   // 2. pre-similarity MLP on the block's points
-  block_linear<4, kFast>(s_in, SIN, SIN, W + O_SW0, W + O_SB0, s_h1, SH, TP, SH, true);
+  block_linear<4>(s_in, SIN, SIN, W + O_SW0, W + O_SB0, s_h1, SH, TP, SH, true);
   __syncthreads();
-  block_linear<4, kFast>(s_h1, SH, SH, W + O_SW1, W + O_SB1, s_h2, SH, TP, SH, true);
+  block_linear<4>(s_h1, SH, SH, W + O_SW1, W + O_SB1, s_h2, SH, TP, SH, true);
   __syncthreads();
-  block_linear<4, kFast>(s_h2, SH, SH, W + O_SW2, W + O_SB2, s16, SOUT, TP, SOUT, false);
+  block_linear<4>(s_h2, SH, SH, W + O_SW2, W + O_SB2, s16, SOUT, TP, SOUT, false);
   __syncthreads();
 
   // 3. the rest of the tokens: row p*L is the view token, row p*L + 1 + v
@@ -309,9 +302,9 @@ __global__ void __launch_bounds__(kPointThreads, NV <= 5 ? 2 : 1) point_head_ker
 
   // 4. projections on the tensor cores (the scratch in Vb and Kb is dead
   //    now); each gemm ends in a block-wide sync
-  tc::gemm<kStages, NT_C, kFast, kFmaSum>(X, LD, C, nullptr, 0, 0, W + O_WQ, ring, Qb, LD, MTILES, C, false);
-  tc::gemm<kStages, NT_C, kFast, kFmaSum>(X, LD, C, nullptr, 0, 0, W + O_WK, ring, Kb, LD, MTILES, C, false);
-  tc::gemm<kStages, NT_C, kFast, kFmaSum>(X, LD, C, nullptr, 0, 0, W + O_WV, ring, Vb, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + O_WQ, ring, Qb, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + O_WK, ring, Kb, LD, MTILES, C, false);
+  tc::gemm<kStages, NT_C>(X, LD, C, nullptr, 0, 0, W + O_WV, ring, Vb, LD, MTILES, C, false);
   for (int i = tid; i < R * C; i += blockDim.x) {
     const int j = (i / C) * LD + i % C;
     Qb[j] = phi(Qb[j]);
@@ -348,13 +341,13 @@ __global__ void __launch_bounds__(kPointThreads, NV <= 5 ? 2 : 1) point_head_ker
   __syncthreads();
 
   // 6. merge + LayerNorm -> Kb
-  tc::gemm<kStages, NT_C, kFast, kFmaSum>(Qb, LD, C, nullptr, 0, 0, W + O_WM, ring,
+  tc::gemm<kStages, NT_C>(Qb, LD, C, nullptr, 0, 0, W + O_WM, ring,
                                  Kb, LD, MTILES, C, false);
   tc::layernorm<C>(Kb, LD, R, W + O_N1S, W + O_N1B);
   // 7. mlp1 over [tokens | message] -> Qb|Vb (R x LD2)
-  tc::gemm<kStages, NT_C2, kFast, kFmaSum>(X, LD, C, Kb, LD, C, W + O_W1, ring, Qb, LD2, MTILES, C2, true);
+  tc::gemm<kStages, NT_C2>(X, LD, C, Kb, LD, C, W + O_W1, ring, Qb, LD2, MTILES, C2, true);
   // 8. mlp2 -> Kb, LayerNorm added into X (the residual)
-  tc::gemm<kStages, NT_C, kFast, kFmaSum>(Qb, LD2, C2, nullptr, 0, 0, W + O_W2, ring,
+  tc::gemm<kStages, NT_C>(Qb, LD2, C2, nullptr, 0, 0, W + O_W2, ring,
                                  Kb, LD, MTILES, C, false);
   tc::layernorm<C>(Kb, LD, R, W + O_N2S, W + O_N2B, X, LD);
 
@@ -380,11 +373,11 @@ __global__ void __launch_bounds__(kPointThreads, NV <= 5 ? 2 : 1) point_head_ker
     z[rr * CR + c] = X[(p * L + 1 + v) * LD + c];
   }
   __syncthreads();
-  block_linear<4, kFast>(z, CR, CR, W + O_RW0, W + O_RB0, h1, R1, RR, R1, true);
+  block_linear<4>(z, CR, CR, W + O_RW0, W + O_RB0, h1, R1, RR, R1, true);
   __syncthreads();
-  block_linear<4, kFast>(h1, R1, R1, W + O_RW1, W + O_RB1, h2, R2, RR, R2, true);
+  block_linear<4>(h1, R1, R1, W + O_RW1, W + O_RB1, h2, R2, RR, R2, true);
   __syncthreads();
-  block_linear<4, kFast>(h2, R2, R2, W + O_RW2, W + O_RB2, lg, 1, RR, 1, false);
+  block_linear<4>(h2, R2, R2, W + O_RW2, W + O_RB2, lg, 1, RR, 1, false);
   __syncthreads();
   for (int p = tid; p < TP; p += blockDim.x) {
     const int gp = p0 + p;
@@ -415,19 +408,17 @@ __global__ void __launch_bounds__(kPointThreads, NV <= 5 ? 2 : 1) point_head_ker
   }
 }
 
-template <int CV, int NV, bool kFast>
-int launch_precision(const float* img, const float* vol, const float* sim,
-                     const float* dd, const float* dir, const float* rgb,
-                     const float* mask, const float* w, float* token, float* rad,
-                     int p, cudaStream_t stream) {
+template <int CV, int NV>
+int launch_nv(const float* img, const float* vol, const float* sim, const float* dd,
+              const float* dir, const float* rgb, const float* mask, const float* w,
+              float* token, float* rad, int p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<CV, NV>();
   static_assert(smem <= 232448, "more shared memory than an sm_90 block may have");
   cudaError_t e = cudaFuncSetAttribute(
-      point_head_kernel<CV, NV, kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      point_head_kernel<CV, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (p + tile_points<NV>() - 1) / tile_points<NV>();
-  point_head_kernel<CV, NV, kFast><<<grid, kPointThreads, smem, stream>>>(
+  point_head_kernel<CV, NV><<<grid, kPointThreads, smem, stream>>>(
       img, vol, sim, dd, dir, rgb, mask, w, token, rad, p);
   return (int)cudaGetLastError();
 }
@@ -438,17 +429,27 @@ int launch_precision(const float* img, const float* vol, const float* sim,
       float *token, float *rad
 #define UFO_PH_CASE(NV)                                                                    \
   case NV:                                                                                 \
-    return fast ? launch_precision<CV, NV, true>(img, vol, sim, dd, dir, rgb, mask, w,     \
-                                                 token, rad, p, s)                         \
-                : launch_precision<CV, NV, false>(img, vol, sim, dd, dir, rgb, mask, w,    \
-                                                  token, rad, p, s);
+    return launch_nv<CV, NV>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, s);
 
-// NV 6..8 (point_head_views.cu), the others through launch_views_9_11
+// The 3xTF32 kernel: NV 6..8 (point_head_views.cu), the others through
+// launch_views_9_11
 template <int CV>
-int launch_views(UFO_PH_ARGS, int nv, int p, bool fast, cudaStream_t s);
+int launch_views(UFO_PH_ARGS, int nv, int p, cudaStream_t s);
 // NV 9..kMaxViews (point_head_views_9_11.cu; cudaErrorInvalidValue otherwise)
 template <int CV>
-int launch_views_9_11(UFO_PH_ARGS, int nv, int p, bool fast, cudaStream_t s);
+int launch_views_9_11(UFO_PH_ARGS, int nv, int p, cudaStream_t s);
+// The fast kernel (point_head_fast.cuh) at NV 2..kMaxViews: NV 2..5 in
+// point_head_fast.cu, 6..11 in point_head_fast_views.cu. w: its weight
+// pack (phf::Img<CV>::PACK bytes, 16-byte aligned).
+template <int CV>
+int launch_fast(UFO_PH_ARGS, int nv, int p, cudaStream_t s);
+template <int CV>
+int launch_fast_views(UFO_PH_ARGS, int nv, int p, cudaStream_t s);
+// Any NV above kMaxViews, both precisions (point_head_stream.cu): scratch
+// holds stream_scratch_floats(C, nv, p) floats of global memory.
+template <int CV>
+int launch_stream(UFO_PH_ARGS, float* scratch, int nv, int p, bool fast, cudaStream_t s);
+long long stream_scratch_floats(int c, int nv, int p);
 
 }  // namespace ph
 }  // namespace ufo

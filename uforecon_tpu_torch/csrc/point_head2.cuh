@@ -475,6 +475,11 @@ int launch_precision(const float* img, const float* vol, const float* sim,
 // NV 6..kMaxViews (point_head2_views.cu; cudaErrorInvalidValue otherwise)
 template <int CV>
 int launch_views(UFO_PH2_ARGS, int nv, int p, bool fast, cudaStream_t s);
+// Any NV above kMaxViews, both precisions (point_head2_stream.cu): scratch
+// holds stream_scratch_floats(C, nv, p) floats of global memory.
+template <int CV>
+int launch_stream(UFO_PH2_ARGS, float* scratch, int nv, int p, bool fast, cudaStream_t s);
+long long stream_scratch_floats(int c, int nv, int p);
 
 }  // namespace ph2
 }  // namespace ufo

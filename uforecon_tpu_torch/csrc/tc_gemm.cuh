@@ -146,9 +146,10 @@ __host__ __device__ constexpr int col_tiles(int nwarps, int mtiles, int n) {
 // is the planes' row stride in global memory (a multiple of 4): w is then
 // a column panel of a wider matrix (k1 + k2, ldw_global), and its lo plane
 // starts (k1 + k2) * ldw_global floats after w_hi. cinit, when set, is the
-// sums' start: row r of out starts from row r / cdiv of cinit (stride
-// ldc, in shared memory, not overlapping out), so that rows of several
-// views start from their point's shared part.
+// sums' start: row r of out starts from row (r + c0) / cdiv of cinit
+// (stride ldc, in shared memory, not overlapping out), so that rows of
+// several views start from their point's shared part (c0: the rows before
+// out's first, when out is a later chunk of them).
 enum Act { kNone = 0, kRelu = 1, kPhi = 2 };
 
 template <int kStages, int NT_MAX, bool kFast = false, bool kFmaSum = false>
@@ -157,7 +158,7 @@ __device__ void gemm(const float* a1, int lda1, int k1,
                      const float* __restrict__ w_hi, float* ring,
                      float* out, int ldo, int mtiles, int n, int act,
                      int ldw_global = 0, const float* cinit = nullptr, int ldc = 0,
-                     int cdiv = 1) {
+                     int cdiv = 1, int c0 = 0) {
   static_assert(kStages >= 2, "the ring needs two slots or more");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -198,9 +199,10 @@ __device__ void gemm(const float* a1, int lda1, int k1,
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
       if (cinit != nullptr && j < np) {
         const int col = (my0 + p0 + j) * 8 + 2 * t;
-        const float2 top = *reinterpret_cast<const float2*>(cinit + (row / cdiv) * ldc + col);
+        const float2 top =
+            *reinterpret_cast<const float2*>(cinit + ((row + c0) / cdiv) * ldc + col);
         const float2 bot =
-            *reinterpret_cast<const float2*>(cinit + ((row + 8) / cdiv) * ldc + col);
+            *reinterpret_cast<const float2*>(cinit + ((row + 8 + c0) / cdiv) * ldc + col);
         acc[j][0] = top.x; acc[j][1] = top.y; acc[j][2] = bot.x; acc[j][3] = bot.y;
       }
     }

@@ -38,7 +38,7 @@ namespace vf {
 
 constexpr int S = 3;           // cascade stages
 constexpr int F = 8;           // features per stage
-constexpr int kMaxViews = 11;  // NV the kernel is built for
+constexpr int kMaxViews = 11;  // the largest NV compiled in; above, a runtime count
 constexpr int kThreads = 64;   // points a block
 constexpr float kEps = 1e-8f;
 
@@ -96,6 +96,47 @@ __global__ void __launch_bounds__(kThreads) volume_fusion_kernel(
   for (int i = threadIdx.x; i < n * (S * F / 4); i += kThreads) run[i] = rows[i];
 }
 
+
+// Any NV above kMaxViews: the same sums in the same order with the count
+// at run time. A view's weights and features are summed as they arrive,
+// so no array grows with NV; the loads of one view no longer overlap the
+// next view's arithmetic, which costs time on this rare path only.
+__global__ void __launch_bounds__(kThreads) volume_fusion_views_kernel(
+    Stages in, long long sv, long long sp, long long sc,
+    float* __restrict__ out, int nv, int p_count) {
+  __shared__ float4 rows[kThreads * S * F / 4];
+  const long long p0 = (long long)blockIdx.x * kThreads;
+  const int n = p_count - p0 < kThreads ? (int)(p_count - p0) : kThreads;
+  if ((int)threadIdx.x < n) {
+    const long long p = p0 + threadIdx.x;
+    float acc[S * F], den = 0.f;
+#pragma unroll
+    for (int j = 0; j < S * F; ++j) acc[j] = 0.f;
+    for (int v = 0; v < nv; ++v) {
+      float ws = 0.f;
+#pragma unroll
+      for (int s = 0; s < S; ++s) ws = __fadd_rn(ws, __ldg(in.fw[s] + v * sv + p * sp + F * sc));
+      den = __fadd_rn(den, ws);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float* src = in.fw[s] + v * sv + p * sp;
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          acc[s * F + f] = __fadd_rn(acc[s * F + f], __fmul_rn(__ldg(src + f * sc), ws));
+      }
+    }
+    den = __fadd_rn(den, kEps);
+    float4* dst = rows + threadIdx.x * (S * F / 4);
+#pragma unroll
+    for (int j = 0; j < S * F / 4; ++j)
+      dst[j] = make_float4(__fdiv_rn(acc[4 * j], den), __fdiv_rn(acc[4 * j + 1], den),
+                           __fdiv_rn(acc[4 * j + 2], den), __fdiv_rn(acc[4 * j + 3], den));
+  }
+  __syncthreads();
+  float4* dst = reinterpret_cast<float4*>(out) + p0 * (S * F / 4);
+  for (int i = threadIdx.x; i < n * (S * F / 4); i += blockDim.x) dst[i] = rows[i];
+}
+
 template <int NV>
 int launch(const Stages& in, long long sv, long long sp, long long sc, float* out, int p,
            cudaStream_t stream) {
@@ -112,13 +153,14 @@ extern "C" int ufo_volume_fusion_features() { return ufo::vf::F; }
 extern "C" int ufo_volume_fusion_max_views() { return ufo::vf::kMaxViews; }
 
 // Returns a cudaError_t value (0 on success; cudaErrorInvalidValue for NV
-// outside 1..11). fw holds S pointers to (NV, P, F + 1) tensors sharing the
+// below 1). NV 1..kMaxViews run their compiled-in instance, any larger
+// count volume_fusion_views_kernel. fw holds S pointers to (NV, P, F + 1) tensors sharing the
 // strides sv, sp, sc (in elements); out starts on a 16-byte boundary.
 extern "C" int ufo_volume_fusion(const float* const* fw, long long sv,
                                  long long sp, long long sc, float* out,
                                  int nv, int p, void* stream) {
   using namespace ufo::vf;
-  if (nv < 1 || nv > kMaxViews) return (int)cudaErrorInvalidValue;
+  if (nv < 1) return (int)cudaErrorInvalidValue;
   if (p <= 0) return 0;
   Stages in;
   for (int s = 0; s < S; ++s) in.fw[s] = fw[s];
@@ -134,6 +176,11 @@ extern "C" int ufo_volume_fusion(const float* const* fw, long long sv,
     case 8: return launch<8>(in, sv, sp, sc, out, p, st);
     case 9: return launch<9>(in, sv, sp, sc, out, p, st);
     case 10: return launch<10>(in, sv, sp, sc, out, p, st);
-    default: return launch<11>(in, sv, sp, sc, out, p, st);
+    case 11: return launch<11>(in, sv, sp, sc, out, p, st);
+    default: {
+      const unsigned blocks = (unsigned)((p + kThreads - 1) / kThreads);
+      volume_fusion_views_kernel<<<blocks, kThreads, 0, st>>>(in, sv, sp, sc, out, nv, p);
+      return (int)cudaGetLastError();
+    }
   }
 }

@@ -151,6 +151,29 @@ def operand_round(precision: str):
     return bf16_round if is_fast(precision) else (lambda t: t)
 
 
+def check_tensors(name: str, tensors) -> None:
+    """Raises unless every tensor is float32 on one CUDA device, what the
+    head and fusion kernels take."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_cuda:
+            raise ValueError(f"{name} kernel takes float32 tensors on one CUDA device, "
+                             f"got {t.dtype} on {t.device}")
+
+
+_NO_SCRATCH = {}
+
+
+def no_scratch(device) -> torch.Tensor:
+    """An empty float32 tensor on ``device``, made once: the scratch a head
+    kernel is handed at a view count it is compiled for, where it takes
+    none."""
+    t = _NO_SCRATCH.get(device)
+    if t is None:
+        t = _NO_SCRATCH[device] = torch.empty(0, device=device, dtype=torch.float32)
+    return t
+
+
 def count_launch(wrapper, fast: bool) -> None:
     """One launch on a head wrapper's count: ``launches`` (3xTF32) or
     ``launches_fast``."""

@@ -16,9 +16,12 @@ three products summed in FP32), accurate to a few FP32 roundings; a
 rows; from 9 views on, 144 / (NV + 1) points, the most shared memory
 holds) in shared memory through the whole layer chain and streams the
 weight planes through a cp.async ring. The small MLPs, the LayerNorms,
-the attention and the softmax stay FP32 on the CUDA cores. The kernel
-takes 2..11 views (``KERNEL_MAX_VIEWS``; DTU's evaluation set 1 has 11);
-the JAX kernel has no limit, and the wrapper raises above it.
+the attention and the softmax stay FP32 on the CUDA cores. It is built
+for 2..11 views (``KERNEL_COMPILED_VIEWS``; DTU's evaluation set 1 has
+11). Any count past them, as the JAX kernel takes, goes to
+``csrc/point_head_stream.cu`` in both precisions: the token rows streamed
+through shared memory in two passes, keys and values in a global scratch
+the wrapper allocates (``point_head_scratch_floats``).
 
 ``precision`` is the resolved ``Config.kernel_precision``. ``highest`` and
 ``high`` run the kernel described above and an FP32 plain version.
@@ -26,21 +29,25 @@ the JAX kernel has no limit, and the wrapper raises above it.
 sites (``uforecon_tpu/ops/fused_point_head.py:138-143``: the pre-
 similarity MLP, q/k/v, merge, mlp1, mlp2 and the radiance MLP): both
 operands of each product rounded to bf16 (round to nearest even), the
-products summed in FP32. The kernel's ``fast`` instantiation runs the
-tensor-core layers as one bf16 ``mma.m16n8k16`` pass (from 6 views on,
-as FP32 FMAs of the same bf16 operands, k in order: the sums of the
-plain version on the CPU, bit for bit) and the small MLPs as FP32 FMAs
-of bf16-rounded operands; the plain version rounds at the same sites
+products summed in FP32. Its kernel (``csrc/point_head_fast.cuh``) keeps
+every bf16 weight resident in shared memory (``fast_image``), loaded
+once per persistent block, and runs tiles of 32 token rows, two a block
+on eight warps each (from 6 views on one tile of 64 rows on sixteen);
+the layers and both small MLPs run as bf16 ``mma.m16n8k16`` (from 6
+views on as FP32 FMAs of the same bf16 operands, k in order: the sums of
+the plain version on the CPU, bit for bit); the plain version rounds at
+the same sites
 (``cuda_build.kernel_linear``). The attention and the softmax stay FP32
 in every precision, as in JAX, and elu + 1 is x + 1 or exp(x) in both,
 as in the JAX kernel and reference. The backward differentiates the
 FP32 plain version in every precision, as JAX's reference VJP does.
 
 The weight pack (``pack_weights``: the tensor-core matrices as TF32 hi and
-lo planes, or in ``fast`` as bf16 values and a zero plane, with the small
-MLPs' weights bf16-rounded) is built once per set of weights and precision
-and reused (``cached_pack_weights``; ``point_head.pack_builds`` counts the
-builds).
+lo planes; in ``fast`` the fast kernel's ``fast_image``, or past the
+compiled-in counts, for the streamed kernel, the planes' layout with bf16
+values and a zero lo plane and the small MLPs' weights bf16-rounded) is
+built once per set of weights, precision and layout and reused
+(``cached_pack_weights``; ``point_head.pack_builds`` counts the builds).
 
 The kernel is built for the correlation volume's 24 features (tokens of
 80, heads of 10) and the feature grid's 16 (tokens of 72, heads of 9):
@@ -72,9 +79,10 @@ LN_EPS = 1e-6   # flax LayerNorm epsilon
 # the kernels' volume widths: the correlation volume's 24 features, the
 # feature grid's 16 (tokens of 80 and 72)
 KERNEL_VOL_WIDTHS = (24, 16)
-# the view counts the point-head kernels are built for (csrc/point_head*.cu
-# kMaxViews)
-KERNEL_MAX_VIEWS = 11
+# the largest view count the point-head kernels are compiled for
+# (csrc/point_head*.cuh kMaxViews); any larger count runs their streamed
+# kernels (csrc/point_head*_stream.cu)
+KERNEL_COMPILED_VIEWS = 11
 
 
 def kernel_dims(c_vol: int) -> dict:
@@ -176,13 +184,20 @@ def point_head_reference(inp: PointHeadInputs, p: PointHeadParams,
     return out[0], rad
 
 
-def pack_weights(p: PointHeadParams, precision: str = "high") -> torch.Tensor:
-    """Flatten the weights in ``csrc/point_head.cu``'s order, matrices in
-    (in, out) orientation; the tensor-core matrices (q, k, v, merge, mlp1,
-    mlp2) as their TF32 hi plane, then lo plane, or in ``fast`` as their
-    bf16 values and a zero plane (``cuda_build.bf16_planes``), and the
-    small MLPs' weights bf16-rounded."""
-    tc = cuda_build.bf16_planes if cuda_build.is_fast(precision) else cuda_build.tf32_planes
+def pack_weights(p: PointHeadParams, precision: str = "high",
+                 streamed: bool = False) -> torch.Tensor:
+    """The weights as the kernel at ``precision`` reads them: in ``fast``
+    the fast kernel's ``fast_image``; otherwise, and in ``fast`` with
+    ``streamed`` (the streamed kernel past ``KERNEL_COMPILED_VIEWS``),
+    flattened in ``csrc/point_head.cu``'s order, matrices in (in, out)
+    orientation, the tensor-core matrices (q, k, v, merge, mlp1, mlp2) as
+    their TF32 hi plane, then lo plane, or in ``fast`` as their bf16 values
+    and a zero plane (``cuda_build.bf16_planes``), and the small MLPs'
+    weights bf16-rounded."""
+    fast = cuda_build.is_fast(precision)
+    if fast and not streamed:
+        return fast_image(p)
+    tc = cuda_build.bf16_planes if fast else cuda_build.tf32_planes
     small = cuda_build.operand_round(precision)
     parts = [p.view_token, tc(p.wq.t()), tc(p.wk.t()), tc(p.wv.t()),
              tc(p.wmerge.t()), p.norm1_scale, p.norm1_bias, tc(p.w1.t()),
@@ -194,15 +209,48 @@ def pack_weights(p: PointHeadParams, precision: str = "high") -> torch.Tensor:
     return torch.cat([t.detach().float().reshape(-1) for t in parts])
 
 
+def image_stride(k: int) -> int:
+    """The bf16 row stride of a matrix of ``k`` inputs in ``fast_image``:
+    ``k`` rounded up to 8, or 8 more, whichever is an odd multiple of 4
+    words (``csrc/point_head_fast.cuh`` kpad: conflict-free B fragments)."""
+    k8 = -(-k // 8) * 8
+    return k8 if (k8 // 2) % 8 == 4 else k8 + 8
+
+
+def fast_image(p: PointHeadParams) -> torch.Tensor:
+    """The fast kernel's weight pack (``csrc/point_head_fast.cuh`` ``Img``)
+    as float32 words: the image a block copies into shared memory, wq, wk,
+    wv, wmerge, w1, w2 and the small MLPs' weights rounded to bf16, each as
+    its torch (out, in) rows ``image_stride(in)`` elements apart (the last
+    radiance layer's one row padded to 8 with zero rows), then in float32
+    the LayerNorms' scales and biases and the small MLPs' biases (the last
+    padded to 4); after the image the view token in float32, which the
+    kernel reads from global memory."""
+    rows = []
+    for w in (p.wq, p.wk, p.wv, p.wmerge, p.w1, p.w2, *p.sim_w, *p.rad_w):
+        w = cuda_build.bf16_round(w.detach().float())
+        pad_rows = max(8 - w.shape[0], 0)
+        rows.append(F.pad(w, (0, image_stride(w.shape[1]) - w.shape[1], 0, pad_rows))
+                    .reshape(-1))
+    bf16 = torch.cat(rows).to(torch.bfloat16)
+    f32 = [p.norm1_scale, p.norm1_bias, p.norm2_scale, p.norm2_bias, *p.sim_b, *p.rad_b]
+    f32 = torch.cat([t.detach().float().reshape(-1) for t in f32])
+    return torch.cat([bf16.view(torch.float32), f32, f32.new_zeros(-f32.numel() % 4),
+                      p.view_token.detach().float().reshape(-1)])
+
+
 _packs = cuda_build.PackCache()
+_stream_packs = cuda_build.PackCache()
 
 
-def cached_pack_weights(p: PointHeadParams, precision: str = "high") -> torch.Tensor:
-    """``pack_weights(p, precision)``, built once per set of weights and
-    precision (``cuda_build.PackCache``); ``point_head.pack_builds`` counts
-    builds."""
-    pack, built = _packs.get(_flat_params(p), lambda: pack_weights(p, precision),
-                             precision)
+def cached_pack_weights(p: PointHeadParams, precision: str = "high",
+                        streamed: bool = False) -> torch.Tensor:
+    """``pack_weights(p, precision, streamed)``, built once per set of
+    weights, precision and layout (``cuda_build.PackCache``);
+    ``point_head.pack_builds`` counts builds."""
+    cache = _stream_packs if streamed else _packs
+    pack, built = cache.get(_flat_params(p), lambda: pack_weights(p, precision, streamed),
+                            precision)
     point_head.pack_builds += built
     return pack
 
@@ -214,28 +262,28 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
     c_vol = inp.vol_feat.shape[-1]
     dims = dict(c=c, c_img=c_img, c_vol=c_vol, c_sim=inp.sim_feat.shape[-1],
                 n_heads=n_heads)
-    if not 2 <= nv <= KERNEL_MAX_VIEWS:
-        raise ValueError(f"point_head kernel takes 2..{KERNEL_MAX_VIEWS} views, "
-                         f"got {nv} views")
+    if nv < 2:
+        raise ValueError(f"point_head kernel takes 2 views or more, got {nv} views")
     if c_vol not in KERNEL_VOL_WIDTHS or dims != kernel_dims(c_vol):
         raise ValueError(f"point_head kernel takes {kernel_dims(24)} or "
                          f"{kernel_dims(16)}, got {dims}")
     dev = inp.img_feat.device
-    tensors = list(inp) + _flat_params(p)
-    for t in tensors:
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError("point_head kernel takes float32 tensors on one "
-                             f"CUDA device, got {t.dtype} on {t.device}")
+    cuda_build.check_tensors("point_head", list(inp) + _flat_params(p))
     ext = cuda_build.extension()
     ins = [cuda_build.aligned(t) for t in inp]
-    w = cached_pack_weights(p, precision)
-    if w.numel() != ext.point_head_weight_count(c_vol):
+    streamed = nv > KERNEL_COMPILED_VIEWS
+    w = cached_pack_weights(p, precision, streamed)
+    fast = cuda_build.is_fast(precision)
+    n_w = (ext.point_head_fast_pack_bytes(c_vol) // 4 if fast and not streamed
+           else ext.point_head_weight_count(c_vol))
+    if w.numel() != n_w:
         raise ValueError("point_head weight pack does not match the kernel")
     token = torch.empty(n, c, device=dev, dtype=torch.float32)
     rad = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    fast = cuda_build.is_fast(precision)
     with torch.cuda.device(dev):
-        ext.point_head(*ins, w, token, rad, fast)
+        scratch = (torch.empty(ext.point_head_scratch_floats(c_vol, nv, n), device=dev,
+                               dtype=torch.float32) if streamed else cuda_build.no_scratch(dev))
+        ext.point_head(*ins, w, token, rad, scratch, fast)
     cuda_build.count_launch(point_head, fast)
     return token, rad
 

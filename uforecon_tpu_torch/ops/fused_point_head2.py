@@ -14,7 +14,11 @@ view token's own q/k/v and mlp1 rows are constants computed here, on the
 host. At the defaults (3 views) that is ~203.3k FMAs per point against the
 point head's ~264.7k. The kernel is ``csrc/point_head2.cu``: its layer
 GEMMs run on the tensor cores in 3xTF32 (``csrc/tc_gemm.cuh``), as the
-point head's do, and it takes 2..11 views (``KERNEL_MAX_VIEWS``).
+point head's do. It is built for 2..11 views
+(``KERNEL_COMPILED_VIEWS``); any count past them goes to
+``csrc/point_head2_stream.cu``, which streams the view rows through shared
+memory in two passes, keys and values in a global scratch the wrapper
+allocates (``point_head2_scratch_floats``).
 
 ``split_weights2`` builds the split: the row slices at the feature-group
 offsets 0 / 32 / 56 / 72 / 80 of wq, wk, wv, w1[:C] and rad_w[0] in (in,
@@ -61,7 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .fused_point_head import (KERNEL_MAX_VIEWS, KERNEL_VOL_WIDTHS, EPS, LN_EPS,
+from .fused_point_head import (KERNEL_COMPILED_VIEWS, KERNEL_VOL_WIDTHS, EPS, LN_EPS,
                                PointHeadInputs, PointHeadParams, _flat_params, _split,
                                kernel_dims, point_head_reference)
 from .fused_ray_head import _phi
@@ -291,17 +295,13 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
     dims = dict(c=c, c_img=c_img, c_vol=c_vol, c_sim=inp.sim_feat.shape[-1],
                 n_heads=n_heads)
     d = kernel_dims(c_vol)
-    if not 2 <= nv <= KERNEL_MAX_VIEWS:
-        raise ValueError(f"point_head2 kernel takes 2..{KERNEL_MAX_VIEWS} views, "
-                         f"got {nv} views")
+    if nv < 2:
+        raise ValueError(f"point_head2 kernel takes 2 views or more, got {nv} views")
     if c_vol not in KERNEL_VOL_WIDTHS or dims != d:
         raise ValueError(f"point_head2 kernel takes {kernel_dims(24)} or "
                          f"{kernel_dims(16)}, got {dims}")
     dev = inp.img_feat.device
-    for t in list(inp) + _flat_params(p):
-        if t.device != dev or t.dtype != torch.float32 or not t.is_cuda:
-            raise ValueError("point_head2 kernel takes float32 tensors on one "
-                             f"CUDA device, got {t.dtype} on {t.device}")
+    cuda_build.check_tensors("point_head2", list(inp) + _flat_params(p))
     expect = {"img_feat": (nv, n, c_img), "vol_feat": (n, d["c_vol"]),
               "sim_feat": (n, d["c_sim"]), "depth_dist": (nv, n),
               "dir_rel": (nv, n, 3), "rgb": (nv, n, 3), "mask": (nv, n)}
@@ -320,7 +320,10 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
     rad = torch.empty(n, 3, device=dev, dtype=torch.float32)
     fast = cuda_build.is_fast(precision)
     with torch.cuda.device(dev):
-        ext.point_head2(*ins, w, token, rad, fast)
+        scratch = (torch.empty(ext.point_head2_scratch_floats(c_vol, nv, n), device=dev,
+                               dtype=torch.float32) if nv > KERNEL_COMPILED_VIEWS
+                   else cuda_build.no_scratch(dev))
+        ext.point_head2(*ins, w, token, rad, scratch, fast)
     cuda_build.count_launch(point_head2, fast)
     return token, rad
 

@@ -9,9 +9,10 @@ side. The kernel is ``csrc/volume_fusion.cu``.
 
 Bound on the H100: bytes (at P = 65,536 and 3 views it reads 21.2 MB and
 writes 6.3 MB, 0.0082 ms). Design: one thread per point, the number of
-views NV (1..11) a template parameter so that a view's loads do not wait
-for the previous view's, and a block's output rows stored as one
-coalesced run through shared memory. The kernel takes any strides shared
+views NV a template parameter from 1 to 11 so that a view's loads do not
+wait for the previous view's, a runtime count above (the same sums in
+the same order), and a block's output rows stored as one coalesced run
+through shared memory. The kernel takes any strides shared
 by the three stages; ``query_correlation_volume`` hands it the
 channel-first layout ``F.grid_sample`` produces, as views without a copy.
 
@@ -33,7 +34,9 @@ from . import cuda_build
 EPS = 1e-8  # fusion denominator
 _KERNEL_STAGES = 3
 _KERNEL_FEATURES = 8
-_KERNEL_MAX_VIEWS = 11
+# the largest view count compiled in (csrc/volume_fusion.cu kMaxViews);
+# the kernel takes any count, above it with a runtime loop over views
+_KERNEL_COMPILED_VIEWS = 11
 
 
 def volume_fusion_reference(fws: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -54,7 +57,7 @@ def _extension():
     ext = cuda_build.extension()
     if (ext.volume_fusion_stages(), ext.volume_fusion_features(),
             ext.volume_fusion_max_views()) != (_KERNEL_STAGES, _KERNEL_FEATURES,
-                                               _KERNEL_MAX_VIEWS):
+                                               _KERNEL_COMPILED_VIEWS):
         raise ValueError("volume_fusion layout does not match the kernel")
     return ext
 
@@ -63,15 +66,12 @@ def _launch(fws: Sequence[torch.Tensor]) -> torch.Tensor:
     shapes = {tuple(fw.shape) for fw in fws}
     nv, n, f1 = fws[0].shape
     if (len(fws) != _KERNEL_STAGES or len(shapes) != 1 or f1 != _KERNEL_FEATURES + 1
-            or not 1 <= nv <= _KERNEL_MAX_VIEWS):
+            or nv < 1):
         raise ValueError(f"volume_fusion kernel takes {_KERNEL_STAGES} stages "
-                         f"of one shape (NV, P, {_KERNEL_FEATURES + 1}) with NV in "
-                         f"1..{_KERNEL_MAX_VIEWS}, got {[tuple(fw.shape) for fw in fws]}")
+                         f"of one shape (NV, P, {_KERNEL_FEATURES + 1}) with NV >= 1, "
+                         f"got {[tuple(fw.shape) for fw in fws]}")
     dev = fws[0].device
-    for fw in fws:
-        if fw.device != dev or not fw.is_cuda or fw.dtype != torch.float32:
-            raise ValueError("volume_fusion kernel takes float32 tensors on one "
-                             f"CUDA device, got {fw.dtype} on {fw.device}")
+    cuda_build.check_tensors("volume_fusion", fws)
     if len({fw.stride() for fw in fws}) != 1:
         fws = [fw.contiguous() for fw in fws]
     ext = _extension()

@@ -1,10 +1,11 @@
-"""Where the kernels' time goes: variants of ``csrc/point_head.cuh``,
+"""Where the kernels' time goes: variants of ``csrc/point_head.cuh`` (the
+3xTF32 point head), ``csrc/point_head_fast.cuh`` (the fast one),
 ``csrc/point_head2.cuh``, ``csrc/ray_head.cu``, ``csrc/tiny_attention.cu``
 (forward and backward) and ``csrc/volume_fusion.cu`` timed apart on one
 GPU.
 
-    python -m uforecon_tpu_torch.script.head_variants ph ph,nogemm ph2 rh rh,rh_ln ta,S=2 \
-        tb tb,tb_stream vf vf,T=128
+    python -m uforecon_tpu_torch.script.head_variants ph ph,nogemm phf phf,phf_rad ph2 rh \
+        rh,rh_ln ta,S=2 tb tb,tb_stream vf vf,T=128
 
 Each variant is a copy of ``csrc/`` with a few lines replaced, built by
 ``nvcc`` (all variants at once) into a shared library with the kernels'
@@ -17,8 +18,9 @@ samples at width 88, the tiny-attention forward at B = 65,536, L = S = 4,
 65,536, 8 heads of D = M = 10, L = S = 4 (route A) and 6 (the training
 shape), the volume fusion at P = 65,536 and 3 views in the sampler's
 channel-first layout (its 27.5 MB stay in the L2 between launches), on
-seeded random weights and inputs. A variant is a kernel (``ph``, ``ph2``,
-``rh``, ``ta``, ``tb`` or ``vf``) followed by comma-separated options:
+seeded random weights and inputs. A variant is a kernel (``ph``, ``phf``,
+``ph2``, ``rh``, ``ta``, ``tb`` or ``vf``) followed by comma-separated
+options:
 
   NAME=VALUE  a constant of the kernel's source (``CONSTANTS``), e.g.
               ``T=256`` threads a block, ``S=3`` weight-ring slots (for
@@ -26,9 +28,12 @@ seeded random weights and inputs. A variant is a kernel (``ph``, ``ph2``,
   a patch     of ``PATCHES``: ``nogemm`` skips the tensor-core layers;
               ``onemma`` keeps one of the three 3xTF32 products;
               ``nosync`` drops the per-step sync, ``noload`` the weight
-              loads; ``ph_*`` / ``ph2_*`` / ``rh_*`` / ``ta_*`` / ``tb_*``
-              skip one phase of a kernel; ``tb_stream`` keeps only the
-              backward's copies (no arithmetic); ``vf_stream`` keeps the
+              loads; ``ph_*`` / ``phf_*`` / ``ph2_*`` / ``rh_*`` / ``ta_*``
+              / ``tb_*`` skip one phase of a kernel; ``phf_probe``
+              prints the fast kernel's cycles a tile in each of its phases
+              (block 0's first thread, its barriers included);
+              ``tb_stream`` keeps only the backward's copies (no
+              arithmetic); ``vf_stream`` keeps the
               fusion's loads and stores with a plain sum in place of its
               products and divisions, ``vf_fastdiv`` takes approximate
               divisions, ``vf_direct`` stores each point's row from
@@ -55,12 +60,15 @@ import torch
 from ..ops import cuda_build
 
 # kernel -> the source that holds it (which the constants and patches name)
-SOURCE = {"ph": "point_head.cuh", "ph2": "point_head2.cuh", "rh": "ray_head.cu",
-          "ta": "tiny_attention.cu", "tb": "tiny_attention.cu", "vf": "volume_fusion.cu"}
+SOURCE = {"ph": "point_head.cuh", "phf": "point_head_fast.cuh", "ph2": "point_head2.cuh",
+          "rh": "ray_head.cu", "ta": "tiny_attention.cu", "tb": "tiny_attention.cu",
+          "vf": "volume_fusion.cu"}
 # kernel -> the files nvcc compiles into its library (the point heads'
-# instances of 2..5 views and of 6..11 views are separate files)
-UNITS = {"ph": ("point_head.cu", "point_head_views.cu", "point_head_views_9_11.cu"),
-         "ph2": ("point_head2.cu", "point_head2_views.cu")}
+# instances of 2..5 views, of 6..11 views and past 11 are separate files)
+_PH_UNITS = ("point_head.cu", "point_head_views.cu", "point_head_views_9_11.cu",
+             "point_head_fast.cu", "point_head_fast_views.cu", "point_head_stream.cu")
+UNITS = {"ph": _PH_UNITS, "phf": _PH_UNITS,
+         "ph2": ("point_head2.cu", "point_head2_views.cu", "point_head2_stream.cu")}
 # kernel -> NAME -> (the source's line, its replacement with {} for VALUE)
 CONSTANTS = {
     "ph": {"TP": ("constexpr int TP_MAX = 16;", "constexpr int TP_MAX = {};"),
@@ -118,12 +126,23 @@ PATCHES = {
                 "      __syncthreads();\n", "")],
     "noload": [("tc_gemm.cuh", "      if (s + kStages - 1 < steps) load(s + kStages - 1);",
                 "      if (s + kStages - 1 < steps && s < 0) load(s + kStages - 1);")],
-    "ph_sim": [("point_head.cuh", *_skip("  block_linear<4, kFast>(s_in, SIN, SIN,")),
-               ("point_head.cuh", *_skip("  block_linear<4, kFast>(s_h1, SH, SH,")),
-               ("point_head.cuh", *_skip("  block_linear<4, kFast>(s_h2, SH, SH,"))],
-    "ph_rad": [("point_head.cuh", *_skip("  block_linear<4, kFast>(z, CR, CR,")),
-               ("point_head.cuh", *_skip("  block_linear<4, kFast>(h1, R1, R1,")),
-               ("point_head.cuh", *_skip("  block_linear<4, kFast>(h2, R2, R2,"))],
+    "ph_sim": [("point_head.cuh", *_skip("  block_linear<4>(s_in, SIN, SIN,")),
+               ("point_head.cuh", *_skip("  block_linear<4>(s_h1, SH, SH,")),
+               ("point_head.cuh", *_skip("  block_linear<4>(s_h2, SH, SH,"))],
+    "ph_rad": [("point_head.cuh", *_skip("  block_linear<4>(z, CR, CR,")),
+               ("point_head.cuh", *_skip("  block_linear<4>(h1, R1, R1,")),
+               ("point_head.cuh", *_skip("  block_linear<4>(h2, R2, R2,"))],
+    "phf_sim": [("point_head_fast.cuh", "    if (gw == 0) {\n      warp_linear<kFma>(s_in,",
+                 "    if (gw < 0) {\n      warp_linear<kFma>(s_in,")],
+    "phf_rad": [("point_head_fast.cuh", "    if (gw < MT) {", "    if (gw < 0 * MT) {")],
+    "phf_ln": [("point_head_fast.cuh", *_skip("    group_layernorm<C, true, T>(Vb, LD, GR, gt, F + I::N1S")),
+               ("point_head_fast.cuh", *_skip("    group_layernorm<C, false, T>(Vb, LD, GR, gt, F + I::N2S"))],
+    "phf_attn": [("point_head_fast.cuh", *_empty_loop(
+        "    for (int it = gt; it < TP * L * NH; it += kGroupThreads) {", "TP * L * NH"))],
+    "phf_probe": [("point_head_fast.cuh", '#pragma once\n\n#include "point_head.cuh"',
+                   '#pragma once\n#define UFO_PHF_PROBE\n#include "point_head.cuh"')],
+    "phf_gemm": [("point_head_fast.cuh", "  constexpr int NTILES = N / 8, K = K1 + K2;",
+                  "  constexpr int NTILES = N / 8, K = 0 * (K1 + K2);")],
     "ph_attn": [("point_head.cuh", *_empty_loop(
         "  for (int t = tid; t < TP * L * NH; t += blockDim.x) {", "TP * L * NH"))],
     "ph_ln": [("point_head.cuh", *_skip("  tc::layernorm<C>(Kb, LD, R, W + O_N1S")),
@@ -195,7 +214,7 @@ def replacements(variant: str):
     for opt in options:
         if opt in PATCHES:
             out += PATCHES[opt]
-        elif "=" in opt and opt.split("=")[0] in CONSTANTS[kernel]:
+        elif "=" in opt and opt.split("=")[0] in CONSTANTS.get(kernel, {}):
             name, value = opt.split("=")
             old, new = CONSTANTS[kernel][name]
             out.append((SOURCE[kernel], old, new.format(int(value))))
@@ -273,7 +292,7 @@ def _cases(seed: int, kernels):
     nv, p = 3, 65536
     cases = {}
     with torch.no_grad():
-        if {"ph", "ph2", "rh"} & set(kernels):
+        if {"ph", "phf", "ph2", "rh"} & set(kernels):
             model = UFORecon(Config())
             init_weights(model, seed)
             rt = model.ray_transformer.to(dev)
@@ -286,6 +305,8 @@ def _cases(seed: int, kernels):
             ph_ref = fph.point_head_reference(inp, ph)
             ys = {sn: randn(1024, sn, 88) for sn in (64, 128)}
             cases.update(inp=inp, ys=ys, ph=(fph.pack_weights(ph), ph_ref),
+                         phf=(fph.pack_weights(ph, "fast"),
+                              fph.point_head_reference(inp, ph, precision="fast")),
                          ph2=(fph2.pack_weights2(ph), ph_ref),
                          rh=(frh.pack_weights(rh),
                              {sn: frh.ray_head_reference(y, rh) for sn, y in ys.items()}))
@@ -310,8 +331,9 @@ def _cases(seed: int, kernels):
 def _bind(kernel, lib):
     """The kernel's C entry point with its argument types."""
     c = ctypes
-    if kernel in ("ph", "ph2"):   # (10 pointers, cv, nv, p, fast, stream)
-        fn, types = getattr(lib, f"ufo_point_head{kernel[2:]}"), [c.c_void_p] * 10 + [c.c_int] * 4
+    if kernel in ("ph", "phf", "ph2"):   # (11 pointers, cv, nv, p, fast, stream)
+        fn = getattr(lib, "ufo_point_head2" if kernel == "ph2" else "ufo_point_head")
+        types = [c.c_void_p] * 11 + [c.c_int] * 4
     elif kernel == "rh":          # ufo_ray_head(y, w, srdf, rn, sn, c, fast, stream)
         fn, types = lib.ufo_ray_head, [c.c_void_p] * 3 + [c.c_int] * 4
     elif kernel == "ta":          # ufo_tiny_attention_fwd(q, k, v, o, b, l, s, h, d, m, stream)
@@ -329,13 +351,14 @@ def _runs(kernel, fn, cases, stream):
     """suffix -> (launch, max abs error against the plain version)."""
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     i = ctypes.c_int
-    if kernel in ("ph", "ph2"):
+    if kernel in ("ph", "phf", "ph2"):
         inp = cases["inp"]
         w, ref = cases[kernel]
         nv, p = inp.img_feat.shape[:2]
         tok, rad = torch.empty(p, 80, device="cuda"), torch.empty(p, 3, device="cuda")
-        call = [*map(ptr, (*inp, w, tok, rad)), i(inp.vol_feat.shape[1]), i(nv), i(p), i(0),
-                stream]
+        # no scratch: 3 views take a compiled-in instance
+        call = [*map(ptr, (*inp, w, tok, rad)), None, i(inp.vol_feat.shape[1]), i(nv), i(p),
+                i(int(kernel == "phf")), stream]
         return {"": (lambda: fn(*call),
                      lambda: max((tok - ref[0]).abs().max().item(),
                                  (rad - ref[1]).abs().max().item()))}
@@ -376,7 +399,8 @@ def _runs(kernel, fn, cases, stream):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("variants", nargs="+",
-                    help="e.g. ph, ph,nogemm, ph2, rh,S=2, ta,I=512, tb,tb_stream, vf,T=128")
+                    help="e.g. ph, ph,nogemm, phf, phf,phf_rad, ph2, rh,S=2, ta,I=512, "
+                         "tb,tb_stream, vf,T=128")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -384,12 +408,13 @@ def main(argv=None):
     root = cuda_build.BUILD_DIR / "variants"
     root.mkdir(parents=True, exist_ok=True)
     builds = {v: _build(v, root) for v in args.variants}
-    fns = {}
+    fns, libs = {}, {}
     for v, (proc, lib) in builds.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"variant {v}: nvcc failed\n{log}")
-        fns[v] = _bind(v.split(",")[0], ctypes.CDLL(str(lib)))
+        libs[v] = ctypes.CDLL(str(lib))
+        fns[v] = _bind(v.split(",")[0], libs[v])
     cases = _cases(args.seed, {v.split(",")[0] for v in args.variants})
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -408,6 +433,14 @@ def main(argv=None):
             out["max_abs_err"][v + suffix] = e
             print(f"{v}{suffix}: {ms:.4f} ms (device {dms:.4f}), max abs err {e:.3e}",
                   flush=True)
+        if "phf_probe" in v.split(","):
+            probe = (ctypes.c_ulonglong * 16)()
+            if libs[v].ufo_point_head_fast_probe(probe) != 0:
+                raise SystemExit(f"variant {v}: the probe could not be read")
+            tiles = max(probe[15], 1)
+            out.setdefault("probe_cycles", {})[v] = [probe[i] / tiles for i in range(11)]
+            print(f"{v}: cycles a tile by phase (block 0, {tiles} tiles): "
+                  + " ".join(f"{probe[i] / tiles:.0f}" for i in range(11)), flush=True)
     print(json.dumps(out))
     return 0
 
