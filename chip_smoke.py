@@ -28,7 +28,9 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      grouped cosine at 3 views, at the 5-view similarity field's
      (5, 65,536, 128) and at 11 views' 55 pairs (11, 65,536, 320); then the
      heads' fast variants (kernel_precision 'fast': kernels 1, 2 and 3 at
-     widths 88 and 72, 4) at the same shapes, each against its fast plain
+     widths 88 and 72, 4; fast kernels 2 and 3 at those widths by
+     ``csrc/ray_head_fast.cuh``, at the others by ``csrc/ray_head.cu``'s
+     bf16 instantiation) at the same shapes, each against its fast plain
      version (FAST_SHARE) and against the 3xTF32 kernel on the same inputs
      (a distance of bf16's size), with bf16 tensor bounds beside the
      3xTF32 ones; kernels 2 and 3 (both precisions) also at the other model
@@ -291,9 +293,13 @@ KERNEL_SOURCES = {
 FAST = {"point_head_fast": "point_head", "ray_head_fast": "ray_head",
         "ray_head_neus_fast": "ray_head_neus", "point_head2_fast": "point_head2"}
 KERNEL_SOURCES.update({f: KERNEL_SOURCES[k] for f, k in FAST.items()})
-# fast kernel 1 is a design of its own: persistent blocks, resident weights
+# fast kernels 1, 2 and 3 are designs of their own: persistent blocks,
+# resident weights (fast kernels 2 and 3 at the widths of frh.FAST_WIDTHS;
+# every other width runs ray_head.cu's bf16 instantiation)
 KERNEL_SOURCES["point_head_fast"] = (f"{PORT}/csrc/point_head_fast.cuh",
                                      KERNEL_SOURCES["point_head"][1])
+for _name in ("ray_head_fast", "ray_head_neus_fast"):
+    KERNEL_SOURCES[_name] = (f"{PORT}/csrc/ray_head_fast.cuh", KERNEL_SOURCES[FAST[_name]][1])
 # configs phase: the JAX package's other model configurations (flags of
 # both packages' Config), each rendering a 1024-ray chunk of the slice's
 # scene on the card against the CPU; their ray-head widths (d_view + 8) and
@@ -609,15 +615,34 @@ def attention_flops(b, l, s, h, d, m, backward=False):
                     + 2 * (l + s) * d)
 
 
-def ray_head_flops(rn, sn, c=88, heads=8, neus=False):
+def ray_head_flops(rn, sn, c=88, heads=8, neus=False, fast=False):
     """Multiply-adds x 2 of the ray head per launch, as (GEMM, other):
     q/k/v/merge and the 2C -> 2C -> C MLP per sample, the layers on the
-    tensor cores; the density MLP and the kv-order attention per sample,
-    and ~30 operations per sample of the NeuS epilogue."""
+    tensor cores; the density MLP and the kv-order attention per sample
+    (kv and num 2 NH DK^2 each, den 2C, ksum and the divisions 2C), and
+    ~30 operations per sample of the NeuS epilogue. In ``fast`` the
+    density MLP, kv, num and den are bf16 products too (sites of JAX's
+    kernel_dot, whose operands it rounds to bf16; kv and num per head, what
+    the inputs need, not JAX's masked C x C) and count with the GEMMs;
+    only the elementwise work stays at the FP32 rate."""
     dk = c // heads
     gemm = 4 * 2 * c * c + 2 * (2 * c) ** 2 + 2 * (2 * c) * c
-    other = 2 * (c * 32 + 32 * 16 + 16) + 4 * heads * dk * dk + 4 * c
-    return rn * sn * gemm, rn * sn * (other + (30 if neus else 0))
+    small = 2 * (c * 32 + 32 * 16 + 16) + 4 * heads * dk * dk + 2 * c
+    other = 2 * c + (30 if neus else 0)
+    if fast:
+        return rn * sn * (gemm + small), rn * sn * other
+    return rn * sn * gemm, rn * sn * (small + other)
+
+
+def fast_ray_kernel(c, sn=None, neus=False):
+    """The source of the fast ray head at width c (and, on ray_head.cu, its
+    tile rows at sn)."""
+    from uforecon_tpu_torch.ops import fused_ray_head as frh
+
+    if c in frh.FAST_WIDTHS:
+        return f"{PORT}/csrc/ray_head_fast.cuh"
+    tiles = "" if sn is None else f", tiles of {frh.tile_rows(sn, c, neus)} rows"
+    return f"{PORT}/csrc/ray_head.cu (kFast{tiles})"
 
 
 def neus_check(got, want):
@@ -1073,8 +1098,8 @@ def kernel_phase(model, card):
                     args, tols = (y, rparams), {"srdf": TOL["srdf"]}
                     wrapper, plain = frh.ray_head, frh.ray_head_reference
                 cases.append(fast_case(
-                    f"{name}_fast (1024, {sn}, {c})", wrapper, plain, args, tols,
-                    ray_head_flops(1024, sn, c=c, neus=neus),
+                    f"{name}_fast (1024, {sn}, {c}), {fast_ray_kernel(c)}", wrapper, plain,
+                    args, tols, ray_head_flops(1024, sn, c=c, neus=neus, fast=True),
                     frh.pack_weights(rparams, "fast"), neus=neus))
             by_c[c] = fast_result(cases)
         by_shape = {}
@@ -1091,10 +1116,12 @@ def kernel_phase(model, card):
                     args, tols = (y, rparams), {"srdf": TOL["srdf"]}
                     wrapper, plain = frh.ray_head, frh.ray_head_reference
                 by_shape[f"C{c} SN{sn}"] = fast_result([fast_case(
-                    f"{name}_fast (1024, {sn}, {c}), tiles of "
-                    f"{frh.tile_rows(sn, c, neus)} rows", wrapper, plain, args, tols,
-                    ray_head_flops(1024, sn, c=c, neus=neus),
+                    f"{name}_fast (1024, {sn}, {c}), {fast_ray_kernel(c, sn, neus)}", wrapper,
+                    plain, args, tols, ray_head_flops(1024, sn, c=c, neus=neus, fast=True),
                     frh.pack_weights(rparams, "fast"), neus=neus)])
+                by_shape[f"C{c} SN{sn}"]["source"] = fast_ray_kernel(c)
+        for c in by_c:
+            by_c[c]["source"] = fast_ray_kernel(c)
         results[f"{name}_fast"] = {**by_c[88], "by_width": by_c, "by_shape": by_shape}
         results[f"{name}_fast"]["max_abs_err"] = max(
             by_c[88]["max_abs_err"], *(x["max_abs_err"] for x in by_shape.values()))
@@ -3294,7 +3321,8 @@ def start_tests(tmp):
     """The GPU unit tests of the kernels (``test_torch_port_kernels.py``,
     no JAX) in a process of their own, which reuses the built extension."""
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-k", "on_gpu", "-q",
-           "-p", "no:cacheprovider", os.path.join("tests", "test_torch_port_kernels.py")]
+           "-p", "no:cacheprovider", os.path.join("tests", "test_torch_port_kernels.py"),
+           os.path.join("tests", "test_torch_port_ray_head_fast.py")]
     return start_process(cmd, tmp)
 
 
@@ -3302,7 +3330,8 @@ def finish_tests(started, card):
     """The GPU unit tests must pass."""
     code, out, err, seconds = finish_process(started, timeout=900)
     lines = out.strip().splitlines()
-    log(f"[tests] pytest --noconftest -k on_gpu tests/test_torch_port_kernels.py: "
+    log(f"[tests] pytest --noconftest -k on_gpu tests/test_torch_port_kernels.py "
+        f"tests/test_torch_port_ray_head_fast.py: "
         f"{lines[-1] if lines else ''} (ended within {seconds:.1f} s of its start) [{card}]")
     if code != 0:
         log(out[-6000:] + err[-2000:])

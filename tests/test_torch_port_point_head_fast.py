@@ -29,7 +29,7 @@ def _img_layout(c):
             ("rw0", 16, cr), ("rw1", 8, 16), ("rw2", 1, 8)]
     out, off = {}, 0
     for name, n_out, n_in in mats:
-        rows, stride = max(n_out, 8), pph.image_stride(n_in)
+        rows, stride = max(n_out, 8), cuda_build.image_stride(n_in)
         out[name] = (off, rows, stride, n_out, n_in)
         off += rows * stride
     f32 = {"n1s": 0, "n1b": c, "n2s": 2 * c, "n2b": 3 * c, "sb0": 4 * c,

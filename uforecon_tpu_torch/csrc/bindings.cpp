@@ -33,6 +33,13 @@ extern "C" int ufo_ray_head_neus(const float* y, const float* w,
                                  const float* inv_s, float* srdf, float* weight,
                                  float* rgb, float* depth, float* opacity,
                                  int rn, int sn, int c, int fast, void* stream);
+extern "C" int ufo_ray_head_fast(const float* y, const float* w, float* srdf, int rn, int sn,
+                                 int c, void* stream);
+extern "C" int ufo_ray_head_neus_fast(const float* y, const float* w, const float* z,
+                                      const float* rad, const float* inv_s, float* srdf,
+                                      float* weight, float* rgb, float* depth, float* opacity,
+                                      int rn, int sn, int c, void* stream);
+extern "C" int ufo_ray_head_fast_pack_bytes(int c);
 extern "C" int ufo_grouped_cosine(const float* x, long long sv, long long sp,
                                   long long sc, float* out, int nv, int p,
                                   int c, int g, void* stream);
@@ -124,6 +131,30 @@ void ray_head_neus(const at::Tensor& y, const at::Tensor& w,
         "ray_head_neus");
 }
 
+// the fast ray heads at C 88 and 72 (csrc/ray_head_fast.cuh): w is the
+// fast_image pack
+void ray_head_fast(const at::Tensor& y, const at::Tensor& w, at::Tensor& srdf) {
+  check(ufo_ray_head_fast(y.data_ptr<float>(), w.data_ptr<float>(), srdf.data_ptr<float>(),
+                          static_cast<int>(y.size(0)), static_cast<int>(y.size(1)),
+                          static_cast<int>(y.size(2)),
+                          at::cuda::getCurrentCUDAStream().stream()),
+        "ray_head_fast");
+}
+
+void ray_head_neus_fast(const at::Tensor& y, const at::Tensor& w, const at::Tensor& z,
+                        const at::Tensor& rad, const at::Tensor& inv_s, at::Tensor& srdf,
+                        at::Tensor& weight, at::Tensor& rgb, at::Tensor& depth,
+                        at::Tensor& opacity) {
+  check(ufo_ray_head_neus_fast(y.data_ptr<float>(), w.data_ptr<float>(), z.data_ptr<float>(),
+                               rad.data_ptr<float>(), inv_s.data_ptr<float>(),
+                               srdf.data_ptr<float>(), weight.data_ptr<float>(),
+                               rgb.data_ptr<float>(), depth.data_ptr<float>(),
+                               opacity.data_ptr<float>(), static_cast<int>(y.size(0)),
+                               static_cast<int>(y.size(1)), static_cast<int>(y.size(2)),
+                               at::cuda::getCurrentCUDAStream().stream()),
+        "ray_head_neus_fast");
+}
+
 // sampled (NV, P, (NV-1) C) with any strides -> out (P, G)
 void grouped_cosine(const at::Tensor& sampled, at::Tensor& out) {
   const int nv = static_cast<int>(sampled.size(0));
@@ -206,6 +237,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ray_head_smem_bytes", &ufo_ray_head_smem_bytes);
   m.def("ray_head_neus", &ray_head_neus,
         "fused along-ray SRDF head with the NeuS epilogue (csrc/ray_head.cu)");
+  m.def("ray_head_fast", &ray_head_fast,
+        "fast along-ray SRDF head at C 88 and 72 (csrc/ray_head_fast.cuh)");
+  m.def("ray_head_neus_fast", &ray_head_neus_fast,
+        "the same with the NeuS epilogue (csrc/ray_head_fast.cuh)");
+  m.def("ray_head_fast_pack_bytes", &ufo_ray_head_fast_pack_bytes);
   m.def("grouped_cosine", &grouped_cosine,
         "grouped pairwise cosine (csrc/grouped_cosine.cu)");
   m.def("volume_fusion", &volume_fusion,

@@ -76,7 +76,12 @@
 // the attention sums kv = sum_s phi(k_s) v_s^T, num = phi(q) kv and den =
 // phi(q) ksum, each with both operands rounded to bf16 and the products
 // summed in FP32 (ksum itself an FP32 sum). The NeuS epilogue does not
-// depend on it, as in JAX.
+// depend on it, as in JAX. In 'fast' the widths 88 and 72 run
+// ray_head_fast.cuh (the same function, designed for bf16: resident
+// weights, persistent blocks, the chain in registers); the kFast
+// instantiations here take every other width (ops/fused_ray_head.py
+// FAST_WIDTHS, takes_fast_kernel), and their 88 and 72 instances are
+// reached only by script/head_variants.py's rh,fast.
 #include "common.cuh"
 #include "tc_gemm.cuh"
 

@@ -123,6 +123,17 @@ def bf16_planes(w: torch.Tensor) -> torch.Tensor:
     return torch.cat([hi, torch.zeros_like(hi)])
 
 
+def image_stride(k: int) -> int:
+    """The bf16 row stride of a matrix of ``k`` inputs in the fast heads'
+    weight images (``fused_point_head.fast_image``,
+    ``fused_ray_head.fast_image``): ``k`` rounded up to 8, or 8 more,
+    whichever is an odd multiple of 4 words (``kpad`` of
+    ``csrc/point_head_fast.cuh`` and ``csrc/ray_head_fast.cuh``:
+    conflict-free B fragments)."""
+    k8 = -(-k // 8) * 8
+    return k8 if (k8 // 2) % 8 == 4 else k8 + 8
+
+
 def fast_linear(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
     """``F.linear`` of bf16-rounded ``x`` and ``w``, the bias added in
     float32: the JAX package's ``kernel_dot`` in ``fast`` (products of two

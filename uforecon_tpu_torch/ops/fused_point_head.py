@@ -209,28 +209,20 @@ def pack_weights(p: PointHeadParams, precision: str = "high",
     return torch.cat([t.detach().float().reshape(-1) for t in parts])
 
 
-def image_stride(k: int) -> int:
-    """The bf16 row stride of a matrix of ``k`` inputs in ``fast_image``:
-    ``k`` rounded up to 8, or 8 more, whichever is an odd multiple of 4
-    words (``csrc/point_head_fast.cuh`` kpad: conflict-free B fragments)."""
-    k8 = -(-k // 8) * 8
-    return k8 if (k8 // 2) % 8 == 4 else k8 + 8
-
-
 def fast_image(p: PointHeadParams) -> torch.Tensor:
     """The fast kernel's weight pack (``csrc/point_head_fast.cuh`` ``Img``)
     as float32 words: the image a block copies into shared memory, wq, wk,
     wv, wmerge, w1, w2 and the small MLPs' weights rounded to bf16, each as
-    its torch (out, in) rows ``image_stride(in)`` elements apart (the last
-    radiance layer's one row padded to 8 with zero rows), then in float32
-    the LayerNorms' scales and biases and the small MLPs' biases (the last
-    padded to 4); after the image the view token in float32, which the
-    kernel reads from global memory."""
+    its torch (out, in) rows ``cuda_build.image_stride(in)`` elements apart
+    (the last radiance layer's one row padded to 8 with zero rows), then in
+    float32 the LayerNorms' scales and biases and the small MLPs' biases
+    (the last padded to 4); after the image the view token in float32, which
+    the kernel reads from global memory."""
     rows = []
     for w in (p.wq, p.wk, p.wv, p.wmerge, p.w1, p.w2, *p.sim_w, *p.rad_w):
         w = cuda_build.bf16_round(w.detach().float())
         pad_rows = max(8 - w.shape[0], 0)
-        rows.append(F.pad(w, (0, image_stride(w.shape[1]) - w.shape[1], 0, pad_rows))
+        rows.append(F.pad(w, (0, cuda_build.image_stride(w.shape[1]) - w.shape[1], 0, pad_rows))
                     .reshape(-1))
     bf16 = torch.cat(rows).to(torch.bfloat16)
     f32 = [p.norm1_scale, p.norm1_bias, p.norm2_scale, p.norm2_bias, *p.sim_b, *p.rad_b]

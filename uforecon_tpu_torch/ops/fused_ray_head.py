@@ -4,7 +4,8 @@ the wrapper that picks between them.
 Replaces the Pallas TPU kernel the JAX package's ``ops/fused_ray_head.py``
 ``ray_head_fused``: over each ray's (SN, C) z-sorted tokens, one LoFTR
 linear-attention layer across the samples, then the density MLP
-C -> 32 -> 16 -> 1. The kernel is ``csrc/ray_head.cu``; like the JAX
+C -> 32 -> 16 -> 1. The kernel is ``csrc/ray_head.cu`` (in ``fast`` at
+token widths 88 and 72 ``csrc/ray_head_fast.cuh``, below); like the JAX
 kernel it takes any token width C (here a multiple of 8 up to 112: every
 width a JAX flag set gives, 40 .. 112) and any sample count SN >= 1.
 
@@ -25,23 +26,33 @@ CUDA cores.
 ``precision`` is the resolved ``Config.kernel_precision``. ``highest`` and
 ``high`` run the kernel described above and an FP32 plain version;
 ``fast`` the JAX package's single bf16 pass at its ``kernel_dot`` sites
-(``uforecon_tpu/ops/fused_ray_head.py:85-87,108-113``): the layer products
+(``uforecon_tpu/ops/fused_ray_head.py:85-87,108-126``): the layer products
 (q/k/v, merge, mlp1, mlp2 and the density MLP) and the linear-attention
 sums kv = sum_s phi(k_s) v_s^T, num = phi(q) kv and den = phi(q) ksum,
 each with both operands rounded to bf16 (round to nearest even) and the
-products summed in FP32; ksum itself is an FP32 sum. The kernel sums the
-state in sample order, the plain version in einsum's: now and then an
-entry's bf16 rounding lands on the other side, one of the sources of the
-flips the card's checks allow for (``chip_smoke.py`` FAST_SHARE). The
-kernel's
-``fast`` instantiation runs the tensor-core layers as one bf16
-``mma.m16n8k16`` pass; the plain version rounds at the same sites. The
-NeuS epilogue does not depend on the precision, as in JAX. The backward
-differentiates the FP32 plain version in every precision.
+products summed in FP32; ksum itself is an FP32 sum. In ``fast`` the
+widths of ``FAST_WIDTHS`` (88, the default model; 72, without explicit
+similarity) run ``csrc/ray_head_fast.cuh``, ``csrc/ray_head.cu``'s bf16
+instantiation redesigned with the same outputs bit for bit: persistent
+blocks of two groups of four warps, each group on its own ray; every bf16
+weight resident in shared memory (``fast_image``, one TMA bulk load a
+block); a warp's 16 samples kept in registers through the layers (q, k,
+v, merge, mlp1, mlp2 as bf16 ``mma.m16n8k16``, each product's
+accumulators the next one's operands); the state, the attention, the
+LayerNorms and the density MLP with ``ray_head.cu``'s FP32 sums. Every
+other width runs that instantiation itself (``takes_fast_kernel``). The
+state and the attention sum as the plain version does on the CPU (sample
+and feature order); the layers (on the tensor cores), ksum, the LayerNorms
+and the density MLP in other orders, so now and then an intermediate's
+bf16 rounding lands on the other side, the flips the card's checks allow
+for (``chip_smoke.py`` FAST_SHARE). The NeuS epilogue does not depend on the
+precision, as in JAX. The backward differentiates the FP32 plain version
+in every precision.
 
 The weight pack (``pack_weights``: the tensor-core matrices as TF32 hi and
-lo planes, or in ``fast`` as bf16 values and a zero plane with the density
-MLP's weights bf16-rounded) is built once per set of weights and
+lo planes, or in ``fast`` the fast kernel's ``fast_image`` at its widths
+and elsewhere ``plane_pack``'s bf16 values and a zero plane with the
+density MLP's weights bf16-rounded) is built once per set of weights and
 precision (``cached_pack_weights``) and shared by ``ray_head`` and
 ``ray_head_neus``; ``ray_head.pack_builds`` counts the builds of both.
 
@@ -54,7 +65,8 @@ only. For CUDA tensors they launch the kernel or raise, inside an autograd
 Function whose backward differentiates the plain version (the JAX
 ``_rh_bwd`` / ``_rhn_bwd`` pattern). ``ray_head.launches`` and
 ``ray_head_neus.launches`` count the launches of the 3xTF32 kernel,
-``.launches_fast`` those of the ``fast`` kernel.
+``.launches_fast`` those in ``fast`` (of ``csrc/ray_head_fast.cuh`` at
+``FAST_WIDTHS``, else of ``csrc/ray_head.cu``'s bf16 instantiation).
 """
 from __future__ import annotations
 
@@ -71,6 +83,9 @@ EPS = 1e-6      # linear attention denominator
 LN_EPS = 1e-6   # flax LayerNorm epsilon
 _KERNEL_C_MAX = 112   # token widths: multiples of 8 up to this
 _KERNEL_HEADS = 8
+# the token widths of the fast kernel (csrc/ray_head_fast.cuh): in ``fast``
+# these take it, every other width ray_head.cu's bf16 instantiation
+FAST_WIDTHS = (88, 72)
 
 
 class RayHeadParams(NamedTuple):
@@ -136,11 +151,21 @@ def ray_head_reference(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8,
 
 
 def pack_weights(p: RayHeadParams, precision: str = "high") -> torch.Tensor:
-    """Flatten the weights in ``csrc/ray_head.cu``'s order, matrices in
-    (in, out) orientation; the tensor-core matrices (q, k, v, merge, mlp1,
-    mlp2) as their TF32 hi plane, then lo plane, or in ``fast`` as their
-    bf16 values and a zero plane, and the density MLP's weights
-    bf16-rounded."""
+    """The weights as the kernel at ``precision`` and this width reads
+    them: in ``fast`` at a width of ``FAST_WIDTHS`` the fast kernel's
+    ``fast_image``; otherwise flattened in ``csrc/ray_head.cu``'s order,
+    matrices in (in, out) orientation, the tensor-core matrices (q, k, v,
+    merge, mlp1, mlp2) as their TF32 hi plane, then lo plane, or in
+    ``fast`` as their bf16 values and a zero plane, and the density MLP's
+    weights bf16-rounded."""
+    if cuda_build.is_fast(precision) and p.wq.shape[0] in FAST_WIDTHS:
+        return fast_image(p)
+    return plane_pack(p, precision)
+
+
+def plane_pack(p: RayHeadParams, precision: str = "high") -> torch.Tensor:
+    """``csrc/ray_head.cu``'s pack at ``precision`` (``pack_weights`` at
+    every width but ``FAST_WIDTHS`` in ``fast``)."""
     tc = cuda_build.bf16_planes if cuda_build.is_fast(precision) else cuda_build.tf32_planes
     small = cuda_build.operand_round(precision)
     parts = [tc(p.wq.t()), tc(p.wk.t()), tc(p.wv.t()), tc(p.wmerge.t()),
@@ -149,6 +174,25 @@ def pack_weights(p: RayHeadParams, precision: str = "high") -> torch.Tensor:
     for w, b in zip(p.dens_w, p.dens_b):
         parts += [small(w.t().detach().float()), b]
     return torch.cat([t.detach().float().reshape(-1) for t in parts])
+
+
+def fast_image(p: RayHeadParams) -> torch.Tensor:
+    """The fast kernel's weight pack (``csrc/ray_head_fast.cuh`` ``Img``)
+    as float32 words, the image a block copies into shared memory: wq, wk,
+    wv, wmerge, w1, w2 and the density MLP's first two weights rounded to
+    bf16, each as its torch (out, in) rows ``cuda_build.image_stride(in)``
+    elements apart; then in float32 the LayerNorms' scales and biases, the
+    density MLP's first two biases, its last layer's 16 weights rounded to
+    bf16 and its bias, padded to 4 floats."""
+    rows = []
+    for w in (p.wq, p.wk, p.wv, p.wmerge, p.w1, p.w2, *p.dens_w[:2]):
+        w = cuda_build.bf16_round(w.detach().float())
+        rows.append(F.pad(w, (0, cuda_build.image_stride(w.shape[1]) - w.shape[1])).reshape(-1))
+    bf16 = torch.cat(rows).to(torch.bfloat16)
+    f32 = [p.norm1_scale, p.norm1_bias, p.norm2_scale, p.norm2_bias, p.dens_b[0],
+           p.dens_b[1], cuda_build.bf16_round(p.dens_w[2].detach().float()), p.dens_b[2]]
+    f32 = torch.cat([t.detach().float().reshape(-1) for t in f32])
+    return torch.cat([bf16.view(torch.float32), f32, f32.new_zeros(-f32.numel() % 4)])
 
 
 _packs = cuda_build.PackCache()
@@ -187,14 +231,24 @@ def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, precision: str,
             raise ValueError("ray_head kernel takes float32 tensors on one "
                              f"CUDA device, got {t.dtype} on {t.device}")
     ext = cuda_build.extension()
-    limit = _smem_limit(dev)
-    if ext.ray_head_smem_bytes(sn, c, neus, limit) < 0:
-        raise ValueError(f"ray_head kernel: no tile fits the card's {limit} bytes "
-                         f"of shared memory at C={c}, SN={sn}")
     w = cached_pack_weights(p, precision)
-    if w.numel() != ext.ray_head_weight_count(c):
+    if takes_fast_kernel(c, precision):
+        n_w = ext.ray_head_fast_pack_bytes(c) // 4
+    else:
+        limit = _smem_limit(dev)
+        if ext.ray_head_smem_bytes(sn, c, neus, limit) < 0:
+            raise ValueError(f"ray_head kernel: no tile fits the card's {limit} bytes "
+                             f"of shared memory at C={c}, SN={sn}")
+        n_w = ext.ray_head_weight_count(c)
+    if w.numel() != n_w:
         raise ValueError("ray_head weight pack does not match the kernel")
     return ext, w
+
+
+def takes_fast_kernel(c: int, precision: str) -> bool:
+    """Does a ray head of width ``c`` at ``precision`` run the fast kernel
+    (``csrc/ray_head_fast.cuh``)? Else ``csrc/ray_head.cu``."""
+    return cuda_build.is_fast(precision) and c in FAST_WIDTHS
 
 
 def tile_rows(sn: int, c: int, neus: bool = False, device=None) -> int:
@@ -208,12 +262,15 @@ def tile_rows(sn: int, c: int, neus: bool = False, device=None) -> int:
 def _launch(y: torch.Tensor, p: RayHeadParams, n_heads: int = 8,
             precision: str = "high") -> torch.Tensor:
     ext, w = _prepare(y, p, n_heads, precision)
-    rn, sn, _ = y.shape
+    rn, sn, c = y.shape
     y = cuda_build.aligned(y)
     srdf = torch.empty(rn, sn, device=y.device, dtype=torch.float32)
     fast = cuda_build.is_fast(precision)
     with torch.cuda.device(y.device):
-        ext.ray_head(y, w, srdf, fast)
+        if takes_fast_kernel(c, precision):
+            ext.ray_head_fast(y, w, srdf)
+        else:
+            ext.ray_head(y, w, srdf, fast)
     cuda_build.count_launch(ray_head, fast)
     return srdf
 
@@ -273,9 +330,13 @@ def _launch_neus(y, z, rad, inv_s, p: RayHeadParams, n_heads: int = 8,
     outs = [torch.empty(shape, device=dev, dtype=torch.float32)
             for shape in ((rn, sn), (rn, sn), (rn, 3), (rn,), (rn,))]
     fast = cuda_build.is_fast(precision)
+    args = (cuda_build.aligned(y), w, z.contiguous(), rad.contiguous(), inv_s.contiguous(),
+            *outs)
     with torch.cuda.device(dev):
-        ext.ray_head_neus(cuda_build.aligned(y), w, z.contiguous(), rad.contiguous(),
-                          inv_s.contiguous(), *outs, fast)
+        if takes_fast_kernel(y.shape[2], precision):
+            ext.ray_head_neus_fast(*args)
+        else:
+            ext.ray_head_neus(*args, fast)
     cuda_build.count_launch(ray_head_neus, fast)
     if sn == 1:   # neus_render's weights have no interval to live on
         outs[1] = outs[1][:, :0]

@@ -1,11 +1,12 @@
 """Where the kernels' time goes: variants of ``csrc/point_head.cuh`` (the
 3xTF32 point head), ``csrc/point_head_fast.cuh`` (the fast one),
-``csrc/point_head2.cuh``, ``csrc/ray_head.cu``, ``csrc/tiny_attention.cu``
-(forward and backward) and ``csrc/volume_fusion.cu`` timed apart on one
-GPU.
+``csrc/point_head2.cuh``, ``csrc/ray_head.cu`` (3xTF32, or with ``fast``
+its bf16 instantiation), ``csrc/ray_head_fast.cuh`` (the fast ray head at
+C 88 and 72), ``csrc/tiny_attention.cu`` (forward and backward) and
+``csrc/volume_fusion.cu`` timed apart on one GPU.
 
     python -m uforecon_tpu_torch.script.head_variants ph ph,nogemm phf phf,phf_rad ph2 rh \
-        rh,rh_ln ta,S=2 tb tb,tb_stream vf vf,T=128
+        rh,rh_ln rh,fast rhf rhf,rhf_mlp rhf,rhf_probe ta,S=2 tb tb,tb_stream vf vf,T=128
 
 Each variant is a copy of ``csrc/`` with a few lines replaced, built by
 ``nvcc`` (all variants at once) into a shared library with the kernels'
@@ -13,14 +14,15 @@ plain C interface, and timed with CUDA events (mean of 20 launches, back to
 back on the same inputs) and by torch.profiler (the kernels' mean device
 time over 20 launches) at the main path's shapes: the point heads at P =
 65,536 points and 3 views, the ray head over 1024 rays of 64 and of 128
-samples at width 88, the tiny-attention forward at B = 65,536, L = S = 4,
+samples at width 88 (``rh,fast`` and ``rhf``: in ``fast``, against the
+fast plain version), the tiny-attention forward at B = 65,536, L = S = 4,
 8 heads of D = M = 10 (route A) and 8 (route B), its backward at B =
 65,536, 8 heads of D = M = 10, L = S = 4 (route A) and 6 (the training
 shape), the volume fusion at P = 65,536 and 3 views in the sampler's
 channel-first layout (its 27.5 MB stay in the L2 between launches), on
 seeded random weights and inputs. A variant is a kernel (``ph``, ``phf``,
-``ph2``, ``rh``, ``ta``, ``tb`` or ``vf``) followed by comma-separated
-options:
+``ph2``, ``rh``, ``rhf``, ``ta``, ``tb`` or ``vf``) followed by
+comma-separated options:
 
   NAME=VALUE  a constant of the kernel's source (``CONSTANTS``), e.g.
               ``T=256`` threads a block, ``S=3`` weight-ring slots (for
@@ -28,10 +30,12 @@ options:
   a patch     of ``PATCHES``: ``nogemm`` skips the tensor-core layers;
               ``onemma`` keeps one of the three 3xTF32 products;
               ``nosync`` drops the per-step sync, ``noload`` the weight
-              loads; ``ph_*`` / ``phf_*`` / ``ph2_*`` / ``rh_*`` / ``ta_*``
-              / ``tb_*`` skip one phase of a kernel; ``phf_probe``
-              prints the fast kernel's cycles a tile in each of its phases
-              (block 0's first thread, its barriers included);
+              loads; ``ph_*`` / ``phf_*`` / ``ph2_*`` / ``rh_*`` / ``rhf_*``
+              / ``ta_*`` / ``tb_*`` skip one phase of a kernel;
+              ``phf_probe`` prints the fast point head's cycles a tile in
+              each of its phases, ``rhf_probe`` the fast ray head's cycles
+              a ray (block 0's first thread, its barriers included);
+  ``fast``    (``rh`` only) runs ``ray_head.cu``'s bf16 instantiation;
               ``tb_stream`` keeps only the backward's copies (no
               arithmetic); ``vf_stream`` keeps the
               fusion's loads and stores with a plain sum in place of its
@@ -61,14 +65,19 @@ from ..ops import cuda_build
 
 # kernel -> the source that holds it (which the constants and patches name)
 SOURCE = {"ph": "point_head.cuh", "phf": "point_head_fast.cuh", "ph2": "point_head2.cuh",
-          "rh": "ray_head.cu", "ta": "tiny_attention.cu", "tb": "tiny_attention.cu",
-          "vf": "volume_fusion.cu"}
+          "rh": "ray_head.cu", "rhf": "ray_head_fast.cuh", "ta": "tiny_attention.cu",
+          "tb": "tiny_attention.cu", "vf": "volume_fusion.cu"}
 # kernel -> the files nvcc compiles into its library (the point heads'
 # instances of 2..5 views, of 6..11 views and past 11 are separate files)
 _PH_UNITS = ("point_head.cu", "point_head_views.cu", "point_head_views_9_11.cu",
              "point_head_fast.cu", "point_head_fast_views.cu", "point_head_stream.cu")
 UNITS = {"ph": _PH_UNITS, "phf": _PH_UNITS,
-         "ph2": ("point_head2.cu", "point_head2_views.cu", "point_head2_stream.cu")}
+         "ph2": ("point_head2.cu", "point_head2_views.cu", "point_head2_stream.cu"),
+         "rhf": ("ray_head_fast.cu", "ray_head_fast_72.cu")}
+# the fast ray head's phases by its probe's marks (rhf_probe)
+RHF_PHASES = ("phase 1: tokens, k", "phase 1: ksum, 2 barriers", "phase 1: v, barrier",
+              "phase 1: state", "state out, barrier", "phase 2: tokens", "q, attention",
+              "merge, LayerNorm", "mlp1, mlp2", "LayerNorm, density", "barrier, NeuS")
 # kernel -> NAME -> (the source's line, its replacement with {} for VALUE)
 CONSTANTS = {
     "ph": {"TP": ("constexpr int TP_MAX = 16;", "constexpr int TP_MAX = {};"),
@@ -201,6 +210,22 @@ PATCHES = {
               ("ray_head.cu", *_skip("    tc::layernorm_n<CMAX>(B, LD, rows, C, W + L.o_n2s"))],
     "rh_density": [("ray_head.cu", *_skip("    block_linear<4, kFast>(X, LD, C, W + L.o_dw0")),
                    ("ray_head.cu", *_skip("    block_linear<4, kFast>(A, D0, D0,"))],
+    "rhf_probe": [("ray_head_fast.cuh", "#pragma once\n\n#include <cstdint>",
+                   "#pragma once\n#define UFO_RHF_PROBE\n#include <cstdint>")],
+    "rhf_state": [("ray_head_fast.cuh", *_empty_loop(
+        "        for (int s = 0; s < rows; ++s) {", "rows"))],
+    "rhf_kv": [("ray_head_fast.cuh", *_skip(
+        "        warp_mma<NT, KS, KC, 0, C>(kf, xa, wrow + I::QKV + C * KC);")),
+               ("ray_head_fast.cuh", *_skip(
+        "        warp_mma<NT, KS, KC, 0, C>(acc, xa, wrow + I::QKV + 2 * C * KC);"))],
+    "rhf_attn": [("ray_head_fast.cuh", *_empty_loop(
+        "        for (int m = 0; m < DK; ++m) {", "DK"))],
+    "rhf_mlp": [("ray_head_fast.cuh", *_empty_loop(
+        "      for (int c16 = 0; c16 < KS2; ++c16) {", "KS2"))],
+    "rhf_ln": [("ray_head_fast.cuh", *_skip("      warp_layernorm<C>(scr, F + I::N1S, F + I::N1B);")),
+               ("ray_head_fast.cuh", *_skip("      warp_layernorm<C>(scr, F + I::N2S, F + I::N2B);"))],
+    "rhf_density": [("ray_head_fast.cuh", *_empty_loop(
+        "        for (int k = 0; k < C; k += 8) {", "C"))],
 }
 
 
@@ -212,6 +237,8 @@ def replacements(variant: str):
         raise ValueError(f"variant {variant!r}: the kernel is one of {sorted(SOURCE)}")
     out = []
     for opt in options:
+        if opt == "fast" and kernel == "rh":
+            continue   # an argument of the launch, not a change of the source
         if opt in PATCHES:
             out += PATCHES[opt]
         elif "=" in opt and opt.split("=")[0] in CONSTANTS.get(kernel, {}):
@@ -292,7 +319,7 @@ def _cases(seed: int, kernels):
     nv, p = 3, 65536
     cases = {}
     with torch.no_grad():
-        if {"ph", "phf", "ph2", "rh"} & set(kernels):
+        if {"ph", "phf", "ph2", "rh", "rhf"} & set(kernels):
             model = UFORecon(Config())
             init_weights(model, seed)
             rt = model.ray_transformer.to(dev)
@@ -304,12 +331,16 @@ def _cases(seed: int, kernels):
             ph, rh = rt.point_head_params(), rt.ray_head_params()
             ph_ref = fph.point_head_reference(inp, ph)
             ys = {sn: randn(1024, sn, 88) for sn in (64, 128)}
+            rh_fast = {sn: frh.ray_head_reference(y, rh, precision="fast")
+                       for sn, y in ys.items()}
             cases.update(inp=inp, ys=ys, ph=(fph.pack_weights(ph), ph_ref),
                          phf=(fph.pack_weights(ph, "fast"),
                               fph.point_head_reference(inp, ph, precision="fast")),
                          ph2=(fph2.pack_weights2(ph), ph_ref),
                          rh=(frh.pack_weights(rh),
-                             {sn: frh.ray_head_reference(y, rh) for sn, y in ys.items()}))
+                             {sn: frh.ray_head_reference(y, rh) for sn, y in ys.items()}),
+                         rh_fast=(frh.plane_pack(rh, "fast"), rh_fast),
+                         rhf=(frh.fast_image(rh), rh_fast))
         if "ta" in kernels:
             qkv = {d: tuple(randn(p, 4, 8, d) for _ in range(3)) for d in (10, 8)}
             cases["ta"] = {d: (x, fta.tiny_linear_attention_reference(*x))
@@ -336,6 +367,8 @@ def _bind(kernel, lib):
         types = [c.c_void_p] * 11 + [c.c_int] * 4
     elif kernel == "rh":          # ufo_ray_head(y, w, srdf, rn, sn, c, fast, stream)
         fn, types = lib.ufo_ray_head, [c.c_void_p] * 3 + [c.c_int] * 4
+    elif kernel == "rhf":         # ufo_ray_head_fast(y, w, srdf, rn, sn, c, stream)
+        fn, types = lib.ufo_ray_head_fast, [c.c_void_p] * 3 + [c.c_int] * 3
     elif kernel == "ta":          # ufo_tiny_attention_fwd(q, k, v, o, b, l, s, h, d, m, stream)
         fn, types = lib.ufo_tiny_attention_fwd, [c.c_void_p] * 4 + [c.c_int] * 6
     elif kernel == "tb":          # ufo_tiny_attention_bwd(q, k, v, g, dq, dk, dv, b, l, s, h, d, m, stream)
@@ -347,8 +380,9 @@ def _bind(kernel, lib):
     return fn
 
 
-def _runs(kernel, fn, cases, stream):
-    """suffix -> (launch, max abs error against the plain version)."""
+def _runs(kernel, fn, cases, stream, fast=False):
+    """suffix -> (launch, max abs error against the plain version); fast:
+    ``rh``'s bf16 instantiation."""
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     i = ctypes.c_int
     if kernel in ("ph", "phf", "ph2"):
@@ -370,11 +404,12 @@ def _runs(kernel, fn, cases, stream):
                 *map(i, fws[0].shape[:2]), stream]
         return {" NV 3": (lambda: fn(*call), lambda: (out - ref).abs().max().item())}
     runs = {}
-    if kernel == "rh":
-        w, ref = cases["rh"]
+    if kernel in ("rh", "rhf"):
+        w, ref = cases["rh_fast" if fast else kernel]
         for sn, y in cases["ys"].items():
             srdf = torch.empty(1024, sn, device="cuda")
-            call = [ptr(y), ptr(w), ptr(srdf), i(1024), i(sn), i(88), i(0), stream]
+            call = [ptr(y), ptr(w), ptr(srdf), i(1024), i(sn), i(88),
+                    *([] if kernel == "rhf" else [i(int(fast))]), stream]
             runs[f" SN {sn}"] = (lambda c=call: fn(*c),
                                  lambda s=srdf, r=ref[sn]: (s - r).abs().max().item())
         return runs
@@ -394,6 +429,14 @@ def _runs(kernel, fn, cases, stream):
         runs[f" D {d}"] = (lambda c=call: fn(*c),
                            lambda o=o, r=ref: (o - r).abs().max().item())
     return runs
+
+
+def _rhf_probe(lib):
+    """The fast ray head's probe counters (``rhf_probe``), as a list."""
+    probe = (ctypes.c_ulonglong * 16)()
+    if lib.ufo_ray_head_fast_probe(probe) != 0:
+        raise SystemExit("the fast ray head's probe could not be read")
+    return list(probe)
 
 
 def main(argv=None):
@@ -423,7 +466,10 @@ def main(argv=None):
     print(card, flush=True)
     out = {"card": card, "ms": {}, "device_ms": {}, "max_abs_err": {}}
     for v, fn in fns.items():
-        for suffix, (launch, err) in _runs(v.split(",")[0], fn, cases, stream).items():
+        probe = "rhf_probe" in v.split(",")
+        for suffix, (launch, err) in _runs(v.split(",")[0], fn, cases, stream,
+                                           "fast" in v.split(",")).items():
+            before = _rhf_probe(libs[v]) if probe else None
             if launch() != 0:
                 raise SystemExit(f"variant {v}{suffix}: launch refused")
             torch.cuda.synchronize()
@@ -433,6 +479,18 @@ def main(argv=None):
             out["max_abs_err"][v + suffix] = e
             print(f"{v}{suffix}: {ms:.4f} ms (device {dms:.4f}), max abs err {e:.3e}",
                   flush=True)
+            if probe:
+                # block 0's first thread over this case's launches: its rays
+                # and phase-2 tiles, its cycles a ray in each phase
+                d = [a - b for a, b in zip(_rhf_probe(libs[v]), before)]
+                rays = max(d[15], 1)
+                out.setdefault("probe_cycles", {})[v + suffix] = {
+                    "rays": d[15], "tiles": d[14],
+                    "per_ray": dict(zip(RHF_PHASES, (d[i] / rays for i in range(11))))}
+                print(f"{v}{suffix}: cycles a ray by phase (block 0, {d[15]} rays, {d[14]} "
+                      f"phase-2 tiles): " + "; ".join(f"{n} {d[i] / rays:.0f}"
+                                                     for i, n in enumerate(RHF_PHASES)),
+                      flush=True)
         if "phf_probe" in v.split(","):
             probe = (ctypes.c_ulonglong * 16)()
             if libs[v].ufo_point_head_fast_probe(probe) != 0:
@@ -441,6 +499,7 @@ def main(argv=None):
             out.setdefault("probe_cycles", {})[v] = [probe[i] / tiles for i in range(11)]
             print(f"{v}: cycles a tile by phase (block 0, {tiles} tiles): "
                   + " ".join(f"{probe[i] / tiles:.0f}" for i in range(11)), flush=True)
+
     print(json.dumps(out))
     return 0
 
