@@ -69,17 +69,10 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
   6. probe phase: the row-gather benchmark's probe entry point
      (``uforecon_tpu_torch/script/bench_tile_gather.py --mode probe``) at
      256 blocks: its JSON line, bit-equal first block, the kernel launched;
-  7. profile phase: 8 render chunks of 1024 rays per route (off, on, A,
-     v2, shipped) under ``torch.profiler``: device operations, device ms
-     and the device's busy share per chunk, the operations the knobs-on
-     route removes, and routes A, v2 and shipped against knobs off;
-  8. A/B phase: AB_ROUNDS rounds of warm full views in the order off, on,
-     on, off on one encoding (rays/s per view, SM clock and power read
-     after each); then the slice view's encode with cuDNN's deterministic
-     algorithms (as ``UFORecon.encode`` runs) and without, alternated:
-     the shipped route's (extraction) and the exact route's with a
-     backward (training);
-  9. pipeline phase: the shipped DTU evaluation flow through the port's
+  7. A/B phase: AB_ROUNDS rounds of full views in the order off, on,
+     on, off on one encoding, warm from the slice phase's views (rays/s
+     per view, SM clock and power read after each);
+  8. pipeline phase: the shipped DTU evaluation flow through the port's
      CLIs. The fixture (``script/make_dtu_fixture.py``: a textured sphere
      at 1600x1200, views 23 24 33); ``cli.run`` at full width (800x640, 3
      views, 64 + 64 samples) on the seeded weights from a state-dict file
@@ -94,7 +87,7 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      each stage's time; and the cards phase's (a): ``cli.run --mesh_shape 2``
      at its defaults, which on one card resolves to 1 (its printed line
      says so) and writes the depth files of ``--mesh_shape 1`` bit for bit;
- 10. general phase: the custom-capture flow (``--test_general``): the
+  9. general phase: the custom-capture flow (``--test_general``): the
      port's GeneralFit fixture (``script/make_general_fixture.py``, 5 views
      of a sphere at 768x576 as baseline JPEGs and masks) and the host time
      of ``read_jpeg``; ``cli.run --test_general --dataset blendedmvs
@@ -105,7 +98,7 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      flags, and at 5 views (per-stage volumes by the JAX guard; peak
      memory); a chunk of the field and the scene's first 256 rays, card
      against CPU; ``cli.tsdf_fusion --dataset general``;
- 11. configs phase: the JAX package's other model configurations
+ 10. configs phase: the JAX package's other model configurations
      (CONFIGS: the feature grid without depth PE, the feature grid with
      the depth guide and the similarity, no depth PE, ``use_dir_srdf``,
      ``volume_reso`` 0, and the default model at 128 + 128 samples), each
@@ -120,7 +113,7 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      card vs CPU (``--encoder_dtype bfloat16``: fast kernels 1 and 2, held
      as a fast route; ``--compute_dtype bfloat16``: kernel 5 alone, by the
      bf16 effect's distribution);
- 12. training phase (``pipeline/trainer.py``, ``pipeline/fit.py``): at the
+ 11. training phase (``pipeline/trainer.py``, ``pipeline/fit.py``): at the
      full width of the JAX training default (``ndepths`` 48/32/8, 192
      hypotheses, 64 + 64 samples, 1024 rays, 5 views at 640x512 on the
      learn_sanity sphere, seeded weights, matcher frozen, Adam on the
@@ -136,7 +129,7 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      share, the costliest operations); (c) ``cli.run --debug`` on the
      fixture's DTU training layout (``make_dtu_fixture.
      write_train_layout``), then ``cli.run --extract_geometry --load_ckpt``
-     on the checkpoint it wrote; (d) in step 15; (e) every model
+     on the checkpoint it wrote; (d) in step 14; (e) every model
      configuration, cascade flag and precision policy the JAX CLI trains
      (TRAIN_CONFIGS: the feature grid without and with the depth guide, no
      depth PE, no depth guide, ``use_dir_srdf``, ``volume_reso`` 0,
@@ -147,7 +140,7 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      then ``cli.run --debug`` with ``--use_dir_srdf --share_cr
      --encoder_dtype bfloat16 --grad_method undetached`` and the
      extraction from its checkpoint with the same flags;
- 13. views phase: DTU's evaluation set 1 (the fixture's 11 views at
+ 12. views phase: DTU's evaluation set 1 (the fixture's 11 views at
      800x640, ``script/make_dtu_fixture.py``): ``cli.run --extract_geometry
      --set 1`` at its defaults at 11 views (at 480x384, 36 % of the rays,
      the guard's per-stage volumes still: at 800x640 it took a quarter of
@@ -156,7 +149,7 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      encode seconds, peak memory; then a 1024-ray chunk at 6, 8 and 11
      views on the card against the CPU, on the exact path and at the JAX
      extraction defaults (``views_phase`` says how each is held);
- 14. cards phase (``parallel/sharding.py``, after the views phase's
+ 13. cards phase (``parallel/sharding.py``, after the views phase's
      chunks): one 1024-ray training step at the
      JAX training default (640x512, kernels 1 and 2) on one rank, then the
      slice's 800x640 view at the CLI defaults (fast kernels 1 and 2)
@@ -169,17 +162,18 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      sharing a card measure correctness only. With two cards or more the
      same runs over NCCL across the cards (rays/s and s/step per card
      count); with one, a line says it was not run;
- 15. from step 9 on, beside steps 9, 10, 13 and 14, each in a process of
-     its own: steps 11 and 12 (SIDE_PHASES, one process, in that order),
+ 14. from step 8 on, beside steps 8, 9, 12 and 13, each in a process of
+     its own: steps 10 and 11 (SIDE_PHASES, one process, in that order),
      the training phase's (d), ``script/learn_sanity.py --mesh_eval`` at its defaults (120 MVS + 300
      render steps, 160x128, 6 views), which must pass its rule, and the GPU unit tests of the
-     kernels (``python -m pytest --noconftest -k on_gpu
-     tests/test_torch_port_kernels.py``: every kernel against its plain
-     version at further shapes, ragged edges and padded ray lengths),
-     which must pass. The device timings (steps 3-8) are done by then; the
-     host-clock figures of steps 9-14 (rays/s, s/step) are taken with the
+     kernels (``python -m pytest --noconftest -k on_gpu``
+     ``tests/test_torch_port_kernels.py``, the fast ray heads' file and
+     the fast kernel 4 cases that step 3 does not hold, GPU_TESTS: every
+     kernel against its plain version at further shapes, ragged edges and
+     padded ray lengths), which must pass. The device timings (steps 3-7) are done by then; the
+     host-clock figures of steps 8-13 (rays/s, s/step) are taken with the
      card and the host shared among these processes;
- 16. prints a JSON line of per-kernel results, then the final
+ 15. prints a JSON line of per-kernel results, then the final
      ``{"ok": true, "device": {...}}`` line.
 Any failure exits non-zero without printing a result; without a CUDA card
 it exits 1 at once.
@@ -248,13 +242,23 @@ VIEWS_PAST_P = 16384
 VIEWS_CHUNK = (12, 1024, 16)   # views, rays (CONFIG_CHUNK), the extra view's id
 # the view counts at which the kernel phase holds fast kernel 1
 FAST_NV = tuple(range(2, 12))
+# the GPU unit tests of the side process: the kernels' file, the fast ray
+# heads' and fast kernel 4's at the (volume width, views) cases of FAST_NV
+# that the kernel phase does not hold (it holds width 24 at 3 views and at
+# VIEWS_NV, width 16 at 3)
+_PH2F_TESTS = "tests/test_torch_port_point_head2_fast.py::test_fast_kernel2_"
+GPU_TESTS = ("tests/test_torch_port_kernels.py", "tests/test_torch_port_ray_head_fast.py",
+             f"{_PH2F_TESTS}pack_size_is_the_image_on_gpu",
+             *(f"{_PH2F_TESTS}matches_plain_on_gpu[{cv}-{nv}]" for cv in (24, 16)
+               for nv in FAST_NV if (cv, nv) not in {(24, 3), *((24, v) for v in VIEWS_NV),
+                                                     (16, 3)}))
 # the 11-view scan renders at 36 % of the rays (it took 270.8 s of the run
 # at 800x640): the smallest size of multiples of 32 at which the JAX guard
 # still keeps its per-stage volumes (its byte count above merge_max_bytes);
 # the 4-view scan, the chunks and the kernel phase's NV 11 rows stay at the
 # full size
 VIEWS_CLI_WH = {11: (480, 384)}
-# warm views per route in the A/B phase: 2 x AB_ROUNDS
+# views per route in the A/B phase: 2 x AB_ROUNDS
 AB_ROUNDS = 1
 # training phase: the DTU training crop; timed steps per route
 TRAIN_WH = (640, 512)
@@ -278,9 +282,9 @@ KERNEL_SOURCES = {
                       f"{JAX_PACKAGE}/ops/fused_volume_fusion.py:62"),
     "ray_head_neus": (f"{PORT}/csrc/ray_head.cu",
                       f"{JAX_PACKAGE}/ops/fused_ray_head.py:332"),
-    "tiny_attention": (f"{PORT}/csrc/tiny_attention.cu",
+    "tiny_attention": (f"{PORT}/csrc/tiny_attention.cuh",
                        f"{JAX_PACKAGE}/ops/pallas_attention.py:190"),
-    "tiny_attention_bwd": (f"{PORT}/csrc/tiny_attention.cu",
+    "tiny_attention_bwd": (f"{PORT}/csrc/tiny_attention.cuh",
                            f"{JAX_PACKAGE}/ops/pallas_attention.py:147"),
     "point_head2": (f"{PORT}/csrc/point_head2.cuh",
                     f"{JAX_PACKAGE}/ops/fused_point_head2.py:163"),
@@ -293,11 +297,14 @@ KERNEL_SOURCES = {
 FAST = {"point_head_fast": "point_head", "ray_head_fast": "ray_head",
         "ray_head_neus_fast": "ray_head_neus", "point_head2_fast": "point_head2"}
 KERNEL_SOURCES.update({f: KERNEL_SOURCES[k] for f, k in FAST.items()})
-# fast kernels 1, 2 and 3 are designs of their own: persistent blocks,
+# fast kernels 1, 2, 3 and 4 are designs of their own: persistent blocks,
 # resident weights (fast kernels 2 and 3 at the widths of frh.FAST_WIDTHS;
-# every other width runs ray_head.cu's bf16 instantiation)
+# every other width runs ray_head.cu's bf16 instantiation; fast kernels 1
+# and 4 at 2..11 views, past them the streamed kernels)
 KERNEL_SOURCES["point_head_fast"] = (f"{PORT}/csrc/point_head_fast.cuh",
                                      KERNEL_SOURCES["point_head"][1])
+KERNEL_SOURCES["point_head2_fast"] = (f"{PORT}/csrc/point_head2_fast.cuh",
+                                      KERNEL_SOURCES["point_head2"][1])
 for _name in ("ray_head_fast", "ray_head_neus_fast"):
     KERNEL_SOURCES[_name] = (f"{PORT}/csrc/ray_head_fast.cuh", KERNEL_SOURCES[FAST[_name]][1])
 # configs phase: the JAX package's other model configurations (flags of
@@ -668,6 +675,7 @@ def kernel_phase(model, card):
     the point heads on model's weights."""
     import torch
 
+    from uforecon_tpu_torch.ops import cuda_build
     from uforecon_tpu_torch.ops import fused_point_head as fph
     from uforecon_tpu_torch.ops import fused_point_head2 as fph2
     from uforecon_tpu_torch.ops import fused_ray_head as frh
@@ -958,7 +966,7 @@ def kernel_phase(model, card):
     results["point_head2_fast"] = {**fast_result([fast_case(
         f"point_head2_fast P={p} NV={nv}", fph2.point_head2, fph2.point_head2_reference,
         (inp, params), {"token": TOL["token"], "radiance": TOL["radiance"]},
-        point_head2_flops(nv, p, fast=True), fph2.pack_weights2(params, precision="fast"))])}
+        point_head2_flops(nv, p, fast=True), fph2.fast_image2(params))])}
 
     # the feature grid's 16 volume features (tokens of 72, heads of 9; the
     # configs phase's featuregrid_guided): both point heads in 3xTF32 and
@@ -982,7 +990,10 @@ def kernel_phase(model, card):
         rad_w=(linear_w(16, c16 + 3), linear_w(8, 16), linear_w(1, 8)),
         rad_b=tuple(randn(n, scale=0.1, g=g16) for n in (16, 8, 1)))
 
-    def pack2(w, precision="high"):
+    def pack2(w, precision="high", streamed=False):
+        """The pack kernel 4 reads: in fast up to 11 views the fast image."""
+        if cuda_build.is_fast(precision) and not streamed:
+            return fph2.fast_image2(w)
         return fph2.pack_weights2(w, precision=precision)
 
     def point_head_cases(name, label, wrapper, plain, x, prm, flops, pack):
@@ -1077,7 +1088,8 @@ def kernel_phase(model, card):
                  partial(point_head_flops, views, VIEWS_PAST_P),
                  partial(fph.pack_weights, streamed=True)),
                 ("point_head2", fph2.point_head2, fph2.point_head2_reference,
-                 partial(point_head2_flops, views, VIEWS_PAST_P), pack2)):
+                 partial(point_head2_flops, views, VIEWS_PAST_P),
+                 partial(pack2, streamed=True))):
             file_case(name, *point_head_cases(name, f"P={VIEWS_PAST_P} NV={views}", wrapper,
                                               plain, x, params, flops, pack), views=views)
         del x
@@ -1697,6 +1709,12 @@ def slice_phase(model, model_b, card):
         raise AssertionError(f"a head rebuilt its weight pack: {built}")
     for route, m in models.items():
         stats[route]["cpu_agree"] = agree_with_cpu(m, sample, route)
+    # the shipped route with point_head='v2' (fast kernels 4 and 2) by the
+    # same rule
+    agree_v2 = agree_with_cpu(models["shipped"].with_knobs(point_head="v2"), sample,
+                              "shipped_v2")
+    check_launches("shipped_v2", agree_v2["launches"])
+    stats["shipped"]["cpu_agree_v2"] = agree_v2
     return models, sample, stats, launches, depths["shipped"]
 
 
@@ -1778,60 +1796,6 @@ def gradient_phase(model_a, sample, card):
     return launches
 
 
-def encode_determinism(model_x, model_t, scene, card):
-    """Seconds of one encode of the slice's view with cuDNN's deterministic
-    algorithms (as ``UFORecon.encode`` runs it) and without (its body,
-    ``_encode``, with the flag off), alternated in this process after one
-    untimed call of each (on, off, off, on): the shipped route's encode
-    (extraction, no gradient) and the exact route's encode with the
-    backward of its outputs' sum (training reaches the volume head's
-    transposed 3D convolutions so)."""
-    import torch
-
-    def leaves(x):
-        if torch.is_tensor(x):
-            yield x
-        elif isinstance(x, dict):
-            for v in x.values():
-                yield from leaves(v)
-        elif isinstance(x, (list, tuple)):
-            for v in x:
-                yield from leaves(v)
-
-    def extract():
-        with torch.no_grad():
-            model_x._encode(scene, False)
-
-    def train():
-        enc = model_t._encode(scene, False)
-        sum(t.float().sum() for t in leaves(enc) if t.requires_grad).backward()
-        model_t.zero_grad(set_to_none=True)
-
-    before = torch.backends.cudnn.deterministic
-    res = {}
-    try:
-        for kind, fn in (("extraction", extract), ("training", train)):
-            res[kind] = {True: [], False: []}
-            for i, det in enumerate((True, False, True, False, False, True)):
-                torch.backends.cudnn.deterministic = det
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                if i >= 2:
-                    res[kind][det].append(time.perf_counter() - t0)
-    finally:
-        torch.backends.cudnn.deterministic = before
-    figures = {kind: {"deterministic_s": r[True], "default_s": r[False],
-                      "ratio_of_medians": float(np.median(r[True]) / np.median(r[False]))}
-               for kind, r in res.items()}
-    log(f"[slice] encode of the 800x640 view, 3 views, with cudnn.deterministic (as "
-        f"UFORecon.encode runs) and without, alternated: extraction (shipped route, no "
-        f"gradient) and training (exact route, forward and the backward of its outputs' "
-        f"sum): {json.dumps(figures)} [{card}]")
-    return figures
-
-
 def probe_phase(card, blocks=256):
     """The row-gather benchmark's probe entry point, as a user runs it
     (``python -m uforecon_tpu_torch.script.bench_tile_gather --mode
@@ -1874,77 +1838,10 @@ def chunk_args(scene, extras, start, rn):
     return ray_d, float(scene.near) / cam_z, float(scene.far) / cam_z
 
 
-def profile_phase(models, scene, encs, extras, card, chunks=8, rn=1024):
-    """Device operations per render chunk of each route by name under
-    torch.profiler, their device time, and the share of the unprofiled
-    wall time of the same chunks that the device was busy; encs[route] is
-    the route's encoding."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    n_chunks = extras["ray_d"].shape[0] // rn
-    # chunks spread over the view
-    args = [chunk_args(scene, extras, ((i * 97 + 50) % n_chunks) * rn, rn)
-            for i in range(chunks)]
-    result = {}
-    for route, model in models.items():
-        @torch.no_grad()
-        def run():
-            gen = torch.Generator(device="cuda").manual_seed(SEED)
-            for ray_d, near, far in args:
-                model.render_chunk(scene, encs[route], ray_d, gen, near_per_ray=near,
-                                   far_per_ray=far)
-            torch.cuda.synchronize()
-
-        run()
-        t0 = time.perf_counter()
-        run()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not dev:
-            raise AssertionError("the profiler recorded no device operation")
-        count, time_us = collections.Counter(), collections.Counter()
-        for e in dev:
-            count[e.name] += 1
-            time_us[e.name] += e.time_range.elapsed_us()
-        busy_ms = sum(time_us.values()) / 1e3
-        result[route] = {
-            "device_ops_per_chunk": len(dev) / chunks,
-            "device_ms_per_chunk": busy_ms / chunks,
-            "wall_ms_per_chunk": wall_ms / chunks,
-            "device_busy_share": busy_ms / wall_ms,
-            "by_name": {k: {"per_chunk": count[k] / chunks,
-                            "ms_per_chunk": time_us[k] / 1e3 / chunks}
-                        for k, _ in count.most_common()}}
-        log(f"[profile] route {route}: " + json.dumps(
-            {"chunks": chunks, "rays_per_chunk": rn, "card": card,
-             **{k: v for k, v in result[route].items() if k != "by_name"},
-             "top": dict(list(result[route]["by_name"].items())[:12]),
-             # device time by operation, names cut to 100 characters
-             "top_ms": {k[:100]: round(v["ms_per_chunk"], 4) for k, v in sorted(
-                 result[route]["by_name"].items(),
-                 key=lambda kv: -kv[1]["ms_per_chunk"])[:10]}}))
-    by = {r: result[r]["by_name"] for r in result}
-    diff = {n: by["off"].get(n, {}).get("per_chunk", 0.0)
-            - by["on"].get(n, {}).get("per_chunk", 0.0) for n in set(by["off"]) | set(by["on"])}
-    log("[profile] removed per chunk by the knobs-on route: " + json.dumps(
-        {"total": result["off"]["device_ops_per_chunk"]
-         - result["on"]["device_ops_per_chunk"],
-         "by_name": {n: d for n, d in sorted(diff.items(), key=lambda kv: -abs(kv[1]))
-                     if d != 0}}))
-    for route in ("A", "v2", "shipped"):
-        log(f"[profile] route {route} against knobs off, per chunk: " + json.dumps(
-            {k: result[route][k] - result["off"][k]
-             for k in ("device_ops_per_chunk", "device_ms_per_chunk")}))
-    return result
-
-
 def ab_phase(models, scene, enc, extras, card):
-    """AB_ROUNDS rounds of warm full views in the order off, on, on, off,
-    one encoding; host clock ending in the depth map's host copy."""
+    """AB_ROUNDS rounds of full views in the order off, on, on, off, one
+    encoding, warm from the slice phase's views of both routes; host clock
+    ending in the depth map's host copy."""
     import torch
 
     from uforecon_tpu_torch.pipeline.renderer import SceneRenderer
@@ -1963,8 +1860,6 @@ def ab_phase(models, scene, enc, extras, card):
             raise AssertionError(f"knobs {route}: depth not finite")
         return n_rays / dt
 
-    for route in models:                  # a warm-up view per route
-        view(route)
     rates = {r: [] for r in models}
     for i in range(AB_ROUNDS):
         for route in ("off", "on", "on", "off"):
@@ -2033,10 +1928,11 @@ def cli_run(tag, run_name, base, extra, scan, n_views, wh, card, samples="64+64"
             raise AssertionError(f"{run_name} view {i}: kernels {idle} not launched")
         prev = snap
     path = "merged" if stats["merged"] else "per-stage"
-    resolved = (f"resolved: {path} volumes, kernel_precision {stats['kernel_precision']}, "
+    resolved = (f"resolved: {path} volumes, kernel_precision {stats['kernel_precision']}, ",
                 f"--mesh_shape {mesh} -> 1 card")
-    if resolved not in printed.getvalue():
-        raise AssertionError(f"{run_name}: cli.run printed no '{resolved}' line")
+    if not any(line.startswith(resolved[0]) and line.endswith(resolved[1])
+               for line in printed.getvalue().splitlines()):
+        raise AssertionError(f"{run_name}: cli.run printed no '{' ... '.join(resolved)}' line")
     log(f"[{tag}] cli.run {' '.join(extra) or 'at its defaults'}, {n_views} views "
         f"{wh[0]}x{wh[1]}, {samples} samples, seeded weights, {path} volumes, "
         f"kernel_precision {stats['kernel_precision']}: {stats['rays_per_sec']:.1f} "
@@ -2915,7 +2811,7 @@ def train_cli(model_flags, run_name, tag, card):
 
 def training_phase(card):
     """Training at the full width of the JAX training default (module
-    docstring, phase 12): (a) card against CPU, (b) timed steps, (c) the
+    docstring, phase 11): (a) card against CPU, (b) timed steps, (c) the
     training CLI and the reload of its checkpoint; (d), learn_sanity, runs
     in a process of its own (``start_learn_sanity``). Returns the
     launches of each of its runs and its numbers."""
@@ -3318,11 +3214,10 @@ def finish_learn_sanity(started, card):
 
 
 def start_tests(tmp):
-    """The GPU unit tests of the kernels (``test_torch_port_kernels.py``,
-    no JAX) in a process of their own, which reuses the built extension."""
+    """The GPU unit tests of the kernels (GPU_TESTS, no JAX) in a process
+    of their own, which reuses the built extension."""
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-k", "on_gpu", "-q",
-           "-p", "no:cacheprovider", os.path.join("tests", "test_torch_port_kernels.py"),
-           os.path.join("tests", "test_torch_port_ray_head_fast.py")]
+           "-p", "no:cacheprovider", *GPU_TESTS]
     return start_process(cmd, tmp)
 
 
@@ -3330,8 +3225,7 @@ def finish_tests(started, card):
     """The GPU unit tests must pass."""
     code, out, err, seconds = finish_process(started, timeout=900)
     lines = out.strip().splitlines()
-    log(f"[tests] pytest --noconftest -k on_gpu tests/test_torch_port_kernels.py "
-        f"tests/test_torch_port_ray_head_fast.py: "
+    log(f"[tests] pytest --noconftest -k on_gpu {' '.join(GPU_TESTS)}: "
         f"{lines[-1] if lines else ''} (ended within {seconds:.1f} s of its start) [{card}]")
     if code != 0:
         log(out[-6000:] + err[-2000:])
@@ -3410,14 +3304,9 @@ def main():
         f"{models['shipped'].cfg.merge_max_bytes}; the exact route's stage volumes "
         f"{sum(v.numel() * v.element_size() for v in enc.volumes.values())} bytes")
     launches.update(shipped_knob_runs(models["shipped"], scene, enc_s, extras, card))
-    routes = ("off", "on", "A", "v2", "shipped")
-    profile_phase({k: models[k] for k in routes}, scene,
-                  {k: enc_s if k == "shipped" else enc for k in routes}, extras, card)
     ab_phase(models, scene, enc, extras, card)
-    del enc, enc_s, merged
-    encode_determinism(models["shipped"], model, scene, card)
-    del scene, extras
-    lap("slice, grad, probe, profile, ab")
+    del enc, enc_s, merged, scene, extras
+    lap("slice, grad, probe, ab")
     # the device timings are done: from here on the configs and training
     # phases (SIDE_PHASES), learn_sanity and the GPU unit tests run, each in
     # a process of its own, beside the pipeline, general, views and cards

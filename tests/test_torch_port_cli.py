@@ -190,7 +190,8 @@ def test_flag_defaults_are_the_jax_ones():
             (w.option_strings, w.nargs, w.const, w.type, w.default), dest
     assert set(got_opts) - set(want_opts) == {
         "volume_merge", "merge_depth", "merge_pad", "merge_max_bytes", "volume_dtype",
-        "image_gather_dtype", "kernel_precision", "device"}
+        "image_gather_dtype", "kernel_precision", "point_head", "fused_neus_epilogue",
+        "device"}
     cfg, device = config_from_args(argv)
     want = jax_config_from_args(argv)
     assert device == "cuda"

@@ -48,8 +48,9 @@ its ``pair.txt``, or of ``--test_ref_view``). Each scan's depth maps go to
 ``{out_dir}/depth/{scan}/`` (``pipeline/extract.py``), with one line
 ``"{scan}: {views} views, {rays/s} rays/s"``, after the first scan's a line
 with what the run resolved: the volume path (merged or per-stage
-correlation volumes, the feature grid, or no volume) and the kernel
-precision. The model flags are the JAX package's (``--volume_type``,
+correlation volumes, the feature grid, or no volume), the kernel
+precision, the point head (``--point_head``) and the NeuS epilogue
+(``--fused_neus_epilogue``). The model flags are the JAX package's (``--volume_type``,
 ``--volume_reso``, ``--mvs_depth_guide``, ``--depth_pos_encoding``,
 ``--use_dir_srdf``, ``--explicit_similarity``; any ``--test_sample_*``);
 training takes the default configuration only. With ``--extract_similarity`` each scan's first sample
@@ -178,7 +179,8 @@ def run_extract(cfg: Config, device="cuda") -> Dict[str, Dict[str, float]]:
             continue
         if len(stats) == 1:
             print(f"resolved: {volume_path(cfg, s['merged'])}, "
-                  f"kernel_precision {s['kernel_precision']}, "
+                  f"kernel_precision {s['kernel_precision']}, point_head {cfg.point_head}, "
+                  f"fused_neus_epilogue {cfg.fused_neus_epilogue}, "
                   f"{_mesh_words(cfg, device, sharding.world_size())}", flush=True)
         print(f"{scan}: {s['views']} views, {s['rays_per_sec']:.0f} rays/s",
               flush=True)

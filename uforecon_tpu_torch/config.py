@@ -400,9 +400,11 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
     ``config_from_args``: the same names and defaults), those of extraction
     (``--extract_geometry``) and of training (without it), plus
     ``--device`` and the evaluation approximations' fields
-    (``--volume_merge`` ... ``--kernel_precision``, default as in
+    (``--volume_merge`` ... ``--kernel_precision``) and of the routes
+    ``--point_head`` and ``--fused_neus_epilogue`` (default as in
     ``Config``), which stand in for the JAX package's ``UFO_*``
-    environment overrides; ``--volume_merge never --volume_dtype float32
+    environment overrides (``UFO_POINT_HEAD``, ``UFO_NEUS_EPILOGUE``, ...;
+    ``uforecon_tpu/config.py`` ``perf_env_overrides``); ``--volume_merge never --volume_dtype float32
     --image_gather_dtype float32 --kernel_precision highest`` is the exact
     path.
 
@@ -500,6 +502,11 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
                    default=d.image_gather_dtype)
     p.add_argument("--kernel_precision", choices=("auto", "highest", "high", "fast"),
                    default=d.kernel_precision)
+    p.add_argument("--point_head", choices=("v1", "v2"), default=d.point_head,
+                   help="v2: the split-weight point head (kernel 4)")
+    p.add_argument("--fused_neus_epilogue", choices=("auto", "never"),
+                   default=d.fused_neus_epilogue,
+                   help="auto: the ray head with the NeuS epilogue (kernel 3)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cpu runs the kernels' plain PyTorch versions")
     a = p.parse_args(argv)
@@ -533,5 +540,6 @@ def config_from_args(argv=None) -> Tuple["Config", str]:
         volume_merge=a.volume_merge, merge_depth=a.merge_depth, merge_pad=a.merge_pad,
         merge_max_bytes=a.merge_max_bytes, volume_dtype=a.volume_dtype,
         image_gather_dtype=a.image_gather_dtype, kernel_precision=a.kernel_precision,
+        point_head=a.point_head, fused_neus_epilogue=a.fused_neus_epilogue,
         mesh_shape=_ints(a.mesh_shape))
     return cfg, a.device

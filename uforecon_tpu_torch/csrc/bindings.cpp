@@ -22,6 +22,7 @@ extern "C" int ufo_point_head2(const float* img, const float* vol,
                                float* rad, float* scratch, int cv, int nv, int p, int fast,
                                void* stream);
 extern "C" int ufo_point_head2_weight_count(int cv);
+extern "C" int ufo_point_head2_fast_pack_bytes(int cv);
 extern "C" long long ufo_point_head2_scratch_floats(int cv, int nv, int p);
 extern "C" int ufo_ray_head(const float* y, const float* w, float* srdf,
                             int rn, int sn, int c, int fast, void* stream);
@@ -230,6 +231,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("point_head2", &point_head2,
         "split-weight per-point view head (csrc/point_head2.cu)");
   m.def("point_head2_weight_count", &ufo_point_head2_weight_count);
+  m.def("point_head2_fast_pack_bytes", &ufo_point_head2_fast_pack_bytes);
   m.def("point_head2_scratch_floats", &ufo_point_head2_scratch_floats);
   m.def("ray_head", &ray_head, "fused along-ray SRDF head (csrc/ray_head.cu)");
   m.def("ray_head_weight_count", &ufo_ray_head_weight_count);

@@ -62,16 +62,11 @@
 // pre-similarity MLP, the attention, the radiance tail 16 -> 8 -> 1 and
 // the softmax stay FP32 on the CUDA cores, one row per thread.
 //
-// kFast (kernel_precision 'fast'): the JAX kernel's single bf16 pass at
-// its kernel_dot sites (fused_point_head2.py:73-76): every layer product
-// on tc_gemm.cuh's bf16 mma.m16n8k16 or, for the small MLPs, as FP32 FMAs
-// of bf16-rounded operands; the attention's head sums and broadcasts,
-// which JAX takes as products with 0/1 matrices, round as those products
-// do: each score is a sum of bf16-rounded q k products and enters the
-// weighted sum bf16-rounded, and the denominator is bf16-rounded. The
-// radiance bias comes in three bf16 rows (its hi, mid and lo parts; one
-// row and two zero rows in 3xTF32), so it adds in FP32 as JAX's does. The
-// view token's own q/k/v and mlp1 rows stay FP32, as in JAX.
+// This is the 3xTF32 kernel ('highest' and 'high'). In 'fast' the split
+// head runs point_head2_fast.cuh at NV 2..11 and point_head2_stream.cu
+// past them. The pack's radiance bias takes three rows (one row and two
+// zero rows here; its bf16 hi, mid and lo parts in the streamed kernel's
+// 'fast'). The view token's own q/k/v and mlp1 rows stay FP32, as in JAX.
 #pragma once
 
 #include "common.cuh"
@@ -184,7 +179,7 @@ constexpr size_t smem_bytes() {
                           RT * (D::LS + D::LT) + 3 * D::C + tc::ring_floats(kStages, D::NTAIL));
 }
 
-template <int CV, int NV, bool kFast>
+template <int CV, int NV>
 __global__ void __launch_bounds__(kThreads, NV <= 5 ? 2 : 1) point_head2_kernel(
     const float* __restrict__ img,    // (NV, P, CI)
     const float* __restrict__ vol,    // (P, CV)
@@ -309,12 +304,12 @@ __global__ void __launch_bounds__(kThreads, NV <= 5 ? 2 : 1) point_head2_kernel(
   __syncthreads();
 
   // 2. pre-similarity MLP into S[:, CV:]
-  block_linear<kSmallRows, kFast>(s_in, SIN, SIN, W + O_SW0, W + O_SB0, s_h1, SHID, TP, SHID, true);
+  block_linear<kSmallRows>(s_in, SIN, SIN, W + O_SW0, W + O_SB0, s_h1, SHID, TP, SHID, true);
   __syncthreads();
-  block_linear<kSmallRows, kFast>(s_h1, SHID, SHID, W + O_SW1, W + O_SB1, s_h2, SHID, TP, SHID,
+  block_linear<kSmallRows>(s_h1, SHID, SHID, W + O_SW1, W + O_SB1, s_h2, SHID, TP, SHID,
                            true);
   __syncthreads();
-  block_linear<kSmallRows, kFast>(s_h2, SHID, SHID, W + O_SW2, W + O_SB2, S + CV, LS, TP, SOUT,
+  block_linear<kSmallRows>(s_h2, SHID, SHID, W + O_SW2, W + O_SB2, S + CV, LS, TP, SOUT,
                            false);
   __syncthreads();
 
@@ -322,17 +317,17 @@ __global__ void __launch_bounds__(kThreads, NV <= 5 ? 2 : 1) point_head2_kernel(
   //    column panels of sh (q | k and v into the token rows, mlp1 | r0 into
   //    T), then the view rows' [img | pe] through q | k and v; each gemm
   //    ends in a block-wide sync
-  tc::gemm<kStages, NT_SQK, kFast>(S, LS, GS, nullptr, 0, 0, W + O_SH, ring, QK, LQK, 1, 2 * C,
+  tc::gemm<kStages, NT_SQK>(S, LS, GS, nullptr, 0, 0, W + O_SH, ring, QK, LQK, 1, 2 * C,
                             false, NSH);
-  tc::gemm<kStages, NT_SV, kFast>(S, LS, GS, nullptr, 0, 0, W + O_SH + 2 * C, ring, Vb, LV, 1, C,
+  tc::gemm<kStages, NT_SV>(S, LS, GS, nullptr, 0, 0, W + O_SH + 2 * C, ring, Vb, LV, 1, C,
                            false, NSH);
-  tc::gemm<kStages, NT_ST, kFast>(S, LS, GS, nullptr, 0, 0, W + O_SH + 3 * C, ring, T, LT, 1,
+  tc::gemm<kStages, NT_ST>(S, LS, GS, nullptr, 0, 0, W + O_SH + 3 * C, ring, T, LT, 1,
                            NTAIL, false, NSH);
   // each view row's sums start from its point's shared part (view row
   // p * NV + v from token row p); phi of q and k in the epilogue
-  tc::gemm<kStages, NT_VQK, kFast>(X + RT * LX, LX, GV, nullptr, 0, 0, W + O_VQKV, ring,
+  tc::gemm<kStages, NT_VQK>(X + RT * LX, LX, GV, nullptr, 0, 0, W + O_VQKV, ring,
                             QK + RT * LQK, LQK, VT, 2 * C, tc::kPhi, 3 * C, QK, LQK, NV);
-  tc::gemm<kStages, NT_VV, kFast>(X + RT * LX, LX, GV, nullptr, 0, 0, W + O_VQKV + 2 * C, ring,
+  tc::gemm<kStages, NT_VV>(X + RT * LX, LX, GV, nullptr, 0, 0, W + O_VQKV + 2 * C, ring,
                            Vb + RT * LV, LV, VT, C, tc::kNone, 3 * C, Vb, LV, NV);
 
   // 4. linear attention among each point's L tokens, per head; token 0's
@@ -360,13 +355,12 @@ __global__ void __launch_bounds__(kThreads, NV <= 5 ? 2 : 1) point_head2_kernel(
       float sc = 0.f;
 #pragma unroll
       for (int d = 0; d < DK; ++d)
-        sc = kFast ? sc + bf16_round(q[d] * ks[d]) : fmaf(q[d], ks[d], sc);
+        sc = fmaf(q[d], ks[d], sc);
       den += sc;
-      const float w = kFast ? bf16_round(sc) : sc;
 #pragma unroll
-      for (int d = 0; d < DK; ++d) acc[d] = fmaf(w, vv[d], acc[d]);
+      for (int d = 0; d < DK; ++d) acc[d] = fmaf(sc, vv[d], acc[d]);
     }
-    den = (kFast ? bf16_round(den) : den) + kAttnEps;
+    den += kAttnEps;
     float* out = QK + row * LQK + h * DK;
 #pragma unroll
     for (int d = 0; d < DK; ++d) out[d] = acc[d] / den;
@@ -374,13 +368,13 @@ __global__ void __launch_bounds__(kThreads, NV <= 5 ? 2 : 1) point_head2_kernel(
   __syncthreads();
 
   // 5. merge + LayerNorm -> the message in Vb (v is dead)
-  tc::gemm<kStages, NT_C, kFast>(QK, LQK, C, nullptr, 0, 0, W + O_WM, ring, Vb, LV, AT, C, false);
+  tc::gemm<kStages, NT_C>(QK, LQK, C, nullptr, 0, 0, W + O_WM, ring, Vb, LV, AT, C, false);
   tc::layernorm<C>(Vb, LV, R, W + O_N1S, W + O_N1B);
 
   // 6. mlp1 over [[img | pe] | message] -> QK: the token rows get msg W1b
   //    (their X rows are zero), the view rows the whole per-view sum; then
   //    + w1a_tok or the point's shared part, and the relu
-  tc::gemm<kStages, NT_C2, kFast>(X, LX, GV, Vb, LV, C, W + O_VW1, ring, QK, LQK, AT, C2, false);
+  tc::gemm<kStages, NT_C2>(X, LX, GV, Vb, LV, C, W + O_VW1, ring, QK, LQK, AT, C2, false);
   constexpr int C2_4 = C2 / 4;
   for (int i = tid; i < R * C2_4; i += blockDim.x) {
     const int r = i / C2_4, j = 4 * (i - (i / C2_4) * C2_4);
@@ -394,7 +388,7 @@ __global__ void __launch_bounds__(kThreads, NV <= 5 ? 2 : 1) point_head2_kernel(
   __syncthreads();
 
   // 7. mlp2 + LayerNorm -> m2 in Vb (the message is dead)
-  tc::gemm<kStages, NT_C, kFast>(QK, LQK, C2, nullptr, 0, 0, W + O_W2, ring, Vb, LV, AT, C, false);
+  tc::gemm<kStages, NT_C>(QK, LQK, C2, nullptr, 0, 0, W + O_W2, ring, Vb, LV, AT, C, false);
   tc::layernorm<C>(Vb, LV, R, W + O_N2S, W + O_N2B);
 
   // 8. view-token output: the token plus its m2
@@ -409,11 +403,11 @@ __global__ void __launch_bounds__(kThreads, NV <= 5 ? 2 : 1) point_head2_kernel(
   float* z = QK;                      // RVP x LZ (mlp1's output is dead)
   float* h2 = z + RVP * LZ;           // RV x R2
   float* lg = h2 + RV * R2;           // RV
-  tc::gemm<kStages, NT_R, kFast>(X + RT * LX, LX, XK, Vb + RT * LV, LV, C, W + O_VRAD, ring, z, LZ,
+  tc::gemm<kStages, NT_R>(X + RT * LX, LX, XK, Vb + RT * LV, LV, C, W + O_VRAD, ring, z, LZ,
                           VT, R1, tc::kRelu, 0, T + C2, LT, NV);
-  block_linear<kSmallRows, kFast>(z, LZ, R1, W + O_RW1, W + O_RB1, h2, R2, RV, R2, true);
+  block_linear<kSmallRows>(z, LZ, R1, W + O_RW1, W + O_RB1, h2, R2, RV, R2, true);
   __syncthreads();
-  block_linear<kSmallRows, kFast>(h2, R2, R2, W + O_RW2, W + O_RB2, lg, 1, RV, 1, false);
+  block_linear<kSmallRows>(h2, R2, R2, W + O_RW2, W + O_RB2, lg, 1, RV, 1, false);
   __syncthreads();
   for (int p = tid; p < TP; p += blockDim.x) {
     const int gp = p0 + p;
@@ -444,19 +438,18 @@ __global__ void __launch_bounds__(kThreads, NV <= 5 ? 2 : 1) point_head2_kernel(
   }
 }
 
-template <int CV, int NV, bool kFast>
-int launch_precision(const float* img, const float* vol, const float* sim,
-                     const float* dd, const float* dir, const float* rgb,
-                     const float* mask, const float* w, float* token, float* rad,
-                     int p, cudaStream_t stream) {
+template <int CV, int NV>
+int launch_nv(const float* img, const float* vol, const float* sim, const float* dd,
+              const float* dir, const float* rgb, const float* mask, const float* w,
+              float* token, float* rad, int p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<CV, NV>();
   static_assert(smem <= 232448, "more shared memory than an sm_90 block may have");
   cudaError_t e = cudaFuncSetAttribute(
-      point_head2_kernel<CV, NV, kFast>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      point_head2_kernel<CV, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (p + tile_points<NV>() - 1) / tile_points<NV>();
-  point_head2_kernel<CV, NV, kFast><<<grid, kThreads, smem, stream>>>(
+  point_head2_kernel<CV, NV><<<grid, kThreads, smem, stream>>>(
       img, vol, sim, dd, dir, rgb, mask, w, token, rad, p);
   return (int)cudaGetLastError();
 }
@@ -465,16 +458,12 @@ int launch_precision(const float* img, const float* vol, const float* sim,
   const float *img, const float *vol, const float *sim, const float *dd,        \
       const float *dir, const float *rgb, const float *mask, const float *w,    \
       float *token, float *rad
-#define UFO_PH2_CASE(NV)                                                                   \
-  case NV:                                                                                 \
-    return fast ? launch_precision<CV, NV, true>(img, vol, sim, dd, dir, rgb, mask, w,     \
-                                                 token, rad, p, s)                         \
-                : launch_precision<CV, NV, false>(img, vol, sim, dd, dir, rgb, mask, w,    \
-                                                  token, rad, p, s);
+#define UFO_PH2_CASE(NV) \
+  case NV: return launch_nv<CV, NV>(img, vol, sim, dd, dir, rgb, mask, w, token, rad, p, s);
 
 // NV 6..kMaxViews (point_head2_views.cu; cudaErrorInvalidValue otherwise)
 template <int CV>
-int launch_views(UFO_PH2_ARGS, int nv, int p, bool fast, cudaStream_t s);
+int launch_views(UFO_PH2_ARGS, int nv, int p, cudaStream_t s);
 // Any NV above kMaxViews, both precisions (point_head2_stream.cu): scratch
 // holds stream_scratch_floats(C, nv, p) floats of global memory.
 template <int CV>

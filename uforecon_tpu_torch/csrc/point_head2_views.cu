@@ -1,5 +1,5 @@
-// Split-weight per-point view head for Hopper (sm_90a): the NV 6..11
-// instances (DTU's evaluation set 1 has 11 views), in a file of their own
+// Split-weight per-point view head for Hopper (sm_90a): the 3xTF32 NV
+// 6..11 instances (DTU's evaluation set 1 has 11 views), in a file of their own
 // so that they compile beside point_head2.cu's NV 2..5. The kernel and its
 // tiles are in point_head2.cuh.
 #include "point_head2.cuh"
@@ -8,7 +8,7 @@ namespace ufo {
 namespace ph2 {
 
 template <int CV>
-int launch_views(UFO_PH2_ARGS, int nv, int p, bool fast, cudaStream_t s) {
+int launch_views(UFO_PH2_ARGS, int nv, int p, cudaStream_t s) {
   static_assert(kMaxViews == 11, "the cases below run to kMaxViews");
   switch (nv) {
     UFO_PH2_CASE(6)
@@ -21,8 +21,8 @@ int launch_views(UFO_PH2_ARGS, int nv, int p, bool fast, cudaStream_t s) {
   }
 }
 
-template int launch_views<24>(UFO_PH2_ARGS, int nv, int p, bool fast, cudaStream_t s);
-template int launch_views<16>(UFO_PH2_ARGS, int nv, int p, bool fast, cudaStream_t s);
+template int launch_views<24>(UFO_PH2_ARGS, int nv, int p, cudaStream_t s);
+template int launch_views<16>(UFO_PH2_ARGS, int nv, int p, cudaStream_t s);
 
 }  // namespace ph2
 }  // namespace ufo

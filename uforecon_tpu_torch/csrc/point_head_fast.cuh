@@ -365,13 +365,11 @@ __device__ __forceinline__ float phi_sel(float x) {
 // columns part, part + 8, ... and the row's sums over three shuffles (the
 // latency of a warp-wide sum, five shuffles a row, queued behind the other
 // group's shared-memory loads, was most of this phase's time). Scale and
-// bias in shared memory. The result goes back into x, rounded to bf16 with
-// kRound (its only reader rounds it so), or with residual set is added to
-// residual (stride ldr) instead. No sync.
-template <int C, bool kRound, class T>
-__device__ __forceinline__ void group_layernorm(float* x, int ld, int rows, int gt,
-                                                const float* scale, const float* bias,
-                                                float* residual = nullptr, int ldr = 0) {
+// bias in shared memory. out(row, col, y) takes each result (the row's
+// values are in registers by then, so it may write x). No sync.
+template <int C, class T, typename Out>
+__device__ __forceinline__ void group_layernorm(const float* x, int ld, int rows, int gt,
+                                                const float* scale, const float* bias, Out out) {
   constexpr int J = (C + 7) / 8;
   const int part = gt & 7;
   for (int r = gt >> 3; r < rows; r += T::kGroupThreads / 8) {
@@ -402,10 +400,7 @@ __device__ __forceinline__ void group_layernorm(float* x, int ld, int rows, int 
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int c = part + 8 * j;
-      if (c >= C) continue;
-      const float y = (v[j] - mean) * inv * scale[c] + bias[c];
-      if (residual != nullptr) residual[r * ldr + c] += y;
-      else x[r * ld + c] = kRound ? bf16_round(y) : y;
+      if (c < C) out(r, c, (v[j] - mean) * inv * scale[c] + bias[c]);
     }
   }
 }
@@ -637,7 +632,8 @@ __global__ void __launch_bounds__(kThreads, 1) point_head_fast_kernel(
                                                               store(Vb, LD, false));
     group_sync<kGroupThreads>(grp);
     PHF_MARK(4);
-    group_layernorm<C, true, T>(Vb, LD, GR, gt, F + I::N1S, F + I::N1B);
+    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N1S, F + I::N1B,
+                          [&](int r, int c, float y) { Vb[r * LD + c] = bf16_round(y); });
     group_sync<kGroupThreads>(grp);
     PHF_MARK(5);
     // 6. mlp1 over [tokens | message] -> Qb|Kb (GR x LD2), relu
@@ -650,7 +646,8 @@ __global__ void __launch_bounds__(kThreads, 1) point_head_fast_kernel(
                                                  store(Vb, LD, false));
     group_sync<kGroupThreads>(grp);
     PHF_MARK(7);
-    group_layernorm<C, false, T>(Vb, LD, GR, gt, F + I::N2S, F + I::N2B, X, LD);
+    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N2S, F + I::N2B,
+                          [&](int r, int c, float y) { X[r * LD + c] += y; });
     group_sync<kGroupThreads>(grp);
     PHF_MARK(8);
 

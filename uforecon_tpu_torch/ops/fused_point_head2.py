@@ -42,20 +42,24 @@ head sums and broadcasts are products with 0/1 matrices, so each
 (token, source) score is a sum of bf16-rounded q k products that enters
 the weighted sum bf16-rounded, and the denominator is bf16-rounded too
 (``point_head2_fast_reference``). The view token's own q/k/v and mlp1
-rows stay FP32 (the JAX wrapper's HIGHEST dots). The kernel's ``fast``
-instantiation runs its tensor-core layers as one bf16 ``mma.m16n8k16``
-pass on a pack of bf16 planes (the radiance bias row split into three
-bf16 rows, so that it adds in FP32 as JAX's bias does), and rounds its
-attention and small MLPs at the same sites.
+rows stay FP32 (the JAX wrapper's HIGHEST dots). In ``fast`` at 2..11
+views the kernel is a design of its own, ``csrc/point_head2_fast.cuh``:
+persistent blocks that hold ``fast_image2`` (every matrix of the split
+as bf16 (out, in) rows, the radiance bias split into three bf16 rows so
+that it adds in FP32 as JAX's bias does) resident in shared memory, every
+product one bf16 ``mma.m16n8k16`` pass, the attention rounded at JAX's
+sites. Past 11 views the streamed kernel reads ``pack_weights2``'s layout
+with bf16 values and a zero plane (``cached_pack_weights2``).
 
 ``point_head2`` takes the plain version for CPU tensors only. For CUDA
 tensors it launches the kernel or raises, inside an autograd Function whose
 backward differentiates the FP32 plain version (the JAX ``_ph2_bwd``
 delegates to the point head's backward the same way).
 ``point_head2.launches`` counts the launches of the 3xTF32 kernel,
-``point_head2.launches_fast`` those of the ``fast`` kernel. The split pack
-is built once per set of weights and precision (``cuda_build.PackCache``);
-``point_head2.pack_builds`` counts the builds.
+``point_head2.launches_fast`` those of the ``fast`` kernels. Each pack is
+built once per set of weights, precision and layout
+(``cuda_build.PackCache``); ``point_head2.pack_builds`` counts the
+builds.
 """
 from __future__ import annotations
 
@@ -287,6 +291,37 @@ def pack_weights2(p: PointHeadParams, c_img: int = 32,
                       for name, t in parts.items()])
 
 
+# the fast image's matrices, in csrc/point_head2_fast.cuh Img's order: the
+# split pack's tensor-core matrices, then the small MLPs'
+IMAGE_MATRICES = (*TC_MATRICES, *SMALL_MATRICES)
+
+
+def fast_image2(p: PointHeadParams, c_img: int = 32) -> torch.Tensor:
+    """The fast kernel's weight pack (``csrc/point_head2_fast.cuh`` ``Img``)
+    as float32 words: the image a block copies into shared memory,
+    ``split_weights2(p, c_img, 'fast')``'s matrices (``IMAGE_MATRICES``)
+    rounded to bf16, each as its (out, in) rows
+    ``cuda_build.image_stride(in)`` elements apart (the last radiance
+    layer's one row padded to 8 with zero rows), then in float32 the
+    LayerNorms' scales and biases and the small MLPs' biases (the last
+    padded to 4); after the image the view token's constants in float32,
+    which the kernel reads from global memory: the token, phi of its q and
+    k, its v (``tok_qkv``), and ``w1a_tok``."""
+    parts = split_weights2(p, c_img, "fast")
+    rows = []
+    for name in IMAGE_MATRICES:
+        w = cuda_build.bf16_round(parts[name].t())
+        pad_rows = max(8 - w.shape[0], 0)
+        rows.append(F.pad(w, (0, cuda_build.image_stride(w.shape[1]) - w.shape[1], 0, pad_rows))
+                    .reshape(-1))
+    bf16 = torch.cat(rows).to(torch.bfloat16)
+    f32 = torch.cat([parts[n].reshape(-1) for n in ("n1s", "n1b", "n2s", "n2b", "sb0", "sb1",
+                                                     "sb2", "rb1", "rb2")])
+    tq = parts["tok_qkv"]
+    consts = torch.cat([parts["tok"], _phi(tq[0]), _phi(tq[1]), tq[2], parts["w1a_tok"]])
+    return torch.cat([bf16.view(torch.float32), f32, f32.new_zeros(-f32.numel() % 4), consts])
+
+
 def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
             precision: str = "high") -> Tuple[torch.Tensor, torch.Tensor]:
     nv, n, c_img = inp.img_feat.shape
@@ -311,17 +346,18 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
                              f"got {tuple(getattr(inp, name).shape)}")
     ext = cuda_build.extension()
     ins = [cuda_build.aligned(t) for t in inp]
-    w, built = _packs.get(_flat_params(p), lambda: pack_weights2(p, precision=precision),
-                          precision)
-    point_head2.pack_builds += built
-    if w.numel() != ext.point_head2_weight_count(c_vol):
+    fast = cuda_build.is_fast(precision)
+    streamed = nv > KERNEL_COMPILED_VIEWS
+    w = cached_pack_weights2(p, precision, streamed)
+    n_w = (ext.point_head2_fast_pack_bytes(c_vol) // 4 if fast and not streamed
+           else ext.point_head2_weight_count(c_vol))
+    if w.numel() != n_w:
         raise ValueError("point_head2 weight pack does not match the kernel")
     token = torch.empty(n, c, device=dev, dtype=torch.float32)
     rad = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    fast = cuda_build.is_fast(precision)
     with torch.cuda.device(dev):
         scratch = (torch.empty(ext.point_head2_scratch_floats(c_vol, nv, n), device=dev,
-                               dtype=torch.float32) if nv > KERNEL_COMPILED_VIEWS
+                               dtype=torch.float32) if streamed
                    else cuda_build.no_scratch(dev))
         ext.point_head2(*ins, w, token, rad, scratch, fast)
     cuda_build.count_launch(point_head2, fast)
@@ -329,6 +365,26 @@ def _launch(inp: PointHeadInputs, p: PointHeadParams, n_heads: int = 8,
 
 
 _packs = cuda_build.PackCache()
+_stream_packs = cuda_build.PackCache()
+
+
+def cached_pack_weights2(p: PointHeadParams, precision: str = "high",
+                         streamed: bool = False) -> torch.Tensor:
+    """The pack the kernel at ``precision`` reads, built once per set of
+    weights, precision and layout (``cuda_build.PackCache``;
+    ``point_head2.pack_builds`` counts builds): in ``fast`` up to
+    ``KERNEL_COMPILED_VIEWS`` the fast kernel's ``fast_image2``, otherwise
+    ``pack_weights2`` (the streamed kernel past them reads its bf16
+    planes). The one precision whose pack differs on the two sides of
+    ``KERNEL_COMPILED_VIEWS``, ``fast``, keeps its streamed pack in a cache
+    of its own."""
+    fast = cuda_build.is_fast(precision)
+    cache = _stream_packs if fast and streamed else _packs
+    pack, built = cache.get(_flat_params(p),
+                            lambda: fast_image2(p) if fast and not streamed
+                            else pack_weights2(p, precision=precision), precision)
+    point_head2.pack_builds += built
+    return pack
 
 
 # _point_head2_fn((n_heads, precision), *inputs, *params): CUDA kernel

@@ -7,7 +7,8 @@ Replaces the Pallas TPU kernels of the JAX package's
 ``_bwd_kernel``). The per-point view transformer runs elu+1 linear
 attention over a view set's few tokens (L, S <= 8, head dim <= 16) for
 every sample point of a render chunk. The kernels are
-``csrc/tiny_attention.cu``.
+``csrc/tiny_attention.cuh`` (units ``tiny_attention.cu``,
+``tiny_attention_bwd2.cu``, ``tiny_attention_bwd1.cu``).
 
 Bound on the H100: bytes. At the view transformer's shape (65,536 points,
 L = S = 4, 8 heads of 10) the forward reads three and writes one

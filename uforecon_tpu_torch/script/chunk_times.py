@@ -3,11 +3,14 @@ defaults: merged bf16 volume, fast heads) on one GPU, on the package under
 ``--root``, so that two trees (a commit and its parent, unpacked with
 ``git archive``) can be timed in turns in one run on one card.
 
-    python uforecon_tpu_torch/script/chunk_times.py [--root DIR] [--reps 5]
+    python uforecon_tpu_torch/script/chunk_times.py [--root DIR] [--reps 5] \
+        [--point_head v2]
 
 The scene is chip_smoke.py's slice view (``data.synthetic.dtu_scale_sample``:
 800x640, 3 views, 192 hypotheses, 64 + 64 samples), the weights
-``UFORecon(Config(**EXACT))`` initialised from ``--seed``, the chunks
+``UFORecon(Config(**EXACT))`` initialised from ``--seed`` (with
+``--point_head v2`` the shipped route takes the split-weight point head,
+fast kernel 4 in place of fast kernel 1), the chunks
 chip_smoke.py's profile phase renders (8 of 1024 rays spread over the
 view). Per round, after a warm-up round: the wall ms a chunk (host clock,
 unprofiled, the 8 chunks and one synchronize); then, under
@@ -33,6 +36,7 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--chunks", type=int, default=8)
     ap.add_argument("--rays", type=int, default=1024)
+    ap.add_argument("--point_head", choices=("v1", "v2"), default="v1")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -56,7 +60,7 @@ def main(argv=None):
     model = UFORecon(Config(**EXACT))
     init_weights(model, args.seed)
     model.to("cuda")
-    shipped = model.with_knobs(extract_geometry=True,
+    shipped = model.with_knobs(extract_geometry=True, point_head=args.point_head,
                                **{k: getattr(Config(), k) for k in EXACT})
     scene, extras = scene_inputs_from_sample(dtu_scale_sample(), "cuda")
     rn = args.rays
@@ -94,7 +98,8 @@ def main(argv=None):
               f"[{card}]", flush=True)
     med = {k: float(np.median([x[k] for x in rounds])) for k in rounds[0]}
     med["busy_share"] = med["device_ms"] / med["wall_ms"]
-    print(json.dumps({"card": card, "root": args.root, "rays": rn, "chunks": len(chunks),
+    print(json.dumps({"card": card, "root": args.root, "point_head": args.point_head,
+                      "rays": rn, "chunks": len(chunks),
                       "median": med, "rounds": rounds}), flush=True)
     return 0
 

@@ -1,12 +1,14 @@
 """Where the kernels' time goes: variants of ``csrc/point_head.cuh`` (the
 3xTF32 point head), ``csrc/point_head_fast.cuh`` (the fast one),
-``csrc/point_head2.cuh``, ``csrc/ray_head.cu`` (3xTF32, or with ``fast``
+``csrc/point_head2.cuh``, ``csrc/point_head2_fast.cuh`` (the fast split
+point head), ``csrc/ray_head.cu`` (3xTF32, or with ``fast``
 its bf16 instantiation), ``csrc/ray_head_fast.cuh`` (the fast ray head at
-C 88 and 72), ``csrc/tiny_attention.cu`` (forward and backward) and
+C 88 and 72), ``csrc/tiny_attention.cuh`` (forward and backward) and
 ``csrc/volume_fusion.cu`` timed apart on one GPU.
 
     python -m uforecon_tpu_torch.script.head_variants ph ph,nogemm phf phf,phf_rad ph2 rh \
-        rh,rh_ln rh,fast rhf rhf,rhf_mlp rhf,rhf_probe ta,S=2 tb tb,tb_stream vf vf,T=128
+        rh,rh_ln rh,fast rhf rhf,rhf_mlp rhf,rhf_probe ph2f ph2f,ph2f_attn ph2f,ph2f_probe \
+        ta,S=2 tb tb,tb_stream vf vf,T=128
 
 Each variant is a copy of ``csrc/`` with a few lines replaced, built by
 ``nvcc`` (all variants at once) into a shared library with the kernels'
@@ -20,8 +22,10 @@ fast plain version), the tiny-attention forward at B = 65,536, L = S = 4,
 65,536, 8 heads of D = M = 10, L = S = 4 (route A) and 6 (the training
 shape), the volume fusion at P = 65,536 and 3 views in the sampler's
 channel-first layout (its 27.5 MB stay in the L2 between launches), on
-seeded random weights and inputs. A variant is a kernel (``ph``, ``phf``,
-``ph2``, ``rh``, ``rhf``, ``ta``, ``tb`` or ``vf``) followed by
+seeded random weights and inputs (``ph2f`` in ``fast``, against the fast
+plain version). A variant is a kernel (``ph``,
+``phf``, ``ph2``, ``ph2f``, ``rh``, ``rhf``, ``ta``, ``tb`` or ``vf``)
+followed by
 comma-separated options:
 
   NAME=VALUE  a constant of the kernel's source (``CONSTANTS``), e.g.
@@ -30,11 +34,12 @@ comma-separated options:
   a patch     of ``PATCHES``: ``nogemm`` skips the tensor-core layers;
               ``onemma`` keeps one of the three 3xTF32 products;
               ``nosync`` drops the per-step sync, ``noload`` the weight
-              loads; ``ph_*`` / ``phf_*`` / ``ph2_*`` / ``rh_*`` / ``rhf_*``
-              / ``ta_*`` / ``tb_*`` skip one phase of a kernel;
-              ``phf_probe`` prints the fast point head's cycles a tile in
-              each of its phases, ``rhf_probe`` the fast ray head's cycles
-              a ray (block 0's first thread, its barriers included);
+              loads; ``ph_*`` / ``phf_*`` / ``ph2_*`` / ``ph2f_*`` /
+              ``rh_*`` / ``rhf_*`` / ``ta_*`` / ``tb_*`` skip one phase of a
+              kernel; ``phf_probe`` and ``ph2f_probe`` print the fast point
+              heads' cycles a tile in each of their phases, ``rhf_probe``
+              the fast ray head's cycles a ray (block 0's first thread, its
+              barriers included);
   ``fast``    (``rh`` only) runs ``ray_head.cu``'s bf16 instantiation;
               ``tb_stream`` keeps only the backward's copies (no
               arithmetic); ``vf_stream`` keeps the
@@ -65,15 +70,25 @@ from ..ops import cuda_build
 
 # kernel -> the source that holds it (which the constants and patches name)
 SOURCE = {"ph": "point_head.cuh", "phf": "point_head_fast.cuh", "ph2": "point_head2.cuh",
-          "rh": "ray_head.cu", "rhf": "ray_head_fast.cuh", "ta": "tiny_attention.cu",
-          "tb": "tiny_attention.cu", "vf": "volume_fusion.cu"}
+          "ph2f": "point_head2_fast.cuh",
+          "rh": "ray_head.cu", "rhf": "ray_head_fast.cuh", "ta": "tiny_attention.cuh",
+          "tb": "tiny_attention.cuh", "vf": "volume_fusion.cu"}
 # kernel -> the files nvcc compiles into its library (the point heads'
 # instances of 2..5 views, of 6..11 views and past 11 are separate files)
 _PH_UNITS = ("point_head.cu", "point_head_views.cu", "point_head_views_9_11.cu",
              "point_head_fast.cu", "point_head_fast_views.cu", "point_head_stream.cu")
 UNITS = {"ph": _PH_UNITS, "phf": _PH_UNITS,
-         "ph2": ("point_head2.cu", "point_head2_views.cu", "point_head2_stream.cu"),
-         "rhf": ("ray_head_fast.cu", "ray_head_fast_72.cu")}
+         # point_head2.cu sends 'fast' to the fast kernel's entry point
+         "ph2": ("point_head2.cu", "point_head2_views.cu", "point_head2_stream.cu",
+                 "point_head2_fast.cu", "point_head2_fast_views.cu"),
+         "ph2f": ("point_head2_fast.cu", "point_head2_fast_views.cu"),
+         "rhf": ("ray_head_fast.cu", "ray_head_fast_72.cu"),
+         "ta": ("tiny_attention.cu", "tiny_attention_bwd2.cu", "tiny_attention_bwd1.cu"),
+         "tb": ("tiny_attention.cu", "tiny_attention_bwd2.cu", "tiny_attention_bwd1.cu")}
+# the fast split point head's phases by its probe's marks (ph2f_probe)
+PH2F_PHASES = ("inputs | pre-similarity MLP", "shared projection", "view q|k|v", "attention",
+               "merge", "LayerNorm 1", "mlp1", "mlp2", "LayerNorm 2", "token out, radiance MLP",
+               "softmax")
 # the fast ray head's phases by its probe's marks (rhf_probe)
 RHF_PHASES = ("phase 1: tokens, k", "phase 1: ksum, 2 barriers", "phase 1: v, barrier",
               "phase 1: state", "state out, barrier", "phase 2: tokens", "q, attention",
@@ -116,11 +131,11 @@ def _empty_loop(line, bound):
 
 # the backward's three arithmetic phases: phi of q and k, the (point, l,
 # h) items, the (point, s, h) items
-_TB_PHI = [("tiny_attention.cu", *_empty_loop(
+_TB_PHI = [("tiny_attention.cuh", *_empty_loop(
     "    for (int j = tid; j < tile * (rq + rk) / 4; j += blockDim.x) {", "tile * (rq + rk) / 4"))]
-_TB_ITEMS = [("tiny_attention.cu", *_empty_loop(
+_TB_ITEMS = [("tiny_attention.cuh", *_empty_loop(
     "  for (int idx = threadIdx.x; idx < n * LH; idx += blockDim.x) {", "n * LH"))]
-_TB_SOURCES = [("tiny_attention.cu", *_empty_loop(
+_TB_SOURCES = [("tiny_attention.cuh", *_empty_loop(
     "  for (int idx = threadIdx.x; idx < n * SH; idx += blockDim.x) {", "n * SH"))]
 
 # patch -> [(file, old, new)]
@@ -144,8 +159,8 @@ PATCHES = {
     "phf_sim": [("point_head_fast.cuh", "    if (gw == 0) {\n      warp_linear<kFma>(s_in,",
                  "    if (gw < 0) {\n      warp_linear<kFma>(s_in,")],
     "phf_rad": [("point_head_fast.cuh", "    if (gw < MT) {", "    if (gw < 0 * MT) {")],
-    "phf_ln": [("point_head_fast.cuh", *_skip("    group_layernorm<C, true, T>(Vb, LD, GR, gt, F + I::N1S")),
-               ("point_head_fast.cuh", *_skip("    group_layernorm<C, false, T>(Vb, LD, GR, gt, F + I::N2S"))],
+    "phf_ln": [("point_head_fast.cuh", *_skip("    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N1S")),
+               ("point_head_fast.cuh", *_skip("    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N2S"))],
     "phf_attn": [("point_head_fast.cuh", *_empty_loop(
         "    for (int it = gt; it < TP * L * NH; it += kGroupThreads) {", "TP * L * NH"))],
     "phf_probe": [("point_head_fast.cuh", '#pragma once\n\n#include "point_head.cuh"',
@@ -160,28 +175,61 @@ PATCHES = {
         "  for (int i = tid; i < NV * TP * CT; i += blockDim.x) {", "NV * TP * CT"))],
     "ph_softmax": [("point_head.cuh", *_empty_loop(
         "  for (int p = tid; p < TP; p += blockDim.x) {", "TP"))],
-    "ph2_sim": [("point_head2.cuh", *_skip("  block_linear<kSmallRows, kFast>(s_in, SIN, SIN,")),
-                ("point_head2.cuh", *_skip("  block_linear<kSmallRows, kFast>(s_h1, SHID, SHID,")),
-                ("point_head2.cuh", *_skip("  block_linear<kSmallRows, kFast>(s_h2, SHID, SHID,"))],
-    "ph2_shared": [("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_SQK, kFast>(S, LS, GS,")),
-                   ("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_SV, kFast>(S, LS, GS,")),
-                   ("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_ST, kFast>(S, LS, GS,"))],
+    "ph2_sim": [("point_head2.cuh", *_skip("  block_linear<kSmallRows>(s_in, SIN, SIN,")),
+                ("point_head2.cuh", *_skip("  block_linear<kSmallRows>(s_h1, SHID, SHID,")),
+                ("point_head2.cuh", *_skip("  block_linear<kSmallRows>(s_h2, SHID, SHID,"))],
+    "ph2_shared": [("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_SQK>(S, LS, GS,")),
+                   ("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_SV>(S, LS, GS,")),
+                   ("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_ST>(S, LS, GS,"))],
     "ph2_in": [("point_head2.cuh", *_empty_loop(
         "  for (int i = tid; i < RV * XR; i += blockDim.x) {", "RV * XR"))],
     "ph2_pass": [("point_head2.cuh", *_empty_loop(
         "  for (int i = tid; i < R * C2_4; i += blockDim.x) {", "R * C2_4"))],
+    "ph2_qkv": [("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_VQK>(X + RT * LX, LX, GV,")),
+                ("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_VV>(X + RT * LX, LX, GV,"))],
+    "ph2_merge": [("point_head2.cuh", *_skip(
+        "  tc::gemm<kStages, NT_C>(QK, LQK, C, nullptr, 0, 0, W + O_WM,"))],
+    "ph2_mlp": [("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_C2>(X, LX, GV, Vb, LV, C,")),
+                ("point_head2.cuh", *_skip(
+                    "  tc::gemm<kStages, NT_C>(QK, LQK, C2, nullptr, 0, 0, W + O_W2,"))],
     "ph2_attn": [("point_head2.cuh", *_empty_loop(
         "  for (int t = tid; t < TP * L * NH; t += blockDim.x) {", "TP * L * NH"))],
     "ph2_ln": [("point_head2.cuh", *_skip("  tc::layernorm<C>(Vb, LV, R, W + O_N1S")),
                ("point_head2.cuh", *_skip("  tc::layernorm<C>(Vb, LV, R, W + O_N2S"))],
-    "ph2_rad": [("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_R, kFast>(X + RT * LX, LX, XK,")),
-                ("point_head2.cuh", *_skip("  block_linear<kSmallRows, kFast>(z, LZ, R1,")),
-                ("point_head2.cuh", *_skip("  block_linear<kSmallRows, kFast>(h2, R2, R2,"))],
+    "ph2_rad": [("point_head2.cuh", *_skip("  tc::gemm<kStages, NT_R>(X + RT * LX, LX, XK,")),
+                ("point_head2.cuh", *_skip("  block_linear<kSmallRows>(z, LZ, R1,")),
+                ("point_head2.cuh", *_skip("  block_linear<kSmallRows>(h2, R2, R2,"))],
     "ph2_softmax": [("point_head2.cuh", *_empty_loop(
         "  for (int p = tid; p < TP; p += blockDim.x) {", "TP"))],
-    "ta_phi": [("tiny_attention.cu", *_empty_loop(
+    "ph2f_sim": [("point_head2_fast.cuh", *_skip("      warp_linear<false>(s_in, SIN, SIN,")),
+                 ("point_head2_fast.cuh", *_skip("      warp_linear<false>(s_h1, SHID, SHID,")),
+                 ("point_head2_fast.cuh", *_skip("      warp_linear<false>(s_h2, SHID, SHID,"))],
+    "ph2f_pe": [("point_head2_fast.cuh", *_empty_loop(
+        "      for (int i = lt; i < NV * TP * XR; i += kLT) {", "NV * TP * XR"))],
+    "ph2f_shared": [("point_head2_fast.cuh", *_skip(
+        "    gemm<1, kW, NSH, I::KG, GS, XS, true, 0, XS, true>("))],
+    "ph2f_qkv": [("point_head2_fast.cuh", *_skip(
+        "    gemm<MT, kW, 3 * C, I::KV, GV, XS, true, 0, XS, true>("))],
+    "ph2f_attn": [("point_head2_fast.cuh", *_empty_loop(
+        "    for (int it = gt; it < RW * NH; it += kGT) {", "RW * NH"))],
+    "ph2f_merge": [("point_head2_fast.cuh", *_skip(
+        "    gemm<MT, kW, C, I::KC, C, LD, false, 0, LD, false>("))],
+    "ph2f_ln": [("point_head2_fast.cuh", *_skip(
+        "    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N1S, F + I::N1B,")),
+                ("point_head2_fast.cuh", *_skip(
+        "    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N2S, F + I::N2B,"))],
+    "ph2f_mlp": [("point_head2_fast.cuh", *_skip(
+        "    gemm<MT, kW, C2, I::KW1, GV, XS, true, C, KM, true>(")),
+                 ("point_head2_fast.cuh", *_skip(
+        "    gemm<MT, kW, C, I::KC2, C2, KY, true, 0, KY, true>("))],
+    "ph2f_rad": [("point_head2_fast.cuh", "    if (gw < MT) {", "    if (gw < 0 * MT) {")],
+    "ph2f_softmax": [("point_head2_fast.cuh", *_empty_loop(
+        "    for (int p = gt; p < TP; p += kGT) {", "TP"))],
+    "ph2f_probe": [("point_head2_fast.cuh", '#pragma once\n\n#include "point_head2.cuh"',
+                    '#pragma once\n#define UFO_PH2F_PROBE\n#include "point_head2.cuh"')],
+    "ta_phi": [("tiny_attention.cuh", *_empty_loop(
         "    for (int j = tid; j < tile * rk / 4; j += blockDim.x) {", "tile * rk / 4"))],
-    "ta_attend": [("tiny_attention.cu", *_empty_loop(
+    "ta_attend": [("tiny_attention.cuh", *_empty_loop(
         "  for (int idx = threadIdx.x; idx < n * t.l * H; idx += blockDim.x) {",
         "n * t.l * H"))],
     "tb_phi": _TB_PHI, "tb_items": _TB_ITEMS, "tb_sources": _TB_SOURCES,
@@ -319,7 +367,7 @@ def _cases(seed: int, kernels):
     nv, p = 3, 65536
     cases = {}
     with torch.no_grad():
-        if {"ph", "phf", "ph2", "rh", "rhf"} & set(kernels):
+        if {"ph", "phf", "ph2", "ph2f", "rh", "rhf"} & set(kernels):
             model = UFORecon(Config())
             init_weights(model, seed)
             rt = model.ray_transformer.to(dev)
@@ -337,6 +385,8 @@ def _cases(seed: int, kernels):
                          phf=(fph.pack_weights(ph, "fast"),
                               fph.point_head_reference(inp, ph, precision="fast")),
                          ph2=(fph2.pack_weights2(ph), ph_ref),
+                         ph2f=(fph2.fast_image2(ph),
+                               fph2.point_head2_reference(inp, ph, precision="fast")),
                          rh=(frh.pack_weights(rh),
                              {sn: frh.ray_head_reference(y, rh) for sn, y in ys.items()}),
                          rh_fast=(frh.plane_pack(rh, "fast"), rh_fast),
@@ -365,6 +415,8 @@ def _bind(kernel, lib):
     if kernel in ("ph", "phf", "ph2"):   # (11 pointers, cv, nv, p, fast, stream)
         fn = getattr(lib, "ufo_point_head2" if kernel == "ph2" else "ufo_point_head")
         types = [c.c_void_p] * 11 + [c.c_int] * 4
+    elif kernel == "ph2f":        # (10 pointers, cv, nv, p, stream)
+        fn, types = lib.ufo_point_head2_fast, [c.c_void_p] * 10 + [c.c_int] * 3
     elif kernel == "rh":          # ufo_ray_head(y, w, srdf, rn, sn, c, fast, stream)
         fn, types = lib.ufo_ray_head, [c.c_void_p] * 3 + [c.c_int] * 4
     elif kernel == "rhf":         # ufo_ray_head_fast(y, w, srdf, rn, sn, c, stream)
@@ -385,14 +437,16 @@ def _runs(kernel, fn, cases, stream, fast=False):
     ``rh``'s bf16 instantiation."""
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     i = ctypes.c_int
-    if kernel in ("ph", "phf", "ph2"):
+    if kernel in ("ph", "phf", "ph2", "ph2f"):
         inp = cases["inp"]
         w, ref = cases[kernel]
         nv, p = inp.img_feat.shape[:2]
         tok, rad = torch.empty(p, 80, device="cuda"), torch.empty(p, 3, device="cuda")
         # no scratch: 3 views take a compiled-in instance
-        call = [*map(ptr, (*inp, w, tok, rad)), None, i(inp.vol_feat.shape[1]), i(nv), i(p),
-                i(int(kernel == "phf")), stream]
+        call = ([*map(ptr, (*inp, w, tok, rad)), i(inp.vol_feat.shape[1]), i(nv), i(p), stream]
+                if kernel == "ph2f" else
+                [*map(ptr, (*inp, w, tok, rad)), None, i(inp.vol_feat.shape[1]), i(nv), i(p),
+                 i(int(kernel == "phf")), stream])
         return {"": (lambda: fn(*call),
                      lambda: max((tok - ref[0]).abs().max().item(),
                                  (rad - ref[1]).abs().max().item()))}
@@ -499,6 +553,15 @@ def main(argv=None):
             out.setdefault("probe_cycles", {})[v] = [probe[i] / tiles for i in range(11)]
             print(f"{v}: cycles a tile by phase (block 0, {tiles} tiles): "
                   + " ".join(f"{probe[i] / tiles:.0f}" for i in range(11)), flush=True)
+        if "ph2f_probe" in v.split(","):
+            probe = (ctypes.c_ulonglong * 16)()
+            if libs[v].ufo_point_head2_fast_probe(probe) != 0:
+                raise SystemExit(f"variant {v}: the probe could not be read")
+            tiles = max(probe[15], 1)
+            out.setdefault("probe_cycles", {})[v] = dict(
+                zip(PH2F_PHASES, (probe[i] / tiles for i in range(len(PH2F_PHASES)))))
+            print(f"{v}: cycles a tile by phase (block 0, {tiles} tiles): " + "; ".join(
+                f"{n} {probe[i] / tiles:.0f}" for i, n in enumerate(PH2F_PHASES)), flush=True)
 
     print(json.dumps(out))
     return 0

@@ -5,11 +5,13 @@ be timed in turns in one run on one card.
 
     python uforecon_tpu_torch/script/point_head_times.py [--root DIR] \\
         [--views 2 3 5 11 12 49] [--points 65536] [--precisions fast high] \\
-        [--heads point_head point_head2]
+        [--heads point_head point_head2] [--c_vol 24]
 
 Inputs as chip_smoke.py's kernel phase draws them (~30 % of the (view,
 point) pairs masked, the first 256 points masked in every view), from a
 generator seeded per view count; the weights of ``UFORecon(Config())``
+(tokens of 80), or with ``--c_vol 16`` of the guided feature grid's
+``UFORecon(Config(volume_type='featuregrid'))`` (tokens of 72),
 initialised from ``--seed``. Per case: the kernel's device time (the mean
 of the port's own kernels over 10 calls, torch.profiler), the call's
 CUDA-event time (median of 10), and the max abs error against the plain
@@ -67,6 +69,8 @@ def main(argv=None):
     ap.add_argument("--points", type=int, default=65536)
     ap.add_argument("--precisions", nargs="+", default=["fast", "high"])
     ap.add_argument("--heads", nargs="+", default=["point_head"])
+    ap.add_argument("--c_vol", type=int, choices=(24, 16), default=24,
+                    help="volume features: 24 (tokens of 80) or 16 (the feature grid, 72)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -85,12 +89,13 @@ def main(argv=None):
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda")
-    model = UFORecon(Config())
+    model = UFORecon(Config(volume_type="featuregrid") if args.c_vol == 16 else Config())
     init_weights(model, args.seed)
     params = model.ray_transformer.to(dev).point_head_params()
     heads = {"point_head": (fph.point_head, fph.point_head_reference),
              "point_head2": (fph2.point_head2, fph2.point_head2_reference)}
-    out = {"card": card, "root": args.root, "points": args.points, "cases": {}}
+    out = {"card": card, "root": args.root, "points": args.points, "c_vol": args.c_vol,
+           "cases": {}}
     for nv in args.views:
         g = torch.Generator(device=dev).manual_seed(args.seed + 100 + nv)
         n = args.points
@@ -98,7 +103,7 @@ def main(argv=None):
         mask[:, :256] = 0.0
         randn = lambda *s, scale=1.0: torch.randn(s, generator=g, device=dev) * scale
         inp = fph.PointHeadInputs(
-            img_feat=randn(nv, n, 32), vol_feat=randn(n, 24),
+            img_feat=randn(nv, n, 32), vol_feat=randn(n, args.c_vol),
             sim_feat=torch.rand(n, 8, generator=g, device=dev) * 2 - 1,
             depth_dist=randn(nv, n, scale=0.3), dir_rel=randn(nv, n, 3, scale=0.1),
             rgb=torch.rand(nv, n, 3, generator=g, device=dev), mask=mask)
@@ -113,7 +118,7 @@ def main(argv=None):
                               (rad - ref[1]).abs().max().item())
                     k_ms = _device_ms(lambda: wrapper(inp, params, precision=prec))
                     c_ms = _call_ms(lambda: wrapper(inp, params, precision=prec))
-                name = f"{head} {prec} NV={nv}"
+                name = f"{head} {prec} NV={nv}" + (" C=72" if args.c_vol == 16 else "")
                 out["cases"][name] = {"ms": k_ms, "call_ms": c_ms, "max_abs_err": err}
                 print(f"{name} P={n}: kernel {k_ms:.4f} ms, call {c_ms:.4f} ms, max abs err "
                       f"vs plain {err:.3e} [{card}]", flush=True)
