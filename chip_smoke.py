@@ -28,9 +28,10 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      grouped cosine at 3 views, at the 5-view similarity field's
      (5, 65,536, 128) and at 11 views' 55 pairs (11, 65,536, 320); then the
      heads' fast variants (kernel_precision 'fast': kernels 1, 2 and 3 at
-     widths 88 and 72, 4; fast kernels 2 and 3 at those widths by
-     ``csrc/ray_head_fast.cuh``, at the others by ``csrc/ray_head.cu``'s
-     bf16 instantiation) at the same shapes, each against its fast plain
+     widths 88 and 72, 4; fast kernels 2 and 3 at every width by
+     ``csrc/ray_head_fast.cuh``, from C 96 on in its wide layout, each
+     width's instances a unit of its own) at the same shapes, each
+     against its fast plain
      version (FAST_SHARE) and against the 3xTF32 kernel on the same inputs
      (a distance of bf16's size), with bf16 tensor bounds beside the
      3xTF32 ones; kernels 2 and 3 (both precisions) also at the other model
@@ -298,15 +299,20 @@ FAST = {"point_head_fast": "point_head", "ray_head_fast": "ray_head",
         "ray_head_neus_fast": "ray_head_neus", "point_head2_fast": "point_head2"}
 KERNEL_SOURCES.update({f: KERNEL_SOURCES[k] for f, k in FAST.items()})
 # fast kernels 1, 2, 3 and 4 are designs of their own: persistent blocks,
-# resident weights (fast kernels 2 and 3 at the widths of frh.FAST_WIDTHS;
-# every other width runs ray_head.cu's bf16 instantiation; fast kernels 1
-# and 4 at 2..11 views, past them the streamed kernels)
+# resident weights (fast kernels 2 and 3 at the widths of frh.FAST_WIDTHS,
+# 40 .. 112, mlp1 and the density MLP's first two matrices from the L2 at
+# frh.WIDE_WIDTHS; fast kernels 1 and 4 at 2..11 views, past them the
+# streamed kernels)
 KERNEL_SOURCES["point_head_fast"] = (f"{PORT}/csrc/point_head_fast.cuh",
                                      KERNEL_SOURCES["point_head"][1])
 KERNEL_SOURCES["point_head2_fast"] = (f"{PORT}/csrc/point_head2_fast.cuh",
                                       KERNEL_SOURCES["point_head2"][1])
 for _name in ("ray_head_fast", "ray_head_neus_fast"):
     KERNEL_SOURCES[_name] = (f"{PORT}/csrc/ray_head_fast.cuh", KERNEL_SOURCES[FAST[_name]][1])
+# the translation units of the fast ray heads' instances, one a width
+# (ray_head_fast.cu: C 88 and the entry points); the kernels line lists them
+RAY_FAST_UNITS = tuple(f"{PORT}/csrc/ray_head_fast{'' if c == 88 else f'_{c}'}.cu"
+                       for c in range(40, 113, 8))
 # configs phase: the JAX package's other model configurations (flags of
 # both packages' Config), each rendering a 1024-ray chunk of the slice's
 # scene on the card against the CPU; their ray-head widths (d_view + 8) and
@@ -642,12 +648,12 @@ def ray_head_flops(rn, sn, c=88, heads=8, neus=False, fast=False):
 
 
 def fast_ray_kernel(c, sn=None, neus=False):
-    """The source of the fast ray head at width c (and, on ray_head.cu, its
-    tile rows at sn)."""
+    """The source of the fast ray head's instances at width c (and, on
+    ray_head.cu, its tile rows at sn)."""
     from uforecon_tpu_torch.ops import fused_ray_head as frh
 
     if c in frh.FAST_WIDTHS:
-        return f"{PORT}/csrc/ray_head_fast.cuh"
+        return RAY_FAST_UNITS[(c - 40) // 8]
     tiles = "" if sn is None else f", tiles of {frh.tile_rows(sn, c, neus)} rows"
     return f"{PORT}/csrc/ray_head.cu (kFast{tiles})"
 
@@ -3361,6 +3367,8 @@ def main():
                                                    for r in stats}}
                            if name in pack_counters() else {}),
                         **({"precision": "fast"} if name in FAST else {}),
+                        **({"units": list(RAY_FAST_UNITS)} if name in (
+                            "ray_head_fast", "ray_head_neus_fast") else {}),
                         **kres[name]})
     log("[general] " + json.dumps(general))
     log("[configs] " + json.dumps(configs))

@@ -41,6 +41,7 @@ extern "C" int ufo_ray_head_neus_fast(const float* y, const float* w, const floa
                                       float* weight, float* rgb, float* depth, float* opacity,
                                       int rn, int sn, int c, void* stream);
 extern "C" int ufo_ray_head_fast_pack_bytes(int c);
+extern "C" int ufo_ray_head_fast_smem_bytes(int c);
 extern "C" int ufo_grouped_cosine(const float* x, long long sv, long long sp,
                                   long long sc, float* out, int nv, int p,
                                   int c, int g, void* stream);
@@ -132,7 +133,7 @@ void ray_head_neus(const at::Tensor& y, const at::Tensor& w,
         "ray_head_neus");
 }
 
-// the fast ray heads at C 88 and 72 (csrc/ray_head_fast.cuh): w is the
+// the fast ray heads at C 40 .. 112 (csrc/ray_head_fast.cuh): w is the
 // fast_image pack
 void ray_head_fast(const at::Tensor& y, const at::Tensor& w, at::Tensor& srdf) {
   check(ufo_ray_head_fast(y.data_ptr<float>(), w.data_ptr<float>(), srdf.data_ptr<float>(),
@@ -240,10 +241,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("ray_head_neus", &ray_head_neus,
         "fused along-ray SRDF head with the NeuS epilogue (csrc/ray_head.cu)");
   m.def("ray_head_fast", &ray_head_fast,
-        "fast along-ray SRDF head at C 88 and 72 (csrc/ray_head_fast.cuh)");
+        "fast along-ray SRDF head at C 40 .. 112 (csrc/ray_head_fast.cuh)");
   m.def("ray_head_neus_fast", &ray_head_neus_fast,
         "the same with the NeuS epilogue (csrc/ray_head_fast.cuh)");
   m.def("ray_head_fast_pack_bytes", &ufo_ray_head_fast_pack_bytes);
+  m.def("ray_head_fast_smem_bytes", &ufo_ray_head_fast_smem_bytes);
   m.def("grouped_cosine", &grouped_cosine,
         "grouped pairwise cosine (csrc/grouped_cosine.cu)");
   m.def("volume_fusion", &volume_fusion,

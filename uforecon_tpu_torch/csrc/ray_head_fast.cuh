@@ -1,6 +1,6 @@
 // Fused along-ray SRDF head for Hopper (sm_90a), kernel_precision 'fast',
-// at the token widths 88 (the default model) and 72 (without explicit
-// similarity, and the feature grid without the depth guide).
+// at every token width a JAX flag set gives (40 .. 112 in steps of 8; one
+// translation unit each, ray_head_fast*.cu).
 //
 // Replaces the Pallas TPU kernels ray_head_fused (body _kernel) and
 // ray_head_neus_fused (body _kernel_neus / _neus_epilogue) of the JAX
@@ -14,8 +14,8 @@
 // every product, sum and rounding as there, in the same order (the layers'
 // mma.m16n8k16 k16 steps, the state and ksum in sample order, den and num
 // in feature order, the LayerNorms' warp sums, the density MLP's FMAs from
-// the bias). The other widths stay on that instance (their weights leave
-// no room, or are not compiled in).
+// the bias). Widths below 40 stay on that instance (no JAX flag set gives
+// them).
 //
 // What bounds it on the H100: the bf16 tensor cores. At C 88 a sample
 // costs ~8.3e4 multiply-adds (the layers, the density MLP, the per-head
@@ -33,7 +33,19 @@
 //     bytes at C 88) arrive once per block by TMA bulk copies completing on
 //     an mbarrier and stay in shared memory, each matrix as its torch (out,
 //     in) rows kpad apart, so that a B fragment is one conflict-free 32-bit
-//     load.
+//     load. From C 96 on the image and the two groups' buffers pass the
+//     232,448 bytes a block may have (345,312 at C 112), so those widths
+//     take the wide layout (ImgW): mlp1, the largest matrix, and the
+//     density MLP's first two stay in global memory, read through the L2
+//     (mlp1 in B-fragment order, one 16-byte load a lane and k16 step for
+//     two n8 tiles, not allocated in the L1; the density weights cached
+//     there), the rest resident as before: 232,416 bytes at C 112. Not
+//     taken: a pair of blocks (a cluster) splitting the image between their
+//     shared memories, each reading half its B fragments from the other SM
+//     (at C 88, half the image read that way took 2.6x the resident
+//     kernel's time: head_variants.py rhf,rhf_dsmem); one group a block
+//     with room for mlp1 (half the warps an SM: 1.5x at C 88 and 112,
+//     rhf,G=1).
 //   * Two groups of four warps, each walking its own rays and syncing on its
 //     own named barrier, so that one ray's loads, sums and epilogues overlap
 //     the other's products.
@@ -48,7 +60,7 @@
 //     depth 2C over [tokens | message], 16 outputs at a time, each at once
 //     a k16 step of mlp2. The attention (a lane per sample and head), the
 //     LayerNorms (warp sums) and the density MLP (a lane per output) go
-//     through the warp's 16 x C scratch, a quarter of the chunk buffers.
+//     through the warp's 16-row scratch, a quarter of the chunk buffers.
 //   * NeuS (kNeus): once a ray's srdf is in global memory, one warp
 //     composites it, 32 samples a step; the transmittance is the serial
 //     product in torch.cumprod's order, taken by every lane at once over
@@ -62,10 +74,13 @@
 // state and ksum), each a latency-bound chain at 8 warps an SM. With
 // tensor-core sums for the state, num and the density MLP the kernel took
 // 0.227 ms a chunk, but the sums no longer kFast's moved chip_smoke.py's
-// 12-view chunk one ray past its per-ray rule.
+// 12-view chunk one ray past its per-ray rule. At C 112 (--ray_width 112):
+// 0.230 / 0.470 ms, ~111,000 cycles a 64-sample ray, of which mlp1 from
+// the L2 and mlp2 take ~24,000 (~7,600 at C 88, resident).
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -83,6 +98,12 @@ constexpr int kGroupThreads = 32 * kGroupWarps;
 constexpr int kThreads = kGroups * kGroupThreads;
 constexpr int kChunk = 64;          // state rows a group holds
 constexpr int kPiece = 32768;       // bytes a bulk copy moves at most
+// wide layout: mlp1's B fragments in flight, KS2 / kW1Ahead k16 steps ahead
+// of the product (a whole slice at 1, half of one at 2 where KS2 is even).
+// At C 112 (H100, 1024 rays, SN 64 / 128; head_variants.py rhf,A=N) 1 took
+// 0.238 / 0.479 ms, 2 0.230 / 0.470; each slice loaded after the products
+// of the one before, 0.252 / 0.519.
+constexpr int kW1Ahead = 2;
 
 // bf16 row stride of a matrix of k inputs: k rounded up to 8, or 8 more,
 // whichever makes the stride in 32-bit words an odd multiple of 4 (B
@@ -112,25 +133,86 @@ struct Img {
   static constexpr int NF = (DB2 + 1 + 3) / 4 * 4;   // floats, padded to 16 bytes
   static constexpr int F32 = 2 * NB;             // byte offset of the FP32 part
   static constexpr int BYTES = F32 + 4 * NF;
+  static constexpr int SHARED = BYTES;           // all of it resident
+  static constexpr bool kWide = false;
   static_assert(NB % 8 == 0 && NF % 4 == 0, "bulk copies move multiples of 16 bytes");
 };
 
-// Shared memory: the image, the mbarrier, then per group phi(k) and v of a
-// chunk (bf16, C apart; in its first steps the chunk's phi(k) in FP32 over
-// both), the state kv (NH x DK x DK, ray_head.cu's order) and ksum (FP32,
-// both bf16-rounded). In phase 2 each warp takes a quarter of the chunk
-// buffers (16 x C FP32) as its scratch.
+// The wide layout (C 96 .. 112; fast_image at those widths): what stays in
+// shared memory first, copied as Img's is (wq, wk, wv, wmerge, w2 as bf16
+// (out, in) rows kpad apart, then Img's FP32 part), then what stays in
+// global memory: mlp1 in B-fragment order, its k16 step s of output slice
+// c (16 rows) the 32 lanes' 16 bytes {b0, b1 of rows 16c + g, b0, b1 of
+// rows 16c + 8 + g} (b0 columns 16s + 2t, + 1; b1 eight on); the density
+// MLP's first two matrices as Img holds them. SHARED: the bytes copied;
+// W1F, DW0, DW1: byte offsets in the pack.
+template <int C>
+struct ImgW {
+  static constexpr bool kWide = true;
+  static constexpr int C2 = 2 * C, KS2 = C2 / 16;
+  static constexpr int KC = kpad(C), KC2 = kpad(C2), KD = kpad(D0);
+  static constexpr int QKV = 0;
+  static constexpr int WM = QKV + 3 * C * KC;
+  static constexpr int W2 = WM + C * KC;
+  static constexpr int NB = W2 + C * KC2;
+  static constexpr int N1S = 0, N1B = C, N2S = 2 * C, N2B = 3 * C;
+  static constexpr int DB0 = 4 * C, DB1 = DB0 + D0, DW2 = DB1 + D1, DB2 = DW2 + D1;
+  static constexpr int NF = (DB2 + 1 + 3) / 4 * 4;
+  static constexpr int F32 = 2 * NB;
+  static constexpr int SHARED = F32 + 4 * NF;
+  static constexpr int W1F = SHARED;
+  static constexpr int DW0 = W1F + KS2 * KS2 * 32 * 16;
+  static constexpr int DW1 = DW0 + 2 * D0 * KC;
+  static constexpr int BYTES = DW1 + 2 * D1 * KD;
+  static_assert(NB % 8 == 0 && NF % 4 == 0 && C2 % 16 == 0, "16-byte pieces");
+};
+
+// The byte offset of mlp1's fragments in a wide pack (0 where there are
+// none)
+template <class I>
+__host__ __device__ constexpr int w1f_offset() {
+  if constexpr (I::kWide) return I::W1F;
+  return 0;
+}
+
+// Per group: phi(k) and v of a chunk (bf16, C apart; in its first steps the
+// chunk's phi(k) in FP32 over both), the state kv (NH x DK x DK,
+// ray_head.cu's order) and ksum (FP32, both bf16-rounded). In phase 2 each
+// warp takes a quarter of the chunk buffers (16 x SCR FP32) as its scratch:
+// 16 rows of C features, or of the density MLP's 32 + 16 hidden values
+// where C is narrower (C 40).
+template <int C>
+struct Group {
+  static constexpr int SCR = C > D0 + D1 ? C : D0 + D1;
+  static constexpr int PK = kChunk * SCR + 8;    // bf16 elements
+  static constexpr int KV = NH * (C / NH) * (C / NH);
+  static constexpr int BYTES = 2 * 2 * PK + 4 * KV + 4 * C;
+};
+
+constexpr int kSmemLimit = 232448;   // bytes of shared memory an sm_90 block may have
+
+// The layout of width C: Img where the image, the mbarrier and the two
+// groups fit a block's shared memory, else ImgW.
+template <int C>
+using Layout = std::conditional_t<(Img<C>::BYTES + 16 + kGroups * Group<C>::BYTES <= kSmemLimit),
+                                  Img<C>, ImgW<C>>;
+
+// Shared memory: the resident image (Layout's SHARED bytes), the mbarrier,
+// then the groups' buffers.
 template <int C>
 struct Smem {
-  static constexpr int PK = kChunk * C + 8;      // bf16 elements
-  static constexpr int KV = NH * (C / NH) * (C / NH);
-  static constexpr int GROUP = 2 * 2 * PK + 4 * KV + 4 * C;
-  static constexpr int BAR = Img<C>::BYTES;
+  static constexpr int PK = Group<C>::PK;
+  static constexpr int KV = Group<C>::KV;
+  static constexpr int GROUP = Group<C>::BYTES;
+  static constexpr int BAR = Layout<C>::SHARED;
   static constexpr int GROUPS = BAR + 16;
   static constexpr int BYTES = GROUPS + kGroups * GROUP;
   static_assert(GROUP % 16 == 0 && KV % 8 == 0, "16-byte aligned group buffers");
   static_assert(kChunk * C * 4 <= 2 * 2 * PK && kChunk == 16 * kGroupWarps,
                 "a chunk's phi(k) in FP32, and a warp's scratch, fit the chunk buffers");
+  static_assert(kGroupWarps * 16 * Group<C>::SCR * 4 <= 2 * 2 * PK,
+                "the warps' scratch fits the chunk buffers");
+  static_assert(BYTES <= kSmemLimit, "more shared memory than an sm_90 block may have");
 };
 
 // Outputs of the NeuS epilogue, all null when kNeus is false.
@@ -157,6 +239,24 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w 
 
 __device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// 16 bytes of weights: from shared memory, or (kGlobal) read-only from
+// global memory through the L1
+template <bool kGlobal>
+__device__ __forceinline__ uint4 ld_w4(const uint16_t* p) {
+  if constexpr (kGlobal) return __ldg(reinterpret_cast<const uint4*>(p));
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// 16 bytes read once a tile from the L2, not allocated in the L1 (the wide
+// layout's mlp1 fragments: they would evict the density weights)
+__device__ __forceinline__ uint4 ldg_stream(const uint4* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
 }
 
 // elu(x) + 1 without a branch (point_head_fast.cuh's phi_sel): the same
@@ -396,10 +496,10 @@ __device__ __forceinline__ void neus_ray(const float* sr, int SN, const float* _
 template <int C, bool kNeus>
 __global__ void __launch_bounds__(kThreads, 1) ray_head_fast_kernel(
     const float* __restrict__ y,         // (RN, SN, C)
-    const uint16_t* __restrict__ wimg,   // the weight pack (Img<C>)
+    const uint16_t* __restrict__ wimg,   // the weight pack (Layout<C>)
     float* srdf,                         // (RN, SN)
     int RN, int SN, NeusOut nz) {
-  using I = Img<C>;
+  using I = Layout<C>;
   using S = Smem<C>;
   constexpr int NT = C / 8, KS = (C + 15) / 16, KS2 = 2 * C / 16;
   constexpr int DK = C / NH, KC = I::KC, KC2 = I::KC2;
@@ -418,12 +518,18 @@ __global__ void __launch_bounds__(kThreads, 1) ray_head_fast_kernel(
   float* R = reinterpret_cast<float*>(gs);             // kChunk x C: phi(k), FP32
   float* KV = reinterpret_cast<float*>(PV + S::PK);   // NH x DK x DK: the state
   float* KSB = KV + S::KV;                             // C: ksum
-  // the warp's scratch in phase 2 (16 x C FP32)
-  float* scr = R + gw * 16 * C;
+  // the warp's scratch in phase 2 (16 x SCR FP32)
+  float* scr = R + gw * 16 * Group<C>::SCR;
   uint16_t* scr16 = reinterpret_cast<uint16_t*>(scr);
   // each thread's B-fragment row of the layers' matrices
   const uint16_t* wrow = Ws + g * KC + 2 * t;
-  const uint16_t* w1row = Ws + I::W1 + g * KC2 + 2 * t;
+  const uint16_t* w1row = nullptr;   // resident mlp1 (Img)
+  if constexpr (!I::kWide) w1row = Ws + I::W1 + g * KC2 + 2 * t;
+  // the density MLP's first two matrices: resident, or in the wide layout
+  // in global memory
+  const char* wpack = reinterpret_cast<const char*>(wimg);
+  const uint16_t* wd0 = I::kWide ? reinterpret_cast<const uint16_t*>(wpack + I::DW0) : Ws + I::DW0;
+  const uint16_t* wd1 = I::kWide ? reinterpret_cast<const uint16_t*>(wpack + I::DW1) : Ws + I::DW1;
   const uint16_t* w2row = Ws + I::W2 + g * KC2 + 2 * t;
 
   // the weight image, once per block: thread 0 starts the bulk copies,
@@ -435,14 +541,14 @@ __global__ void __launch_bounds__(kThreads, 1) ray_head_fast_kernel(
   __syncthreads();
   if (threadIdx.x == 0) {
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                     smem_addr(bar)), "r"((uint32_t)I::BYTES)
+                     smem_addr(bar)), "r"((uint32_t)I::SHARED)
                  : "memory");
-    for (int off = 0; off < I::BYTES; off += kPiece) {
-      const uint32_t bytes = I::BYTES - off < kPiece ? I::BYTES - off : kPiece;
+    for (int off = 0; off < I::SHARED; off += kPiece) {
+      const uint32_t bytes = I::SHARED - off < kPiece ? I::SHARED - off : kPiece;
       asm volatile(
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
           "[%3];\n" ::"r"(smem_addr(sm + off)),
-          "l"(reinterpret_cast<const char*>(wimg) + off), "r"(bytes), "r"(smem_addr(bar))
+          "l"(wpack + off), "r"(bytes), "r"(smem_addr(bar))
           : "memory");
     }
   }
@@ -634,27 +740,58 @@ __global__ void __launch_bounds__(kThreads, 1) ray_head_fast_kernel(
       tile_from_smem<C>(acc, scr);
       // mlp1's operand [tokens | message], bf16: its k16 step s is C tiles
       // 2s, 2s + 1 of the two side by side (at C 88 step 5 takes the
-      // tokens' last 8 columns and the message's first 8)
+      // tokens' last 8 columns and the message's first 8); the tokens'
+      // tiles are q's A fragments' (the wide layout takes them from there,
+      // its FP32 tokens read again for the residual)
       uint32_t ca[KS2][4];
 #pragma unroll
       for (int s = 0; s < KS2; ++s)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int j = 2 * s + h, jx = j < NT ? j : 0, jm = j < NT ? 0 : j - NT;
-          ca[s][2 * h] = j < NT ? bf16x2_rn(x[jx][0], x[jx][1]) : bf16x2_rn(acc[jm][0], acc[jm][1]);
-          ca[s][2 * h + 1] =
-              j < NT ? bf16x2_rn(x[jx][2], x[jx][3]) : bf16x2_rn(acc[jm][2], acc[jm][3]);
+          if constexpr (I::kWide) {
+            ca[s][2 * h] = j < NT ? xa[jx >> 1][2 * (jx & 1)] : bf16x2_rn(acc[jm][0], acc[jm][1]);
+            ca[s][2 * h + 1] =
+                j < NT ? xa[jx >> 1][2 * (jx & 1) + 1] : bf16x2_rn(acc[jm][2], acc[jm][3]);
+          } else {
+            ca[s][2 * h] =
+                j < NT ? bf16x2_rn(x[jx][0], x[jx][1]) : bf16x2_rn(acc[jm][0], acc[jm][1]);
+            ca[s][2 * h + 1] =
+                j < NT ? bf16x2_rn(x[jx][2], x[jx][3]) : bf16x2_rn(acc[jm][2], acc[jm][3]);
+          }
         }
       RHF_MARK(7);
       // mlp1 over [tokens | message] (one product of depth 2C), 16 outputs
       // at a time, relu, rounded to bf16: one k16 step of mlp2's A operand
       float m2[NT][4];
       zero(m2);
+      // the wide layout's mlp1 B fragments from the L2, step f of the
+      // product (slice f / KS2, k16 step f % KS2) in slot f % AH: the first
+      // AH steps' here, each next one's AH steps before its product
+      constexpr int AH = KS2 % kW1Ahead == 0 ? KS2 / kW1Ahead : KS2;
+      const uint4* w1f = reinterpret_cast<const uint4*>(wpack + w1f_offset<I>()) + lane;
+      uint4 b[I::kWide ? AH : 1];
+      if constexpr (I::kWide) {
+#pragma unroll
+        for (int f = 0; f < AH; ++f) b[f] = ldg_stream(w1f + 32 * f);
+      }
 #pragma unroll 1
       for (int c16 = 0; c16 < KS2; ++c16) {
         float h[2][4];
         zero(h);
-        warp_mma<2, KS2, KC2, 0, 2 * C>(h, ca, w1row + 16 * c16 * KC2);
+        if constexpr (I::kWide) {
+          // the products in warp_mma's order
+          const uint4* slice = w1f + c16 * KS2 * 32;
+#pragma unroll
+          for (int s = 0; s < KS2; ++s) {
+            const uint4 bs = b[s % AH];
+            if (s + AH < KS2 || c16 + 1 < KS2) b[s % AH] = ldg_stream(slice + 32 * (s + AH));
+            tc::mma_bf16(h[0], ca[s], bs.x, bs.y);
+            tc::mma_bf16(h[1], ca[s], bs.z, bs.w);
+          }
+        } else {
+          warp_mma<2, KS2, KC2, 0, 2 * C>(h, ca, w1row + 16 * c16 * KC2);
+        }
         const uint32_t ha[1][4] = {{bf16x2_rn(fmaxf(h[0][0], 0.f), fmaxf(h[0][1], 0.f)),
                                     bf16x2_rn(fmaxf(h[0][2], 0.f), fmaxf(h[0][3], 0.f)),
                                     bf16x2_rn(fmaxf(h[1][0], 0.f), fmaxf(h[1][1], 0.f)),
@@ -669,6 +806,9 @@ __global__ void __launch_bounds__(kThreads, 1) ray_head_fast_kernel(
       warp_layernorm<C>(scr, F + I::N2S, F + I::N2B);
       __syncwarp();
       tile_from_smem<C>(m2, scr);
+      // the wide layout reads the residual again (through the L1 or the
+      // L2) rather than holding it in registers through mlp1
+      if constexpr (I::kWide) load_rows<C>(x, yr, r0, SN);
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -691,10 +831,10 @@ __global__ void __launch_bounds__(kThreads, 1) ray_head_fast_kernel(
         const float b = F[I::DB0 + lane];
 #pragma unroll
         for (int r = 0; r < 16; ++r) o[r] = b;
-        const uint16_t* wc = Ws + I::DW0 + lane * KC;
+        const uint16_t* wc = wd0 + lane * KC;
 #pragma unroll 1
         for (int k = 0; k < C; k += 8) {
-          const uint4 wq = *reinterpret_cast<const uint4*>(wc + k);
+          const uint4 wq = ld_w4<I::kWide>(wc + k);
           const float w[8] = {bf16_lo(wq.x), bf16_hi(wq.x), bf16_lo(wq.y), bf16_hi(wq.y),
                               bf16_lo(wq.z), bf16_hi(wq.z), bf16_lo(wq.w), bf16_hi(wq.w)};
 #pragma unroll
@@ -722,10 +862,10 @@ __global__ void __launch_bounds__(kThreads, 1) ray_head_fast_kernel(
         const float b = F[I::DB1 + c];
 #pragma unroll
         for (int r = 0; r < 8; ++r) o[r] = b;
-        const uint16_t* wc = Ws + I::DW1 + c * I::KD;
+        const uint16_t* wc = wd1 + c * I::KD;
 #pragma unroll
         for (int k = 0; k < D0; k += 8) {
-          const uint4 wq = *reinterpret_cast<const uint4*>(wc + k);
+          const uint4 wq = ld_w4<I::kWide>(wc + k);
           const float w[8] = {bf16_lo(wq.x), bf16_hi(wq.x), bf16_lo(wq.y), bf16_hi(wq.y),
                               bf16_lo(wq.z), bf16_hi(wq.z), bf16_lo(wq.w), bf16_hi(wq.w)};
 #pragma unroll
@@ -774,8 +914,7 @@ __global__ void __launch_bounds__(kThreads, 1) ray_head_fast_kernel(
 template <int C, bool kNeus>
 int launch(const float* y, const float* w, float* srdf, int rn, int sn, NeusOut nz,
            cudaStream_t stream) {
-  constexpr int smem = Smem<C>::BYTES;
-  static_assert(smem <= 232448, "more shared memory than an sm_90 block may have");
+  constexpr int smem = Smem<C>::BYTES;   // <= kSmemLimit (Smem's static_assert)
   if (rn <= 0) return 0;
   if (sn <= 0) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(ray_head_fast_kernel<C, kNeus>,
@@ -791,12 +930,42 @@ int launch(const float* y, const float* w, float* srdf, int rn, int sn, NeusOut 
   return (int)cudaGetLastError();
 }
 
-// the instances of each width, one translation unit each (ray_head_fast.cu,
-// ray_head_fast_72.cu)
-int launch_c88(const float* y, const float* w, float* srdf, int rn, int sn, bool neus,
-               NeusOut nz, cudaStream_t s);
-int launch_c72(const float* y, const float* w, float* srdf, int rn, int sn, bool neus,
-               NeusOut nz, cudaStream_t s);
+// the instances of each width, one translation unit each
+// (ray_head_fast.cu at C 88, ray_head_fast_<C>.cu at the others), and each
+// unit's probe counters (UFO_RHF_PROBE; else cudaErrorNotSupported)
+#define UFO_RHF_WIDTH(C)                                                                   \
+  int launch_c##C(const float* y, const float* w, float* srdf, int rn, int sn, bool neus, \
+                  NeusOut nz, cudaStream_t s);                                             \
+  int probe_c##C(unsigned long long* out);
+UFO_RHF_WIDTH(40)
+UFO_RHF_WIDTH(48)
+UFO_RHF_WIDTH(56)
+UFO_RHF_WIDTH(64)
+UFO_RHF_WIDTH(72)
+UFO_RHF_WIDTH(80)
+UFO_RHF_WIDTH(88)
+UFO_RHF_WIDTH(96)
+UFO_RHF_WIDTH(104)
+UFO_RHF_WIDTH(112)
+#undef UFO_RHF_WIDTH
+
+// The instances of width C and the unit's probe read-out (a unit's own
+// copy of rhf_probe)
+#ifdef UFO_RHF_PROBE
+#define UFO_RHF_PROBE_READ \
+  return (int)cudaMemcpyFromSymbol(out, rhf_probe, sizeof(rhf_probe));
+#else
+#define UFO_RHF_PROBE_READ \
+  (void)out;               \
+  return (int)cudaErrorNotSupported;
+#endif
+#define UFO_RHF_INSTANCES(C)                                                                \
+  int launch_c##C(const float* y, const float* w, float* srdf, int rn, int sn, bool neus, \
+                  NeusOut nz, cudaStream_t s) {                                              \
+    return neus ? launch<C, true>(y, w, srdf, rn, sn, nz, s)                               \
+                : launch<C, false>(y, w, srdf, rn, sn, nz, s);                              \
+  }                                                                                          \
+  int probe_c##C(unsigned long long* out) { UFO_RHF_PROBE_READ }
 
 }  // namespace rhf
 }  // namespace ufo

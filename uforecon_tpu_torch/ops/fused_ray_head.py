@@ -5,7 +5,7 @@ Replaces the Pallas TPU kernel the JAX package's ``ops/fused_ray_head.py``
 ``ray_head_fused``: over each ray's (SN, C) z-sorted tokens, one LoFTR
 linear-attention layer across the samples, then the density MLP
 C -> 32 -> 16 -> 1. The kernel is ``csrc/ray_head.cu`` (in ``fast`` at
-token widths 88 and 72 ``csrc/ray_head_fast.cuh``, below); like the JAX
+token widths 40 .. 112 ``csrc/ray_head_fast.cuh``, below); like the JAX
 kernel it takes any token width C (here a multiple of 8 up to 112: every
 width a JAX flag set gives, 40 .. 112) and any sample count SN >= 1.
 
@@ -31,16 +31,21 @@ CUDA cores.
 sums kv = sum_s phi(k_s) v_s^T, num = phi(q) kv and den = phi(q) ksum,
 each with both operands rounded to bf16 (round to nearest even) and the
 products summed in FP32; ksum itself is an FP32 sum. In ``fast`` the
-widths of ``FAST_WIDTHS`` (88, the default model; 72, without explicit
-similarity) run ``csrc/ray_head_fast.cuh``, ``csrc/ray_head.cu``'s bf16
-instantiation redesigned with the same outputs bit for bit: persistent
-blocks of two groups of four warps, each group on its own ray; every bf16
-weight resident in shared memory (``fast_image``, one TMA bulk load a
-block); a warp's 16 samples kept in registers through the layers (q, k,
-v, merge, mlp1, mlp2 as bf16 ``mma.m16n8k16``, each product's
-accumulators the next one's operands); the state, the attention, the
-LayerNorms and the density MLP with ``ray_head.cu``'s FP32 sums. Every
-other width runs that instantiation itself (``takes_fast_kernel``). The
+widths of ``FAST_WIDTHS`` (every width a JAX flag set gives, 40 .. 112:
+88 the default model, 72 without explicit similarity, 80 and 64 other
+configurations, 112 ``use_dir_srdf``) run ``csrc/ray_head_fast.cuh``,
+``csrc/ray_head.cu``'s bf16 instantiation redesigned with the same outputs
+bit for bit: persistent blocks of two groups of four warps, each group on
+its own ray; the bf16 weights resident in shared memory (``fast_image``,
+one TMA bulk load a block), all of them up to C 88, and from C 96 on
+(``WIDE_WIDTHS``, where they and the groups' buffers pass a block's
+232,448 bytes) all but mlp1 and the density MLP's first two matrices,
+which the kernel reads from the L2; a warp's 16 samples kept in registers
+through the layers (q, k, v, merge, mlp1, mlp2 as bf16 ``mma.m16n8k16``,
+each product's accumulators the next one's operands); the state, the
+attention, the LayerNorms and the density MLP with ``ray_head.cu``'s FP32
+sums. Widths below 40 run that instantiation itself
+(``takes_fast_kernel``). The
 state and the attention sum as the plain version does on the CPU (sample
 and feature order); the layers (on the tensor cores), ksum, the LayerNorms
 and the density MLP in other orders, so now and then an intermediate's
@@ -66,7 +71,9 @@ Function whose backward differentiates the plain version (the JAX
 ``_rh_bwd`` / ``_rhn_bwd`` pattern). ``ray_head.launches`` and
 ``ray_head_neus.launches`` count the launches of the 3xTF32 kernel,
 ``.launches_fast`` those in ``fast`` (of ``csrc/ray_head_fast.cuh`` at
-``FAST_WIDTHS``, else of ``csrc/ray_head.cu``'s bf16 instantiation).
+``FAST_WIDTHS``, else of ``csrc/ray_head.cu``'s bf16 instantiation). A
+fast launch that the card refuses raises; nothing falls back to
+``csrc/ray_head.cu``.
 """
 from __future__ import annotations
 
@@ -85,7 +92,10 @@ _KERNEL_C_MAX = 112   # token widths: multiples of 8 up to this
 _KERNEL_HEADS = 8
 # the token widths of the fast kernel (csrc/ray_head_fast.cuh): in ``fast``
 # these take it, every other width ray_head.cu's bf16 instantiation
-FAST_WIDTHS = (88, 72)
+FAST_WIDTHS = tuple(range(40, _KERNEL_C_MAX + 1, 8))
+# the fast kernel's wide layout (ray_head_fast.cuh ImgW): the widths whose
+# whole image and two groups' buffers pass a block's shared memory
+WIDE_WIDTHS = (96, 104, 112)
 
 
 class RayHeadParams(NamedTuple):
@@ -183,16 +193,40 @@ def fast_image(p: RayHeadParams) -> torch.Tensor:
     bf16, each as its torch (out, in) rows ``cuda_build.image_stride(in)``
     elements apart; then in float32 the LayerNorms' scales and biases, the
     density MLP's first two biases, its last layer's 16 weights rounded to
-    bf16 and its bias, padded to 4 floats."""
-    rows = []
-    for w in (p.wq, p.wk, p.wv, p.wmerge, p.w1, p.w2, *p.dens_w[:2]):
-        w = cuda_build.bf16_round(w.detach().float())
-        rows.append(F.pad(w, (0, cuda_build.image_stride(w.shape[1]) - w.shape[1])).reshape(-1))
-    bf16 = torch.cat(rows).to(torch.bfloat16)
+    bf16 and its bias, padded to 4 floats.
+
+    At ``WIDE_WIDTHS`` the wide layout (``ImgW``): the same without w1 and
+    the density MLP's first two weights (what a block copies), then w1 in
+    B-fragment order (``w1_fragments``) and those two as above (what the
+    kernel reads from global memory)."""
+    def rows(*ws):
+        out = []
+        for w in ws:
+            w = cuda_build.bf16_round(w.detach().float())
+            k = w.shape[1]
+            out.append(F.pad(w, (0, cuda_build.image_stride(k) - k)).reshape(-1))
+        return torch.cat(out).to(torch.bfloat16).view(torch.float32)
+
     f32 = [p.norm1_scale, p.norm1_bias, p.norm2_scale, p.norm2_bias, p.dens_b[0],
            p.dens_b[1], cuda_build.bf16_round(p.dens_w[2].detach().float()), p.dens_b[2]]
     f32 = torch.cat([t.detach().float().reshape(-1) for t in f32])
-    return torch.cat([bf16.view(torch.float32), f32, f32.new_zeros(-f32.numel() % 4)])
+    f32 = torch.cat([f32, f32.new_zeros(-f32.numel() % 4)])
+    if p.wq.shape[0] not in WIDE_WIDTHS:
+        return torch.cat([rows(p.wq, p.wk, p.wv, p.wmerge, p.w1, p.w2, *p.dens_w[:2]), f32])
+    w1 = w1_fragments(cuda_build.bf16_round(p.w1.detach().float()))
+    return torch.cat([rows(p.wq, p.wk, p.wv, p.wmerge, p.w2), f32,
+                      w1.to(torch.bfloat16).view(torch.float32), rows(*p.dens_w[:2])])
+
+
+def w1_fragments(w1: torch.Tensor) -> torch.Tensor:
+    """mlp1's (2C, 2C) weights in the wide layout's B-fragment order,
+    flat: for each slice c of 16 outputs and k16 step s, lane g * 4 + t's
+    eight values {rows 16c + g, then 16c + 8 + g} x {columns 16s + 2t,
+    + 1, then 16s + 8 + 2t, + 1}: the mma.m16n8k16 B fragments b0, b1 of
+    the slice's two n8 tiles, one 16-byte load a lane."""
+    ks = w1.shape[0] // 16
+    x = w1.reshape(ks, 2, 8, ks, 2, 4, 2)          # (c, j, g, s, h, t, e)
+    return x.permute(0, 3, 2, 5, 1, 4, 6).reshape(-1)   # (c, s, g, t, j, h, e)
 
 
 _packs = cuda_build.PackCache()
@@ -232,10 +266,14 @@ def _prepare(y: torch.Tensor, p: RayHeadParams, n_heads: int, precision: str,
                              f"CUDA device, got {t.dtype} on {t.device}")
     ext = cuda_build.extension()
     w = cached_pack_weights(p, precision)
+    limit = _smem_limit(dev)
     if takes_fast_kernel(c, precision):
         n_w = ext.ray_head_fast_pack_bytes(c) // 4
+        smem = ext.ray_head_fast_smem_bytes(c)
+        if not 0 < smem <= limit:
+            raise ValueError(f"fast ray_head kernel: its {smem} bytes of shared memory "
+                             f"at C={c} pass the card's {limit}")
     else:
-        limit = _smem_limit(dev)
         if ext.ray_head_smem_bytes(sn, c, neus, limit) < 0:
             raise ValueError(f"ray_head kernel: no tile fits the card's {limit} bytes "
                              f"of shared memory at C={c}, SN={sn}")

@@ -4,13 +4,16 @@ defaults: merged bf16 volume, fast heads) on one GPU, on the package under
 ``git archive``) can be timed in turns in one run on one card.
 
     python uforecon_tpu_torch/script/chunk_times.py [--root DIR] [--reps 5] \
-        [--point_head v2]
+        [--point_head v2] [--use_dir_srdf] [--samples 128 128]
 
 The scene is chip_smoke.py's slice view (``data.synthetic.dtu_scale_sample``:
 800x640, 3 views, 192 hypotheses, 64 + 64 samples), the weights
 ``UFORecon(Config(**EXACT))`` initialised from ``--seed`` (with
 ``--point_head v2`` the shipped route takes the split-weight point head,
-fast kernel 4 in place of fast kernel 1), the chunks
+fast kernel 4 in place of fast kernel 1; with ``--use_dir_srdf`` the
+model of that flag, whose ray head is 112 wide, on the view transformer's
+route as JAX's gate sends it; ``--samples`` the coarse and fine samples a
+ray, ``test_sample_coarse`` / ``test_sample_fine``), the chunks
 chip_smoke.py's profile phase renders (8 of 1024 rays spread over the
 view). Per round, after a warm-up round: the wall ms a chunk (host clock,
 unprofiled, the 8 chunks and one synchronize); then, under
@@ -37,6 +40,9 @@ def main(argv=None):
     ap.add_argument("--chunks", type=int, default=8)
     ap.add_argument("--rays", type=int, default=1024)
     ap.add_argument("--point_head", choices=("v1", "v2"), default="v1")
+    ap.add_argument("--use_dir_srdf", action="store_true")
+    ap.add_argument("--samples", type=int, nargs=2, default=(64, 64),
+                    metavar=("COARSE", "FINE"))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -57,10 +63,12 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    model = UFORecon(Config(**EXACT))
+    model = UFORecon(Config(**EXACT, use_dir_srdf=args.use_dir_srdf))
     init_weights(model, args.seed)
     model.to("cuda")
     shipped = model.with_knobs(extract_geometry=True, point_head=args.point_head,
+                               test_sample_coarse=args.samples[0],
+                               test_sample_fine=args.samples[1],
                                **{k: getattr(Config(), k) for k in EXACT})
     scene, extras = scene_inputs_from_sample(dtu_scale_sample(), "cuda")
     rn = args.rays
@@ -99,6 +107,7 @@ def main(argv=None):
     med = {k: float(np.median([x[k] for x in rounds])) for k in rounds[0]}
     med["busy_share"] = med["device_ms"] / med["wall_ms"]
     print(json.dumps({"card": card, "root": args.root, "point_head": args.point_head,
+                      "use_dir_srdf": args.use_dir_srdf, "samples": list(args.samples),
                       "rays": rn, "chunks": len(chunks),
                       "median": med, "rounds": rounds}), flush=True)
     return 0

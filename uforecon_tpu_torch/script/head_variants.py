@@ -3,7 +3,7 @@
 ``csrc/point_head2.cuh``, ``csrc/point_head2_fast.cuh`` (the fast split
 point head), ``csrc/ray_head.cu`` (3xTF32, or with ``fast``
 its bf16 instantiation), ``csrc/ray_head_fast.cuh`` (the fast ray head at
-C 88 and 72), ``csrc/tiny_attention.cuh`` (forward and backward) and
+C 40 .. 112), ``csrc/tiny_attention.cuh`` (forward and backward) and
 ``csrc/volume_fusion.cu`` timed apart on one GPU.
 
     python -m uforecon_tpu_torch.script.head_variants ph ph,nogemm phf phf,phf_rad ph2 rh \
@@ -17,8 +17,9 @@ back on the same inputs) and by torch.profiler (the kernels' mean device
 time over 20 launches) at the main path's shapes: the point heads at P =
 65,536 points and 3 views, the ray head over 1024 rays of 64 and of 128
 samples at width 88 (``rh,fast`` and ``rhf``: in ``fast``, against the
-fast plain version), the tiny-attention forward at B = 65,536, L = S = 4,
-8 heads of D = M = 10 (route A) and 8 (route B), its backward at B =
+fast plain version; ``--ray_width C`` another width on random weights, as
+``script/ray_head_times.py`` draws them), the tiny-attention forward at B =
+65,536, L = S = 4, 8 heads of D = M = 10 (route A) and 8 (route B), its backward at B =
 65,536, 8 heads of D = M = 10, L = S = 4 (route A) and 6 (the training
 shape), the volume fusion at P = 65,536 and 3 views in the sampler's
 channel-first layout (its 27.5 MB stay in the L2 between launches), on
@@ -30,7 +31,9 @@ comma-separated options:
 
   NAME=VALUE  a constant of the kernel's source (``CONSTANTS``), e.g.
               ``T=256`` threads a block, ``S=3`` weight-ring slots (for
-              ``ta`` and ``tb``: input stages), ``I=64`` items a tile;
+              ``ta`` and ``tb``: input stages), ``I=64`` items a tile,
+              ``G=1`` rays in flight a block of ``rhf``, ``A=1`` its wide
+              layout's mlp1 fragments a whole slice ahead (2: half);
   a patch     of ``PATCHES``: ``nogemm`` skips the tensor-core layers;
               ``onemma`` keeps one of the three 3xTF32 products;
               ``nosync`` drops the per-step sync, ``noload`` the weight
@@ -39,7 +42,10 @@ comma-separated options:
               kernel; ``phf_probe`` and ``ph2f_probe`` print the fast point
               heads' cycles a tile in each of their phases, ``rhf_probe``
               the fast ray head's cycles a ray (block 0's first thread, its
-              barriers included);
+              barriers included); ``rhf_dsmem`` launches ``rhf`` in
+              clusters of two blocks that read k, v, merge and mlp2's B
+              fragments from each other's shared memory (the cost of
+              splitting the image between two SMs);
   ``fast``    (``rh`` only) runs ``ray_head.cu``'s bf16 instantiation;
               ``tb_stream`` keeps only the backward's copies (no
               arithmetic); ``vf_stream`` keeps the
@@ -51,7 +57,8 @@ comma-separated options:
 A variant that skips work gives wrong outputs: its max abs error against
 the plain version is printed, not checked. The difference between two
 variants' times is what the skipped work costs. One line per variant, then
-one JSON line with every time. Needs a CUDA card and ``nvcc``; builds go to
+one JSON line with every time. Needs a CUDA card and ``nvcc`` (one process
+a source file, all at once); builds go to
 ``uforecon_tpu_torch/_build/variants/``.
 """
 from __future__ import annotations
@@ -59,6 +66,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import shlex
 import shutil
 import subprocess
 import sys
@@ -74,7 +82,8 @@ SOURCE = {"ph": "point_head.cuh", "phf": "point_head_fast.cuh", "ph2": "point_he
           "rh": "ray_head.cu", "rhf": "ray_head_fast.cuh", "ta": "tiny_attention.cuh",
           "tb": "tiny_attention.cuh", "vf": "volume_fusion.cu"}
 # kernel -> the files nvcc compiles into its library (the point heads'
-# instances of 2..5 views, of 6..11 views and past 11 are separate files)
+# instances of 2..5 views, of 6..11 views and past 11 are separate files;
+# rhf's: rhf_units)
 _PH_UNITS = ("point_head.cu", "point_head_views.cu", "point_head_views_9_11.cu",
              "point_head_fast.cu", "point_head_fast_views.cu", "point_head_stream.cu")
 UNITS = {"ph": _PH_UNITS, "phf": _PH_UNITS,
@@ -82,7 +91,6 @@ UNITS = {"ph": _PH_UNITS, "phf": _PH_UNITS,
          "ph2": ("point_head2.cu", "point_head2_views.cu", "point_head2_stream.cu",
                  "point_head2_fast.cu", "point_head2_fast_views.cu"),
          "ph2f": ("point_head2_fast.cu", "point_head2_fast_views.cu"),
-         "rhf": ("ray_head_fast.cu", "ray_head_fast_72.cu"),
          "ta": ("tiny_attention.cu", "tiny_attention_bwd2.cu", "tiny_attention_bwd1.cu"),
          "tb": ("tiny_attention.cu", "tiny_attention_bwd2.cu", "tiny_attention_bwd1.cu")}
 # the fast split point head's phases by its probe's marks (ph2f_probe)
@@ -107,6 +115,8 @@ CONSTANTS = {
             "SR": ("constexpr int kSmallRows = 1;", "constexpr int kSmallRows = {};")},
     "rh": {"T": ("constexpr int kRayThreads = 512;", "constexpr int kRayThreads = {};"),
            "S": ("constexpr int kStages = 2;", "constexpr int kStages = {};")},
+    "rhf": {"G": ("constexpr int kGroups = 2;", "constexpr int kGroups = {};"),
+            "A": ("constexpr int kW1Ahead = 2;", "constexpr int kW1Ahead = {};")},
     "ta": {"T": ("constexpr int kFwdThreads = 128;", "constexpr int kFwdThreads = {};"),
            "I": ("constexpr int kFwdItems = 128;", "constexpr int kFwdItems = {};"),
            "S": ("constexpr int kFwdStages = 2;", "constexpr int kFwdStages = {};")},
@@ -272,6 +282,55 @@ PATCHES = {
         "      for (int c16 = 0; c16 < KS2; ++c16) {", "KS2"))],
     "rhf_ln": [("ray_head_fast.cuh", *_skip("      warp_layernorm<C>(scr, F + I::N1S, F + I::N1B);")),
                ("ray_head_fast.cuh", *_skip("      warp_layernorm<C>(scr, F + I::N2S, F + I::N2B);"))],
+    # the cluster design's cost (two blocks on neighbouring SMs, each
+    # reading half its B fragments from the other's shared memory) at a
+    # width whose image fits one SM: clusters of two, and k, v, merge and
+    # mlp2 (about half the image's bytes) read from the peer's copy over
+    # distributed shared memory; the block's first and last steps a
+    # cluster-wide barrier
+    "rhf_dsmem": [
+        ("ray_head_fast.cuh", "#include <type_traits>",
+         "#include <type_traits>\n#include <cooperative_groups.h>"),
+        ("ray_head_fast.cuh", "    weights_in = true;\n  };\n",
+         "    weights_in = true;\n  };\n"
+         "  namespace cg = cooperative_groups;\n"
+         "  cg::cluster_group cluster = cg::this_cluster();\n"
+         "  wait_weights();\n"
+         "  cluster.sync();\n"
+         "  const uint16_t* Wp = cluster.map_shared_rank(Ws, (int)cluster.block_rank() ^ 1);\n"
+         "  const uint16_t* wprow = Wp + g * KC + 2 * t;\n"
+         "  const uint16_t* w2prow = Wp + I::W2 + g * KC2 + 2 * t;\n"),
+        ("ray_head_fast.cuh", "(kf, xa, wrow + I::QKV + C * KC);",
+         "(kf, xa, wprow + I::QKV + C * KC);"),
+        ("ray_head_fast.cuh", "(acc, xa, wrow + I::QKV + 2 * C * KC);",
+         "(acc, xa, wprow + I::QKV + 2 * C * KC);"),
+        ("ray_head_fast.cuh", "(acc, aa, wrow + I::WM);", "(acc, aa, wprow + I::WM);"),
+        ("ray_head_fast.cuh", "(m2, ha, w2row + 16 * c16);", "(m2, ha, w2prow + 16 * c16);"),
+        ("ray_head_fast.cuh", "    RHF_MARK(10);\n  }\n}\n",
+         "    RHF_MARK(10);\n  }\n  cluster.sync();\n}\n"),
+        ("ray_head_fast.cuh",
+         "  ray_head_fast_kernel<C, kNeus><<<pairs < sms ? pairs : sms, kThreads, smem, stream>>>(\n"
+         "      y, reinterpret_cast<const uint16_t*>(w), srdf, rn, sn, nz);\n",
+         "  cudaLaunchConfig_t cfg = {};\n"
+         "  cudaLaunchAttribute attr[1];\n"
+         "  attr[0].id = cudaLaunchAttributeClusterDimension;\n"
+         "  attr[0].val.clusterDim.x = 2;\n"
+         "  attr[0].val.clusterDim.y = 1;\n"
+         "  attr[0].val.clusterDim.z = 1;\n"
+         "  cfg.blockDim = dim3(kThreads);\n"
+         "  cfg.dynamicSmemBytes = smem;\n"
+         "  cfg.stream = stream;\n"
+         "  cfg.attrs = attr;\n"
+         "  cfg.numAttrs = 1;\n"
+         "  int clusters = 0;\n"
+         "  cfg.gridDim = dim3(2);\n"
+         "  e = cudaOccupancyMaxActiveClusters(&clusters, ray_head_fast_kernel<C, kNeus>, &cfg);\n"
+         "  if (e != cudaSuccess) return (int)e;\n"
+         "  const int want = (pairs + 1) / 2;\n"
+         "  cfg.gridDim = dim3(2 * (want < clusters ? want : clusters));\n"
+         "  e = cudaLaunchKernelEx(&cfg, ray_head_fast_kernel<C, kNeus>, y,\n"
+         "                         reinterpret_cast<const uint16_t*>(w), srdf, rn, sn, nz);\n"
+         "  if (e != cudaSuccess) return (int)e;\n")],
     "rhf_density": [("ray_head_fast.cuh", *_empty_loop(
         "        for (int k = 0; k < C; k += 8) {", "C"))],
 }
@@ -298,8 +357,31 @@ def replacements(variant: str):
     return kernel, out
 
 
-def _build(variant: str, root: Path):
-    """Starts nvcc on a patched copy of csrc/; returns (process, library)."""
+def rhf_units(width: int):
+    """The files of an ``rhf`` variant's library timed at ``width``: the
+    entry points (with the C 88 instances), that width's unit, and
+    ``rhf_stubs.cu`` (``RHF_STUBS``: the other widths' launches, refused),
+    so that a variant compiles one or two widths, not ten."""
+    return ("ray_head_fast.cu", *([] if width == 88 else [f"ray_head_fast_{width}.cu"]),
+            "rhf_stubs.cu")
+
+
+# rhf_stubs.cu: every width's launch and probe but the one timed, refused
+RHF_STUBS = """#include "ray_head_fast.cuh"
+namespace ufo {{
+namespace rhf {{
+{}
+}}  // namespace rhf
+}}  // namespace ufo
+"""
+_RHF_STUB = ("int launch_c{0}(const float*, const float*, float*, int, int, bool, NeusOut, "
+             "cudaStream_t) {{ return (int)cudaErrorNotSupported; }}\n"
+             "int probe_c{0}(unsigned long long*) {{ return (int)cudaErrorNotSupported; }}")
+
+
+def _build(variant: str, root: Path, ray_width: int = 88):
+    """Starts nvcc on a patched copy of csrc/, one process a source file,
+    then the link; returns (process, library)."""
     kernel, subs = replacements(variant)
     d = root / variant.replace(",", "_").replace("=", "")
     shutil.rmtree(d, ignore_errors=True)
@@ -310,11 +392,20 @@ def _build(variant: str, root: Path):
             raise ValueError(f"variant {variant!r}: {old!r} is not once in {name}")
         (d / name).write_text(text.replace(old, new))
     lib = d / "lib.so"
-    cmd = ["nvcc", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "--expt-relaxed-constexpr", "-shared", "-Xcompiler", "-fPIC", "-o",
-           str(lib), *[str(d / u) for u in UNITS.get(kernel, (SOURCE[kernel],))]]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True), lib
+    nvcc = ["nvcc", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "--expt-relaxed-constexpr", "-Xcompiler", "-fPIC"]
+    units = [d / u for u in (rhf_units(ray_width) if kernel == "rhf"
+                             else UNITS.get(kernel, (SOURCE[kernel],)))]
+    if kernel == "rhf":
+        (d / "rhf_stubs.cu").write_text(RHF_STUBS.format("\n".join(
+            _RHF_STUB.format(c) for c in range(40, 113, 8)
+            if c not in (88, ray_width))))
+    compile_all = " ".join(
+        f"{shlex.join([*nvcc, '-c', str(u), '-o', str(u) + '.o'])} & pids+=($!);" for u in units)
+    script = (f"pids=(); {compile_all} for p in ${{pids[@]}}; do wait $p || exit 1; done; "
+              + shlex.join([*nvcc, "-shared", "-o", str(lib), *[str(u) + ".o" for u in units]]))
+    return subprocess.Popen(["bash", "-c", script], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -348,9 +439,25 @@ def _device_ms(fn, reps: int = 20) -> float:
     return sum(us) / len(us) / 1e3 if us else float("nan")
 
 
-def _cases(seed: int, kernels):
+def _ray_params(c: int, gen):
+    """Random ray-head weights of width ``c``, drawn as
+    ``script/ray_head_times.py`` draws them."""
+    from ..ops import fused_ray_head as frh
+
+    randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device="cuda") * scale
+    w = lambda o, i: randn(o, i, scale=i ** -0.5)
+    return frh.RayHeadParams(
+        wq=w(c, c), wk=w(c, c), wv=w(c, c), wmerge=w(c, c),
+        norm1_scale=1 + randn(c, scale=0.1), norm1_bias=randn(c, scale=0.1),
+        w1=w(2 * c, 2 * c), w2=w(c, 2 * c), norm2_scale=1 + randn(c, scale=0.1),
+        norm2_bias=randn(c, scale=0.1), dens_w=(w(32, c), w(16, 32), w(1, 16)),
+        dens_b=(randn(32, scale=0.1), randn(16, scale=0.1), randn(1, scale=0.1)))
+
+
+def _cases(seed: int, kernels, ray_width: int = 88):
     """The main path's inputs and weights for these kernels, and the plain
-    versions' outputs."""
+    versions' outputs (the ray heads at ``ray_width``: the default model's
+    weights at 88, random ones at another width)."""
     from ..config import Config
     from ..convert import init_weights
     from ..models.uforecon import UFORecon
@@ -377,11 +484,14 @@ def _cases(seed: int, kernels):
                 depth_dist=randn(nv, p, scale=0.3), dir_rel=randn(nv, p, 3, scale=0.1),
                 rgb=rand(nv, p, 3), mask=mask)
             ph, rh = rt.point_head_params(), rt.ray_head_params()
+            if ray_width != 88:
+                rh = _ray_params(ray_width, torch.Generator(device=dev).manual_seed(
+                    seed + ray_width))
             ph_ref = fph.point_head_reference(inp, ph)
-            ys = {sn: randn(1024, sn, 88) for sn in (64, 128)}
+            ys = {sn: randn(1024, sn, ray_width) for sn in (64, 128)}
             rh_fast = {sn: frh.ray_head_reference(y, rh, precision="fast")
                        for sn, y in ys.items()}
-            cases.update(inp=inp, ys=ys, ph=(fph.pack_weights(ph), ph_ref),
+            cases.update(inp=inp, ys=ys, ray_width=ray_width, ph=(fph.pack_weights(ph), ph_ref),
                          phf=(fph.pack_weights(ph, "fast"),
                               fph.point_head_reference(inp, ph, precision="fast")),
                          ph2=(fph2.pack_weights2(ph), ph_ref),
@@ -462,7 +572,7 @@ def _runs(kernel, fn, cases, stream, fast=False):
         w, ref = cases["rh_fast" if fast else kernel]
         for sn, y in cases["ys"].items():
             srdf = torch.empty(1024, sn, device="cuda")
-            call = [ptr(y), ptr(w), ptr(srdf), i(1024), i(sn), i(88),
+            call = [ptr(y), ptr(w), ptr(srdf), i(1024), i(sn), i(cases["ray_width"]),
                     *([] if kernel == "rhf" else [i(int(fast))]), stream]
             runs[f" SN {sn}"] = (lambda c=call: fn(*c),
                                  lambda s=srdf, r=ref[sn]: (s - r).abs().max().item())
@@ -485,10 +595,11 @@ def _runs(kernel, fn, cases, stream, fast=False):
     return runs
 
 
-def _rhf_probe(lib):
-    """The fast ray head's probe counters (``rhf_probe``), as a list."""
+def _rhf_probe(lib, c):
+    """The fast ray head's probe counters (``rhf_probe``) of the instances
+    at width ``c``, as a list."""
     probe = (ctypes.c_ulonglong * 16)()
-    if lib.ufo_ray_head_fast_probe(probe) != 0:
+    if lib.ufo_ray_head_fast_probe(c, probe) != 0:
         raise SystemExit("the fast ray head's probe could not be read")
     return list(probe)
 
@@ -499,12 +610,14 @@ def main(argv=None):
                     help="e.g. ph, ph,nogemm, phf, phf,phf_rad, ph2, rh,S=2, ta,I=512, "
                          "tb,tb_stream, vf,T=128")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ray_width", type=int, default=88,
+                    help="the ray heads' token width (rh, rhf; 40 .. 112 in steps of 8)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("head_variants needs a CUDA card")
     root = cuda_build.BUILD_DIR / "variants"
     root.mkdir(parents=True, exist_ok=True)
-    builds = {v: _build(v, root) for v in args.variants}
+    builds = {v: _build(v, root, args.ray_width) for v in args.variants}
     fns, libs = {}, {}
     for v, (proc, lib) in builds.items():
         log, _ = proc.communicate()
@@ -512,7 +625,7 @@ def main(argv=None):
             raise SystemExit(f"variant {v}: nvcc failed\n{log}")
         libs[v] = ctypes.CDLL(str(lib))
         fns[v] = _bind(v.split(",")[0], libs[v])
-    cases = _cases(args.seed, {v.split(",")[0] for v in args.variants})
+    cases = _cases(args.seed, {v.split(",")[0] for v in args.variants}, args.ray_width)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -523,7 +636,7 @@ def main(argv=None):
         probe = "rhf_probe" in v.split(",")
         for suffix, (launch, err) in _runs(v.split(",")[0], fn, cases, stream,
                                            "fast" in v.split(",")).items():
-            before = _rhf_probe(libs[v]) if probe else None
+            before = _rhf_probe(libs[v], args.ray_width) if probe else None
             if launch() != 0:
                 raise SystemExit(f"variant {v}{suffix}: launch refused")
             torch.cuda.synchronize()
@@ -536,7 +649,7 @@ def main(argv=None):
             if probe:
                 # block 0's first thread over this case's launches: its rays
                 # and phase-2 tiles, its cycles a ray in each phase
-                d = [a - b for a, b in zip(_rhf_probe(libs[v]), before)]
+                d = [a - b for a, b in zip(_rhf_probe(libs[v], args.ray_width), before)]
                 rays = max(d[15], 1)
                 out.setdefault("probe_cycles", {})[v + suffix] = {
                     "rays": d[15], "tiles": d[14],
