@@ -149,7 +149,8 @@ Run from the root of a checkout; needs one CUDA card, the CUDA toolkit
      guard's per-stage volumes): fast kernels 1 and 2 on every view, rays/s,
      encode seconds, peak memory; then a 1024-ray chunk at 6, 8 and 11
      views on the card against the CPU, on the exact path and at the JAX
-     extraction defaults (``views_phase`` says how each is held);
+     extraction defaults, the latter also with the card's fine pass on the
+     CPU's fine samples (``views_phase`` says how each is held);
  13. cards phase (``parallel/sharding.py``, after the views phase's
      chunks): one 1024-ray training step at the
      JAX training default (640x512, kernels 1 and 2) on one rank, then the
@@ -180,6 +181,7 @@ Any failure exits non-zero without printing a result; without a CUDA card
 it exits 1 at once.
 """
 import collections
+import contextlib
 import copy
 import json
 import os
@@ -1084,6 +1086,10 @@ def kernel_phase(model, card):
         fast1["max_abs_err"] = max(fast1["max_abs_err"],
                                    fast1["by_views"][views]["max_abs_err"])
         del x
+    # from 6 views on fast kernel 1 is a design of its own, FMA-summed
+    for views, r in fast1["by_views"].items():
+        if 6 <= views <= FAST_NV[-1]:
+            r["source"] = f"{PORT}/csrc/point_head_fast_views.cu"
     # past the 11 views the kernels compile in (VIEWS_PAST): both point
     # heads in both precisions on 16,384 points, the streamed kernels
     for views in VIEWS_PAST:
@@ -1506,7 +1512,64 @@ def render_view(model, sample, route, card):
     return {**stats, "peak_gib": peak_gb, "pack_builds": builds, "depth": depth}, launches
 
 
-def agree_with_cpu(model, sample, route, rn=256, tag="slice", seed=SEED, check=True):
+def effect_figures(a, b, e, ctrl=None):
+    """One output of an rn-ray chunk (leading axis the rays): the distances
+    of a (the card's render) to b (the CPU's fast render) against the bf16
+    effect, b's distance to e (the CPU's FP32 render); ctrl (the card's
+    3xTF32 render), where given, measured beside it. Returns the figures,
+    whether the rules held (the median distance at most 0.2 of the
+    effect's, the max at most twice its max, at least RAY_SHARE of the rays
+    within RAY_EFFECT times their own effect or 2e-4) and, per ray, whether
+    it lies beyond RAY_EFFECT times its effect."""
+    rn = a.shape[0]
+
+    def per_ray(x):
+        return x.reshape(rn, -1).max(axis=1)
+
+    d, gap = np.abs(a - b), np.abs(b - e)
+    d_r, gap_r = per_ray(d), per_ray(gap)
+    ctrl_r = None if ctrl is None else per_ray(np.abs(ctrl - b))
+    # the share of rays within k times their own effect (or 2e-4)
+    within = {k: {"fast": float((d_r <= np.maximum(k * gap_r, 2e-4)).mean()),
+                  **({} if ctrl_r is None else
+                     {"control": float((ctrl_r <= np.maximum(k * gap_r, 2e-4)).mean())})}
+              for k in (0.5, 1.0, RAY_EFFECT, 4.0)}
+    figures = {"median": float(np.median(d)), "effect_median": float(np.median(gap)),
+               "max": float(d.max()), "effect_max": float(gap.max()),
+               **({} if ctrl is None else {"control_median": float(np.median(np.abs(ctrl - b)))}),
+               "ray_median": float(np.median(d_r)),
+               "ray_effect_median": float(np.median(gap_r)),
+               **({} if ctrl_r is None else {"ray_control_median": float(np.median(ctrl_r))}),
+               "rays_within_k_effect": within}
+    ok = bool(np.median(d) <= max(0.2 * np.median(gap), 2e-4)
+              and d.max() <= max(2 * gap.max(), 2e-4)
+              and within[RAY_EFFECT]["fast"] >= RAY_SHARE)
+    return figures, ok, d_r > np.maximum(RAY_EFFECT * gap_r, 2e-4)
+
+
+@contextlib.contextmanager
+def fine_samples(replay=None):
+    """Inside it, render_chunk's fine samples (its importance sampler's
+    points and z): recorded into the yielded dict's "out", or, given
+    ``replay`` (such a pair), those, on the render's device."""
+    from uforecon_tpu_torch.models import uforecon as uf
+
+    inner, box = uf.sample_importance, {}
+
+    def sampler(*args, **kw):
+        if replay is not None:
+            return tuple(t.to(args[0].device) for t in replay)
+        box["out"] = inner(*args, **kw)
+        return box["out"]
+
+    uf.sample_importance = sampler
+    try:
+        yield box
+    finally:
+        uf.sample_importance = inner
+
+
+def agree_with_cpu(model, sample, route, rn=256, tag="slice", staged=False):
     """An rn-ray chunk of the scene with the kernels on the card against
     the plain versions on the CPU, with the same draws: the share of rays
     within 2e-4 must reach 0.99. A model whose heads run in ``fast`` is
@@ -1524,11 +1587,18 @@ def agree_with_cpu(model, sample, route, rn=256, tag="slice", seed=SEED, check=T
     2e-4. A fault in a minority of rays (a slot, a tile) fails the last.
     The control, the card's 3xTF32 kernels (no bf16 rounding at all) in
     place of the fast ones against the same CPU render, is measured and
-    reported beside it. The rays and the draws come from ``seed``. Returns
-    the shares (and, in fast, the distances) and the kernels the card's
-    render launched; with ``check`` False it does not raise, and adds
-    whether the rules held ("ok") and, in fast, the rays that broke
-    the per-ray rule ("rays_beyond")."""
+    reported beside it. With ``staged`` (in fast) the card's fine pass is
+    also held apart from its fine samples: the card renders the chunk again
+    with the CPU's fine samples in place of its own importance sampler's,
+    and its fine depth and rgb must hold the per-ray rule against the
+    CPU's (at least RAY_SHARE of the rays within RAY_EFFECT times their
+    effect, or 2e-4): past 6 views a coarse weight that moves within its
+    bf16 effect carries a fine sample across a bin of the CDF now and then
+    (script/views_agreement.py), which the end-to-end rule counts against
+    the card's fine pass. The rays and the draws come from SEED (the
+    per-ray rule over other draws: script/views_agreement.py). Returns the
+    shares (and, in fast, the distances) and the kernels the card's render
+    launched."""
     import torch
 
     from uforecon_tpu_torch.data.convert import scene_inputs_from_sample
@@ -1536,9 +1606,9 @@ def agree_with_cpu(model, sample, route, rn=256, tag="slice", seed=SEED, check=T
     scene, extras = scene_inputs_from_sample(sample, "cuda")
     sn = model.cfg.coarse_sample
     wrappers = launch_counts()
-    idx = np.random.default_rng(seed).choice(len(extras["ray_d"]), rn, replace=False)
+    idx = np.random.default_rng(SEED).choice(len(extras["ray_d"]), rn, replace=False)
     ray_d = torch.as_tensor(extras["ray_d"][idx], device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     u_c = torch.rand((rn, sn), generator=gen, device="cuda")
     u_f = torch.rand((rn, model.cfg.fine_sample), generator=gen, device="cuda")
     fast = model.kernel_precision == "fast"
@@ -1552,17 +1622,19 @@ def agree_with_cpu(model, sample, route, rn=256, tag="slice", seed=SEED, check=T
         model_cpu = copy.deepcopy(model).cpu()
         args = (to_cpu(scene), to_cpu(enc), ray_d.cpu())
         draws = dict(u_coarse=u_c.cpu(), u_fine=u_f.cpu())
-        out_cpu = model_cpu.render_chunk(*args, **draws)
+        with fine_samples() as cpu_fine:
+            out_cpu = model_cpu.render_chunk(*args, **draws)
+        staged = staged and fast
+        if staged:
+            with fine_samples(replay=cpu_fine["out"]):
+                out_staged = model.render_chunk(scene, enc, ray_d, u_coarse=u_c, u_fine=u_f)
         if fast:
             out_fp32 = model_cpu.with_knobs(kernel_precision="highest").render_chunk(
                 *args, **draws)
             out_ctrl = model.with_knobs(kernel_precision="highest").render_chunk(
                 scene, enc, ray_d, u_coarse=u_c, u_fine=u_f)
 
-    def per_ray(x):
-        return x.reshape(rn, -1).max(axis=1)
-
-    agree, effect, ok_fast, beyond = {}, {}, True, np.zeros(rn, dtype=bool)
+    agree, effect, ok_fast = {}, {}, True
     for phase in ("coarse", "fine"):
         for key in ("depth", "rgb"):
             a = out_gpu[phase][key].cpu().numpy()
@@ -1570,40 +1642,29 @@ def agree_with_cpu(model, sample, route, rn=256, tag="slice", seed=SEED, check=T
             ok = np.isclose(a, b, rtol=2e-4, atol=2e-4).reshape(rn, -1).all(axis=1)
             agree[f"{phase}_{key}"] = float(ok.mean())
             if fast:
-                d, gap = np.abs(a - b), np.abs(b - out_fp32[phase][key].numpy())
-                ctrl = np.abs(out_ctrl[phase][key].cpu().numpy() - b)
-                d_r, gap_r, ctrl_r = per_ray(d), per_ray(gap), per_ray(ctrl)
-                beyond |= d_r > np.maximum(RAY_EFFECT * gap_r, 2e-4)
-                # the share of rays within k times their own effect (or 2e-4)
-                within = {k: {"fast": float((d_r <= np.maximum(k * gap_r, 2e-4)).mean()),
-                              "control": float((ctrl_r <= np.maximum(k * gap_r, 2e-4)).mean())}
-                          for k in (0.5, 1.0, RAY_EFFECT, 4.0)}
-                effect[f"{phase}_{key}"] = {
-                    "median": float(np.median(d)), "effect_median": float(np.median(gap)),
-                    "max": float(d.max()), "effect_max": float(gap.max()),
-                    "control_median": float(np.median(ctrl)),
-                    "ray_median": float(np.median(d_r)),
-                    "ray_effect_median": float(np.median(gap_r)),
-                    "ray_control_median": float(np.median(ctrl_r)),
-                    "rays_within_k_effect": within}
-                ok_fast &= bool(np.median(d) <= max(0.2 * np.median(gap), 2e-4)
-                                and d.max() <= max(2 * gap.max(), 2e-4)
-                                and within[RAY_EFFECT]["fast"] >= RAY_SHARE)
+                effect[f"{phase}_{key}"], ok_out, _ = effect_figures(
+                    a, b, out_fp32[phase][key].numpy(), out_ctrl[phase][key].cpu().numpy())
+                ok_fast &= ok_out
+    fine_pass, ok_staged = {}, True
+    if staged:
+        for key in ("depth", "rgb"):
+            fine_pass[key], _, _ = effect_figures(out_staged["fine"][key].cpu().numpy(),
+                                                  out_cpu["fine"][key].numpy(),
+                                                  out_fp32["fine"][key].numpy())
+            ok_staged &= fine_pass[key]["rays_within_k_effect"][RAY_EFFECT]["fast"] >= RAY_SHARE
     log(f"[{tag}] route {route}: {rn}-ray chunk, card kernels vs CPU plain "
         f"versions: share of rays within rtol=atol=2e-4: {agree}"
         + (f"; fast: distances against the bf16 effect (CPU fast vs FP32) and the "
            f"control (card 3xTF32 vs CPU fast); per-ray rule: >= {RAY_SHARE} of rays "
-           f"within {RAY_EFFECT} x their effect or 2e-4: {effect}" if fast else ""))
-    ok = ok_fast if fast else min(agree.values()) >= 0.99
-    if check and not ok:
+           f"within {RAY_EFFECT} x their effect or 2e-4: {effect}" if fast else "")
+        + (f"; staged: the card's fine pass on the CPU's fine samples, per-ray rule on the "
+           f"fine depth and rgb: {fine_pass}" if staged else ""))
+    ok = (ok_fast and ok_staged) if fast else min(agree.values()) >= 0.99
+    if not ok:
         raise AssertionError(f"card and CPU renders disagree (route {route}): {agree} "
-                             f"{effect}")
-    out = {**agree, **({"fast_vs_effect": effect} if fast else {}), "launches": launches}
-    if not check:
-        out["ok"] = ok
-        if fast:
-            out["rays_beyond"] = np.flatnonzero(beyond).tolist()
-    return out
+                             f"{effect} {fine_pass}")
+    return {**agree, **({"fast_vs_effect": effect} if fast else {}),
+            **({"fine_pass_on_cpu_samples": fine_pass} if staged else {}), "launches": launches}
 
 
 def bf16_chunk_card_vs_cpu(model, sample, run, rn, card):
@@ -2381,7 +2442,9 @@ def views_phase(model, card, before_chunks):
     against the CPU (``agree_with_cpu``), on the exact path (kernels 1 and 2
     in 3xTF32: >= 0.99 of the rays within 2e-4) and at the JAX extraction
     defaults (fast kernels 1 and 2; per-stage volumes, by the JAX guard:
-    held by the bf16 effect's median, max and per-ray rule), with the
+    held by the bf16 effect's median, max and per-ray rule, and the card's
+    fine pass on the CPU's fine samples by the per-ray rule:
+    ``agree_with_cpu``'s ``staged``), with the
     launches of the card's chunk; and one 1024-ray chunk at 12 views (set
     1's ids and one more, VIEWS_CHUNK: past the 11 the kernels compile in)
     at the extraction defaults by the same rule. Returns the launches of
@@ -2453,7 +2516,7 @@ def views_phase(model, card, before_chunks):
                 run = f"views_{route}_{nv}"
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
-                agree = agree_with_cpu(m, sample, run, rn=rn, tag="views")
+                agree = agree_with_cpu(m, sample, run, rn=rn, tag="views", staged=True)
                 peak = torch.cuda.max_memory_allocated() / 2 ** 30
                 launches[run] = agree.pop("launches")
                 check_launches(run, launches[run])

@@ -684,6 +684,16 @@ def test_fast_point_head_kernels_match_plain_at_each_view_count_on_gpu(rng, cuda
     _check_fast_kernel(rng, cuda_device, kernel, nv=nv)
 
 
+@pytest.mark.parametrize("nv", [6, 7, 9, 10])
+def test_fast_point_head_at_the_feature_grid_width_at_each_view_count_on_gpu(rng, cuda_device,
+                                                                            nv):
+    """Fast kernel 1 at tokens of 72 at the view counts from 6 on that
+    test_point_head_kernels_at_the_feature_grid_width_match_plain_on_gpu
+    leaves out (it holds 8 and 11), each its own instance of
+    ``point_head_fast_views.cu``."""
+    _check_fast_kernel(rng, cuda_device, "point_head", nv=nv, c_vol=16)
+
+
 @pytest.mark.parametrize("nv", [2, 3, 5, 8, 11, 12])
 @pytest.mark.parametrize("kernel", ["point_head", "point_head2"])
 def test_point_head_kernels_at_the_feature_grid_width_match_plain_on_gpu(rng, cuda_device,

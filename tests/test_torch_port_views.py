@@ -377,8 +377,8 @@ def test_fixture_writes_set_1_with_a_camera_per_view():
                                   (144, 72)])
 def test_fast_layer_sums_are_the_kernels_k_ordered_fmas(k, n):
     """From 6 views on, the fast point-head kernel adds each bf16 product
-    of its tensor-core layers by one FP32 FMA, k in order
-    (``csrc/tc_gemm.cuh`` kFmaSum); the plain version's fast product
+    of its layers by one FP32 FMA, k in order (``csrc/point_head_fast_views.cu``
+    fma_gemm; past 11 views ``csrc/tc_gemm.cuh`` kFmaSum); the plain version's fast product
     (``cuda_build.fast_linear``) sums the same way on the CPU, so the two
     agree bit for bit on the same operands (the layers' shapes at tokens of
     80 and 72)."""
@@ -399,8 +399,8 @@ def test_fast_small_layer_sums_add_the_bias_last(k, n):
     C + 3 -> 16 -> 8 at tokens of 80 and 72): the fast plain product sums
     its bf16 products by FP32 FMAs from zero, k in order, and adds the bias
     to the sum, bit for bit, the order fast kernel 1's FMA-summed small
-    layers take from 6 views on (``csrc/point_head_fast.cuh``
-    ``warp_linear`` kFma)."""
+    layers take from 6 views on (``csrc/point_head_fast_views.cu``
+    ``fma_dot``)."""
     rng = np.random.default_rng(k * 100 + n)
     x = torch.as_tensor(rng.standard_normal((1024, k)).astype(np.float32))
     w = torch.as_tensor((rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32))

@@ -392,12 +392,12 @@ __global__ void __launch_bounds__(kThreads, 1) point_head2_fast_kernel(
       }
       if (!weights_in) wait_weights(bar);
       __syncwarp();
-      warp_linear<false>(s_in, SIN, SIN, Ws + I::SW0, I::KS0, F + I::SB0, s_h1, SHID, SHID, true);
+      warp_linear(s_in, SIN, SIN, Ws + I::SW0, I::KS0, F + I::SB0, s_h1, SHID, SHID, true);
       __syncwarp();
-      warp_linear<false>(s_h1, SHID, SHID, Ws + I::SW1, I::KS, F + I::SB1, s_h2, SHID, SHID,
+      warp_linear(s_h1, SHID, SHID, Ws + I::SW1, I::KS, F + I::SB1, s_h2, SHID, SHID,
                          true);
       __syncwarp();
-      warp_linear<false>(s_h2, SHID, SHID, Ws + I::SW2, I::KS, F + I::SB2, s16, SOUT, SOUT,
+      warp_linear(s_h2, SHID, SHID, Ws + I::SW2, I::KS, F + I::SB2, s16, SOUT, SOUT,
                          false);
       __syncwarp();
       for (int i = gt; i < TP * SOUT; i += 32)
@@ -536,7 +536,7 @@ __global__ void __launch_bounds__(kThreads, 1) point_head2_fast_kernel(
         });
     group_sync<kGT>(grp);
     PH2F_MARK(4);
-    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N1S, F + I::N1B,
+    group_layernorm<C, kGT>(Vb, LD, GR, gt, F + I::N1S, F + I::N1B,
                           [&](int r, int c, float y) { Mb[r * KM + c] = bf16_bits(y); });
     group_sync<kGT>(grp);
     PH2F_MARK(5);
@@ -563,7 +563,7 @@ __global__ void __launch_bounds__(kThreads, 1) point_head2_fast_kernel(
         });
     group_sync<kGT>(grp);
     PH2F_MARK(7);
-    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N2S, F + I::N2B,
+    group_layernorm<C, kGT>(Vb, LD, GR, gt, F + I::N2S, F + I::N2B,
                           [&](int r, int c, float y) { Vb[r * LD + c] = y; });
     group_sync<kGT>(grp);
     PH2F_MARK(8);
@@ -590,9 +590,9 @@ __global__ void __launch_bounds__(kThreads, 1) point_head2_fast_kernel(
                 make_float2(fmaxf(v0 + b.x, 0.f), fmaxf(v1 + b.y, 0.f));
           });
       __syncwarp();
-      warp_linear<false>(h1, R1, R1, Ws + I::RW1, I::KR1, F + I::RB1, h2, R2, R2, true);
+      warp_linear(h1, R1, R1, Ws + I::RW1, I::KR1, F + I::RB1, h2, R2, R2, true);
       __syncwarp();
-      warp_linear<false>(h2, R2, R2, Ws + I::RW2, I::KR2, F + I::RB2, lg + r0, 1, 1, false);
+      warp_linear(h2, R2, R2, Ws + I::RW2, I::KR2, F + I::RB2, lg + r0, 1, 1, false);
     }
     group_sync<kGT>(grp);
     PH2F_MARK(9);

@@ -6,8 +6,10 @@
 // pre-similarity MLP, q/k/v, merge, mlp1, mlp2 and the radiance MLP; both
 // operands rounded to bf16, the exact products summed in FP32), the
 // attention, LayerNorms and softmax in FP32. The function and the token
-// layout are point_head.cuh's; this is its bf16 design at NV 2..11 (past
-// 11 views point_head_stream.cu takes both precisions).
+// layout are point_head.cuh's; this is its bf16 design at NV 2..5
+// (point_head_fast_views.cu, on the same pack, sums its products by FP32
+// FMAs at NV 6..11; past 11 views point_head_stream.cu takes both
+// precisions).
 //
 // What bounds it on the H100: the bf16 tensor cores, ~2.6e5 multiply-adds
 // a point at NV 3 against ~1 KB in and out (0.0397 ms at P = 65,536, the
@@ -30,13 +32,10 @@
 //     in) rows, kpad apart, so that a B fragment is one conflict-free
 //     32-bit load. The rest of the 232,448 bytes holds 64 token rows of
 //     activations (X, Q, K, V of C + 4 floats a row).
-//   * Up to 5 views two groups of 8 warps, each owning its own tile of 32
-//     token rows (10, 8, 6, 5 points at NV 2..5) and syncing on its own
-//     named barrier, so that one group's latency-bound phases (loads,
-//     attention, LayerNorm, softmax) overlap the other's products; from 6
-//     views on one group of 16 warps on 64 rows (9 to 5 points), whose
-//     FMA-summed layers keep the FMA pipe busy and whose padding is small
-//     (Tiling).
+//   * Two groups of 8 warps, each owning its own tile of 32 token rows
+//     (10, 8, 6, 5 points at NV 2..5) and syncing on its own named
+//     barrier, so that one group's latency-bound phases (loads, attention,
+//     LayerNorm, softmax) overlap the other's products (Tiling).
 //   * Each product's shapes are compile-time (group_gemm): q, k and v are
 //     one product of N = 3C with phi in its epilogue; each warp owns all
 //     the group's m16 tiles and every kWarps-th n8 tile, so a B fragment
@@ -48,14 +47,9 @@
 //     first C + 3 columns are the radiance MLP's input as they stand, and
 //     the softmax reads no global memory. The pre-similarity MLP (one warp)
 //     runs beside the NeRF PE (the other warps); the radiance MLP runs a
-//     warp per 16 rows; both inside their warps on the tensor cores up to
-//     5 views, with only __syncwarp between layers. LayerNorm takes a row
-//     on eight threads (three shuffles a sum). Eleven group barriers a tile.
-// From 6 views on (kFma), the layers and the small MLPs add their bf16
-// products by FP32 FMAs, k in order, on the same resident operands: the
-// tensor cores' own sums moved the fast render beyond the per-ray rule at
-// 6 or more views in the first design (0.937 of the rays at 11 views where
-// 0.97 are needed), and these sums are the plain version's on the CPU.
+//     warp per 16 rows; both inside their warps on the tensor cores, with
+//     only __syncwarp between layers. LayerNorm takes a row on eight
+//     threads (three shuffles a sum). Eleven group barriers a tile.
 //
 // What bounds it now (H100 at P = 65,536, NV 3; script/head_variants.py
 // phf,phf_probe, cycles a tile of one group): latency. The products take
@@ -91,15 +85,12 @@ constexpr int kThreads = 512;
 constexpr int kRows = 64;         // token rows a block holds, over its groups
 constexpr int kPiece = 32768;     // bytes a bulk copy moves at most
 
-// The tiling at NV views. Up to 5 views two groups of 8 warps, each on its
-// own tile of GR = 32 token rows (two m16 tiles), so that one group's
-// latency-bound phases overlap the other's. From 6 views on, where the
-// FMA-summed layers keep the FMA pipe busy, one group of 16 warps on 64
-// rows, which pads fewer rows (at NV 11 two points fill 24 of 32 rows, five
-// points 60 of 64).
+// The tiling at NV views: two groups of 8 warps, each on its own tile of
+// GR = 32 token rows (two m16 tiles), so that one group's latency-bound
+// phases overlap the other's.
 template <int NV>
 struct Tiling {
-  static constexpr int kGroups = NV > 5 ? 1 : 2;
+  static constexpr int kGroups = 2;
   static constexpr int kWarps = kThreads / 32 / kGroups;
   static constexpr int kGroupThreads = 32 * kWarps;
   static constexpr int GR = kRows / kGroups;
@@ -187,11 +178,8 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w 
 // shared memory; the shapes are compile-time, so the k loop unrolls and
 // its addresses fold. Each warp (gw of the group's T::kWarps) owns all
 // T::MT m16 tiles and the n8 tiles gw, gw + T::kWarps, ...; epi(row, col, v0,
-// v1) stores columns col, col + 1. kFma adds each bf16 product by an FP32
-// FMA, k in order, from zero; kRound1 / kRound2: a1 / a2 still needs
-// rounding to bf16 there (false where its producer stored it rounded).
-template <class T, int N, int KP, int K1, int LDA1, int K2, int LDA2, bool kFma,
-          bool kRound1, bool kRound2, typename Epi>
+// v1) stores columns col, col + 1.
+template <class T, int N, int KP, int K1, int LDA1, int K2, int LDA2, typename Epi>
 __device__ __forceinline__ void group_gemm(const float* a1, const float* a2,
                                            const uint16_t* wt, int gw, Epi epi) {
   constexpr int kGroupWarps = T::kWarps, MT = T::MT;
@@ -207,76 +195,37 @@ __device__ __forceinline__ void group_gemm(const float* a1, const float* a2,
   const float* r1 = a1 + g * LDA1;    // row g of m tile 0
   const float* r2 = a2 + g * LDA2;
   const uint16_t* wg = wt + g * KP + 2 * t;
-  if constexpr (!kFma) {
 #pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      uint32_t a[MT][4];
+  for (int kk = 0; kk < K; kk += 16) {
+    uint32_t a[MT][4];
 #pragma unroll
-      for (int m = 0; m < MT; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int kc = kk + 8 * h;   // compile-time: which operand, or zeros
-          if (kc < K) {
-            const float* ar = kc < K1 ? r1 + m * 16 * LDA1 + kc + 2 * t
-                                      : r2 + m * 16 * LDA2 + kc - K1 + 2 * t;
-            const int lda = kc < K1 ? LDA1 : LDA2;
-            const float2 top = *reinterpret_cast<const float2*>(ar);
-            const float2 bot = *reinterpret_cast<const float2*>(ar + 8 * lda);
-            a[m][2 * h] = bf16x2_rn(top.x, top.y);
-            a[m][2 * h + 1] = bf16x2_rn(bot.x, bot.y);
-          } else {
-            a[m][2 * h] = a[m][2 * h + 1] = 0u;
-          }
-        }
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        const int j = gw + kGroupWarps * i;
-        if (j < NTILES) {
-          const uint16_t* wc = wg + j * 8 * KP + kk;
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wc);
-          // past K the activations are zero and the weights read are the
-          // row's padding or the next row's (finite)
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wc + 8);
-#pragma unroll
-          for (int m = 0; m < MT; ++m) tc::mma_bf16(acc[i][m], a[m], b0, b1);
+      for (int h = 0; h < 2; ++h) {
+        const int kc = kk + 8 * h;   // compile-time: which operand, or zeros
+        if (kc < K) {
+          const float* ar = kc < K1 ? r1 + m * 16 * LDA1 + kc + 2 * t
+                                    : r2 + m * 16 * LDA2 + kc - K1 + 2 * t;
+          const int lda = kc < K1 ? LDA1 : LDA2;
+          const float2 top = *reinterpret_cast<const float2*>(ar);
+          const float2 bot = *reinterpret_cast<const float2*>(ar + 8 * lda);
+          a[m][2 * h] = bf16x2_rn(top.x, top.y);
+          a[m][2 * h + 1] = bf16x2_rn(bot.x, bot.y);
+        } else {
+          a[m][2 * h] = a[m][2 * h + 1] = 0u;
         }
       }
-    }
-  } else {
-    const uint16_t* wf = wt + 2 * t * KP;   // column 2t of an n8 tile
-#pragma unroll 4
-    for (int k = 0; k < K; k += 2) {
-      float x[MT][2][2];   // [m tile][row g, g + 8][k, k + 1], bf16-rounded
-      const float* ar = k < K1 ? r1 + k : r2 + k - K1;
-      const int lda = k < K1 ? LDA1 : LDA2;
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float2 top = *reinterpret_cast<const float2*>(ar + m * 16 * lda);
-        const float2 bot = *reinterpret_cast<const float2*>(ar + (m * 16 + 8) * lda);
-        const bool rnd = k < K1 ? kRound1 : kRound2;
-        x[m][0][0] = rnd ? bf16_round(top.x) : top.x;
-        x[m][0][1] = rnd ? bf16_round(top.y) : top.y;
-        x[m][1][0] = rnd ? bf16_round(bot.x) : bot.x;
-        x[m][1][1] = rnd ? bf16_round(bot.y) : bot.y;
-      }
+    for (int i = 0; i < NT; ++i) {
+      const int j = gw + kGroupWarps * i;
+      if (j < NTILES) {
+        const uint16_t* wc = wg + j * 8 * KP + kk;
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wc);
+        // past K the activations are zero and the weights read are the
+        // row's padding or the next row's (finite)
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wc + 8);
 #pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        const int j = gw + kGroupWarps * i;
-        if (j < NTILES) {
-          // W[k..k+1, col] and W[k..k+1, col + 1]
-          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wf + j * 8 * KP + k);
-          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(wf + (j * 8 + 1) * KP + k);
-          const float w00 = bf16_lo(w0), w01 = bf16_hi(w0), w10 = bf16_lo(w1), w11 = bf16_hi(w1);
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-#pragma unroll
-            for (int hr = 0; hr < 2; ++hr) {
-              acc[i][m][2 * hr] = fmaf(x[m][hr][1], w01, fmaf(x[m][hr][0], w00, acc[i][m][2 * hr]));
-              acc[i][m][2 * hr + 1] =
-                  fmaf(x[m][hr][1], w11, fmaf(x[m][hr][0], w10, acc[i][m][2 * hr + 1]));
-            }
-          }
-        }
+        for (int m = 0; m < MT; ++m) tc::mma_bf16(acc[i][m], a[m], b0, b1);
       }
     }
   }
@@ -296,56 +245,41 @@ __device__ __forceinline__ void group_gemm(const float* a1, const float* a2,
 // A small dense layer on one warp's 16 rows: out[r, c] = act(b[c] + sum_k
 // a[r, k] W[k, c]), r < 16, c < n; a FP32 in shared memory (lda; columns
 // up to k rounded to 16 readable and finite), W as its (n, kw) bf16 rows
-// and b FP32, both in shared memory. On the tensor cores (bias as the
-// sums' start, bf16-rounded activations), or with kFma as FP32 FMAs from
-// zero, k in order, the bias added last: the CPU's F.linear, bit for bit
-// on these shapes but the one-column last layer. The caller __syncwarp()s
+// and b FP32, both in shared memory, on the tensor cores (bias as the
+// sums' start, bf16-rounded activations). The caller __syncwarp()s
 // between layers.
-template <bool kFma>
 __device__ __forceinline__ void warp_linear(const float* a, int lda, int k, const uint16_t* w,
                                             int kw, const float* b, float* out, int ldo, int n,
                                             bool relu) {
   const int lane = threadIdx.x & 31;
-  if constexpr (kFma) {
-    for (int idx = lane; idx < 16 * n; idx += 32) {
-      const int r = idx / n, c = idx - (idx / n) * n;
-      float acc = 0.f;
-      const uint16_t* wc = w + c * kw;
-      for (int kk = 0; kk < k; ++kk)
-        acc = fmaf(bf16_round(a[r * lda + kk]), __uint_as_float((uint32_t)wc[kk] << 16), acc);
-      acc += b[c];
-      out[r * ldo + c] = relu ? fmaxf(acc, 0.f) : acc;
+  const int g = lane >> 2, t = lane & 3;
+  auto av = [&](int r, int kk) { return kk < k ? a[r * lda + kk] : 0.f; };
+  for (int n0 = 0; n0 < n; n0 += 8) {
+    const int col = n0 + 2 * t;
+    const float b0 = col < n ? b[col] : 0.f, b1 = col + 1 < n ? b[col + 1] : 0.f;
+    float acc[4] = {b0, b1, b0, b1};
+    const uint16_t* wc = w + (n0 + g) * kw + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < 96; kk += 16) {
+      if (kk < k) {
+        const int ka = kk + 2 * t;
+        const uint32_t af[4] = {bf16x2_rn(av(g, ka), av(g, ka + 1)),
+                                bf16x2_rn(av(g + 8, ka), av(g + 8, ka + 1)),
+                                bf16x2_rn(av(g, ka + 8), av(g, ka + 9)),
+                                bf16x2_rn(av(g + 8, ka + 8), av(g + 8, ka + 9))};
+        // past k the activations are zero; the weights read there are
+        // the row's padding (finite), or nothing at all past its stride
+        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wc + kk);
+        const uint32_t w1 = kk + 8 < kw ? *reinterpret_cast<const uint32_t*>(wc + kk + 8) : 0u;
+        tc::mma_bf16(acc, af, w0, w1);
+      }
     }
-  } else {
-    const int g = lane >> 2, t = lane & 3;
-    auto av = [&](int r, int kk) { return kk < k ? a[r * lda + kk] : 0.f; };
-    for (int n0 = 0; n0 < n; n0 += 8) {
-      const int col = n0 + 2 * t;
-      const float b0 = col < n ? b[col] : 0.f, b1 = col + 1 < n ? b[col + 1] : 0.f;
-      float acc[4] = {b0, b1, b0, b1};
-      const uint16_t* wc = w + (n0 + g) * kw + 2 * t;
 #pragma unroll
-      for (int kk = 0; kk < 96; kk += 16) {
-        if (kk < k) {
-          const int ka = kk + 2 * t;
-          const uint32_t af[4] = {bf16x2_rn(av(g, ka), av(g, ka + 1)),
-                                  bf16x2_rn(av(g + 8, ka), av(g + 8, ka + 1)),
-                                  bf16x2_rn(av(g, ka + 8), av(g, ka + 9)),
-                                  bf16x2_rn(av(g + 8, ka + 8), av(g + 8, ka + 9))};
-          // past k the activations are zero; the weights read there are
-          // the row's padding (finite), or nothing at all past its stride
-          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(wc + kk);
-          const uint32_t w1 = kk + 8 < kw ? *reinterpret_cast<const uint32_t*>(wc + kk + 8) : 0u;
-          tc::mma_bf16(acc, af, w0, w1);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = g + 8 * h;
-        if (col < n) out[r * ldo + col] = relu ? fmaxf(acc[2 * h], 0.f) : acc[2 * h];
-        if (col + 1 < n)
-          out[r * ldo + col + 1] = relu ? fmaxf(acc[2 * h + 1], 0.f) : acc[2 * h + 1];
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      if (col < n) out[r * ldo + col] = relu ? fmaxf(acc[2 * h], 0.f) : acc[2 * h];
+      if (col + 1 < n)
+        out[r * ldo + col + 1] = relu ? fmaxf(acc[2 * h + 1], 0.f) : acc[2 * h + 1];
     }
   }
 }
@@ -367,12 +301,12 @@ __device__ __forceinline__ float phi_sel(float x) {
 // group's shared-memory loads, was most of this phase's time). Scale and
 // bias in shared memory. out(row, col, y) takes each result (the row's
 // values are in registers by then, so it may write x). No sync.
-template <int C, class T, typename Out>
+template <int C, int kGroupThreads, typename Out>
 __device__ __forceinline__ void group_layernorm(const float* x, int ld, int rows, int gt,
                                                 const float* scale, const float* bias, Out out) {
   constexpr int J = (C + 7) / 8;
   const int part = gt & 7;
-  for (int r = gt >> 3; r < rows; r += T::kGroupThreads / 8) {
+  for (int r = gt >> 3; r < rows; r += kGroupThreads / 8) {
     float v[J];
     float s = 0.f;
 #pragma unroll
@@ -421,7 +355,6 @@ __global__ void __launch_bounds__(kThreads, 1) point_head_fast_kernel(
   using D = Dims<CV>;
   using I = Img<CV>;
   constexpr int C = D::C, DK = D::DK, C2 = D::C2, CR = D::CR, LD = D::LD, LD2 = D::LD2;
-  constexpr bool kFma = NV > 5;       // from 6 views on, k-ordered FMA sums
   constexpr int L = NV + 1;
   using T = Tiling<NV>;
   constexpr int kGroups = T::kGroups, kGroupWarps = T::kWarps,
@@ -549,11 +482,11 @@ __global__ void __launch_bounds__(kThreads, 1) point_head_fast_kernel(
     //    row of its point; the others: each view row's NeRF PE of its
     //    depth distance (zero for points past P)
     if (gw == 0) {
-      warp_linear<kFma>(s_in, SIN, SIN, Ws + I::SW0, I::KS0, F + I::SB0, s_h1, SH, SH, true);
+      warp_linear(s_in, SIN, SIN, Ws + I::SW0, I::KS0, F + I::SB0, s_h1, SH, SH, true);
       __syncwarp();
-      warp_linear<kFma>(s_h1, SH, SH, Ws + I::SW1, I::KS, F + I::SB1, s_h2, SH, SH, true);
+      warp_linear(s_h1, SH, SH, Ws + I::SW1, I::KS, F + I::SB1, s_h2, SH, SH, true);
       __syncwarp();
-      warp_linear<kFma>(s_h2, SH, SH, Ws + I::SW2, I::KS, F + I::SB2, s16, SOUT, SOUT, false);
+      warp_linear(s_h2, SH, SH, Ws + I::SW2, I::KS, F + I::SB2, s16, SOUT, SOUT, false);
       __syncwarp();
       for (int i = gt; i < NV * TP * SOUT; i += 32) {
         const int v = i / (TP * SOUT), p = (i / SOUT) % TP, c = i % SOUT;
@@ -578,7 +511,7 @@ __global__ void __launch_bounds__(kThreads, 1) point_head_fast_kernel(
     PHF_MARK(1);
 
     // 3. q | k | v in one product, phi of q and k in its epilogue
-    group_gemm<T, 3 * C, I::KC, C, LD, 0, LD, kFma, true, true>(
+    group_gemm<T, 3 * C, I::KC, C, LD, 0, LD>(
         X, nullptr, Ws + I::QKV, gw, [&](int r, int c, float v0, float v1) {
           const int which = c / C;
           if (which < 2) { v0 = phi_sel(v0); v1 = phi_sel(v1); }
@@ -628,25 +561,22 @@ __global__ void __launch_bounds__(kThreads, 1) point_head_fast_kernel(
         *reinterpret_cast<float2*>(out + r * ld + c) = make_float2(v0, v1);
       };
     };
-    group_gemm<T, C, I::KC, C, LD, 0, LD, kFma, false, false>(Qb, nullptr, Ws + I::WM, gw,
-                                                              store(Vb, LD, false));
+    group_gemm<T, C, I::KC, C, LD, 0, LD>(Qb, nullptr, Ws + I::WM, gw, store(Vb, LD, false));
     group_sync<kGroupThreads>(grp);
     PHF_MARK(4);
-    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N1S, F + I::N1B,
+    group_layernorm<C, kGroupThreads>(Vb, LD, GR, gt, F + I::N1S, F + I::N1B,
                           [&](int r, int c, float y) { Vb[r * LD + c] = bf16_round(y); });
     group_sync<kGroupThreads>(grp);
     PHF_MARK(5);
     // 6. mlp1 over [tokens | message] -> Qb|Kb (GR x LD2), relu
-    group_gemm<T, C2, I::KC2, C, LD, C, LD, kFma, true, false>(X, Vb, Ws + I::W1, gw,
-                                                               store(Qb, LD2, true));
+    group_gemm<T, C2, I::KC2, C, LD, C, LD>(X, Vb, Ws + I::W1, gw, store(Qb, LD2, true));
     group_sync<kGroupThreads>(grp);
     PHF_MARK(6);
     // 7. mlp2 -> Vb, its LayerNorm added into X (the residual)
-    group_gemm<T, C, I::KC2, C2, LD2, 0, LD2, kFma, false, false>(Qb, nullptr, Ws + I::W2, gw,
-                                                 store(Vb, LD, false));
+    group_gemm<T, C, I::KC2, C2, LD2, 0, LD2>(Qb, nullptr, Ws + I::W2, gw, store(Vb, LD, false));
     group_sync<kGroupThreads>(grp);
     PHF_MARK(7);
-    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N2S, F + I::N2B,
+    group_layernorm<C, kGroupThreads>(Vb, LD, GR, gt, F + I::N2S, F + I::N2B,
                           [&](int r, int c, float y) { X[r * LD + c] += y; });
     group_sync<kGroupThreads>(grp);
     PHF_MARK(8);
@@ -662,12 +592,11 @@ __global__ void __launch_bounds__(kThreads, 1) point_head_fast_kernel(
     if (gw < MT) {
       float* h1 = Kb + gw * 16 * (R1 + R2);  // 16 x R1
       float* h2 = h1 + 16 * R1;              // 16 x R2
-      warp_linear<kFma>(X + gw * 16 * LD, LD, CR, Ws + I::RW0, I::KR0, F + I::RB0, h1, R1, R1,
-                        true);
+      warp_linear(X + gw * 16 * LD, LD, CR, Ws + I::RW0, I::KR0, F + I::RB0, h1, R1, R1, true);
       __syncwarp();
-      warp_linear<kFma>(h1, R1, R1, Ws + I::RW1, I::KR1, F + I::RB1, h2, R2, R2, true);
+      warp_linear(h1, R1, R1, Ws + I::RW1, I::KR1, F + I::RB1, h2, R2, R2, true);
       __syncwarp();
-      warp_linear<kFma>(h2, R2, R2, Ws + I::RW2, I::KR2, F + I::RB2, lg + gw * 16, 1, 1, false);
+      warp_linear(h2, R2, R2, Ws + I::RW2, I::KR2, F + I::RB2, lg + gw * 16, 1, 1, false);
     }
     group_sync<kGroupThreads>(grp);
     PHF_MARK(9);

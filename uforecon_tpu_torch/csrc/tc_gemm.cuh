@@ -24,8 +24,8 @@
 // order of the FP32 sums differs from JAX's. One product per FP32 product
 // at the bf16 rate (989 TFLOP/s dense).
 //
-// bf16 summed by FMAs (kFast with kFmaSum, the point head's NV 6..11
-// instances): the same bf16 operands, each product added by one FP32 FMA
+// bf16 summed by FMAs (kFast with kFmaSum, the streamed point head past 11
+// views, as point_head_fast_views.cu sums at NV 6..11): the same bf16 operands, each product added by one FP32 FMA
 // on the CUDA cores, k in order from the start value, i.e. the sums of a
 // BLAS sgemm kernel that runs k in order (MKL's, measured bit-equal on
 // these shapes). The tensor cores' bf16 mma adds its k16 products inside

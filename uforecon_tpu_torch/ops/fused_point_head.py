@@ -29,13 +29,14 @@ the wrapper allocates (``point_head_scratch_floats``).
 sites (``uforecon_tpu/ops/fused_point_head.py:138-143``: the pre-
 similarity MLP, q/k/v, merge, mlp1, mlp2 and the radiance MLP): both
 operands of each product rounded to bf16 (round to nearest even), the
-products summed in FP32. Its kernel (``csrc/point_head_fast.cuh``) keeps
-every bf16 weight resident in shared memory (``fast_image``), loaded
-once per persistent block, and runs tiles of 32 token rows, two a block
-on eight warps each (from 6 views on one tile of 64 rows on sixteen);
-the layers and both small MLPs run as bf16 ``mma.m16n8k16`` (from 6
-views on as FP32 FMAs of the same bf16 operands, k in order: the sums of
-the plain version on the CPU, bit for bit); the plain version rounds at
+products summed in FP32. Its kernel keeps every bf16 weight resident in
+shared memory (``fast_image``), loaded once per persistent block: up to 5
+views (``csrc/point_head_fast.cuh``) tiles of 32 token rows, two a block
+on eight warps each, the layers and both small MLPs as bf16
+``mma.m16n8k16``; from 6 views on (``csrc/point_head_fast_views.cu``) one
+tile of 64 rows on sixteen warps, the same bf16 operands summed by FP32
+FMAs, k in order (the sums of the plain version on the CPU, bit for
+bit), in register-blocked products; the plain version rounds at
 the same sites
 (``cuda_build.kernel_linear``). The attention and the softmax stay FP32
 in every precision, as in JAX, and elu + 1 is x + 1 or exp(x) in both,

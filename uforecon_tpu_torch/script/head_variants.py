@@ -15,7 +15,7 @@ Each variant is a copy of ``csrc/`` with a few lines replaced, built by
 plain C interface, and timed with CUDA events (mean of 20 launches, back to
 back on the same inputs) and by torch.profiler (the kernels' mean device
 time over 20 launches) at the main path's shapes: the point heads at P =
-65,536 points and 3 views, the ray head over 1024 rays of 64 and of 128
+65,536 points and 3 views (``--views``), the ray head over 1024 rays of 64 and of 128
 samples at width 88 (``rh,fast`` and ``rhf``: in ``fast``, against the
 fast plain version; ``--ray_width C`` another width on random weights, as
 ``script/ray_head_times.py`` draws them), the tiny-attention forward at B =
@@ -25,7 +25,10 @@ shape), the volume fusion at P = 65,536 and 3 views in the sampler's
 channel-first layout (its 27.5 MB stay in the L2 between launches), on
 seeded random weights and inputs (``ph2f`` in ``fast``, against the fast
 plain version). A variant is a kernel (``ph``,
-``phf``, ``ph2``, ``ph2f``, ``rh``, ``rhf``, ``ta``, ``tb`` or ``vf``)
+``phf``, ``phv`` (the fast one at 6..11 views, ``point_head_fast_views.cu``:
+the same launches as ``phf``, its constants R and CC a product's tile, U
+the unrolling of its k steps),
+``ph2``, ``ph2f``, ``rh``, ``rhf``, ``ta``, ``tb`` or ``vf``)
 followed by
 comma-separated options:
 
@@ -37,7 +40,7 @@ comma-separated options:
   a patch     of ``PATCHES``: ``nogemm`` skips the tensor-core layers;
               ``onemma`` keeps one of the three 3xTF32 products;
               ``nosync`` drops the per-step sync, ``noload`` the weight
-              loads; ``ph_*`` / ``phf_*`` / ``ph2_*`` / ``ph2f_*`` /
+              loads; ``ph_*`` / ``phf_*`` / ``phv_*`` / ``ph2_*`` / ``ph2f_*`` /
               ``rh_*`` / ``rhf_*`` / ``ta_*`` / ``tb_*`` skip one phase of a
               kernel; ``phf_probe`` and ``ph2f_probe`` print the fast point
               heads' cycles a tile in each of their phases, ``rhf_probe``
@@ -77,7 +80,8 @@ import torch
 from ..ops import cuda_build
 
 # kernel -> the source that holds it (which the constants and patches name)
-SOURCE = {"ph": "point_head.cuh", "phf": "point_head_fast.cuh", "ph2": "point_head2.cuh",
+SOURCE = {"ph": "point_head.cuh", "phf": "point_head_fast.cuh",
+          "phv": "point_head_fast_views.cu", "ph2": "point_head2.cuh",
           "ph2f": "point_head2_fast.cuh",
           "rh": "ray_head.cu", "rhf": "ray_head_fast.cuh", "ta": "tiny_attention.cuh",
           "tb": "tiny_attention.cuh", "vf": "volume_fusion.cu"}
@@ -86,7 +90,7 @@ SOURCE = {"ph": "point_head.cuh", "phf": "point_head_fast.cuh", "ph2": "point_he
 # rhf's: rhf_units)
 _PH_UNITS = ("point_head.cu", "point_head_views.cu", "point_head_views_9_11.cu",
              "point_head_fast.cu", "point_head_fast_views.cu", "point_head_stream.cu")
-UNITS = {"ph": _PH_UNITS, "phf": _PH_UNITS,
+UNITS = {"ph": _PH_UNITS, "phf": _PH_UNITS, "phv": _PH_UNITS,
          # point_head2.cu sends 'fast' to the fast kernel's entry point
          "ph2": ("point_head2.cu", "point_head2_views.cu", "point_head2_stream.cu",
                  "point_head2_fast.cu", "point_head2_fast_views.cu"),
@@ -108,6 +112,10 @@ CONSTANTS = {
            "S": ("constexpr int kStages = 2;", "constexpr int kStages = {};"),
            "LB": ("__launch_bounds__(kPointThreads, NV <= 5 ? 2 : 1)",
                   "__launch_bounds__(kPointThreads, {})")},
+    "phv": {"R": ("  static constexpr int R = 8;", "  static constexpr int R = {};"),
+            "CC": ("  static constexpr int CC = N % 4 == 0 && N >= 144 ? 4 : 2;",
+                   "  static constexpr int CC = {};"),
+            "U": ("#pragma unroll 2", "#pragma unroll {}")},
     "ph2": {"T": ("constexpr int kThreads = 320;", "constexpr int kThreads = {};"),
             "S": ("constexpr int kStages = 2;", "constexpr int kStages = {};"),
             "LB": ("__launch_bounds__(kThreads, NV <= 5 ? 2 : 1)",
@@ -166,17 +174,21 @@ PATCHES = {
     "ph_rad": [("point_head.cuh", *_skip("  block_linear<4>(z, CR, CR,")),
                ("point_head.cuh", *_skip("  block_linear<4>(h1, R1, R1,")),
                ("point_head.cuh", *_skip("  block_linear<4>(h2, R2, R2,"))],
-    "phf_sim": [("point_head_fast.cuh", "    if (gw == 0) {\n      warp_linear<kFma>(s_in,",
-                 "    if (gw < 0) {\n      warp_linear<kFma>(s_in,")],
+    "phf_sim": [("point_head_fast.cuh", "    if (gw == 0) {\n      warp_linear(s_in,",
+                 "    if (gw < 0) {\n      warp_linear(s_in,")],
     "phf_rad": [("point_head_fast.cuh", "    if (gw < MT) {", "    if (gw < 0 * MT) {")],
-    "phf_ln": [("point_head_fast.cuh", *_skip("    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N1S")),
-               ("point_head_fast.cuh", *_skip("    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N2S"))],
+    "phf_ln": [("point_head_fast.cuh", *_skip(
+        "    group_layernorm<C, kGroupThreads>(Vb, LD, GR, gt, F + I::N1S")),
+               ("point_head_fast.cuh", *_skip(
+        "    group_layernorm<C, kGroupThreads>(Vb, LD, GR, gt, F + I::N2S"))],
     "phf_attn": [("point_head_fast.cuh", *_empty_loop(
         "    for (int it = gt; it < TP * L * NH; it += kGroupThreads) {", "TP * L * NH"))],
     "phf_probe": [("point_head_fast.cuh", '#pragma once\n\n#include "point_head.cuh"',
                    '#pragma once\n#define UFO_PHF_PROBE\n#include "point_head.cuh"')],
     "phf_gemm": [("point_head_fast.cuh", "  constexpr int NTILES = N / 8, K = K1 + K2;",
                   "  constexpr int NTILES = N / 8, K = 0 * (K1 + K2);")],
+    "phv_gemm": [("point_head_fast_views.cu", *_empty_loop(
+        "  for (int k = 0; k < K; k += 8) {", "K"))],
     "ph_attn": [("point_head.cuh", *_empty_loop(
         "  for (int t = tid; t < TP * L * NH; t += blockDim.x) {", "TP * L * NH"))],
     "ph_ln": [("point_head.cuh", *_skip("  tc::layernorm<C>(Kb, LD, R, W + O_N1S")),
@@ -211,9 +223,9 @@ PATCHES = {
                 ("point_head2.cuh", *_skip("  block_linear<kSmallRows>(h2, R2, R2,"))],
     "ph2_softmax": [("point_head2.cuh", *_empty_loop(
         "  for (int p = tid; p < TP; p += blockDim.x) {", "TP"))],
-    "ph2f_sim": [("point_head2_fast.cuh", *_skip("      warp_linear<false>(s_in, SIN, SIN,")),
-                 ("point_head2_fast.cuh", *_skip("      warp_linear<false>(s_h1, SHID, SHID,")),
-                 ("point_head2_fast.cuh", *_skip("      warp_linear<false>(s_h2, SHID, SHID,"))],
+    "ph2f_sim": [("point_head2_fast.cuh", *_skip("      warp_linear(s_in, SIN, SIN,")),
+                 ("point_head2_fast.cuh", *_skip("      warp_linear(s_h1, SHID, SHID,")),
+                 ("point_head2_fast.cuh", *_skip("      warp_linear(s_h2, SHID, SHID,"))],
     "ph2f_pe": [("point_head2_fast.cuh", *_empty_loop(
         "      for (int i = lt; i < NV * TP * XR; i += kLT) {", "NV * TP * XR"))],
     "ph2f_shared": [("point_head2_fast.cuh", *_skip(
@@ -225,9 +237,9 @@ PATCHES = {
     "ph2f_merge": [("point_head2_fast.cuh", *_skip(
         "    gemm<MT, kW, C, I::KC, C, LD, false, 0, LD, false>("))],
     "ph2f_ln": [("point_head2_fast.cuh", *_skip(
-        "    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N1S, F + I::N1B,")),
+        "    group_layernorm<C, kGT>(Vb, LD, GR, gt, F + I::N1S, F + I::N1B,")),
                 ("point_head2_fast.cuh", *_skip(
-        "    group_layernorm<C, T>(Vb, LD, GR, gt, F + I::N2S, F + I::N2B,"))],
+        "    group_layernorm<C, kGT>(Vb, LD, GR, gt, F + I::N2S, F + I::N2B,"))],
     "ph2f_mlp": [("point_head2_fast.cuh", *_skip(
         "    gemm<MT, kW, C2, I::KW1, GV, XS, true, C, KM, true>(")),
                  ("point_head2_fast.cuh", *_skip(
@@ -454,10 +466,11 @@ def _ray_params(c: int, gen):
         dens_b=(randn(32, scale=0.1), randn(16, scale=0.1), randn(1, scale=0.1)))
 
 
-def _cases(seed: int, kernels, ray_width: int = 88):
+def _cases(seed: int, kernels, ray_width: int = 88, nv: int = 3):
     """The main path's inputs and weights for these kernels, and the plain
     versions' outputs (the ray heads at ``ray_width``: the default model's
-    weights at 88, random ones at another width)."""
+    weights at 88, random ones at another width; the point heads and the
+    fusion at ``nv`` views)."""
     from ..config import Config
     from ..convert import init_weights
     from ..models.uforecon import UFORecon
@@ -471,10 +484,10 @@ def _cases(seed: int, kernels, ray_width: int = 88):
     gen = torch.Generator(device=dev).manual_seed(seed)
     randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale
     rand = lambda *s: torch.rand(s, generator=gen, device=dev)
-    nv, p = 3, 65536
+    p = 65536
     cases = {}
     with torch.no_grad():
-        if {"ph", "phf", "ph2", "ph2f", "rh", "rhf"} & set(kernels):
+        if {"ph", "phf", "phv", "ph2", "ph2f", "rh", "rhf"} & set(kernels):
             model = UFORecon(Config())
             init_weights(model, seed)
             rt = model.ray_transformer.to(dev)
@@ -522,7 +535,7 @@ def _cases(seed: int, kernels, ray_width: int = 88):
 def _bind(kernel, lib):
     """The kernel's C entry point with its argument types."""
     c = ctypes
-    if kernel in ("ph", "phf", "ph2"):   # (11 pointers, cv, nv, p, fast, stream)
+    if kernel in ("ph", "phf", "phv", "ph2"):   # (11 pointers, cv, nv, p, fast, stream)
         fn = getattr(lib, "ufo_point_head2" if kernel == "ph2" else "ufo_point_head")
         types = [c.c_void_p] * 11 + [c.c_int] * 4
     elif kernel == "ph2f":        # (10 pointers, cv, nv, p, stream)
@@ -547,16 +560,16 @@ def _runs(kernel, fn, cases, stream, fast=False):
     ``rh``'s bf16 instantiation."""
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
     i = ctypes.c_int
-    if kernel in ("ph", "phf", "ph2", "ph2f"):
+    if kernel in ("ph", "phf", "phv", "ph2", "ph2f"):
         inp = cases["inp"]
-        w, ref = cases[kernel]
+        w, ref = cases["phf" if kernel == "phv" else kernel]
         nv, p = inp.img_feat.shape[:2]
         tok, rad = torch.empty(p, 80, device="cuda"), torch.empty(p, 3, device="cuda")
-        # no scratch: 3 views take a compiled-in instance
+        # no scratch: 2..11 views take a compiled-in instance
         call = ([*map(ptr, (*inp, w, tok, rad)), i(inp.vol_feat.shape[1]), i(nv), i(p), stream]
                 if kernel == "ph2f" else
                 [*map(ptr, (*inp, w, tok, rad)), None, i(inp.vol_feat.shape[1]), i(nv), i(p),
-                 i(int(kernel == "phf")), stream])
+                 i(int(kernel in ("phf", "phv"))), stream])
         return {"": (lambda: fn(*call),
                      lambda: max((tok - ref[0]).abs().max().item(),
                                  (rad - ref[1]).abs().max().item()))}
@@ -612,6 +625,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ray_width", type=int, default=88,
                     help="the ray heads' token width (rh, rhf; 40 .. 112 in steps of 8)")
+    ap.add_argument("--views", type=int, default=3,
+                    help="the point heads' and the fusion's view count (2 .. 11)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("head_variants needs a CUDA card")
@@ -625,7 +640,8 @@ def main(argv=None):
             raise SystemExit(f"variant {v}: nvcc failed\n{log}")
         libs[v] = ctypes.CDLL(str(lib))
         fns[v] = _bind(v.split(",")[0], libs[v])
-    cases = _cases(args.seed, {v.split(",")[0] for v in args.variants}, args.ray_width)
+    cases = _cases(args.seed, {v.split(",")[0] for v in args.variants}, args.ray_width,
+                   args.views)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -660,7 +676,10 @@ def main(argv=None):
                       flush=True)
         if "phf_probe" in v.split(","):
             probe = (ctypes.c_ulonglong * 16)()
-            if libs[v].ufo_point_head_fast_probe(probe) != 0:
+            # the NV 2..5 and the NV 6..11 instances count in their units
+            read = (libs[v].ufo_point_head_fast_probe if args.views <= 5
+                    else libs[v].ufo_point_head_fast_views_probe)
+            if read(probe) != 0:
                 raise SystemExit(f"variant {v}: the probe could not be read")
             tiles = max(probe[15], 1)
             out.setdefault("probe_cycles", {})[v] = [probe[i] / tiles for i in range(11)]

@@ -16,13 +16,16 @@ initialised from ``--seed``. Per case: the kernel's device time (the mean
 of the port's own kernels over 10 calls, torch.profiler), the call's
 CUDA-event time (median of 10), and the max abs error against the plain
 version at the same precision (in ``fast`` a bf16-sized number: the two
-sum in other orders). One line per case, the card's name and power limit
+sum in other orders), and a digest of the kernel's outputs (sha256 of the
+token and radiance bytes), so that two trees' kernels can be held to each
+other bit for bit in one run. One line per case, the card's name and power limit
 first, then one JSON line. Run as a file (not with ``-m``), so that
 ``--root`` decides which package is imported.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -116,12 +119,15 @@ def main(argv=None):
                     torch.cuda.synchronize()
                     err = max((tok - ref[0]).abs().max().item(),
                               (rad - ref[1]).abs().max().item())
+                    digest = hashlib.sha256(tok.cpu().numpy().tobytes()
+                                            + rad.cpu().numpy().tobytes()).hexdigest()[:16]
                     k_ms = _device_ms(lambda: wrapper(inp, params, precision=prec))
                     c_ms = _call_ms(lambda: wrapper(inp, params, precision=prec))
                 name = f"{head} {prec} NV={nv}" + (" C=72" if args.c_vol == 16 else "")
-                out["cases"][name] = {"ms": k_ms, "call_ms": c_ms, "max_abs_err": err}
+                out["cases"][name] = {"ms": k_ms, "call_ms": c_ms, "max_abs_err": err,
+                                      "digest": digest}
                 print(f"{name} P={n}: kernel {k_ms:.4f} ms, call {c_ms:.4f} ms, max abs err "
-                      f"vs plain {err:.3e} [{card}]", flush=True)
+                      f"vs plain {err:.3e}, outputs {digest} [{card}]", flush=True)
         del inp
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
